@@ -21,6 +21,25 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 4. **serve**: ``ServeEngine`` on llama_1b with ``--decode_attention=
    paged``, 16 poisson requests at 64 req/s; the kernels' launch counts
    are zeroed just before the run and read just after it.
+5. **conv**: ``fused_bn_relu_conv`` against its plain version at the two
+   ResNet-50 shapes it serves, ``[128,28,28,128]->128`` and
+   ``[128,14,14,256]->256``, in float32 and bf16, and in bf16 at the two
+   shapes just outside ``eligible``'s window (``56x56x64``, ``7x7x512``).
+   Beside the kernel: the plain version, ``library_ms`` (one cuDNN
+   ``F.conv2d`` of a precomputed ``relu(y1*a+b)``) and ``unfused_ms``
+   (the port's off-window composition: BN-apply+relu, cuDNN conv, stats
+   from the rounded output).
+6. **train parity**: resnet50 at full width, float32, batch 16 at
+   224x224, seeded weights (BN scales and shifts perturbed, so every
+   gradient is live); the fused and unfused routes from one
+   ``state_dict``, one momentum-SGD step each: loss, logits, every
+   gradient and the BN running statistics, the gradients against the
+   noise floor of the unfused model run again in NCHW memory.
+7. **train**: the training lane's main path, ``python -m
+   tpu_hc_bench_torch 1 1 128 sock --model=resnet50 --use_fp16=true``
+   through ``launcher.main``, first with ``--fused_conv=true`` (the
+   kernel's count zeroed just before, and it must equal 8 launches a
+   step just after), then with ``--fused_conv=false``.
 
 Then the kernel table line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -30,6 +49,7 @@ package beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -37,9 +57,40 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32, outside tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 ATTN_TOL = 1e-4                    # f32 sums in another order, <= 576 keys
 NORM_TOL = 1e-4                    # f32 stats over 2048 in another order
 PARITY_TOL = 1e-3                  # 16 layers of f32 at width 2048
+# fused conv, each relative to the output's largest magnitude: y2 (f32:
+# sums of 9 x Cin terms in another order; bf16: one ulp of the largest
+# value is 2^-7 of it, and the f32 sums may round across a tie) and the
+# per-channel stats (f32 sums over N*H*W pixels in another order)
+CONV_Y_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+CONV_STATS_TOL = 1e-4
+# (shape N, H, Cin, Cout; dtypes): the main path's two shapes, then the
+# window's neighbours, where eligible() keeps the unfused route
+CONV_CASES = (((128, 28, 128, 128), ("float32", "bfloat16")),
+              ((128, 14, 256, 256), ("float32", "bfloat16")),
+              ((128, 56, 64, 64), ("bfloat16",)),
+              ((128, 7, 512, 512), ("bfloat16",)))
+CONV_MAIN_CASE = ((128, 14, 256, 256), "bfloat16")  # 5 of the 8 launches
+# train parity at full width, float32 (fused vs unfused resnet50): loss,
+# logits and running stats relative to their largest magnitude (53
+# BatchNorms over batch 16 in another summation order); the gradients'
+# global norm error within 3x the noise floor of the same math through
+# other kernels (phase_train_parity says why), or 1e-3 where that floor
+# is lower
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_LOGITS_TOL = 1e-3
+TRAIN_STATS_TOL = 1e-3
+TRAIN_GRAD_TOL = 1e-3
+TRAIN_GRAD_NOISE_FACTOR = 3.0
+TRAIN_BATCH = 128                  # bench.py's protocol: batch 128,
+TRAIN_WARMUP = 50                  # 50 warmup and 100 timed steps
+TRAIN_BATCHES = 100
+PARITY_BATCH = 16
+FUSED_LAUNCHES_PER_STEP = 8        # resnet50: 3 blocks at 28x28x128,
+                                   # 5 at 14x14x256
 TIMED_ITERS = 50
 WARMUP_ITERS = 5
 
@@ -82,9 +133,10 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(nbytes: float, ops: float) -> tuple[float, str]:
+def bound(nbytes: float, ops: float,
+          ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
     t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * ops / F32_OPS_PER_S
+    t_ops = 1e3 * ops / ops_per_s
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -309,6 +361,229 @@ def phase_serve(torch, model) -> dict:
     return launches
 
 
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (1 where want is all zero)."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-30))
+
+
+def phase_conv(torch, dev, timer, smi) -> dict:
+    """Phase 5; returns the main-path row of the fused conv."""
+    import torch.nn.functional as F
+
+    from tpu_hc_bench_torch.ops.fused_conv import (
+        eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
+
+    torch.backends.cudnn.benchmark = True       # as the train driver
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    main_row = None
+    for (n, h, cin, cout), dtypes in CONV_CASES:
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
+            y1 = torch.randn((n, h, h, cin), generator=gen,
+                             device=dev).to(dtype)
+            a = 0.5 + torch.rand((cin,), generator=gen, device=dev)
+            b = 0.2 * torch.randn((cin,), generator=gen, device=dev)
+            w = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+                 * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+
+            def kernel():
+                return fused_bn_relu_conv(y1, a, b, w)
+
+            def plain():
+                return fused_bn_relu_conv_plain(y1, a, b, w)
+
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            errs = [rel_err(g, wt) for g, wt in zip(got, want)]
+            abs_err = float((got[0].float() - want[0].float()).abs().max())
+            # NCHW channels_last views of the same bytes, for cuDNN
+            x_nchw = y1.permute(0, 3, 1, 2)
+            w_oihw = w.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+            av, bv = a.view(1, -1, 1, 1), b.view(1, -1, 1, 1)
+            xn = torch.relu(x_nchw.float() * av + bv).to(dtype)
+
+            def unfused():
+                y = F.conv2d(torch.relu(x_nchw.float() * av + bv).to(dtype),
+                             w_oihw, padding=1)
+                yf = y.float()
+                return y, yf.sum((0, 2, 3)), (yf * yf).sum((0, 2, 3))
+
+            ms, plain_ms = timer.median_ms(kernel), timer.median_ms(plain)
+            library_ms = timer.median_ms(
+                lambda: F.conv2d(xn, w_oihw, padding=1))
+            unfused_ms = timer.median_ms(unfused)
+            elt = y1.element_size()
+            nbytes = (n * h * h * (cin + cout) * elt + 9 * cin * cout * elt
+                      + 2 * cin * 4 + 2 * cout * 4)
+            ops = 2.0 * n * h * h * cout * 9 * cin
+            peak = BF16_OPS_PER_S if dname == "bfloat16" else F32_OPS_PER_S
+            bound_ms, bound_by = bound(nbytes, ops, peak)
+            rec = {"phase": "conv", "name": "fused_bn_relu_conv",
+                   "shape": [n, h, h, cin], "cout": cout, "dtype": dname,
+                   "eligible": eligible((n, h, h, cin), (3, 3), 1, cin),
+                   "max_abs_err": abs_err, "y2_rel_err": errs[0],
+                   "s1_rel_err": errs[1], "s2_rel_err": errs[2],
+                   "tol": {"y2": CONV_Y_TOL[dname], "stats": CONV_STATS_TOL},
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                   "library_note": "cuDNN F.conv2d of a precomputed xn",
+                   "unfused_ms": unfused_ms,
+                   "kernel_over_unfused": ms / unfused_ms,
+                   "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "peak_ops_per_s": peak, "nvidia_smi": smi}
+            emit(rec)
+            if not (errs[0] <= CONV_Y_TOL[dname]
+                    and max(errs[1:]) <= CONV_STATS_TOL):
+                raise AssertionError(f"fused_bn_relu_conv disagrees: {rec}")
+            if ((n, h, cin, cout), dname) == CONV_MAIN_CASE:
+                main_row = rec
+    return main_row
+
+
+def norm_err(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every tensor of two dicts."""
+    num = sum(float(((got[k].float() - want[k].float()) ** 2).sum())
+              for k in want)
+    den = sum(float((want[k].float() ** 2).sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+def phase_train_parity(torch, dev, smi) -> None:
+    """Phase 6: fused vs unfused resnet50, float32, one step each.
+
+    The gradients of a full-width resnet50 at initialisation are ill
+    conditioned in float32 (the BatchNorm backward subtracts near-equal
+    means), so the fused route's gradient error is held against a noise
+    floor measured in the same run: the unfused model again in NCHW
+    memory, the same math through other cuDNN kernels."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.models.resnet import BatchNorm
+    from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    cfg = flags.BenchmarkConfig(init_learning_rate=0.1).resolve()
+    ref, spec = create_model("resnet50", torch.float32, device=dev, seed=0,
+                             train=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    with torch.no_grad():
+        for m in ref.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.copy_(1.0 + 0.2 * torch.randn(
+                    m.weight.shape, generator=gen, device=dev))
+                m.bias.copy_(0.1 * torch.randn(
+                    m.bias.shape, generator=gen, device=dev))
+    state = {k: v.clone() for k, v in ref.state_dict().items()}
+    images, labels = to_device(SyntheticImages(
+        PARITY_BATCH, spec.input_shape, spec.num_classes, seed=0).batch(),
+        dev)
+    out = {}
+    launches = 0
+    for arm, fused, fmt in (
+            ("unfused", False, torch.channels_last),
+            ("unfused_nchw", False, torch.contiguous_format),
+            ("fused", True, torch.channels_last)):
+        model = ref if arm == "unfused" else create_model(
+            "resnet50", torch.float32, device=dev, fused_conv=fused,
+            train=True)[0]
+        model.load_state_dict(state)
+        model = model.to(memory_format=fmt)
+        opt = step_mod.make_optimizer(cfg, model.parameters())
+        before = fused_bn_relu_conv.launches
+        logits = model(images.contiguous(memory_format=fmt))
+        loss = step_mod.loss_fn(logits, labels)
+        loss.backward()
+        opt.step()
+        launches += fused_bn_relu_conv.launches - before
+        out[arm] = (logits.detach(), float(loss.detach()),
+                    {k: p.grad for k, p in model.named_parameters()},
+                    dict(model.named_buffers()))
+        del model, opt
+    torch.cuda.synchronize()
+    lr, sr, gr, br = out["unfused"]
+    rec = {"phase": "train_parity", "model": "resnet50", "dtype": "float32",
+           "batch": PARITY_BATCH, "image": list(spec.input_shape),
+           "kernel_launches": launches, "loss": sr, "nvidia_smi": smi,
+           "finite": bool(torch.isfinite(out["fused"][0]).all())}
+    for arm in ("fused", "unfused_nchw"):
+        lf, sf, gf, bf = out[arm]
+        per_tensor = {k: rel_err(gf[k], gr[k]) for k in gr}
+        worst = max(per_tensor, key=per_tensor.get)
+        rec[arm] = {"loss_rel_err": abs(sf - sr) / abs(sr),
+                    "logits_rel_err": rel_err(lf, lr),
+                    "grad_norm_err": norm_err(gf, gr),
+                    "grad_rel_err_worst_tensor": [worst, per_tensor[worst]],
+                    "running_stats_rel_err": max(
+                        rel_err(bf[k], br[k]) for k in br)}
+    fused, noise = rec["fused"], rec["unfused_nchw"]
+    grad_tol = max(TRAIN_GRAD_TOL,
+                   TRAIN_GRAD_NOISE_FACTOR * noise["grad_norm_err"])
+    rec["tol"] = {"loss": TRAIN_LOSS_TOL, "logits": TRAIN_LOGITS_TOL,
+                  "stats": TRAIN_STATS_TOL, "grad_norm": grad_tol,
+                  "grad_norm_rule": f"max({TRAIN_GRAD_TOL}, "
+                                    f"{TRAIN_GRAD_NOISE_FACTOR} x the "
+                                    "unfused_nchw noise floor)"}
+    emit(rec)
+    if not (rec["finite"] and fused["loss_rel_err"] <= TRAIN_LOSS_TOL
+            and fused["logits_rel_err"] <= TRAIN_LOGITS_TOL
+            and fused["grad_norm_err"] <= grad_tol
+            and fused["running_stats_rel_err"] <= TRAIN_STATS_TOL
+            and launches == FUSED_LAUNCHES_PER_STEP):
+        raise AssertionError(f"fused resnet50 disagrees with unfused: {rec}")
+
+
+def phase_train(torch, smi) -> int:
+    """Phase 7: the training lane's main path, both arms; returns the
+    kernel's launch count from the fused arm."""
+    from tpu_hc_bench_torch import launcher
+    from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
+
+    steps = TRAIN_WARMUP + TRAIN_BATCHES
+    fused_launches = None
+    for arm in ("fused", "unfused"):
+        fused = arm == "fused"
+        argv = ["1", "1", str(TRAIN_BATCH), "sock", "--model=resnet50",
+                "--use_fp16=true", f"--fused_conv={str(fused).lower()}",
+                f"--num_warmup_batches={TRAIN_WARMUP}",
+                f"--num_batches={TRAIN_BATCHES}", "--display_every=10"]
+        lines: list[str] = []
+
+        def tee(m: str) -> None:
+            lines.append(m)
+            print(m, file=sys.stderr, flush=True)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fused_bn_relu_conv.launches = 0
+        rc = launcher.main(argv, print_fn=tee)
+        launches = fused_bn_relu_conv.launches
+        res = json.loads(lines[-1])
+        expected = FUSED_LAUNCHES_PER_STEP * steps if fused else 0
+        rec = {"phase": "train", "arm": arm, "argv": argv, "rc": rc,
+               "launches": launches, "expected_launches": expected,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "nvidia_smi": smi,
+               **{k: res[k] for k in (
+                   "total_images_per_sec", "images_per_sec_per_chip",
+                   "mean_step_ms", "p50_step_ms", "mfu", "final_loss",
+                   "global_batch", "device_kind")}}
+        emit(rec)
+        if not (rc == 0 and launches == expected
+                and res["total_images_per_sec"] > 0
+                and math.isfinite(res["final_loss"])
+                and res["global_batch"] == TRAIN_BATCH):
+            raise AssertionError(f"train run ({arm}) failed: {rec}")
+        if fused:
+            fused_launches = launches
+    return fused_launches
+
+
 def main() -> int:
     try:
         import torch
@@ -341,6 +616,7 @@ def main() -> int:
 
     timer = Timer(torch, dev)
     main_rows = phase_kernels(torch, dev, timer)
+    main_rows["fused_bn_relu_conv"] = phase_conv(torch, dev, timer, smi)
     del timer
     torch.cuda.empty_cache()
 
@@ -353,6 +629,12 @@ def main() -> int:
     phase_parity(torch, dev, model)
     torch.cuda.empty_cache()
     launches = phase_serve(torch, model)
+    del model
+    torch.cuda.empty_cache()
+
+    phase_train_parity(torch, dev, smi)
+    torch.cuda.empty_cache()
+    launches["fused_bn_relu_conv"] = phase_train(torch, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -361,6 +643,9 @@ def main() -> int:
         "fused_residual_norm": (
             "tpu_hc_bench_torch/csrc/fused_residual_norm.cu",
             "tpu_hc_bench/ops/fused_residual_ln.py:53"),
+        "fused_bn_relu_conv": (
+            "tpu_hc_bench_torch/csrc/fused_conv.cu",
+            "tpu_hc_bench/ops/fused_conv.py:147"),
     }
     table = []
     for name, (source, replaces) in sources.items():

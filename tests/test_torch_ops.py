@@ -5,10 +5,13 @@ mode); the port's wrappers run their plain PyTorch versions, which is
 what a wrapper does with a CPU tensor.  Inputs are made with numpy from
 a seed and handed to both.  The CUDA kernels themselves run only on the
 card: the ``cuda``-marked tests hold them against the plain versions
-there (``chip_smoke.py`` does the same at the serving lane's shapes).
+there (``chip_smoke.py`` does the same at the main paths' shapes).
 
 Tolerances: 2e-5 absolute for attention and 1e-5 for the norms, the
-bounds the JAX package's own kernel tests use for float32.
+bounds the JAX package's own kernel tests use for float32.  The fused
+BN-relu-conv3x3 is held to 1e-5 of each output's largest magnitude
+(sums over up to 9 x 128 terms in another order) and its gradients to
+1e-4 of the largest (a transposed conv, then sums over the batch).
 """
 
 from __future__ import annotations
@@ -19,11 +22,14 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_hc_bench.ops import fused_conv as jax_fused_conv
 from tpu_hc_bench.ops.fused_residual_ln import (
     fused_residual_norm as jax_fused_residual_norm)
 from tpu_hc_bench.ops.paged_attention import (
     paged_decode_attention as jax_paged_decode_attention)
 from tpu_hc_bench_torch.ops import _build
+from tpu_hc_bench_torch.ops.fused_conv import (
+    eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
 from tpu_hc_bench_torch.ops.fused_residual_ln import (
     fused_residual_norm, fused_residual_norm_plain)
 from tpu_hc_bench_torch.ops.paged_attention import (
@@ -31,6 +37,8 @@ from tpu_hc_bench_torch.ops.paged_attention import (
 
 ATTN_ATOL = 2e-5
 NORM_ATOL = 1e-5
+CONV_TOL = 1e-5
+CONV_GRAD_TOL = 1e-4
 
 
 def _t(a):
@@ -217,6 +225,100 @@ def test_fused_residual_norm_validation_matches_jax():
             fused_residual_norm(_t(r), _t(r), _t(g), **kw)
 
 
+# --- fused BN-relu-conv3x3 ---------------------------------------------
+
+
+def _close_rel(got, want, tol, what):
+    got, want = np.asarray(got), np.asarray(want)
+    err = float(np.abs(got - want).max())
+    scale = max(float(np.abs(want).max()), 1.0)
+    assert err <= tol * scale, f"{what}: max abs err {err} > {tol} x {scale}"
+
+
+def _conv_inputs(n, h, cin, cout, seed):
+    rng = np.random.default_rng(seed)
+    y1 = rng.standard_normal((n, h, h, cin)).astype(np.float32)
+    a = (0.5 + 0.5 * np.abs(rng.standard_normal(cin))).astype(np.float32)
+    b = (0.1 * rng.standard_normal(cin)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((3, 3, cin, cout))).astype(np.float32)
+    return y1, a, b, w
+
+
+@pytest.mark.parametrize("n,h,cin,cout", [(2, 8, 16, 32), (2, 14, 128, 128)])
+def test_fused_bn_relu_conv_matches_jax(n, h, cin, cout):
+    """Forward (y2, s1, s2) and all four gradients, the stats cotangents
+    included: the Pallas kernel (interpret mode) and its custom_vjp
+    against the port's wrapper on CPU tensors."""
+    y1, a, b, w = _conv_inputs(n, h, cin, cout, seed=h + cin)
+    rng = np.random.default_rng(1)
+    g_y = rng.standard_normal((n, h, h, cout)).astype(np.float32)
+    g_s1 = rng.standard_normal(cout).astype(np.float32)
+    g_s2 = (0.01 * rng.standard_normal(cout)).astype(np.float32)
+
+    def jax_loss(*args):
+        y2, s1, s2 = jax_fused_conv.fused_bn_relu_conv(*args)
+        return (jnp.sum(y2 * g_y) + jnp.sum(s1 * g_s1)
+                + jnp.sum(s2 * g_s2)), (y2, s1, s2)
+
+    (_, want), want_grads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2, 3), has_aux=True)(
+        *(jnp.asarray(v) for v in (y1, a, b, w)))
+    args = [_t(v).requires_grad_() for v in (y1, a, b, w)]
+    got = fused_bn_relu_conv(*args)
+    for g, wnt, name in zip(got, want, ("y2", "s1", "s2")):
+        _close_rel(g.detach(), wnt, CONV_TOL, name)
+    (torch.sum(got[0] * _t(g_y)) + torch.sum(got[1] * _t(g_s1))
+     + torch.sum(got[2] * _t(g_s2))).backward()
+    for t, wnt, name in zip(args, want_grads, ("dy1", "da", "db", "dw")):
+        _close_rel(t.grad, wnt, CONV_GRAD_TOL, name)
+
+
+def test_fused_bn_relu_conv_plain_rounds_like_the_kernel():
+    """bf16: xn rounded to bf16, the conv summed in f32, stats from the
+    f32 sum, y2 its rounding (the JAX kernel's rule)."""
+    y1, a, b, w = _conv_inputs(1, 6, 32, 64, seed=2)
+    yb = _t(y1).to(torch.bfloat16)
+    wb = _t(w).to(torch.bfloat16)
+    y2, s1, s2 = fused_bn_relu_conv_plain(yb, _t(a), _t(b), wb)
+    assert y2.dtype == torch.bfloat16 and s1.dtype == torch.float32
+    xn = torch.relu(yb.float() * _t(a) + _t(b)).to(torch.bfloat16).float()
+    acc = torch.nn.functional.conv2d(
+        xn.permute(0, 3, 1, 2), wb.float().permute(3, 2, 0, 1), padding=1)
+    acc = acc.permute(0, 2, 3, 1)
+    assert torch.equal(y2, acc.to(torch.bfloat16))
+    _close_rel(s1, acc.sum((0, 1, 2)), CONV_TOL, "s1")
+    _close_rel(s2, (acc * acc).sum((0, 1, 2)), CONV_TOL, "s2")
+
+
+def test_fused_conv_eligible_matches_jax():
+    for h in (7, 13, 14, 28, 56):
+        for cin in (64, 127, 128, 256, 512):
+            for kernel in ((3, 3), (1, 1), (3, 1)):
+                for strides in (1, 2, (1, 1), (2, 2)):
+                    for shape in ((8, h, h, cin), (8, h, h + 1, cin),
+                                  (h, h, cin)):
+                        assert (eligible(shape, kernel, strides, cin)
+                                == jax_fused_conv.eligible(
+                                    shape, kernel, strides, cin)), \
+                            (shape, kernel, strides, cin)
+    assert eligible((128, 28, 28, 128), (3, 3), 1, 128)
+    assert eligible((128, 14, 14, 256), (3, 3), 1, 256)
+    assert not eligible((128, 56, 56, 64), (3, 3), 1, 64)
+    assert not eligible((128, 7, 7, 512), (3, 3), 1, 512)
+
+
+def test_fused_bn_relu_conv_validation():
+    y1, a, b, w = (_t(v) for v in _conv_inputs(1, 4, 8, 8, seed=0))
+    with pytest.raises(ValueError, match="3,3"):
+        fused_bn_relu_conv(y1, a, b, w[:1])
+    with pytest.raises(ValueError, match="a, b"):
+        fused_bn_relu_conv(y1, a[:4], b, w)
+    with pytest.raises(ValueError, match="share"):
+        fused_bn_relu_conv(y1, a, b, w.double())
+    with pytest.raises(ValueError, match="float32"):
+        fused_bn_relu_conv(y1, a.double(), b, w)
+
+
 # --- wrapper contract ---------------------------------------------------
 
 
@@ -239,9 +341,19 @@ def test_cpu_calls_run_the_plain_version_and_count_no_launch():
             fused_residual_norm.launches) == before
 
 
+def test_cpu_fused_conv_runs_the_plain_version_and_counts_no_launch():
+    before = fused_bn_relu_conv.launches
+    y1, a, b, w = (_t(v) for v in _conv_inputs(2, 5, 8, 16, seed=4))
+    got = fused_bn_relu_conv(y1, a, b, w)
+    want = fused_bn_relu_conv_plain(y1, a, b, w)
+    assert all(torch.equal(g, wt) for g, wt in zip(got, want))
+    assert fused_bn_relu_conv.launches == before
+
+
 def test_kernel_build_hash_covers_every_source():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["fused_residual_norm.cu", "paged_attention.cu"]
+    assert names == ["fused_conv.cu", "fused_residual_norm.cu",
+                     "paged_attention.cu"]
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 64
     assert _build.pad_up(13, 8) == 16 and _build.pad_up(16, 8) == 16
@@ -304,3 +416,25 @@ def test_fused_norm_kernel_matches_plain_on_card(cuda_device, kind):
     torch.cuda.synchronize()
     np.testing.assert_allclose(y.cpu().numpy(), want_y.numpy(), atol=0)
     np.testing.assert_allclose(o.cpu().numpy(), want_o.numpy(), atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,h,cin,cout", [(2, 14, 128, 128),
+                                          (3, 7, 64, 192)])
+def test_fused_conv_kernel_matches_plain_on_card(cuda_device, dtype, n, h,
+                                                 cin, cout):
+    """Forward outputs at the working dtype (bf16 y2 within 1e-2 of its
+    largest magnitude, one bf16 ulp there; f32 within 1e-4) and stats
+    within 1e-4 relative; a ragged last tile (3*7*7 = 147 pixels)."""
+    y1, a, b, w = _conv_inputs(n, h, cin, cout, seed=7)
+    args = [_t(y1).to(dtype), _t(a), _t(b), _t(w).to(dtype)]
+    want = fused_bn_relu_conv_plain(*args)
+    before = fused_bn_relu_conv.launches
+    got = fused_bn_relu_conv(*[t.to(cuda_device) for t in args])
+    torch.cuda.synchronize()
+    assert fused_bn_relu_conv.launches == before + 1
+    y_tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    for g, wt, tol, name in zip(got, want, (y_tol, 1e-4, 1e-4),
+                                ("y2", "s1", "s2")):
+        _close_rel(g.cpu().float(), wt.float(), tol, name)

@@ -3,13 +3,20 @@
 The JAX package ``tpu_hc_bench`` stays the reference; this package is
 held against it by the ``tests/test_torch_*.py`` parity tests and imports
 nothing from it (no JAX, no shared module: it keeps its own copies of the
-host code it needs).  The first slice is the serving lane: ``llama_1b``
-served with continuous batching over a paged KV pool, with hand-written
-CUDA kernels for paged decode attention and the fused residual+norm.
+host code it needs).  Two lanes are ported:
+
+- serving (``python -m tpu_hc_bench_torch serve``): ``llama_1b`` served
+  with continuous batching over a paged KV pool, with hand-written CUDA
+  kernels for paged decode attention and the fused residual+norm;
+- training (``python -m tpu_hc_bench_torch NUM_HOSTS WORKERS BATCH
+  FABRIC``): ResNet v1.5 (resnet50/101/152) on synthetic images, one
+  worker, momentum SGD, with a hand-written CUDA kernel for the fused
+  BN-relu-conv3x3 (``--fused_conv``).
 
 Every entry point runs on the GPU (``device="cuda"``) unless the caller
-passes ``device="cpu"``; without a GPU the default raises.  The lane is
-float32, so TF32 is switched off for matmuls and convolutions.
+passes ``device="cpu"``; without a GPU the default raises.  float32 work
+is meant as float32, so TF32 is switched off for matmuls and
+convolutions (bf16 training runs on the tensor cores all the same).
 """
 
 from __future__ import annotations

@@ -1,5 +1,10 @@
-"""``python -m tpu_hc_bench_torch serve [--flags]``: the port's entry
-point (the serving lane is the only lane ported so far)."""
+"""The port's entry point::
+
+    python -m tpu_hc_bench_torch NUM_HOSTS WORKERS_PER_HOST BATCH_SIZE FABRIC [--flags]
+    python -m tpu_hc_bench_torch serve [--flags]
+
+The first form trains (``launcher.py``: ResNet v1.5 on synthetic images,
+one worker); ``serve`` runs the serving lane (``serve/cli.py``)."""
 
 from __future__ import annotations
 
@@ -8,14 +13,13 @@ import sys
 
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    if not argv or argv[0] != "serve":
-        print("usage: python -m tpu_hc_bench_torch serve [--flags] "
-              "(the serving lane is the only lane ported so far)",
-              file=sys.stderr)
-        return 2
-    from tpu_hc_bench_torch.serve.cli import main as serve_main
+    if argv and argv[0] == "serve":
+        from tpu_hc_bench_torch.serve.cli import main as serve_main
 
-    return serve_main(argv[1:])
+        return serve_main(argv[1:])
+    from tpu_hc_bench_torch import launcher
+
+    return launcher.main(argv)
 
 
 if __name__ == "__main__":

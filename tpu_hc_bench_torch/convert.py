@@ -1,11 +1,12 @@
-"""Carry weights from the JAX package's Flax param trees to the port.
+"""Carry weights from the JAX package's Flax variable trees to the port.
+
+Both converters take trees whose leaves are numpy arrays (the caller
+converts them with ``np.asarray``) and return a port ``state_dict``; they
+need neither JAX nor Flax.
 
 ``llama_params_from_flax(params)`` takes a ``LlamaLM`` Flax param tree
-(unrolled ``layer_i`` layout) whose leaves are numpy arrays and returns
-the ``state_dict`` of the port's ``models.llama.LlamaLM``.  It needs
-neither JAX nor Flax: the caller converts the leaves with ``np.asarray``.
-
-Layout rules:
+(unrolled ``layer_i`` layout) and returns the ``state_dict`` of the
+port's ``models.llama.LlamaLM``.  Layout rules:
 
 - ``tok_embed.embedding [V, H]`` maps unchanged;
 - ``attn.w{q,k,v}.kernel [H, n, d]`` maps to Linear weights ``[n*d, H]``;
@@ -13,6 +14,24 @@ Layout rules:
 - ``gate``/``up``/``down`` ``.kernel [in, out]`` are transposed;
 - ``*.scale`` maps to the RMSNorm weight;
 - ``lm_head [H, V]`` keeps the JAX orientation.
+
+``resnet_variables_from_flax(params, batch_stats)`` takes a Flax
+``ResNet`` (v1 bottleneck family) tree in either layout, unfused
+(``BottleneckBlock_i``) or fused (``FusedBottleneckBlock_i``), and
+returns the ``state_dict`` of the port's ``models.resnet.ResNet``, whose
+one layout serves both routes.  Layout rules:
+
+- conv ``kernel [kh, kw, in, out]`` (HWIO) maps to ``weight [out, in, kh,
+  kw]`` (OIHW);
+- BN ``scale``/``bias`` map to ``weight``/``bias``, ``batch_stats``
+  ``mean``/``var`` to the buffers ``running_mean``/``running_var``;
+- ``head.kernel [in, out]`` is transposed to the Linear ``[out, in]``;
+- per block, unfused ``Conv_0..2``/``BatchNorm_0..2`` are
+  ``conv1..3``/``bn1..3``; fused, ``Conv_0`` is ``conv1``,
+  ``FusedBNReluConv3x3_0`` holds ``bn1`` (scale, bias, mean, var) and
+  ``conv2`` (kernel), ``StatsBatchNorm_0`` is ``bn2``, and ``Conv_1`` and
+  ``BatchNorm_0`` are the block's *third* conv and BN; ``shortcut_conv``
+  and ``shortcut_bn`` keep their names.
 """
 
 from __future__ import annotations
@@ -49,4 +68,61 @@ def llama_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
                 np.asarray(p[name]["kernel"]).T)
         sd[pre + "attn_norm.weight"] = _t(p["attn_norm"]["scale"])
         sd[pre + "mlp_norm.weight"] = _t(p["mlp_norm"]["scale"])
+    return sd
+
+
+def _conv(kernel) -> torch.Tensor:
+    return _t(np.asarray(kernel).transpose(3, 2, 0, 1))     # HWIO -> OIHW
+
+
+def _bn(sd: dict, pre: str, p: dict, stats: dict) -> None:
+    sd[pre + "weight"] = _t(p["scale"])
+    sd[pre + "bias"] = _t(p["bias"])
+    sd[pre + "running_mean"] = _t(stats["mean"])
+    sd[pre + "running_var"] = _t(stats["var"])
+
+
+# block child -> port name: (Flax module holding the conv kernel or the
+# BN params and stats, port child)
+_UNFUSED = (("Conv_0", "conv1"), ("BatchNorm_0", "bn1"),
+            ("Conv_1", "conv2"), ("BatchNorm_1", "bn2"),
+            ("Conv_2", "conv3"), ("BatchNorm_2", "bn3"))
+_FUSED = (("Conv_0", "conv1"), ("FusedBNReluConv3x3_0", "bn1"),
+          ("FusedBNReluConv3x3_0", "conv2"), ("StatsBatchNorm_0", "bn2"),
+          ("Conv_1", "conv3"), ("BatchNorm_0", "bn3"))
+_SHORTCUT = (("shortcut_conv", "shortcut_conv"),
+             ("shortcut_bn", "shortcut_bn"))
+
+
+def resnet_block_from_flax(params: dict,
+                           batch_stats: dict) -> dict[str, torch.Tensor]:
+    """One bottleneck block's tree (either layout) as the port block's
+    ``state_dict``."""
+    fused = "FusedBNReluConv3x3_0" in params
+    sd: dict[str, torch.Tensor] = {}
+    for flax_name, port in (_FUSED if fused else _UNFUSED) + _SHORTCUT:
+        if flax_name not in params:
+            continue
+        if port.startswith(("conv", "shortcut_conv")):
+            sd[port + ".weight"] = _conv(params[flax_name]["kernel"])
+        else:
+            _bn(sd, port + ".", params[flax_name], batch_stats[flax_name])
+    return sd
+
+
+def resnet_variables_from_flax(params: dict,
+                               batch_stats: dict) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    stem = "conv_init_s2d" if "conv_init_s2d" in params else "conv_init"
+    sd[stem + ".weight"] = _conv(params[stem]["kernel"])
+    _bn(sd, "bn_init.", params["bn_init"], batch_stats["bn_init"])
+    fused = any(k.startswith("FusedBottleneckBlock_") for k in params)
+    prefix = "FusedBottleneckBlock_" if fused else "BottleneckBlock_"
+    n_blocks = sum(1 for k in params if k.startswith(prefix))
+    for i in range(n_blocks):
+        block = resnet_block_from_flax(params[f"{prefix}{i}"],
+                                       batch_stats[f"{prefix}{i}"])
+        sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
+    sd["head.weight"] = _t(np.asarray(params["head"]["kernel"]).T)
+    sd["head.bias"] = _t(params["head"]["bias"])
     return sd

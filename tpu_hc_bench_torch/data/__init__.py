@@ -1,2 +1,2 @@
-"""Request synthesis inputs of the port (copies of the JAX package's
-host code)."""
+"""Inputs of the port (copies of the JAX package's host code): prompt
+synthesis for serving, synthetic image batches for training."""

@@ -1,10 +1,14 @@
-"""Serving-lane configuration and flag parser of the port.
+"""Configurations and flag parsers of the port's two lanes.
 
-Flag spellings and defaults are the JAX package's (``flags.py``, the
-serving knobs of ``BenchmarkConfig``), for the part of the lane ported
-so far, plus ``--device=cuda|cpu``.  Serving flags of later slices parse
-and are rejected loudly, so no run silently ignores one; training flags
-are unknown here.
+- ``ServeConfig`` / ``parse_flags``: the serving lane (``python -m
+  tpu_hc_bench_torch serve``).
+- ``BenchmarkConfig`` / ``parse_benchmark_flags``: the training lane
+  (``python -m tpu_hc_bench_torch NUM_HOSTS WORKERS BATCH FABRIC``).
+
+Flag spellings and defaults are the JAX package's (``flags.py``), for
+the part of each lane ported so far, plus ``--device=cuda|cpu``.  Flags
+of the JAX lane that are not ported yet parse and are rejected loudly,
+so no run silently ignores one; the other lane's flags are unknown.
 """
 
 from __future__ import annotations
@@ -165,3 +169,140 @@ def parse_flags(argv: list[str]) -> ServeConfig:
     vals = {f.name: getattr(args, f.name)
             for f in dataclasses.fields(ServeConfig)}
     return ServeConfig(**vals).resolve()
+
+
+# --- training lane -------------------------------------------------------
+
+# training knobs of the JAX lane that this port does not carry yet
+LATER_SLICE_TRAIN_FLAGS = (
+    "num_epochs", "forward_only", "eval", "data_dir", "data_name",
+    "data_format", "mkl", "overlap_grad_comm", "horovod_device",
+    "local_parameter_device", "num_intra_threads", "num_inter_threads",
+    "kmp_blocktime", "kmp_affinity", "datasets_num_private_threads",
+    "datasets_repeat_cached_sample", "train_dir", "save_model_steps",
+    "async_checkpoint", "compile_cache", "prefetch_depth", "input_service",
+    "service_decode_workers", "config", "full_batch_identity",
+    "on_nonfinite", "max_bad_steps", "resume", "step_timeout_s",
+    "keep_checkpoints", "inject_fault", "moe_capacity_factor",
+    "fusion_threshold_bytes", "trace_dir", "profile_steps", "metrics_dir",
+    "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
+    "fused_xent", "seq_len", "wire_dtype", "accum_dtype", "model_parallel",
+    "expert_parallel", "pipeline_parallel", "num_microbatches",
+    "sequence_parallel", "virtual_devices", "gradient_checkpointing",
+    "attention_impl", "moe_impl", "rnn_impl", "scan_layers", "moe_f_chunk",
+)
+
+
+def _parse_bool(v: str | bool) -> bool:
+    """tf_cnn_benchmarks accepts TRUE/False/true/... for boolean flags."""
+    if isinstance(v, bool):
+        return v
+    s = str(v).strip().lower()
+    if s in ("true", "t", "1", "yes"):
+        return True
+    if s in ("false", "f", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {v!r}")
+
+
+@dataclasses.dataclass
+class BenchmarkConfig:
+    """The training lane's resolved configuration (JAX names and
+    defaults: 50 warmup and 100 timed batches, resnet50, display every
+    10 steps, momentum SGD at lr 0.01, float32 unless --use_fp16)."""
+
+    model: str = "resnet50"
+    batch_size: int = 64                      # per worker
+    num_warmup_batches: int = 50
+    num_batches: int = 100
+    display_every: int = 10
+    optimizer: str = "momentum"               # momentum | sgd
+    init_learning_rate: float = 0.01
+    momentum: float = 0.9
+    use_fp16: bool = False                    # bf16 compute, f32 params
+    fused_conv: bool = False                  # fused BN-relu-conv3x3 kernel
+    use_space_to_depth: bool = False          # 4x4/s1 stem on packed input
+    num_classes: int = 1000
+    seed: int = 0
+    device: str = "cuda"                      # cuda | cpu (on request)
+    variable_update: str = "psum"             # one worker: no reduction
+    gradient_accumulation_steps: int = 1      # 1 only, so far
+
+    @property
+    def compute_dtype(self) -> str:
+        return "bfloat16" if self.use_fp16 else "float32"
+
+    def resolve(self) -> "BenchmarkConfig":
+        """Validate (the JAX training matrix, for the ported knobs)."""
+        if self.device not in ("cuda", "cpu"):
+            raise ValueError(f"--device must be cuda|cpu: {self.device!r}")
+        if self.batch_size < 1:
+            raise ValueError(f"--batch_size must be >= 1: {self.batch_size}")
+        if self.num_warmup_batches < 0 or self.num_batches < 1:
+            raise ValueError(
+                f"--num_warmup_batches must be >= 0 and --num_batches >= 1: "
+                f"{self.num_warmup_batches}, {self.num_batches}")
+        if self.display_every < 1:
+            raise ValueError(
+                f"--display_every must be >= 1: {self.display_every}")
+        if self.optimizer in ("adam", "adamw", "rmsprop"):
+            raise ValueError(f"--optimizer={self.optimizer} is not ported "
+                             "yet (momentum|sgd)")
+        if self.optimizer not in ("momentum", "sgd"):
+            raise ValueError(
+                f"--optimizer must be momentum|sgd: {self.optimizer!r}")
+        if self.variable_update in ("replicated", "zero1"):
+            raise ValueError(
+                f"--variable_update={self.variable_update} is not ported "
+                "yet (one worker, no gradient reduction)")
+        if self.variable_update not in ("psum", "horovod"):
+            raise ValueError(f"--variable_update must be psum|horovod|"
+                             f"replicated|zero1: {self.variable_update!r}")
+        if self.gradient_accumulation_steps != 1:
+            raise ValueError("--gradient_accumulation_steps > 1 is not "
+                             "ported yet")
+        if self.num_classes < 1:
+            raise ValueError(f"--num_classes must be >= 1: {self.num_classes}")
+        return self
+
+    def summary_lines(self) -> list[str]:
+        return [
+            f"train: model={self.model} batch_size={self.batch_size} "
+            f"device={self.device} dtype={self.compute_dtype} "
+            f"seed={self.seed}",
+            f"warmup={self.num_warmup_batches} timed={self.num_batches} "
+            f"display_every={self.display_every} optimizer={self.optimizer} "
+            f"lr={self.init_learning_rate} momentum={self.momentum}",
+            f"fused_conv={self.fused_conv} "
+            f"use_space_to_depth={self.use_space_to_depth} "
+            f"num_classes={self.num_classes}",
+        ]
+
+
+def build_benchmark_parser() -> argparse.ArgumentParser:
+    d = BenchmarkConfig()
+    p = argparse.ArgumentParser(
+        prog="python -m tpu_hc_bench_torch NUM_HOSTS WORKERS_PER_HOST "
+             "BATCH_SIZE FABRIC",
+        description="Train on synthetic data to the tf_cnn_benchmarks "
+                    "protocol (PyTorch/CUDA port).")
+    for f in dataclasses.fields(BenchmarkConfig):
+        v = getattr(d, f.name)
+        p.add_argument(f"--{f.name}", default=v,
+                       type=_parse_bool if isinstance(v, bool) else type(v))
+    for name in LATER_SLICE_TRAIN_FLAGS:
+        p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
+    return p
+
+
+def parse_benchmark_flags(argv: list[str]) -> BenchmarkConfig:
+    args = build_benchmark_parser().parse_args(argv)
+    later = [n for n in LATER_SLICE_TRAIN_FLAGS
+             if getattr(args, n) is not None]
+    if later:
+        raise ValueError(
+            "flag(s) of the JAX training lane not ported yet: "
+            + ", ".join(f"--{n}" for n in later))
+    vals = {f.name: getattr(args, f.name)
+            for f in dataclasses.fields(BenchmarkConfig)}
+    return BenchmarkConfig(**vals).resolve()

@@ -47,6 +47,9 @@ _SIGNATURES = {
     "thb_fused_residual_norm": [
         _P, _P, _P, _P, _P, _P,                     # res x gamma beta y out
         _I, _I, _F, _I, _P],                        # rows hidden eps ln stream
+    "thb_fused_bn_relu_conv": [
+        _P, _P, _P, _P, _P, _P, _P, _P, _P,         # x w a b y p1 p2 s1 s2
+        _I, _I, _I, _I, _I, _I, _P],                # n h w cin cout bf16 stream
 }
 
 

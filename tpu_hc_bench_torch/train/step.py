@@ -1,0 +1,71 @@
+"""The training step of the port: one worker, momentum SGD.
+
+The single-device arm of the JAX package's ``train/step.py``
+(``build_train_step`` with a world of one, ``_loss_and_updates`` and
+``make_optimizer``): forward in training mode (BatchNorm normalizes with
+the batch's statistics and updates its running averages as a side effect
+of the forward), integer-label softmax cross-entropy averaged over the
+batch, backward, optimizer update.  With one worker there is no gradient
+reduction; the NCCL arm comes with the multi-card slice.
+
+``optax.sgd(lr, momentum=m)`` keeps ``trace = g + m * trace`` and steps
+``-lr * trace``, which is ``torch.optim.SGD(lr, momentum=m)`` with no
+dampening and no Nesterov (its first buffer is ``g``, optax's
+``g + m * 0``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from tpu_hc_bench_torch.flags import BenchmarkConfig
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (parameters and BN running statistics), its optimizer
+    and the step count; ``train_step`` updates all three in place."""
+
+    model: torch.nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_optimizer(cfg: BenchmarkConfig,
+                   params) -> torch.optim.Optimizer:
+    """--optimizer dispatch, for the ported arms."""
+    lr = cfg.init_learning_rate
+    if cfg.optimizer == "momentum":
+        return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum)
+    if cfg.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    raise ValueError(f"--optimizer={cfg.optimizer} is not ported yet "
+                     "(momentum|sgd)")
+
+
+def make_train_state(model: torch.nn.Module,
+                     cfg: BenchmarkConfig) -> TrainState:
+    return TrainState(model.train(),
+                      make_optimizer(cfg, model.parameters()))
+
+
+def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """``optax.softmax_cross_entropy_with_integer_labels(...).mean()``
+    on float32 logits."""
+    return F.cross_entropy(logits.float(), labels)
+
+
+def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+    """One optimizer step on ``batch = (images, labels)``; returns the
+    state and ``{"loss": tensor}`` (left on the device: reading it is a
+    host sync, which the driver does at display steps only)."""
+    images, labels = batch
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(state.model(images), labels)
+    loss.backward()
+    state.optimizer.step()
+    state.step += 1
+    return state, {"loss": loss.detach()}
