@@ -40,6 +40,21 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    through ``launcher.main``, first with ``--fused_conv=true`` (the
    kernel's count zeroed just before, and it must equal 8 launches a
    step just after), then with ``--fused_conv=false``.
+8. **flash**: the three flash-attention kernels (forward, dQ, dK/dV)
+   against their plain versions on the same inputs, at the GPT-2 shape
+   ``[16, 1024, 12, 64]`` causal in bf16 (q, k, v views of one fused
+   projection, as the model hands them over) and in float32, and at an
+   unaligned non-causal ``[4, 1000, 6, 128]`` in bf16; ``library_ms`` is
+   ``F.scaled_dot_product_attention``'s forward, and its backward alone.
+9. **lm_train_parity**: gpt2 at full width in float32, batch 2 x seq
+   1024, dropout off: the ``flash`` and ``dense`` arms from one
+   ``state_dict``, one momentum-SGD step each: loss, logits, the
+   gradients' global norm and the parameters after the step.
+10. **lm_train**: the LM lane's main path, ``python -m
+   tpu_hc_bench_torch 1 1 16 sock --model=gpt2 --use_fp16=true
+   --attention_impl=flash`` through ``launcher.main`` (each flash
+   kernel's count zeroed just before, and it must equal 12 launches a
+   step just after), then the ``dense`` arm; peak memory of each.
 
 Then the kernel table line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -93,6 +108,37 @@ FUSED_LAUNCHES_PER_STEP = 8        # resnet50: 3 blocks at 28x28x128,
                                    # 5 at 14x14x256
 TIMED_ITERS = 50
 WARMUP_ITERS = 5
+# flash kernels vs their plain versions, relative to the output's largest
+# magnitude: f32 sums over <= 1024 keys in another order; bf16 outputs are
+# rounded to 2^-8 of their magnitude, and P and dS are rounded to bf16
+# before their products, where a last-bit difference in the f32 score
+# can flip a rounding
+FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# (b, s, h, d, dtype, causal): the main path's shape first
+FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
+               (16, 1024, 12, 64, "float32", True),
+               (4, 1000, 6, 128, "bfloat16", False))
+PLAIN_ITERS = 10                   # the plain version loops over tiles
+FLASH_KERNELS = {                  # kernel -> (row name, Pallas call)
+    "fwd": ("flash_attention_fwd", "tpu_hc_bench/ops/flash_attention.py:134"),
+    "dq": ("flash_attention_dq", "tpu_hc_bench/ops/flash_attention.py:249"),
+    "dkv": ("flash_attention_dkv",
+            "tpu_hc_bench/ops/flash_attention.py:265"),
+}
+# gpt2 flash vs dense at full width in float32 (12 layers, batch 2 x 1024):
+# loss relative, logits relative to their largest magnitude, gradient
+# global norm ||g_flash - g_dense|| / ||g_dense||, parameters after one
+# step relative to their largest magnitude; the two arms differ only in
+# the attention's summation order (f32 throughout)
+LM_LOSS_TOL = 1e-5
+LM_LOGITS_TOL = 1e-4
+LM_GRAD_TOL = 1e-4
+LM_PARAM_TOL = 1e-5
+LM_PARITY_BATCH = 2
+LM_BATCH = 16                      # the tune space's gpt2 microbatch
+LM_WARMUP = 10
+LM_BATCHES = 30
+LM_LAYERS = 12                     # one launch of each flash kernel a layer
 
 
 def emit(obj: dict) -> None:
@@ -116,12 +162,12 @@ class Timer:
         self.flush = torch.empty(128 << 20, dtype=torch.uint8,
                                  device=device)
 
-    def median_ms(self, fn) -> float:
+    def median_ms(self, fn, iters: int = TIMED_ITERS) -> float:
         torch = self.torch
         for _ in range(WARMUP_ITERS):
             fn()
         times = []
-        for _ in range(TIMED_ITERS):
+        for _ in range(iters):
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -584,6 +630,197 @@ def phase_train(torch, smi) -> int:
     return fused_launches
 
 
+def _attn_pairs(sq: int, sk: int, causal: bool) -> int:
+    """(query, key) pairs a head attends to: what the kernels must do."""
+    if not causal:
+        return sq * sk
+    return sum(min(i + 1, sk) for i in range(sq))
+
+
+def phase_flash(torch, dev, timer, smi) -> dict:
+    """Phase 8; returns the main-path row of each flash kernel."""
+    import torch.nn.functional as F
+
+    from tpu_hc_bench_torch.ops import flash_attention as fa_mod
+
+    fa = fa_mod.flash_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    rows = {}
+    for b, s, h, d, dname, causal in FLASH_CASES:
+        dtype = getattr(torch, dname)
+        qkv = torch.randn((b, s, 3, h, d), generator=gen,
+                          device=dev).to(dtype)
+        q, k, v = qkv.unbind(2)
+        do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        o_ref, lse_ref = fa_mod.flash_fwd_plain(q, k, v, causal)
+        delta = fa_mod.delta_rows(o_ref, do)
+        bwd_args = (q, k, v, do, lse_ref, delta, causal)
+        calls = {
+            "fwd": (lambda: fa_mod.flash_fwd(q, k, v, causal),
+                    lambda: fa_mod.flash_fwd_plain(q, k, v, causal)),
+            "dq": (lambda: fa_mod.flash_dq(*bwd_args),
+                   lambda: fa_mod.flash_dq_plain(*bwd_args)),
+            "dkv": (lambda: fa_mod.flash_dkv(*bwd_args),
+                    lambda: fa_mod.flash_dkv_plain(*bwd_args)),
+        }
+        # the yardstick: SDPA on [b, h, s, d] copies, forward, and its
+        # backward alone (all three gradients)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
+                      for t in (q, k, v))
+        lib_fwd = timer.median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        dot = do.transpose(1, 2).contiguous()
+        lib_bwd = timer.median_ms(lambda: torch.autograd.grad(
+            out, (qt, kt, vt), dot, retain_graph=True))
+        del out, qt, kt, vt, dot
+        pairs = b * h * _attn_pairs(s, s, causal)
+        elt = q.element_size()
+        tile = b * s * h * d * elt                      # one [b,s,h,d]
+        rows_f32 = b * h * s * 4                        # lse or delta
+        work = {"fwd": (4 * tile + rows_f32, 4.0 * pairs * d),
+                "dq": (5 * tile + 2 * rows_f32, 6.0 * pairs * d),
+                "dkv": (6 * tile + 2 * rows_f32, 8.0 * pairs * d)}
+        peak = BF16_OPS_PER_S if dname == "bfloat16" else F32_OPS_PER_S
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [rel_err(g, w) for g, w in zip(got, want)]
+            abs_err = max(float((g.float() - w.float()).abs().max())
+                          for g, w in zip(got, want))
+            if name == "fwd":       # lse in absolute terms, f32 both sides
+                errs[1] = float((got[1] - want[1]).abs().max())
+            ms = timer.median_ms(kernel)
+            plain_ms = timer.median_ms(plain, PLAIN_ITERS)
+            nbytes, ops = work[name]
+            bound_ms, bound_by = bound(nbytes, ops, peak)
+            rec = {"phase": "flash", "name": FLASH_KERNELS[name][0],
+                   "shape": [b, s, h, d], "dtype": dname, "causal": causal,
+                   "max_abs_err": abs_err, "rel_errs": errs,
+                   "tol": FLASH_TOL[dname], "ms": ms, "plain_ms": plain_ms,
+                   "library_ms": lib_fwd if name == "fwd" else lib_bwd,
+                   "library_note": ("SDPA forward" if name == "fwd" else
+                                    "SDPA backward alone (dq, dk and dv)"),
+                   "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+                   "bound_ms": bound_ms, "bound_by": bound_by,
+                   "nvidia_smi": smi}
+            emit(rec)
+            if not max(errs) <= FLASH_TOL[dname]:
+                raise AssertionError(f"flash {name} disagrees: {rec}")
+            if (b, s, h, d, dname, causal) == FLASH_CASES[0]:
+                rows[FLASH_KERNELS[name][0]] = rec
+        del qkv, q, k, v, do, o_ref, lse_ref, delta, calls, bwd_args
+        torch.cuda.empty_cache()
+    fa.launches.update(dict.fromkeys(fa.launches, 0))
+    return rows
+
+
+def phase_lm_train_parity(torch, dev, smi) -> None:
+    """Phase 9: gpt2 flash vs dense, float32, one SGD step each."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.synthetic import (SyntheticTokens,
+                                                   tokens_to_device)
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.ops.flash_attention import flash_attention
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    cfg = flags.BenchmarkConfig(model="gpt2").resolve()
+    ref, spec = create_model("gpt2", torch.float32, "dense", device=dev,
+                             seed=0)
+    state = {k: v.clone() for k, v in ref.state_dict().items()}
+    batch = tokens_to_device(SyntheticTokens(
+        LM_PARITY_BATCH, spec.input_shape[0], vocab_size=spec.vocab_size,
+        seed=0, causal_lm=True).batch(), dev)
+    out = {}
+    before = dict(flash_attention.launches)
+    for impl in ("dense", "flash"):
+        model = ref if impl == "dense" else create_model(
+            "gpt2", torch.float32, impl, device=dev)[0]
+        model.load_state_dict(state)
+        model.eval()                                # dropout off
+        opt = step_mod.make_optimizer(cfg, model.parameters())
+        logits = model(batch[0])
+        loss = step_mod.lm_loss_fn(logits, *batch[1:])
+        loss.backward()
+        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+        opt.step()
+        out[impl] = (logits.detach(), float(loss.detach()), grads,
+                     {k: p.detach() for k, p in model.named_parameters()})
+        del model, opt, logits, loss
+    torch.cuda.synchronize()
+    launches = {k: flash_attention.launches[k] - before[k]
+                for k in before}
+    (ld, sd, gd, pd), (lf, sf, gf, pf) = out["dense"], out["flash"]
+    rec = {"phase": "lm_train_parity", "model": "gpt2", "dtype": "float32",
+           "batch": LM_PARITY_BATCH, "seq": spec.input_shape[0],
+           "dropout": "off", "loss": sd, "nvidia_smi": smi,
+           "launches": launches,
+           "finite": bool(torch.isfinite(lf).all()),
+           "loss_rel_err": abs(sf - sd) / abs(sd),
+           "logits_rel_err": rel_err(lf, ld),
+           "grad_norm_err": norm_err(gf, gd),
+           "params_rel_err": max(rel_err(pf[k], pd[k]) for k in pd),
+           "tol": {"loss": LM_LOSS_TOL, "logits": LM_LOGITS_TOL,
+                   "grad_norm": LM_GRAD_TOL, "params": LM_PARAM_TOL}}
+    emit(rec)
+    if not (rec["finite"] and rec["loss_rel_err"] <= LM_LOSS_TOL
+            and rec["logits_rel_err"] <= LM_LOGITS_TOL
+            and rec["grad_norm_err"] <= LM_GRAD_TOL
+            and rec["params_rel_err"] <= LM_PARAM_TOL
+            and launches == dict.fromkeys(launches, LM_LAYERS)):
+        raise AssertionError(f"gpt2 flash disagrees with dense: {rec}")
+
+
+def phase_lm_train(torch, smi) -> dict:
+    """Phase 10: the LM lane's main path, both arms; returns each flash
+    kernel's launch count from the flash arm."""
+    from tpu_hc_bench_torch import launcher
+    from tpu_hc_bench_torch.ops.flash_attention import flash_attention
+
+    steps = LM_WARMUP + LM_BATCHES
+    flash_launches = None
+    for impl in ("flash", "dense"):
+        argv = ["1", "1", str(LM_BATCH), "sock", "--model=gpt2",
+                "--use_fp16=true", f"--attention_impl={impl}",
+                f"--num_warmup_batches={LM_WARMUP}",
+                f"--num_batches={LM_BATCHES}", "--display_every=10"]
+        lines: list[str] = []
+
+        def tee(m: str) -> None:
+            lines.append(m)
+            print(m, file=sys.stderr, flush=True)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention.launches.update(
+            dict.fromkeys(flash_attention.launches, 0))
+        rc = launcher.main(argv, print_fn=tee)
+        launches = dict(flash_attention.launches)
+        res = json.loads(lines[-1])
+        expected = LM_LAYERS * steps if impl == "flash" else 0
+        rec = {"phase": "lm_train", "arm": impl, "argv": argv, "rc": rc,
+               "launches": launches, "expected_launches_each": expected,
+               "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "nvidia_smi": smi,
+               **{k: res[k] for k in (
+                   "total_images_per_sec", "images_per_sec_per_chip",
+                   "mean_step_ms", "p50_step_ms", "mfu", "final_loss",
+                   "global_batch", "device_kind")}}
+        rec["tokens_per_sec"] = res["total_images_per_sec"] * 1024
+        emit(rec)
+        if not (rc == 0 and launches == dict.fromkeys(launches, expected)
+                and res["total_images_per_sec"] > 0
+                and math.isfinite(res["final_loss"])
+                and res["global_batch"] == LM_BATCH):
+            raise AssertionError(f"gpt2 train run ({impl}) failed: {rec}")
+        if impl == "flash":
+            flash_launches = launches
+    return {FLASH_KERNELS[k][0]: n for k, n in flash_launches.items()}
+
+
 def main() -> int:
     try:
         import torch
@@ -635,6 +872,15 @@ def main() -> int:
     phase_train_parity(torch, dev, smi)
     torch.cuda.empty_cache()
     launches["fused_bn_relu_conv"] = phase_train(torch, smi)
+    torch.cuda.empty_cache()
+
+    timer = Timer(torch, dev)
+    main_rows.update(phase_flash(torch, dev, timer, smi))
+    del timer
+    torch.cuda.empty_cache()
+    phase_lm_train_parity(torch, dev, smi)
+    torch.cuda.empty_cache()
+    launches.update(phase_lm_train(torch, smi))
 
     sources = {
         "paged_decode_attention": (
@@ -646,6 +892,8 @@ def main() -> int:
         "fused_bn_relu_conv": (
             "tpu_hc_bench_torch/csrc/fused_conv.cu",
             "tpu_hc_bench/ops/fused_conv.py:147"),
+        **{row: ("tpu_hc_bench_torch/csrc/flash_attention.cu", replaces)
+           for row, replaces in FLASH_KERNELS.values()},
     }
     table = []
     for name, (source, replaces) in sources.items():

@@ -12,9 +12,16 @@ bounds the JAX package's own kernel tests use for float32.  The fused
 BN-relu-conv3x3 is held to 1e-5 of each output's largest magnitude
 (sums over up to 9 x 128 terms in another order) and its gradients to
 1e-4 of the largest (a transposed conv, then sums over the batch).
+Flash attention's output is held to the attention bound above and its
+gradients to 1e-4 of the largest (a recompute of P from the lse, then
+sums over the key or query tiles); its bf16 forward to 1e-2 of the
+largest, one bf16 rounding (2^-8) of the output with room for a P
+rounded the other way.
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -23,11 +30,16 @@ import pytest
 import torch
 
 from tpu_hc_bench.ops import fused_conv as jax_fused_conv
+from tpu_hc_bench.ops.flash_attention import (
+    flash_attention as jax_flash_attention)
 from tpu_hc_bench.ops.fused_residual_ln import (
     fused_residual_norm as jax_fused_residual_norm)
 from tpu_hc_bench.ops.paged_attention import (
     paged_decode_attention as jax_paged_decode_attention)
 from tpu_hc_bench_torch.ops import _build
+from tpu_hc_bench_torch.ops.flash_attention import (
+    delta_rows, flash_attention, flash_attention_plain, flash_dkv_plain,
+    flash_dq_plain, flash_fwd_plain)
 from tpu_hc_bench_torch.ops.fused_conv import (
     eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
 from tpu_hc_bench_torch.ops.fused_residual_ln import (
@@ -39,6 +51,8 @@ ATTN_ATOL = 2e-5
 NORM_ATOL = 1e-5
 CONV_TOL = 1e-5
 CONV_GRAD_TOL = 1e-4
+FLASH_GRAD_TOL = 1e-4
+FLASH_BF16_TOL = 1e-2
 
 
 def _t(a):
@@ -319,6 +333,96 @@ def test_fused_bn_relu_conv_validation():
         fused_bn_relu_conv(y1, a.double(), b, w)
 
 
+# --- flash attention ---------------------------------------------------
+
+
+def _flash_inputs(b, sq, sk, h, d, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, h, d)).astype(np.float32)
+    k, v = (rng.standard_normal((b, sk, h, d)).astype(np.float32)
+            for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal", [
+    (2, 64, 64, 2, 16, False),
+    (2, 64, 64, 2, 16, True),
+    (1, 37, 37, 2, 8, True),         # unaligned: a ragged last tile
+    (2, 100, 100, 1, 16, True),
+    (1, 37, 100, 2, 8, False),       # more keys than queries
+])
+def test_flash_attention_matches_jax(b, sq, sk, h, d, causal):
+    """``o`` and the gradients of q, k, v under the cotangent of
+    ``sum(o * cos(o))``: the Pallas kernels (interpret mode, 16-row
+    blocks) against the plain version with the same blocks, and the
+    wrapper's own 64-row tiles against the same JAX result."""
+    q, k, v = _flash_inputs(b, sq, sk, h, d, seed=sq + sk + causal)
+
+    def jax_loss(q, k, v):
+        o = jax_flash_attention(q, k, v, causal=causal, block_q=16,
+                                block_k=16)
+        return jnp.sum(o * jnp.cos(o)), o
+
+    (_, want), want_grads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    for fn in (functools.partial(flash_attention_plain, block_q=16,
+                                 block_k=16), flash_attention):
+        args = [_t(a).requires_grad_() for a in (q, k, v)]
+        o = fn(*args, causal=causal)
+        np.testing.assert_allclose(o.detach().numpy(), np.asarray(want),
+                                   atol=ATTN_ATOL)
+        (o * torch.cos(o)).sum().backward()
+        for t, wnt, name in zip(args, want_grads, ("dq", "dk", "dv")):
+            _close_rel(t.grad, wnt, FLASH_GRAD_TOL, name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_bf16_forward_matches_jax(causal):
+    """bf16 in and out, both sides' P rounded to bf16 before P V: within
+    one bf16 rounding (2^-8) of the output's largest magnitude."""
+    q, k, v = _flash_inputs(2, 100, 100, 2, 16, seed=21 + causal)
+    want = jax_flash_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v)),
+        causal=causal, block_q=16, block_k=16)
+    got = flash_attention_plain(
+        *(_t(a).to(torch.bfloat16) for a in (q, k, v)), causal=causal,
+        block_q=16, block_k=16)
+    assert got.dtype == torch.bfloat16
+    _close_rel(got.float(), np.asarray(want, np.float32), FLASH_BF16_TOL,
+               "o")
+
+
+def test_flash_plain_parts_are_the_backward():
+    """The three plain passes the kernels mirror: ``flash_fwd_plain``'s
+    lse is the row logsumexp, and ``flash_dq_plain`` /
+    ``flash_dkv_plain`` give the autograd gradients."""
+    q, k, v = (_t(a) for a in _flash_inputs(2, 50, 50, 2, 8, seed=31))
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(0))
+    o, lse = flash_fwd_plain(q, k, v, causal=True, block_q=16, block_k=16)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 8 ** 0.5
+    s = s.masked_fill(~torch.ones(50, 50, dtype=torch.bool).tril(), -1e30)
+    _close_rel(lse, torch.logsumexp(s, -1), ATTN_ATOL, "lse")
+    delta = delta_rows(o, do)
+    dq = flash_dq_plain(q, k, v, do, lse, delta, causal=True)
+    dk, dv = flash_dkv_plain(q, k, v, do, lse, delta, causal=True)
+    args = [t.clone().requires_grad_() for t in (q, k, v)]
+    torch.autograd.backward(flash_attention(*args, causal=True), do)
+    for got, t, name in zip((dq, dk, dv), args, ("dq", "dk", "dv")):
+        _close_rel(got, t.grad, FLASH_GRAD_TOL, name)
+
+
+def test_flash_attention_validation():
+    q = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="share"):
+        flash_attention(q, q.double(), q.double())
+    with pytest.raises(ValueError, match="batch, heads and head_dim"):
+        flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                        torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(ValueError, match="expected"):
+        flash_attention(q[0], q[0], q[0])
+
+
 # --- wrapper contract ---------------------------------------------------
 
 
@@ -350,10 +454,22 @@ def test_cpu_fused_conv_runs_the_plain_version_and_counts_no_launch():
     assert fused_bn_relu_conv.launches == before
 
 
+def test_cpu_flash_attention_runs_the_plain_version_and_counts_no_launch():
+    before = dict(flash_attention.launches)
+    q, k, v = (_t(a).requires_grad_()
+               for a in _flash_inputs(1, 70, 70, 2, 16, seed=5))
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_plain(q, k, v, causal=True)
+    assert torch.equal(got, want)
+    got.sum().backward()
+    assert flash_attention.launches == before
+    assert sorted(before) == ["dkv", "dq", "fwd"]
+
+
 def test_kernel_build_hash_covers_every_source():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["fused_conv.cu", "fused_residual_norm.cu",
-                     "paged_attention.cu"]
+    assert names == ["flash_attention.cu", "fused_conv.cu",
+                     "fused_residual_norm.cu", "paged_attention.cu"]
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 64
     assert _build.pad_up(13, 8) == 16 and _build.pad_up(16, 8) == 16
@@ -438,3 +554,33 @@ def test_fused_conv_kernel_matches_plain_on_card(cuda_device, dtype, n, h,
     for g, wt, tol, name in zip(got, want, (y_tol, 1e-4, 1e-4),
                                 ("y2", "s1", "s2")):
         _close_rel(g.cpu().float(), wt.float(), tol, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,h,d,causal", [(2, 256, 4, 64, True),
+                                            (2, 100, 3, 128, False),
+                                            (1, 130, 2, 64, True)])
+def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, h, d,
+                                           causal):
+    """The forward, dQ and dK/dV kernels through the autograd wrapper,
+    q, k, v as views of one fused projection: o and the three gradients
+    within 1e-4 (f32: sums in another order) or 1e-2 (bf16: outputs
+    rounded to 2^-8, P and dS rounded before their products) of the
+    largest magnitude, one launch of each kernel."""
+    rng = np.random.default_rng(13)
+    qkv = _t(rng.standard_normal((b, s, 3, h, d)).astype(np.float32))
+    do = _t(rng.standard_normal((b, s, h, d)).astype(np.float32)).to(dtype)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4
+    outs = []
+    for dev in ("cpu", cuda_device):
+        x = qkv.to(device=dev, dtype=dtype).requires_grad_()
+        before = dict(flash_attention.launches)
+        o = flash_attention(*x.unbind(2), causal=causal)
+        o.backward(do.to(dev))
+        outs.append((o.detach().cpu().float(), x.grad.cpu().float()))
+    torch.cuda.synchronize()
+    assert {k: flash_attention.launches[k] - before[k]
+            for k in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    for got, want, name in zip(outs[1], outs[0], ("o", "dqkv")):
+        _close_rel(got, want, tol, name)

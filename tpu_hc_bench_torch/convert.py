@@ -1,6 +1,6 @@
 """Carry weights from the JAX package's Flax variable trees to the port.
 
-Both converters take trees whose leaves are numpy arrays (the caller
+The converters take trees whose leaves are numpy arrays (the caller
 converts them with ``np.asarray``) and return a port ``state_dict``; they
 need neither JAX nor Flax.
 
@@ -14,6 +14,22 @@ port's ``models.llama.LlamaLM``.  Layout rules:
 - ``gate``/``up``/``down`` ``.kernel [in, out]`` are transposed;
 - ``*.scale`` maps to the RMSNorm weight;
 - ``lm_head [H, V]`` keeps the JAX orientation.
+
+``gpt_params_from_flax(params)`` takes a ``GPTLM`` Flax param tree
+(unrolled ``layer_i`` layout, dense MLP) and returns the ``state_dict`` of
+the port's ``models.gpt.GPTLM``.  Layout rules:
+
+- ``wte``/``wpe`` ``.embedding`` map to the ``nn.Embedding`` weights;
+- LayerNorm ``scale``/``bias`` (``ln1``, ``ln2``, ``ln_f``) map to
+  ``weight``/``bias``;
+- ``MultiHeadAttention_0/qkv.kernel [H, 3, n, d]`` maps to ``[3*n*d, H]``
+  and its bias ``[3, n, d]`` to ``[3*n*d]``;
+  ``MultiHeadAttention_0/out.kernel [n, d, H]`` maps to ``[H, n*d]``;
+- ``fc``/``proj`` ``.kernel [in, out]`` are transposed.
+
+It is built from ``decoder_layer_params_from_flax`` (one ``layer_i``) and
+``attention_params_from_flax`` (one ``MultiHeadAttention_0``), which
+convert those modules alone.
 
 ``resnet_variables_from_flax(params, batch_stats)`` takes a Flax
 ``ResNet`` (v1 bottleneck family) tree in either layout, unfused
@@ -68,6 +84,59 @@ def llama_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
                 np.asarray(p[name]["kernel"]).T)
         sd[pre + "attn_norm.weight"] = _t(p["attn_norm"]["scale"])
         sd[pre + "mlp_norm.weight"] = _t(p["mlp_norm"]["scale"])
+    return sd
+
+
+def _dense(sd: dict, pre: str, p: dict) -> None:
+    """A Flax Dense/DenseGeneral whose kernel's leading axis is the input
+    (``[in, *out]``) as a ``[prod(out), in]`` weight and flat bias."""
+    k = np.asarray(p["kernel"])
+    sd[pre + "weight"] = _t(k.reshape(k.shape[0], -1).T)
+    sd[pre + "bias"] = _t(np.asarray(p["bias"]).reshape(-1))
+
+
+def _layer_norm(sd: dict, pre: str, p: dict) -> None:
+    sd[pre + "weight"] = _t(p["scale"])
+    sd[pre + "bias"] = _t(p["bias"])
+
+
+def attention_params_from_flax(p: dict) -> dict[str, torch.Tensor]:
+    """One ``MultiHeadAttention`` (``qkv``, ``out``): the ``state_dict``
+    of the port's ``models.bert.MultiHeadAttention``."""
+    sd: dict[str, torch.Tensor] = {}
+    _dense(sd, "qkv.", p["qkv"])
+    wo = np.asarray(p["out"]["kernel"])                     # [n, d, H]
+    sd["out.weight"] = _t(wo.reshape(-1, wo.shape[-1]).T)
+    sd["out.bias"] = _t(p["out"]["bias"])
+    return sd
+
+
+def decoder_layer_params_from_flax(p: dict) -> dict[str, torch.Tensor]:
+    """One dense-MLP ``DecoderLayer``: the ``state_dict`` of the port's
+    ``models.gpt.DecoderLayer``."""
+    if "moe" in p:
+        raise ValueError("MoE decoder layers are not ported yet")
+    sd = {"attn." + k: v for k, v in
+          attention_params_from_flax(p["MultiHeadAttention_0"]).items()}
+    for name in ("ln1", "ln2"):
+        _layer_norm(sd, name + ".", p[name])
+    for name in ("fc", "proj"):
+        _dense(sd, name + ".", p[name])
+    return sd
+
+
+def gpt_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    if "layers" in params:
+        raise ValueError("scan_layers param trees (stacked layers/...) are "
+                         "not ported; convert an unrolled layer_i tree")
+    sd = {"wte.weight": _t(params["wte"]["embedding"]),
+          "wpe.weight": _t(params["wpe"]["embedding"])}
+    _layer_norm(sd, "ln_f.", params["ln_f"])
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        for k, v in decoder_layer_params_from_flax(
+                params[f"layer_{i}"]).items():
+            sd[f"layers.{i}.{k}"] = v
     return sd
 
 

@@ -1,2 +1,3 @@
 """Inputs of the port (copies of the JAX package's host code): prompt
-synthesis for serving, synthetic image batches for training."""
+synthesis for serving, synthetic image and token batches for
+training."""

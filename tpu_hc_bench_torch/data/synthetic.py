@@ -1,12 +1,15 @@
 """Synthetic inputs, tf_cnn_benchmarks' default data mode: one
 deterministic random batch made once on the host from ``seed`` and fed
 every step, so the benchmark measures the step and not an input
-pipeline.  ``SyntheticImages`` is a copy of the JAX package's
-``data/synthetic.py`` (numpy only), so both lanes see the same bytes.
+pipeline.  ``SyntheticImages`` and ``SyntheticTokens`` are copies of the
+JAX package's ``data/synthetic.py`` (numpy only, the same draws in the
+same order), so both lanes see the same bytes.
 
-``to_device`` hands the batch to the port's models: the NHWC float32
+``to_device`` hands an image batch to the port's models: the NHWC float32
 images as an NCHW tensor in ``channels_last`` memory (a view of the same
 bytes) and the labels as int64, on ``device``, once.
+``tokens_to_device`` does the same for a token batch: ids and targets as
+int64, weights as float32.
 """
 
 from __future__ import annotations
@@ -50,3 +53,56 @@ def to_device(batch: tuple[np.ndarray, np.ndarray],
     images, labels = batch
     x = torch.from_numpy(images).to(device).permute(0, 3, 1, 2)
     return x, torch.from_numpy(labels).to(device=device, dtype=torch.int64)
+
+
+@dataclasses.dataclass
+class SyntheticTokens:
+    """Fixed random token batch for MLM: ids, targets, mask weights.
+
+    15% of positions are selected as prediction targets (BERT's masking
+    rate); selected input positions carry the [MASK]-style corruption (id 0).
+    """
+
+    global_batch: int
+    seq_len: int
+    vocab_size: int = 30522
+    mask_rate: float = 0.15
+    seed: int = 0
+    causal_lm: bool = False            # next-token objective (GPT members)
+                                       # instead of masked-LM
+
+    def batch(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        if self.causal_lm:
+            tokens = rng.integers(
+                1, self.vocab_size, size=(self.global_batch, self.seq_len),
+                dtype=np.int32,
+            )
+            # predict token t+1 at position t; final position has no target
+            targets = np.roll(tokens, -1, axis=1)
+            weights = np.ones_like(tokens, np.float32)
+            weights[:, -1] = 0.0
+            return tokens, targets, weights
+        targets = rng.integers(
+            1, self.vocab_size, size=(self.global_batch, self.seq_len),
+            dtype=np.int32,
+        )
+        mask = rng.random((self.global_batch, self.seq_len)) < self.mask_rate
+        inputs = np.where(mask, 0, targets).astype(np.int32)
+        weights = mask.astype(np.float32)
+        return inputs, targets, weights
+
+    def __iter__(self):
+        batch = self.batch()
+        while True:
+            yield batch
+
+
+def tokens_to_device(batch: tuple[np.ndarray, np.ndarray, np.ndarray],
+                     device: torch.device
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(ids int64, targets int64, weights float32)`` on ``device``."""
+    ids, targets, weights = batch
+    return (torch.from_numpy(ids).to(device=device, dtype=torch.int64),
+            torch.from_numpy(targets).to(device=device, dtype=torch.int64),
+            torch.from_numpy(weights).to(device))

@@ -186,11 +186,16 @@ LATER_SLICE_TRAIN_FLAGS = (
     "keep_checkpoints", "inject_fault", "moe_capacity_factor",
     "fusion_threshold_bytes", "trace_dir", "profile_steps", "metrics_dir",
     "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
-    "fused_xent", "seq_len", "wire_dtype", "accum_dtype", "model_parallel",
+    "fused_xent", "wire_dtype", "accum_dtype", "model_parallel",
     "expert_parallel", "pipeline_parallel", "num_microbatches",
     "sequence_parallel", "virtual_devices", "gradient_checkpointing",
-    "attention_impl", "moe_impl", "rnn_impl", "scan_layers", "moe_f_chunk",
+    "moe_impl", "rnn_impl", "scan_layers", "moe_f_chunk",
 )
+
+# attention impls of the JAX lane: the single-device two are ported, the
+# sequence-parallel ones come with the multi-card slices
+ATTENTION_IMPLS = ("dense", "flash")
+SEQ_SHARDED_IMPLS = ("ring", "ulysses", "ulysses_flash")
 
 
 def _parse_bool(v: str | bool) -> bool:
@@ -227,6 +232,11 @@ class BenchmarkConfig:
     device: str = "cuda"                      # cuda | cpu (on request)
     variable_update: str = "psum"             # one worker: no reduction
     gradient_accumulation_steps: int = 1      # 1 only, so far
+    attention_impl: str = "dense"             # transformer attention:
+                                              # dense (plain) | flash (the
+                                              # CUDA flash kernels)
+    seq_len: int | None = None                # text models: override the
+                                              # registry sequence length
 
     @property
     def compute_dtype(self) -> str:
@@ -263,6 +273,16 @@ class BenchmarkConfig:
                              "ported yet")
         if self.num_classes < 1:
             raise ValueError(f"--num_classes must be >= 1: {self.num_classes}")
+        if self.attention_impl in SEQ_SHARDED_IMPLS:
+            raise ValueError(f"--attention_impl={self.attention_impl} is not "
+                             "ported yet (dense|flash: one worker, no "
+                             "sequence parallelism)")
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"--attention_impl must be dense|flash|ring|"
+                             f"ulysses|ulysses_flash: "
+                             f"{self.attention_impl!r}")
+        if self.seq_len is not None and self.seq_len < 1:
+            raise ValueError(f"--seq_len must be >= 1: {self.seq_len}")
         return self
 
     def summary_lines(self) -> list[str]:
@@ -276,6 +296,8 @@ class BenchmarkConfig:
             f"fused_conv={self.fused_conv} "
             f"use_space_to_depth={self.use_space_to_depth} "
             f"num_classes={self.num_classes}",
+            f"attention_impl={self.attention_impl} "
+            f"seq_len={self.seq_len or 'model default'}",
         ]
 
 
@@ -288,8 +310,9 @@ def build_benchmark_parser() -> argparse.ArgumentParser:
                     "protocol (PyTorch/CUDA port).")
     for f in dataclasses.fields(BenchmarkConfig):
         v = getattr(d, f.name)
+        kind = int if f.name == "seq_len" else type(v)
         p.add_argument(f"--{f.name}", default=v,
-                       type=_parse_bool if isinstance(v, bool) else type(v))
+                       type=_parse_bool if isinstance(v, bool) else kind)
     for name in LATER_SLICE_TRAIN_FLAGS:
         p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     return p

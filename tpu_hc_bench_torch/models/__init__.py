@@ -1,13 +1,15 @@
 """Model registry of the port: the ``--model=`` dispatch, for the members
 ported so far (``llama_1b`` and ``llama_tiny`` for serving; ``resnet50``,
-``resnet101`` and ``resnet152`` for training).
+``resnet101``, ``resnet152``, ``gpt2`` and ``gpt2_medium`` for training).
 
 ``get_model_spec`` and ``create_model`` keep the JAX package's names and
 return values (``create_model`` returns ``(model, spec)``); the port's
 ``create_model`` also places the model on its device and initialises
 its weights from ``seed``.  ``flops_per_example`` is the forward FLOP
 count at ``input_shape`` (2 x multiply-adds), the JAX registry's figure,
-used for MFU (a train step is ~3x the forward).
+used for MFU (a train step is ~3x the forward); a text model's
+``seq_len`` override rescales it linearly and grows the position table,
+as the JAX ``create_model`` does.
 """
 
 from __future__ import annotations
@@ -18,7 +20,11 @@ from typing import Callable
 import torch
 
 from tpu_hc_bench_torch import resolve_device
-from tpu_hc_bench_torch.models import llama, resnet
+from tpu_hc_bench_torch.models import gpt, llama, resnet
+
+
+# a text model's dropout stream is seeded apart from its weights' stream
+DROPOUT_SEED_OFFSET = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +38,8 @@ class ModelSpec:
     flops_per_example: float = 0.0     # forward FLOPs at input_shape
     fused_conv: bool = False           # factory takes fused_conv (the
                                        # fused BN-relu-conv3x3 kernel)
+    is_text: bool = False              # token input; input_shape = (seq,)
+    serve_only: bool = False           # ported for serving only (llama)
 
 
 def _registry() -> dict[str, ModelSpec]:
@@ -39,9 +47,16 @@ def _registry() -> dict[str, ModelSpec]:
                  fused_conv=True)
     specs = [
         ModelSpec("llama_1b", llama.llama_1b, vocab_size=32000,
-                  causal_lm=True),
+                  causal_lm=True, is_text=True, serve_only=True),
         ModelSpec("llama_tiny", llama.llama_tiny, vocab_size=1024,
-                  causal_lm=True),
+                  causal_lm=True, is_text=True, serve_only=True),
+        # decoder family: 2 x params x seq forward FLOPs, the JAX figures
+        ModelSpec("gpt2", gpt.gpt2, vocab_size=gpt.GPT2_VOCAB,
+                  causal_lm=True, is_text=True, input_shape=(gpt.GPT2_CTX,),
+                  flops_per_example=2 * 124e6 * gpt.GPT2_CTX),
+        ModelSpec("gpt2_medium", gpt.gpt2_medium, vocab_size=gpt.GPT2_VOCAB,
+                  causal_lm=True, is_text=True, input_shape=(gpt.GPT2_CTX,),
+                  flops_per_example=2 * 355e6 * gpt.GPT2_CTX),
         # ResNet v1.5 forward FLOPs at 224^2 (2 x MACs), the JAX figures
         ModelSpec("resnet50", resnet.resnet50, flops_per_example=8.2e9,
                   **image),
@@ -67,31 +82,47 @@ def create_model(name: str, dtype=torch.float32,
                  device: str | torch.device = "cuda", seed: int = 0,
                  fused_conv: bool = False, train: bool = False,
                  num_classes: int | None = None,
-                 space_to_depth: bool = False):
+                 space_to_depth: bool = False, seq_len: int | None = None):
     """``(model, spec)``: the model built on ``device`` with its weights
     drawn from a ``torch.Generator`` seeded with ``seed`` (on the same
     device, so a full-width model never passes through host memory), in
-    training mode when ``train``.  Image models keep float32 parameters
-    and compute in ``dtype`` (float32 or bfloat16), in ``channels_last``
-    memory."""
+    training mode when ``train``.  Trained models keep float32 parameters
+    and compute in ``dtype`` (float32 or bfloat16); image models live in
+    ``channels_last`` memory.  A text model's dropout draws from its own
+    generator, seeded with ``seed + DROPOUT_SEED_OFFSET``."""
     spec = get_model_spec(name)
-    if spec.causal_lm:
+    if spec.serve_only:
         if dtype != torch.float32:
             raise ValueError(f"the port serves float32 only: {dtype}")
         if attention_impl != "dense":
             raise ValueError(f"--attention_impl={attention_impl} is not "
-                             "ported yet (dense only)")
-        if fused_conv or train or space_to_depth:
-            raise ValueError(f"{name}: only serving (no fused_conv, train "
-                             "or space_to_depth) is ported")
+                             f"ported for {name} (dense only)")
+        if fused_conv or train or space_to_depth or seq_len:
+            raise ValueError(f"{name}: only serving (no fused_conv, train, "
+                             "space_to_depth or seq_len) is ported")
         factory = spec.create
     else:
         if dtype not in (torch.float32, torch.bfloat16):
-            raise ValueError(f"image models compute in float32|bfloat16: "
+            raise ValueError(f"trained models compute in float32|bfloat16: "
                              f"{dtype}")
-        factory = lambda: spec.create(                  # noqa: E731
-            num_classes=num_classes or spec.num_classes, dtype=dtype,
-            space_to_depth=space_to_depth, fused_conv=fused_conv)
+        if spec.is_text:
+            if fused_conv or space_to_depth:
+                raise ValueError(f"--fused_conv and --use_space_to_depth "
+                                 f"apply to the resnets, not {name}")
+            if seq_len is not None:
+                spec = dataclasses.replace(
+                    spec, input_shape=(seq_len,),
+                    flops_per_example=spec.flops_per_example
+                    * seq_len / spec.input_shape[0])
+            factory = lambda: spec.create(                  # noqa: E731
+                dtype=dtype, attention_impl=attention_impl, max_len=seq_len)
+        else:
+            if attention_impl != "dense" or seq_len is not None:
+                raise ValueError(f"--attention_impl and --seq_len apply to "
+                                 f"text models, not {name}")
+            factory = lambda: spec.create(                  # noqa: E731
+                num_classes=num_classes or spec.num_classes, dtype=dtype,
+                space_to_depth=space_to_depth, fused_conv=fused_conv)
     dev = resolve_device(device)
     with torch.device("meta"):
         model = factory()
@@ -99,6 +130,9 @@ def create_model(name: str, dtype=torch.float32,
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     model.init_weights(gen)
-    if not spec.causal_lm:
+    if spec.is_text and not spec.serve_only:
+        model.dropout_generator = torch.Generator(device=dev)
+        model.dropout_generator.manual_seed(seed + DROPOUT_SEED_OFFSET)
+    if not spec.is_text:
         model = model.to(memory_format=torch.channels_last)
     return model.train(train), spec

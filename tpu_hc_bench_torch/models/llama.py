@@ -61,7 +61,7 @@ def apply_rope(x, positions, theta: float = 10000.0):
     return out.to(x.dtype)
 
 
-def _lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
+def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
     std = (1.0 / w.shape[1]) ** 0.5 / _TRUNC_STD    # Linear: [out, in]
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
                           generator=generator)
@@ -150,7 +150,7 @@ class LlamaLM(nn.Module):
         for blk in self.layers:
             for lin in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
                         blk.gate, blk.up, blk.down):
-                _lecun_normal_(lin.weight, generator)
+                lecun_normal_(lin.weight, generator)
             blk.attn_norm.weight.fill_(1.0)
             blk.mlp_norm.weight.fill_(1.0)
         self.final_norm.weight.fill_(1.0)

@@ -36,6 +36,8 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_QKV_STRIDES = [_L] * 9                             # b, s, h of q k v
 
 # C entry -> argtypes; every pointer and the stream are c_void_p, so a
 # 64-bit address is never cut to a 32-bit int
@@ -50,6 +52,18 @@ _SIGNATURES = {
     "thb_fused_bn_relu_conv": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P,         # x w a b y p1 p2 s1 s2
         _I, _I, _I, _I, _I, _I, _P],                # n h w cin cout bf16 stream
+    "thb_flash_attention_fwd": [
+        _P, _P, _P, _P, _P,                         # q k v o lse
+        _I, _I, _I, _I, _I, *_QKV_STRIDES,          # b h sq sk d strides
+        _F, _I, _I, _P],                            # scale causal bf16 stream
+    "thb_flash_attention_dq": [
+        _P, _P, _P, _P, _P, _P, _P,                 # q k v do lse delta dq
+        _I, _I, _I, _I, _I, *_QKV_STRIDES,
+        _F, _I, _I, _P],
+    "thb_flash_attention_dkv": [
+        _P, _P, _P, _P, _P, _P, _P, _P,             # q k v do lse delta dk dv
+        _I, _I, _I, _I, _I, *_QKV_STRIDES,
+        _F, _I, _I, _P],
 }
 
 

@@ -159,9 +159,9 @@ class ServeEngine:
         self.print_fn = print_fn
         self.device = resolve_device(cfg.device)
         self.spec = get_model_spec(cfg.model)
-        if not self.spec.causal_lm:
-            raise ValueError(f"--model {cfg.model}: the port serves "
-                             "decoder members only")
+        if not self.spec.serve_only:
+            raise ValueError(f"--model {cfg.model}: the port serves the "
+                             "llama members only")
         if model is None:
             model, _ = create_model(cfg.model, device=self.device,
                                     seed=cfg.seed)

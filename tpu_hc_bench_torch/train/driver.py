@@ -5,7 +5,10 @@ The counterpart of the JAX package's ``train/driver.py`` for one worker:
 allocator's warm-up fall there, as XLA's compile does in the JAX lane),
 then ``num_batches`` timed steps on one fixed synthetic batch, a line
 ``{step}\\timages/sec: {rate}\\tloss: {loss}`` every ``display_every``
-steps, and a final ``total images/sec`` line.
+steps, and a final ``total images/sec`` line.  Image models train on
+``SyntheticImages``; text models (gpt2, gpt2_medium) on one
+``SyntheticTokens`` batch, whose "images" are sequences, as in the JAX
+lane.
 
 Timing: the total is the host clock from the end of warmup to the
 device's end of the last step.  Each timed step also records a CUDA
@@ -28,7 +31,8 @@ from typing import Callable
 import torch
 
 from tpu_hc_bench_torch import resolve_device
-from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+from tpu_hc_bench_torch.data.synthetic import (
+    SyntheticImages, SyntheticTokens, to_device, tokens_to_device)
 from tpu_hc_bench_torch.flags import BenchmarkConfig
 from tpu_hc_bench_torch.models import create_model, get_model_spec
 from tpu_hc_bench_torch.train import step as step_mod
@@ -92,15 +96,15 @@ def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
                   fabric: str = "sock",
                   print_fn: Callable[[str], None] = print,
                   ) -> BenchmarkResult:
-    """Train ``cfg.model`` on synthetic images and measure it."""
+    """Train ``cfg.model`` on synthetic data and measure it."""
     if total_workers != 1:
         raise ValueError(f"a world of {total_workers} workers is not ported "
                          "yet (one worker only)")
     dev = resolve_device(cfg.device)
     spec = get_model_spec(cfg.model)
-    if not spec.input_shape:
+    if spec.serve_only:
         raise ValueError(f"--model={cfg.model}: the port's training lane "
-                         "runs the image models (resnet50/101/152)")
+                         "runs resnet50/101/152 and gpt2/gpt2_medium")
     if cfg.fused_conv and not spec.fused_conv:
         raise ValueError(f"--fused_conv applies to the v1 bottleneck "
                          f"resnets, not {cfg.model}")
@@ -109,15 +113,22 @@ def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
         # for these fixed shapes during warmup
         torch.backends.cudnn.benchmark = True
     dtype = torch.bfloat16 if cfg.use_fp16 else torch.float32
-    model, _ = create_model(
-        cfg.model, dtype, device=dev, seed=cfg.seed,
-        fused_conv=cfg.fused_conv, train=True, num_classes=cfg.num_classes,
-        space_to_depth=cfg.use_space_to_depth)
-    state = step_mod.make_train_state(model, cfg)
     global_batch = cfg.batch_size * total_workers
-    batch = to_device(SyntheticImages(
-        global_batch, spec.input_shape, cfg.num_classes, cfg.seed).batch(),
-        dev)
+    # a text model's spec comes back rescaled to --seq_len
+    model, spec = create_model(
+        cfg.model, dtype, cfg.attention_impl, device=dev, seed=cfg.seed,
+        fused_conv=cfg.fused_conv, train=True, num_classes=cfg.num_classes,
+        space_to_depth=cfg.use_space_to_depth, seq_len=cfg.seq_len)
+    if spec.is_text:
+        batch = tokens_to_device(SyntheticTokens(
+            global_batch, spec.input_shape[0], seed=cfg.seed,
+            vocab_size=spec.vocab_size, causal_lm=spec.causal_lm).batch(),
+            dev)
+    else:
+        batch = to_device(SyntheticImages(
+            global_batch, spec.input_shape, cfg.num_classes,
+            cfg.seed).batch(), dev)
+    state = step_mod.make_train_state(model, cfg)
     kind = hw.device_name(dev)
     for line in cfg.summary_lines():
         print_fn(line)

@@ -4,9 +4,13 @@ The single-device arm of the JAX package's ``train/step.py``
 (``build_train_step`` with a world of one, ``_loss_and_updates`` and
 ``make_optimizer``): forward in training mode (BatchNorm normalizes with
 the batch's statistics and updates its running averages as a side effect
-of the forward), integer-label softmax cross-entropy averaged over the
-batch, backward, optimizer update.  With one worker there is no gradient
-reduction; the NCCL arm comes with the multi-card slice.
+of the forward; a text model draws its dropout masks), the loss, backward,
+optimizer update.  Two loss arms, by the batch: ``(images, labels)``
+takes the integer-label softmax cross-entropy averaged over the batch;
+``(tokens, targets, weights)`` the per-token cross-entropy on float32
+logits, weighted and averaged over the weights (the text arm).  With one
+worker there is no gradient reduction; the NCCL arm comes with the
+multi-card slice.
 
 ``optax.sgd(lr, momentum=m)`` keeps ``trace = g + m * trace`` and steps
 ``-lr * trace``, which is ``torch.optim.SGD(lr, momentum=m)`` with no
@@ -58,13 +62,33 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return F.cross_entropy(logits.float(), labels)
 
 
-def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-    """One optimizer step on ``batch = (images, labels)``; returns the
-    state and ``{"loss": tensor}`` (left on the device: reading it is a
-    host sync, which the driver does at display steps only)."""
+def lm_loss_fn(logits: torch.Tensor, targets: torch.Tensor,
+               weights: torch.Tensor) -> torch.Tensor:
+    """The JAX text arm: ``optax.softmax_cross_entropy_with_integer_labels``
+    per token on float32 logits, then ``(losses * weights).sum() /
+    max(weights.sum(), 1)``."""
+    losses = F.cross_entropy(logits.float().flatten(0, -2),
+                             targets.flatten(), reduction="none")
+    losses = losses.view(targets.shape)
+    return (losses * weights).sum() / weights.sum().clamp_min(1.0)
+
+
+def batch_loss(model: torch.nn.Module, batch) -> torch.Tensor:
+    """The forward and the loss arm that ``batch`` calls for."""
+    if len(batch) == 3:
+        tokens, targets, weights = batch
+        return lm_loss_fn(model(tokens), targets, weights)
     images, labels = batch
+    return loss_fn(model(images), labels)
+
+
+def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+    """One optimizer step on ``batch``, ``(images, labels)`` or
+    ``(tokens, targets, weights)``; returns the state and ``{"loss":
+    tensor}`` (left on the device: reading it is a host sync, which the
+    driver does at display steps only)."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss = loss_fn(state.model(images), labels)
+    loss = batch_loss(state.model, batch)
     loss.backward()
     state.optimizer.step()
     state.step += 1
