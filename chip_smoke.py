@@ -43,18 +43,38 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 8. **flash**: the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain versions on the same inputs, at the GPT-2 shape
    ``[16, 1024, 12, 64]`` causal in bf16 (q, k, v views of one fused
-   projection, as the model hands them over) and in float32, and at an
-   unaligned non-causal ``[4, 1000, 6, 128]`` in bf16; ``library_ms`` is
+   projection, as the model hands them over) and in float32, at an
+   unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, and at BERT-base's
+   non-causal ``[128, 128, 12, 64]`` in bf16; ``library_ms`` is
    ``F.scaled_dot_product_attention``'s forward, and its backward alone.
-9. **lm_train_parity**: gpt2 at full width in float32, batch 2 x seq
-   1024, dropout off: the ``flash`` and ``dense`` arms from one
-   ``state_dict``, one momentum-SGD step each: loss, logits, the
-   gradients' global norm and the parameters after the step.
-10. **lm_train**: the LM lane's main path, ``python -m
-   tpu_hc_bench_torch 1 1 16 sock --model=gpt2 --use_fp16=true
-   --attention_impl=flash`` through ``launcher.main`` (each flash
-   kernel's count zeroed just before, and it must equal 12 launches a
-   step just after), then the ``dense`` arm; peak memory of each.
+9. **lm_train_parity**: gpt2 (batch 2 x seq 1024) and bert_base (batch
+   8 x seq 128, the MLM batch) at full width in float32, dropout off,
+   three arms from one ``state_dict``, one momentum-SGD step each:
+   ``dense``, ``flash``, and ``flash`` with ``--fused_xent``; flash held
+   against dense and the fused loss against the unfused one: loss,
+   logits, the gradients' global norm and the parameters after the step,
+   with each arm's kernel launches.
+10. **lm_train**: the LM lanes' main paths through ``launcher.main``:
+   ``python -m tpu_hc_bench_torch 1 1 16 sock --model=gpt2
+   --use_fp16=true --attention_impl=flash --fused_xent=true`` (every
+   count zeroed just before, and each flash kernel must show 12 launches
+   a step and each xent kernel one just after), then gpt2 ``flash``
+   unfused and ``dense``, then ``bert_base`` at batch 128 with
+   ``--attention_impl=flash`` and ``--fused_xent=true|false``; peak
+   memory of each.
+11. **xent**: the cross-entropy forward and backward kernels against
+   their plain versions at GPT-2's logits ``[16384, 50257]`` float32 (the
+   main path), BERT-base's ``[16384, 30522]`` float32 and a bf16
+   ``[4096, 50257]``; ``library_ms`` is ``F.cross_entropy(reduction=
+   "none")``'s forward, and its backward alone.
+12. **pool**: ``max_pool``'s backward kernel, which no model runs: three
+   forward-and-backward calls through the op at googlenet/resnet's stem
+   pool ``[128, 64, 112, 112]`` bf16 3x3/2 SAME (its launches counted),
+   then the kernel against its plain version there, at the branch pool
+   ``[256, 256, 28, 28]`` bf16 3x3/1 SAME, a ragged float32 ``[2, 8, 13,
+   15]`` and a bf16 input where most windows tie; ``library_ms`` is
+   ``F.max_pool2d``'s backward alone (timing only: it routes ties to the
+   first max).
 
 Then the kernel table line, the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -117,7 +137,8 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # (b, s, h, d, dtype, causal): the main path's shape first
 FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
                (16, 1024, 12, 64, "float32", True),
-               (4, 1000, 6, 128, "bfloat16", False))
+               (4, 1000, 6, 128, "bfloat16", False),
+               (128, 128, 12, 64, "bfloat16", False))       # bert_base
 PLAIN_ITERS = 10                   # the plain version loops over tiles
 FLASH_KERNELS = {                  # kernel -> (row name, Pallas call)
     "fwd": ("flash_attention_fwd", "tpu_hc_bench/ops/flash_attention.py:134"),
@@ -134,11 +155,51 @@ LM_LOSS_TOL = 1e-5
 LM_LOGITS_TOL = 1e-4
 LM_GRAD_TOL = 1e-4
 LM_PARAM_TOL = 1e-5
-LM_PARITY_BATCH = 2
-LM_BATCH = 16                      # the tune space's gpt2 microbatch
+LM_LAYERS = 12                     # one launch of each flash kernel a layer
+# (model, batch, arms): each arm (attention_impl, fused_xent) from one
+# state_dict, the first the reference; the comparisons (arm, against):
+# flash against dense and the fused loss against the unfused one
+LM_PARITY = (("gpt2", 2, (("dense", False), ("flash", False),
+                          ("flash", True))),
+             ("bert_base", 8, (("dense", False), ("flash", False),
+                               ("flash", True))))
+LM_PARITY_PAIRS = ((1, 0), (2, 1))
+# the LM lanes' main paths through launcher.main: (model, batch,
+# attention_impl, fused_xent); batch 16 is the tune space's gpt2
+# microbatch, 128 its bert_base one; the first run is the slice's main
+# path, whose launches the kernel table reports
+LM_RUNS = (("gpt2", 16, "flash", True), ("gpt2", 16, "flash", False),
+           ("gpt2", 16, "dense", False), ("bert_base", 128, "flash", True),
+           ("bert_base", 128, "flash", False))
 LM_WARMUP = 10
 LM_BATCHES = 30
-LM_LAYERS = 12                     # one launch of each flash kernel a layer
+# softmax_xent against its plain version: loss and lse relative to their
+# largest magnitude (f32 logsumexps over the vocab in another order);
+# dlogits relative to its largest magnitude, 1e-5 in f32, one bf16 ulp
+# (2^-7 of the largest) in bf16, where an f32 value a last bit apart can
+# round the other way
+XENT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# (rows, vocab, dtype): GPT-2's logits (the main path), BERT-base's, bf16
+XENT_CASES = ((16384, 50257, "float32"), (16384, 30522, "float32"),
+              (4096, 50257, "bfloat16"))
+XENT_KERNELS = {                   # kernel -> (row name, Pallas call)
+    "fwd": ("softmax_xent_fwd", "tpu_hc_bench/ops/xent.py:99"),
+    "bwd": ("softmax_xent_bwd", "tpu_hc_bench/ops/xent.py:151"),
+}
+# max_pool's backward against its plain version: the same f32 sums in the
+# same order, so 1e-6 of the largest magnitude in f32 and one ulp in bf16
+# (2^-7 of the largest) bound a last-bit difference
+POOL_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
+# ([B, C, H, W], window, strides, padding, dtype, tied): the stem pool of
+# googlenet/resnet (the op's main case), the branch pool, a ragged f32
+# input, and a bf16 input of few values, where most windows tie
+POOL_CASES = (((128, 64, 112, 112), (3, 3), (2, 2), "SAME", "bfloat16",
+               False),
+              ((256, 256, 28, 28), (3, 3), (1, 1), "SAME", "bfloat16",
+               False),
+              ((2, 8, 13, 15), (3, 3), (2, 2), "SAME", "float32", False),
+              ((8, 64, 56, 56), (3, 3), (2, 2), "SAME", "bfloat16", True))
+POOL_PATH_STEPS = 3                # max_pool forward + backward calls
 
 
 def emit(obj: dict) -> None:
@@ -719,72 +780,99 @@ def phase_flash(torch, dev, timer, smi) -> dict:
 
 
 def phase_lm_train_parity(torch, dev, smi) -> None:
-    """Phase 9: gpt2 flash vs dense, float32, one SGD step each."""
+    """Phase 9: gpt2 and bert_base, float32, one SGD step per arm of
+    ``LM_PARITY`` from one ``state_dict``."""
     from tpu_hc_bench_torch import flags
     from tpu_hc_bench_torch.data.synthetic import (SyntheticTokens,
                                                    tokens_to_device)
     from tpu_hc_bench_torch.models import create_model
     from tpu_hc_bench_torch.ops.flash_attention import flash_attention
+    from tpu_hc_bench_torch.ops.xent import softmax_xent
     from tpu_hc_bench_torch.train import step as step_mod
 
-    cfg = flags.BenchmarkConfig(model="gpt2").resolve()
-    ref, spec = create_model("gpt2", torch.float32, "dense", device=dev,
-                             seed=0)
-    state = {k: v.clone() for k, v in ref.state_dict().items()}
-    batch = tokens_to_device(SyntheticTokens(
-        LM_PARITY_BATCH, spec.input_shape[0], vocab_size=spec.vocab_size,
-        seed=0, causal_lm=True).batch(), dev)
-    out = {}
-    before = dict(flash_attention.launches)
-    for impl in ("dense", "flash"):
-        model = ref if impl == "dense" else create_model(
-            "gpt2", torch.float32, impl, device=dev)[0]
-        model.load_state_dict(state)
-        model.eval()                                # dropout off
-        opt = step_mod.make_optimizer(cfg, model.parameters())
-        logits = model(batch[0])
-        loss = step_mod.lm_loss_fn(logits, *batch[1:])
-        loss.backward()
-        grads = {k: p.grad.clone() for k, p in model.named_parameters()}
-        opt.step()
-        out[impl] = (logits.detach(), float(loss.detach()), grads,
-                     {k: p.detach() for k, p in model.named_parameters()})
-        del model, opt, logits, loss
-    torch.cuda.synchronize()
-    launches = {k: flash_attention.launches[k] - before[k]
-                for k in before}
-    (ld, sd, gd, pd), (lf, sf, gf, pf) = out["dense"], out["flash"]
-    rec = {"phase": "lm_train_parity", "model": "gpt2", "dtype": "float32",
-           "batch": LM_PARITY_BATCH, "seq": spec.input_shape[0],
-           "dropout": "off", "loss": sd, "nvidia_smi": smi,
-           "launches": launches,
-           "finite": bool(torch.isfinite(lf).all()),
-           "loss_rel_err": abs(sf - sd) / abs(sd),
-           "logits_rel_err": rel_err(lf, ld),
-           "grad_norm_err": norm_err(gf, gd),
-           "params_rel_err": max(rel_err(pf[k], pd[k]) for k in pd),
-           "tol": {"loss": LM_LOSS_TOL, "logits": LM_LOGITS_TOL,
-                   "grad_norm": LM_GRAD_TOL, "params": LM_PARAM_TOL}}
-    emit(rec)
-    if not (rec["finite"] and rec["loss_rel_err"] <= LM_LOSS_TOL
-            and rec["logits_rel_err"] <= LM_LOGITS_TOL
-            and rec["grad_norm_err"] <= LM_GRAD_TOL
-            and rec["params_rel_err"] <= LM_PARAM_TOL
-            and launches == dict.fromkeys(launches, LM_LAYERS)):
-        raise AssertionError(f"gpt2 flash disagrees with dense: {rec}")
+    for name, batch_size, arms in LM_PARITY:
+        cfg = flags.BenchmarkConfig(model=name).resolve()
+        ref, spec = create_model(name, torch.float32, "dense", device=dev,
+                                 seed=0)
+        state = {k: v.clone() for k, v in ref.state_dict().items()}
+        batch = tokens_to_device(SyntheticTokens(
+            batch_size, spec.input_shape[0], vocab_size=spec.vocab_size,
+            seed=0, causal_lm=spec.causal_lm).batch(), dev)
+        out, launches = [], []
+        for i, (impl, fused) in enumerate(arms):
+            model = ref if i == 0 else create_model(
+                name, torch.float32, impl, device=dev)[0]
+            model.load_state_dict(state)
+            model.eval()                                # dropout off
+            opt = step_mod.make_optimizer(cfg, model.parameters())
+            before = {**flash_attention.launches,
+                      **{"xent_" + k: n
+                         for k, n in softmax_xent.launches.items()}}
+            logits = model(batch[0])
+            loss = step_mod.lm_loss_fn(logits, *batch[1:], fused)
+            loss.backward()
+            grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+            opt.step()
+            after = {**flash_attention.launches,
+                     **{"xent_" + k: n
+                        for k, n in softmax_xent.launches.items()}}
+            launches.append({k: after[k] - before[k] for k in before})
+            out.append((logits.detach(), float(loss.detach()), grads,
+                        {k: p.detach() for k, p in model.named_parameters()}))
+            del model, opt, logits, loss
+        torch.cuda.synchronize()
+        rec = {"phase": "lm_train_parity", "model": name,
+               "dtype": "float32", "batch": batch_size,
+               "seq": spec.input_shape[0], "dropout": "off",
+               "loss": out[0][1], "nvidia_smi": smi,
+               "tol": {"loss": LM_LOSS_TOL, "logits": LM_LOGITS_TOL,
+                       "grad_norm": LM_GRAD_TOL, "params": LM_PARAM_TOL},
+               "arms": [], "ok": True}
+        for i, j in LM_PARITY_PAIRS:
+            (lf, sf, gf, pf), (lr, sr, gr, pr) = out[i], out[j]
+            impl, fused = arms[i]
+            expected = {k: (LM_LAYERS if impl == "flash" else 0)
+                        for k in flash_attention.launches}
+            expected.update({"xent_" + k: int(fused)
+                             for k in softmax_xent.launches})
+            cmp = {"arm": {"attention_impl": impl, "fused_xent": fused},
+                   "against": {"attention_impl": arms[j][0],
+                               "fused_xent": arms[j][1]},
+                   "launches": launches[i],
+                   "finite": bool(torch.isfinite(lf).all()),
+                   "loss_rel_err": abs(sf - sr) / abs(sr),
+                   "logits_rel_err": rel_err(lf, lr),
+                   "grad_norm_err": norm_err(gf, gr),
+                   "params_rel_err": max(rel_err(pf[k], pr[k])
+                                         for k in pr)}
+            rec["arms"].append(cmp)
+            rec["ok"] &= (cmp["finite"]
+                          and cmp["loss_rel_err"] <= LM_LOSS_TOL
+                          and cmp["logits_rel_err"] <= LM_LOGITS_TOL
+                          and cmp["grad_norm_err"] <= LM_GRAD_TOL
+                          and cmp["params_rel_err"] <= LM_PARAM_TOL
+                          and launches[i] == expected)
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"{name} arms disagree: {rec}")
+        del ref, out, state, batch
+        torch.cuda.empty_cache()
 
 
 def phase_lm_train(torch, smi) -> dict:
-    """Phase 10: the LM lane's main path, both arms; returns each flash
-    kernel's launch count from the flash arm."""
+    """Phase 10: the LM lanes' main paths, the runs of ``LM_RUNS``;
+    returns each flash and xent kernel's launch count from the first."""
     from tpu_hc_bench_torch import launcher
+    from tpu_hc_bench_torch.models import get_model_spec
     from tpu_hc_bench_torch.ops.flash_attention import flash_attention
+    from tpu_hc_bench_torch.ops.xent import softmax_xent
 
     steps = LM_WARMUP + LM_BATCHES
-    flash_launches = None
-    for impl in ("flash", "dense"):
-        argv = ["1", "1", str(LM_BATCH), "sock", "--model=gpt2",
+    main_launches = None
+    for name, batch_size, impl, fused in LM_RUNS:
+        argv = ["1", "1", str(batch_size), "sock", f"--model={name}",
                 "--use_fp16=true", f"--attention_impl={impl}",
+                f"--fused_xent={str(fused).lower()}",
                 f"--num_warmup_batches={LM_WARMUP}",
                 f"--num_batches={LM_BATCHES}", "--display_every=10"]
         lines: list[str] = []
@@ -795,30 +883,203 @@ def phase_lm_train(torch, smi) -> dict:
 
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        flash_attention.launches.update(
-            dict.fromkeys(flash_attention.launches, 0))
+        for counts in (flash_attention.launches, softmax_xent.launches):
+            counts.update(dict.fromkeys(counts, 0))
         rc = launcher.main(argv, print_fn=tee)
-        launches = dict(flash_attention.launches)
+        launches = {**{FLASH_KERNELS[k][0]: n
+                       for k, n in flash_attention.launches.items()},
+                    **{XENT_KERNELS[k][0]: n
+                       for k, n in softmax_xent.launches.items()}}
         res = json.loads(lines[-1])
-        expected = LM_LAYERS * steps if impl == "flash" else 0
-        rec = {"phase": "lm_train", "arm": impl, "argv": argv, "rc": rc,
-               "launches": launches, "expected_launches_each": expected,
+        expected = {**{FLASH_KERNELS[k][0]: LM_LAYERS * steps
+                       if impl == "flash" else 0 for k in FLASH_KERNELS},
+                    **{XENT_KERNELS[k][0]: steps if fused else 0
+                       for k in XENT_KERNELS}}
+        seq = get_model_spec(name).input_shape[0]
+        rec = {"phase": "lm_train", "model": name, "attention_impl": impl,
+               "fused_xent": fused, "argv": argv, "rc": rc,
+               "launches": launches, "expected_launches": expected,
                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
                "nvidia_smi": smi,
                **{k: res[k] for k in (
                    "total_images_per_sec", "images_per_sec_per_chip",
                    "mean_step_ms", "p50_step_ms", "mfu", "final_loss",
                    "global_batch", "device_kind")}}
-        rec["tokens_per_sec"] = res["total_images_per_sec"] * 1024
+        rec["tokens_per_sec"] = res["total_images_per_sec"] * seq
         emit(rec)
-        if not (rc == 0 and launches == dict.fromkeys(launches, expected)
+        if not (rc == 0 and launches == expected
                 and res["total_images_per_sec"] > 0
                 and math.isfinite(res["final_loss"])
-                and res["global_batch"] == LM_BATCH):
-            raise AssertionError(f"gpt2 train run ({impl}) failed: {rec}")
-        if impl == "flash":
-            flash_launches = launches
-    return {FLASH_KERNELS[k][0]: n for k, n in flash_launches.items()}
+                and res["global_batch"] == batch_size
+                and res["fused_xent"] == fused
+                and res["attention_impl"] == impl):
+            raise AssertionError(f"{name} train run ({impl}, fused_xent="
+                                 f"{fused}) failed: {rec}")
+        if main_launches is None:
+            main_launches = launches
+    return main_launches
+
+
+def phase_xent(torch, dev, timer, smi) -> dict:
+    """Phase 11; returns the main-path row of each xent kernel."""
+    import torch.nn.functional as F
+
+    from tpu_hc_bench_torch.ops import xent
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    rows = {}
+    for n, v, dname in XENT_CASES:
+        dtype = getattr(torch, dname)
+        logits = (2.0 * torch.randn((n, v), generator=gen, device=dev)).to(
+            dtype)
+        labels = torch.randint(0, v, (n,), generator=gen, device=dev)
+        g = torch.rand((n,), generator=gen, device=dev) / n
+        g[::7] = 0.0                                    # unweighted rows
+        want_loss, want_lse = xent.xent_fwd_plain(logits, labels)
+        calls = {
+            "fwd": (lambda: xent.xent_fwd(logits, labels),
+                    lambda: xent.xent_fwd_plain(logits, labels)),
+            "bwd": (lambda: xent.xent_bwd(logits, labels, want_lse, g),
+                    lambda: xent.xent_bwd_plain(logits, labels, want_lse,
+                                                g)),
+        }
+        # the yardstick: F.cross_entropy(reduction="none"), forward, and
+        # its backward alone
+        xl = logits.detach().requires_grad_()
+        lib_fwd = timer.median_ms(
+            lambda: F.cross_entropy(xl, labels, reduction="none"))
+        out = F.cross_entropy(xl, labels, reduction="none")
+        lib_bwd = timer.median_ms(lambda: torch.autograd.grad(
+            out, xl, g, retain_graph=True))
+        del out, xl
+        elt = logits.element_size()
+        work = {"fwd": (n * v * elt + n * 8 + 2 * n * 4, 4.0 * n * v),
+                "bwd": (2 * n * v * elt + n * 8 + 2 * n * 4, 4.0 * n * v)}
+        for name, (kernel, plain) in calls.items():
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            errs = [rel_err(a, b) for a, b in zip(got, want)]
+            abs_err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want))
+            tol = XENT_TOL["float32"] if name == "fwd" else XENT_TOL[dname]
+            zero_rows_ok = (name == "fwd" or bool((got[0][::7] == 0).all()))
+            ms = timer.median_ms(kernel)
+            plain_ms = timer.median_ms(plain, PLAIN_ITERS)
+            nbytes, ops = work[name]
+            bound_ms, bound_by = bound(nbytes, ops)
+            rec = {"phase": "xent", "name": XENT_KERNELS[name][0],
+                   "shape": [n, v], "dtype": dname, "max_abs_err": abs_err,
+                   "rel_errs": errs, "tol": tol,
+                   "zero_weight_rows_exact": zero_rows_ok, "ms": ms,
+                   "plain_ms": plain_ms,
+                   "library_ms": lib_fwd if name == "fwd" else lib_bwd,
+                   "library_note": ("F.cross_entropy(reduction='none') "
+                                    + ("forward" if name == "fwd" else
+                                       "backward alone")),
+                   "gbytes": nbytes / 1e9, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "nvidia_smi": smi}
+            emit(rec)
+            if not (max(errs) <= tol and zero_rows_ok):
+                raise AssertionError(f"softmax_xent {name} disagrees: {rec}")
+            if (n, v, dname) == XENT_CASES[0]:
+                rows[XENT_KERNELS[name][0]] = rec
+        del logits, labels, g, want_loss, want_lse, calls
+        torch.cuda.empty_cache()
+    xent.softmax_xent.launches.update(
+        dict.fromkeys(xent.softmax_xent.launches, 0))
+    return rows
+
+
+def phase_pool(torch, dev, timer, smi) -> tuple[dict, int]:
+    """Phase 12: ``max_pool``'s backward kernel, which no model runs: the
+    op's own path at its main case (forward and backward through the
+    entry point, its launches counted), then the kernel against its plain
+    version at every case.  Returns the main row and the path's
+    launches."""
+    import torch.nn.functional as F
+
+    from tpu_hc_bench_torch.ops import pool_bwd
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    cl = torch.channels_last
+    row = path_launches = None
+    for shape, win, st, pad, dname, tied in POOL_CASES:
+        dtype = getattr(torch, dname)
+        if tied:
+            x = torch.randint(-4, 4, shape, generator=gen, device=dev)
+        else:
+            x = torch.randn(shape, generator=gen, device=dev)
+        x = x.to(dtype).contiguous(memory_format=cl)
+        y = pool_bwd._pool_fwd(x, win, st, pad)
+        dy = torch.randn(y.shape, generator=gen, device=dev).to(
+            dtype).contiguous(memory_format=cl)
+        if row is None:
+            # the op's path, as a user calls it
+            pool_bwd.max_pool.launches = 0
+            for _ in range(POOL_PATH_STEPS):
+                xr = x.detach().requires_grad_()
+                pool_bwd.max_pool(xr, win, st, pad).backward(dy)
+            torch.cuda.synchronize()
+            path_launches = pool_bwd.max_pool.launches
+            if path_launches != POOL_PATH_STEPS:
+                raise AssertionError(f"max_pool path launched the kernel "
+                                     f"{path_launches} times, not "
+                                     f"{POOL_PATH_STEPS}")
+
+        def kernel():
+            return pool_bwd.max_pool_bwd_kernel(x, y, dy, win, st, pad)
+
+        def plain():
+            return pool_bwd.max_pool_bwd_plain(x, y, dy, win, st, pad)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        abs_err = float((got.float() - want.float()).abs().max())
+        ms = timer.median_ms(kernel)
+        plain_ms = timer.median_ms(plain, PLAIN_ITERS)
+        # the yardstick: F.max_pool2d's backward alone (first-max
+        # routing, so timing only), on the padded input
+        _, _, (top, bottom, left, right) = pool_bwd.pool_dims(
+            shape[2:], win, st, pad)
+        xp = F.pad(x, (left, right, top, bottom),
+                   value=float("-inf")).requires_grad_()
+        out = F.max_pool2d(xp, win, st)
+        library_ms = timer.median_ms(lambda: torch.autograd.grad(
+            out, xp, dy, retain_graph=True))
+        del xp, out
+        elt = x.element_size()
+        nbytes = 2 * x.numel() * elt + 2 * y.numel() * elt
+        bound_ms, bound_by = bound(nbytes,
+                                   2.0 * y.numel() * win[0] * win[1])
+        rec = {"phase": "pool", "name": "max_pool_bwd", "shape": list(shape),
+               "window": list(win), "strides": list(st), "padding": pad,
+               "dtype": dname, "tied_input": tied, "max_abs_err": abs_err,
+               "rel_err": err, "tol": POOL_TOL[dname], "ms": ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_note": "F.max_pool2d backward alone (first max)",
+               "mbytes": nbytes / 1e6, "bound_ms": bound_ms,
+               "bound_by": bound_by, "nvidia_smi": smi}
+        if tied:
+            # the share of windows whose max appears more than once
+            taps = F.unfold(F.pad(x.float(), (left, right, top, bottom),
+                                  value=float("-inf")), win, stride=st)
+            taps = taps.view(shape[0], shape[1], win[0] * win[1], -1)
+            hits = (taps == y.float().flatten(2)[:, :, None, :]).sum(2)
+            rec["tied_window_share"] = float((hits > 1).float().mean())
+            del taps, hits
+        emit(rec)
+        if not err <= POOL_TOL[dname]:
+            raise AssertionError(f"max_pool backward disagrees: {rec}")
+        if row is None:
+            row = rec
+        del x, y, dy, got, want
+        torch.cuda.empty_cache()
+    return row, path_launches
 
 
 def main() -> int:
@@ -881,6 +1142,13 @@ def main() -> int:
     phase_lm_train_parity(torch, dev, smi)
     torch.cuda.empty_cache()
     launches.update(phase_lm_train(torch, smi))
+    torch.cuda.empty_cache()
+
+    timer = Timer(torch, dev)
+    main_rows.update(phase_xent(torch, dev, timer, smi))
+    main_rows["max_pool_bwd"], launches["max_pool_bwd"] = phase_pool(
+        torch, dev, timer, smi)
+    del timer
 
     sources = {
         "paged_decode_attention": (
@@ -894,6 +1162,10 @@ def main() -> int:
             "tpu_hc_bench/ops/fused_conv.py:147"),
         **{row: ("tpu_hc_bench_torch/csrc/flash_attention.cu", replaces)
            for row, replaces in FLASH_KERNELS.values()},
+        **{row: ("tpu_hc_bench_torch/csrc/xent.cu", replaces)
+           for row, replaces in XENT_KERNELS.values()},
+        "max_pool_bwd": ("tpu_hc_bench_torch/csrc/pool_bwd.cu",
+                         "tpu_hc_bench/ops/pool_bwd.py:186"),
     }
     table = []
     for name, (source, replaces) in sources.items():

@@ -7,9 +7,13 @@ fixed synthetic batch) once per arm of ``--fused_conv``, in the order
 fused, unfused, unfused, fused on one card.  ``--model=gpt2`` trains
 gpt2 at the LM lane's shape (bf16 compute, batch 16 x seq 1024, the
 same optimizer, one fixed ``SyntheticTokens`` batch) once per arm of
-``--attention_impl``, in the order flash, dense, dense, flash, and
-first times the tied output head's product three ways (see ``head``
-below).  Each pass builds its model from seed 0, runs ``--warmup`` untimed
+``--attention_impl``, in the order flash, dense, dense, flash;
+``--model=bert_base`` trains bert_base at its tune-space shape (batch
+128 x seq 128, the masked-LM batch) the same way.  With
+``--fused_xent`` a text model's arms are ``--fused_xent`` on and off
+under flash attention instead (on, off, off, on).  A text model first
+times the tied output head's product three ways (see ``head`` below).
+Each pass builds its model from seed 0, runs ``--warmup`` untimed
 steps, then ``--steps`` bare steps timed on the host clock between two
 ``torch.cuda.synchronize()`` (the end-to-end numbers), then
 ``--profile_steps`` steps under ``torch.profiler``, which reports:
@@ -18,12 +22,15 @@ steps, then ``--steps`` bare steps timed on the host clock between two
   of the profiled steps' wall;
 - device time by kernel class (convolutions and matrix products, the
   port's fused-conv and flash-attention kernels, softmax and
-  cross-entropy, LayerNorm, elementwise, reductions, the optimizer's
-  multi-tensor kernels, copies, the rest) and the top kernels by name.
+  cross-entropy with the port's xent kernels, LayerNorm, elementwise,
+  reductions, the optimizer's multi-tensor kernels, copies, the rest)
+  and the top kernels by name;
+- the peak device memory of the pass and its MFU (3 x the registry's
+  forward FLOPs per example, as `train/driver.py` computes it).
 
-Usage: ``python3 scripts/profile_torch_train.py [--model=gpt2] [--out
-FILE]``; one JSON line per pass on stdout, and the full kernel table in
-``--out``.
+Usage: ``python3 scripts/profile_torch_train.py [--model=gpt2|bert_base]
+[--fused_xent] [--out FILE]``; one JSON line per pass on stdout, and the
+full kernel table in ``--out``.
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ CLASSES = (
     ("fused_conv_kernel", ("fused_bn_relu_conv", "stats_reduce")),
     ("flash_kernels", ("flash_fwd_kernel", "flash_dq_kernel",
                        "flash_dkv_kernel")),
-    ("softmax_xent", ("softmax", "nll_loss")),
+    ("softmax_xent", ("softmax", "nll_loss", "xent_")),
     ("conv_matmul", ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad",
                      "dgrad", "implicit", "nvjet")),
     ("layernorm", ("layer_norm", "gammabeta")),
@@ -125,7 +132,9 @@ def time_head(torch, dev, tokens: int, hidden: int, vocab: int) -> dict:
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", default="resnet50",
-                   choices=("resnet50", "gpt2"))
+                   choices=("resnet50", "gpt2", "bert_base"))
+    p.add_argument("--fused_xent", action="store_true",
+                   help="text models: arms --fused_xent on/off (flash)")
     p.add_argument("--out", default="build/profile_torch_train.json")
     p.add_argument("--warmup", type=int, default=20)
     p.add_argument("--steps", type=int, default=50)
@@ -140,6 +149,7 @@ def main() -> int:
         SyntheticImages, SyntheticTokens, to_device, tokens_to_device)
     from tpu_hc_bench_torch.models import create_model, get_model_spec
     from tpu_hc_bench_torch.train import step as step_mod
+    from tpu_hc_bench_torch.utils import hw
 
     if not torch.cuda.is_available():
         print("profile_torch_train: needs a CUDA device", file=sys.stderr)
@@ -153,13 +163,19 @@ def main() -> int:
     spec = get_model_spec(args.model)
     head = None
     if spec.is_text:
-        bs = 16
+        bs = 16 if spec.causal_lm else 128
         batch = tokens_to_device(SyntheticTokens(
             bs, spec.input_shape[0], spec.vocab_size, seed=0,
-            causal_lm=True).batch(), dev)
-        arms = [(a, ["--model=gpt2", "--use_fp16=true",
-                     f"--attention_impl={a}"])
-                for a in ("flash", "dense", "dense", "flash")]
+            causal_lm=spec.causal_lm).batch(), dev)
+        if args.fused_xent:
+            arms = [(f"fused_xent={a}",
+                     [f"--model={args.model}", "--use_fp16=true",
+                      "--attention_impl=flash", f"--fused_xent={a}"])
+                    for a in ("true", "false", "false", "true")]
+        else:
+            arms = [(a, [f"--model={args.model}", "--use_fp16=true",
+                         f"--attention_impl={a}"])
+                    for a in ("flash", "dense", "dense", "flash")]
         head = time_head(torch, dev, bs * spec.input_shape[0], 768,
                          spec.vocab_size)
         print(json.dumps({"head": head, "nvidia_smi": smi}), flush=True)
@@ -169,6 +185,7 @@ def main() -> int:
                                           seed=0).batch(), dev)
         arms = [(a, ["--use_fp16=true", f"--fused_conv={a == 'fused'}"])
                 for a in ("fused", "unfused", "unfused", "fused")]
+    peak = hw.peak_flops("bfloat16", dev)
     full = []
     for arm, argv in arms:
         cfg = flags.parse_benchmark_flags(argv)
@@ -176,6 +193,7 @@ def main() -> int:
                                 cfg.attention_impl, device=dev, seed=0,
                                 fused_conv=cfg.fused_conv, train=True)
         state = step_mod.make_train_state(model, cfg)
+        torch.cuda.reset_peak_memory_stats()
         for _ in range(args.warmup):
             step_mod.train_step(state, batch)
         torch.cuda.synchronize()
@@ -198,6 +216,9 @@ def main() -> int:
             "dtype": "bfloat16",
             "bare_step_ms": 1e3 * bare_s / args.steps,
             "bare_images_per_s": bs * args.steps / bare_s,
+            "mfu": (3.0 * spec.flops_per_example * bs * args.steps / bare_s
+                    / peak if peak else None),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
             "profiled_step_ms": 1e3 * wall / args.profile_steps,
             "device_busy_ms_per_step": 1e3 * busy / args.profile_steps,
             "device_idle_share": 1.0 - busy / wall,

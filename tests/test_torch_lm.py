@@ -407,7 +407,7 @@ def test_lm_flags_pass_and_later_slices_raise():
     for bad, match in ((["--attention_impl=ring"], "not ported"),
                        (["--attention_impl=ulysses_flash"], "not ported"),
                        (["--attention_impl=paged"], "dense|flash"),
-                       (["--fused_xent=true"], "not ported"),
+                       (["--wire_dtype=bf16"], "not ported"),
                        (["--gradient_checkpointing=true"], "not ported"),
                        (["--seq_len=0"], "seq_len")):
         with pytest.raises(ValueError, match=match):

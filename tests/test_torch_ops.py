@@ -469,7 +469,8 @@ def test_cpu_flash_attention_runs_the_plain_version_and_counts_no_launch():
 def test_kernel_build_hash_covers_every_source():
     names = sorted(p.name for p in _build._sources())
     assert names == ["flash_attention.cu", "fused_conv.cu",
-                     "fused_residual_norm.cu", "paged_attention.cu"]
+                     "fused_residual_norm.cu", "paged_attention.cu",
+                     "pool_bwd.cu", "xent.cu"]
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 64
     assert _build.pad_up(13, 8) == 16 and _build.pad_up(16, 8) == 16

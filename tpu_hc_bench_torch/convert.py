@@ -31,6 +31,18 @@ It is built from ``decoder_layer_params_from_flax`` (one ``layer_i``) and
 ``attention_params_from_flax`` (one ``MultiHeadAttention_0``), which
 convert those modules alone.
 
+``bert_params_from_flax(params)`` takes a ``BertMLM`` Flax param tree
+(unrolled ``layer_i`` layout) and returns the ``state_dict`` of the
+port's ``models.bert.BertMLM``.  Layout rules:
+
+- ``tok_embed``/``pos_embed`` ``.embedding`` map to the ``nn.Embedding``
+  weights, ``LayerNorm_0`` (after the embeddings) to ``ln_embed``;
+- per layer, ``MultiHeadAttention_0`` maps as above to ``attn``,
+  ``LayerNorm_0``/``LayerNorm_1`` to ``ln1``/``ln2`` and
+  ``Dense_0``/``Dense_1`` (transposed) to ``fc``/``proj``;
+- ``mlm_dense`` (transposed) and ``mlm_ln`` keep their names, and
+  ``mlm_bias [V]`` maps unchanged.
+
 ``resnet_variables_from_flax(params, batch_stats)`` takes a Flax
 ``ResNet`` (v1 bottleneck family) tree in either layout, unfused
 (``BottleneckBlock_i``) or fused (``FusedBottleneckBlock_i``), and
@@ -136,6 +148,32 @@ def gpt_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
     for i in range(n_layers):
         for k, v in decoder_layer_params_from_flax(
                 params[f"layer_{i}"]).items():
+            sd[f"layers.{i}.{k}"] = v
+    return sd
+
+
+def bert_layer_params_from_flax(p: dict) -> dict[str, torch.Tensor]:
+    """One ``TransformerLayer``: the ``state_dict`` of the port's
+    ``models.bert.TransformerLayer``."""
+    sd = {"attn." + k: v for k, v in
+          attention_params_from_flax(p["MultiHeadAttention_0"]).items()}
+    for flax_name, port in (("LayerNorm_0", "ln1"), ("LayerNorm_1", "ln2")):
+        _layer_norm(sd, port + ".", p[flax_name])
+    for flax_name, port in (("Dense_0", "fc"), ("Dense_1", "proj")):
+        _dense(sd, port + ".", p[flax_name])
+    return sd
+
+
+def bert_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    sd = {"tok_embed.weight": _t(params["tok_embed"]["embedding"]),
+          "pos_embed.weight": _t(params["pos_embed"]["embedding"]),
+          "mlm_bias": _t(params["mlm_bias"])}
+    _layer_norm(sd, "ln_embed.", params["LayerNorm_0"])
+    _dense(sd, "mlm_dense.", params["mlm_dense"])
+    _layer_norm(sd, "mlm_ln.", params["mlm_ln"])
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    for i in range(n_layers):
+        for k, v in bert_layer_params_from_flax(params[f"layer_{i}"]).items():
             sd[f"layers.{i}.{k}"] = v
     return sd
 

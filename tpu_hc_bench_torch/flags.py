@@ -186,7 +186,7 @@ LATER_SLICE_TRAIN_FLAGS = (
     "keep_checkpoints", "inject_fault", "moe_capacity_factor",
     "fusion_threshold_bytes", "trace_dir", "profile_steps", "metrics_dir",
     "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
-    "fused_xent", "wire_dtype", "accum_dtype", "model_parallel",
+    "wire_dtype", "accum_dtype", "model_parallel",
     "expert_parallel", "pipeline_parallel", "num_microbatches",
     "sequence_parallel", "virtual_devices", "gradient_checkpointing",
     "moe_impl", "rnn_impl", "scan_layers", "moe_f_chunk",
@@ -237,6 +237,8 @@ class BenchmarkConfig:
                                               # CUDA flash kernels)
     seq_len: int | None = None                # text models: override the
                                               # registry sequence length
+    fused_xent: bool = False                  # text models: the CUDA
+                                              # blocked cross-entropy
 
     @property
     def compute_dtype(self) -> str:
@@ -297,7 +299,8 @@ class BenchmarkConfig:
             f"use_space_to_depth={self.use_space_to_depth} "
             f"num_classes={self.num_classes}",
             f"attention_impl={self.attention_impl} "
-            f"seq_len={self.seq_len or 'model default'}",
+            f"seq_len={self.seq_len or 'model default'} "
+            f"fused_xent={self.fused_xent}",
         ]
 
 

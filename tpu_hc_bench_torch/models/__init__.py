@@ -1,6 +1,7 @@
 """Model registry of the port: the ``--model=`` dispatch, for the members
 ported so far (``llama_1b`` and ``llama_tiny`` for serving; ``resnet50``,
-``resnet101``, ``resnet152``, ``gpt2`` and ``gpt2_medium`` for training).
+``resnet101``, ``resnet152``, ``gpt2``, ``gpt2_medium``, ``bert_base``,
+``bert_large`` and ``bert_tiny`` for training).
 
 ``get_model_spec`` and ``create_model`` keep the JAX package's names and
 return values (``create_model`` returns ``(model, spec)``); the port's
@@ -20,7 +21,7 @@ from typing import Callable
 import torch
 
 from tpu_hc_bench_torch import resolve_device
-from tpu_hc_bench_torch.models import gpt, llama, resnet
+from tpu_hc_bench_torch.models import bert, gpt, llama, resnet
 
 
 # a text model's dropout stream is seeded apart from its weights' stream
@@ -57,6 +58,16 @@ def _registry() -> dict[str, ModelSpec]:
         ModelSpec("gpt2_medium", gpt.gpt2_medium, vocab_size=gpt.GPT2_VOCAB,
                   causal_lm=True, is_text=True, input_shape=(gpt.GPT2_CTX,),
                   flops_per_example=2 * 355e6 * gpt.GPT2_CTX),
+        # masked-LM encoders at the JAX registry's sequences and figures
+        ModelSpec("bert_base", bert.bert_base_mlm,
+                  vocab_size=bert.BERT_BASE_VOCAB, is_text=True,
+                  input_shape=(128,), flops_per_example=2 * 110e6 * 128),
+        ModelSpec("bert_large", bert.bert_large_mlm,
+                  vocab_size=bert.BERT_BASE_VOCAB, is_text=True,
+                  input_shape=(128,), flops_per_example=2 * 335e6 * 128),
+        ModelSpec("bert_tiny", bert.bert_tiny_mlm, vocab_size=1024,
+                  is_text=True, input_shape=(64,),
+                  flops_per_example=2 * 4.5e6 * 64),
         # ResNet v1.5 forward FLOPs at 224^2 (2 x MACs), the JAX figures
         ModelSpec("resnet50", resnet.resnet50, flops_per_example=8.2e9,
                   **image),

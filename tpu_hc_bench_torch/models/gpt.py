@@ -6,7 +6,9 @@ medium (24L/1024H, ~355M).  The dense MLP only: the MoE members, scanned
 layers, rematerialisation and the pipeline interface come with later
 slices and raise here.
 
-What must match the Flax modules, and how:
+What must match the Flax modules, and how (``Dense``, ``LayerNorm``,
+``dropout`` and ``tied_logits`` live in ``models/bert.py``, which both
+families use):
 
 - **Dtype policy.** Parameters float32; the compute ``dtype`` (float32
   or bfloat16) for activations, with every product in ``dtype`` and
@@ -38,74 +40,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_hc_bench_torch.models.bert import (
-    Dense, MultiHeadAttention, global_position_ids)
+    Dense, LayerNorm, MultiHeadAttention, dropout, global_position_ids,
+    tied_logits)
 
 GPT2_VOCAB = 50257
 GPT2_CTX = 1024
 EMBED_DROPOUT = 0.1
 RESID_DROPOUT = 0.1
-LN_EPS = 1e-6           # Flax LayerNorm's default
-
-
-class LayerNorm(nn.Module):
-    """Flax ``nn.LayerNorm(dtype=...)``: float32 statistics, scale and
-    shift, output in ``dtype``."""
-
-    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
-        super().__init__()
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(dim))
-        self.bias = nn.Parameter(torch.empty(dim))
-
-    @torch.no_grad()
-    def init_weights(self, generator: torch.Generator | None = None) -> None:
-        self.weight.fill_(1.0)
-        self.bias.zero_()
-
-    def forward(self, x):
-        return F.layer_norm(x.float(), self.weight.shape, self.weight,
-                            self.bias, LN_EPS).to(self.dtype)
-
-
-def dropout(x, rate: float, generator: torch.Generator | None,
-            training: bool):
-    """Flax ``nn.Dropout``: keep with probability ``1 - rate``, kept
-    values scaled by ``1 / (1 - rate)``; the identity outside training."""
-    if not training or rate == 0.0:
-        return x
-    keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
-
-
-def _mm_f32(a, b):
-    """``a @ b`` of two ``dtype`` matrices as float32, float32 sums."""
-    if a.dtype == torch.bfloat16 and a.is_cuda:
-        return torch.mm(a, b, out_dtype=torch.float32)
-    return a.float() @ b.float()
-
-
-class _TiedHead(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _mm_f32(x, w.t())
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g = g.to(x.dtype)
-        return _mm_f32(g, w).to(x.dtype), _mm_f32(g.t(), x).to(w.dtype)
-
-
-def tied_logits(x, table, dtype: torch.dtype):
-    """``[b, s, hidden]`` against the float32 ``[vocab, hidden]`` table,
-    both in ``dtype``: float32 ``[b, s, vocab]`` logits."""
-    b, s, hidden = x.shape
-    out = _TiedHead.apply(x.to(dtype).reshape(b * s, hidden),
-                          table.to(dtype))
-    return out.view(b, s, -1)
 
 
 class DecoderLayer(nn.Module):

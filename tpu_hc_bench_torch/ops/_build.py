@@ -64,6 +64,17 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _P,             # q k v do lse delta dk dv
         _I, _I, _I, _I, _I, *_QKV_STRIDES,
         _F, _I, _I, _P],
+    "thb_softmax_xent_fwd": [
+        _P, _P, _P, _P,                             # logits labels loss lse
+        _I, _I, _I, _P],                            # n v dtype stream
+    "thb_softmax_xent_bwd": [
+        _P, _P, _P, _P, _P,                         # logits labels lse g dx
+        _I, _I, _I, _P],                            # n v dtype stream
+    "thb_max_pool_bwd": [
+        _P, _P, _P, _P,                             # x y dy dx
+        _I, _I, _I, _I, _I, _I,                     # b h w c ho wo
+        _I, _I, _I, _I, _I, _I,                     # wh ww sh sw top left
+        _I, _P],                                    # dtype stream
 }
 
 

@@ -6,9 +6,10 @@ allocator's warm-up fall there, as XLA's compile does in the JAX lane),
 then ``num_batches`` timed steps on one fixed synthetic batch, a line
 ``{step}\\timages/sec: {rate}\\tloss: {loss}`` every ``display_every``
 steps, and a final ``total images/sec`` line.  Image models train on
-``SyntheticImages``; text models (gpt2, gpt2_medium) on one
-``SyntheticTokens`` batch, whose "images" are sequences, as in the JAX
-lane.
+``SyntheticImages``; text models (gpt2 and gpt2_medium next-token,
+bert_base, bert_large and bert_tiny masked-LM) on one ``SyntheticTokens``
+batch, whose "images" are sequences, as in the JAX lane.  The result
+states the text arm's routes, ``attention_impl`` and ``fused_xent``.
 
 Timing: the total is the host clock from the end of warmup to the
 device's end of the last step.  Each timed step also records a CUDA
@@ -56,6 +57,8 @@ class BenchmarkResult:
     fabric: str
     device_kind: str
     mfu_source: str = "analytic"     # 3 x spec.flops_per_example
+    attention_impl: str = "dense"    # text models: dense | flash
+    fused_xent: bool = False         # text models: the blocked xent kernels
 
     def json_line(self) -> dict:
         """The fields as a dict for strict JSON: NaN (no MFU) is None."""
@@ -104,7 +107,8 @@ def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
     spec = get_model_spec(cfg.model)
     if spec.serve_only:
         raise ValueError(f"--model={cfg.model}: the port's training lane "
-                         "runs resnet50/101/152 and gpt2/gpt2_medium")
+                         "runs resnet50/101/152, gpt2/gpt2_medium and "
+                         "bert_base/bert_large/bert_tiny")
     if cfg.fused_conv and not spec.fused_conv:
         raise ValueError(f"--fused_conv applies to the v1 bottleneck "
                          f"resnets, not {cfg.model}")
@@ -166,7 +170,8 @@ def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
         images_per_sec_per_chip=per_chip, mean_step_ms=mean_ms,
         p50_step_ms=p50_ms, p50_step_granularity=1, mfu=mfu,
         final_loss=final_loss, fabric=fabric, device_kind=kind,
-        mfu_source="analytic" if peak else "no peak for this device")
+        mfu_source="analytic" if peak else "no peak for this device",
+        attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent)
     print_fn("-" * 40)
     print_fn(f"total images/sec: {total_rate:.2f}")
     mfu_txt = (f"{100 * mfu:.1f}% (analytic)" if peak

@@ -8,7 +8,10 @@ of the forward; a text model draws its dropout masks), the loss, backward,
 optimizer update.  Two loss arms, by the batch: ``(images, labels)``
 takes the integer-label softmax cross-entropy averaged over the batch;
 ``(tokens, targets, weights)`` the per-token cross-entropy on float32
-logits, weighted and averaged over the weights (the text arm).  With one
+logits, weighted and averaged over the weights (the text arm), where
+``--fused_xent`` swaps ``F.cross_entropy`` for the blocked kernels of
+``ops.xent.softmax_xent``, as in the JAX step; the image arm keeps
+``F.cross_entropy`` either way.  With one
 worker there is no gradient reduction; the NCCL arm comes with the
 multi-card slice.
 
@@ -26,16 +29,19 @@ import torch
 import torch.nn.functional as F
 
 from tpu_hc_bench_torch.flags import BenchmarkConfig
+from tpu_hc_bench_torch.ops.xent import softmax_xent
 
 
 @dataclasses.dataclass
 class TrainState:
     """The model (parameters and BN running statistics), its optimizer
-    and the step count; ``train_step`` updates all three in place."""
+    and the step count, which ``train_step`` updates in place, and the
+    text arm's loss route (``--fused_xent``)."""
 
     model: torch.nn.Module
     optimizer: torch.optim.Optimizer
     step: int = 0
+    fused_xent: bool = False
 
 
 def make_optimizer(cfg: BenchmarkConfig,
@@ -53,7 +59,8 @@ def make_optimizer(cfg: BenchmarkConfig,
 def make_train_state(model: torch.nn.Module,
                      cfg: BenchmarkConfig) -> TrainState:
     return TrainState(model.train(),
-                      make_optimizer(cfg, model.parameters()))
+                      make_optimizer(cfg, model.parameters()),
+                      fused_xent=cfg.fused_xent)
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -63,21 +70,28 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss_fn(logits: torch.Tensor, targets: torch.Tensor,
-               weights: torch.Tensor) -> torch.Tensor:
-    """The JAX text arm: ``optax.softmax_cross_entropy_with_integer_labels``
-    per token on float32 logits, then ``(losses * weights).sum() /
-    max(weights.sum(), 1)``."""
-    losses = F.cross_entropy(logits.float().flatten(0, -2),
-                             targets.flatten(), reduction="none")
+               weights: torch.Tensor, fused_xent: bool = False
+               ) -> torch.Tensor:
+    """The JAX text arm: the per-token cross-entropy on float32 logits
+    (``optax.softmax_cross_entropy_with_integer_labels``, or with
+    ``fused_xent`` the blocked kernels' ``softmax_xent``), then
+    ``(losses * weights).sum() / max(weights.sum(), 1)``."""
+    flat, labels = logits.flatten(0, -2), targets.flatten()
+    if fused_xent:
+        losses = softmax_xent(flat, labels)
+    else:
+        losses = F.cross_entropy(flat.float(), labels, reduction="none")
     losses = losses.view(targets.shape)
     return (losses * weights).sum() / weights.sum().clamp_min(1.0)
 
 
-def batch_loss(model: torch.nn.Module, batch) -> torch.Tensor:
-    """The forward and the loss arm that ``batch`` calls for."""
+def batch_loss(model: torch.nn.Module, batch,
+               fused_xent: bool = False) -> torch.Tensor:
+    """The forward and the loss arm that ``batch`` calls for;
+    ``fused_xent`` applies to the text arm only."""
     if len(batch) == 3:
         tokens, targets, weights = batch
-        return lm_loss_fn(model(tokens), targets, weights)
+        return lm_loss_fn(model(tokens), targets, weights, fused_xent)
     images, labels = batch
     return loss_fn(model(images), labels)
 
@@ -88,7 +102,7 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     tensor}`` (left on the device: reading it is a host sync, which the
     driver does at display steps only)."""
     state.optimizer.zero_grad(set_to_none=True)
-    loss = batch_loss(state.model, batch)
+    loss = batch_loss(state.model, batch, state.fused_xent)
     loss.backward()
     state.optimizer.step()
     state.step += 1
