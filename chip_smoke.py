@@ -11,10 +11,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    card, at the serving lane's llama_1b shapes, with the tolerance
    stated: paged decode attention (f32 and int8 pools, 1 and 2 pages per
    block) and the fused residual+norm (8 and 512 rows, rmsnorm and
-   layernorm).  Times are CUDA events, median of 50 launches after
-   warmup, with the L2 cache flushed before each launch; ``library_ms``
-   times one PyTorch call of the same function, which the port never
-   calls.
+   layernorm).  Times are CUDA events, median of 50 calls after warmup,
+   with the L2 cache flushed before each call and the card then held in
+   a ~0.2 ms spin, so the host's Python and launch overhead (enqueued
+   meanwhile) stays out of the device time; ``library_ms`` times one
+   PyTorch call of the same function, which the port never calls.
 3. **parity**: llama_1b at full width, seeded weights: two prompts
    prefilled, then 4 decode steps on a fixed token feed; the ``paged``
    program's logits against the ``gather`` program's.
@@ -28,7 +29,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    Beside the kernel: the plain version, ``library_ms`` (one cuDNN
    ``F.conv2d`` of a precomputed ``relu(y1*a+b)``) and ``unfused_ms``
    (the port's off-window composition: BN-apply+relu, cuDNN conv, stats
-   from the rounded output).
+   from the rounded output); each record names the kernel design that
+   ran (``conv_design``: the wgmma kernel for bf16) and its TFLOP/s and
+   share of the bound.
 6. **train parity**: resnet50 at full width, float32, batch 16 at
    224x224, seeded weights (BN scales and shifts perturbed, so every
    gradient is live); the fused and unfused routes from one
@@ -47,6 +50,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, and at BERT-base's
    non-causal ``[128, 128, 12, 64]`` in bf16; ``library_ms`` is
    ``F.scaled_dot_product_attention``'s forward, and its backward alone.
+   The forward's plain version runs at the kernel's tiles
+   (``fwd_blocks``), the backward passes take the forward kernel's o and
+   lse; each record names its design (bf16 forward: wgmma) and its
+   TFLOP/s and share of the bound.
 9. **lm_train_parity**: gpt2 (batch 2 x seq 1024) and bert_base (batch
    8 x seq 128, the MLM batch) at full width in float32, dropout off,
    three arms from one ``state_dict``, one momentum-SGD step each:
@@ -128,6 +135,10 @@ FUSED_LAUNCHES_PER_STEP = 8        # resnet50: 3 blocks at 28x28x128,
                                    # 5 at 14x14x256
 TIMED_ITERS = 50
 WARMUP_ITERS = 5
+# the card spins this many cycles (~0.2 ms) after each L2 flush, before the
+# start event: the host enqueues the timed call meanwhile, so its Python
+# and launch overhead stays out of the device time
+HEAD_START_CYCLES = 400_000
 # flash kernels vs their plain versions, relative to the output's largest
 # magnitude: f32 sums over <= 1024 keys in another order; bf16 outputs are
 # rounded to 2^-8 of their magnitude, and P and dS are rounded to bf16
@@ -215,7 +226,9 @@ def nvidia_smi_line() -> str:
 
 
 class Timer:
-    """CUDA-event timing of single launches, L2 flushed before each."""
+    """CUDA-event timing of single calls on the card, L2 flushed before
+    each; a spin after the flush gives the host a head start, so a call
+    whose host work fits in it is timed by its device work alone."""
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -230,6 +243,7 @@ class Timer:
         times = []
         for _ in range(iters):
             self.flush.zero_()
+            torch.cuda._sleep(HEAD_START_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -480,7 +494,7 @@ def phase_conv(torch, dev, timer, smi) -> dict:
     import torch.nn.functional as F
 
     from tpu_hc_bench_torch.ops.fused_conv import (
-        eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
+        conv_design, eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
 
     torch.backends.cudnn.benchmark = True       # as the train driver
     gen = torch.Generator(device=dev)
@@ -531,6 +545,7 @@ def phase_conv(torch, dev, timer, smi) -> dict:
             bound_ms, bound_by = bound(nbytes, ops, peak)
             rec = {"phase": "conv", "name": "fused_bn_relu_conv",
                    "shape": [n, h, h, cin], "cout": cout, "dtype": dname,
+                   "design": conv_design(dtype, h, cin, cout),
                    "eligible": eligible((n, h, h, cin), (3, 3), 1, cin),
                    "max_abs_err": abs_err, "y2_rel_err": errs[0],
                    "s1_rel_err": errs[1], "s2_rel_err": errs[2],
@@ -540,6 +555,8 @@ def phase_conv(torch, dev, timer, smi) -> dict:
                    "unfused_ms": unfused_ms,
                    "kernel_over_unfused": ms / unfused_ms,
                    "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+                   "tflops": ops / ms / 1e9,
+                   "pct_of_bound": 100.0 * bound_ms / ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "peak_ops_per_s": peak, "nvidia_smi": smi}
             emit(rec)
@@ -714,12 +731,19 @@ def phase_flash(torch, dev, timer, smi) -> dict:
                           device=dev).to(dtype)
         q, k, v = qkv.unbind(2)
         do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
-        o_ref, lse_ref = fa_mod.flash_fwd_plain(q, k, v, causal)
-        delta = fa_mod.delta_rows(o_ref, do)
-        bwd_args = (q, k, v, do, lse_ref, delta, causal)
+        # the backward passes take the forward kernel's o and lse, as in
+        # training; the forward's plain version runs at the kernel's tiles
+        o_fwd, lse_fwd = fa_mod.flash_fwd(q, k, v, causal)
+        delta = fa_mod.delta_rows(o_fwd, do)
+        bwd_args = (q, k, v, do, lse_fwd, delta, causal)
+        bq, bk = fa_mod.fwd_blocks(dtype, d)
+        designs = {"fwd": fa_mod.fwd_design(dtype),
+                   "dq": "wmma" if dname == "bfloat16" else "fma",
+                   "dkv": "wmma" if dname == "bfloat16" else "fma"}
         calls = {
             "fwd": (lambda: fa_mod.flash_fwd(q, k, v, causal),
-                    lambda: fa_mod.flash_fwd_plain(q, k, v, causal)),
+                    lambda: fa_mod.flash_fwd_plain(q, k, v, causal,
+                                                   block_q=bq, block_k=bk)),
             "dq": (lambda: fa_mod.flash_dq(*bwd_args),
                    lambda: fa_mod.flash_dq_plain(*bwd_args)),
             "dkv": (lambda: fa_mod.flash_dkv(*bwd_args),
@@ -760,12 +784,15 @@ def phase_flash(torch, dev, timer, smi) -> dict:
             bound_ms, bound_by = bound(nbytes, ops, peak)
             rec = {"phase": "flash", "name": FLASH_KERNELS[name][0],
                    "shape": [b, s, h, d], "dtype": dname, "causal": causal,
+                   "design": designs[name],
                    "max_abs_err": abs_err, "rel_errs": errs,
                    "tol": FLASH_TOL[dname], "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_fwd if name == "fwd" else lib_bwd,
                    "library_note": ("SDPA forward" if name == "fwd" else
                                     "SDPA backward alone (dq, dk and dv)"),
                    "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
+                   "tflops": ops / ms / 1e9,
+                   "pct_of_bound": 100.0 * bound_ms / ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "nvidia_smi": smi}
             emit(rec)
@@ -773,7 +800,7 @@ def phase_flash(torch, dev, timer, smi) -> dict:
                 raise AssertionError(f"flash {name} disagrees: {rec}")
             if (b, s, h, d, dname, causal) == FLASH_CASES[0]:
                 rows[FLASH_KERNELS[name][0]] = rec
-        del qkv, q, k, v, do, o_ref, lse_ref, delta, calls, bwd_args
+        del qkv, q, k, v, do, o_fwd, lse_fwd, delta, calls, bwd_args
         torch.cuda.empty_cache()
     fa.launches.update(dict.fromkeys(fa.launches, 0))
     return rows
@@ -1158,10 +1185,12 @@ def main() -> int:
             "tpu_hc_bench_torch/csrc/fused_residual_norm.cu",
             "tpu_hc_bench/ops/fused_residual_ln.py:53"),
         "fused_bn_relu_conv": (
-            "tpu_hc_bench_torch/csrc/fused_conv.cu",
+            "tpu_hc_bench_torch/csrc/fused_conv_sm90.cu",
             "tpu_hc_bench/ops/fused_conv.py:147"),
         **{row: ("tpu_hc_bench_torch/csrc/flash_attention.cu", replaces)
            for row, replaces in FLASH_KERNELS.values()},
+        "flash_attention_fwd": ("tpu_hc_bench_torch/csrc/flash_fwd_sm90.cu",
+                                FLASH_KERNELS["fwd"][1]),
         **{row: ("tpu_hc_bench_torch/csrc/xent.cu", replaces)
            for row, replaces in XENT_KERNELS.values()},
         "max_pool_bwd": ("tpu_hc_bench_torch/csrc/pool_bwd.cu",

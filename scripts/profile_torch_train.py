@@ -50,9 +50,10 @@ from profile_torch_serve import _kernel_table  # noqa: E402
 
 # kernel class -> name fragments (lower case), matched in this order
 CLASSES = (
-    ("fused_conv_kernel", ("fused_bn_relu_conv", "stats_reduce")),
-    ("flash_kernels", ("flash_fwd_kernel", "flash_dq_kernel",
-                       "flash_dkv_kernel")),
+    ("fused_conv_kernel", ("fused_bn_relu_conv", "fused_conv_sm90",
+                           "stats_reduce")),
+    ("flash_kernels", ("flash_fwd_kernel", "flash_fwd_sm90",
+                       "flash_dq_kernel", "flash_dkv_kernel")),
     ("softmax_xent", ("softmax", "nll_loss", "xent_")),
     ("conv_matmul", ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad",
                      "dgrad", "implicit", "nvjet")),

@@ -37,11 +37,12 @@ from tpu_hc_bench.ops.fused_residual_ln import (
 from tpu_hc_bench.ops.paged_attention import (
     paged_decode_attention as jax_paged_decode_attention)
 from tpu_hc_bench_torch.ops import _build
+from tpu_hc_bench_torch.ops import fused_conv as torch_fused_conv
 from tpu_hc_bench_torch.ops.flash_attention import (
     delta_rows, flash_attention, flash_attention_plain, flash_dkv_plain,
-    flash_dq_plain, flash_fwd_plain)
+    flash_dq_plain, flash_fwd_plain, fwd_blocks, fwd_design)
 from tpu_hc_bench_torch.ops.fused_conv import (
-    eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
+    conv_design, eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
 from tpu_hc_bench_torch.ops.fused_residual_ln import (
     fused_residual_norm, fused_residual_norm_plain)
 from tpu_hc_bench_torch.ops.paged_attention import (
@@ -321,6 +322,34 @@ def test_fused_conv_eligible_matches_jax():
     assert not eligible((128, 7, 7, 512), (3, 3), 1, 512)
 
 
+def test_fused_conv_design_rule():
+    """The wrapper's shape rule: bf16 with Cin % 64 == 0 and W <= 62 runs
+    the wgmma kernel (128 output channels a block where Cout allows,
+    else 64), other bf16 shapes the WMMA kernel, float32 the FMA kernel;
+    a shape no kernel takes raises before any launch.  The wgmma kernel's
+    partial stats come one row per 128 positions of its padded order."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    assert conv_design(bf16, 28, 128, 128) == "wgmma_n128"
+    assert conv_design(bf16, 14, 256, 256) == "wgmma_n128"
+    assert conv_design(bf16, 56, 64, 64) == "wgmma_n64"
+    assert conv_design(bf16, 7, 512, 512) == "wgmma_n128"
+    assert conv_design(bf16, 7, 64, 192) == "wgmma_n64"
+    assert conv_design(bf16, 62, 64, 128) == "wgmma_n128"
+    assert conv_design(bf16, 63, 64, 128) == "wmma"
+    assert conv_design(bf16, 112, 128, 128) == "wmma"
+    assert conv_design(bf16, 28, 96, 128) == "wmma"
+    assert conv_design(f32, 28, 128, 128) == "fma"
+    for dtype, cin, cout in ((bf16, 48, 64), (bf16, 64, 96),
+                             (f32, 16, 64), (torch.float16, 64, 64)):
+        with pytest.raises(ValueError):
+            conv_design(dtype, 14, cin, cout)
+    rows = torch_fused_conv._part_rows
+    assert rows("wgmma_n128", 128, 28, 28) == -(-128 * 29 * 29 // 128)
+    assert rows("wgmma_n64", 3, 7, 7) == 2            # 3 * 8 * 8 = 192
+    assert rows("wmma", 3, 7, 7) == 2                 # 147 pixels
+    assert rows("fma", 2, 8, 8) == 1
+
+
 def test_fused_bn_relu_conv_validation():
     y1, a, b, w = (_t(v) for v in _conv_inputs(1, 4, 8, 8, seed=0))
     with pytest.raises(ValueError, match="3,3"):
@@ -412,6 +441,52 @@ def test_flash_plain_parts_are_the_backward():
         _close_rel(got, t.grad, FLASH_GRAD_TOL, name)
 
 
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,dtype", [
+    (1, 200, 200, 2, 64, True, torch.float32),
+    (1, 200, 200, 2, 64, False, torch.bfloat16),
+    (1, 150, 300, 2, 128, False, torch.float32),    # ragged sq and sk
+    (1, 256, 256, 1, 128, True, torch.bfloat16),
+])
+def test_flash_plain_at_the_wgmma_tiles_matches_jax(b, sq, sk, h, d, causal,
+                                                    dtype):
+    """The plain forward at the bf16 kernel's tiles (128 queries against
+    128 keys at head dim 64, 64 keys at 128) against the Pallas forward
+    (interpret mode) at the same blocks: float32 within the attention
+    bound, bf16 within one bf16 rounding of the output's largest
+    magnitude."""
+    block_q, block_k = fwd_blocks(torch.bfloat16, d)
+    q, k, v = _flash_inputs(b, sq, sk, h, d, seed=sq + sk + d + causal)
+    want = jax_flash_attention(
+        *(jnp.asarray(a).astype(jnp.bfloat16 if dtype == torch.bfloat16
+                                else jnp.float32) for a in (q, k, v)),
+        causal=causal, block_q=block_q, block_k=block_k)
+    got = flash_attention_plain(
+        *(_t(a).to(dtype) for a in (q, k, v)), causal=causal,
+        block_q=block_q, block_k=block_k)
+    assert got.dtype == dtype
+    want = np.asarray(want, np.float32)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(got.numpy(), want, atol=ATTN_ATOL)
+    else:
+        _close_rel(got.float(), want, FLASH_BF16_TOL, "o")
+
+
+def test_flash_fwd_design_rule():
+    """bf16 runs the wgmma forward at 128-query tiles (128 keys at head
+    dim 64, 64 at 128), float32 the FMA forward at 64-row tiles; another
+    dtype or head dim raises."""
+    assert fwd_design(torch.bfloat16) == "wgmma"
+    assert fwd_design(torch.float32) == "fma"
+    assert fwd_blocks(torch.bfloat16, 64) == (128, 128)
+    assert fwd_blocks(torch.bfloat16, 128) == (128, 64)
+    assert fwd_blocks(torch.float32, 64) == (64, 64)
+    assert fwd_blocks(torch.float32, 128) == (64, 64)
+    with pytest.raises(ValueError, match="float16"):
+        fwd_design(torch.float16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fwd_blocks(torch.bfloat16, 32)
+
+
 def test_flash_attention_validation():
     q = torch.zeros((1, 8, 2, 16))
     with pytest.raises(ValueError, match="share"):
@@ -468,9 +543,12 @@ def test_cpu_flash_attention_runs_the_plain_version_and_counts_no_launch():
 
 def test_kernel_build_hash_covers_every_source():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["flash_attention.cu", "fused_conv.cu",
+    assert names == ["flash_attention.cu", "flash_fwd_sm90.cu",
+                     "fused_conv.cu", "fused_conv_sm90.cu",
                      "fused_residual_norm.cu", "paged_attention.cu",
-                     "pool_bwd.cu", "xent.cu"]
+                     "pool_bwd.cu", "sm90_selftest.cu", "xent.cu"]
+    # the shared header is hashed too: a change to it rebuilds
+    assert [p.name for p in _build._CSRC.glob("*.cuh")] == ["sm90.cuh"]
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 64
     assert _build.pad_up(13, 8) == 16 and _build.pad_up(16, 8) == 16

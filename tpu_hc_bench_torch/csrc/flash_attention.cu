@@ -2,8 +2,9 @@
 // passes (dQ; dK and dV), each one kernel.
 //
 // Replaces: tpu_hc_bench/ops/flash_attention.py, the three Pallas kernels
-// reached from `flash_attention`: `_fwd_kernel` (through `_fwd_call`),
-// `_dq_kernel` and `_dkv_kernel` (both through `_bwd_call`).
+// reached from `flash_attention`: `_fwd_kernel` (through `_fwd_call`; in
+// float32, bf16 is flash_fwd_sm90.cu's), `_dq_kernel` and `_dkv_kernel`
+// (both through `_bwd_call`).
 //
 //   forward:  S = Q K^T * scale, masked to -1e30 (key past seq_k, or a key
 //             after the query under `causal`: qpos >= kpos, both from 0);
@@ -48,7 +49,11 @@
 // grid axis runs in order and carries the accumulator in VMEM; here a loop
 // inside the block does, and the blocks run in parallel.
 //
-// Not yet done: wgmma, TMA or cp.async staging and double buffering.
+// Not yet done for dQ and dK/dV: wgmma, TMA or cp.async staging and
+// double buffering (sm90.cuh holds the building blocks).
+//
+// The bf16 forward runs on flash_fwd_sm90.cu's wgmma kernel; the forward
+// here serves float32 only (FMA units, the plain version's arithmetic).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -475,9 +480,13 @@ int launch(Which which, const Params& p, cudaStream_t stream) {
   void (*kernel)(const Params);
   int smem, tiles;
   if (which == kFwd) {
-    kernel = flash_fwd_kernel<T, D>;
-    smem = G::fwd;
-    tiles = (p.sq + kB - 1) / kB;
+    if constexpr (std::is_same<T, bf16>::value) {
+      return static_cast<int>(cudaErrorInvalidValue);   // flash_fwd_sm90
+    } else {
+      kernel = flash_fwd_kernel<T, D>;
+      smem = G::fwd;
+      tiles = (p.sq + kB - 1) / kB;
+    }
   } else if (which == kDq) {
     kernel = flash_dq_kernel<T, D>;
     smem = G::dq;
@@ -529,20 +538,38 @@ Params make_params(const void* q, const void* k, const void* v, int b, int h,
 
 }  // namespace
 
+namespace thb {
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int b, int h, int sq, int sk, int d,
+                   const long long* qs, const long long* ks,
+                   const long long* vs, float scale, int causal,
+                   cudaStream_t stream);
+}
+
 // Each entry returns cudaGetLastError() after its launch (0 when it was
 // accepted), or cudaErrorInvalidValue for a head dim other than 64 or 128.
 // Strides are in elements: batch, sequence, head, for q, k and v.
 
+// The forward: bf16 on the wgmma kernel (flash_fwd_sm90.cu), float32 on
+// this file's; *design is set to the one that ran: 2 wgmma, 1 FMA.
 extern "C" int thb_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
     int h, int sq, int sk, int d, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, float scale, int causal, int is_bf16, void* stream) {
+    long long vsh, float scale, int causal, int is_bf16, int* design,
+    void* stream) {
   Params p = make_params(q, k, v, b, h, sq, sk, qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, scale, causal);
+  if (is_bf16) {
+    *design = 2;
+    return thb::flash_fwd_sm90(q, k, v, o, lse, b, h, sq, sk, d, p.qs, p.ks,
+                               p.vs, scale, causal,
+                               static_cast<cudaStream_t>(stream));
+  }
+  *design = 1;
   p.o = o;
   p.lse = static_cast<float*>(lse);
-  return dispatch(kFwd, p, d, is_bf16, stream);
+  return dispatch(kFwd, p, d, 0, stream);
 }
 
 extern "C" int thb_flash_attention_dq(

@@ -2,7 +2,11 @@
 // Hopper (sm_90a).
 //
 // Replaces: tpu_hc_bench/ops/fused_conv.py, the Pallas kernel `_kernel`
-// reached from `fused_bn_relu_conv` through `_fused_fwd_impl`.
+// reached from `fused_bn_relu_conv` through `_fused_fwd_impl`, in
+// float32, and in bf16 where Cin is a multiple of 32 but not of 64; the
+// other bf16 shapes run on fused_conv_sm90.cu's wgmma kernel (the
+// wrapper's shape rule, ops/fused_conv.py `conv_design`).  The entry and
+// the stats reduction here serve both files.
 //
 //   xn = relu(y1 * a + b)            (BN folded to scale/shift, f32 math,
 //                                     rounded to y1's dtype)
@@ -32,7 +36,8 @@
 // fixed order, so the stats are deterministic (CUDA blocks run in no
 // order, unlike the Pallas grid's sequential axis).
 //
-// Not yet done: double-buffered cp.async/TMA staging and wgmma.
+// Not yet done here: double-buffered staging and wgmma (see
+// fused_conv_sm90.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -322,36 +327,58 @@ __global__ void stats_reduce_kernel(const float* __restrict__ part1,
 
 template <typename T>
 int launch(const void* x, const void* w, const void* a, const void* b,
-           void* y, void* part1, void* part2, void* s1, void* s2, int n,
-           int h, int wd, int cin, int cout, cudaStream_t stream) {
-  const int M = n * h * wd;
-  const int tiles = (M + kBM - 1) / kBM;
+           void* y, void* part1, void* part2, int n, int h, int wd, int cin,
+           int cout, cudaStream_t stream) {
+  const int tiles = (n * h * wd + kBM - 1) / kBM;
   dim3 grid(tiles, cout / kBN);
   fused_bn_relu_conv_kernel<T><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(a), static_cast<const float*>(b),
       static_cast<T*>(y), static_cast<float*>(part1),
       static_cast<float*>(part2), n, h, wd, cin, cout);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  stats_reduce_kernel<<<(cout + 31) / 32, 256, 0, stream>>>(
-      static_cast<const float*>(part1), static_cast<const float*>(part2),
-      static_cast<float*>(s1), static_cast<float*>(s2), tiles, cout);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() after the launches (0 when both were
-// accepted).  cin must be a multiple of 32 and cout of 64; part1/part2
-// are [ceil(n*h*w / 128), cout] float32 scratch.
+namespace thb {
+int fused_conv_sm90_tiles(int n, int h, int wd);
+int fused_conv_sm90(const void* x, const void* w, const void* a,
+                    const void* b, void* y, void* part1, void* part2, int n,
+                    int h, int wd, int cin, int cout, int bn,
+                    cudaStream_t stream);
+}
+
+// The main kernel by `design`, then the fixed-order reduction of its
+// partial sums.  design 0: this file's kernel in float32 (FMA units);
+// 1: in bf16 (WMMA; cin % 32 == 0); 2 and 3: fused_conv_sm90.cu's wgmma
+// kernel with 128 and 64 output channels a block (bf16; cin % 64 == 0,
+// wd <= 62, cout % 128 and % 64 == 0).  cout must be a multiple of 64;
+// part1/part2 are [part_rows, cout] float32 scratch, at least one row per
+// block along the pixels: ceil(n*h*wd / 128) for designs 0 and 1,
+// ceil(n*(h+1)*(wd+1) / 128) for 2 and 3.  Returns cudaGetLastError()
+// after the launches (0 when both were accepted), or
+// cudaErrorInvalidValue for an unknown design or too few part_rows.
 extern "C" int thb_fused_bn_relu_conv(
     const void* x, const void* w, const void* a, const void* b, void* y,
     void* part1, void* part2, void* s1, void* s2, int n, int h, int wd,
-    int cin, int cout, int is_bf16, void* stream) {
+    int cin, int cout, int design, int part_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<bf16>(x, w, a, b, y, part1, part2, s1, s2, n, h,
-                                wd, cin, cout, s)
-                 : launch<float>(x, w, a, b, y, part1, part2, s1, s2, n, h,
-                                 wd, cin, cout, s);
+  const int tiles = design >= 2 ? thb::fused_conv_sm90_tiles(n, h, wd)
+                                : (n * h * wd + kBM - 1) / kBM;
+  if (design < 0 || design > 3 || part_rows < tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (design == 0)
+    err = launch<float>(x, w, a, b, y, part1, part2, n, h, wd, cin, cout, s);
+  else if (design == 1)
+    err = launch<bf16>(x, w, a, b, y, part1, part2, n, h, wd, cin, cout, s);
+  else
+    err = thb::fused_conv_sm90(x, w, a, b, y, part1, part2, n, h, wd, cin,
+                               cout, design == 2 ? 128 : 64, s);
+  if (err != cudaSuccess) return err;
+  stats_reduce_kernel<<<(cout + 31) / 32, 256, 0, s>>>(
+      static_cast<const float*>(part1), static_cast<const float*>(part2),
+      static_cast<float*>(s1), static_cast<float*>(s2), tiles, cout);
+  return static_cast<int>(cudaGetLastError());
 }

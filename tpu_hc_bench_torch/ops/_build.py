@@ -51,11 +51,13 @@ _SIGNATURES = {
         _I, _I, _F, _I, _P],                        # rows hidden eps ln stream
     "thb_fused_bn_relu_conv": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P,         # x w a b y p1 p2 s1 s2
-        _I, _I, _I, _I, _I, _I, _P],                # n h w cin cout bf16 stream
+        _I, _I, _I, _I, _I,                         # n h w cin cout
+        _I, _I, _P],                                # design part_rows stream
     "thb_flash_attention_fwd": [
         _P, _P, _P, _P, _P,                         # q k v o lse
         _I, _I, _I, _I, _I, *_QKV_STRIDES,          # b h sq sk d strides
-        _F, _I, _I, _P],                            # scale causal bf16 stream
+        _F, _I, _I,                                 # scale causal bf16
+        ctypes.POINTER(_I), _P],                    # design (out) stream
     "thb_flash_attention_dq": [
         _P, _P, _P, _P, _P, _P, _P,                 # q k v do lse delta dq
         _I, _I, _I, _I, _I, *_QKV_STRIDES,
@@ -75,6 +77,8 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I,                     # b h w c ho wo
         _I, _I, _I, _I, _I, _I,                     # wh ww sh sw top left
         _I, _P],                                    # dtype stream
+    "thb_sm90_wgmma_tile": [
+        _P, _P, _P, _I, _I, _I, _P],                # a b c n k mode stream
 }
 
 

@@ -23,18 +23,23 @@ input dtype before its two products, ``O`` and the gradients to the
 input dtype at the end.
 
 ``flash_attention`` keeps the JAX signature, ``[b, s, h, d]`` in and
-out.  For CUDA tensors it launches ``csrc/flash_attention.cu`` (forward,
-then dQ and dK/dV in the backward) and counts each launch in
-``flash_attention.launches``; for CPU tensors it runs the plain version
-with the kernels' 64-row tiles.  The kernels read ``q``, ``k``, ``v``
-through their strides, so the views of one fused QKV projection need no
-copy, and they mask the ragged last tile themselves: no padding copy
-either.  ``flash_attention_plain`` is the same blocked algorithm in
+out.  For CUDA tensors it launches the forward, then dQ and dK/dV in the
+backward, and counts each launch in ``flash_attention.launches``; for
+CPU tensors it runs the plain version with 64-row tiles.  The forward
+has two designs (``fwd_design``): bf16 runs ``csrc/flash_fwd_sm90.cu``
+(wgmma, 128-query tiles against 128-key tiles at head dim 64 and 64-key
+tiles at 128, ``fwd_blocks``), float32 the FMA kernel of
+``csrc/flash_attention.cu``, where dQ and dK/dV live (64-row tiles).
+The kernels read ``q``, ``k``, ``v`` through their strides, so the views
+of one fused QKV projection need no copy, and they mask the ragged last
+tile themselves: no padding copy either.  ``flash_attention_plain`` is the same blocked algorithm in
 PyTorch with the block sizes as arguments, differentiable through the
 same backward formulas.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -42,13 +47,34 @@ from tpu_hc_bench_torch.ops import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
            "flash_dq", "flash_dkv", "flash_fwd_plain", "flash_dq_plain",
-           "flash_dkv_plain", "delta_rows", "KERNELS"]
+           "flash_dkv_plain", "delta_rows", "fwd_design", "fwd_blocks",
+           "KERNELS"]
 
 _NEG_INF = -1e30
 _BLOCK = 64                     # kB in csrc/flash_attention.cu
 _HEAD_DIMS = (64, 128)          # the kernel's template cases
 _DTYPES = (torch.float32, torch.bfloat16)
 KERNELS = ("fwd", "dq", "dkv")
+_FWD_DESIGNS = {1: "fma", 2: "wgmma"}   # the C entry's design codes
+
+
+def fwd_design(dtype) -> str:
+    """The forward kernel a CUDA call of this dtype runs: ``"wgmma"``
+    (bf16, ``csrc/flash_fwd_sm90.cu``) or ``"fma"`` (float32,
+    ``csrc/flash_attention.cu``)."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"no forward kernel for {dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
+
+
+def fwd_blocks(dtype, head_dim: int) -> tuple[int, int]:
+    """``(block_q, block_k)`` of the forward kernel for this dtype and head
+    dim: the tiles its plain version repeats."""
+    if fwd_design(dtype) == "fma":
+        return _BLOCK, _BLOCK
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"the kernels take head_dim 64 or 128: {head_dim}")
+    return 128, 128 if head_dim == 64 else 64
 
 
 def _scale(q, scale):
@@ -277,12 +303,16 @@ def flash_fwd(q, k, v, causal=False, scale=None):
     b, h, sq, sk, d = _dims(q, k)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    design = ctypes.c_int(0)
     err = _build.load_library().thb_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, sq, sk, d, *_qkv_strides(q, k, v),
         _scale(q, scale), int(causal), int(q.dtype == torch.bfloat16),
-        _build.stream_ptr(q.device))
+        ctypes.byref(design), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention forward")
+    if _FWD_DESIGNS.get(design.value) != fwd_design(q.dtype):
+        raise RuntimeError(f"flash_attention forward ran design "
+                           f"{design.value} for {q.dtype}")
     flash_attention.launches["fwd"] += 1
     return o, lse
 

@@ -13,10 +13,14 @@ NEXT BatchNorm::
     y2 = conv3x3(xn, w)            SAME, stride 1, zero halo after relu
     s1, s2 = sum(y2), sum(y2^2)    per channel, from the f32 accumulator
 
-The kernel (``csrc/fused_conv.cu``) is an implicit GEMM that stages
-``relu(y1*a+b)`` into shared memory, so the normalized input never goes
-through device memory.  ``fused_bn_relu_conv`` launches it for CUDA
-tensors and runs ``fused_bn_relu_conv_plain`` for CPU tensors.  Layouts
+The kernel is an implicit GEMM that stages ``relu(y1*a+b)`` into shared
+memory, so the normalized input never goes through device memory.
+``fused_bn_relu_conv`` launches it for CUDA tensors and runs
+``fused_bn_relu_conv_plain`` for CPU tensors.  It has three designs,
+chosen by dtype and shape (``conv_design``): bf16 with Cin a multiple of
+64 and W <= 62 runs ``csrc/fused_conv_sm90.cu`` (wgmma, 128 or 64 output
+channels a block), the other bf16 shapes the WMMA kernel of
+``csrc/fused_conv.cu``, and float32 that file's FMA kernel.  Layouts
 are the JAX package's (``ops.fused_conv``): ``y1`` ``[N, H, W, Cin]``,
 ``w`` ``[3, 3, Cin, Cout]``, ``y2`` ``[N, H, W, Cout]`` in ``y1``'s dtype
 (float32 or bfloat16); an NCHW tensor in ``channels_last`` is this
@@ -34,12 +38,45 @@ import torch.nn.functional as F
 
 from tpu_hc_bench_torch.ops import _build
 
-__all__ = ["fused_bn_relu_conv", "fused_bn_relu_conv_plain", "eligible"]
+__all__ = ["fused_bn_relu_conv", "fused_bn_relu_conv_plain", "eligible",
+           "conv_design"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
-_TILE_M = 128           # pixels per block (kBM in csrc/fused_conv.cu)
-_CIN_STEP = 32          # kBK: Cin must be a multiple
+_TILE_M = 128           # pixels (wgmma: padded positions) per block, kBM
+_CIN_STEP = 32          # kBK of csrc/fused_conv.cu: Cin must be a multiple
 _COUT_STEP = 64         # kBN: Cout must be a multiple
+_WGMMA_MAX_W = 62       # the wgmma kernel's window, 128 + 2 (W + 2) rows,
+                        # holds at most 256
+# design -> the C entry's code
+_DESIGNS = {"fma": 0, "wmma": 1, "wgmma_n128": 2, "wgmma_n64": 3}
+
+
+def conv_design(dtype, width: int, cin: int, cout: int) -> str:
+    """The kernel a CUDA call runs, by dtype and shape: ``"wgmma_n128"``
+    (bf16, Cin % 64 == 0, W <= 62, Cout % 128 == 0) or ``"wgmma_n64"``
+    (the same with Cout % 64 == 0 only) on ``csrc/fused_conv_sm90.cu``;
+    ``"wmma"`` (the other bf16 shapes: Cin % 32 == 0) and ``"fma"``
+    (float32) on ``csrc/fused_conv.cu``.  Raises for a shape no kernel
+    takes."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"no kernel for {dtype}")
+    if cin % _CIN_STEP or cout % _COUT_STEP:
+        raise ValueError(f"the kernel takes Cin % {_CIN_STEP} == 0 and "
+                         f"Cout % {_COUT_STEP} == 0: {cin}, {cout}")
+    if dtype == torch.float32:
+        return "fma"
+    if cin % 64 or width > _WGMMA_MAX_W:
+        return "wmma"
+    return "wgmma_n128" if cout % 128 == 0 else "wgmma_n64"
+
+
+def _part_rows(design: str, n: int, h: int, w: int) -> int:
+    """Rows of the per-block partial stats: one per block along the
+    pixels, which the wgmma kernel numbers with a zero slot after every
+    image row and a zero row after every image."""
+    if design.startswith("wgmma"):
+        return -(-n * (h + 1) * (w + 1) // _TILE_M)
+    return -(-n * h * w // _TILE_M)
 
 
 def _nchw(t: torch.Tensor) -> torch.Tensor:
@@ -90,12 +127,10 @@ def _launch(y1, a, b, w):
                          "must start on a 16-byte boundary")
     n, h, wd, cin = y1.shape
     cout = w.shape[-1]
-    if cin % _CIN_STEP or cout % _COUT_STEP:
-        raise ValueError(f"the kernel takes Cin % {_CIN_STEP} == 0 and "
-                         f"Cout % {_COUT_STEP} == 0: {cin}, {cout}")
+    design = conv_design(y1.dtype, wd, cin, cout)
     y2 = torch.empty((n, h, wd, cout), dtype=y1.dtype, device=y1.device)
-    tiles = -(-(n * h * wd) // _TILE_M)
-    part = torch.empty((2, tiles, cout), dtype=torch.float32,
+    rows = _part_rows(design, n, h, wd)
+    part = torch.empty((2, rows, cout), dtype=torch.float32,
                        device=y1.device)
     stats = torch.empty((2, cout), dtype=torch.float32, device=y1.device)
     lib = _build.load_library()
@@ -103,7 +138,7 @@ def _launch(y1, a, b, w):
         y1.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(),
         y2.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
         stats[0].data_ptr(), stats[1].data_ptr(), n, h, wd, cin, cout,
-        int(y1.dtype == torch.bfloat16), _build.stream_ptr(y1.device))
+        _DESIGNS[design], rows, _build.stream_ptr(y1.device))
     _build.check(err, "fused_bn_relu_conv")
     fused_bn_relu_conv.launches += 1
     return y2, stats[0], stats[1]
