@@ -47,13 +47,22 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    against their plain versions on the same inputs, at the GPT-2 shape
    ``[16, 1024, 12, 64]`` causal in bf16 (q, k, v views of one fused
    projection, as the model hands them over) and in float32, at an
-   unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, and at BERT-base's
-   non-causal ``[128, 128, 12, 64]`` in bf16; ``library_ms`` is
-   ``F.scaled_dot_product_attention``'s forward, and its backward alone.
-   The forward's plain version runs at the kernel's tiles
-   (``fwd_blocks``), the backward passes take the forward kernel's o and
-   lse; each record names its design (bf16 forward: wgmma) and its
-   TFLOP/s and share of the bound.
+   unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, at BERT-base's
+   non-causal ``[128, 128, 12, 64]`` in bf16 and at bert_tiny's head dim
+   32 (``[128, 128, 4, 32]``, zero-padded to 64 as ``flash_attention``
+   pads it); ``library_ms`` is ``F.scaled_dot_product_attention``'s
+   forward, and its backward alone (the median of five medians: its
+   spread is wide).  Each plain version runs at its kernel's tiles
+   (``fwd_blocks``, ``bwd_blocks``), the backward passes take the
+   forward kernel's o and lse; each record names the design the wrapper
+   reports for its launch (bf16: wgmma) and its TFLOP/s and share of the
+   bound.  Then b * h = 65540 (``[16385, 40, 4, 64]`` causal bf16): the
+   three kernels at once, the first and last batch rows against the
+   plain versions run on those rows alone.  Last, the padded route:
+   ``flash_attention`` at bert_tiny's ``[128, 128, 4, 32]`` through
+   autograd, one launch of each kernel, o and the gradients at width 32
+   with the bits of the kernels on inputs zero-padded to 64, and within
+   the tolerance of the plain versions at width 32.
 9. **lm_train_parity**: gpt2 (batch 2 x seq 1024) and bert_base (batch
    8 x seq 128, the MLM batch) at full width in float32, dropout off,
    three arms from one ``state_dict``, one momentum-SGD step each:
@@ -145,11 +154,21 @@ HEAD_START_CYCLES = 400_000
 # before their products, where a last-bit difference in the f32 score
 # can flip a rounding
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-# (b, s, h, d, dtype, causal): the main path's shape first
+# (b, s, h, d, dtype, causal): the main path's shape first; head dim 32
+# (bert_tiny's widths, batch 128 x seq 128) runs zero-padded to 64
 FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
                (16, 1024, 12, 64, "float32", True),
                (4, 1000, 6, 128, "bfloat16", False),
-               (128, 128, 12, 64, "bfloat16", False))       # bert_base
+               (128, 128, 12, 64, "bfloat16", False),       # bert_base
+               (128, 128, 4, 32, "bfloat16", False))        # bert_tiny
+# b * h just above 65535 (the grid's y limit): the three kernels at once,
+# the first and last batch rows held to the plain version on them alone
+FLASH_WIDE_CASE = (16385, 40, 4, 64, "bfloat16", True)
+FLASH_WIDE_ROWS = (0, 16384)
+# flash_attention at a head dim the kernels do not take: bert_tiny's
+# widths (batch 128 x seq 128, 4 heads of 32), zero-padded to 64 inside
+FLASH_PADDED_CASE = (128, 128, 4, 32, "bfloat16", False)
+SDPA_BWD_REPEATS = 5               # SDPA's backward spread 0.30-0.71 ms
 PLAIN_ITERS = 10                   # the plain version loops over tiles
 FLASH_KERNELS = {                  # kernel -> (row name, Pallas call)
     "fwd": ("flash_attention_fwd", "tpu_hc_bench/ops/flash_attention.py:134"),
@@ -715,6 +734,19 @@ def _attn_pairs(sq: int, sk: int, causal: bool) -> int:
     return sum(min(i + 1, sk) for i in range(sq))
 
 
+def _flash_case_inputs(torch, F, fa_mod, gen, dev, b, s, h, d, dtype):
+    """q, k, v (views of one fused projection) and dO at the kernels' head
+    dim, zero-padded as ``flash_attention`` pads, and the scale of the
+    original head dim."""
+    dp = fa_mod.padded_head_dim(d)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev)
+    do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    if dp != d:
+        qkv, do = F.pad(qkv, (0, dp - d)), F.pad(do, (0, dp - d))
+    q, k, v = qkv.to(dtype).unbind(2)
+    return q, k, v, do, d ** -0.5
+
+
 def phase_flash(torch, dev, timer, smi) -> dict:
     """Phase 8; returns the main-path row of each flash kernel."""
     import torch.nn.functional as F
@@ -727,39 +759,43 @@ def phase_flash(torch, dev, timer, smi) -> dict:
     rows = {}
     for b, s, h, d, dname, causal in FLASH_CASES:
         dtype = getattr(torch, dname)
-        qkv = torch.randn((b, s, 3, h, d), generator=gen,
-                          device=dev).to(dtype)
-        q, k, v = qkv.unbind(2)
-        do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+        q, k, v, do, scale = _flash_case_inputs(torch, F, fa_mod, gen, dev,
+                                                b, s, h, d, dtype)
         # the backward passes take the forward kernel's o and lse, as in
-        # training; the forward's plain version runs at the kernel's tiles
-        o_fwd, lse_fwd = fa_mod.flash_fwd(q, k, v, causal)
+        # training; each plain version runs at its kernel's tiles
+        o_fwd, lse_fwd = fa_mod.flash_fwd(q, k, v, causal, scale)
         delta = fa_mod.delta_rows(o_fwd, do)
-        bwd_args = (q, k, v, do, lse_fwd, delta, causal)
+        bwd_args = (q, k, v, do, lse_fwd, delta, causal, scale)
         bq, bk = fa_mod.fwd_blocks(dtype, d)
-        designs = {"fwd": fa_mod.fwd_design(dtype),
-                   "dq": "wmma" if dname == "bfloat16" else "fma",
-                   "dkv": "wmma" if dname == "bfloat16" else "fma"}
+        blocks = fa_mod.bwd_blocks(dtype, d)
         calls = {
-            "fwd": (lambda: fa_mod.flash_fwd(q, k, v, causal),
-                    lambda: fa_mod.flash_fwd_plain(q, k, v, causal,
+            "fwd": (lambda: fa_mod.flash_fwd(q, k, v, causal, scale),
+                    lambda: fa_mod.flash_fwd_plain(q, k, v, causal, scale,
                                                    block_q=bq, block_k=bk)),
             "dq": (lambda: fa_mod.flash_dq(*bwd_args),
-                   lambda: fa_mod.flash_dq_plain(*bwd_args)),
+                   lambda: fa_mod.flash_dq_plain(
+                       *bwd_args, block_q=blocks["dq"][0],
+                       block_k=blocks["dq"][1])),
             "dkv": (lambda: fa_mod.flash_dkv(*bwd_args),
-                    lambda: fa_mod.flash_dkv_plain(*bwd_args)),
+                    lambda: fa_mod.flash_dkv_plain(
+                        *bwd_args, block_q=blocks["dkv"][0],
+                        block_k=blocks["dkv"][1])),
         }
-        # the yardstick: SDPA on [b, h, s, d] copies, forward, and its
-        # backward alone (all three gradients)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_()
-                      for t in (q, k, v))
+        # the yardstick: SDPA on [b, h, s, d] copies at the original head
+        # dim, forward, and its backward alone (all three gradients), the
+        # backward timed SDPA_BWD_REPEATS times for its spread
+        qt, kt, vt = (t[..., :d].transpose(1, 2).contiguous()
+                      .requires_grad_() for t in (q, k, v))
         lib_fwd = timer.median_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
-        dot = do.transpose(1, 2).contiguous()
-        lib_bwd = timer.median_ms(lambda: torch.autograd.grad(
+        dot = do[..., :d].transpose(1, 2).contiguous()
+        lib_bwds = [timer.median_ms(lambda: torch.autograd.grad(
             out, (qt, kt, vt), dot, retain_graph=True))
+            for _ in range(SDPA_BWD_REPEATS)]
+        lib_bwd = statistics.median(lib_bwds)
         del out, qt, kt, vt, dot
+        # the function's own work at the original head dim
         pairs = b * h * _attn_pairs(s, s, causal)
         elt = q.element_size()
         tile = b * s * h * d * elt                      # one [b,s,h,d]
@@ -769,8 +805,10 @@ def phase_flash(torch, dev, timer, smi) -> dict:
                 "dkv": (6 * tile + 2 * rows_f32, 8.0 * pairs * d)}
         peak = BF16_OPS_PER_S if dname == "bfloat16" else F32_OPS_PER_S
         for name, (kernel, plain) in calls.items():
+            fa.designs[name] = None
             got, want = kernel(), plain()
             torch.cuda.synchronize()
+            design = fa.designs[name]
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             errs = [rel_err(g, w) for g, w in zip(got, want)]
@@ -784,26 +822,153 @@ def phase_flash(torch, dev, timer, smi) -> dict:
             bound_ms, bound_by = bound(nbytes, ops, peak)
             rec = {"phase": "flash", "name": FLASH_KERNELS[name][0],
                    "shape": [b, s, h, d], "dtype": dname, "causal": causal,
-                   "design": designs[name],
+                   "kernel_head_dim": q.shape[-1], "design": design,
+                   "plain_blocks": [bq, bk] if name == "fwd"
+                   else list(blocks[name]),
                    "max_abs_err": abs_err, "rel_errs": errs,
                    "tol": FLASH_TOL[dname], "ms": ms, "plain_ms": plain_ms,
                    "library_ms": lib_fwd if name == "fwd" else lib_bwd,
                    "library_note": ("SDPA forward" if name == "fwd" else
-                                    "SDPA backward alone (dq, dk and dv)"),
+                                    "SDPA backward alone (dq, dk and dv), "
+                                    "median of the repeats"),
                    "gflop": ops / 1e9, "mbytes": nbytes / 1e6,
                    "tflops": ops / ms / 1e9,
                    "pct_of_bound": 100.0 * bound_ms / ms,
                    "bound_ms": bound_ms, "bound_by": bound_by,
                    "nvidia_smi": smi}
+            if name != "fwd":
+                rec["library_ms_repeats"] = lib_bwds
             emit(rec)
+            want_design = (fa_mod.fwd_design(dtype) if name == "fwd"
+                           else fa_mod.bwd_design(dtype))
+            if design != want_design:
+                raise AssertionError(f"flash {name} ran {design}: {rec}")
             if not max(errs) <= FLASH_TOL[dname]:
                 raise AssertionError(f"flash {name} disagrees: {rec}")
             if (b, s, h, d, dname, causal) == FLASH_CASES[0]:
                 rows[FLASH_KERNELS[name][0]] = rec
-        del qkv, q, k, v, do, o_fwd, lse_fwd, delta, calls, bwd_args
+        del q, k, v, do, o_fwd, lse_fwd, delta, calls, bwd_args
         torch.cuda.empty_cache()
+    phase_flash_wide(torch, dev, timer, smi, fa_mod)
+    phase_flash_padded(torch, dev, smi, fa_mod)
     fa.launches.update(dict.fromkeys(fa.launches, 0))
     return rows
+
+
+def phase_flash_padded(torch, dev, smi, fa_mod) -> None:
+    """Phase 8, the padded route: ``flash_attention`` at bert_tiny's head
+    dim 32 through autograd, one launch of each kernel; o and the
+    gradients at the caller's width with the bits of the kernels called
+    on inputs zero-padded to 64 (so the wrapper padded and sliced back),
+    and within FLASH_TOL of the plain versions at the unpadded width
+    (each at its kernel's tiles)."""
+    import torch.nn.functional as F
+
+    b, s, h, d, dname, causal = FLASH_PADDED_CASE
+    dtype = getattr(torch, dname)
+    fa = fa_mod.flash_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    before = dict(fa.launches)
+    x = qkv.clone().requires_grad_()
+    o = fa(*x.unbind(2), causal=causal)
+    o.backward(do)
+    torch.cuda.synchronize()
+    launched = {k: fa.launches[k] - before[k] for k in before}
+    grads = x.grad.unbind(2)
+    # the kernels on explicitly padded inputs, with the scale of d
+    dp = fa_mod.padded_head_dim(d)
+    scale = 1.0 / d ** 0.5
+    pq, pk, pv = F.pad(qkv, (0, dp - d)).unbind(2)
+    pdo = F.pad(do, (0, dp - d))
+    po, plse = fa_mod.flash_fwd(pq, pk, pv, causal, scale)
+    pargs = (pq, pk, pv, pdo, plse, fa_mod.delta_rows(po, pdo), causal,
+             scale)
+    padded = (po, fa_mod.flash_dq(*pargs), *fa_mod.flash_dkv(*pargs))
+    same_bits = all(torch.equal(g, p[..., :d])
+                    for g, p in zip((o.detach(), *grads), padded))
+    # the plain versions at the unpadded width
+    q, k, v = qkv.unbind(2)
+    bq, bk = fa_mod.fwd_blocks(dtype, d)
+    blocks = fa_mod.bwd_blocks(dtype, d)
+    want_o, lse = fa_mod.flash_fwd_plain(q, k, v, causal, block_q=bq,
+                                         block_k=bk)
+    args = (q, k, v, do, lse, fa_mod.delta_rows(want_o, do), causal)
+    want_dq = fa_mod.flash_dq_plain(*args, block_q=blocks["dq"][0],
+                                    block_k=blocks["dq"][1])
+    want_dk, want_dv = fa_mod.flash_dkv_plain(*args,
+                                              block_q=blocks["dkv"][0],
+                                              block_k=blocks["dkv"][1])
+    errs = {name: rel_err(g, w) for name, g, w in
+            zip(("o", "dq", "dk", "dv"), (o.detach(), *grads),
+                (want_o, want_dq, want_dk, want_dv))}
+    rec = {"phase": "flash_padded", "shape": [b, s, h, d], "dtype": dname,
+           "causal": causal, "kernel_head_dim": dp,
+           "launches": launched, "out_shapes": [list(o.shape),
+                                                list(x.grad.shape)],
+           "same_bits_as_padded_kernels": same_bits, "rel_errs": errs,
+           "tol": FLASH_TOL[dname], "designs": dict(fa.designs),
+           "nvidia_smi": smi}
+    emit(rec)
+    ok = (launched == dict.fromkeys(launched, 1) and same_bits
+          and tuple(o.shape) == (b, s, h, d) and x.grad.shape == qkv.shape
+          and max(errs.values()) <= FLASH_TOL[dname])
+    if not ok:
+        raise AssertionError(f"flash padded route: {rec}")
+    del qkv, do, x, o, grads, padded, pq, pk, pv, pdo, po, plse, pargs
+    torch.cuda.empty_cache()
+
+
+def phase_flash_wide(torch, dev, timer, smi, fa_mod) -> None:
+    """Phase 8: b * h above 65535 through the three kernels;
+    the first and last batch rows against the plain versions run on those
+    rows alone (each plain version at its kernel's tiles)."""
+    b, s, h, d, dname, causal = FLASH_WIDE_CASE
+    dtype = getattr(torch, dname)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    qkv = torch.randn((b, s, 3, h, d), generator=gen, device=dev).to(dtype)
+    do = torch.randn((b, s, h, d), generator=gen, device=dev).to(dtype)
+    q, k, v = qkv.unbind(2)
+    o, lse = fa_mod.flash_fwd(q, k, v, causal)
+    delta = fa_mod.delta_rows(o, do)
+    args = (q, k, v, do, lse, delta, causal)
+    dq = fa_mod.flash_dq(*args)
+    dk, dv = fa_mod.flash_dkv(*args)
+    torch.cuda.synchronize()
+    sel = list(FLASH_WIDE_ROWS)
+    bq, bk = fa_mod.fwd_blocks(dtype, d)
+    blocks = fa_mod.bwd_blocks(dtype, d)
+    qs, ks, vs, dos = (t[sel] for t in (q, k, v, do))
+    want_o, want_lse = fa_mod.flash_fwd_plain(qs, ks, vs, causal,
+                                              block_q=bq, block_k=bk)
+    rows = (qs, ks, vs, dos, lse[sel].contiguous(),
+            delta[sel].contiguous(), causal)
+    want_dq = fa_mod.flash_dq_plain(*rows, block_q=blocks["dq"][0],
+                                    block_k=blocks["dq"][1])
+    want_dk, want_dv = fa_mod.flash_dkv_plain(*rows,
+                                              block_q=blocks["dkv"][0],
+                                              block_k=blocks["dkv"][1])
+    errs = {"o": rel_err(o[sel], want_o),
+            "lse": float((lse[sel] - want_lse).abs().max()),
+            "dq": rel_err(dq[sel], want_dq), "dk": rel_err(dk[sel], want_dk),
+            "dv": rel_err(dv[sel], want_dv)}
+    ms = {"fwd": timer.median_ms(lambda: fa_mod.flash_fwd(q, k, v, causal)),
+          "dq": timer.median_ms(lambda: fa_mod.flash_dq(*args)),
+          "dkv": timer.median_ms(lambda: fa_mod.flash_dkv(*args))}
+    rec = {"phase": "flash_wide", "shape": [b, s, h, d], "dtype": dname,
+           "causal": causal, "batch_x_heads": b * h,
+           "rows_checked": sel, "rel_errs": errs,
+           "tol": FLASH_TOL[dname], "ms": ms,
+           "designs": dict(fa_mod.flash_attention.designs),
+           "nvidia_smi": smi}
+    emit(rec)
+    if not max(errs.values()) <= FLASH_TOL[dname]:
+        raise AssertionError(f"flash at b*h {b * h} disagrees: {rec}")
+    del qkv, do, q, k, v, o, lse, delta, dq, dk, dv
+    torch.cuda.empty_cache()
 
 
 def phase_lm_train_parity(torch, dev, smi) -> None:
@@ -1187,10 +1352,10 @@ def main() -> int:
         "fused_bn_relu_conv": (
             "tpu_hc_bench_torch/csrc/fused_conv_sm90.cu",
             "tpu_hc_bench/ops/fused_conv.py:147"),
-        **{row: ("tpu_hc_bench_torch/csrc/flash_attention.cu", replaces)
-           for row, replaces in FLASH_KERNELS.values()},
         "flash_attention_fwd": ("tpu_hc_bench_torch/csrc/flash_fwd_sm90.cu",
                                 FLASH_KERNELS["fwd"][1]),
+        **{FLASH_KERNELS[k][0]: ("tpu_hc_bench_torch/csrc/flash_bwd_sm90.cu",
+                                 FLASH_KERNELS[k][1]) for k in ("dq", "dkv")},
         **{row: ("tpu_hc_bench_torch/csrc/xent.cu", replaces)
            for row, replaces in XENT_KERNELS.values()},
         "max_pool_bwd": ("tpu_hc_bench_torch/csrc/pool_bwd.cu",

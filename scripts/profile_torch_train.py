@@ -53,7 +53,8 @@ CLASSES = (
     ("fused_conv_kernel", ("fused_bn_relu_conv", "fused_conv_sm90",
                            "stats_reduce")),
     ("flash_kernels", ("flash_fwd_kernel", "flash_fwd_sm90",
-                       "flash_dq_kernel", "flash_dkv_kernel")),
+                       "flash_dq_kernel", "flash_dkv_kernel",
+                       "flash_dq_sm90", "flash_dkv_sm90")),
     ("softmax_xent", ("softmax", "nll_loss", "xent_")),
     ("conv_matmul", ("conv", "cudnn", "xmma", "gemm", "cutlass", "wgrad",
                      "dgrad", "implicit", "nvjet")),

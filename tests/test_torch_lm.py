@@ -139,6 +139,44 @@ def test_local_attention_dense_matches_flash_and_jax(causal, kv_repeat):
     _close(flash, dense, TOL["float32"][0], "flash vs dense")
 
 
+def test_bert_tiny_flash_matches_jax():
+    """``bert_tiny`` at its own widths (4 layers, hidden 128, 4 heads of
+    head dim 32, which the flash route zero-pads to the kernels' 64) with
+    ``--attention_impl=flash``, float32, dropout off: the weighted MLM
+    loss and the gradients' global norm against the JAX model (its flash
+    kernel in Pallas interpret mode) at ``train=False``, within 1e-4
+    relative (sums in another order through four layers and a
+    backward)."""
+    model = jax_bert.bert_tiny_mlm(dtype=jnp.float32, attention_impl="flash")
+    params = _perturb(model.init(jax.random.PRNGKey(6),
+                                 jnp.zeros((1, 8), jnp.int32),
+                                 train=False)["params"], 16)
+    batch = SyntheticTokens(2, 64, 1024, seed=16).batch()
+
+    def jax_loss(p):
+        tokens, targets, weights = batch
+        logits = model.apply({"params": p}, tokens, train=False)
+        losses = optax.softmax_cross_entropy_with_integer_labels(logits,
+                                                                 targets)
+        return (losses * weights).sum() / jnp.maximum(weights.sum(), 1.0)
+
+    loss, grads = jax.jit(jax.value_and_grad(jax_loss))(params)
+    want_norm = float(np.sqrt(sum(
+        float(np.sum(np.square(np.asarray(g, np.float64))))
+        for g in jax.tree_util.tree_leaves(grads))))
+    port = bert.bert_tiny_mlm(torch.float32, "flash")
+    port.load_state_dict(convert.bert_params_from_flax(_np_tree(params)))
+    port.eval()
+    tokens, targets, weights = tokens_to_device(batch, torch.device("cpu"))
+    t_loss = step_mod.lm_loss_fn(port(tokens), targets, weights)
+    t_loss.backward()
+    norm = float(torch.sqrt(sum((p.grad.double() ** 2).sum()
+                                for p in port.parameters())))
+    assert abs(float(t_loss.detach()) - float(loss)) <= \
+        1e-4 * abs(float(loss))
+    assert abs(norm - want_norm) <= 1e-4 * want_norm, (norm, want_norm)
+
+
 def test_local_attention_rejects_sequence_parallel_impls():
     q = torch.zeros((1, 8, 2, 8))
     for impl in ("ring", "ulysses", "ulysses_flash"):

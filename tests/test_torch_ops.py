@@ -39,8 +39,9 @@ from tpu_hc_bench.ops.paged_attention import (
 from tpu_hc_bench_torch.ops import _build
 from tpu_hc_bench_torch.ops import fused_conv as torch_fused_conv
 from tpu_hc_bench_torch.ops.flash_attention import (
-    delta_rows, flash_attention, flash_attention_plain, flash_dkv_plain,
-    flash_dq_plain, flash_fwd_plain, fwd_blocks, fwd_design)
+    bwd_blocks, bwd_design, delta_rows, flash_attention,
+    flash_attention_plain, flash_dkv_plain, flash_dq_plain, flash_fwd_plain,
+    fwd_blocks, fwd_design, padded_head_dim)
 from tpu_hc_bench_torch.ops.fused_conv import (
     conv_design, eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
 from tpu_hc_bench_torch.ops.fused_residual_ln import (
@@ -473,18 +474,157 @@ def test_flash_plain_at_the_wgmma_tiles_matches_jax(b, sq, sk, h, d, causal,
 
 def test_flash_fwd_design_rule():
     """bf16 runs the wgmma forward at 128-query tiles (128 keys at head
-    dim 64, 64 at 128), float32 the FMA forward at 64-row tiles; another
-    dtype or head dim raises."""
+    dim 64, 64 at 128), float32 the FMA forward at 64-row tiles; a head
+    dim below 128 takes the tiles of the one it is padded to; another
+    dtype, or a head dim above 128, raises."""
     assert fwd_design(torch.bfloat16) == "wgmma"
     assert fwd_design(torch.float32) == "fma"
     assert fwd_blocks(torch.bfloat16, 64) == (128, 128)
     assert fwd_blocks(torch.bfloat16, 128) == (128, 64)
     assert fwd_blocks(torch.float32, 64) == (64, 64)
     assert fwd_blocks(torch.float32, 128) == (64, 64)
+    assert fwd_blocks(torch.bfloat16, 32) == (128, 128)
+    assert fwd_blocks(torch.bfloat16, 96) == (128, 64)
     with pytest.raises(ValueError, match="float16"):
         fwd_design(torch.float16)
     with pytest.raises(ValueError, match="head_dim"):
-        fwd_blocks(torch.bfloat16, 32)
+        fwd_blocks(torch.bfloat16, 192)
+
+
+def test_flash_bwd_design_rule():
+    """bf16 runs the wgmma dQ kernel (128 query rows over 64-key tiles)
+    and dK/dV kernel (128 keys over 64-query tiles) at either head dim,
+    float32 the FMA kernels at 64-row tiles; another dtype, or a head dim
+    above 128, raises."""
+    assert bwd_design(torch.bfloat16) == "wgmma"
+    assert bwd_design(torch.float32) == "fma"
+    for d in (16, 32, 64, 96, 128):
+        assert bwd_blocks(torch.bfloat16, d) == {"dq": (128, 64),
+                                                 "dkv": (64, 128)}
+        assert bwd_blocks(torch.float32, d) == {"dq": (64, 64),
+                                                "dkv": (64, 64)}
+    with pytest.raises(ValueError, match="float16"):
+        bwd_design(torch.float16)
+    with pytest.raises(ValueError, match="head_dim"):
+        bwd_blocks(torch.bfloat16, 192)
+
+
+@pytest.mark.parametrize("d,want", [(1, 64), (16, 64), (32, 64), (64, 64),
+                                    (65, 128), (96, 128), (128, 128)])
+def test_flash_padded_head_dim_rule(d, want):
+    assert padded_head_dim(d) == want
+
+
+@pytest.mark.parametrize("d", [0, 129, 192, 256])
+def test_flash_head_dim_above_128_raises(d):
+    """The kernels' rule, which the card route goes through, raises
+    outside 1..128 (``test_torch_sm90.py`` holds the card to it); the CPU
+    route takes a head dim above 128 unpadded (below)."""
+    with pytest.raises(ValueError, match="head_dim 1..128"):
+        padded_head_dim(d)
+    with pytest.raises(ValueError, match="head_dim"):
+        fwd_blocks(torch.bfloat16, d)
+    with pytest.raises(ValueError, match="head_dim"):
+        bwd_blocks(torch.float32, d)
+
+
+@pytest.mark.parametrize("d", [129, 192])
+def test_flash_cpu_route_takes_head_dim_above_128(d):
+    """As the JAX package does: ``o`` and the gradients of q, k, v under
+    the cotangent of ``sum(o * cos(o))`` against the Pallas kernels
+    (interpret mode) at the same width, within the tolerances above."""
+    b, sq, sk, h = 1, 20, 30, 1
+    q, k, v = _flash_inputs(b, sq, sk, h, d, seed=d)
+
+    def jax_loss(q, k, v):
+        o = jax_flash_attention(q, k, v, causal=True, block_q=16,
+                                block_k=16)
+        return jnp.sum(o * jnp.cos(o)), o
+
+    (_, want), want_grads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    args = [_t(a).requires_grad_() for a in (q, k, v)]
+    o = flash_attention(*args, causal=True)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want),
+                               atol=ATTN_ATOL)
+    (o * torch.cos(o)).sum().backward()
+    for t, wnt, name in zip(args, want_grads, ("dq", "dk", "dv")):
+        _close_rel(t.grad, wnt, FLASH_GRAD_TOL, name)
+
+
+@pytest.mark.parametrize("d", [16, 32, 48, 96])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_padded_head_dim_matches_jax(d, causal):
+    """The padded route (q, k, v zero-padded to 64 or 128 columns, the
+    scale 1/sqrt(d) of the original width, o sliced back) against the
+    Pallas kernels (interpret mode) at the unpadded width: o within the
+    attention bound, and the gradients of q, k, v under the cotangent of
+    ``sum(o * cos(o))`` within 1e-4 of the largest (as above)."""
+    b, sq, sk, h = 1, 70, 90, 2
+    q, k, v = _flash_inputs(b, sq, sk, h, d, seed=d + causal)
+
+    def jax_loss(q, k, v):
+        o = jax_flash_attention(q, k, v, causal=causal, block_q=32,
+                                block_k=32)
+        return jnp.sum(o * jnp.cos(o)), o
+
+    (_, want), want_grads = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    args = [_t(a).requires_grad_() for a in (q, k, v)]
+    o = flash_attention(*args, causal=causal)
+    assert o.shape == (b, sq, h, d)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(want),
+                               atol=ATTN_ATOL)
+    (o * torch.cos(o)).sum().backward()
+    for t, wnt, name in zip(args, want_grads, ("dq", "dk", "dv")):
+        assert t.grad.shape == t.shape
+        _close_rel(t.grad, wnt, FLASH_GRAD_TOL, name)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,d,causal,dtype", [
+    (1, 256, 256, 2, 64, True, torch.float32),
+    (1, 256, 256, 2, 64, True, torch.bfloat16),
+    (1, 200, 330, 2, 64, False, torch.bfloat16),    # ragged sq and sk
+    (1, 150, 300, 1, 128, False, torch.float32),
+    (1, 200, 200, 1, 128, True, torch.bfloat16),     # ragged, causal
+])
+def test_flash_plain_bwd_at_the_kernel_tiles_matches_jax(b, sq, sk, h, d,
+                                                        causal, dtype):
+    """``flash_dq_plain`` and ``flash_dkv_plain`` at the bf16 kernels'
+    tiles (``bwd_blocks``: dQ 128 queries over 64-key tiles, dK/dV 128
+    keys over 64-query tiles) against the gradients of the Pallas
+    kernels (interpret mode) at the same blocks, under one cotangent:
+    float32 within 1e-4 of the largest gradient (a recompute of P from
+    the lse, then sums over the tiles in another order), bf16 within one
+    bf16 rounding of it (1e-2: dS and P rounded to bf16 before their
+    products, where a last-bit difference can round the other way)."""
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    q, k, v = _flash_inputs(b, sq, sk, h, d, seed=sq + sk + d + causal)
+    do = np.random.default_rng(d + causal).standard_normal(
+        (b, sq, h, d)).astype(np.float32)
+    blocks = bwd_blocks(torch.bfloat16, d)
+    want = {}
+    for name, (bq, bk) in blocks.items():
+        _, vjp = jax.vjp(functools.partial(
+            jax_flash_attention, causal=causal, block_q=bq, block_k=bk),
+            *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+        want[name] = vjp(jnp.asarray(do).astype(jdt))
+    tq, tk, tv, tdo = (_t(a).to(dtype) for a in (q, k, v, do))
+    o, lse = flash_fwd_plain(tq, tk, tv, causal)
+    delta = delta_rows(o, tdo)
+    args = (tq, tk, tv, tdo, lse, delta, causal)
+    dq = flash_dq_plain(*args, block_q=blocks["dq"][0],
+                        block_k=blocks["dq"][1])
+    dk, dv = flash_dkv_plain(*args, block_q=blocks["dkv"][0],
+                             block_k=blocks["dkv"][1])
+    tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_GRAD_TOL
+    for got, wnt, name in ((dq, want["dq"][0], "dq"),
+                           (dk, want["dkv"][1], "dk"),
+                           (dv, want["dkv"][2], "dv")):
+        assert got.dtype == dtype
+        _close_rel(got.float(), np.asarray(wnt, np.float32), tol, name)
 
 
 def test_flash_attention_validation():
@@ -543,8 +683,9 @@ def test_cpu_flash_attention_runs_the_plain_version_and_counts_no_launch():
 
 def test_kernel_build_hash_covers_every_source():
     names = sorted(p.name for p in _build._sources())
-    assert names == ["flash_attention.cu", "flash_fwd_sm90.cu",
-                     "fused_conv.cu", "fused_conv_sm90.cu",
+    assert names == ["flash_attention.cu", "flash_bwd_sm90.cu",
+                     "flash_fwd_sm90.cu", "fused_conv.cu",
+                     "fused_conv_sm90.cu",
                      "fused_residual_norm.cu", "paged_attention.cu",
                      "pool_bwd.cu", "sm90_selftest.cu", "xent.cu"]
     # the shared header is hashed too: a change to it rebuilds
@@ -639,11 +780,15 @@ def test_fused_conv_kernel_matches_plain_on_card(cuda_device, dtype, n, h,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,h,d,causal", [(2, 256, 4, 64, True),
                                             (2, 100, 3, 128, False),
-                                            (1, 130, 2, 64, True)])
+                                            (1, 130, 2, 64, True),
+                                            (2, 190, 4, 32, True),
+                                            (1, 333, 2, 128, True)])
 def test_flash_kernels_match_plain_on_card(cuda_device, dtype, b, s, h, d,
                                            causal):
     """The forward, dQ and dK/dV kernels through the autograd wrapper,
-    q, k, v as views of one fused projection: o and the three gradients
+    q, k, v as views of one fused projection (head dim 32 through the
+    padded route; ragged last tiles at s 100, 130, 190 and 333): o and
+    the three gradients
     within 1e-4 (f32: sums in another order) or 1e-2 (bf16: outputs
     rounded to 2^-8, P and dS rounded before their products) of the
     largest magnitude, one launch of each kernel."""

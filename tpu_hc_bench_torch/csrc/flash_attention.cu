@@ -1,10 +1,11 @@
-// Flash attention for Hopper (sm_90a): the forward and the two backward
-// passes (dQ; dK and dV), each one kernel.
+// Flash attention for Hopper (sm_90a) in float32: the forward and the two
+// backward passes (dQ; dK and dV), each one kernel, and the C entries of
+// all flash kernels (bf16 runs flash_fwd_sm90.cu and flash_bwd_sm90.cu).
 //
 // Replaces: tpu_hc_bench/ops/flash_attention.py, the three Pallas kernels
-// reached from `flash_attention`: `_fwd_kernel` (through `_fwd_call`; in
-// float32, bf16 is flash_fwd_sm90.cu's), `_dq_kernel` and `_dkv_kernel`
-// (both through `_bwd_call`).
+// reached from `flash_attention`, for float32 inputs: `_fwd_kernel`
+// (through `_fwd_call`), `_dq_kernel` and `_dkv_kernel` (both through
+// `_bwd_call`).
 //
 //   forward:  S = Q K^T * scale, masked to -1e30 (key past seq_k, or a key
 //             after the query under `causal`: qpos >= kpos, both from 0);
@@ -23,48 +24,32 @@
 // and head strides (the last dimension contiguous), so the views q, k, v
 // of one fused [b, s, 3, h, d] projection go in without a copy; o, dO, dQ,
 // dK and dV are contiguous [b, s, h, d]; lse and D are [b, h, s] float32.
-// Types: float32 or bfloat16 for q, k, v, o and the gradients; head dim 64
-// or 128 (template cases).
+// Head dim 64 or 128 (template cases).
 //
 // What bounds it on an H100, at the training shape (b 16, s 1024, h 12,
-// d 64, bf16, causal): the forward does 25.8 GFLOP of tensor-core work
-// against ~101 MB (254 FLOP/byte, just under the card's ~295 ridge:
-// bytes), dQ 38.7 GFLOP against ~127 MB and dK/dV 51.5 GFLOP against
-// ~153 MB (304 and 338: operations).  This simple design sits far above
-// both: every tile product goes through shared memory (S, P and dS are
-// written there and read back) between block-wide barriers, with one
-// warp per 16 rows and no overlap of loads with math.
+// d 64, causal): operations on the FMA units (67 TFLOP/s in f32; no TF32,
+// the plain version's arithmetic): 25.8, 38.7 and 51.6 GFLOP for the
+// forward, dQ and dK/dV.  Every tile product goes through shared memory
+// between block-wide barriers, with no overlap of loads with math.
 //
 // What the design does about it: every block owns one 64-row tile of its
 // output and loops over the other operand's 64-row tiles, so the score
 // tile never reaches device memory and no block shares an output with
 // another (no atomics: the result is the same on every run).  The tiles
-// are staged in shared memory with 16-byte loads; bf16 products run on
-// the tensor cores through WMMA 16x16x16 with f32 accumulation, f32 on the
-// FMA units (no TF32, the plain version's arithmetic).  The accumulators
-// (O; dQ; dK and dV) stay in shared memory in f32 between tiles.  Under
-// `causal` the loops stop at the diagonal: the forward and dQ visit key
-// tiles 0..i only, dK/dV query tiles j.. only, the counterpart of the
-// Pallas `_tile_live` test, so dead tiles cost nothing at all.  A Pallas
-// grid axis runs in order and carries the accumulator in VMEM; here a loop
-// inside the block does, and the blocks run in parallel.
-//
-// Not yet done for dQ and dK/dV: wgmma, TMA or cp.async staging and
-// double buffering (sm90.cuh holds the building blocks).
-//
-// The bf16 forward runs on flash_fwd_sm90.cu's wgmma kernel; the forward
-// here serves float32 only (FMA units, the plain version's arithmetic).
+// are staged in shared memory with 16-byte loads; each thread computes an
+// 8 x N/16 patch of a product in registers.  The accumulators (O; dQ; dK
+// and dV) stay in shared memory between tiles.  Under `causal` the loops
+// stop at the diagonal: the forward and dQ visit key tiles 0..i only,
+// dK/dV query tiles j.. only, the counterpart of the Pallas `_tile_live`
+// test, so dead tiles cost nothing at all.  A Pallas grid axis runs in
+// order and carries the accumulator in VMEM; here a loop inside the block
+// does, and the blocks run in parallel.  b*h is the grid's x axis (no
+// 65535 cap), the tile index its y axis.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kB = 64;          // rows of every tile (queries and keys)
 constexpr int kThreads = 128;   // four warps, 16 tile rows each
@@ -74,24 +59,21 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared-memory geometry per element type and head dim.  Row strides are
-// padded against bank conflicts (WMMA needs multiples of 8 bf16 or 4 f32);
-// f32 at d 128 goes unpadded so the dK/dV kernel fits in 227 KB.  In f32
-// the probabilities and dS are written over S and dP in place.
+// padded against bank conflicts, but f32 at d 128 goes unpadded so the
+// dK/dV kernel fits in 227 KB.  The probabilities and dS are written over
+// S and dP in place (kP = 0: no separate tiles for them in f32).
 template <typename T, int D>
 struct Geo {
-  static constexpr bool kHalf = sizeof(T) == 2;
-  static constexpr int kLdT = D + (kHalf ? 8 : (D == 128 ? 0 : 4));
+  static_assert(sizeof(T) == 4, "float32 only: bf16 runs the wgmma kernels");
+  static constexpr int kLdT = D + (D == 128 ? 0 : 4);
   static constexpr int kLdS = kB + 4;                 // f32 [64, 64]
-  static constexpr int kLdP = kHalf ? kB + 8 : kLdS;  // T [64, 64]
-  static constexpr int kLdO = D + (kHalf ? 4 : (D == 128 ? 0 : 4));
+  static constexpr int kLdP = kLdS;
+  static constexpr int kLdO = kLdT;
   static constexpr int kTile = kB * kLdT * (int)sizeof(T);
   static constexpr int kS = kB * kLdS * 4;
-  static constexpr int kP = kHalf ? kB * kLdP * 2 : 0;
+  static constexpr int kP = 0;
   static constexpr int kO = kB * kLdO * 4;
   static constexpr int kRow = kB * 4;
   static constexpr int fwd = 3 * kTile + kS + kP + kO + 2 * kRow;
@@ -142,7 +124,7 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     dst[r] = row0 + r < rows ? src[row0 + r] : 0.f;
 }
 
-// --- C[64, N] (+)= A[64, K] B[K, N] with C f32 in shared memory ----------
+// --- C[64, N] (+)= A[64, K] B[K, N], all f32 in shared memory ----------
 // A(i, k) = A_ROW ? A[i * lda + k] : A[k * lda + i]
 // B(k, j) = B_ROW ? B[k * ldb + j] : B[j * ldb + k]
 
@@ -178,40 +160,6 @@ __device__ __forceinline__ void tile_gemm(const float* A, int lda,
     for (int j = 0; j < kCols; ++j) C[(ty + 8 * i) * ldc + tx + 16 * j] = c[i][j];
 }
 
-template <bool A_ROW, bool B_ROW, int N, int K>
-__device__ __forceinline__ void tile_gemm(const bf16* A, int lda,
-                                          const bf16* B, int ldb, float* C,
-                                          int ldc, bool accumulate, int tid) {
-  using namespace nvcuda;
-  using ALay = typename std::conditional<A_ROW, wmma::row_major,
-                                         wmma::col_major>::type;
-  using BLay = typename std::conditional<B_ROW, wmma::row_major,
-                                         wmma::col_major>::type;
-  const int i0 = (tid >> 5) * 16;              // this warp's 16 rows
-#pragma unroll 1
-  for (int jn = 0; jn < N / 16; ++jn) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, C + i0 * ldc + jn * 16, ldc,
-                             wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < K / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALay> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> fb;
-      wmma::load_matrix_sync(
-          fa, A_ROW ? A + i0 * lda + kk * 16 : A + kk * 16 * lda + i0, lda);
-      wmma::load_matrix_sync(
-          fb, B_ROW ? B + kk * 16 * ldb + jn * 16 : B + jn * 16 * ldb + kk * 16,
-          ldb);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(C + i0 * ldc + jn * 16, c, ldc,
-                            wmma::mem_row_major);
-  }
-}
-
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(~0u, x, o));
   return x;
@@ -227,7 +175,7 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int sq, int sk,
   return qpos < sq && kpos < sk && (!causal || qpos >= kpos);
 }
 
-// --- forward: one block per (query tile, b*h) -----------------------------
+// --- forward: one block per (b*h, query tile) -----------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -238,14 +186,13 @@ flash_fwd_kernel(const Params p) {
   T* Ks = reinterpret_cast<T*>(smem + G::kTile);
   T* Vs = reinterpret_cast<T*>(smem + 2 * G::kTile);
   float* Ss = reinterpret_cast<float*>(smem + 3 * G::kTile);
-  T* Ps = G::kHalf ? reinterpret_cast<T*>(smem + 3 * G::kTile + G::kS)
-                   : reinterpret_cast<T*>(Ss);
+  T* Ps = reinterpret_cast<T*>(Ss);             // P over S in place
   float* Os = reinterpret_cast<float*>(smem + 3 * G::kTile + G::kS + G::kP);
   float* m_s = Os + kB * G::kLdO;
   float* l_s = m_s + kB;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int bh = blockIdx.x, qt = blockIdx.y;
   const int bi = bh / p.h, hi = bh % p.h;
   const int i0 = qt * kB;
   const T* q = static_cast<const T*>(p.q) + bi * p.qs[0] + hi * p.qs[2];
@@ -336,7 +283,7 @@ __device__ __forceinline__ void p_and_ds(const float* Ss, const float* DPs,
   }
 }
 
-// --- dQ: one block per (query tile, b*h) ---------------------------------
+// --- dQ: one block per (b*h, query tile) ---------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -349,16 +296,14 @@ flash_dq_kernel(const Params p) {
   T* Vs = reinterpret_cast<T*>(smem + 3 * G::kTile);
   float* Ss = reinterpret_cast<float*>(smem + 4 * G::kTile);
   float* DPs = reinterpret_cast<float*>(smem + 4 * G::kTile + G::kS);
-  T* DSs = G::kHalf
-               ? reinterpret_cast<T*>(smem + 4 * G::kTile + 2 * G::kS)
-               : reinterpret_cast<T*>(DPs);
+  T* DSs = reinterpret_cast<T*>(DPs);           // dS over dP in place
   float* dQs =
       reinterpret_cast<float*>(smem + 4 * G::kTile + 2 * G::kS + G::kP);
   float* lse_s = dQs + kB * G::kLdO;
   float* delta_s = lse_s + kB;
 
   const int tid = threadIdx.x;
-  const int qt = blockIdx.x, bh = blockIdx.y;
+  const int bh = blockIdx.x, qt = blockIdx.y;
   const int bi = bh / p.h, hi = bh % p.h;
   const int i0 = qt * kB;
   const long long hd = (long long)p.h * D;     // row stride of dO and dQ
@@ -400,7 +345,7 @@ flash_dq_kernel(const Params p) {
   }
 }
 
-// --- dK, dV: one block per (key tile, b*h) -------------------------------
+// --- dK, dV: one block per (b*h, key tile) -------------------------------
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -414,16 +359,15 @@ flash_dkv_kernel(const Params p) {
   float* Ss = reinterpret_cast<float*>(smem + 4 * G::kTile);
   float* DPs = reinterpret_cast<float*>(smem + 4 * G::kTile + G::kS);
   unsigned char* after_s = smem + 4 * G::kTile + 2 * G::kS;
-  T* Ps = G::kHalf ? reinterpret_cast<T*>(after_s) : reinterpret_cast<T*>(Ss);
-  T* DSs = G::kHalf ? reinterpret_cast<T*>(after_s + G::kP)
-                    : reinterpret_cast<T*>(DPs);
+  T* Ps = reinterpret_cast<T*>(Ss);             // P and dS in place
+  T* DSs = reinterpret_cast<T*>(DPs);
   float* dKs = reinterpret_cast<float*>(after_s + 2 * G::kP);
   float* dVs = dKs + kB * G::kLdO;
   float* lse_s = dVs + kB * G::kLdO;
   float* delta_s = lse_s + kB;
 
   const int tid = threadIdx.x;
-  const int kt = blockIdx.x, bh = blockIdx.y;
+  const int bh = blockIdx.x, kt = blockIdx.y;
   const int bi = bh / p.h, hi = bh % p.h;
   const int j0 = kt * kB;
   const long long hd = (long long)p.h * D;
@@ -474,25 +418,21 @@ flash_dkv_kernel(const Params p) {
 
 enum Which { kFwd, kDq, kDkv };
 
-template <typename T, int D>
+template <int D>
 int launch(Which which, const Params& p, cudaStream_t stream) {
-  using G = Geo<T, D>;
+  using G = Geo<float, D>;
   void (*kernel)(const Params);
   int smem, tiles;
   if (which == kFwd) {
-    if constexpr (std::is_same<T, bf16>::value) {
-      return static_cast<int>(cudaErrorInvalidValue);   // flash_fwd_sm90
-    } else {
-      kernel = flash_fwd_kernel<T, D>;
-      smem = G::fwd;
-      tiles = (p.sq + kB - 1) / kB;
-    }
+    kernel = flash_fwd_kernel<float, D>;
+    smem = G::fwd;
+    tiles = (p.sq + kB - 1) / kB;
   } else if (which == kDq) {
-    kernel = flash_dq_kernel<T, D>;
+    kernel = flash_dq_kernel<float, D>;
     smem = G::dq;
     tiles = (p.sq + kB - 1) / kB;
   } else {
-    kernel = flash_dkv_kernel<T, D>;
+    kernel = flash_dkv_kernel<float, D>;
     smem = G::dkv;
     tiles = (p.sk + kB - 1) / kB;
   }
@@ -500,18 +440,15 @@ int launch(Which which, const Params& p, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (tiles == 0 || p.b * p.h == 0) return 0;
-  kernel<<<dim3(tiles, p.b * p.h), kThreads, smem, stream>>>(p);
+  kernel<<<dim3(p.b * p.h, tiles), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int dispatch(Which which, const Params& p, int d, int is_bf16, void* stream) {
+// the float32 kernels of this file
+int dispatch(Which which, const Params& p, int d, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return is_bf16 ? launch<bf16, 64>(which, p, s)
-                   : launch<float, 64>(which, p, s);
-  if (d == 128)
-    return is_bf16 ? launch<bf16, 128>(which, p, s)
-                   : launch<float, 128>(which, p, s);
+  if (d == 64) return launch<64>(which, p, s);
+  if (d == 128) return launch<128>(which, p, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -544,14 +481,26 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o,
                    const long long* qs, const long long* ks,
                    const long long* vs, float scale, int causal,
                    cudaStream_t stream);
-}
+int flash_dq_sm90(const void* q, const void* k, const void* v,
+                  const void* dout, const void* lse, const void* delta,
+                  void* dq, int b, int h, int sq, int sk, int d,
+                  const long long* qs, const long long* ks,
+                  const long long* vs, float scale, int causal,
+                  cudaStream_t stream);
+int flash_dkv_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   void* dk, void* dv, int b, int h, int sq, int sk, int d,
+                   const long long* qs, const long long* ks,
+                   const long long* vs, float scale, int causal,
+                   cudaStream_t stream);
+}  // namespace thb
 
 // Each entry returns cudaGetLastError() after its launch (0 when it was
 // accepted), or cudaErrorInvalidValue for a head dim other than 64 or 128.
-// Strides are in elements: batch, sequence, head, for q, k and v.
-
-// The forward: bf16 on the wgmma kernel (flash_fwd_sm90.cu), float32 on
+// Strides are in elements: batch, sequence, head, for q, k and v.  bf16
+// runs the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu), float32
 // this file's; *design is set to the one that ran: 2 wgmma, 1 FMA.
+
 extern "C" int thb_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
     int h, int sq, int sk, int d, long long qsb, long long qss, long long qsh,
@@ -569,7 +518,7 @@ extern "C" int thb_flash_attention_fwd(
   *design = 1;
   p.o = o;
   p.lse = static_cast<float*>(lse);
-  return dispatch(kFwd, p, d, 0, stream);
+  return dispatch(kFwd, p, d, stream);
 }
 
 extern "C" int thb_flash_attention_dq(
@@ -577,14 +526,21 @@ extern "C" int thb_flash_attention_dq(
     const void* lse, const void* delta, void* dq, int b, int h, int sq,
     int sk, int d, long long qsb, long long qss, long long qsh, long long ksb,
     long long kss, long long ksh, long long vsb, long long vss, long long vsh,
-    float scale, int causal, int is_bf16, void* stream) {
+    float scale, int causal, int is_bf16, int* design, void* stream) {
   Params p = make_params(q, k, v, b, h, sq, sk, qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, scale, causal);
+  if (is_bf16) {
+    *design = 2;
+    return thb::flash_dq_sm90(q, k, v, dout, lse, delta, dq, b, h, sq, sk, d,
+                              p.qs, p.ks, p.vs, scale, causal,
+                              static_cast<cudaStream_t>(stream));
+  }
+  *design = 1;
   p.dout = dout;
   p.lse_in = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
-  return dispatch(kDq, p, d, is_bf16, stream);
+  return dispatch(kDq, p, d, stream);
 }
 
 extern "C" int thb_flash_attention_dkv(
@@ -592,13 +548,21 @@ extern "C" int thb_flash_attention_dkv(
     const void* lse, const void* delta, void* dk, void* dv, int b, int h,
     int sq, int sk, int d, long long qsb, long long qss, long long qsh,
     long long ksb, long long kss, long long ksh, long long vsb, long long vss,
-    long long vsh, float scale, int causal, int is_bf16, void* stream) {
+    long long vsh, float scale, int causal, int is_bf16, int* design,
+    void* stream) {
   Params p = make_params(q, k, v, b, h, sq, sk, qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, scale, causal);
+  if (is_bf16) {
+    *design = 2;
+    return thb::flash_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, b, h, sq,
+                               sk, d, p.qs, p.ks, p.vs, scale, causal,
+                               static_cast<cudaStream_t>(stream));
+  }
+  *design = 1;
   p.dout = dout;
   p.lse_in = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dk = dk;
   p.dv = dv;
-  return dispatch(kDkv, p, d, is_bf16, stream);
+  return dispatch(kDkv, p, d, stream);
 }

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's wgmma kernels
-// (flash_fwd_sm90.cu, fused_conv_sm90.cu, sm90_selftest.cu), written with
-// inline PTX.
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu, fused_conv_sm90.cu,
+// sm90_selftest.cu), written with inline PTX.
 //
 // Shared-memory tiles.  Every operand tile of a warpgroup product is kept
 // in the 128-byte swizzle that wgmma reads natively: a tile of R rows by C
@@ -28,10 +28,11 @@
 // (the attention scores) feeds the next product without touching shared
 // memory.
 //
-// Staging: cp.async 16-byte copies (zero-filled past the end of a tensor)
-// with commit and wait groups; after a tile written by threads (cp.async
-// or st.shared) and before wgmma reads it, fence_proxy_async() makes the
-// writes visible to the tensor cores' async proxy.
+// Staging: cp.async 16-byte copies (zero-filled past the end of a tensor),
+// and 4-byte ones for f32 rows, with commit and wait groups; after a tile
+// written by threads (cp.async or st.shared) and before wgmma reads it,
+// fence_proxy_async() makes the writes visible to the tensor cores' async
+// proxy.
 
 #pragma once
 
@@ -116,6 +117,15 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            bool pred) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes global -> shared (f32 rows whose start need not be 16-byte
+// aligned); zero (and no read) when !pred
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 4 : 0)
                : "memory");
 }
 

@@ -296,7 +296,7 @@ def bert_tiny_mlm(dtype: torch.dtype = torch.float32,
                   attention_impl: str = "dense",
                   max_len: int | None = None) -> BertMLM:
     """4-layer/128-hidden variant for tests and CPU smoke runs (head dim
-    32: on the card its flash arm raises, the kernels take 64 or 128)."""
+    32: its flash arm runs the kernels at head dim 64, zero-padded)."""
     return BertMLM(vocab_size=1024, hidden=128, num_layers=4, heads=4,
                    ffn=512, max_len=max(128, max_len or 0), dtype=dtype,
                    attention_impl=attention_impl)

@@ -61,11 +61,11 @@ _SIGNATURES = {
     "thb_flash_attention_dq": [
         _P, _P, _P, _P, _P, _P, _P,                 # q k v do lse delta dq
         _I, _I, _I, _I, _I, *_QKV_STRIDES,
-        _F, _I, _I, _P],
+        _F, _I, _I, ctypes.POINTER(_I), _P],
     "thb_flash_attention_dkv": [
         _P, _P, _P, _P, _P, _P, _P, _P,             # q k v do lse delta dk dv
         _I, _I, _I, _I, _I, *_QKV_STRIDES,
-        _F, _I, _I, _P],
+        _F, _I, _I, ctypes.POINTER(_I), _P],
     "thb_softmax_xent_fwd": [
         _P, _P, _P, _P,                             # logits labels loss lse
         _I, _I, _I, _P],                            # n v dtype stream

@@ -25,16 +25,28 @@ input dtype at the end.
 ``flash_attention`` keeps the JAX signature, ``[b, s, h, d]`` in and
 out.  For CUDA tensors it launches the forward, then dQ and dK/dV in the
 backward, and counts each launch in ``flash_attention.launches``; for
-CPU tensors it runs the plain version with 64-row tiles.  The forward
-has two designs (``fwd_design``): bf16 runs ``csrc/flash_fwd_sm90.cu``
-(wgmma, 128-query tiles against 128-key tiles at head dim 64 and 64-key
-tiles at 128, ``fwd_blocks``), float32 the FMA kernel of
-``csrc/flash_attention.cu``, where dQ and dK/dV live (64-row tiles).
-The kernels read ``q``, ``k``, ``v`` through their strides, so the views
-of one fused QKV projection need no copy, and they mask the ragged last
-tile themselves: no padding copy either.  ``flash_attention_plain`` is the same blocked algorithm in
-PyTorch with the block sizes as arguments, differentiable through the
-same backward formulas.
+CPU tensors it runs the plain version with 64-row tiles.  Each kernel
+has two designs (``fwd_design``, ``bwd_design``): bf16 runs the wgmma
+kernels, ``csrc/flash_fwd_sm90.cu`` (128-query tiles against 128-key
+tiles at head dim 64 and 64-key tiles at 128, ``fwd_blocks``) and
+``csrc/flash_bwd_sm90.cu`` (dQ over 128-query tiles against 64-key
+tiles, dK/dV over 128-key tiles against 64-query tiles,
+``bwd_blocks``); float32 runs the FMA kernels of
+``csrc/flash_attention.cu`` (64-row tiles).  The kernels read ``q``,
+``k``, ``v`` through their strides, so the views of one fused QKV
+projection need no copy, and they mask the ragged last tile themselves:
+no sequence padding either.
+
+The kernels take head dim 64 or 128.  ``flash_attention`` zero-pads
+any other head dim ``d <= 128`` on the last axis (to 64 below 64, to
+128 above; ``padded_head_dim``) on both routes (the CPU route takes a
+head dim above 128 unpadded; the card raises for it), with the scale
+``1/sqrt(d)`` of the original ``d``, and slices ``o`` back (so its
+gradient ``dO`` is padded and ``dQ``, ``dK``, ``dV`` sliced): exact,
+since zero columns add nothing to ``Q K^T`` or ``dO V^T`` and give zero
+columns in every output.  ``flash_attention_plain`` is the same blocked
+algorithm in PyTorch with the block sizes as arguments, differentiable
+through the same backward formulas.
 """
 
 from __future__ import annotations
@@ -48,33 +60,66 @@ from tpu_hc_bench_torch.ops import _build
 __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
            "flash_dq", "flash_dkv", "flash_fwd_plain", "flash_dq_plain",
            "flash_dkv_plain", "delta_rows", "fwd_design", "fwd_blocks",
-           "KERNELS"]
+           "bwd_design", "bwd_blocks", "padded_head_dim", "KERNELS"]
 
 _NEG_INF = -1e30
 _BLOCK = 64                     # kB in csrc/flash_attention.cu
-_HEAD_DIMS = (64, 128)          # the kernel's template cases
+_HEAD_DIMS = (64, 128)          # the kernels' template cases
 _DTYPES = (torch.float32, torch.bfloat16)
 KERNELS = ("fwd", "dq", "dkv")
-_FWD_DESIGNS = {1: "fma", 2: "wgmma"}   # the C entry's design codes
+_DESIGNS = {1: "fma", 2: "wgmma"}       # the C entries' design codes
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The kernels' head dim for ``head_dim``: 64 up to 64, else 128; a
+    head dim above 128 raises (no model of the zoo has one)."""
+    if not 0 < head_dim <= _HEAD_DIMS[-1]:
+        raise ValueError(f"flash attention takes head_dim 1..128 (zero-"
+                         f"padded to 64 or 128 for the kernels): {head_dim}")
+    return _HEAD_DIMS[0] if head_dim <= _HEAD_DIMS[0] else _HEAD_DIMS[1]
+
+
+def _design(dtype, what: str) -> str:
+    if dtype not in _DTYPES:
+        raise ValueError(f"no {what} kernel for {dtype}")
+    return "wgmma" if dtype == torch.bfloat16 else "fma"
 
 
 def fwd_design(dtype) -> str:
     """The forward kernel a CUDA call of this dtype runs: ``"wgmma"``
     (bf16, ``csrc/flash_fwd_sm90.cu``) or ``"fma"`` (float32,
     ``csrc/flash_attention.cu``)."""
-    if dtype not in _DTYPES:
-        raise ValueError(f"no forward kernel for {dtype}")
-    return "wgmma" if dtype == torch.bfloat16 else "fma"
+    return _design(dtype, "forward")
+
+
+def bwd_design(dtype) -> str:
+    """The dQ and dK/dV kernels a CUDA call of this dtype runs:
+    ``"wgmma"`` (bf16, ``csrc/flash_bwd_sm90.cu``) or ``"fma"`` (float32,
+    ``csrc/flash_attention.cu``)."""
+    return _design(dtype, "backward")
 
 
 def fwd_blocks(dtype, head_dim: int) -> tuple[int, int]:
     """``(block_q, block_k)`` of the forward kernel for this dtype and head
-    dim: the tiles its plain version repeats."""
+    dim (padded by ``padded_head_dim``): the tiles its plain version
+    repeats."""
+    d = padded_head_dim(head_dim)
     if fwd_design(dtype) == "fma":
         return _BLOCK, _BLOCK
-    if head_dim not in _HEAD_DIMS:
-        raise ValueError(f"the kernels take head_dim 64 or 128: {head_dim}")
-    return 128, 128 if head_dim == 64 else 64
+    return 128, 128 if d == 64 else 64
+
+
+def bwd_blocks(dtype, head_dim: int) -> dict[str, tuple[int, int]]:
+    """``{"dq": (block_q, block_k), "dkv": (block_q, block_k)}``: the tiles
+    over which each backward kernel sums, for this dtype and head dim
+    (padded by ``padded_head_dim``), at which its plain version repeats
+    the kernel's f32 summation order.  The wgmma dQ kernel owns 128 query
+    rows and sums over 64-key tiles; the dK/dV kernel owns 128 keys and
+    sums over 64-query tiles."""
+    padded_head_dim(head_dim)
+    if bwd_design(dtype) == "fma":
+        return {"dq": (_BLOCK, _BLOCK), "dkv": (_BLOCK, _BLOCK)}
+    return {"dq": (128, 64), "dkv": (64, 128)}
 
 
 def _scale(q, scale):
@@ -269,9 +314,9 @@ def _check_card(q, k, v, do=None, lse=None, delta=None):
                            or do.dtype != q.dtype):
         raise ValueError("do must be contiguous and shaped and typed as q")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"the kernels take head_dim 64 or 128: {d}")
-    if b * h > 65535:
-        raise ValueError(f"batch x heads must be <= 65535: {b * h}")
+        raise ValueError(f"the kernels take head_dim 64 or 128 "
+                         f"(flash_attention zero-pads head dims up to 128 "
+                         f"to them): {d}")
     vec = 16 // q.element_size()
     for t in (q, k, v, *rest):
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
@@ -310,11 +355,18 @@ def flash_fwd(q, k, v, causal=False, scale=None):
         _scale(q, scale), int(causal), int(q.dtype == torch.bfloat16),
         ctypes.byref(design), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention forward")
-    if _FWD_DESIGNS.get(design.value) != fwd_design(q.dtype):
-        raise RuntimeError(f"flash_attention forward ran design "
-                           f"{design.value} for {q.dtype}")
+    _check_design(design, fwd_design(q.dtype), "fwd")
     flash_attention.launches["fwd"] += 1
     return o, lse
+
+
+def _check_design(design, want, kernel):
+    """Raise unless the C entry ran the ``want`` design; record it."""
+    ran = _DESIGNS.get(design.value)
+    if ran != want:
+        raise RuntimeError(f"flash_attention {kernel} ran design "
+                           f"{design.value}, not {want}")
+    flash_attention.designs[kernel] = ran
 
 
 def flash_dq(q, k, v, do, lse, delta, causal=False, scale=None):
@@ -322,12 +374,15 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, scale=None):
     _check_card(q, k, v, do, lse, delta)
     b, h, sq, sk, d = _dims(q, k)
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    design = ctypes.c_int(0)
     err = _build.load_library().thb_flash_attention_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk, d,
         *_qkv_strides(q, k, v), _scale(q, scale), int(causal),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16), ctypes.byref(design),
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dQ")
+    _check_design(design, bwd_design(q.dtype), "dq")
     flash_attention.launches["dq"] += 1
     return dq
 
@@ -338,12 +393,15 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     b, h, sq, sk, d = _dims(q, k)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    design = ctypes.c_int(0)
     err = _build.load_library().thb_flash_attention_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
         sq, sk, d, *_qkv_strides(q, k, v), _scale(q, scale), int(causal),
-        int(q.dtype == torch.bfloat16), _build.stream_ptr(q.device))
+        int(q.dtype == torch.bfloat16), ctypes.byref(design),
+        _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dK/dV")
+    _check_design(design, bwd_design(q.dtype), "dkv")
     flash_attention.launches["dkv"] += 1
     return dk, dv
 
@@ -403,21 +461,39 @@ def flash_attention(q, k, v, causal: bool = False,
       scale: score scale; default ``1/sqrt(head_dim)``.
     Returns:
       ``[batch, seq_q, heads, head_dim]`` in ``q``'s dtype, differentiable
-      in ``q``, ``k`` and ``v``.  On the card head_dim is 64 or 128.
+      in ``q``, ``k`` and ``v``.  On the card head_dim up to 128
+      (zero-padded to the kernels' 64 or 128, ``padded_head_dim``); on the
+      CPU any head_dim.
     """
     _validate(q, k, v)
-    return _Flash.apply(q, k, v, causal, scale, _BLOCK, _BLOCK, _route(q))
+    return _padded_apply(q, k, v, causal, scale, _BLOCK, _BLOCK, _route(q))
+
+
+def _padded_apply(q, k, v, causal, scale, block_q, block_k, card):
+    """``_Flash`` at the padded head dim, ``o`` sliced back; the scale is
+    taken from the original head dim before padding.  The CPU route takes
+    a head dim above 128 as it is; the card's raises."""
+    d = q.shape[-1]
+    dp = d if not card and d > _HEAD_DIMS[-1] else padded_head_dim(d)
+    scale = _scale(q, scale)
+    if dp != d:
+        q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))
+    o = _Flash.apply(q, k, v, causal, scale, block_q, block_k, card)
+    return o if dp == d else o[..., :d]
 
 
 # kernel launches in this process, per kernel; a CPU call runs the plain
 # version and is no launch
 flash_attention.launches = dict.fromkeys(KERNELS, 0)
+# the design each kernel's last launch ran ("wgmma" or "fma")
+flash_attention.designs = dict.fromkeys(KERNELS)
 
 
 def flash_attention_plain(q, k, v, causal: bool = False,
                           scale: float | None = None,
                           block_q: int = _BLOCK, block_k: int = _BLOCK):
     """The plain version of ``flash_attention`` on any device, with the
-    tile sizes as arguments; differentiable through the plain backward."""
+    tile sizes as arguments and the same head-dim padding; differentiable
+    through the plain backward."""
     _validate(q, k, v)
-    return _Flash.apply(q, k, v, causal, scale, block_q, block_k, False)
+    return _padded_apply(q, k, v, causal, scale, block_q, block_k, False)
