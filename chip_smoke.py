@@ -9,9 +9,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``sm_90a``), with its time.
 2. **kernels**: each kernel against its plain PyTorch version on the
    card, at the serving lane's llama_1b shapes, with the tolerance
-   stated: paged decode attention (f32 and int8 pools, 1 and 2 pages per
-   block) and the fused residual+norm (8 and 512 rows, rmsnorm and
-   layernorm).  Times are CUDA events, median of 50 calls after warmup,
+   stated: paged decode attention (f32, bf16 and int8 pools, 1 and 2
+   pages per block, each call two kernels: the split and the merge, held
+   against the split plain version at the same splits; then a long
+   context, 8 rows of 2048-4096 keys over a 2-layer f32 pool, where bytes
+   set the bound; then a bf16 pool's p rounded to bf16 before P V, on a
+   row of three keys that one warp's chunk holds: within
+   ``PAGED_ROUNDING_TOL`` of the plain version, which the unrounded
+   result misses) and the fused residual+norm (8 and 512 rows, rmsnorm
+   and layernorm).  Times are CUDA events, median of 50 calls after warmup,
    with the L2 cache flushed before each call and the card then held in
    a ~0.2 ms spin, so the host's Python and launch overhead (enqueued
    meanwhile) stays out of the device time; ``library_ms`` times one
@@ -48,9 +54,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``[16, 1024, 12, 64]`` causal in bf16 (q, k, v views of one fused
    projection, as the model hands them over) and in float32, at an
    unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, at BERT-base's
-   non-causal ``[128, 128, 12, 64]`` in bf16 and at bert_tiny's head dim
+   non-causal ``[128, 128, 12, 64]`` in bf16, at bert_tiny's head dim
    32 (``[128, 128, 4, 32]``, zero-padded to 64 as ``flash_attention``
-   pads it); ``library_ms`` is ``F.scaled_dot_product_attention``'s
+   pads it) and at head dim 256 (``[2, 512, 8, 256]`` causal, bf16 and
+   float32: the FMA kernels at 32-row tiles); ``library_ms`` is
+   ``F.scaled_dot_product_attention``'s
    forward, and its backward alone (the median of five medians: its
    spread is wide).  Each plain version runs at its kernel's tiles
    (``fwd_blocks``, ``bwd_blocks``), the backward passes take the
@@ -59,10 +67,11 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    bound.  Then b * h = 65540 (``[16385, 40, 4, 64]`` causal bf16): the
    three kernels at once, the first and last batch rows against the
    plain versions run on those rows alone.  Last, the padded route:
-   ``flash_attention`` at bert_tiny's ``[128, 128, 4, 32]`` through
-   autograd, one launch of each kernel, o and the gradients at width 32
-   with the bits of the kernels on inputs zero-padded to 64, and within
-   the tolerance of the plain versions at width 32.
+   ``flash_attention`` at bert_tiny's ``[128, 128, 4, 32]`` and at a
+   non-causal bf16 ``[2, 300, 4, 192]`` through autograd, one launch of
+   each kernel, o and the gradients at the caller's width with the bits
+   of the kernels on inputs zero-padded to 64 (256), and within the
+   tolerance of the plain versions at the caller's width.
 9. **lm_train_parity**: gpt2 (batch 2 x seq 1024) and bert_base (batch
    8 x seq 128, the MLM batch) at full width in float32, dropout off,
    three arms from one ``state_dict``, one momentum-SGD step each:
@@ -90,9 +99,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``[256, 256, 28, 28]`` bf16 3x3/1 SAME, a ragged float32 ``[2, 8, 13,
    15]`` and a bf16 input where most windows tie; ``library_ms`` is
    ``F.max_pool2d``'s backward alone (timing only: it routes ties to the
-   first max).
+   first max); each record names the kernel's case (16-byte vectors or
+   scalar accesses; the 3x3/2, 3x3/1 or generic window) and its GB/s and
+   share of the bound.
 
-Then the kernel table line, the ``nvidia-smi`` line, and as the last
+Then the kernel table line (each kernel's design beside its numbers),
+the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
 """
@@ -109,7 +121,22 @@ import time
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32, outside tensor cores
 BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
-ATTN_TOL = 1e-4                    # f32 sums in another order, <= 576 keys
+# paged attention against its split plain version: f32 and int8 sums in
+# another order (<= 4096 keys), absolute; bf16 relative to the output's
+# largest magnitude: out is rounded to 2^-8 of it, and p is rounded to
+# bf16 against another running max; lse absolute, f32 on both sides
+PAGED_TOL = {"f32": 1e-4, "int8": 1e-4, "bf16": 1e-2}
+PAGED_LSE_TOL = 1e-4
+# the rounding case: three keys, one split and one warp chunk, so the
+# kernel rounds p against the plain version's max; f32 sums of three
+# products in another order (rounded and unrounded p differ by ~1.6e-4)
+PAGED_ROUNDING_TOL = 1e-6
+# (case, layers, rows, table slots, (shortest, longest) row, pools): the
+# serving lane's llama_1b decode shape (16-token pages, 576-key tables,
+# one padded row and one full table), then a long context where bytes set
+# the bound (a 2-layer pool of 2049 pages, ~270 MB at f32)
+PAGED_CASES = (("llama_1b", 16, 8, 36, (1, 576), ("f32", "bf16", "int8")),
+               ("long_context", 2, 8, 256, (2048, 4096), ("f32",)))
 NORM_TOL = 1e-4                    # f32 stats over 2048 in another order
 PARITY_TOL = 1e-3                  # 16 layers of f32 at width 2048
 # fused conv, each relative to the output's largest magnitude: y2 (f32:
@@ -155,19 +182,24 @@ HEAD_START_CYCLES = 400_000
 # can flip a rounding
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # (b, s, h, d, dtype, causal): the main path's shape first; head dim 32
-# (bert_tiny's widths, batch 128 x seq 128) runs zero-padded to 64
+# (bert_tiny's widths, batch 128 x seq 128) runs zero-padded to 64; head
+# dim 256 runs the FMA kernels at 32-row tiles in both dtypes
 FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
                (16, 1024, 12, 64, "float32", True),
                (4, 1000, 6, 128, "bfloat16", False),
                (128, 128, 12, 64, "bfloat16", False),       # bert_base
-               (128, 128, 4, 32, "bfloat16", False))        # bert_tiny
+               (128, 128, 4, 32, "bfloat16", False),        # bert_tiny
+               (2, 512, 8, 256, "bfloat16", True),
+               (2, 512, 8, 256, "float32", True))
 # b * h just above 65535 (the grid's y limit): the three kernels at once,
 # the first and last batch rows held to the plain version on them alone
 FLASH_WIDE_CASE = (16385, 40, 4, 64, "bfloat16", True)
 FLASH_WIDE_ROWS = (0, 16384)
-# flash_attention at a head dim the kernels do not take: bert_tiny's
-# widths (batch 128 x seq 128, 4 heads of 32), zero-padded to 64 inside
-FLASH_PADDED_CASE = (128, 128, 4, 32, "bfloat16", False)
+# flash_attention at head dims the kernels do not take: bert_tiny's
+# widths (batch 128 x seq 128, 4 heads of 32), zero-padded to 64 inside,
+# and head dim 192 at a ragged sequence, zero-padded to 256
+FLASH_PADDED_CASES = ((128, 128, 4, 32, "bfloat16", False),
+                      (2, 300, 4, 192, "bfloat16", False))
 SDPA_BWD_REPEATS = 5               # SDPA's backward spread 0.30-0.71 ms
 PLAIN_ITERS = 10                   # the plain version loops over tiles
 FLASH_KERNELS = {                  # kernel -> (row name, Pallas call)
@@ -280,7 +312,7 @@ def bound(nbytes: float, ops: float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_kernels(torch, dev, timer) -> dict:
+def phase_kernels(torch, dev, timer, smi) -> dict:
     """Phase 2; returns the main-path numbers of each kernel."""
     import numpy as np
     import torch.nn.functional as F
@@ -288,89 +320,117 @@ def phase_kernels(torch, dev, timer) -> dict:
     from tpu_hc_bench_torch.ops.fused_residual_ln import (
         fused_residual_norm, fused_residual_norm_plain)
     from tpu_hc_bench_torch.ops.paged_attention import (
-        paged_decode_attention, paged_decode_attention_plain)
+        KERNELS as PAGED_KERNELS, paged_decode_attention,
+        paged_decode_attention_plain, paged_splits)
 
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
     rng = np.random.default_rng(0)
-    L, b, heads, kvh, d, ps, w = 16, 8, 32, 8, 64, 16, 36
-    pages = 1 + b * w
-    layer = 5
-    lengths = rng.integers(1, w * ps + 1, (b,)).astype(np.int32)
-    lengths[3] = 0                                  # a padded row
-    lengths[0] = w * ps                             # a full table
-    tables = (1 + rng.permutation(b * w)).reshape(b, w).astype(np.int32)
-    tables[3] = 0                                   # padded: trash page
     t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
-    q = torch.randn((b, heads, d), device=dev)
-    tables_d, lengths_d = t(tables), t(lengths)
-    pools = {
-        "f32": (torch.randn((L, pages, ps, kvh, d), device=dev),
-                torch.randn((L, pages, ps, kvh, d), device=dev), {}),
-        "int8": (torch.randint(-127, 128, (L, pages, ps, kvh, d),
-                               dtype=torch.int8, device=dev),
-                 torch.randint(-127, 128, (L, pages, ps, kvh, d),
-                               dtype=torch.int8, device=dev),
-                 {"k_scales": 0.02 * torch.rand((L, pages), device=dev),
-                  "v_scales": 0.02 * torch.rand((L, pages), device=dev)}),
-    }
-    tokens = int(lengths.sum())
-    pages_read = int(sum(-(-int(n) // ps) for n in lengths))
-    visible = torch.from_numpy(lengths > 0).to(dev)
     out_main = {}
-    for kind, (kp, vp, sc) in pools.items():
-        for ppb in (1, 2):
-            def kernel():
-                return paged_decode_attention(
-                    q, kp, vp, tables_d, lengths_d, pages_per_block=ppb,
-                    layer=layer, return_lse=True, **sc)
+    for case in PAGED_CASES:
+        name, L, b, w, (lo, hi), kinds = case
+        heads, kvh, d, ps = 32, 8, 64, 16           # llama_1b
+        pages = 1 + b * w
+        layer = L - 1 if name == "long_context" else 5
+        lengths = rng.integers(lo, hi + 1, (b,)).astype(np.int32)
+        tables = (1 + rng.permutation(b * w)).reshape(b, w).astype(np.int32)
+        if name == "llama_1b":
+            lengths[3] = 0                              # a padded row
+            lengths[0] = w * ps                         # a full table
+            tables[3] = 0                               # padded: trash page
+        tables_d, lengths_d = t(tables), t(lengths)
+        tokens = int(lengths.sum())
+        pages_read = int(sum(-(-int(n) // ps) for n in lengths))
+        visible = torch.from_numpy(lengths > 0).to(dev)
+        for kind in kinds:
+            elt = {"f32": 4, "bf16": 2, "int8": 1}[kind]
+            shape = (L, pages, ps, kvh, d)
+            if kind == "int8":
+                kp, vp = (torch.randint(-127, 128, shape, dtype=torch.int8,
+                                        device=dev) for _ in range(2))
+                sc = {"k_scales": 0.02 * torch.rand((L, pages), device=dev),
+                      "v_scales": 0.02 * torch.rand((L, pages), device=dev)}
+            else:
+                dt = torch.float32 if kind == "f32" else torch.bfloat16
+                kp, vp = (torch.randn(shape, device=dev).to(dt)
+                          for _ in range(2))
+                sc = {}
+            q = torch.randn((b, heads, d), device=dev).to(
+                torch.bfloat16 if kind == "bf16" else torch.float32)
+            for ppb in (1, 2):
+                splits = paged_splits(b, kvh, w, ps, ppb, sm_count)
 
-            def plain():
-                return paged_decode_attention_plain(
-                    q, kp, vp, tables_d, lengths_d, pages_per_block=ppb,
-                    layer=layer, return_lse=True, **sc)
+                def kernel():
+                    return paged_decode_attention(
+                        q, kp, vp, tables_d, lengths_d, pages_per_block=ppb,
+                        layer=layer, return_lse=True, **sc)
 
-            got, lse = kernel()
-            want, want_lse = plain()
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            lse_err = float((lse - want_lse)[visible].abs().max())
-            pad_ok = bool((got[~visible] == 0).all()
-                          and torch.isfinite(lse).all()
-                          and (lse[~visible] < -1e29).all())
-            ms, plain_ms = timer.median_ms(kernel), timer.median_ms(plain)
-            elt = 1 if kind == "int8" else 4
-            nbytes = (2 * tokens * kvh * d * elt + 2 * b * heads * d * 4
-                      + b * heads * 4 + b * w * 4 + b * 4
-                      + (2 * pages_read * 4 if kind == "int8" else 0))
-            bound_ms, bound_by = bound(nbytes, 4.0 * tokens * heads * d)
-            rec = {"phase": "kernel", "name": "paged_decode_attention",
-                   "pool": kind, "pages_per_block": ppb,
-                   "shape": {"b": b, "heads": heads, "kv_heads": kvh,
-                             "d": d, "page_size": ps, "w": w,
-                             "pool_pages": pages, "layers": L},
-                   "lengths": lengths.tolist(), "max_abs_err": err,
-                   "lse_max_abs_err": lse_err, "tol": ATTN_TOL,
-                   "padded_row_ok": pad_ok, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-            if kind == "f32" and ppb == 1:
-                # yardstick: SDPA over a pre-gathered dense cache
-                kd = kp[layer][tables_d.long()].reshape(b, w * ps, kvh, d)
-                vd = vp[layer][tables_d.long()].reshape(b, w * ps, kvh, d)
-                kd = kd.repeat_interleave(heads // kvh, 2).transpose(1, 2)
-                vd = vd.repeat_interleave(heads // kvh, 2).transpose(1, 2)
-                kd, vd = kd.contiguous(), vd.contiguous()
-                mask = (torch.arange(w * ps, device=dev)[None, :]
-                        < lengths_d[:, None])[:, None, None, :]
-                q4 = q[:, :, None, :]
-                rec["library_ms"] = timer.median_ms(
-                    lambda: F.scaled_dot_product_attention(
-                        q4, kd, vd, attn_mask=mask))
-                del kd, vd
-                out_main["paged_decode_attention"] = rec
-            emit(rec)
-            if not (err <= ATTN_TOL and lse_err <= ATTN_TOL and pad_ok):
-                raise AssertionError(f"paged_decode_attention {kind} "
-                                     f"ppb={ppb} disagrees: {rec}")
-    del pools
+                def plain():
+                    return paged_decode_attention_plain(
+                        q, kp, vp, tables_d, lengths_d, pages_per_block=ppb,
+                        layer=layer, return_lse=True, splits=splits, **sc)
+
+                got, lse = kernel()
+                want, want_lse = plain()
+                torch.cuda.synchronize()
+                err = float((got.float() - want.float()).abs().max())
+                rel = rel_err(got, want)
+                lse_err = float((lse - want_lse)[visible].abs().max())
+                pad_ok = bool((got[~visible] == 0).all()
+                              and torch.isfinite(lse).all()
+                              and (lse[~visible] < -1e29).all())
+                ms = timer.median_ms(kernel)
+                plain_ms = timer.median_ms(plain, PLAIN_ITERS)
+                nbytes = (2 * tokens * kvh * d * elt
+                          + 2 * b * heads * d * q.element_size()
+                          + b * heads * 4 + b * w * 4 + b * 4
+                          + (2 * pages_read * 4 if kind == "int8" else 0))
+                bound_ms, bound_by = bound(nbytes, 4.0 * tokens * heads * d)
+                tol = PAGED_TOL[kind]
+                rec = {"phase": "kernel", "name": "paged_decode_attention",
+                       "case": name, "pool": kind, "q_dtype": str(
+                           q.dtype).replace("torch.", ""),
+                       "pages_per_block": ppb, "splits": splits,
+                       "design": "split+merge", "kernels": list(PAGED_KERNELS),
+                       "shape": {"b": b, "heads": heads, "kv_heads": kvh,
+                                 "d": d, "page_size": ps, "w": w,
+                                 "pool_pages": pages, "layers": L},
+                       "lengths": lengths.tolist(), "max_abs_err": err,
+                       "rel_err": rel, "lse_max_abs_err": lse_err,
+                       "tol": tol, "padded_row_ok": pad_ok, "ms": ms,
+                       "plain_ms": plain_ms, "plain_note": "split plain "
+                       "version at the kernels' splits",
+                       "gbytes_per_s": nbytes / ms / 1e6,
+                       "pct_of_bound": 100.0 * bound_ms / ms,
+                       "mbytes": nbytes / 1e6, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "nvidia_smi": smi}
+                if ppb == 1 and kind in ("f32", "bf16"):
+                    # yardstick: SDPA over a pre-gathered dense cache
+                    kd = kp[layer][tables_d.long()].reshape(b, w * ps, kvh, d)
+                    vd = vp[layer][tables_d.long()].reshape(b, w * ps, kvh, d)
+                    kd = kd.repeat_interleave(heads // kvh, 2).transpose(1, 2)
+                    vd = vd.repeat_interleave(heads // kvh, 2).transpose(1, 2)
+                    kd, vd = kd.contiguous().to(q.dtype), vd.contiguous().to(
+                        q.dtype)
+                    mask = (torch.arange(w * ps, device=dev)[None, :]
+                            < lengths_d[:, None])[:, None, None, :]
+                    q4 = q[:, :, None, :]
+                    rec["library_ms"] = timer.median_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q4, kd, vd, attn_mask=mask))
+                    rec["library_note"] = ("SDPA on a pre-gathered dense "
+                                           "cache")
+                    del kd, vd
+                    if (name, kind) == ("llama_1b", "f32"):
+                        out_main["paged_decode_attention"] = rec
+                emit(rec)
+                if not ((err <= tol if kind != "bf16" else rel <= tol)
+                        and lse_err <= PAGED_LSE_TOL and pad_ok):
+                    raise AssertionError(f"paged_decode_attention {name} "
+                                         f"{kind} ppb={ppb} disagrees: {rec}")
+            del kp, vp, sc
+            torch.cuda.empty_cache()
+    paged_rounding_check(torch, dev, smi)
 
     hidden = 2048
     for rows in (8, 512):
@@ -411,6 +471,38 @@ def phase_kernels(torch, dev, timer) -> dict:
             if rows == 8 and kind == "rmsnorm":
                 out_main["fused_residual_norm"] = rec
     return out_main
+
+
+def paged_rounding_check(torch, dev, smi) -> None:
+    """Phase 2's bf16 rounding case: an f32 q over a bf16 pool (out f32),
+    one row of three keys scored about 0, -1 and -2 (p no bf16 value)."""
+    from tpu_hc_bench_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain)
+
+    d, ps = 16, 4
+    q = torch.zeros((1, 1, d), device=dev)
+    q[0, 0, 0] = 1.0
+    k = torch.zeros((1, ps, 1, d), device=dev)
+    k[0, :3, 0, 0] = torch.tensor([0.0, -1.0, -2.0], device=dev) * d ** 0.5
+    v = torch.zeros((1, ps, 1, d), device=dev)
+    v[0, :3, 0, 0] = torch.tensor([1.0, 2.0, 4.0], device=dev)
+    tbl = torch.zeros((1, 1), dtype=torch.int32, device=dev)
+    ln = torch.tensor([3], dtype=torch.int32, device=dev)
+    kb, vb = k.bfloat16(), v.bfloat16()
+    got = paged_decode_attention(q, kb, vb, tbl, ln)
+    want = paged_decode_attention_plain(q, kb, vb, tbl, ln)
+    exact = paged_decode_attention_plain(q, k, v, tbl, ln)
+    torch.cuda.synchronize()
+    rec = {"phase": "kernel", "name": "paged_decode_attention",
+           "case": "bf16_p_rounding", "max_abs_err": float(
+               (got - want).abs().max()),
+           "unrounded_err": float((got - exact).abs().max()),
+           "tol": PAGED_ROUNDING_TOL, "nvidia_smi": smi}
+    emit(rec)
+    if not (got.dtype == torch.float32
+            and rec["max_abs_err"] <= PAGED_ROUNDING_TOL
+            < rec["unrounded_err"]):
+        raise AssertionError(f"paged bf16 p rounding disagrees: {rec}")
 
 
 def phase_parity(torch, dev, model) -> None:
@@ -839,8 +931,8 @@ def phase_flash(torch, dev, timer, smi) -> dict:
             if name != "fwd":
                 rec["library_ms_repeats"] = lib_bwds
             emit(rec)
-            want_design = (fa_mod.fwd_design(dtype) if name == "fwd"
-                           else fa_mod.bwd_design(dtype))
+            want_design = (fa_mod.fwd_design(dtype, d) if name == "fwd"
+                           else fa_mod.bwd_design(dtype, d))
             if design != want_design:
                 raise AssertionError(f"flash {name} ran {design}: {rec}")
             if not max(errs) <= FLASH_TOL[dname]:
@@ -850,21 +942,22 @@ def phase_flash(torch, dev, timer, smi) -> dict:
         del q, k, v, do, o_fwd, lse_fwd, delta, calls, bwd_args
         torch.cuda.empty_cache()
     phase_flash_wide(torch, dev, timer, smi, fa_mod)
-    phase_flash_padded(torch, dev, smi, fa_mod)
+    for case in FLASH_PADDED_CASES:
+        phase_flash_padded(torch, dev, smi, fa_mod, case)
     fa.launches.update(dict.fromkeys(fa.launches, 0))
     return rows
 
 
-def phase_flash_padded(torch, dev, smi, fa_mod) -> None:
-    """Phase 8, the padded route: ``flash_attention`` at bert_tiny's head
-    dim 32 through autograd, one launch of each kernel; o and the
-    gradients at the caller's width with the bits of the kernels called
-    on inputs zero-padded to 64 (so the wrapper padded and sliced back),
-    and within FLASH_TOL of the plain versions at the unpadded width
-    (each at its kernel's tiles)."""
+def phase_flash_padded(torch, dev, smi, fa_mod, case) -> None:
+    """Phase 8, the padded route: ``flash_attention`` at a head dim the
+    kernels do not take (32, 192) through autograd, one launch of each
+    kernel; o and the gradients at the caller's width with the bits of
+    the kernels called on inputs zero-padded to ``padded_head_dim`` (so
+    the wrapper padded and sliced back), and within FLASH_TOL of the
+    plain versions at the unpadded width (each at its kernel's tiles)."""
     import torch.nn.functional as F
 
-    b, s, h, d, dname, causal = FLASH_PADDED_CASE
+    b, s, h, d, dname, causal = case
     dtype = getattr(torch, dname)
     fa = fa_mod.flash_attention
     gen = torch.Generator(device=dev)
@@ -1185,6 +1278,16 @@ def phase_xent(torch, dev, timer, smi) -> dict:
     return rows
 
 
+def pool_design(c: int, dname: str, win, st) -> str:
+    """The pool kernel's case: 16-byte vectors over the channels (scalar
+    accesses where C is not a multiple of the vector) and the template
+    case of the window (3x3/2, 3x3/1) or the generic one."""
+    vec = 8 if dname == "bfloat16" else 4
+    case = (f"{win[0]}x{win[1]}/{st[0]}" if tuple(win) == (3, 3)
+            and st[0] == st[1] and st[0] in (1, 2) else "generic")
+    return f"{'vector' if c % vec == 0 else 'scalar'} {case}"
+
+
 def phase_pool(torch, dev, timer, smi) -> tuple[dict, int]:
     """Phase 12: ``max_pool``'s backward kernel, which no model runs: the
     op's own path at its main case (forward and backward through the
@@ -1254,8 +1357,11 @@ def phase_pool(torch, dev, timer, smi) -> tuple[dict, int]:
                "rel_err": err, "tol": POOL_TOL[dname], "ms": ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "library_note": "F.max_pool2d backward alone (first max)",
-               "mbytes": nbytes / 1e6, "bound_ms": bound_ms,
-               "bound_by": bound_by, "nvidia_smi": smi}
+               "design": pool_design(shape[1], dname, win, st),
+               "mbytes": nbytes / 1e6, "gbytes_per_s": nbytes / ms / 1e6,
+               "pct_of_bound": 100.0 * bound_ms / ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "nvidia_smi": smi}
         if tied:
             # the share of windows whose max appears more than once
             taps = F.unfold(F.pad(x.float(), (left, right, top, bottom),
@@ -1305,7 +1411,7 @@ def main() -> int:
                     if "registers" in ln or "Compiling entry" in ln]})
 
     timer = Timer(torch, dev)
-    main_rows = phase_kernels(torch, dev, timer)
+    main_rows = phase_kernels(torch, dev, timer, smi)
     main_rows["fused_bn_relu_conv"] = phase_conv(torch, dev, timer, smi)
     del timer
     torch.cuda.empty_cache()
@@ -1361,6 +1467,17 @@ def main() -> int:
         "max_pool_bwd": ("tpu_hc_bench_torch/csrc/pool_bwd.cu",
                          "tpu_hc_bench/ops/pool_bwd.py:186"),
     }
+    designs = {
+        "paged_decode_attention": "split+merge (split kernel over "
+                                  "paged_splits ranges, merge kernel)",
+        "fused_residual_norm": "one block a row",
+        "fused_bn_relu_conv": main_rows["fused_bn_relu_conv"]["design"],
+        **{FLASH_KERNELS[k][0]: main_rows[FLASH_KERNELS[k][0]]["design"]
+           for k in FLASH_KERNELS},
+        "softmax_xent_fwd": "one block a row, scalar loads",
+        "softmax_xent_bwd": "rows x 2048-column chunks, scalar loads",
+        "max_pool_bwd": main_rows["max_pool_bwd"]["design"],
+    }
     table = []
     for name, (source, replaces) in sources.items():
         r = main_rows[name]
@@ -1369,7 +1486,8 @@ def main() -> int:
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
-                      "library_ms": r["library_ms"]})
+                      "library_ms": r["library_ms"],
+                      "design": designs[name]})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

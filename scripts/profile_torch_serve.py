@@ -15,7 +15,8 @@ trace twice: bare (the end-to-end numbers, ``unprofiled``), then under
   time spent in the port's two CUDA kernels and in matrix products.
 
 Usage: ``python3 scripts/profile_torch_serve.py [--out FILE]``; one JSON
-line per pass on stdout, and the full kernel table in ``--out``.
+line per pass on stdout, then the card's ``nvidia-smi`` name and power
+limit, and the full kernel table in ``--out``.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import argparse
 import collections
 import json
 import os
+import subprocess
 import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -114,6 +116,10 @@ def main() -> int:
         }
         print(json.dumps(rec), flush=True)
         full.append({**rec, "kernels_s": dict(by_name)})
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip(), flush=True)
     os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"gpu": torch.cuda.get_device_name(0), "passes": full},

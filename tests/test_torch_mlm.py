@@ -296,6 +296,38 @@ def test_max_pool_bf16_ties_split_as_the_jax_kernel():
     assert not np.allclose(_nhwc(first_max), want)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("win,st", [((3, 3), (2, 2)), ((3, 3), (1, 1))])
+def test_max_pool_ragged_channels_ties_match_jax(dtype, win, st):
+    """C = 13, not a multiple of the CUDA kernel's 4- or 8-channel vector
+    (its scalar case), and an input of six values, where most windows
+    tie: the port's backward (the plain version on the CPU) against the
+    JAX kernel (interpret mode), every tied max taking the full
+    cotangent; float32 bit for bit (the same f32 sums in the same tap
+    order), bf16 within one ulp of the gradient."""
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(13 + st[0])
+    x = rng.integers(-3, 3, (2, 11, 9, 13)).astype(np.float32)
+    xj = jnp.asarray(x).astype(jdt)
+    y, res = jax_pool_fwd(xj, win, st, "SAME")
+    dy = rng.standard_normal(y.shape).astype(np.float32)
+    (want,) = jax_pool_bwd(win, st, "SAME", res, jnp.asarray(dy).astype(jdt))
+    tx = _nchw(x).to(tdt).requires_grad_()
+    ty = max_pool(tx, win, st, "SAME")
+    np.testing.assert_array_equal(_nhwc(ty), np.asarray(y.astype(
+        jnp.float32)))
+    ty.backward(_nchw(dy).to(tdt))
+    got, want = _nhwc(tx.grad), np.asarray(want.astype(jnp.float32))
+    assert tx.grad.dtype == tdt
+    if dtype == "float32":
+        np.testing.assert_array_equal(got, want)
+    else:
+        ulp = 2.0 ** -7 * np.maximum(np.abs(want), 2.0 ** -126)
+        assert (np.abs(got - want) <= ulp).all()
+    # most windows tie, and a tied element takes the full cotangent
+    assert (np.abs(want) > np.abs(dy).max()).any()
+
+
 def test_max_pool_plain_matches_the_bwd_rule():
     """``max_pool_bwd`` on a CPU tensor is the plain version."""
     x = _nchw(np.random.default_rng(6).standard_normal(

@@ -47,7 +47,8 @@ from tpu_hc_bench_torch.ops.fused_conv import (
 from tpu_hc_bench_torch.ops.fused_residual_ln import (
     fused_residual_norm, fused_residual_norm_plain)
 from tpu_hc_bench_torch.ops.paged_attention import (
-    paged_decode_attention, paged_decode_attention_plain)
+    BLOCKS_PER_SM, MIN_SPLIT_TOKENS, paged_decode_attention,
+    paged_decode_attention_plain, paged_splits, split_ranges, split_slots)
 
 ATTN_ATOL = 2e-5
 NORM_ATOL = 1e-5
@@ -55,6 +56,10 @@ CONV_TOL = 1e-5
 CONV_GRAD_TOL = 1e-4
 FLASH_GRAD_TOL = 1e-4
 FLASH_BF16_TOL = 1e-2
+# a bf16 pool against the JAX op, relative to the output's largest
+# magnitude: out is rounded to bf16 (2^-8 of it) on both sides, and p is
+# rounded to bf16 against the running max of another block order
+PAGED_BF16_TOL = 1e-2
 
 
 def _t(a):
@@ -174,6 +179,153 @@ def test_paged_attention_padded_row_gives_zero_and_finite_lse():
                                atol=ATTN_ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse),
                                rtol=1e-6)
+
+
+def _split_case(kind, seed):
+    """GQA group 4, 16-token pages, a 3-layer pool; rows of length 0, 1,
+    a ragged one and a full table, so a row past a split's start leaves
+    its later splits empty."""
+    rng = np.random.default_rng(seed)
+    L, pages, ps, kvh, d, b, heads, w = 3, 24, 4, 2, 16, 4, 8, 7
+    kf = rng.standard_normal((L, pages, ps, kvh, d)).astype(np.float32)
+    vf = rng.standard_normal((L, pages, ps, kvh, d)).astype(np.float32)
+    q = rng.standard_normal((b, heads, d)).astype(np.float32)
+    tables = rng.integers(1, pages, (b, w)).astype(np.int32)
+    tables[0] = 0                                   # a padded row
+    lengths = np.array([0, 1, 13, w * ps], np.int32)
+    kw = {}
+    if kind == "int8":
+        ks = np.maximum(np.abs(kf).reshape(L, pages, -1).max(-1) / 127,
+                        1e-8).astype(np.float32)
+        vs = np.maximum(np.abs(vf).reshape(L, pages, -1).max(-1) / 127,
+                        1e-8).astype(np.float32)
+        kf = np.round(kf / ks[..., None, None, None]).astype(np.int8)
+        vf = np.round(vf / vs[..., None, None, None]).astype(np.int8)
+        kw = {"k_scales": ks, "v_scales": vs}
+    return (q, kf, vf, tables, lengths), kw
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7])
+def test_paged_split_plain_matches_jax(kind, splits):
+    """The split plain version (the kernels' split-and-merge: a partial
+    softmax per range of table slots, merged in split order) against the
+    JAX op in interpret mode, two pages per block, layer 2: out and lse
+    within the attention bound; the padded row gives out 0 and lse below
+    -1e29 on both sides."""
+    (q, kf, vf, tables, lengths), kw = _split_case(kind, seed=splits)
+    want, want_lse = jax_paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, kf, vf, tables, lengths)), layer=2,
+        pages_per_block=2, return_lse=True,
+        **{k: jnp.asarray(v) for k, v in kw.items()})
+    got, lse = paged_decode_attention_plain(
+        *(_t(a) for a in (q, kf, vf, tables, lengths)), layer=2,
+        pages_per_block=2, return_lse=True, splits=splits,
+        **{k: _t(v) for k, v in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               atol=ATTN_ATOL)
+    np.testing.assert_allclose(lse[1:].numpy(), np.asarray(want_lse)[1:],
+                               atol=ATTN_ATOL)
+    assert (got[0] == 0).all() and (lse[0] < -1e29).all()
+    assert (np.asarray(want_lse)[0] < -1e29).all()
+
+
+@pytest.mark.parametrize("q_bf16", [True, False])
+@pytest.mark.parametrize("splits", [None, 3])
+def test_paged_bf16_pool_plain_matches_jax(q_bf16, splits):
+    """A bf16 pool, p rounded to bf16 before P V as the JAX op rounds it,
+    out in q's dtype: within PAGED_BF16_TOL of the output's largest
+    magnitude; lse (f32 on both sides, from the same bf16 inputs) within
+    the attention bound."""
+    (q, kf, vf, tables, lengths), _ = _split_case("f32", seed=11)
+    jq = jnp.asarray(q).astype(jnp.bfloat16 if q_bf16 else jnp.float32)
+    jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (kf, vf))
+    want, want_lse = jax_paged_decode_attention(
+        jq, jk, jv, jnp.asarray(tables), jnp.asarray(lengths), layer=1,
+        pages_per_block=2, return_lse=True)
+    tq = _t(np.asarray(jq.astype(jnp.float32))).to(
+        torch.bfloat16 if q_bf16 else torch.float32)
+    tk, tv = (_t(np.asarray(a.astype(jnp.float32))).to(torch.bfloat16)
+              for a in (jk, jv))
+    got, lse = paged_decode_attention_plain(
+        tq, tk, tv, _t(tables), _t(lengths), layer=1, pages_per_block=2,
+        return_lse=True, splits=splits)
+    assert got.dtype == tq.dtype
+    want = np.asarray(want.astype(jnp.float32))
+    _close_rel(got.float(), want, PAGED_BF16_TOL, "out")
+    np.testing.assert_allclose(lse[1:].numpy(), np.asarray(want_lse)[1:],
+                               atol=ATTN_ATOL)
+
+
+def test_paged_bf16_plain_rounds_p_as_the_kernel():
+    """The plain version rounds p to bf16 before P V for a bf16 pool (l
+    sums the unrounded p), as the JAX op and the kernel do, and keeps it
+    in f32 for an f32 pool: one page of three keys whose scores are
+    about 0, -1 and -2 (p not bf16 values)."""
+    d, ps = 8, 3
+    q = torch.zeros((1, 1, d))
+    q[0, 0, 0] = 1.0
+    k = torch.zeros((1, ps, 1, d))
+    k[0, :, 0, 0] = torch.tensor([0.0, -1.0, -2.0]) * d ** 0.5
+    k = k.bfloat16().float()           # the same keys in both pools
+    v = torch.zeros((1, ps, 1, d))
+    v[0, :, 0, 0] = torch.tensor([1.0, 2.0, 4.0])
+    tbl = torch.zeros((1, 1), dtype=torch.int32)
+    ln = torch.tensor([ps], dtype=torch.int32)
+    kb, vb = k.bfloat16(), v.bfloat16()
+    s = (kb.float()[0, :, 0] @ q[0, 0]) / d ** 0.5
+    p = torch.exp(s - s.max())
+    want_rounded = (p.bfloat16().float() @ vb.float()[0, :, 0, 0]) / p.sum()
+    want_exact = (p @ v[0, :, 0, 0]) / p.sum()
+    rounded = paged_decode_attention_plain(q, kb, vb, tbl, ln)
+    exact = paged_decode_attention_plain(q, k, v, tbl, ln)
+    assert abs(float(rounded[0, 0, 0]) - float(want_rounded)) <= 1e-6
+    assert abs(float(exact[0, 0, 0]) - float(want_exact)) <= 1e-6
+    assert abs(float(want_rounded) - float(want_exact)) > 1e-5
+
+
+@pytest.mark.parametrize("b,kvh,w,ps,ppb,sm", [
+    (8, 8, 36, 16, 1, 132),       # llama_1b decode
+    (8, 8, 36, 16, 2, 132),
+    (8, 8, 256, 16, 1, 132),      # long context
+    (1, 1, 1, 16, 1, 132),        # one slot
+    (0, 8, 36, 16, 1, 132),       # no rows
+    (64, 8, 36, 16, 4, 132),      # already above two blocks an SM
+    (2, 2, 37, 4, 3, 8),          # w not a multiple of pages_per_block
+    (1, 8, 5, 64, 1, 132),        # big pages: one split keeps 64 tokens
+])
+def test_paged_splits_rule(b, kvh, w, ps, ppb, sm):
+    """``paged_splits`` gives at least one split, none empty, each a
+    whole number of ``pages_per_block`` blocks (the last shorter), the
+    ranges covering every table slot exactly once, at least
+    MIN_SPLIT_TOKENS a split where the table holds that many, and about
+    BLOCKS_PER_SM blocks an SM where the table is long enough."""
+    splits = paged_splits(b, kvh, w, ps, ppb, sm)
+    assert splits >= 1
+    n, per = split_slots(w, ppb, splits)
+    assert n == splits and per % min(ppb, w) == 0
+    ranges = split_ranges(w, ppb, splits)
+    assert len(ranges) == splits
+    assert all(stop > start for start, stop in ranges)
+    covered = [s for start, stop in ranges for s in range(start, stop)]
+    assert covered == list(range(w))
+    if w * ps >= MIN_SPLIT_TOKENS:
+        assert per * ps >= MIN_SPLIT_TOKENS or splits == 1
+    if b * kvh and w >= 64:
+        # a long table is split far enough to fill the card (the cut to
+        # no empty split gives back at most one split here)
+        assert b * kvh * (splits + 1) >= BLOCKS_PER_SM * sm
+
+
+def test_paged_split_count_is_normalized():
+    """An explicit split count is cut to one that leaves no split empty
+    (3 slots in 7 splits: 3), and both the plain version and the ranges
+    use it."""
+    assert split_slots(3, 1, 7) == (3, 1)
+    assert split_slots(36, 1, 5) == (5, 8)
+    assert split_slots(37, 3, 4) == (4, 12)
+    assert split_ranges(37, 3, 4) == [(0, 12), (12, 24), (24, 36),
+                                      (36, 37)]
 
 
 def test_paged_attention_validation_matches_jax():
@@ -475,8 +627,9 @@ def test_flash_plain_at_the_wgmma_tiles_matches_jax(b, sq, sk, h, d, causal,
 def test_flash_fwd_design_rule():
     """bf16 runs the wgmma forward at 128-query tiles (128 keys at head
     dim 64, 64 at 128), float32 the FMA forward at 64-row tiles; a head
-    dim below 128 takes the tiles of the one it is padded to; another
-    dtype, or a head dim above 128, raises."""
+    dim takes the tiles of the one it is padded to (192: the FMA kernel
+    at 256, 32-row tiles); another dtype, or a head dim above 256,
+    raises."""
     assert fwd_design(torch.bfloat16) == "wgmma"
     assert fwd_design(torch.float32) == "fma"
     assert fwd_blocks(torch.bfloat16, 64) == (128, 128)
@@ -485,17 +638,19 @@ def test_flash_fwd_design_rule():
     assert fwd_blocks(torch.float32, 128) == (64, 64)
     assert fwd_blocks(torch.bfloat16, 32) == (128, 128)
     assert fwd_blocks(torch.bfloat16, 96) == (128, 64)
+    assert fwd_blocks(torch.bfloat16, 192) == (32, 32)
     with pytest.raises(ValueError, match="float16"):
         fwd_design(torch.float16)
     with pytest.raises(ValueError, match="head_dim"):
-        fwd_blocks(torch.bfloat16, 192)
+        fwd_blocks(torch.bfloat16, 257)
 
 
 def test_flash_bwd_design_rule():
     """bf16 runs the wgmma dQ kernel (128 query rows over 64-key tiles)
-    and dK/dV kernel (128 keys over 64-query tiles) at either head dim,
-    float32 the FMA kernels at 64-row tiles; another dtype, or a head dim
-    above 128, raises."""
+    and dK/dV kernel (128 keys over 64-query tiles) at head dims up to
+    128, float32 the FMA kernels at 64-row tiles; head dim 192 runs the
+    FMA kernels at 256 (32-row tiles); another dtype, or a head dim above
+    256, raises."""
     assert bwd_design(torch.bfloat16) == "wgmma"
     assert bwd_design(torch.float32) == "fma"
     for d in (16, 32, 64, 96, 128):
@@ -503,29 +658,88 @@ def test_flash_bwd_design_rule():
                                                  "dkv": (64, 128)}
         assert bwd_blocks(torch.float32, d) == {"dq": (64, 64),
                                                 "dkv": (64, 64)}
+    assert bwd_blocks(torch.bfloat16, 192) == {"dq": (32, 32),
+                                               "dkv": (32, 32)}
     with pytest.raises(ValueError, match="float16"):
         bwd_design(torch.float16)
     with pytest.raises(ValueError, match="head_dim"):
-        bwd_blocks(torch.bfloat16, 192)
+        bwd_blocks(torch.bfloat16, 257)
 
 
 @pytest.mark.parametrize("d,want", [(1, 64), (16, 64), (32, 64), (64, 64),
-                                    (65, 128), (96, 128), (128, 128)])
+                                    (65, 128), (96, 128), (128, 128),
+                                    (129, 256), (192, 256), (256, 256)])
 def test_flash_padded_head_dim_rule(d, want):
     assert padded_head_dim(d) == want
 
 
-@pytest.mark.parametrize("d", [0, 129, 192, 256])
+@pytest.mark.parametrize("d", [0, 257, 320, 512])
 def test_flash_head_dim_above_128_raises(d):
     """The kernels' rule, which the card route goes through, raises
-    outside 1..128 (``test_torch_sm90.py`` holds the card to it); the CPU
-    route takes a head dim above 128 unpadded (below)."""
-    with pytest.raises(ValueError, match="head_dim 1..128"):
+    outside 1..256 since head dims 129..256 run padded to 256
+    (``test_torch_sm90.py`` holds the card to it); the CPU route takes a
+    head dim above 256 unpadded."""
+    with pytest.raises(ValueError, match="head_dim 1..256"):
         padded_head_dim(d)
     with pytest.raises(ValueError, match="head_dim"):
         fwd_blocks(torch.bfloat16, d)
     with pytest.raises(ValueError, match="head_dim"):
         bwd_blocks(torch.float32, d)
+
+
+@pytest.mark.parametrize("d", [129, 160, 192, 256])
+def test_flash_head_dims_129_to_256_take_the_d256_kernels(d):
+    """Head dims 129..256 pad to 256, where both dtypes run the FMA
+    kernels (``fwd_design``/``bwd_design`` given the head dim) at 32-row
+    tiles; without a head dim the designs keep their rule for 64 and
+    128."""
+    assert padded_head_dim(d) == 256
+    for dtype in (torch.float32, torch.bfloat16):
+        assert fwd_design(dtype, d) == "fma"
+        assert bwd_design(dtype, d) == "fma"
+        assert fwd_blocks(dtype, d) == (32, 32)
+        assert bwd_blocks(dtype, d) == {"dq": (32, 32), "dkv": (32, 32)}
+    assert fwd_design(torch.bfloat16) == "wgmma"
+    assert fwd_design(torch.bfloat16, 128) == "wgmma"
+    assert bwd_design(torch.bfloat16, 64) == "wgmma"
+
+
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plain_at_the_d256_tiles_matches_jax(d, dtype):
+    """``flash_attention_plain`` at the head-dim-256 kernels' 32-row tiles
+    (``fwd_blocks``; d 192 zero-padded to 256, as the card runs it)
+    against the Pallas kernels (interpret mode) at 32-row blocks and the
+    unpadded width: o and the gradients of q, k, v under one cotangent
+    (``jax.vjp``), causal, ragged over the tiles; float32 within the
+    attention bound (o) and 1e-4 of the largest gradient, bf16 within
+    one bf16 rounding (1e-2) of the largest magnitude."""
+    b, s, h = 1, 45, 2
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    q, k, v = _flash_inputs(b, s, s, h, d, seed=d)
+    do = np.random.default_rng(d + 1).standard_normal(
+        (b, s, h, d)).astype(np.float32)
+    bq, bk = fwd_blocks(dtype, d)
+    assert bwd_blocks(dtype, d)["dq"] == (bq, bk) == (32, 32)
+    want, vjp = jax.vjp(functools.partial(
+        jax_flash_attention, causal=True, block_q=bq, block_k=bk),
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(do).astype(jdt))
+    args = [_t(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    o = flash_attention_plain(*args, causal=True, block_q=bq, block_k=bk)
+    o.backward(_t(do).to(dtype))
+    assert o.dtype == dtype and o.shape == (b, s, h, d)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(o.detach().numpy(), want, atol=ATTN_ATOL)
+        tol = FLASH_GRAD_TOL
+    else:
+        _close_rel(o.detach().float(), want, FLASH_BF16_TOL, "o")
+        tol = FLASH_BF16_TOL
+    for t, wnt, name in zip(args, want_grads, ("dq", "dk", "dv")):
+        assert t.grad.dtype == dtype
+        _close_rel(t.grad.float(), np.asarray(wnt.astype(jnp.float32)), tol,
+                   name)
 
 
 @pytest.mark.parametrize("d", [129, 192])

@@ -28,7 +28,7 @@ and the plain versions are held against the JAX package in
   plain version on those heads alone; the padded route of
   ``flash_attention`` at head dims 32 and 96 (the kernels' bits at the
   padded width, sliced back, and the CPU route within 1e-2); a head dim
-  above 128 raises on the card;
+  above 256 raises on the card;
 - the bf16 fused conv (``csrc/fused_conv_sm90.cu``) at Cout 64, 128, 192
   and 512, a ragged last tile, H != W, a 1 x 1 image and the widest
   window it takes (W 62), and the other designs at the shapes the rule
@@ -244,9 +244,12 @@ def test_flash_padded_route_on_card(cuda_device, d, causal):
 
 @pytest.mark.cuda
 def test_flash_head_dim_above_128_raises_on_card(cuda_device):
-    q = torch.zeros((1, 8, 1, 192), dtype=torch.bfloat16,
+    """Head dims 129..256 run padded to 256 since the FMA kernels took
+    that case (``test_torch_kernels_card.py``); above 256 the card
+    raises."""
+    q = torch.zeros((1, 8, 1, 320), dtype=torch.bfloat16,
                     device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim 1..128"):
+    with pytest.raises(ValueError, match="head_dim 1..256"):
         fa.flash_attention(q, q, q)
 
 

@@ -1,15 +1,17 @@
-// Flash attention for Hopper (sm_90a) in float32: the forward and the two
-// backward passes (dQ; dK and dV), each one kernel, and the C entries of
-// all flash kernels (bf16 runs flash_fwd_sm90.cu and flash_bwd_sm90.cu).
+// Flash attention for Hopper (sm_90a) on the FMA units: the forward and
+// the two backward passes (dQ; dK and dV), each one kernel, for float32
+// at head dims 64, 128 and 256 and for bfloat16 at head dim 256; and the
+// C entries of all flash kernels (bf16 at head dims 64 and 128 runs
+// flash_fwd_sm90.cu and flash_bwd_sm90.cu).
 //
 // Replaces: tpu_hc_bench/ops/flash_attention.py, the three Pallas kernels
-// reached from `flash_attention`, for float32 inputs: `_fwd_kernel`
+// reached from `flash_attention`, for those inputs: `_fwd_kernel`
 // (through `_fwd_call`), `_dq_kernel` and `_dkv_kernel` (both through
 // `_bwd_call`).
 //
 //   forward:  S = Q K^T * scale, masked to -1e30 (key past seq_k, or a key
 //             after the query under `causal`: qpos >= kpos, both from 0);
-//             online softmax over 64-key tiles in f32, P = where(visible,
+//             online softmax over key tiles in f32, P = where(visible,
 //             exp(S - m), 0) rounded to V's dtype before P V;
 //             O = acc / max(l, 1e-30), lse = m + log(max(l, 1e-30)) in f32.
 //   dQ:       P = where(visible, exp(S - lse), 0), dP = dO V^T,
@@ -24,7 +26,10 @@
 // and head strides (the last dimension contiguous), so the views q, k, v
 // of one fused [b, s, 3, h, d] projection go in without a copy; o, dO, dQ,
 // dK and dV are contiguous [b, s, h, d]; lse and D are [b, h, s] float32.
-// Head dim 64 or 128 (template cases).
+// Head dim 64, 128 or 256 (template cases).  Tiles are 64 rows at head
+// dims 64 and 128 and 32 rows at 256, where 64-row tiles of the dK/dV
+// kernel would need ~420 KB of shared memory in f32 and ~320 KB in bf16
+// (Geo::dkv), and a 64 x 256 register patch of P V would spill.
 //
 // What bounds it on an H100, at the training shape (b 16, s 1024, h 12,
 // d 64, causal): operations on the FMA units (67 TFLOP/s in f32; no TF32,
@@ -32,12 +37,14 @@
 // forward, dQ and dK/dV.  Every tile product goes through shared memory
 // between block-wide barriers, with no overlap of loads with math.
 //
-// What the design does about it: every block owns one 64-row tile of its
-// output and loops over the other operand's 64-row tiles, so the score
+// What the design does about it: every block owns one row tile of its
+// output and loops over the other operand's row tiles, so the score
 // tile never reaches device memory and no block shares an output with
 // another (no atomics: the result is the same on every run).  The tiles
-// are staged in shared memory with 16-byte loads; each thread computes an
-// 8 x N/16 patch of a product in registers.  The accumulators (O; dQ; dK
+// are staged in shared memory with 16-byte loads (bf16 stays bf16 there
+// and is widened to f32 as a product reads it: the products of two bf16
+// values are exact in f32); each thread computes a kB/8 x N/16 patch of a
+// product in registers.  The accumulators (O; dQ; dK
 // and dV) stay in shared memory between tiles.  Under `causal` the loops
 // stop at the diagonal: the forward and dQ visit key tiles 0..i only,
 // dK/dV query tiles j.. only, the counterpart of the Pallas `_tile_live`
@@ -46,39 +53,52 @@
 // does, and the blocks run in parallel.  b*h is the grid's x axis (no
 // 65535 cap), the tile index its y axis.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kB = 64;          // rows of every tile (queries and keys)
-constexpr int kThreads = 128;   // four warps, 16 tile rows each
+using bf16 = __nv_bfloat16;
+
+constexpr int kThreads = 128;   // four warps, kB / 4 tile rows each
 constexpr float kNegInf = -1e30f;
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
   return x;
 }
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
+  return __float2bfloat16(x);
+}
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
-// Shared-memory geometry per element type and head dim.  Row strides are
-// padded against bank conflicts, but f32 at d 128 goes unpadded so the
-// dK/dV kernel fits in 227 KB.  The probabilities and dS are written over
-// S and dP in place (kP = 0: no separate tiles for them in f32).
+// Shared-memory geometry per element type and head dim: kB rows a tile.
+// Row strides are padded against bank conflicts, but f32 at d 128 goes
+// unpadded so the dK/dV kernel fits in 227 KB.  In f32 the probabilities
+// and dS are written over S and dP in place (kP = 0); bf16 gives them
+// tiles of their own (a bf16 P written over an f32 S would be read back
+// by other threads before they read their S).
 template <typename T, int D>
 struct Geo {
-  static_assert(sizeof(T) == 4, "float32 only: bf16 runs the wgmma kernels");
-  static constexpr int kLdT = D + (D == 128 ? 0 : 4);
-  static constexpr int kLdS = kB + 4;                 // f32 [64, 64]
-  static constexpr int kLdP = kLdS;
-  static constexpr int kLdO = kLdT;
+  static constexpr bool kHalf = sizeof(T) == 2;
+  static_assert(!kHalf || D == 256,
+                "bf16 at head dims 64 and 128 runs the wgmma kernels");
+  static constexpr int kB = D == 256 ? 32 : 64;
+  static constexpr int kLdT = D + (kHalf ? 8 : (D == 128 ? 0 : 4));
+  static constexpr int kLdS = kB + 4;                 // f32 [kB, kB]
+  static constexpr int kLdP = kHalf ? kB + 8 : kLdS;
+  static constexpr int kLdO = D + (D == 128 ? 0 : 4);
   static constexpr int kTile = kB * kLdT * (int)sizeof(T);
   static constexpr int kS = kB * kLdS * 4;
-  static constexpr int kP = 0;
+  static constexpr int kP = kHalf ? kB * kLdP * 2 : 0;
   static constexpr int kO = kB * kLdO * 4;
   static constexpr int kRow = kB * 4;
   static constexpr int fwd = 3 * kTile + kS + kP + kO + 2 * kRow;
   static constexpr int dq = 4 * kTile + 2 * kS + kP + kO + 2 * kRow;
   static constexpr int dkv = 4 * kTile + 2 * kS + 2 * kP + 2 * kO + 2 * kRow;
+  static_assert(dkv <= 232448, "dK/dV tiles exceed 227 KB");
 };
 
 struct Params {
@@ -101,14 +121,14 @@ struct Params {
 
 // --- staging --------------------------------------------------------------
 
-// rows row0.. of one head into a [64, ld] tile, zeros past `rows`
-template <typename T, int D>
+// rows row0.. of one head into a [KB, ld] tile, zeros past `rows`
+template <typename T, int D, int KB>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
                                           long long row_stride, int row0,
                                           int rows, int tid) {
   constexpr int kVec = 16 / (int)sizeof(T);
   constexpr int kPerRow = D / kVec;
-  for (int u = tid; u < kB * kPerRow; u += kThreads) {
+  for (int u = tid; u < KB * kPerRow; u += kThreads) {
     const int r = u / kPerRow, c = (u % kPerRow) * kVec;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (row0 + r < rows)
@@ -117,45 +137,51 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
   }
 }
 
-// f32 [64] row values (lse or D) of one head, 0 past `rows`
+// f32 [KB] row values (lse or D) of one head, 0 past `rows`
+template <int KB>
 __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int rows, int tid) {
-  for (int r = tid; r < kB; r += kThreads)
+  for (int r = tid; r < KB; r += kThreads)
     dst[r] = row0 + r < rows ? src[row0 + r] : 0.f;
 }
 
-// --- C[64, N] (+)= A[64, K] B[K, N], all f32 in shared memory ----------
+// --- C[M, N] (+)= A[M, K] B[K, N], C f32 in shared memory -------------
 // A(i, k) = A_ROW ? A[i * lda + k] : A[k * lda + i]
 // B(k, j) = B_ROW ? B[k * ldb + j] : B[j * ldb + k]
+// A and B are f32 or bf16, widened to f32 as they are read.
 
-template <bool A_ROW, bool B_ROW, int N, int K>
-__device__ __forceinline__ void tile_gemm(const float* A, int lda,
-                                          const float* B, int ldb, float* C,
-                                          int ldc, bool accumulate, int tid) {
+template <bool A_ROW, bool B_ROW, int M, int N, int K, typename TA,
+          typename TB>
+__device__ __forceinline__ void tile_gemm(const TA* A, int lda, const TB* B,
+                                          int ldb, float* C, int ldc,
+                                          bool accumulate, int tid) {
+  constexpr int kRows = M / 8;
   constexpr int kCols = N / 16;
   const int tx = tid & 15, ty = tid >> 4;      // rows ty + 8 i, cols tx + 16 j
-  float c[8][kCols];
+  float c[kRows][kCols];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
       c[i][j] = accumulate ? C[(ty + 8 * i) * ldc + tx + 16 * j] : 0.f;
 #pragma unroll 4
   for (int kk = 0; kk < K; ++kk) {
-    float a[8], bv[kCols];
+    float a[kRows], bv[kCols];
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      a[i] = A_ROW ? A[(ty + 8 * i) * lda + kk] : A[kk * lda + ty + 8 * i];
+    for (int i = 0; i < kRows; ++i)
+      a[i] = to_f(A_ROW ? A[(ty + 8 * i) * lda + kk]
+                        : A[kk * lda + ty + 8 * i]);
 #pragma unroll
     for (int j = 0; j < kCols; ++j)
-      bv[j] = B_ROW ? B[kk * ldb + tx + 16 * j] : B[(tx + 16 * j) * ldb + kk];
+      bv[j] = to_f(B_ROW ? B[kk * ldb + tx + 16 * j]
+                         : B[(tx + 16 * j) * ldb + kk]);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < kRows; ++i)
 #pragma unroll
       for (int j = 0; j < kCols; ++j) c[i][j] = fmaf(a[i], bv[j], c[i][j]);
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < kRows; ++i)
 #pragma unroll
     for (int j = 0; j < kCols; ++j) C[(ty + 8 * i) * ldc + tx + 16 * j] = c[i][j];
 }
@@ -181,12 +207,17 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const Params p) {
   using G = Geo<T, D>;
+  constexpr int kB = G::kB;
+  constexpr int kRowsPerWarp = kB / 4;
+  constexpr int kKeys = kB / 32;                // keys a lane
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* Ks = reinterpret_cast<T*>(smem + G::kTile);
   T* Vs = reinterpret_cast<T*>(smem + 2 * G::kTile);
   float* Ss = reinterpret_cast<float*>(smem + 3 * G::kTile);
-  T* Ps = reinterpret_cast<T*>(Ss);             // P over S in place
+  // P over S in place in f32, a tile of its own in bf16
+  T* Ps = reinterpret_cast<T*>(G::kHalf ? smem + 3 * G::kTile + G::kS
+                                        : smem + 3 * G::kTile);
   float* Os = reinterpret_cast<float*>(smem + 3 * G::kTile + G::kS + G::kP);
   float* m_s = Os + kB * G::kLdO;
   float* l_s = m_s + kB;
@@ -199,7 +230,7 @@ flash_fwd_kernel(const Params p) {
   const T* k = static_cast<const T*>(p.k) + bi * p.ks[0] + hi * p.ks[2];
   const T* v = static_cast<const T*>(p.v) + bi * p.vs[0] + hi * p.vs[2];
 
-  load_tile<T, D>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
+  load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
   for (int u = tid; u < kB * D; u += kThreads)
     Os[(u / D) * G::kLdO + u % D] = 0.f;
   for (int r = tid; r < kB; r += kThreads) {
@@ -210,32 +241,39 @@ flash_fwd_kernel(const Params p) {
   const int kt_end = p.causal ? min(n_kt, qt + 1) : n_kt;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int j0 = kt * kB;
-    load_tile<T, D>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
-    load_tile<T, D>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
+    load_tile<T, D, kB>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
+    load_tile<T, D, kB>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
     __syncthreads();
-    tile_gemm<true, false, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
-                                  false, tid);
+    tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
+                                      false, tid);
     __syncthreads();
-    // the online-softmax update, one warp per 16 rows, two keys a lane
-    for (int r = warp * 16; r < warp * 16 + 16; ++r) {
+    // the online-softmax update, one warp per kB / 4 rows, kB / 32 keys a
+    // lane
+    for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
       const int qpos = i0 + r;
-      float s[2];
-      bool vis[2];
+      float s[kKeys];
+      bool vis[kKeys];
+      float mx = kNegInf;
 #pragma unroll
-      for (int t = 0; t < 2; ++t) {
+      for (int t = 0; t < kKeys; ++t) {
         const int c = lane + 32 * t;
         vis[t] = visible(qpos, j0 + c, p.sq, p.sk, p.causal);
         s[t] = vis[t] ? Ss[r * G::kLdS + c] * p.scale : kNegInf;
+        mx = fmaxf(mx, s[t]);
       }
       const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
-      float pr[2];
+      const float m_new = fmaxf(m_old, warp_max(mx));
+      float pr[kKeys], psum = 0.f;
 #pragma unroll
-      for (int t = 0; t < 2; ++t) pr[t] = vis[t] ? expf(s[t] - m_new) : 0.f;
+      for (int t = 0; t < kKeys; ++t) {
+        pr[t] = vis[t] ? expf(s[t] - m_new) : 0.f;
+        psum += pr[t];
+      }
       const float corr = expf(m_old - m_new);
-      const float rowsum = warp_sum(pr[0] + pr[1]);
+      const float rowsum = warp_sum(psum);
+      __syncwarp();     // every lane has read its S before P goes over it
 #pragma unroll
-      for (int t = 0; t < 2; ++t)
+      for (int t = 0; t < kKeys; ++t)
         Ps[r * G::kLdP + lane + 32 * t] = from_f<T>(pr[t]);
       if (lane == 0) {
         l_s[r] = l_s[r] * corr + rowsum;
@@ -244,8 +282,8 @@ flash_fwd_kernel(const Params p) {
       for (int c = lane; c < D; c += 32) Os[r * G::kLdO + c] *= corr;
     }
     __syncthreads();
-    tile_gemm<true, true, D, kB>(Ps, G::kLdP, Vs, G::kLdT, Os, G::kLdO, true,
-                                 tid);
+    tile_gemm<true, true, kB, D, kB>(Ps, G::kLdP, Vs, G::kLdT, Os, G::kLdO,
+                                     true, tid);
     __syncthreads();
   }
   T* o = static_cast<T*>(p.o);
@@ -263,15 +301,17 @@ flash_fwd_kernel(const Params p) {
           m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
 
-// P and dS of one [64 query, 64 key] tile from S and dP (f32, in Ss and
+// P and dS of one [kB query, kB key] tile from S and dP (f32, in Ss and
 // DPs), written as T into Ps (when WRITE_P) and DSs, which alias Ss and
-// DPs in f32 (each thread reads an element before it writes it)
+// DPs in f32 (each thread reads an element before it writes it) and have
+// tiles of their own in bf16
 template <typename T, int D, bool WRITE_P>
 __device__ __forceinline__ void p_and_ds(const float* Ss, const float* DPs,
                                          T* Ps, T* DSs, const float* lse_s,
                                          const float* delta_s, int i0,
                                          int j0, const Params& p, int tid) {
   using G = Geo<T, D>;
+  constexpr int kB = G::kB;
   for (int u = tid; u < kB * kB; u += kThreads) {
     const int r = u / kB, c = u % kB;
     const bool vis = visible(i0 + r, j0 + c, p.sq, p.sk, p.causal);
@@ -289,6 +329,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const Params p) {
   using G = Geo<T, D>;
+  constexpr int kB = G::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Qs = reinterpret_cast<T*>(smem);
   T* dOs = reinterpret_cast<T*>(smem + G::kTile);
@@ -296,7 +337,9 @@ flash_dq_kernel(const Params p) {
   T* Vs = reinterpret_cast<T*>(smem + 3 * G::kTile);
   float* Ss = reinterpret_cast<float*>(smem + 4 * G::kTile);
   float* DPs = reinterpret_cast<float*>(smem + 4 * G::kTile + G::kS);
-  T* DSs = reinterpret_cast<T*>(DPs);           // dS over dP in place
+  // dS over dP in place in f32, a tile of its own in bf16
+  T* DSs = reinterpret_cast<T*>(smem + 4 * G::kTile + G::kS +
+                                (G::kHalf ? G::kS : 0));
   float* dQs =
       reinterpret_cast<float*>(smem + 4 * G::kTile + 2 * G::kS + G::kP);
   float* lse_s = dQs + kB * G::kLdO;
@@ -313,29 +356,29 @@ flash_dq_kernel(const Params p) {
   const T* dout = static_cast<const T*>(p.dout) + (long long)bi * p.sq * hd
                   + (long long)hi * D;
 
-  load_tile<T, D>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
-  load_tile<T, D>(dOs, G::kLdT, dout, hd, i0, p.sq, tid);
-  load_rows(lse_s, p.lse_in + (long long)bh * p.sq, i0, p.sq, tid);
-  load_rows(delta_s, p.delta + (long long)bh * p.sq, i0, p.sq, tid);
+  load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
+  load_tile<T, D, kB>(dOs, G::kLdT, dout, hd, i0, p.sq, tid);
+  load_rows<kB>(lse_s, p.lse_in + (long long)bh * p.sq, i0, p.sq, tid);
+  load_rows<kB>(delta_s, p.delta + (long long)bh * p.sq, i0, p.sq, tid);
   for (int u = tid; u < kB * D; u += kThreads)
     dQs[(u / D) * G::kLdO + u % D] = 0.f;
   const int n_kt = (p.sk + kB - 1) / kB;
   const int kt_end = p.causal ? min(n_kt, qt + 1) : n_kt;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int j0 = kt * kB;
-    load_tile<T, D>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
-    load_tile<T, D>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
+    load_tile<T, D, kB>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
+    load_tile<T, D, kB>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
     __syncthreads();
-    tile_gemm<true, false, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
-                                  false, tid);
-    tile_gemm<true, false, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs, G::kLdS,
-                                  false, tid);
+    tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
+                                      false, tid);
+    tile_gemm<true, false, kB, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs,
+                                      G::kLdS, false, tid);
     __syncthreads();
     p_and_ds<T, D, false>(Ss, DPs, nullptr, DSs, lse_s, delta_s, i0, j0, p,
                           tid);
     __syncthreads();
-    tile_gemm<true, true, D, kB>(DSs, G::kLdP, Ks, G::kLdT, dQs, G::kLdO,
-                                 true, tid);
+    tile_gemm<true, true, kB, D, kB>(DSs, G::kLdP, Ks, G::kLdT, dQs,
+                                     G::kLdO, true, tid);
     __syncthreads();
   }
   T* dq = static_cast<T*>(p.dq) + (long long)bi * p.sq * hd + (long long)hi * D;
@@ -351,6 +394,7 @@ template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const Params p) {
   using G = Geo<T, D>;
+  constexpr int kB = G::kB;
   extern __shared__ __align__(128) unsigned char smem[];
   T* Ks = reinterpret_cast<T*>(smem);
   T* Vs = reinterpret_cast<T*>(smem + G::kTile);
@@ -359,8 +403,11 @@ flash_dkv_kernel(const Params p) {
   float* Ss = reinterpret_cast<float*>(smem + 4 * G::kTile);
   float* DPs = reinterpret_cast<float*>(smem + 4 * G::kTile + G::kS);
   unsigned char* after_s = smem + 4 * G::kTile + 2 * G::kS;
-  T* Ps = reinterpret_cast<T*>(Ss);             // P and dS in place
-  T* DSs = reinterpret_cast<T*>(DPs);
+  // P and dS over S and dP in place in f32, tiles of their own in bf16
+  T* Ps = G::kHalf ? reinterpret_cast<T*>(after_s)
+                   : reinterpret_cast<T*>(Ss);
+  T* DSs = G::kHalf ? reinterpret_cast<T*>(after_s + G::kP)
+                    : reinterpret_cast<T*>(DPs);
   float* dKs = reinterpret_cast<float*>(after_s + 2 * G::kP);
   float* dVs = dKs + kB * G::kLdO;
   float* lse_s = dVs + kB * G::kLdO;
@@ -377,8 +424,8 @@ flash_dkv_kernel(const Params p) {
   const T* dout = static_cast<const T*>(p.dout) + (long long)bi * p.sq * hd
                   + (long long)hi * D;
 
-  load_tile<T, D>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
-  load_tile<T, D>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
+  load_tile<T, D, kB>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
+  load_tile<T, D, kB>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
   for (int u = tid; u < kB * D; u += kThreads) {
     dKs[(u / D) * G::kLdO + u % D] = 0.f;
     dVs[(u / D) * G::kLdO + u % D] = 0.f;
@@ -386,23 +433,23 @@ flash_dkv_kernel(const Params p) {
   const int n_qt = (p.sq + kB - 1) / kB;
   for (int qt = p.causal ? kt : 0; qt < n_qt; ++qt) {
     const int i0 = qt * kB;
-    load_tile<T, D>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
-    load_tile<T, D>(dOs, G::kLdT, dout, hd, i0, p.sq, tid);
-    load_rows(lse_s, p.lse_in + (long long)bh * p.sq, i0, p.sq, tid);
-    load_rows(delta_s, p.delta + (long long)bh * p.sq, i0, p.sq, tid);
+    load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
+    load_tile<T, D, kB>(dOs, G::kLdT, dout, hd, i0, p.sq, tid);
+    load_rows<kB>(lse_s, p.lse_in + (long long)bh * p.sq, i0, p.sq, tid);
+    load_rows<kB>(delta_s, p.delta + (long long)bh * p.sq, i0, p.sq, tid);
     __syncthreads();
-    tile_gemm<true, false, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
-                                  false, tid);
-    tile_gemm<true, false, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs, G::kLdS,
-                                  false, tid);
+    tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
+                                      false, tid);
+    tile_gemm<true, false, kB, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs,
+                                      G::kLdS, false, tid);
     __syncthreads();
     p_and_ds<T, D, true>(Ss, DPs, Ps, DSs, lse_s, delta_s, i0, j0, p, tid);
     __syncthreads();
     // dV += P^T dO and dK += dS^T Q: the [query, key] tiles read transposed
-    tile_gemm<false, true, D, kB>(Ps, G::kLdP, dOs, G::kLdT, dVs, G::kLdO,
-                                  true, tid);
-    tile_gemm<false, true, D, kB>(DSs, G::kLdP, Qs, G::kLdT, dKs, G::kLdO,
-                                  true, tid);
+    tile_gemm<false, true, kB, D, kB>(Ps, G::kLdP, dOs, G::kLdT, dVs,
+                                      G::kLdO, true, tid);
+    tile_gemm<false, true, kB, D, kB>(DSs, G::kLdP, Qs, G::kLdT, dKs,
+                                      G::kLdO, true, tid);
     __syncthreads();
   }
   T* dk = static_cast<T*>(p.dk) + (long long)bi * p.sk * hd + (long long)hi * D;
@@ -418,21 +465,22 @@ flash_dkv_kernel(const Params p) {
 
 enum Which { kFwd, kDq, kDkv };
 
-template <int D>
+template <typename T, int D>
 int launch(Which which, const Params& p, cudaStream_t stream) {
-  using G = Geo<float, D>;
+  using G = Geo<T, D>;
+  constexpr int kB = G::kB;
   void (*kernel)(const Params);
   int smem, tiles;
   if (which == kFwd) {
-    kernel = flash_fwd_kernel<float, D>;
+    kernel = flash_fwd_kernel<T, D>;
     smem = G::fwd;
     tiles = (p.sq + kB - 1) / kB;
   } else if (which == kDq) {
-    kernel = flash_dq_kernel<float, D>;
+    kernel = flash_dq_kernel<T, D>;
     smem = G::dq;
     tiles = (p.sq + kB - 1) / kB;
   } else {
-    kernel = flash_dkv_kernel<float, D>;
+    kernel = flash_dkv_kernel<T, D>;
     smem = G::dkv;
     tiles = (p.sk + kB - 1) / kB;
   }
@@ -444,11 +492,18 @@ int launch(Which which, const Params& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// the float32 kernels of this file
-int dispatch(Which which, const Params& p, int d, void* stream) {
+// the kernels of this file: float32 at head dims 64, 128 and 256, bf16
+// at 256
+int dispatch(Which which, const Params& p, int d, int is_bf16,
+             void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(which, p, s);
-  if (d == 128) return launch<128>(which, p, s);
+  if (is_bf16) {
+    if (d == 256) return launch<bf16, 256>(which, p, s);
+  } else {
+    if (d == 64) return launch<float, 64>(which, p, s);
+    if (d == 128) return launch<float, 128>(which, p, s);
+    if (d == 256) return launch<float, 256>(which, p, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -496,10 +551,11 @@ int flash_dkv_sm90(const void* q, const void* k, const void* v,
 }  // namespace thb
 
 // Each entry returns cudaGetLastError() after its launch (0 when it was
-// accepted), or cudaErrorInvalidValue for a head dim other than 64 or 128.
-// Strides are in elements: batch, sequence, head, for q, k and v.  bf16
-// runs the wgmma kernels (flash_fwd_sm90.cu, flash_bwd_sm90.cu), float32
-// this file's; *design is set to the one that ran: 2 wgmma, 1 FMA.
+// accepted), or cudaErrorInvalidValue for a head dim other than 64, 128
+// or 256.  Strides are in elements: batch, sequence, head, for q, k and
+// v.  bf16 at head dims 64 and 128 runs the wgmma kernels
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu), everything else this file's;
+// *design is set to the one that ran: 2 wgmma, 1 FMA.
 
 extern "C" int thb_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int b,
@@ -509,7 +565,7 @@ extern "C" int thb_flash_attention_fwd(
     void* stream) {
   Params p = make_params(q, k, v, b, h, sq, sk, qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, scale, causal);
-  if (is_bf16) {
+  if (is_bf16 && d <= 128) {
     *design = 2;
     return thb::flash_fwd_sm90(q, k, v, o, lse, b, h, sq, sk, d, p.qs, p.ks,
                                p.vs, scale, causal,
@@ -518,7 +574,7 @@ extern "C" int thb_flash_attention_fwd(
   *design = 1;
   p.o = o;
   p.lse = static_cast<float*>(lse);
-  return dispatch(kFwd, p, d, stream);
+  return dispatch(kFwd, p, d, is_bf16, stream);
 }
 
 extern "C" int thb_flash_attention_dq(
@@ -529,7 +585,7 @@ extern "C" int thb_flash_attention_dq(
     float scale, int causal, int is_bf16, int* design, void* stream) {
   Params p = make_params(q, k, v, b, h, sq, sk, qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, scale, causal);
-  if (is_bf16) {
+  if (is_bf16 && d <= 128) {
     *design = 2;
     return thb::flash_dq_sm90(q, k, v, dout, lse, delta, dq, b, h, sq, sk, d,
                               p.qs, p.ks, p.vs, scale, causal,
@@ -540,7 +596,7 @@ extern "C" int thb_flash_attention_dq(
   p.lse_in = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
-  return dispatch(kDq, p, d, stream);
+  return dispatch(kDq, p, d, is_bf16, stream);
 }
 
 extern "C" int thb_flash_attention_dkv(
@@ -552,7 +608,7 @@ extern "C" int thb_flash_attention_dkv(
     void* stream) {
   Params p = make_params(q, k, v, b, h, sq, sk, qsb, qss, qsh, ksb, kss, ksh,
                          vsb, vss, vsh, scale, causal);
-  if (is_bf16) {
+  if (is_bf16 && d <= 128) {
     *design = 2;
     return thb::flash_dkv_sm90(q, k, v, dout, lse, delta, dk, dv, b, h, sq,
                                sk, d, p.qs, p.ks, p.vs, scale, causal,
@@ -564,5 +620,5 @@ extern "C" int thb_flash_attention_dkv(
   p.delta = static_cast<const float*>(delta);
   p.dk = dk;
   p.dv = dv;
-  return dispatch(kDkv, p, d, stream);
+  return dispatch(kDkv, p, d, is_bf16, stream);
 }

@@ -44,8 +44,10 @@ _QKV_STRIDES = [_L] * 9                             # b, s, h of q k v
 _SIGNATURES = {
     "thb_paged_decode_attention": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P,         # q k v ks vs tbl len o lse
+        _P, _P,                                     # ws_acc ws_ml
         _I, _I, _I, _I, _I, _I, _I, _I, _I,         # b h kvh d pages ps w ppb l
-        _F, _I, _P],                                # scale quantized stream
+        _I, _I, _I,                                 # splits slots g_tile
+        _F, _I, _I, _P],                            # scale pool q_bf16 stream
     "thb_fused_residual_norm": [
         _P, _P, _P, _P, _P, _P,                     # res x gamma beta y out
         _I, _I, _F, _I, _P],                        # rows hidden eps ln stream
@@ -76,7 +78,7 @@ _SIGNATURES = {
         _P, _P, _P, _P,                             # x y dy dx
         _I, _I, _I, _I, _I, _I,                     # b h w c ho wo
         _I, _I, _I, _I, _I, _I,                     # wh ww sh sw top left
-        _I, _P],                                    # dtype stream
+        _I, _I, _P],                                # aligned dtype stream
     "thb_sm90_wgmma_tile": [
         _P, _P, _P, _I, _I, _I, _P],                # a b c n k mode stream
 }

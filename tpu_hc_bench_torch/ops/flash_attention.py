@@ -26,21 +26,23 @@ input dtype at the end.
 out.  For CUDA tensors it launches the forward, then dQ and dK/dV in the
 backward, and counts each launch in ``flash_attention.launches``; for
 CPU tensors it runs the plain version with 64-row tiles.  Each kernel
-has two designs (``fwd_design``, ``bwd_design``): bf16 runs the wgmma
-kernels, ``csrc/flash_fwd_sm90.cu`` (128-query tiles against 128-key
-tiles at head dim 64 and 64-key tiles at 128, ``fwd_blocks``) and
-``csrc/flash_bwd_sm90.cu`` (dQ over 128-query tiles against 64-key
-tiles, dK/dV over 128-key tiles against 64-query tiles,
-``bwd_blocks``); float32 runs the FMA kernels of
-``csrc/flash_attention.cu`` (64-row tiles).  The kernels read ``q``,
+has two designs (``fwd_design``, ``bwd_design``): bf16 at head dims 64
+and 128 runs the wgmma kernels, ``csrc/flash_fwd_sm90.cu`` (128-query
+tiles against 128-key tiles at head dim 64 and 64-key tiles at 128,
+``fwd_blocks``) and ``csrc/flash_bwd_sm90.cu`` (dQ over 128-query tiles
+against 64-key tiles, dK/dV over 128-key tiles against 64-query tiles,
+``bwd_blocks``); float32, and bf16 at head dim 256, run the FMA kernels
+of ``csrc/flash_attention.cu`` (64-row tiles, 32-row at head dim 256).
+The kernels read ``q``,
 ``k``, ``v`` through their strides, so the views of one fused QKV
 projection need no copy, and they mask the ragged last tile themselves:
 no sequence padding either.
 
-The kernels take head dim 64 or 128.  ``flash_attention`` zero-pads
-any other head dim ``d <= 128`` on the last axis (to 64 below 64, to
-128 above; ``padded_head_dim``) on both routes (the CPU route takes a
-head dim above 128 unpadded; the card raises for it), with the scale
+The kernels take head dim 64, 128 or 256.  ``flash_attention``
+zero-pads any other head dim ``d <= 256`` on the last axis (to 64 up to
+64, to 128 up to 128, else to 256; ``padded_head_dim``) on both routes
+(the CPU route takes a head dim above 256 unpadded; the card raises for
+it), with the scale
 ``1/sqrt(d)`` of the original ``d``, and slices ``o`` back (so its
 gradient ``dO`` is padded and ``dQ``, ``dK``, ``dV`` sliced): exact,
 since zero columns add nothing to ``Q K^T`` or ``dO V^T`` and give zero
@@ -63,40 +65,52 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
            "bwd_design", "bwd_blocks", "padded_head_dim", "KERNELS"]
 
 _NEG_INF = -1e30
-_BLOCK = 64                     # kB in csrc/flash_attention.cu
-_HEAD_DIMS = (64, 128)          # the kernels' template cases
+_BLOCK = 64                     # kB in csrc/flash_attention.cu, d <= 128
+_BLOCK_D256 = 32                # kB there at head dim 256
+_HEAD_DIMS = (64, 128, 256)     # the kernels' template cases
+_WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims on the wgmma kernels
 _DTYPES = (torch.float32, torch.bfloat16)
 KERNELS = ("fwd", "dq", "dkv")
 _DESIGNS = {1: "fma", 2: "wgmma"}       # the C entries' design codes
 
 
 def padded_head_dim(head_dim: int) -> int:
-    """The kernels' head dim for ``head_dim``: 64 up to 64, else 128; a
-    head dim above 128 raises (no model of the zoo has one)."""
+    """The kernels' head dim for ``head_dim``: 64 up to 64, 128 up to
+    128, else 256; a head dim above 256 raises (the largest of the
+    published decoder configurations)."""
     if not 0 < head_dim <= _HEAD_DIMS[-1]:
-        raise ValueError(f"flash attention takes head_dim 1..128 (zero-"
-                         f"padded to 64 or 128 for the kernels): {head_dim}")
-    return _HEAD_DIMS[0] if head_dim <= _HEAD_DIMS[0] else _HEAD_DIMS[1]
+        raise ValueError(f"flash attention takes head_dim 1..256 on the "
+                         f"card (zero-padded to 64, 128 or 256 for the "
+                         f"kernels): {head_dim}")
+    return next(dp for dp in _HEAD_DIMS if head_dim <= dp)
 
 
-def _design(dtype, what: str) -> str:
+def _design(dtype, what: str, head_dim: int | None) -> str:
     if dtype not in _DTYPES:
         raise ValueError(f"no {what} kernel for {dtype}")
-    return "wgmma" if dtype == torch.bfloat16 else "fma"
+    if dtype == torch.bfloat16 and (
+            head_dim is None or padded_head_dim(head_dim) in _WGMMA_HEAD_DIMS):
+        return "wgmma"
+    return "fma"
 
 
-def fwd_design(dtype) -> str:
-    """The forward kernel a CUDA call of this dtype runs: ``"wgmma"``
-    (bf16, ``csrc/flash_fwd_sm90.cu``) or ``"fma"`` (float32,
-    ``csrc/flash_attention.cu``)."""
-    return _design(dtype, "forward")
+def fwd_design(dtype, head_dim: int | None = None) -> str:
+    """The forward kernel a CUDA call of this dtype (and head dim, padded
+    by ``padded_head_dim``; the default is one of 64 and 128) runs:
+    ``"wgmma"`` (bf16 up to 128, ``csrc/flash_fwd_sm90.cu``) or ``"fma"``
+    (float32, and bf16 at 256, ``csrc/flash_attention.cu``)."""
+    return _design(dtype, "forward", head_dim)
 
 
-def bwd_design(dtype) -> str:
-    """The dQ and dK/dV kernels a CUDA call of this dtype runs:
-    ``"wgmma"`` (bf16, ``csrc/flash_bwd_sm90.cu``) or ``"fma"`` (float32,
-    ``csrc/flash_attention.cu``)."""
-    return _design(dtype, "backward")
+def bwd_design(dtype, head_dim: int | None = None) -> str:
+    """The dQ and dK/dV kernels a CUDA call of this dtype (and head dim)
+    runs: ``"wgmma"`` (bf16 up to 128, ``csrc/flash_bwd_sm90.cu``) or
+    ``"fma"`` (float32, and bf16 at 256, ``csrc/flash_attention.cu``)."""
+    return _design(dtype, "backward", head_dim)
+
+
+def _fma_block(head_dim: int) -> int:
+    return _BLOCK_D256 if padded_head_dim(head_dim) == 256 else _BLOCK
 
 
 def fwd_blocks(dtype, head_dim: int) -> tuple[int, int]:
@@ -104,8 +118,8 @@ def fwd_blocks(dtype, head_dim: int) -> tuple[int, int]:
     dim (padded by ``padded_head_dim``): the tiles its plain version
     repeats."""
     d = padded_head_dim(head_dim)
-    if fwd_design(dtype) == "fma":
-        return _BLOCK, _BLOCK
+    if fwd_design(dtype, d) == "fma":
+        return _fma_block(d), _fma_block(d)
     return 128, 128 if d == 64 else 64
 
 
@@ -115,10 +129,12 @@ def bwd_blocks(dtype, head_dim: int) -> dict[str, tuple[int, int]]:
     (padded by ``padded_head_dim``), at which its plain version repeats
     the kernel's f32 summation order.  The wgmma dQ kernel owns 128 query
     rows and sums over 64-key tiles; the dK/dV kernel owns 128 keys and
-    sums over 64-query tiles."""
-    padded_head_dim(head_dim)
-    if bwd_design(dtype) == "fma":
-        return {"dq": (_BLOCK, _BLOCK), "dkv": (_BLOCK, _BLOCK)}
+    sums over 64-query tiles; the FMA kernels take 64-row tiles, 32-row
+    at head dim 256."""
+    d = padded_head_dim(head_dim)
+    if bwd_design(dtype, d) == "fma":
+        blk = (_fma_block(d), _fma_block(d))
+        return {"dq": blk, "dkv": blk}
     return {"dq": (128, 64), "dkv": (64, 128)}
 
 
@@ -314,8 +330,8 @@ def _check_card(q, k, v, do=None, lse=None, delta=None):
                            or do.dtype != q.dtype):
         raise ValueError("do must be contiguous and shaped and typed as q")
     if d not in _HEAD_DIMS:
-        raise ValueError(f"the kernels take head_dim 64 or 128 "
-                         f"(flash_attention zero-pads head dims up to 128 "
+        raise ValueError(f"the kernels take head_dim 64, 128 or 256 "
+                         f"(flash_attention zero-pads head dims up to 256 "
                          f"to them): {d}")
     vec = 16 // q.element_size()
     for t in (q, k, v, *rest):
@@ -355,7 +371,7 @@ def flash_fwd(q, k, v, causal=False, scale=None):
         _scale(q, scale), int(causal), int(q.dtype == torch.bfloat16),
         ctypes.byref(design), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention forward")
-    _check_design(design, fwd_design(q.dtype), "fwd")
+    _check_design(design, fwd_design(q.dtype, d), "fwd")
     flash_attention.launches["fwd"] += 1
     return o, lse
 
@@ -382,7 +398,7 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, scale=None):
         int(q.dtype == torch.bfloat16), ctypes.byref(design),
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dQ")
-    _check_design(design, bwd_design(q.dtype), "dq")
+    _check_design(design, bwd_design(q.dtype, d), "dq")
     flash_attention.launches["dq"] += 1
     return dq
 
@@ -401,7 +417,7 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
         int(q.dtype == torch.bfloat16), ctypes.byref(design),
         _build.stream_ptr(q.device))
     _build.check(err, "flash_attention dK/dV")
-    _check_design(design, bwd_design(q.dtype), "dkv")
+    _check_design(design, bwd_design(q.dtype, d), "dkv")
     flash_attention.launches["dkv"] += 1
     return dk, dv
 
@@ -418,8 +434,9 @@ def _route(t):
 
 
 class _Flash(torch.autograd.Function):
-    """Kernels on the card, the plain version with 64-row tiles on the
-    CPU; one save, one backward formula."""
+    """Kernels on the card, the plain version with the caller's tiles
+    (64 rows from ``flash_attention``) on the CPU; one save, one backward
+    formula."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, block_q, block_k, card):
@@ -461,9 +478,9 @@ def flash_attention(q, k, v, causal: bool = False,
       scale: score scale; default ``1/sqrt(head_dim)``.
     Returns:
       ``[batch, seq_q, heads, head_dim]`` in ``q``'s dtype, differentiable
-      in ``q``, ``k`` and ``v``.  On the card head_dim up to 128
-      (zero-padded to the kernels' 64 or 128, ``padded_head_dim``); on the
-      CPU any head_dim.
+      in ``q``, ``k`` and ``v``.  On the card head_dim up to 256
+      (zero-padded to the kernels' 64, 128 or 256, ``padded_head_dim``);
+      on the CPU any head_dim.
     """
     _validate(q, k, v)
     return _padded_apply(q, k, v, causal, scale, _BLOCK, _BLOCK, _route(q))
@@ -472,7 +489,7 @@ def flash_attention(q, k, v, causal: bool = False,
 def _padded_apply(q, k, v, causal, scale, block_q, block_k, card):
     """``_Flash`` at the padded head dim, ``o`` sliced back; the scale is
     taken from the original head dim before padding.  The CPU route takes
-    a head dim above 128 as it is; the card's raises."""
+    a head dim above 256 as it is; the card's raises."""
     d = q.shape[-1]
     dp = d if not card and d > _HEAD_DIMS[-1] else padded_head_dim(d)
     scale = _scale(q, scale)

@@ -21,10 +21,13 @@ Dispatch, as the JAX ``_pool_bwd``: a stride above the window (input
 rows no window covers), a dtype that is not floating, or an input that
 holds ``-inf`` takes torch's own max-pool backward, with first-max
 routing.  Otherwise a CUDA tensor launches ``csrc/pool_bwd.cu`` (counted
-in ``max_pool.launches``) and a CPU tensor runs ``max_pool_bwd_plain``,
-the equality-mask sum over the window's taps in the kernel's order.  The
-TPU's VMEM budget (``_channel_tile``) has no counterpart: the CUDA
-kernel takes any size.  No model calls the op, as in the JAX package.
+in ``max_pool.launches``; 16-byte vectors over the channels of a pixel,
+scalar accesses where C is not a multiple of the vector, template cases
+for the 3x3/2 and 3x3/1 pools) and a CPU tensor runs
+``max_pool_bwd_plain``, the equality-mask sum over the window's taps in
+the kernel's order.  The TPU's VMEM budget (``_channel_tile``) has no
+counterpart: the CUDA kernel takes any size.  No model calls the op, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -112,15 +115,16 @@ def max_pool_bwd_kernel(x, y, dy, window=(3, 3), strides=(2, 2),
     if tuple(y.shape) != (b, c, ho, wo) or dy.shape != y.shape:
         raise ValueError(f"y and dy must be [{b}, {c}, {ho}, {wo}]: "
                          f"{tuple(y.shape)}, {tuple(dy.shape)}")
-    if b > 65535 or h > 65535 or h * w * c >= 2 ** 31:
-        raise ValueError(f"the kernel's grid takes B, H <= 65535 and "
-                         f"H*W*C < 2^31: {tuple(x.shape)}")
+    if b > 65535:
+        raise ValueError(f"the kernel's grid takes B <= 65535: "
+                         f"{tuple(x.shape)}")
     cl = torch.channels_last
     x, y, dy = (t.contiguous(memory_format=cl) for t in (x, y, dy))
     dx = torch.empty_like(x, memory_format=cl)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, y, dy, dx))
     err = _build.load_library().thb_max_pool_bwd(
         x.data_ptr(), y.data_ptr(), dy.data_ptr(), dx.data_ptr(), b, h, w, c,
-        ho, wo, *window, *strides, top, left, _DTYPES[x.dtype],
+        ho, wo, *window, *strides, top, left, int(aligned), _DTYPES[x.dtype],
         _build.stream_ptr(x.device))
     _build.check(err, "max_pool backward")
     max_pool.launches += 1
