@@ -16,8 +16,17 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    set the bound; then a bf16 pool's p rounded to bf16 before P V, on a
    row of three keys that one warp's chunk holds: within
    ``PAGED_ROUNDING_TOL`` of the plain version, which the unrounded
-   result misses) and the fused residual+norm (8 and 512 rows, rmsnorm
-   and layernorm).  Times are CUDA events, median of 50 calls after warmup,
+   result misses; then head dims off the template list, 80 and 96 in f32
+   and bf16 and 20 in bf16 (the next listed case masked, scalar loads at
+   20 bf16), against the split plain version), and the fused
+   residual+norm at 1, 8, 32, 64 and 512 rows of 2048, f32 and bf16,
+   rmsnorm and layernorm, in both designs (``"cluster"``, ``"warp"``;
+   each record names the one ``norm_design`` picks): y bit-equal, out
+   within ``NORM_TOL``; beside it the two-launch library route
+   (``torch.add`` then ``F.rms_norm``/``F.layer_norm``), the library
+   norm alone on a precomputed y, and the launch floor (an empty launch,
+   and an empty cluster of 8 CTAs).  Times are CUDA events, median of 50
+   calls after warmup,
    with the L2 cache flushed before each call and the card then held in
    a ~0.2 ms spin, so the host's Python and launch overhead (enqueued
    meanwhile) stays out of the device time; ``library_ms`` times one
@@ -27,7 +36,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    program's logits against the ``gather`` program's.
 4. **serve**: ``ServeEngine`` on llama_1b with ``--decode_attention=
    paged``, 16 poisson requests at 64 req/s; the kernels' launch counts
-   are zeroed just before the run and read just after it.
+   are zeroed just before the run and read just after it (31
+   ``fused_residual_norm`` launches a decode step, the design
+   ``norm_design`` picks at 8 rows).
 5. **conv**: ``fused_bn_relu_conv`` against its plain version at the two
    ResNet-50 shapes it serves, ``[128,28,28,128]->128`` and
    ``[128,14,14,256]->256``, in float32 and bf16, and in bf16 at the two
@@ -56,8 +67,10 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, at BERT-base's
    non-causal ``[128, 128, 12, 64]`` in bf16, at bert_tiny's head dim
    32 (``[128, 128, 4, 32]``, zero-padded to 64 as ``flash_attention``
-   pads it) and at head dim 256 (``[2, 512, 8, 256]`` causal, bf16 and
-   float32: the FMA kernels at 32-row tiles); ``library_ms`` is
+   pads it), at head dim 256 (``[2, 512, 8, 256]`` causal, bf16 and
+   float32: the FMA kernels at 32-row tiles) and at head dim 320
+   (``[2, 256, 4, 320]`` causal, both dtypes, zero-padded to 512: the
+   same kernels over two 256-wide chunks); ``library_ms`` is
    ``F.scaled_dot_product_attention``'s
    forward, and its backward alone (the median of five medians: its
    spread is wide).  Each plain version runs at its kernel's tiles
@@ -137,7 +150,23 @@ PAGED_ROUNDING_TOL = 1e-6
 # the bound (a 2-layer pool of 2049 pages, ~270 MB at f32)
 PAGED_CASES = (("llama_1b", 16, 8, 36, (1, 576), ("f32", "bf16", "int8")),
                ("long_context", 2, 8, 256, (2048, 4096), ("f32",)))
-NORM_TOL = 1e-4                    # f32 stats over 2048 in another order
+# the fused residual+norm's out: f32 statistics over 2048 values in
+# another order (f32, absolute); one rounding of out to bf16, relative to
+# its largest magnitude (bf16); y is bit-equal in both
+NORM_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+NORM_HIDDEN = 2048                 # llama_1b
+HOST_CALLS = 200                   # wrapper calls enqueued back to back
+NORM_ROWS = (1, 8, 32, 64, 512)    # decode batches, then a prefill's rows
+# (dtype, hidden, rows): rows of 32 KB, the widest the warp design takes
+# (16 warps of 4 vectors), past which norm_design turns to the cluster
+# design; rmsnorm
+NORM_WIDE = (("float32", 8192, 1), ("float32", 8192, 8),
+             ("bfloat16", 16384, 1), ("bfloat16", 16384, 8))
+# paged decode attention at head dims off the kernels' template list, at
+# llama_1b's decode shape otherwise: (head dim, pool), each against the
+# split plain version; bf16 at 20 is 40 bytes a row, the scalar loads
+PAGED_OFF_LIST = ((80, "f32"), (96, "f32"), (80, "bf16"), (96, "bf16"),
+                  (20, "bf16"))
 PARITY_TOL = 1e-3                  # 16 layers of f32 at width 2048
 # fused conv, each relative to the output's largest magnitude: y2 (f32:
 # sums of 9 x Cin terms in another order; bf16: one ulp of the largest
@@ -183,14 +212,17 @@ HEAD_START_CYCLES = 400_000
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # (b, s, h, d, dtype, causal): the main path's shape first; head dim 32
 # (bert_tiny's widths, batch 128 x seq 128) runs zero-padded to 64; head
-# dim 256 runs the FMA kernels at 32-row tiles in both dtypes
+# dim 256 runs the FMA kernels at 32-row tiles in both dtypes, and head
+# dim 320 the same kernels zero-padded to 512 (two 256-wide chunks)
 FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
                (16, 1024, 12, 64, "float32", True),
                (4, 1000, 6, 128, "bfloat16", False),
                (128, 128, 12, 64, "bfloat16", False),       # bert_base
                (128, 128, 4, 32, "bfloat16", False),        # bert_tiny
                (2, 512, 8, 256, "bfloat16", True),
-               (2, 512, 8, 256, "float32", True))
+               (2, 512, 8, 256, "float32", True),
+               (2, 256, 4, 320, "bfloat16", True),
+               (2, 256, 4, 320, "float32", True))
 # b * h just above 65535 (the grid's y limit): the three kernels at once,
 # the first and last batch rows held to the plain version on them alone
 FLASH_WIDE_CASE = (16385, 40, 4, 64, "bfloat16", True)
@@ -432,45 +464,166 @@ def phase_kernels(torch, dev, timer, smi) -> dict:
             torch.cuda.empty_cache()
     paged_rounding_check(torch, dev, smi)
 
-    hidden = 2048
-    for rows in (8, 512):
-        for kind in ("rmsnorm", "layernorm"):
-            res = torch.randn((rows, hidden), device=dev)
-            x = torch.randn((rows, hidden), device=dev)
-            g = torch.randn((hidden,), device=dev)
-            bta = (torch.randn((hidden,), device=dev)
-                   if kind == "layernorm" else None)
-            y, o = fused_residual_norm(res, x, g, bta, kind=kind)
-            wy, wo = fused_residual_norm_plain(res, x, g, bta, kind=kind)
-            torch.cuda.synchronize()
-            err = max(float((y - wy).abs().max()),
-                      float((o - wo).abs().max()))
-            ms = timer.median_ms(
-                lambda: fused_residual_norm(res, x, g, bta, kind=kind))
-            plain_ms = timer.median_ms(
-                lambda: fused_residual_norm_plain(res, x, g, bta,
-                                                  kind=kind))
-            yc = res + x
-            if kind == "rmsnorm":
-                lib = lambda: F.rms_norm(yc, (hidden,), g, 1e-5)  # noqa
-            else:
-                lib = lambda: F.layer_norm(yc, (hidden,), g, bta,  # noqa
-                                           1e-6)
-            nbytes = 4 * rows * hidden * 4 + 4 * hidden * (
-                2 if bta is not None else 1)
-            bound_ms, bound_by = bound(nbytes, 5.0 * rows * hidden)
-            rec = {"phase": "kernel", "name": "fused_residual_norm",
-                   "kind": kind, "rows": rows, "hidden": hidden,
-                   "max_abs_err": err, "tol": NORM_TOL, "ms": ms,
-                   "plain_ms": plain_ms, "library_ms": timer.median_ms(lib),
-                   "library_note": "norm of a precomputed y (no add)",
-                   "bound_ms": bound_ms, "bound_by": bound_by}
-            emit(rec)
-            if not err <= NORM_TOL:
-                raise AssertionError(f"fused_residual_norm disagrees: {rec}")
-            if rows == 8 and kind == "rmsnorm":
-                out_main["fused_residual_norm"] = rec
+    paged_off_list_check(torch, dev, timer, smi)
+    out_main["fused_residual_norm"] = phase_norm(torch, dev, timer, smi)
     return out_main
+
+
+def paged_off_list_check(torch, dev, timer, smi) -> None:
+    """Phase 2: paged decode attention at head dims off the template list
+    (``PAGED_OFF_LIST``), llama_1b's other widths, against the split
+    plain version at the rule's splits, within PAGED_TOL."""
+    import numpy as np
+
+    from tpu_hc_bench_torch.ops.paged_attention import (
+        paged_decode_attention, paged_decode_attention_plain, paged_splits)
+
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(2)
+    b, heads, kvh, ps, w, L = 8, 32, 8, 16, 36, 2
+    pages = 1 + b * w
+    lengths = rng.integers(1, w * ps + 1, (b,)).astype(np.int32)
+    lengths[3] = 0
+    tables = (1 + rng.permutation(b * w)).reshape(b, w).astype(np.int32)
+    tables[3] = 0
+    tables_d, lengths_d = (torch.from_numpy(a).to(dev)
+                           for a in (tables, lengths))
+    splits = paged_splits(b, kvh, w, ps, 1, sm_count)
+    for d, kind in PAGED_OFF_LIST:
+        dt = torch.float32 if kind == "f32" else torch.bfloat16
+        kp, vp = (torch.randn((L, pages, ps, kvh, d), device=dev).to(dt)
+                  for _ in range(2))
+        q = torch.randn((b, heads, d), device=dev).to(dt)
+
+        def kernel():
+            return paged_decode_attention(q, kp, vp, tables_d, lengths_d,
+                                          layer=1, return_lse=True)
+
+        got, lse = kernel()
+        want, want_lse = paged_decode_attention_plain(
+            q, kp, vp, tables_d, lengths_d, layer=1, return_lse=True,
+            splits=splits)
+        torch.cuda.synchronize()
+        live = lengths_d > 0
+        err = (rel_err(got, want) if kind == "bf16"
+               else float((got.float() - want.float()).abs().max()))
+        lse_err = float((lse - want_lse)[live].abs().max())
+        row_bytes = d * kp.element_size()
+        rec = {"phase": "kernel", "name": "paged_decode_attention",
+               "case": f"head_dim_{d}", "pool": kind, "d": d,
+               "template_case": next(t for t in (16, 32, 64, 128, 256)
+                                     if t >= d),
+               "loads": "16-byte" if row_bytes % 16 == 0 else "scalar",
+               "splits": splits, "max_abs_err": err, "lse_max_abs_err":
+               lse_err, "tol": PAGED_TOL[kind], "ms": timer.median_ms(kernel),
+               "nvidia_smi": smi}
+        emit(rec)
+        if not (err <= PAGED_TOL[kind] and lse_err <= PAGED_LSE_TOL
+                and bool((got[~live] == 0).all())):
+            raise AssertionError(f"paged at head dim {d} disagrees: {rec}")
+        del kp, vp
+
+
+def phase_norm(torch, dev, timer, smi) -> dict:
+    """Phase 2: the fused residual+norm in both designs at NORM_ROWS rows
+    of llama_1b's 2048, f32 and bf16, rmsnorm and layernorm, and at the
+    NORM_WIDE rows, each against its plain version (y bit-equal, out
+    within NORM_TOL); beside each, the plain version, the two-launch
+    library route (``torch.add`` then
+    ``F.rms_norm``/``F.layer_norm``), the library norm alone on a
+    precomputed y, the launch floor (an empty launch, and an empty
+    cluster of 8 CTAs), the byte bound, and the host's time to enqueue
+    one wrapper call (HOST_CALLS back to back).  Returns the main path's
+    record: 8 rows, f32, rmsnorm, the design ``norm_design`` picks."""
+    import torch.nn.functional as F
+
+    from tpu_hc_bench_torch.ops.fused_residual_ln import (
+        DESIGNS, empty_launch, fused_residual_norm, fused_residual_norm_plain,
+        norm_design, norm_launch)
+
+    floor = {"empty_ms": timer.median_ms(lambda: empty_launch(dev)),
+             "empty_cluster8_ms": timer.median_ms(
+                 lambda: empty_launch(dev, 8))}
+    emit({"phase": "kernel", "name": "launch_floor", **floor,
+          "nvidia_smi": smi})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    main = None
+    cases = [(dname, NORM_HIDDEN, rows, kind)
+             for dname in ("float32", "bfloat16") for rows in NORM_ROWS
+             for kind in ("rmsnorm", "layernorm")]
+    cases += [(dname, hidden, rows, "rmsnorm")
+              for dname, hidden, rows in NORM_WIDE]
+    for dname, hidden, rows, kind in cases:
+        dtype = getattr(torch, dname)
+        res, x = (torch.randn((rows, hidden), generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        g = torch.randn((hidden,), generator=gen, device=dev).to(dtype)
+        bta = (torch.randn((hidden,), generator=gen, device=dev).to(dtype)
+               if kind == "layernorm" else None)
+        eps = 1e-6 if kind == "layernorm" else 1e-5
+        wy, wo = fused_residual_norm_plain(res, x, g, bta, kind=kind)
+        if kind == "rmsnorm":
+            norm = lambda y: F.rms_norm(y, (hidden,), g, eps)  # noqa: E731
+        else:
+            norm = lambda y: F.layer_norm(  # noqa: E731
+                y, (hidden,), g, bta, eps)
+        yc = res + x
+        elt = res.element_size()
+        nbytes = 4 * rows * hidden * elt + hidden * elt * (
+            2 if bta is not None else 1)
+        bound_ms, bound_by = bound(nbytes, 5.0 * rows * hidden)
+        common = {
+            "plain_ms": timer.median_ms(lambda: fused_residual_norm_plain(
+                res, x, g, bta, kind=kind)),
+            "library_ms": timer.median_ms(lambda: norm(torch.add(res, x))),
+            "library_note": "torch.add then F.rms_norm or F.layer_norm: "
+                            "two launches",
+            "norm_alone_ms": timer.median_ms(lambda: norm(yc)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            **floor}
+        rule = norm_design(rows, hidden, dtype)
+        for design in DESIGNS:
+            launch = norm_launch(hidden, dtype, design)
+            if launch is None:          # the design does not take the width
+                continue
+
+            def kernel():
+                return fused_residual_norm(res, x, g, bta, kind=kind,
+                                           design=design)
+
+            y, o = kernel()
+            torch.cuda.synchronize()
+            y_equal = bool(torch.equal(y, wy))
+            err = float((o.float() - wo.float()).abs().max())
+            rel = rel_err(o, wo)
+            ms = timer.median_ms(kernel)
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                kernel()
+            host_us = 1e6 * (time.perf_counter() - t0) / HOST_CALLS
+            torch.cuda.synchronize()
+            rec = {"phase": "kernel", "name": "fused_residual_norm",
+                   "kind": kind, "dtype": dname, "rows": rows,
+                   "hidden": hidden, "design": design,
+                   "norm_design": rule, "launch": launch._asdict(),
+                   "y_bit_equal": y_equal, "max_abs_err": err,
+                   "rel_err": rel, "tol": NORM_TOL[dname],
+                   "ms": ms, "host_us_per_call": host_us, **common,
+                   "pct_of_bound": 100.0 * bound_ms / ms,
+                   "gbytes_per_s": nbytes / ms / 1e6,
+                   "nvidia_smi": smi}
+            emit(rec)
+            ok = y_equal and (err if dname == "float32"
+                              else rel) <= NORM_TOL[dname]
+            if not ok:
+                raise AssertionError(f"fused_residual_norm disagrees: {rec}")
+            if ((dname, hidden, rows, kind) == (
+                    "float32", NORM_HIDDEN, 8, "rmsnorm")
+                    and design == rule):
+                main = rec
+        del res, x, yc
+    return main
 
 
 def paged_rounding_check(torch, dev, smi) -> None:
@@ -557,7 +710,8 @@ def phase_parity(torch, dev, model) -> None:
 def phase_serve(torch, model) -> dict:
     """Phase 4: the main path; returns each kernel's launch count."""
     from tpu_hc_bench_torch import flags
-    from tpu_hc_bench_torch.ops.fused_residual_ln import fused_residual_norm
+    from tpu_hc_bench_torch.ops.fused_residual_ln import (
+        fused_residual_norm, norm_design)
     from tpu_hc_bench_torch.ops.paged_attention import paged_decode_attention
     from tpu_hc_bench_torch.serve import cli
 
@@ -577,6 +731,7 @@ def phase_serve(torch, model) -> dict:
     steps = summary["decode_steps"]
     layers = model.num_layers
     rec = {"phase": "serve", "launches": launches,
+           "fused_residual_norm_design": fused_residual_norm.design,
            "expected": {"paged_decode_attention": layers * steps,
                         "fused_residual_norm": (2 * layers - 1) * steps},
            **{k: summary[k] for k in (
@@ -588,7 +743,9 @@ def phase_serve(torch, model) -> dict:
     emit(rec)
     if not (summary["completed"] == summary["requests"] == 16 and steps > 0
             and all(v > 0 for v in launches.values())
-            and launches == rec["expected"]):
+            and launches == rec["expected"]
+            and fused_residual_norm.design == norm_design(
+                8, model.hidden, torch.float32)):
         raise AssertionError(f"serve run off its kernels: {rec}")
     return launches
 
@@ -1470,7 +1627,9 @@ def main() -> int:
     designs = {
         "paged_decode_attention": "split+merge (split kernel over "
                                   "paged_splits ranges, merge kernel)",
-        "fused_residual_norm": "one block a row",
+        "fused_residual_norm": (
+            f"{main_rows['fused_residual_norm']['design']} (norm_design at "
+            f"8 rows of 2048 f32)"),
         "fused_bn_relu_conv": main_rows["fused_bn_relu_conv"]["design"],
         **{FLASH_KERNELS[k][0]: main_rows[FLASH_KERNELS[k][0]]["design"]
            for k in FLASH_KERNELS},

@@ -1,5 +1,6 @@
-"""The split paged decode attention, the max-pool backward and the
-head-dim-256 flash kernels against their plain versions, on the card.
+"""The split paged decode attention, the fused residual+norm, the
+max-pool backward and the head-dim-256 (and above) flash kernels against
+their plain versions, on the card.
 
 This file imports no JAX, so it runs on a machine with the card and no
 JAX stack (there: ``python -m pytest --noconftest -q
@@ -18,7 +19,15 @@ GPU, and the plain versions are held against the JAX package in
   within 1e-4; one launch counted a call; and p rounded to bf16 before
   P V, where one warp's chunk holds the whole row (so its running max is
   the split's): within 1e-6 of the plain version, which the unrounded
-  result misses;
+  result misses; head dims off the template list (20, 80, 96, 200: the
+  next listed case masked to d, scalar loads where a row is not a whole
+  number of 16-byte vectors) in every pool type, at the same bounds;
+- the fused residual+norm (``csrc/fused_residual_norm.cu``) in both
+  designs (``"cluster"``, ``"warp"``), f32 and bf16, rmsnorm and
+  layernorm, at 1 to 4096 rows of hidden 768, 2048, 2050 (the scalar
+  case) and 4096: y bit-equal to the plain version (one rounding of the
+  exact sum), out within 1e-4 (f32: statistics summed in another order)
+  or 1e-2 of its largest magnitude (bf16: one rounding of out);
 - the max-pool backward (``csrc/pool_bwd.cu``) at a ragged channel
   count (C = 13: the scalar case), at a tie-heavy bf16 input, at the
   generic window case and at a channel count above the block's 64
@@ -28,9 +37,9 @@ GPU, and the plain versions are held against the JAX package in
   32-row tiles) in f32 and bf16 against the plain versions at those
   tiles: o and the gradients within 1e-4 (f32) or 1e-2 (bf16) of their
   largest magnitudes (with one key, dQ and dK within 1e-5 (f32) or 1e-3
-  (bf16) of zero on both sides); and ``flash_attention`` at head dim 192
-  through
-  autograd, padded to 256.
+  (bf16) of zero on both sides); at head dim 320 (padded to 512: two
+  256-wide chunks) the same; and ``flash_attention`` at head dim 192
+  through autograd, padded to 256.
 """
 
 from __future__ import annotations
@@ -41,6 +50,8 @@ import torch
 
 from tpu_hc_bench_torch.ops import flash_attention as fa
 from tpu_hc_bench_torch.ops import pool_bwd
+from tpu_hc_bench_torch.ops.fused_residual_ln import (
+    fused_residual_norm, fused_residual_norm_plain, norm_launch)
 from tpu_hc_bench_torch.ops.paged_attention import (
     paged_decode_attention, paged_decode_attention_plain, paged_splits)
 
@@ -55,6 +66,9 @@ BF16_TOL = 1e-2
 ONE_KEY_FLOOR = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # the rounding case: f32 sums of three products in another order
 ROUNDING_ATOL = 1e-6
+# the fused residual+norm's out: f32 statistics over the row in another
+# order (f32); one rounding of out to bf16, 2^-8 of the largest (bf16)
+NORM_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
 @pytest.fixture
@@ -214,11 +228,23 @@ def test_split_paged_kernel_head_dims_and_groups(cuda_device, d, heads,
 
 @pytest.mark.cuda
 def test_split_paged_kernel_raises_outside_its_cases(cuda_device):
-    q = torch.zeros((1, 4, 96), device=cuda_device)
-    pool = torch.zeros((1, 3, 4, 2, 96), device=cuda_device)
+    """Head dim 96, which raised before the masked case, now runs (the 128
+    case masked to 96) within the bounds above; an int8 pool with a bf16
+    q and a head dim above 256 still raise."""
+    args, _ = _paged_inputs("f32", torch.float32, 96, 9, seed=96)
+    want, want_lse = paged_decode_attention_plain(
+        *args, layer=1, return_lse=True,
+        splits=_rule_splits(cuda_device, args[0], args[1], args[3], 1))
+    got, lse = paged_decode_attention(*[a.to(cuda_device) for a in args],
+                                      layer=1, return_lse=True)
+    torch.cuda.synchronize()
+    assert float((got.cpu() - want).abs().max()) <= PAGED_ATOL
+    assert float((lse.cpu()[1:] - want_lse[1:]).abs().max()) <= LSE_ATOL
     tbl = torch.zeros((1, 2), dtype=torch.int32, device=cuda_device)
     ln = torch.ones((1,), dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim 16, 32, 64, 128 or 256"):
+    q = torch.zeros((1, 4, 320), device=cuda_device)
+    pool = torch.zeros((1, 3, 4, 2, 320), device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim 1..256"):
         paged_decode_attention(q, pool, pool, tbl, ln)
     q8 = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=cuda_device)
     pool8 = torch.zeros((1, 3, 4, 2, 64), dtype=torch.int8,
@@ -227,6 +253,78 @@ def test_split_paged_kernel_raises_outside_its_cases(cuda_device):
     with pytest.raises(ValueError, match="float32 q"):
         paged_decode_attention(q8, pool8, pool8, tbl, ln, k_scales=sc,
                                v_scales=sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [20, 80, 96, 200])
+@pytest.mark.parametrize("pool,q_dtype", [
+    ("f32", torch.float32), ("bf16", torch.bfloat16), ("int8", torch.float32)])
+def test_split_paged_kernel_off_list_head_dims(cuda_device, d, pool,
+                                               q_dtype):
+    """Head dims off the template list run the next listed case masked
+    to d, reading the pools in place at a row stride of d: 16-byte loads
+    where d values are a whole number of 16-byte vectors, scalar ones
+    where not (bf16 at 20 and 200 is 40 and 400 bytes: 400 is whole; int8
+    at 20 and 200; f32 never).  Against the split plain version at the
+    rule's split count, with rows of length 0, 1, ragged and full: the
+    bounds above, one launch counted."""
+    args, kw = _paged_inputs(pool, q_dtype, d, 9, seed=d)
+    q, kp, vp, tables, lengths = args
+    splits = _rule_splits(cuda_device, q, kp, tables, 1)
+    want, want_lse = paged_decode_attention_plain(
+        *args, layer=1, return_lse=True, splits=splits, **kw)
+    before = paged_decode_attention.launches
+    got, lse = paged_decode_attention(
+        *[a.to(cuda_device) for a in args], layer=1, return_lse=True,
+        **{k: v.to(cuda_device) for k, v in kw.items()})
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    assert got.dtype == q_dtype and got.shape == q.shape
+    got, lse = got.cpu(), lse.cpu()
+    assert (got[0] == 0).all() and (lse[0] < -1e29).all()
+    if pool == "bf16":
+        assert _rel(got, want) <= PAGED_BF16_TOL
+    else:
+        assert float((got - want).abs().max()) <= PAGED_ATOL
+    assert float((lse[1:] - want_lse[1:]).abs().max()) <= LSE_ATOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("design", ["cluster", "warp"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+def test_fused_norm_designs_match_plain(cuda_device, design, dtype, kind):
+    """Each design at 1, 8, 9, 64, 512 and 4096 rows of hidden 768, 2048,
+    2050 (not a multiple of the 16-byte vector: the scalar case) and 4096,
+    gamma and beta in res's dtype, against the plain version on the same
+    inputs: y bit-equal, out within NORM_TOL of its largest magnitude, one
+    launch counted, the design recorded.  Where a design does not take a
+    width (``norm_launch`` None: the cluster design below 128 vectors a
+    row), the forced call raises before any launch."""
+    g = torch.Generator().manual_seed(len(kind) + dtype.itemsize)
+    for hidden in (768, 2048, 2050, 4096):
+        gamma = torch.randn((hidden,), generator=g).to(dtype)
+        beta = (torch.randn((hidden,), generator=g).to(dtype)
+                if kind == "layernorm" else None)
+        for rows in (1, 8, 9, 64, 512, 4096):
+            res, x = (torch.randn((rows, hidden), generator=g).to(dtype)
+                      for _ in range(2))
+            dev = [None if t is None else t.to(cuda_device)
+                   for t in (res, x, gamma, beta)]
+            if norm_launch(hidden, dtype, design) is None:
+                with pytest.raises(ValueError, match="does not take"):
+                    fused_residual_norm(*dev, kind=kind, design=design)
+                continue
+            want_y, want_o = fused_residual_norm_plain(res, x, gamma, beta,
+                                                       kind=kind)
+            before = fused_residual_norm.launches
+            y, o = fused_residual_norm(*dev, kind=kind, design=design)
+            torch.cuda.synchronize()
+            assert fused_residual_norm.launches == before + 1
+            assert fused_residual_norm.design == design
+            assert y.dtype == o.dtype == dtype
+            assert torch.equal(y.cpu(), want_y), (hidden, rows)
+            assert _rel(o.cpu(), want_o) <= NORM_TOL[dtype], (hidden, rows)
 
 
 def _pool_case(shape, dtype, tied, seed):
@@ -314,6 +412,43 @@ def test_flash_d256_kernels_match_plain_at_their_tiles(cuda_device, dtype, b,
             assert float(want.float().abs().max()) <= ONE_KEY_FLOOR[dtype]
         else:
             assert _rel(got.cpu(), want) <= tol, name
+    assert float((lse.cpu() - want_lse).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_d320_kernels_match_plain_at_their_tiles(cuda_device, dtype):
+    """The three FMA kernels at head dim 320 as ``flash_attention`` hands
+    it over, zero-padded to 512 (two 256-wide chunks of the head dim, two
+    column blocks of each output), ``[2, 256, 4, 320]`` causal, against
+    the plain versions at the kernels' 32-row tiles on the same padded
+    inputs, fed the plain forward's lse and D: the bounds above, and the
+    padded columns of every output zero."""
+    b, s, h, d = 2, 256, 4, 320
+    dp = fa.padded_head_dim(d)
+    assert dp == 512 and fa.fwd_blocks(dtype, d) == (32, 32)
+    qkv, do = _qkv(b, s, h, d, dtype, seed=d)
+    pad = torch.nn.functional.pad
+    q, k, v = pad(qkv, (0, dp - d)).unbind(2)
+    do = pad(do, (0, dp - d))
+    scale = d ** -0.5
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, True, scale, 32, 32)
+    delta = fa.delta_rows(want_o, do)
+    args = (q, k, v, do, want_lse, delta, True, scale)
+    want_dq = fa.flash_dq_plain(*args, block_q=32, block_k=32)
+    want_dk, want_dv = fa.flash_dkv_plain(*args, block_q=32, block_k=32)
+    dev_args = [t.to(cuda_device) for t in args[:6]]
+    o, lse = fa.flash_fwd(*dev_args[:3], True, scale)
+    dq = fa.flash_dq(*dev_args, True, scale)
+    dk, dv = fa.flash_dkv(*dev_args, True, scale)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.designs == dict.fromkeys(fa.KERNELS, "fma")
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    for got, want, name in ((o, want_o, "o"), (dq, want_dq, "dq"),
+                            (dk, want_dk, "dk"), (dv, want_dv, "dv")):
+        assert got.dtype == dtype and got.shape == want.shape
+        assert _rel(got.cpu(), want) <= tol, name
+        assert not got[..., d:].any(), name
     assert float((lse.cpu() - want_lse).abs().max()) <= tol
 
 

@@ -45,7 +45,8 @@ from tpu_hc_bench_torch.ops.flash_attention import (
 from tpu_hc_bench_torch.ops.fused_conv import (
     conv_design, eligible, fused_bn_relu_conv, fused_bn_relu_conv_plain)
 from tpu_hc_bench_torch.ops.fused_residual_ln import (
-    fused_residual_norm, fused_residual_norm_plain)
+    NormLaunch, fused_residual_norm, fused_residual_norm_plain, norm_design,
+    norm_launch)
 from tpu_hc_bench_torch.ops.paged_attention import (
     BLOCKS_PER_SM, MIN_SPLIT_TOKENS, paged_decode_attention,
     paged_decode_attention_plain, paged_splits, split_ranges, split_slots)
@@ -257,6 +258,48 @@ def test_paged_bf16_pool_plain_matches_jax(q_bf16, splits):
                                atol=ATTN_ATOL)
 
 
+@pytest.mark.parametrize("d", [20, 80, 96])
+@pytest.mark.parametrize("pool", ["f32", "bf16"])
+def test_paged_attention_off_list_head_dims_match_jax(d, pool):
+    """Head dims off the kernels' template list (on the card 80 and 96 run
+    the 128 case masked to d, 20 the 32 case, with scalar loads for a
+    bf16 pool: 40 bytes a row): the CPU route against the JAX op in
+    interpret mode, GQA group 2, two pages a block, layer 1 of a 2-layer
+    pool, a row of length 0.  f32 within the attention bound; bf16 (q and
+    pools, out in bf16) within PAGED_BF16_TOL of the largest magnitude;
+    lse within the attention bound; the length-0 row gives out 0 and lse
+    below -1e29 on both sides."""
+    rng = np.random.default_rng(d)
+    L, pages, ps, kvh, b, heads, w = 2, 12, 4, 2, 3, 4, 5
+    q = rng.standard_normal((b, heads, d)).astype(np.float32)
+    kf, vf = (rng.standard_normal((L, pages, ps, kvh, d)).astype(np.float32)
+              for _ in range(2))
+    tables = rng.integers(1, pages, (b, w)).astype(np.int32)
+    tables[1] = 0                                   # the padded row
+    lengths = np.array([w * ps, 0, 9], np.int32)
+    jdt = jnp.bfloat16 if pool == "bf16" else jnp.float32
+    jq, jk, jv = (jnp.asarray(a).astype(jdt) for a in (q, kf, vf))
+    want, want_lse = jax_paged_decode_attention(
+        jq, jk, jv, jnp.asarray(tables), jnp.asarray(lengths), layer=1,
+        pages_per_block=2, return_lse=True)
+    tdt = torch.bfloat16 if pool == "bf16" else torch.float32
+    tq, tk, tv = (_t(np.asarray(a.astype(jnp.float32))).to(tdt)
+                  for a in (jq, jk, jv))
+    got, lse = paged_decode_attention(
+        tq, tk, tv, _t(tables), _t(lengths), layer=1, pages_per_block=2,
+        return_lse=True)
+    assert got.dtype == tdt and got.shape == (b, heads, d)
+    want = np.asarray(want.astype(jnp.float32))
+    if pool == "bf16":
+        _close_rel(got.float(), want, PAGED_BF16_TOL, "out")
+    else:
+        np.testing.assert_allclose(got.numpy(), want, atol=ATTN_ATOL)
+    np.testing.assert_allclose(lse[[0, 2]].numpy(),
+                               np.asarray(want_lse)[[0, 2]], atol=ATTN_ATOL)
+    assert (got[1] == 0).all() and (lse[1] < -1e29).all()
+    assert (np.asarray(want_lse)[1] < -1e29).all()
+
+
 def test_paged_bf16_plain_rounds_p_as_the_kernel():
     """The plain version rounds p to bf16 before P V for a bf16 pool (l
     sums the unrounded p), as the JAX op and the kernel do, and keeps it
@@ -379,6 +422,94 @@ def test_fused_residual_norm_matches_jax(kind, shape):
                                atol=NORM_ATOL)
     np.testing.assert_allclose(o.numpy(), np.asarray(want_o),
                                atol=NORM_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["rmsnorm", "layernorm"])
+@pytest.mark.parametrize("shape,dtype,gamma_dtype", [
+    ((4, 64), "bfloat16", "bfloat16"),
+    ((2, 3, 96), "bfloat16", "float32"),     # f32 scale, bf16 stream
+    ((3, 130), "float32", "float32"),        # hidden not a multiple of 4
+    ((3, 130), "bfloat16", "bfloat16"),      # nor of 8
+])
+def test_fused_residual_norm_bf16_and_ragged_match_jax(kind, shape, dtype,
+                                                       gamma_dtype):
+    """The plain route against the JAX op in bf16 and at a hidden size
+    that is not a multiple of the kernel's 16-byte vector (its scalar
+    case on the card): y = res + x rounded to res's dtype, bit-equal on
+    both sides (one rounding of the exact sum); out in res's dtype from
+    f32 statistics of the rounded y, f32 within NORM_ATOL, bf16 within
+    one bf16 rounding (1e-2) of its largest magnitude."""
+    rng = np.random.default_rng(shape[-1] + len(shape))
+    res, x = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    gamma, beta = (rng.standard_normal(shape[-1]).astype(np.float32)
+                   for _ in range(2))
+    if kind == "rmsnorm":
+        beta = None
+    jdt, jg = getattr(jnp, dtype), getattr(jnp, gamma_dtype)
+    tdt, tg = getattr(torch, dtype), getattr(torch, gamma_dtype)
+    want_y, want_o = jax_fused_residual_norm(
+        jnp.asarray(res).astype(jdt), jnp.asarray(x).astype(jdt),
+        jnp.asarray(gamma).astype(jg),
+        None if beta is None else jnp.asarray(beta).astype(jg), kind=kind)
+    y, o = fused_residual_norm(
+        _t(res).to(tdt), _t(x).to(tdt), _t(gamma).to(tg),
+        None if beta is None else _t(beta).to(tg), kind=kind)
+    assert y.dtype == o.dtype == tdt and y.shape == o.shape == shape
+    np.testing.assert_array_equal(
+        y.float().numpy(), np.asarray(want_y.astype(jnp.float32)))
+    want_o = np.asarray(want_o.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(o.numpy(), want_o, atol=NORM_ATOL)
+    else:
+        _close_rel(o.float(), want_o, 1e-2, "out")
+
+
+def test_norm_design_rule():
+    """``norm_design``: the warp design at any count of rows wherever it
+    takes the width, the cluster design for rows wider than 32 KB;
+    ``norm_launch`` sizes each (llama_1b's 2048 f32: teams of 8 warps at
+    2 vectors a thread; clusters of 8 CTAs of 64 threads at one
+    vector)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert norm_launch(2048, f32, "warp") == NormLaunch(
+        "warp", 1, 256, 256, 2)
+    assert norm_launch(2048, bf16, "warp") == NormLaunch(
+        "warp", 1, 256, 256, 1)
+    assert norm_launch(768, f32, "warp") == NormLaunch(
+        "warp", 1, 256, 128, 2)
+    assert norm_launch(130, f32, "warp") == NormLaunch("warp", 1, 256, 32, 2)
+    assert norm_launch(8192, f32, "warp") == NormLaunch(
+        "warp", 1, 512, 512, 4)
+    assert norm_launch(2048, f32, "cluster") == NormLaunch(
+        "cluster", 8, 64, 64, 1)
+    assert norm_launch(2048, bf16, "cluster") == NormLaunch(
+        "cluster", 4, 64, 64, 1)
+    assert norm_launch(768, f32, "cluster") == NormLaunch(
+        "cluster", 2, 96, 96, 1)
+    # a slice of at least 64 vectors a CTA: none below 128 vectors
+    assert norm_launch(130, f32, "cluster") is None
+    assert norm_launch(768, bf16, "cluster") is None
+    # the warp design stops at 16 warps of 4 vectors (32 KB a row); the
+    # cluster design at 8 CTAs of 512 threads of 4 vectors (65536 f32)
+    assert norm_launch(8196, f32, "warp") is None
+    assert norm_launch(65536, f32, "cluster") == NormLaunch(
+        "cluster", 8, 512, 512, 4)
+    assert norm_launch(65540, f32, "cluster") is None
+    for rows in (1, 8, 9, 512, 4096):
+        assert norm_design(rows, 2048, f32) == "warp"
+        assert norm_design(rows, 2048, bf16) == "warp"
+        assert norm_design(rows, 130, f32) == "warp"
+        assert norm_design(rows, 8192, f32) == "warp"
+        assert norm_design(rows, 16384, bf16) == "warp"
+        assert norm_design(rows, 8196, f32) == "cluster"
+        assert norm_design(rows, 16392, bf16) == "cluster"
+    with pytest.raises(ValueError, match="wider"):
+        norm_design(8, 65540, f32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        norm_design(8, 2048, torch.float16)
+    with pytest.raises(ValueError, match="cluster|warp"):
+        norm_launch(2048, f32, "block")
 
 
 def test_fused_residual_norm_validation_matches_jax():
@@ -628,8 +759,8 @@ def test_flash_fwd_design_rule():
     """bf16 runs the wgmma forward at 128-query tiles (128 keys at head
     dim 64, 64 at 128), float32 the FMA forward at 64-row tiles; a head
     dim takes the tiles of the one it is padded to (192: the FMA kernel
-    at 256, 32-row tiles); another dtype, or a head dim above 256,
-    raises."""
+    at 256, 32-row tiles; 320: the same kernel over two 256-wide chunks);
+    another dtype, or a head dim below 1, raises."""
     assert fwd_design(torch.bfloat16) == "wgmma"
     assert fwd_design(torch.float32) == "fma"
     assert fwd_blocks(torch.bfloat16, 64) == (128, 128)
@@ -639,18 +770,20 @@ def test_flash_fwd_design_rule():
     assert fwd_blocks(torch.bfloat16, 32) == (128, 128)
     assert fwd_blocks(torch.bfloat16, 96) == (128, 64)
     assert fwd_blocks(torch.bfloat16, 192) == (32, 32)
+    assert fwd_blocks(torch.bfloat16, 320) == (32, 32)
     with pytest.raises(ValueError, match="float16"):
         fwd_design(torch.float16)
     with pytest.raises(ValueError, match="head_dim"):
-        fwd_blocks(torch.bfloat16, 257)
+        fwd_blocks(torch.bfloat16, 0)
 
 
 def test_flash_bwd_design_rule():
     """bf16 runs the wgmma dQ kernel (128 query rows over 64-key tiles)
     and dK/dV kernel (128 keys over 64-query tiles) at head dims up to
     128, float32 the FMA kernels at 64-row tiles; head dim 192 runs the
-    FMA kernels at 256 (32-row tiles); another dtype, or a head dim above
-    256, raises."""
+    FMA kernels at 256 (32-row tiles), and head dim 320 the same kernels
+    over two 256-wide chunks; another dtype, or a head dim below 1,
+    raises."""
     assert bwd_design(torch.bfloat16) == "wgmma"
     assert bwd_design(torch.float32) == "fma"
     for d in (16, 32, 64, 96, 128):
@@ -660,31 +793,45 @@ def test_flash_bwd_design_rule():
                                                 "dkv": (64, 64)}
     assert bwd_blocks(torch.bfloat16, 192) == {"dq": (32, 32),
                                                "dkv": (32, 32)}
+    assert bwd_blocks(torch.float32, 320) == {"dq": (32, 32),
+                                              "dkv": (32, 32)}
     with pytest.raises(ValueError, match="float16"):
         bwd_design(torch.float16)
     with pytest.raises(ValueError, match="head_dim"):
-        bwd_blocks(torch.bfloat16, 257)
+        bwd_blocks(torch.bfloat16, 0)
 
 
 @pytest.mark.parametrize("d,want", [(1, 64), (16, 64), (32, 64), (64, 64),
                                     (65, 128), (96, 128), (128, 128),
-                                    (129, 256), (192, 256), (256, 256)])
+                                    (129, 256), (192, 256), (256, 256),
+                                    (257, 512), (320, 512), (512, 512),
+                                    (513, 768), (1000, 1024)])
 def test_flash_padded_head_dim_rule(d, want):
+    """Up to 256 the next template case; above it the next multiple of
+    256, the FMA kernels' chunk."""
     assert padded_head_dim(d) == want
 
 
 @pytest.mark.parametrize("d", [0, 257, 320, 512])
 def test_flash_head_dim_above_128_raises(d):
-    """The kernels' rule, which the card route goes through, raises
-    outside 1..256 since head dims 129..256 run padded to 256
-    (``test_torch_sm90.py`` holds the card to it); the CPU route takes a
-    head dim above 256 unpadded."""
-    with pytest.raises(ValueError, match="head_dim 1..256"):
-        padded_head_dim(d)
-    with pytest.raises(ValueError, match="head_dim"):
-        fwd_blocks(torch.bfloat16, d)
-    with pytest.raises(ValueError, match="head_dim"):
-        bwd_blocks(torch.float32, d)
+    """Of these only a head dim below 1 still raises: above 256 the rule
+    pads to a multiple of 256 (512 for each of 257, 320 and 512), which
+    both dtypes run on the FMA kernels at 32-row tiles, two 256-wide
+    chunks of the head dim (``test_torch_kernels_card.py`` holds the card
+    to it); both routes pad alike."""
+    if d < 1:
+        with pytest.raises(ValueError, match="head_dim"):
+            padded_head_dim(d)
+        with pytest.raises(ValueError, match="head_dim"):
+            fwd_blocks(torch.bfloat16, d)
+        with pytest.raises(ValueError, match="head_dim"):
+            bwd_blocks(torch.float32, d)
+        return
+    assert padded_head_dim(d) == 512
+    for dtype in (torch.float32, torch.bfloat16):
+        assert fwd_design(dtype, d) == bwd_design(dtype, d) == "fma"
+        assert fwd_blocks(dtype, d) == (32, 32)
+        assert bwd_blocks(dtype, d) == {"dq": (32, 32), "dkv": (32, 32)}
 
 
 @pytest.mark.parametrize("d", [129, 160, 192, 256])
@@ -742,7 +889,44 @@ def test_flash_plain_at_the_d256_tiles_matches_jax(d, dtype):
                    name)
 
 
-@pytest.mark.parametrize("d", [129, 192])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_plain_at_head_dim_320_matches_jax(dtype):
+    """``flash_attention_plain`` at head dim 320, zero-padded to 512 as
+    the card runs it (the FMA kernels over two 256-wide chunks, 32-row
+    tiles), against the Pallas kernels (interpret mode) at the unpadded
+    width and the same tiles: o and the gradients of q, k, v under one
+    cotangent (``jax.vjp``), causal, ragged over the tiles; float32 o
+    within the attention bound and the gradients within 1e-4 of the
+    largest, bf16 within one bf16 rounding (1e-2) of the largest."""
+    b, s, h, d = 1, 40, 2, 320
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    q, k, v = _flash_inputs(b, s, s, h, d, seed=d)
+    do = np.random.default_rng(d + 1).standard_normal(
+        (b, s, h, d)).astype(np.float32)
+    bq, bk = fwd_blocks(dtype, d)
+    assert padded_head_dim(d) == 512 and (bq, bk) == (32, 32)
+    want, vjp = jax.vjp(functools.partial(
+        jax_flash_attention, causal=True, block_q=bq, block_k=bk),
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)))
+    want_grads = vjp(jnp.asarray(do).astype(jdt))
+    args = [_t(a).to(dtype).requires_grad_() for a in (q, k, v)]
+    o = flash_attention_plain(*args, causal=True, block_q=bq, block_k=bk)
+    o.backward(_t(do).to(dtype))
+    assert o.dtype == dtype and o.shape == (b, s, h, d)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == torch.float32:
+        np.testing.assert_allclose(o.detach().numpy(), want, atol=ATTN_ATOL)
+        tol = FLASH_GRAD_TOL
+    else:
+        _close_rel(o.detach().float(), want, FLASH_BF16_TOL, "o")
+        tol = FLASH_BF16_TOL
+    for t, wnt, name in zip(args, want_grads, ("dq", "dk", "dv")):
+        assert t.grad.shape == t.shape
+        _close_rel(t.grad.float(), np.asarray(wnt.astype(jnp.float32)), tol,
+                   name)
+
+
+@pytest.mark.parametrize("d", [129, 192, 320])
 def test_flash_cpu_route_takes_head_dim_above_128(d):
     """As the JAX package does: ``o`` and the gradients of q, k, v under
     the cotangent of ``sum(o * cos(o))`` against the Pallas kernels
@@ -901,9 +1085,11 @@ def test_kernel_build_hash_covers_every_source():
                      "flash_fwd_sm90.cu", "fused_conv.cu",
                      "fused_conv_sm90.cu",
                      "fused_residual_norm.cu", "paged_attention.cu",
-                     "pool_bwd.cu", "sm90_selftest.cu", "xent.cu"]
-    # the shared header is hashed too: a change to it rebuilds
-    assert [p.name for p in _build._CSRC.glob("*.cuh")] == ["sm90.cuh"]
+                     "paged_attention_masked.cu", "pool_bwd.cu",
+                     "sm90_selftest.cu", "xent.cu"]
+    # the shared headers are hashed too: a change to one rebuilds
+    assert sorted(p.name for p in _build._CSRC.glob("*.cuh")) == [
+        "paged_attention.cuh", "sm90.cuh"]
     h = _build.source_hash()
     assert h == _build.source_hash() and len(h) == 64
     assert _build.pad_up(13, 8) == 16 and _build.pad_up(16, 8) == 16

@@ -28,7 +28,7 @@ and the plain versions are held against the JAX package in
   plain version on those heads alone; the padded route of
   ``flash_attention`` at head dims 32 and 96 (the kernels' bits at the
   padded width, sliced back, and the CPU route within 1e-2); a head dim
-  above 256 raises on the card;
+  above 256 (320, padded to 512) through autograd against the CPU route;
 - the bf16 fused conv (``csrc/fused_conv_sm90.cu``) at Cout 64, 128, 192
   and 512, a ragged last tile, H != W, a 1 x 1 image and the widest
   window it takes (W 62), and the other designs at the shapes the rule
@@ -244,13 +244,30 @@ def test_flash_padded_route_on_card(cuda_device, d, causal):
 
 @pytest.mark.cuda
 def test_flash_head_dim_above_128_raises_on_card(cuda_device):
-    """Head dims 129..256 run padded to 256 since the FMA kernels took
-    that case (``test_torch_kernels_card.py``); above 256 the card
-    raises."""
-    q = torch.zeros((1, 8, 1, 320), dtype=torch.bfloat16,
-                    device=cuda_device)
-    with pytest.raises(ValueError, match="head_dim 1..256"):
-        fa.flash_attention(q, q, q)
+    """Head dims 129..256 run padded to 256, and since the FMA kernels
+    loop over 256-wide chunks a head dim above 256 no longer raises: 320
+    runs padded to 512 through autograd, one launch of each kernel, o and
+    the gradients at the caller's width within 1e-2 of the CPU route's
+    largest magnitudes (bf16, as above)."""
+    b, s, h, d = 1, 70, 2, 320
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    qkv = torch.randn((b, s, 3, h, d), generator=g,
+                      device=cuda_device).to(torch.bfloat16)
+    do = torch.randn((b, s, h, d), generator=g,
+                     device=cuda_device).to(torch.bfloat16)
+    before = dict(fa.flash_attention.launches)
+    x = qkv.clone().requires_grad_()
+    o = fa.flash_attention(*x.unbind(2), causal=True)
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert {k: fa.flash_attention.launches[k] - before[k]
+            for k in before} == {"fwd": 1, "dq": 1, "dkv": 1}
+    assert o.shape == (b, s, h, d) and x.grad.shape == qkv.shape
+    xc = qkv.cpu().requires_grad_()
+    oc = fa.flash_attention(*xc.unbind(2), causal=True)
+    oc.backward(do.cpu())
+    assert _rel(o.detach().cpu(), oc.detach()) <= BF16_TOL
+    assert _rel(x.grad.cpu(), xc.grad) <= BF16_TOL
 
 
 @pytest.mark.cuda

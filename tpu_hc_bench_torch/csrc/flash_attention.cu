@@ -1,6 +1,7 @@
 // Flash attention for Hopper (sm_90a) on the FMA units: the forward and
 // the two backward passes (dQ; dK and dV), each one kernel, for float32
-// at head dims 64, 128 and 256 and for bfloat16 at head dim 256; and the
+// at head dims 64, 128 and 256 and for bfloat16 at head dim 256, and for
+// both at a multiple of 256 above it; and the
 // C entries of all flash kernels (bf16 at head dims 64 and 128 runs
 // flash_fwd_sm90.cu and flash_bwd_sm90.cu).
 //
@@ -26,10 +27,20 @@
 // and head strides (the last dimension contiguous), so the views q, k, v
 // of one fused [b, s, 3, h, d] projection go in without a copy; o, dO, dQ,
 // dK and dV are contiguous [b, s, h, d]; lse and D are [b, h, s] float32.
-// Head dim 64, 128 or 256 (template cases).  Tiles are 64 rows at head
-// dims 64 and 128 and 32 rows at 256, where 64-row tiles of the dK/dV
-// kernel would need ~420 KB of shared memory in f32 and ~320 KB in bf16
-// (Geo::dkv), and a 64 x 256 register patch of P V would spill.
+// Head dim 64, 128 or 256 (template cases), or a multiple of 256 above
+// it on the 256 case.  Tiles are 64 rows at head dims 64 and 128 and 32
+// rows from 256, where 64-row tiles of the dK/dV kernel would need ~420
+// KB of shared memory in f32 and ~320 KB in bf16 (Geo::dkv), and a 64 x
+// 256 register patch of P V would spill.
+//
+// Above 256 (p.nch = d / 256 chunks of 256 columns): the contractions over
+// the head dim loop over the chunks, S = sum_c Q_c K_c^T and, in the
+// backward, dP = sum_c dO_c V_c^T, each chunk staged in the 256-wide tiles
+// in turn; the grid's z axis is the 256-wide column block cb of each
+// output (O, dQ, dK, dV), which takes V_cb, K_cb, or Q_cb and dO_cb for
+// its last product.  Each column block recomputes S (and dP): ceil(d /
+// 256) times the score work, for a shape no model of the zoo has.  At d <=
+// 256 (nch 1) the tiles are staged once, as the loops always did.
 //
 // What bounds it on an H100, at the training shape (b 16, s 1024, h 12,
 // d 64, causal): operations on the FMA units (67 TFLOP/s in f32; no TF32,
@@ -115,6 +126,8 @@ struct Params {
   void* dv;
   long long qs[3], ks[3], vs[3];   // batch, sequence, head strides
   int b, h, sq, sk;
+  int d;                  // row length of o, dO and the gradients
+  int nch;                // chunks of D columns a row (d / D; 1 at d <= D)
   float scale;
   int causal;
 };
@@ -223,14 +236,14 @@ flash_fwd_kernel(const Params p) {
   float* l_s = m_s + kB;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int bh = blockIdx.x, qt = blockIdx.y;
+  const int bh = blockIdx.x, qt = blockIdx.y, cb = blockIdx.z;
   const int bi = bh / p.h, hi = bh % p.h;
   const int i0 = qt * kB;
   const T* q = static_cast<const T*>(p.q) + bi * p.qs[0] + hi * p.qs[2];
   const T* k = static_cast<const T*>(p.k) + bi * p.ks[0] + hi * p.ks[2];
   const T* v = static_cast<const T*>(p.v) + bi * p.vs[0] + hi * p.vs[2];
 
-  load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
+  if (p.nch == 1) load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
   for (int u = tid; u < kB * D; u += kThreads)
     Os[(u / D) * G::kLdO + u % D] = 0.f;
   for (int r = tid; r < kB; r += kThreads) {
@@ -241,12 +254,18 @@ flash_fwd_kernel(const Params p) {
   const int kt_end = p.causal ? min(n_kt, qt + 1) : n_kt;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int j0 = kt * kB;
-    load_tile<T, D, kB>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
-    load_tile<T, D, kB>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
-    __syncthreads();
-    tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
-                                      false, tid);
-    __syncthreads();
+    // S = sum over the chunks of Q_c K_c^T; V_cb for P V
+    for (int c = 0; c < p.nch; ++c) {
+      if (p.nch > 1)
+        load_tile<T, D, kB>(Qs, G::kLdT, q + c * D, p.qs[1], i0, p.sq, tid);
+      load_tile<T, D, kB>(Ks, G::kLdT, k + c * D, p.ks[1], j0, p.sk, tid);
+      if (c == 0)
+        load_tile<T, D, kB>(Vs, G::kLdT, v + cb * D, p.vs[1], j0, p.sk, tid);
+      __syncthreads();
+      tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss,
+                                        G::kLdS, c > 0, tid);
+      __syncthreads();
+    }
     // the online-softmax update, one warp per kB / 4 rows, kB / 32 keys a
     // lane
     for (int r = warp * kRowsPerWarp; r < (warp + 1) * kRowsPerWarp; ++r) {
@@ -291,12 +310,12 @@ flash_fwd_kernel(const Params p) {
     const int r = u / D, c = u % D;
     if (i0 + r < p.sq) {
       const float l = fmaxf(l_s[r], 1e-30f);
-      o[(((long long)bi * p.sq + i0 + r) * p.h + hi) * D + c] =
+      o[(((long long)bi * p.sq + i0 + r) * p.h + hi) * p.d + cb * D + c] =
           from_f<T>(Os[r * G::kLdO + c] / l);
     }
   }
   for (int r = tid; r < kB; r += kThreads)
-    if (i0 + r < p.sq)
+    if (cb == 0 && i0 + r < p.sq)
       p.lse[(long long)bh * p.sq + i0 + r] =
           m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
@@ -346,18 +365,20 @@ flash_dq_kernel(const Params p) {
   float* delta_s = lse_s + kB;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x, qt = blockIdx.y;
+  const int bh = blockIdx.x, qt = blockIdx.y, cb = blockIdx.z;
   const int bi = bh / p.h, hi = bh % p.h;
   const int i0 = qt * kB;
-  const long long hd = (long long)p.h * D;     // row stride of dO and dQ
+  const long long hd = (long long)p.h * p.d;   // row stride of dO and dQ
   const T* q = static_cast<const T*>(p.q) + bi * p.qs[0] + hi * p.qs[2];
   const T* k = static_cast<const T*>(p.k) + bi * p.ks[0] + hi * p.ks[2];
   const T* v = static_cast<const T*>(p.v) + bi * p.vs[0] + hi * p.vs[2];
   const T* dout = static_cast<const T*>(p.dout) + (long long)bi * p.sq * hd
-                  + (long long)hi * D;
+                  + (long long)hi * p.d;
 
-  load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
-  load_tile<T, D, kB>(dOs, G::kLdT, dout, hd, i0, p.sq, tid);
+  if (p.nch == 1) {
+    load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
+    load_tile<T, D, kB>(dOs, G::kLdT, dout, hd, i0, p.sq, tid);
+  }
   load_rows<kB>(lse_s, p.lse_in + (long long)bh * p.sq, i0, p.sq, tid);
   load_rows<kB>(delta_s, p.delta + (long long)bh * p.sq, i0, p.sq, tid);
   for (int u = tid; u < kB * D; u += kThreads)
@@ -366,14 +387,24 @@ flash_dq_kernel(const Params p) {
   const int kt_end = p.causal ? min(n_kt, qt + 1) : n_kt;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int j0 = kt * kB;
-    load_tile<T, D, kB>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
-    load_tile<T, D, kB>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
-    __syncthreads();
-    tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
-                                      false, tid);
-    tile_gemm<true, false, kB, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs,
-                                      G::kLdS, false, tid);
-    __syncthreads();
+    // S and dP: sums over the chunks of Q_c K_c^T and dO_c V_c^T
+    for (int c = 0; c < p.nch; ++c) {
+      if (p.nch > 1) {
+        load_tile<T, D, kB>(Qs, G::kLdT, q + c * D, p.qs[1], i0, p.sq, tid);
+        load_tile<T, D, kB>(dOs, G::kLdT, dout + c * D, hd, i0, p.sq, tid);
+      }
+      load_tile<T, D, kB>(Ks, G::kLdT, k + c * D, p.ks[1], j0, p.sk, tid);
+      load_tile<T, D, kB>(Vs, G::kLdT, v + c * D, p.vs[1], j0, p.sk, tid);
+      __syncthreads();
+      tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss,
+                                        G::kLdS, c > 0, tid);
+      tile_gemm<true, false, kB, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs,
+                                        G::kLdS, c > 0, tid);
+      __syncthreads();
+    }
+    // K_cb for dS K, unless the last chunk was cb (p_and_ds reads no K)
+    if (cb != p.nch - 1)
+      load_tile<T, D, kB>(Ks, G::kLdT, k + cb * D, p.ks[1], j0, p.sk, tid);
     p_and_ds<T, D, false>(Ss, DPs, nullptr, DSs, lse_s, delta_s, i0, j0, p,
                           tid);
     __syncthreads();
@@ -381,7 +412,8 @@ flash_dq_kernel(const Params p) {
                                      G::kLdO, true, tid);
     __syncthreads();
   }
-  T* dq = static_cast<T*>(p.dq) + (long long)bi * p.sq * hd + (long long)hi * D;
+  T* dq = static_cast<T*>(p.dq) + (long long)bi * p.sq * hd +
+          (long long)hi * p.d + cb * D;
   for (int u = tid; u < kB * D; u += kThreads) {
     const int r = u / D, c = u % D;
     if (i0 + r < p.sq) dq[(i0 + r) * hd + c] = from_f<T>(dQs[r * G::kLdO + c]);
@@ -414,18 +446,20 @@ flash_dkv_kernel(const Params p) {
   float* delta_s = lse_s + kB;
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x, kt = blockIdx.y;
+  const int bh = blockIdx.x, kt = blockIdx.y, cb = blockIdx.z;
   const int bi = bh / p.h, hi = bh % p.h;
   const int j0 = kt * kB;
-  const long long hd = (long long)p.h * D;
+  const long long hd = (long long)p.h * p.d;
   const T* q = static_cast<const T*>(p.q) + bi * p.qs[0] + hi * p.qs[2];
   const T* k = static_cast<const T*>(p.k) + bi * p.ks[0] + hi * p.ks[2];
   const T* v = static_cast<const T*>(p.v) + bi * p.vs[0] + hi * p.vs[2];
   const T* dout = static_cast<const T*>(p.dout) + (long long)bi * p.sq * hd
-                  + (long long)hi * D;
+                  + (long long)hi * p.d;
 
-  load_tile<T, D, kB>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
-  load_tile<T, D, kB>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
+  if (p.nch == 1) {
+    load_tile<T, D, kB>(Ks, G::kLdT, k, p.ks[1], j0, p.sk, tid);
+    load_tile<T, D, kB>(Vs, G::kLdT, v, p.vs[1], j0, p.sk, tid);
+  }
   for (int u = tid; u < kB * D; u += kThreads) {
     dKs[(u / D) * G::kLdO + u % D] = 0.f;
     dVs[(u / D) * G::kLdO + u % D] = 0.f;
@@ -433,16 +467,33 @@ flash_dkv_kernel(const Params p) {
   const int n_qt = (p.sq + kB - 1) / kB;
   for (int qt = p.causal ? kt : 0; qt < n_qt; ++qt) {
     const int i0 = qt * kB;
-    load_tile<T, D, kB>(Qs, G::kLdT, q, p.qs[1], i0, p.sq, tid);
-    load_tile<T, D, kB>(dOs, G::kLdT, dout, hd, i0, p.sq, tid);
-    load_rows<kB>(lse_s, p.lse_in + (long long)bh * p.sq, i0, p.sq, tid);
-    load_rows<kB>(delta_s, p.delta + (long long)bh * p.sq, i0, p.sq, tid);
-    __syncthreads();
-    tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss, G::kLdS,
-                                      false, tid);
-    tile_gemm<true, false, kB, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs,
-                                      G::kLdS, false, tid);
-    __syncthreads();
+    // S and dP: sums over the chunks of Q_c K_c^T and dO_c V_c^T
+    for (int c = 0; c < p.nch; ++c) {
+      if (p.nch > 1) {
+        load_tile<T, D, kB>(Ks, G::kLdT, k + c * D, p.ks[1], j0, p.sk, tid);
+        load_tile<T, D, kB>(Vs, G::kLdT, v + c * D, p.vs[1], j0, p.sk, tid);
+      }
+      load_tile<T, D, kB>(Qs, G::kLdT, q + c * D, p.qs[1], i0, p.sq, tid);
+      load_tile<T, D, kB>(dOs, G::kLdT, dout + c * D, hd, i0, p.sq, tid);
+      if (c == 0) {
+        load_rows<kB>(lse_s, p.lse_in + (long long)bh * p.sq, i0, p.sq,
+                      tid);
+        load_rows<kB>(delta_s, p.delta + (long long)bh * p.sq, i0, p.sq,
+                      tid);
+      }
+      __syncthreads();
+      tile_gemm<true, false, kB, kB, D>(Qs, G::kLdT, Ks, G::kLdT, Ss,
+                                        G::kLdS, c > 0, tid);
+      tile_gemm<true, false, kB, kB, D>(dOs, G::kLdT, Vs, G::kLdT, DPs,
+                                        G::kLdS, c > 0, tid);
+      __syncthreads();
+    }
+    // Q_cb and dO_cb for the products, unless the last chunk was cb
+    // (p_and_ds reads neither)
+    if (cb != p.nch - 1) {
+      load_tile<T, D, kB>(Qs, G::kLdT, q + cb * D, p.qs[1], i0, p.sq, tid);
+      load_tile<T, D, kB>(dOs, G::kLdT, dout + cb * D, hd, i0, p.sq, tid);
+    }
     p_and_ds<T, D, true>(Ss, DPs, Ps, DSs, lse_s, delta_s, i0, j0, p, tid);
     __syncthreads();
     // dV += P^T dO and dK += dS^T Q: the [query, key] tiles read transposed
@@ -452,8 +503,10 @@ flash_dkv_kernel(const Params p) {
                                       G::kLdO, true, tid);
     __syncthreads();
   }
-  T* dk = static_cast<T*>(p.dk) + (long long)bi * p.sk * hd + (long long)hi * D;
-  T* dv = static_cast<T*>(p.dv) + (long long)bi * p.sk * hd + (long long)hi * D;
+  T* dk = static_cast<T*>(p.dk) + (long long)bi * p.sk * hd +
+          (long long)hi * p.d + cb * D;
+  T* dv = static_cast<T*>(p.dv) + (long long)bi * p.sk * hd +
+          (long long)hi * p.d + cb * D;
   for (int u = tid; u < kB * D; u += kThreads) {
     const int r = u / D, c = u % D;
     if (j0 + r < p.sk) {
@@ -488,21 +541,23 @@ int launch(Which which, const Params& p, cudaStream_t stream) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (tiles == 0 || p.b * p.h == 0) return 0;
-  kernel<<<dim3(p.b * p.h, tiles), kThreads, smem, stream>>>(p);
+  kernel<<<dim3(p.b * p.h, tiles, p.nch), kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 // the kernels of this file: float32 at head dims 64, 128 and 256, bf16
-// at 256
-int dispatch(Which which, const Params& p, int d, int is_bf16,
-             void* stream) {
+// at 256, and both at a multiple of 256 above it (the 256 case over d /
+// 256 chunks)
+int dispatch(Which which, Params& p, int d, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  p.d = d;
+  p.nch = d > 256 && d % 256 == 0 ? d / 256 : 1;
   if (is_bf16) {
-    if (d == 256) return launch<bf16, 256>(which, p, s);
+    if (d == 256 || p.nch > 1) return launch<bf16, 256>(which, p, s);
   } else {
     if (d == 64) return launch<float, 64>(which, p, s);
     if (d == 128) return launch<float, 128>(which, p, s);
-    if (d == 256) return launch<float, 256>(which, p, s);
+    if (d == 256 || p.nch > 1) return launch<float, 256>(which, p, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -551,9 +606,9 @@ int flash_dkv_sm90(const void* q, const void* k, const void* v,
 }  // namespace thb
 
 // Each entry returns cudaGetLastError() after its launch (0 when it was
-// accepted), or cudaErrorInvalidValue for a head dim other than 64, 128
-// or 256.  Strides are in elements: batch, sequence, head, for q, k and
-// v.  bf16 at head dims 64 and 128 runs the wgmma kernels
+// accepted), or cudaErrorInvalidValue for a head dim other than 64, 128,
+// 256 or a multiple of 256.  Strides are in elements: batch, sequence,
+// head, for q, k and v.  bf16 at head dims 64 and 128 runs the wgmma kernels
 // (flash_fwd_sm90.cu, flash_bwd_sm90.cu), everything else this file's;
 // *design is set to the one that ran: 2 wgmma, 1 FMA.
 

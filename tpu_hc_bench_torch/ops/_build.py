@@ -47,10 +47,15 @@ _SIGNATURES = {
         _P, _P,                                     # ws_acc ws_ml
         _I, _I, _I, _I, _I, _I, _I, _I, _I,         # b h kvh d pages ps w ppb l
         _I, _I, _I,                                 # splits slots g_tile
-        _F, _I, _I, _P],                            # scale pool q_bf16 stream
+        _F, _I, _I, _I, _P],                        # scale pool q_bf16 vec
+                                                    # stream
     "thb_fused_residual_norm": [
         _P, _P, _P, _P, _P, _P,                     # res x gamma beta y out
-        _I, _I, _F, _I, _P],                        # rows hidden eps ln stream
+        _I, _I, _F, _I,                             # rows hidden eps ln
+        _I, _I, _I, _I, _I, _I, _I,                 # dtype gamma_f32 cluster
+                                                    # threads team nv vec
+        _P],                                        # stream
+    "thb_empty_launch": [_I, _P],                   # cluster stream
     "thb_fused_bn_relu_conv": [
         _P, _P, _P, _P, _P, _P, _P, _P, _P,         # x w a b y p1 p2 s1 s2
         _I, _I, _I, _I, _I,                         # n h w cin cout
@@ -174,6 +179,17 @@ def check(err: int, name: str) -> None:
             f"{name}: CUDA launch failed with cudaError_t {err}")
 
 
+# PyTorch's own raw-handle query, what its compiled kernels launch with:
+# it builds no ``torch.cuda.Stream`` object, whose construction costs more
+# host time than the launch itself, on every kernel call of a host-bound
+# decode loop
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream_ptr(device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
+    if _RAW_STREAM is not None:
+        index = device.index
+        return _RAW_STREAM(torch.cuda.current_device() if index is None
+                           else index)
     return torch.cuda.current_stream(device).cuda_stream

@@ -31,18 +31,20 @@ and 128 runs the wgmma kernels, ``csrc/flash_fwd_sm90.cu`` (128-query
 tiles against 128-key tiles at head dim 64 and 64-key tiles at 128,
 ``fwd_blocks``) and ``csrc/flash_bwd_sm90.cu`` (dQ over 128-query tiles
 against 64-key tiles, dK/dV over 128-key tiles against 64-query tiles,
-``bwd_blocks``); float32, and bf16 at head dim 256, run the FMA kernels
-of ``csrc/flash_attention.cu`` (64-row tiles, 32-row at head dim 256).
+``bwd_blocks``); float32, and bf16 from head dim 256, run the FMA
+kernels of ``csrc/flash_attention.cu`` (64-row tiles, 32-row from head
+dim 256).
 The kernels read ``q``,
 ``k``, ``v`` through their strides, so the views of one fused QKV
 projection need no copy, and they mask the ragged last tile themselves:
 no sequence padding either.
 
-The kernels take head dim 64, 128 or 256.  ``flash_attention``
-zero-pads any other head dim ``d <= 256`` on the last axis (to 64 up to
-64, to 128 up to 128, else to 256; ``padded_head_dim``) on both routes
-(the CPU route takes a head dim above 256 unpadded; the card raises for
-it), with the scale
+The kernels take head dim 64, 128, 256 or a multiple of 256 (the FMA
+kernels loop over 256-wide chunks of the head dim for ``Q K^T`` and
+``dO V^T`` and give each 256-wide column block of the outputs a block of
+its own).  ``flash_attention`` zero-pads any other head dim on the last
+axis (to 64 up to 64, to 128 up to 128, to 256 up to 256, else to the
+next multiple of 256; ``padded_head_dim``) on both routes, with the scale
 ``1/sqrt(d)`` of the original ``d``, and slices ``o`` back (so its
 gradient ``dO`` is padded and ``dQ``, ``dK``, ``dV`` sliced): exact,
 since zero columns add nothing to ``Q K^T`` or ``dO V^T`` and give zero
@@ -68,6 +70,7 @@ _NEG_INF = -1e30
 _BLOCK = 64                     # kB in csrc/flash_attention.cu, d <= 128
 _BLOCK_D256 = 32                # kB there at head dim 256
 _HEAD_DIMS = (64, 128, 256)     # the kernels' template cases
+_CHUNK = 256                    # above 256: multiples of it
 _WGMMA_HEAD_DIMS = (64, 128)    # bf16 head dims on the wgmma kernels
 _DTYPES = (torch.float32, torch.bfloat16)
 KERNELS = ("fwd", "dq", "dkv")
@@ -76,12 +79,13 @@ _DESIGNS = {1: "fma", 2: "wgmma"}       # the C entries' design codes
 
 def padded_head_dim(head_dim: int) -> int:
     """The kernels' head dim for ``head_dim``: 64 up to 64, 128 up to
-    128, else 256; a head dim above 256 raises (the largest of the
-    published decoder configurations)."""
-    if not 0 < head_dim <= _HEAD_DIMS[-1]:
-        raise ValueError(f"flash attention takes head_dim 1..256 on the "
-                         f"card (zero-padded to 64, 128 or 256 for the "
-                         f"kernels): {head_dim}")
+    128, 256 up to 256, else the next multiple of 256 (the FMA kernels'
+    256-wide chunks); below 1 raises."""
+    if head_dim < 1:
+        raise ValueError(f"flash attention takes a head_dim of at least 1: "
+                         f"{head_dim}")
+    if head_dim > _HEAD_DIMS[-1]:
+        return _build.pad_up(head_dim, _CHUNK)
     return next(dp for dp in _HEAD_DIMS if head_dim <= dp)
 
 
@@ -98,19 +102,19 @@ def fwd_design(dtype, head_dim: int | None = None) -> str:
     """The forward kernel a CUDA call of this dtype (and head dim, padded
     by ``padded_head_dim``; the default is one of 64 and 128) runs:
     ``"wgmma"`` (bf16 up to 128, ``csrc/flash_fwd_sm90.cu``) or ``"fma"``
-    (float32, and bf16 at 256, ``csrc/flash_attention.cu``)."""
+    (float32, and bf16 from 256, ``csrc/flash_attention.cu``)."""
     return _design(dtype, "forward", head_dim)
 
 
 def bwd_design(dtype, head_dim: int | None = None) -> str:
     """The dQ and dK/dV kernels a CUDA call of this dtype (and head dim)
     runs: ``"wgmma"`` (bf16 up to 128, ``csrc/flash_bwd_sm90.cu``) or
-    ``"fma"`` (float32, and bf16 at 256, ``csrc/flash_attention.cu``)."""
+    ``"fma"`` (float32, and bf16 from 256, ``csrc/flash_attention.cu``)."""
     return _design(dtype, "backward", head_dim)
 
 
 def _fma_block(head_dim: int) -> int:
-    return _BLOCK_D256 if padded_head_dim(head_dim) == 256 else _BLOCK
+    return _BLOCK_D256 if padded_head_dim(head_dim) >= 256 else _BLOCK
 
 
 def fwd_blocks(dtype, head_dim: int) -> tuple[int, int]:
@@ -130,7 +134,7 @@ def bwd_blocks(dtype, head_dim: int) -> dict[str, tuple[int, int]]:
     the kernel's f32 summation order.  The wgmma dQ kernel owns 128 query
     rows and sums over 64-key tiles; the dK/dV kernel owns 128 keys and
     sums over 64-query tiles; the FMA kernels take 64-row tiles, 32-row
-    at head dim 256."""
+    from head dim 256."""
     d = padded_head_dim(head_dim)
     if bwd_design(dtype, d) == "fma":
         blk = (_fma_block(d), _fma_block(d))
@@ -329,10 +333,10 @@ def _check_card(q, k, v, do=None, lse=None, delta=None):
     if do is not None and (not do.is_contiguous() or do.shape != q.shape
                            or do.dtype != q.dtype):
         raise ValueError("do must be contiguous and shaped and typed as q")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the kernels take head_dim 64, 128 or 256 "
-                         f"(flash_attention zero-pads head dims up to 256 "
-                         f"to them): {d}")
+    if d not in _HEAD_DIMS and not (d > _CHUNK and d % _CHUNK == 0):
+        raise ValueError(f"the kernels take head_dim 64, 128, 256 or a "
+                         f"multiple of 256 (flash_attention zero-pads other "
+                         f"head dims to them): {d}")
     vec = 16 // q.element_size()
     for t in (q, k, v, *rest):
         if t.data_ptr() % 16 or any(s % vec for s in t.stride()[:-1]):
@@ -478,9 +482,8 @@ def flash_attention(q, k, v, causal: bool = False,
       scale: score scale; default ``1/sqrt(head_dim)``.
     Returns:
       ``[batch, seq_q, heads, head_dim]`` in ``q``'s dtype, differentiable
-      in ``q``, ``k`` and ``v``.  On the card head_dim up to 256
-      (zero-padded to the kernels' 64, 128 or 256, ``padded_head_dim``);
-      on the CPU any head_dim.
+      in ``q``, ``k`` and ``v``.  Any head_dim, zero-padded to the
+      kernels' 64, 128, 256 or a multiple of 256 (``padded_head_dim``).
     """
     _validate(q, k, v)
     return _padded_apply(q, k, v, causal, scale, _BLOCK, _BLOCK, _route(q))
@@ -488,10 +491,9 @@ def flash_attention(q, k, v, causal: bool = False,
 
 def _padded_apply(q, k, v, causal, scale, block_q, block_k, card):
     """``_Flash`` at the padded head dim, ``o`` sliced back; the scale is
-    taken from the original head dim before padding.  The CPU route takes
-    a head dim above 256 as it is; the card's raises."""
+    taken from the original head dim before padding."""
     d = q.shape[-1]
-    dp = d if not card and d > _HEAD_DIMS[-1] else padded_head_dim(d)
+    dp = padded_head_dim(d)
     scale = _scale(q, scale)
     if dp != d:
         q, k, v = (torch.nn.functional.pad(t, (0, dp - d)) for t in (q, k, v))

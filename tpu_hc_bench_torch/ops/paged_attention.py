@@ -44,6 +44,7 @@ KERNELS = ("paged_decode_split_kernel", "paged_decode_merge_kernel")
 BLOCKS_PER_SM = 4
 MIN_SPLIT_TOKENS = 64           # a split keeps at least this many tokens
 _HEAD_DIMS = (16, 32, 64, 128, 256)     # the kernels' template cases
+_MAX_HEAD_DIM = 256             # any other d up to it runs masked
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _Q_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -241,8 +242,10 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
       return_lse: also return the per-row logsumexp of the scores.
     Returns:
       ``[b, heads, head_dim]`` in q's dtype; with ``return_lse``, a
-      ``(out, lse [b, heads] float32)`` pair.  On the card head_dim 16,
-      32, 64, 128 or 256.
+      ``(out, lse [b, heads] float32)`` pair.  On the card head_dim 1 to
+      256: 16, 32, 64, 128 and 256 run their own kernels, any other the
+      next of those masked to it (scalar pool loads where a row of
+      head_dim values is not a whole number of 16-byte vectors).
     """
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
@@ -262,9 +265,9 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
                          f"{k_pages.dtype}")
     if quantized and q.dtype != torch.float32:
         raise ValueError("an int8 pool takes a float32 q")
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"the kernels take head_dim 16, 32, 64, 128 or "
-                         f"256: {d}")
+    if not 0 < d <= _MAX_HEAD_DIM:
+        raise ValueError(f"the kernels take head_dim 1..{_MAX_HEAD_DIM}: "
+                         f"{d}")
     operands = [(q, q.dtype), (tables, torch.int32),
                 (lengths, torch.int32), (k_pages, k_pages.dtype),
                 (v_pages, k_pages.dtype)]
@@ -280,8 +283,11 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
             raise ValueError(f"the kernels take {dtype} here, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("the kernels take contiguous tensors")
-    if k_pages.data_ptr() % 16 or v_pages.data_ptr() % 16:
-        raise ValueError("the kernels read the pools in 16-byte vectors")
+    vec = (d * k_pages.element_size() % 16 == 0
+           and k_pages.data_ptr() % 16 == 0 and v_pages.data_ptr() % 16 == 0)
+    if d in _HEAD_DIMS and not vec:
+        raise ValueError("the kernels read the pools in 16-byte vectors at "
+                         "head_dim 16, 32, 64, 128 and 256")
     group = heads // kvh
     splits, slots = split_slots(w, ppb, paged_splits(
         b, kvh, w, ps, ppb, _sm_count(q.device.index or 0)))
@@ -301,7 +307,7 @@ def paged_decode_attention(q, k_pages, v_pages, tables, lengths,
             kvh, d, pages, ps, w, ppb, layer, splits, slots,
             _group_tile(group, quantized), scale,
             _POOL_DTYPES[k_pages.dtype], int(q.dtype == torch.bfloat16),
-            _build.stream_ptr(q.device))
+            int(vec), _build.stream_ptr(q.device))
         _build.check(err, "paged_decode_attention")
         paged_decode_attention.launches += 1
     if return_lse:
