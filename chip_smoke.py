@@ -116,10 +116,37 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    scalar accesses; the 3x3/2, 3x3/1 or generic window) and its GB/s and
    share of the bound.
 
-Then the kernel table line (each kernel's design beside its numbers),
+13. **dp**: data-parallel training over ``torch.distributed`` (every
+   count zeroed just before each run and read just after): (a)
+   ``python -m tpu_hc_bench_torch 1 1 128 ib --model=resnet50
+   --use_fp16=true --fused_conv=true`` through ``launcher.main``, the
+   fast arm in a one-rank NCCL group: images/s and step ms beside phase
+   7's ``sock`` run (the bucket path's cost at world 1), the gradient
+   buckets, the all-reduce calls a step and the fused conv's launches (8
+   a step); (b) phase 6's seeded resnet50 in float32 at batch 16, two
+   steps through the one-worker step (twice) and through the fast arm
+   with ``--overlap_grad_comm`` on and off, cuDNN deterministic: every
+   parameter and BN statistic bit-equal to the one-worker step where
+   that step is bit-equal to itself, else within ``DP_NOISE_FACTOR`` x
+   its run-to-run floor (the record says which); then accumulation 2 on
+   the fast arm, finite, 16 conv launches a step; (c) ``1 1 16 ib
+   --model=gpt2 --attention_impl=flash --fused_xent=true``: 12 launches
+   of each flash kernel and one of each xent kernel a step; (d) with two
+   cards or more, ``1 0 128 ib`` across all of them (scaling efficiency
+   against (a)), then ``--overlap_grad_comm`` on, off, off, on at a
+   25 MiB threshold (several buckets), and the OSU all-reduce sweep;
+   with one card, one record naming the card count it lacked.
+
+Then the kernel table line (each kernel's design beside its numbers,
+and ``dp_launches``: its launches in phase 13's main-path runs (a)
+and (c), every kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
+
+``python3 chip_smoke.py --only dp`` runs the build and phase 13 alone,
+beside a one-worker ``sock`` run at its step counts (no kernel table):
+the data-parallel path on a machine with several cards.
 """
 
 from __future__ import annotations
@@ -267,6 +294,19 @@ LM_RUNS = (("gpt2", 16, "flash", True), ("gpt2", 16, "flash", False),
            ("bert_base", 128, "flash", False))
 LM_WARMUP = 10
 LM_BATCHES = 30
+# phase 13 (dp): the runs' warmup and timed steps, cut from the lanes'
+# 50 + 100 for the time limit
+DP_WARMUP = 20
+DP_BATCHES = 60
+DP_LM_BATCH = 16
+DP_LM_WARMUP = 3
+DP_LM_BATCHES = 10
+DP_PARITY_STEPS = 2
+DP_ACCUM = 2
+DP_NOISE_FACTOR = 3.0              # where the one-worker step is not
+                                   # bit-equal to itself
+DP_OSU_MAX_BYTES = 64 << 20
+DP_SMALL_THRESHOLD = 25 << 20      # several buckets in resnet50's 102 MB
 # softmax_xent against its plain version: loss and lse relative to their
 # largest magnitude (f32 logsumexps over the vocab in another order);
 # dlogits relative to its largest magnitude, 1e-5 in f32, one bf16 ulp
@@ -844,22 +884,12 @@ def norm_err(got: dict, want: dict) -> float:
     return (num / den) ** 0.5
 
 
-def phase_train_parity(torch, dev, smi) -> None:
-    """Phase 6: fused vs unfused resnet50, float32, one step each.
-
-    The gradients of a full-width resnet50 at initialisation are ill
-    conditioned in float32 (the BatchNorm backward subtracts near-equal
-    means), so the fused route's gradient error is held against a noise
-    floor measured in the same run: the unfused model again in NCHW
-    memory, the same math through other cuDNN kernels."""
-    from tpu_hc_bench_torch import flags
-    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+def seeded_resnet50(torch, dev):
+    """resnet50 in float32 from seed 0 with every BatchNorm's scale and
+    shift perturbed (seed 1), so every gradient is live; and its spec."""
     from tpu_hc_bench_torch.models import create_model
     from tpu_hc_bench_torch.models.resnet import BatchNorm
-    from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
-    from tpu_hc_bench_torch.train import step as step_mod
 
-    cfg = flags.BenchmarkConfig(init_learning_rate=0.1).resolve()
     ref, spec = create_model("resnet50", torch.float32, device=dev, seed=0,
                              train=True)
     gen = torch.Generator(device=dev)
@@ -871,6 +901,25 @@ def phase_train_parity(torch, dev, smi) -> None:
                     m.weight.shape, generator=gen, device=dev))
                 m.bias.copy_(0.1 * torch.randn(
                     m.bias.shape, generator=gen, device=dev))
+    return ref, spec
+
+
+def phase_train_parity(torch, dev, smi) -> None:
+    """Phase 6: fused vs unfused resnet50, float32, one step each.
+
+    The gradients of a full-width resnet50 at initialisation are ill
+    conditioned in float32 (the BatchNorm backward subtracts near-equal
+    means), so the fused route's gradient error is held against a noise
+    floor measured in the same run: the unfused model again in NCHW
+    memory, the same math through other cuDNN kernels."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    cfg = flags.BenchmarkConfig(init_learning_rate=0.1).resolve()
+    ref, spec = seeded_resnet50(torch, dev)
     state = {k: v.clone() for k, v in ref.state_dict().items()}
     images, labels = to_device(SyntheticImages(
         PARITY_BATCH, spec.input_shape, spec.num_classes, seed=0).batch(),
@@ -930,14 +979,14 @@ def phase_train_parity(torch, dev, smi) -> None:
         raise AssertionError(f"fused resnet50 disagrees with unfused: {rec}")
 
 
-def phase_train(torch, smi) -> int:
+def phase_train(torch, smi) -> tuple[int, float]:
     """Phase 7: the training lane's main path, both arms; returns the
-    kernel's launch count from the fused arm."""
+    kernel's launch count and the images/s of the fused arm."""
     from tpu_hc_bench_torch import launcher
     from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
 
     steps = TRAIN_WARMUP + TRAIN_BATCHES
-    fused_launches = None
+    fused_launches = fused_rate = None
     for arm in ("fused", "unfused"):
         fused = arm == "fused"
         argv = ["1", "1", str(TRAIN_BATCH), "sock", "--model=resnet50",
@@ -973,7 +1022,8 @@ def phase_train(torch, smi) -> int:
             raise AssertionError(f"train run ({arm}) failed: {rec}")
         if fused:
             fused_launches = launches
-    return fused_launches
+            fused_rate = res["total_images_per_sec"]
+    return fused_launches, fused_rate
 
 
 def _attn_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -1537,7 +1587,282 @@ def phase_pool(torch, dev, timer, smi) -> tuple[dict, int]:
     return row, path_launches
 
 
-def main() -> int:
+def _counters():
+    """Every kernel wrapper's launch counter (the module-level objects
+    that hold them)."""
+    from tpu_hc_bench_torch.ops import pool_bwd
+    from tpu_hc_bench_torch.ops.flash_attention import flash_attention
+    from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
+    from tpu_hc_bench_torch.ops.fused_residual_ln import fused_residual_norm
+    from tpu_hc_bench_torch.ops.paged_attention import paged_decode_attention
+    from tpu_hc_bench_torch.ops.xent import softmax_xent
+
+    return {"paged_decode_attention": paged_decode_attention,
+            "fused_residual_norm": fused_residual_norm,
+            "fused_bn_relu_conv": fused_bn_relu_conv,
+            "max_pool_bwd": pool_bwd.max_pool}, \
+        flash_attention, softmax_xent
+
+
+def _zero_counts() -> None:
+    """Every kernel's launch count to 0, the nine rows of the table."""
+    single, flash, xent = _counters()
+    for fn in single.values():
+        fn.launches = 0
+    for counts in (flash.launches, xent.launches):
+        counts.update(dict.fromkeys(counts, 0))
+
+
+def _read_counts() -> dict:
+    """Every kernel's launch count, by the table's row names."""
+    single, flash, xent = _counters()
+    return {**{name: fn.launches for name, fn in single.items()},
+            **{FLASH_KERNELS[k][0]: n for k, n in flash.launches.items()},
+            **{XENT_KERNELS[k][0]: n for k, n in xent.launches.items()}}
+
+
+def _launch(argv: list[str]) -> tuple[int, dict]:
+    """``launcher.main(argv)``; its exit code and result line."""
+    from tpu_hc_bench_torch import launcher
+
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        print(m, file=sys.stderr, flush=True)
+
+    rc = launcher.main(argv, print_fn=tee)
+    return rc, json.loads(lines[-1])
+
+
+DP_RESULT_KEYS = ("total_workers", "global_batch", "total_images_per_sec",
+                  "images_per_sec_per_chip", "mean_step_ms", "p50_step_ms",
+                  "mfu", "final_loss", "grad_buckets", "allreduce_per_step",
+                  "variable_update", "overlap_grad_comm", "device_kind")
+
+
+def phase_dp_parity(torch, dev, smi) -> None:
+    """Phase 13 (b): the fast arm at world 1 against the one-worker step,
+    float32, and the accumulation arm."""
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
+    from tpu_hc_bench_torch.parallel import distributed
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    ref, spec = seeded_resnet50(torch, dev)
+    init = {k: v.clone() for k, v in ref.state_dict().items()}
+    del ref
+    batch = to_device(SyntheticImages(
+        PARITY_BATCH, spec.input_shape, spec.num_classes, seed=0).batch(),
+        dev)
+
+    def run(fabric, overlap="on", accum=1):
+        model = create_model("resnet50", torch.float32, device=dev,
+                             fused_conv=True, train=True)[0]
+        model.load_state_dict(init)
+        cfg = flags.BenchmarkConfig(
+            init_learning_rate=0.1, batch_size=PARITY_BATCH,
+            overlap_grad_comm=overlap,
+            gradient_accumulation_steps=accum).resolve()
+        if fabric is not None:
+            distributed.init_single("nccl")
+        try:
+            state = step_mod.make_train_state(model, cfg, fabric)
+            before = fused_bn_relu_conv.launches
+            losses = []
+            for _ in range(DP_PARITY_STEPS):
+                state, metrics = step_mod.train_step(state, batch)
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            return ({k: v.detach().clone()
+                     for k, v in model.state_dict().items()},
+                    [float(x) for x in losses],
+                    (fused_bn_relu_conv.launches - before) / DP_PARITY_STEPS,
+                    state.dp.allreduce_calls if state.dp else 0)
+        finally:
+            if fabric is not None:
+                dist.destroy_process_group()
+
+    det = torch.backends.cudnn.deterministic
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        one = run(None)
+        again = run(None)
+        arms = {"overlap_on": run(Fabric.ICI, "on"),
+                "overlap_off": run(Fabric.ICI, "off")}
+        accum = run(Fabric.ICI, "on", DP_ACCUM)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(a[k], b[k]) for k in b)
+
+    deterministic = equal(again[0], one[0]) and again[1] == one[1]
+    floor = norm_err(again[0], one[0])
+    rec = {"phase": "dp", "part": "b_world1_parity", "model": "resnet50",
+           "dtype": "float32", "batch": PARITY_BATCH,
+           "steps": DP_PARITY_STEPS, "losses": one[1],
+           "one_worker_bit_equal_to_itself": deterministic,
+           "run_to_run_floor": floor,
+           "rule": ("bit-equal" if deterministic else
+                    f"within {DP_NOISE_FACTOR} x the run-to-run floor"),
+           "nvidia_smi": smi, "arms": {}, "ok": True}
+    for name, (state, losses, conv, calls) in arms.items():
+        err = norm_err(state, one[0])
+        ok = (equal(state, one[0]) and losses == one[1] if deterministic
+              else err <= DP_NOISE_FACTOR * floor)
+        rec["arms"][name] = {"bit_equal": equal(state, one[0]),
+                             "losses": losses, "norm_err": err,
+                             "conv_launches_per_step": conv,
+                             "allreduce_per_step": calls, "ok": ok}
+        rec["ok"] &= ok and conv == FUSED_LAUNCHES_PER_STEP
+    state, losses, conv, calls = accum
+    rec["accumulation"] = {
+        "steps": DP_ACCUM, "losses": losses,
+        "finite": all(math.isfinite(x) for x in losses) and all(
+            bool(torch.isfinite(t).all()) for t in state.values()),
+        "conv_launches_per_step": conv,
+        "expected_per_step": DP_ACCUM * FUSED_LAUNCHES_PER_STEP,
+        "allreduce_per_step": calls}
+    rec["ok"] &= (rec["accumulation"]["finite"]
+                  and conv == DP_ACCUM * FUSED_LAUNCHES_PER_STEP)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"the fast arm disagrees at world 1: {rec}")
+
+
+def phase_dp(torch, dev, smi, sock_rate: float, sock_run: str) -> dict:
+    """Phase 13: data parallel; returns the kernels' launches in its
+    main-path runs (a) and (c).  ``sock_rate`` is the images/s of the
+    one-worker ``sock`` run named by ``sock_run``."""
+    # (a) resnet50, the fast arm in a one-rank NCCL group
+    steps = DP_WARMUP + DP_BATCHES
+    argv = ["1", "1", str(TRAIN_BATCH), "ib", "--model=resnet50",
+            "--use_fp16=true", "--fused_conv=true",
+            f"--num_warmup_batches={DP_WARMUP}",
+            f"--num_batches={DP_BATCHES}", "--display_every=10"]
+    torch.cuda.empty_cache()
+    _zero_counts()
+    rc, res = _launch(argv)
+    counts_a = _read_counts()
+    conv = counts_a["fused_bn_relu_conv"]
+    rate_a = res["total_images_per_sec"]
+    rec = {"phase": "dp", "part": "a_resnet50_world1_nccl", "argv": argv,
+           "rc": rc, "steps": steps, "launches": counts_a,
+           "conv_launches": conv,
+           "conv_launches_per_step": conv / steps,
+           "expected_per_step": FUSED_LAUNCHES_PER_STEP,
+           "sock_images_per_sec": sock_rate, "sock_run": sock_run,
+           "images_per_sec_vs_sock": rate_a / sock_rate,
+           "nvidia_smi": smi, **{k: res[k] for k in DP_RESULT_KEYS}}
+    emit(rec)
+    if not (rc == 0 and conv == FUSED_LAUNCHES_PER_STEP * steps
+            and res["total_workers"] == 1 and res["grad_buckets"] >= 1
+            and res["allreduce_per_step"] >= res["grad_buckets"] + 2
+            and rate_a > 0 and math.isfinite(res["final_loss"])):
+        raise AssertionError(f"dp resnet50 run failed: {rec}")
+    torch.cuda.empty_cache()
+
+    # (b) bit-equality with the one-worker step, and accumulation
+    phase_dp_parity(torch, dev, smi)
+    torch.cuda.empty_cache()
+
+    # (c) gpt2 with the flash and xent kernels
+    steps = DP_LM_WARMUP + DP_LM_BATCHES
+    argv = ["1", "1", str(DP_LM_BATCH), "ib", "--model=gpt2",
+            "--use_fp16=true", "--attention_impl=flash", "--fused_xent=true",
+            f"--num_warmup_batches={DP_LM_WARMUP}",
+            f"--num_batches={DP_LM_BATCHES}", "--display_every=5"]
+    _zero_counts()
+    rc, res = _launch(argv)
+    counts_c = _read_counts()
+    expected = {**{FLASH_KERNELS[k][0]: LM_LAYERS * steps
+                   for k in FLASH_KERNELS},
+                **{XENT_KERNELS[k][0]: steps for k in XENT_KERNELS}}
+    launches = {k: counts_c[k] for k in expected}
+    rec = {"phase": "dp", "part": "c_gpt2_world1_nccl", "argv": argv,
+           "rc": rc, "steps": steps, "launches": counts_c,
+           "expected_launches": expected, "nvidia_smi": smi,
+           **{k: res[k] for k in DP_RESULT_KEYS}}
+    emit(rec)
+    if not (rc == 0 and launches == expected
+            and math.isfinite(res["final_loss"])):
+        raise AssertionError(f"dp gpt2 run failed: {rec}")
+    # what the main path's runs (a) and (c) launched, every kernel read
+    dp_launches = {k: counts_a[k] + counts_c[k] for k in counts_a}
+    torch.cuda.empty_cache()
+
+    # (d) across every card of this machine
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "dp", "part": "d_multi_card", "ran": False,
+              "cards": cards,
+              "reason": f"needs 2 or more cards; this machine has {cards}"})
+        return dp_launches
+    phase_dp_multi(torch, smi, cards, rate_a)
+    return dp_launches
+
+
+def phase_dp_multi(torch, smi, cards: int, rate_one: float) -> None:
+    """Phase 13 (d): resnet50 over every card, one process a card, at
+    the default threshold, then ``--overlap_grad_comm`` on, off, off, on
+    at ``DP_SMALL_THRESHOLD`` (several buckets); then the OSU all-reduce
+    sweep."""
+    import tempfile
+
+    from tpu_hc_bench_torch.microbench import osu
+
+    base = ["1", "0", str(TRAIN_BATCH), "ib", "--model=resnet50",
+            "--use_fp16=true", "--fused_conv=true",
+            f"--num_warmup_batches={DP_WARMUP}",
+            f"--num_batches={DP_BATCHES}", "--display_every=10"]
+    arms = [[]] + [[f"--overlap_grad_comm={o}",
+                    f"--fusion_threshold_bytes={DP_SMALL_THRESHOLD}"]
+                   for o in ("on", "off", "off", "on")]
+    for extra in arms:
+        argv = base + extra
+        rc, res = _launch(argv)
+        rec = {"phase": "dp", "part": "d_multi_card", "ran": True,
+               "cards": cards, "argv": argv, "rc": rc,
+               "scaling_efficiency":
+                   res["images_per_sec_per_chip"] / rate_one,
+               "nvidia_smi": smi, **{k: res[k] for k in DP_RESULT_KEYS}}
+        emit(rec)
+        if not (rc == 0 and res["total_workers"] == cards
+                and math.isfinite(res["final_loss"])):
+            raise AssertionError(f"dp run across {cards} cards failed: "
+                                 f"{rec}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/sweep.json"
+        rc = osu.main(["--op", "allreduce", "--nproc", str(cards),
+                       "--max_bytes", str(DP_OSU_MAX_BYTES),
+                       "--json", path],
+                      print_fn=lambda m: print(m, file=sys.stderr))
+        with open(path) as f:
+            rows = json.load(f)["sweeps"]["allreduce"]
+    emit({"phase": "dp", "part": "d_osu_allreduce", "cards": cards,
+          "rc": rc, "rows": rows, "nvidia_smi": smi})
+    if rc != 0:
+        raise AssertionError(f"the OSU sweep across {cards} cards failed")
+
+
+def main(argv: list[str] | None = None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description="Smoke run of the port on "
+                                "the GPUs of this machine.")
+    p.add_argument("--only", choices=("dp",), default=None,
+                   help="dp: the build, then phase 13 alone (beside a "
+                        "one-worker sock run at its step counts)")
+    only = p.parse_args(argv).only
     try:
         import torch
     except ImportError:
@@ -1566,6 +1891,21 @@ def main() -> int:
           "kernel_build_s": build_s,
           "ptxas": [ln.strip() for ln in log.splitlines()
                     if "registers" in ln or "Compiling entry" in ln]})
+    if only == "dp":
+        argv = ["1", "1", str(TRAIN_BATCH), "sock", "--model=resnet50",
+                "--use_fp16=true", "--fused_conv=true",
+                f"--num_warmup_batches={DP_WARMUP}",
+                f"--num_batches={DP_BATCHES}", "--display_every=10"]
+        rc, res = _launch(argv)
+        if rc != 0:
+            raise AssertionError(f"the sock run failed: {res}")
+        phase_dp(torch, dev, smi, res["total_images_per_sec"],
+                 f"1 1 {TRAIN_BATCH} sock, {DP_WARMUP} + {DP_BATCHES} steps")
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
 
     timer = Timer(torch, dev)
     main_rows = phase_kernels(torch, dev, timer, smi)
@@ -1587,7 +1927,7 @@ def main() -> int:
 
     phase_train_parity(torch, dev, smi)
     torch.cuda.empty_cache()
-    launches["fused_bn_relu_conv"] = phase_train(torch, smi)
+    launches["fused_bn_relu_conv"], sock_rate = phase_train(torch, smi)
     torch.cuda.empty_cache()
 
     timer = Timer(torch, dev)
@@ -1604,6 +1944,9 @@ def main() -> int:
     main_rows["max_pool_bwd"], launches["max_pool_bwd"] = phase_pool(
         torch, dev, timer, smi)
     del timer
+    torch.cuda.empty_cache()
+    dp_launches = phase_dp(torch, dev, smi, sock_rate,
+                           f"phase 7, {TRAIN_WARMUP} + {TRAIN_BATCHES} steps")
 
     sources = {
         "paged_decode_attention": (
@@ -1646,7 +1989,8 @@ def main() -> int:
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"],
-                      "design": designs[name]})
+                      "design": designs[name],
+                      "dp_launches": dp_launches[name]})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -423,7 +423,8 @@ def test_benchmark_flags_defaults_and_rejections():
                  "display_every", "optimizer", "init_learning_rate",
                  "momentum", "use_fp16", "fused_conv", "use_space_to_depth",
                  "seed", "num_classes", "variable_update",
-                 "gradient_accumulation_steps"):
+                 "gradient_accumulation_steps", "overlap_grad_comm",
+                 "fusion_threshold_bytes"):
         assert getattr(d, name) == getattr(j, name), name
     assert d.num_batches == jax_flags.DEFAULT_NUM_BATCHES
     cfg = flags.parse_benchmark_flags(["--use_fp16=true", "--fused_conv",
@@ -431,7 +432,7 @@ def test_benchmark_flags_defaults_and_rejections():
     assert cfg.use_fp16 and cfg.fused_conv and cfg.compute_dtype == \
         "bfloat16"
     for bad, match in ((["--data_dir=/x"], "not ported"),
-                       (["--gradient_accumulation_steps=2"], "not ported"),
+                       (["--gradient_accumulation_steps=3"], "divisible"),
                        (["--variable_update=zero1"], "not ported"),
                        (["--optimizer=adam"], "not ported"),
                        (["--optimizer=lbfgs"], "momentum|sgd"),
@@ -442,7 +443,7 @@ def test_benchmark_flags_defaults_and_rejections():
         flags.parse_benchmark_flags(["--max_in_flight=4"])
 
 
-def test_launcher_positionals_and_world():
+def test_launcher_positionals_and_world(monkeypatch, tmp_path):
     pos, rest = launcher.parse_positionals(["1", "1", "32", "sock",
                                             "--model=resnet50"])
     assert pos == ["1", "1", "32", "sock"] and rest == ["--model=resnet50"]
@@ -451,7 +452,10 @@ def test_launcher_positionals_and_world():
     assert launcher.world_size(1, 1, "cpu") == 1
     assert launcher.world_size(1, 0, "cpu") == 1
     assert launcher.world_size(2, 4, "cuda") == 8
-    with pytest.raises(ValueError, match="not ported"):
+    # a world of two hosts needs a hostfile that lists both
+    (tmp_path / "nodeips.txt").write_text("10.0.0.1\n")
+    monkeypatch.setenv("TPU_HC_BENCH_HOSTFILE", str(tmp_path / "nodeips.txt"))
+    with pytest.raises(ValueError, match="hostfile lists 1"):
         launcher.main(["2", "1", "4", "ib", "--device=cpu"])
     with pytest.raises(ValueError, match="fabric"):
         launcher.main(["1", "1", "4", "tcp", "--device=cpu"])

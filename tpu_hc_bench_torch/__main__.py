@@ -3,8 +3,9 @@
     python -m tpu_hc_bench_torch NUM_HOSTS WORKERS_PER_HOST BATCH_SIZE FABRIC [--flags]
     python -m tpu_hc_bench_torch serve [--flags]
 
-The first form trains (``launcher.py``: ResNet v1.5 on synthetic images,
-one worker); ``serve`` runs the serving lane (``serve/cli.py``)."""
+The first form trains (``launcher.py``: one process a worker, data
+parallel at a world above one); ``serve`` runs the serving lane
+(``serve/cli.py``)."""
 
 from __future__ import annotations
 

@@ -5,6 +5,10 @@ pipeline.  ``SyntheticImages`` and ``SyntheticTokens`` are copies of the
 JAX package's ``data/synthetic.py`` (numpy only, the same draws in the
 same order), so both lanes see the same bytes.
 
+With several workers every rank builds the same global batch from
+``seed`` and keeps its own rows (``rank_rows``), the layout the JAX
+lane's ``shard_batch`` gives over the data axis.
+
 ``to_device`` hands an image batch to the port's models: the NHWC float32
 images as an NCHW tensor in ``channels_last`` memory (a view of the same
 bytes) and the labels as int64, on ``device``, once.
@@ -44,6 +48,16 @@ class SyntheticImages:
         batch = self.batch()
         while True:
             yield batch
+
+
+def rank_rows(batch: tuple[np.ndarray, ...], rank: int,
+              rows: int) -> tuple[np.ndarray, ...]:
+    """Rows ``[rank * rows, (rank + 1) * rows)`` of every array of a
+    global batch."""
+    if (rank + 1) * rows > len(batch[0]):
+        raise ValueError(f"rank {rank} x {rows} rows is outside a batch "
+                         f"of {len(batch[0])}")
+    return tuple(a[rank * rows:(rank + 1) * rows] for a in batch)
 
 
 def to_device(batch: tuple[np.ndarray, np.ndarray],

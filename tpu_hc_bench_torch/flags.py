@@ -176,7 +176,7 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 # training knobs of the JAX lane that this port does not carry yet
 LATER_SLICE_TRAIN_FLAGS = (
     "num_epochs", "forward_only", "eval", "data_dir", "data_name",
-    "data_format", "mkl", "overlap_grad_comm", "horovod_device",
+    "data_format", "mkl", "horovod_device",
     "local_parameter_device", "num_intra_threads", "num_inter_threads",
     "kmp_blocktime", "kmp_affinity", "datasets_num_private_threads",
     "datasets_repeat_cached_sample", "train_dir", "save_model_steps",
@@ -184,13 +184,17 @@ LATER_SLICE_TRAIN_FLAGS = (
     "service_decode_workers", "config", "full_batch_identity",
     "on_nonfinite", "max_bad_steps", "resume", "step_timeout_s",
     "keep_checkpoints", "inject_fault", "moe_capacity_factor",
-    "fusion_threshold_bytes", "trace_dir", "profile_steps", "metrics_dir",
+    "trace_dir", "profile_steps", "metrics_dir",
     "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
     "wire_dtype", "accum_dtype", "model_parallel",
     "expert_parallel", "pipeline_parallel", "num_microbatches",
     "sequence_parallel", "virtual_devices", "gradient_checkpointing",
     "moe_impl", "rnn_impl", "scan_layers", "moe_f_chunk",
 )
+
+# Horovod's fusion buffer, 128 MiB (HOROVOD_FUSION_THRESHOLD=134217728),
+# the JAX package's default
+DEFAULT_FUSION_THRESHOLD_BYTES = 134217728
 
 # attention impls of the JAX lane: the single-device two are ported, the
 # sequence-parallel ones come with the multi-card slices
@@ -230,8 +234,13 @@ class BenchmarkConfig:
     num_classes: int = 1000
     seed: int = 0
     device: str = "cuda"                      # cuda | cpu (on request)
-    variable_update: str = "psum"             # one worker: no reduction
-    gradient_accumulation_steps: int = 1      # 1 only, so far
+    variable_update: str = "psum"             # psum (fusion buckets) |
+                                              # replicated (per tensor);
+                                              # horovod -> psum
+    gradient_accumulation_steps: int = 1      # microbatches a step
+    overlap_grad_comm: str = "on"             # on: buckets launch during
+                                              # the backward | off: after
+    fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES
     attention_impl: str = "dense"             # transformer attention:
                                               # dense (plain) | flash (the
                                               # CUDA flash kernels)
@@ -263,16 +272,28 @@ class BenchmarkConfig:
         if self.optimizer not in ("momentum", "sgd"):
             raise ValueError(
                 f"--optimizer must be momentum|sgd: {self.optimizer!r}")
-        if self.variable_update in ("replicated", "zero1"):
-            raise ValueError(
-                f"--variable_update={self.variable_update} is not ported "
-                "yet (one worker, no gradient reduction)")
-        if self.variable_update not in ("psum", "horovod"):
+        if self.variable_update == "horovod":
+            self.variable_update = "psum"           # as the JAX lane
+        if self.variable_update == "zero1":
+            raise ValueError("--variable_update=zero1 is not ported yet "
+                             "(psum|horovod|replicated)")
+        if self.variable_update not in ("psum", "replicated"):
             raise ValueError(f"--variable_update must be psum|horovod|"
                              f"replicated|zero1: {self.variable_update!r}")
-        if self.gradient_accumulation_steps != 1:
-            raise ValueError("--gradient_accumulation_steps > 1 is not "
-                             "ported yet")
+        if self.gradient_accumulation_steps < 1:
+            raise ValueError(f"--gradient_accumulation_steps must be >= 1: "
+                             f"{self.gradient_accumulation_steps}")
+        if self.batch_size % self.gradient_accumulation_steps:
+            raise ValueError(
+                f"--batch_size={self.batch_size} (per worker) is not "
+                f"divisible by --gradient_accumulation_steps="
+                f"{self.gradient_accumulation_steps}")
+        if self.overlap_grad_comm not in ("on", "off"):
+            raise ValueError(f"--overlap_grad_comm must be on|off: "
+                             f"{self.overlap_grad_comm!r}")
+        if self.fusion_threshold_bytes < 0:
+            raise ValueError(f"--fusion_threshold_bytes must be >= 0: "
+                             f"{self.fusion_threshold_bytes}")
         if self.num_classes < 1:
             raise ValueError(f"--num_classes must be >= 1: {self.num_classes}")
         if self.attention_impl in SEQ_SHARDED_IMPLS:
@@ -301,6 +322,11 @@ class BenchmarkConfig:
             f"attention_impl={self.attention_impl} "
             f"seq_len={self.seq_len or 'model default'} "
             f"fused_xent={self.fused_xent}",
+            f"variable_update={self.variable_update} "
+            f"overlap_grad_comm={self.overlap_grad_comm} "
+            f"fusion_threshold_bytes={self.fusion_threshold_bytes} "
+            f"gradient_accumulation_steps="
+            f"{self.gradient_accumulation_steps}",
         ]
 
 

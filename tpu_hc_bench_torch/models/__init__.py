@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from tpu_hc_bench_torch import resolve_device
@@ -26,6 +27,17 @@ from tpu_hc_bench_torch.models import bert, gpt, llama, resnet
 
 # a text model's dropout stream is seeded apart from its weights' stream
 DROPOUT_SEED_OFFSET = 1
+
+
+def dropout_seed(seed: int, rank: int = 0) -> int:
+    """The dropout generator's seed on data-parallel rank ``rank``:
+    ``seed + DROPOUT_SEED_OFFSET`` on rank 0 (a one-worker run's), a
+    draw from ``(seed, rank)`` on the others, so every worker draws its
+    own masks as JAX's step folds the axis index into its dropout key."""
+    if rank == 0:
+        return seed + DROPOUT_SEED_OFFSET
+    return int(np.random.SeedSequence(
+        [seed + DROPOUT_SEED_OFFSET, rank]).generate_state(1)[0])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,14 +105,16 @@ def create_model(name: str, dtype=torch.float32,
                  device: str | torch.device = "cuda", seed: int = 0,
                  fused_conv: bool = False, train: bool = False,
                  num_classes: int | None = None,
-                 space_to_depth: bool = False, seq_len: int | None = None):
+                 space_to_depth: bool = False, seq_len: int | None = None,
+                 rank: int = 0):
     """``(model, spec)``: the model built on ``device`` with its weights
     drawn from a ``torch.Generator`` seeded with ``seed`` (on the same
     device, so a full-width model never passes through host memory), in
     training mode when ``train``.  Trained models keep float32 parameters
     and compute in ``dtype`` (float32 or bfloat16); image models live in
-    ``channels_last`` memory.  A text model's dropout draws from its own
-    generator, seeded with ``seed + DROPOUT_SEED_OFFSET``."""
+    ``channels_last`` memory.  Every data-parallel rank draws the same
+    weights; a text model's dropout draws from its own generator, seeded
+    with ``dropout_seed(seed, rank)``."""
     spec = get_model_spec(name)
     if spec.serve_only:
         if dtype != torch.float32:
@@ -143,7 +157,7 @@ def create_model(name: str, dtype=torch.float32,
     model.init_weights(gen)
     if spec.is_text and not spec.serve_only:
         model.dropout_generator = torch.Generator(device=dev)
-        model.dropout_generator.manual_seed(seed + DROPOUT_SEED_OFFSET)
+        model.dropout_generator.manual_seed(dropout_seed(seed, rank))
     if not spec.is_text:
         model = model.to(memory_format=torch.channels_last)
     return model.train(train), spec

@@ -10,11 +10,16 @@ checkout, and loaded with ``ctypes``.  Each source compiles in its own
 The build runs at first use, never at import: the CPU tests import every
 module on machines with no ``nvcc``.  It is redone only when the hash of
 the sources and flags differs from the one stamped beside the library.
+Processes that build at once (the workers of one host) take turns on a
+lock file in the build directory: the first compiles, the others find
+its stamp.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -121,15 +126,41 @@ def source_hash() -> str:
     return h.hexdigest()
 
 
+@contextlib.contextmanager
+def _locked(build_dir: Path):
+    """Hold an exclusive lock on ``build_dir``'s lock file."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
     """Compile the sources into the shared library when the stamped hash
     differs; returns ``(library path, seconds spent, compiler log)``."""
     lib = build_dir / _LIB_NAME
     stamp = build_dir / (_LIB_NAME + ".sha256")
     digest = source_hash()
-    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+
+    def current() -> bool:
+        return lib.exists() and stamp.exists() and \
+            stamp.read_text() == digest
+
+    if current():
         return lib, 0.0, ""
-    build_dir.mkdir(parents=True, exist_ok=True)
+    with _locked(build_dir):
+        if current():                   # another process built it
+            return lib, 0.0, ""
+        return lib, *_compile(build_dir, lib, stamp, digest)
+
+
+def _compile(build_dir: Path, lib: Path, stamp: Path,
+             digest: str) -> tuple[float, str]:
+    """One ``nvcc`` a source, all started together, then the link; the
+    library and its stamp replace the old ones last."""
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
@@ -156,7 +187,7 @@ def build(build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib)
     stamp.write_text(digest)
-    return lib, time.perf_counter() - t0, "\n".join(log)
+    return time.perf_counter() - t0, "\n".join(log)
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,0 +1,234 @@
+"""Multi-worker bring-up over ``torch.distributed``: the port's copy of the
+JAX package's ``parallel/distributed.py`` hostfile contract, and the
+launcher's process spawn.
+
+The reference forms a cluster from a ``nodeips.txt`` hostfile and
+``mpirun -hostfile`` starts one rank per worker on every node.  Here:
+
+- **Hostfile.** One IP or hostname a line, the first the coordinator
+  (``read_hostfile``; ``$TPU_HC_BENCH_HOSTFILE`` or ``~/nodeips.txt``).
+  Every host runs the same launcher command with its index in
+  ``$TPU_HC_BENCH_PROCESS_ID``; the rendezvous is a ``TCPStore`` at the
+  first host's ``$TPU_HC_BENCH_COORDINATOR_PORT`` (default 9944).  One
+  host needs no hostfile: its workers meet in a ``FileStore`` in a fresh
+  temporary directory, so no fixed port can collide.
+- **Ranks.** rank = host index x workers per host + local index; a
+  worker on the card binds ``cuda:{local index}``.
+- **Spawn.** ``spawn_local`` starts one process a local worker (the same
+  command, ``python -m tpu_hc_bench_torch ...``) with its place in the
+  world in ``TPU_HC_BENCH_RANK``, ``..._LOCAL_RANK``, ``..._WORLD_SIZE``
+  and ``..._STORE``; the process reads it back with ``worker_from_env``
+  and joins the group with ``init_group``.  Global rank 0's standard
+  output is passed on line by line; when any worker fails, the others
+  are stopped and the spawn returns its exit code.
+- **World 1** on the fast fabric is a one-rank group over an in-process
+  ``HashStore`` (``init_single``), as the JAX package runs its psum over
+  a one-device mesh.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import subprocess
+import sys
+import threading
+import time
+from pathlib import Path
+from typing import Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+# JAX's coordinator port, kept for the hostfile contract
+DEFAULT_COORDINATOR_PORT = 9944
+DEFAULT_HOSTFILE = Path.home() / "nodeips.txt"
+HOSTFILE_ENV = "TPU_HC_BENCH_HOSTFILE"
+PROCESS_ID_ENV = "TPU_HC_BENCH_PROCESS_ID"
+PORT_ENV = "TPU_HC_BENCH_COORDINATOR_PORT"
+
+# what the spawn hands each worker process
+RANK_ENV = "TPU_HC_BENCH_RANK"
+LOCAL_RANK_ENV = "TPU_HC_BENCH_LOCAL_RANK"
+WORLD_ENV = "TPU_HC_BENCH_WORLD_SIZE"
+STORE_ENV = "TPU_HC_BENCH_STORE"
+
+_STOP_GRACE_S = 5.0
+
+
+def read_hostfile(path: Path | str | None = None) -> list[str]:
+    """Parse a nodeips.txt-style hostfile (blank lines and ``#``
+    comments skipped)."""
+    p = Path(path or os.environ.get(HOSTFILE_ENV) or DEFAULT_HOSTFILE)
+    hosts = []
+    for line in p.read_text().splitlines():
+        line = line.strip()
+        if line and not line.startswith("#"):
+            hosts.append(line)
+    if not hosts:
+        raise ValueError(f"hostfile {p} contains no hosts")
+    return hosts
+
+
+def coordinator_port() -> int:
+    return int(os.environ.get(PORT_ENV, DEFAULT_COORDINATOR_PORT))
+
+
+@dataclasses.dataclass(frozen=True)
+class Worker:
+    """One process's place in the world."""
+
+    rank: int
+    local_rank: int
+    world_size: int
+    store: str          # file://PATH or tcp://HOST:PORT
+
+    def env(self) -> dict[str, str]:
+        return {RANK_ENV: str(self.rank), LOCAL_RANK_ENV: str(self.local_rank),
+                WORLD_ENV: str(self.world_size), STORE_ENV: self.store}
+
+
+def worker_from_env(env=None) -> Worker | None:
+    """The ``Worker`` a spawn handed this process, or None outside one."""
+    env = os.environ if env is None else env
+    if RANK_ENV not in env:
+        return None
+    return Worker(int(env[RANK_ENV]), int(env[LOCAL_RANK_ENV]),
+                  int(env[WORLD_ENV]), env[STORE_ENV])
+
+
+def multi_host_store(num_hosts: int) -> tuple[int, str]:
+    """``(host index, store)`` of this host in a ``num_hosts`` world:
+    the hostfile's line count must be ``num_hosts``, the index comes from
+    ``$TPU_HC_BENCH_PROCESS_ID`` and the store is the first host's
+    coordinator port."""
+    hosts = read_hostfile()
+    if len(hosts) != num_hosts:
+        raise ValueError(f"NUM_HOSTS is {num_hosts} but the hostfile lists "
+                         f"{len(hosts)} hosts")
+    if PROCESS_ID_ENV not in os.environ:
+        raise ValueError(f"a world of {num_hosts} hosts needs this host's "
+                         f"index in ${PROCESS_ID_ENV}")
+    index = int(os.environ[PROCESS_ID_ENV])
+    if not 0 <= index < num_hosts:
+        raise ValueError(f"${PROCESS_ID_ENV}={index} is outside "
+                         f"[0, {num_hosts})")
+    return index, f"tcp://{hosts[0]}:{coordinator_port()}"
+
+
+def _make_store(spec: str, rank: int, world: int):
+    if spec.startswith("file://"):
+        return dist.FileStore(spec[len("file://"):], world)
+    if spec.startswith("tcp://"):
+        host, port = spec[len("tcp://"):].rsplit(":", 1)
+        return dist.TCPStore(host, int(port), world, is_master=rank == 0)
+    raise ValueError(f"store must be file://PATH or tcp://HOST:PORT: "
+                     f"{spec!r}")
+
+
+def init_group(backend: str, worker: Worker) -> None:
+    """Join ``worker``'s world with ``backend`` (``nccl`` or ``gloo``).
+    A failure raises: there is no fallback to another backend."""
+    dist.init_process_group(
+        backend, store=_make_store(worker.store, worker.rank,
+                                   worker.world_size),
+        rank=worker.rank, world_size=worker.world_size)
+
+
+def init_single(backend: str) -> None:
+    """A one-rank group over an in-process ``HashStore``."""
+    dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                            world_size=1)
+
+
+def backend_for(fast: bool, device: torch.device) -> str:
+    """NCCL for the fast fabric on the card; gloo on the CPU, and for the
+    host fabric, whose all-reduce runs on host copies."""
+    return "nccl" if fast and device.type == "cuda" else "gloo"
+
+
+def rank() -> int:
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def is_coordinator() -> bool:
+    """True on global rank 0 (the reference's head node)."""
+    return rank() == 0
+
+
+def barrier() -> None:
+    """A barrier of the default group; on NCCL it names this process's
+    card."""
+    if dist.get_backend() == "nccl":
+        dist.barrier(device_ids=[torch.cuda.current_device()])
+    else:
+        dist.barrier()
+
+
+def _stop(procs: Sequence[subprocess.Popen]) -> None:
+    alive = [p for p in procs if p.poll() is None]
+    for p in alive:
+        p.terminate()
+    deadline = time.monotonic() + _STOP_GRACE_S
+    for p in alive:
+        try:
+            p.wait(max(deadline - time.monotonic(), 0.0))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def spawn_local(cmd: Sequence[str], workers: Sequence[Worker],
+                on_line: Callable[[str], None]) -> int:
+    """Run ``cmd`` once for each of this host's ``workers`` and wait.
+
+    Global rank 0's standard output goes to ``on_line`` line by line;
+    the other workers' output and every standard error pass through.
+    The first worker to exit non-zero stops the others (a rank blocked
+    in a collective on a dead peer would otherwise wait for the group's
+    timeout); its exit code is returned (1 for a signal), else 0.  Each
+    worker gets an equal share of the host's cores in
+    ``OMP_NUM_THREADS`` unless it is set already."""
+    base = dict(os.environ)
+    root = str(Path(__file__).resolve().parents[2])
+    base["PYTHONPATH"] = os.pathsep.join(
+        [root] + [p for p in base.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    base.setdefault("OMP_NUM_THREADS",
+                    str(max(1, (os.cpu_count() or 1) // len(workers))))
+    procs: list[subprocess.Popen] = []
+    first_failure: list[tuple[int, int]] = []
+    try:
+        for w in workers:
+            procs.append(subprocess.Popen(
+                list(cmd), env={**base, **w.env()}, text=True,
+                stdout=subprocess.PIPE if w.rank == 0 else None))
+
+        def watch() -> None:
+            while True:
+                codes = [p.poll() for p in procs]
+                bad = [(w.rank, c) for w, c in zip(workers, codes)
+                       if c not in (None, 0)]
+                if bad:
+                    first_failure.append(bad[0])
+                    _stop(procs)
+                    return
+                if all(c is not None for c in codes):
+                    return
+                time.sleep(0.05)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        for w, p in zip(workers, procs):
+            if w.rank == 0:
+                for line in p.stdout:
+                    on_line(line.rstrip("\n"))
+        watcher.join()
+    finally:
+        _stop(procs)
+    if first_failure:
+        rank_, code = first_failure[0]
+        print(f"worker rank {rank_} exited with code {code}; the other "
+              "workers were stopped", file=sys.stderr, flush=True)
+        return code if code > 0 else 1
+    return 0

@@ -1,6 +1,6 @@
 """The training benchmark driver: tf_cnn_benchmarks' measurement protocol.
 
-The counterpart of the JAX package's ``train/driver.py`` for one worker:
+The counterpart of the JAX package's ``train/driver.py``:
 ``num_warmup_batches`` untimed steps (cuDNN's algorithm search and the
 allocator's warm-up fall there, as XLA's compile does in the JAX lane),
 then ``num_batches`` timed steps on one fixed synthetic batch, a line
@@ -10,6 +10,17 @@ steps, and a final ``total images/sec`` line.  Image models train on
 bert_base, bert_large and bert_tiny masked-LM) on one ``SyntheticTokens``
 batch, whose "images" are sequences, as in the JAX lane.  The result
 states the text arm's routes, ``attention_impl`` and ``fused_xent``.
+
+Data parallel: where a process group is up (the launcher starts one at a
+world above one worker, and a one-rank group on the fast fabric at
+world 1), ``total_workers`` is its world size and ``global_batch`` the
+per-worker batch times that.  Every rank builds the one global batch
+from ``--seed`` and trains on its own rows, draws its own dropout masks
+(``models.dropout_seed``), and steps through the data-parallel arm of
+``train/step.py``; only rank 0 prints.  Barriers bracket the timed
+window, so "total images/sec" is the global batch over the slowest
+rank's time, and ``images_per_sec_per_chip`` the total over the world.
+Without a group the step is the one-worker step (``sock`` at world 1).
 
 Timing: the total is the host clock from the end of warmup to the
 device's end of the last step.  Each timed step also records a CUDA
@@ -30,12 +41,16 @@ import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from tpu_hc_bench_torch import resolve_device
 from tpu_hc_bench_torch.data.synthetic import (
-    SyntheticImages, SyntheticTokens, to_device, tokens_to_device)
+    SyntheticImages, SyntheticTokens, rank_rows, to_device,
+    tokens_to_device)
 from tpu_hc_bench_torch.flags import BenchmarkConfig
 from tpu_hc_bench_torch.models import create_model, get_model_spec
+from tpu_hc_bench_torch.parallel import distributed
+from tpu_hc_bench_torch.parallel.fabric import resolve_fabric
 from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import hw
 
@@ -59,6 +74,12 @@ class BenchmarkResult:
     mfu_source: str = "analytic"     # 3 x spec.flops_per_example
     attention_impl: str = "dense"    # text models: dense | flash
     fused_xent: bool = False         # text models: the blocked xent kernels
+    variable_update: str = "psum"    # psum | replicated
+    overlap_grad_comm: str = "on"
+    gradient_accumulation_steps: int = 1
+    grad_buckets: int = 0            # the fast fabric's gradient buckets
+    allreduce_per_step: int = 0      # all-reduce calls a step (0: one
+                                     # worker; 1: the host round trip)
 
     def json_line(self) -> dict:
         """The fields as a dict for strict JSON: NaN (no MFU) is None."""
@@ -95,14 +116,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
-                  fabric: str = "sock",
+def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
                   print_fn: Callable[[str], None] = print,
                   ) -> BenchmarkResult:
-    """Train ``cfg.model`` on synthetic data and measure it."""
-    if total_workers != 1:
-        raise ValueError(f"a world of {total_workers} workers is not ported "
-                         "yet (one worker only)")
+    """Train ``cfg.model`` on synthetic data and measure it: data
+    parallel over the default process group where one is up, else on
+    one worker.  Every rank returns the result; only rank 0 prints."""
+    fab = resolve_fabric(fabric)
+    step_mod.check_arm(cfg, fab)
+    grouped = dist.is_initialized()
+    total_workers = dist.get_world_size() if grouped else 1
+    rank = distributed.rank()
+    if not distributed.is_coordinator():
+        print_fn = lambda _m: None                           # noqa: E731
     dev = resolve_device(cfg.device)
     spec = get_model_spec(cfg.model)
     if spec.serve_only:
@@ -122,25 +148,33 @@ def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
     model, spec = create_model(
         cfg.model, dtype, cfg.attention_impl, device=dev, seed=cfg.seed,
         fused_conv=cfg.fused_conv, train=True, num_classes=cfg.num_classes,
-        space_to_depth=cfg.use_space_to_depth, seq_len=cfg.seq_len)
+        space_to_depth=cfg.use_space_to_depth, seq_len=cfg.seq_len,
+        rank=rank)
     if spec.is_text:
-        batch = tokens_to_device(SyntheticTokens(
+        batch = tokens_to_device(rank_rows(SyntheticTokens(
             global_batch, spec.input_shape[0], seed=cfg.seed,
             vocab_size=spec.vocab_size, causal_lm=spec.causal_lm).batch(),
-            dev)
+            rank, cfg.batch_size), dev)
     else:
-        batch = to_device(SyntheticImages(
+        batch = to_device(rank_rows(SyntheticImages(
             global_batch, spec.input_shape, cfg.num_classes,
-            cfg.seed).batch(), dev)
-    state = step_mod.make_train_state(model, cfg)
+            cfg.seed).batch(), rank, cfg.batch_size), dev)
+    state = step_mod.make_train_state(model, cfg, fab if grouped else None)
+    grads = state.dp.grads if state.dp else None
     kind = hw.device_name(dev)
     for line in cfg.summary_lines():
         print_fn(line)
     print_fn(f"device_kind={kind} global_batch={global_batch}")
+    if grouped:
+        print_fn(f"data parallel: total_workers={total_workers} "
+                 f"fabric={fab.value} backend={dist.get_backend()} "
+                 f"grad_buckets={len(grads.buckets) if grads else 0}")
 
     for _ in range(cfg.num_warmup_batches):
         state, metrics = step_mod.train_step(state, batch)
     _sync(dev)
+    if grouped:
+        distributed.barrier()
     clock = _StepClock(dev)
     clock.mark()
     t0 = t_window = time.perf_counter()
@@ -155,6 +189,8 @@ def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
             print_fn(f"{i}\timages/sec: {rate:.1f}\tloss: {loss:.3f}")
     final_loss = float(metrics["loss"])
     _sync(dev)
+    if grouped:
+        distributed.barrier()
     total_s = time.perf_counter() - t0
 
     total_rate = cfg.num_batches * global_batch / total_s
@@ -171,7 +207,14 @@ def run_benchmark(cfg: BenchmarkConfig, *, total_workers: int = 1,
         p50_step_ms=p50_ms, p50_step_granularity=1, mfu=mfu,
         final_loss=final_loss, fabric=fabric, device_kind=kind,
         mfu_source="analytic" if peak else "no peak for this device",
-        attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent)
+        attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent,
+        variable_update=cfg.variable_update,
+        overlap_grad_comm=cfg.overlap_grad_comm,
+        gradient_accumulation_steps=cfg.gradient_accumulation_steps,
+        grad_buckets=len(grads.buckets) if grads else 0,
+        allreduce_per_step=state.dp.allreduce_calls if state.dp else 0)
+    if grads:
+        grads.close()
     print_fn("-" * 40)
     print_fn(f"total images/sec: {total_rate:.2f}")
     mfu_txt = (f"{100 * mfu:.1f}% (analytic)" if peak
