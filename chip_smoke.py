@@ -137,16 +137,39 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    25 MiB threshold (several buckets), and the OSU all-reduce sweep;
    with one card, one record naming the card count it lacked.
 
+14. **realdata**: the reference's real-data command on the committed
+   fixture of ImageNet-schema shards
+   (``tpu_hc_bench_torch/data/testdata/imagenet_tiny``), every count
+   zeroed just before each run and read just after: (a) the port's
+   pipeline against the JAX pipeline's crops (``expected_crops.npz``):
+   the decoder and reader that ran, bit-equal with libjpeg, with nvJPEG
+   a mean difference within ``NVJPEG_MEAN_TOL``; (b) ``python -m
+   tpu_hc_bench_torch 1 1 128 ib --model=resnet50 --use_fp16=true
+   --fused_conv=true --data_dir=<fixture>`` with the reference's whole
+   flag line (all but ``--device=cpu``), 50 + 100 steps: images/s
+   against phase 7's, the decode pool's counters, the input wait a
+   step, 8 conv launches a step; (c) the same with
+   ``--datasets_repeat_cached_sample``, (d) ``--forward_only`` (the
+   model's parameters and BN buffers bit-equal after the run), each 20
+   + 50 steps; (e) ``--eval`` on the validation shard; (f) three steps
+   each of adam, adamw and rmsprop at batch 32 against the plain
+   optimizer on the same gradients; (g) gpt2 on a uint16 token corpus
+   written here, 10 + 30 steps, against phase 10's first run, 12
+   launches of each flash kernel and one of each xent kernel a step.
+
 Then the kernel table line (each kernel's design beside its numbers,
-and ``dp_launches``: its launches in phase 13's main-path runs (a)
-and (c), every kernel's count set to 0 before each and read after it),
+``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
+and ``realdata_launches``: its launches in phase 14's runs (b)-(e) and
+(g), every kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
 
 ``python3 chip_smoke.py --only dp`` runs the build and phase 13 alone,
 beside a one-worker ``sock`` run at its step counts (no kernel table):
-the data-parallel path on a machine with several cards.
+the data-parallel path on a machine with several cards.  ``--only
+realdata`` runs the build and phase 14 alone, beside phase 7's fused
+run and phase 10's first run.
 """
 
 from __future__ import annotations
@@ -334,6 +357,33 @@ POOL_CASES = (((128, 64, 112, 112), (3, 3), (2, 2), "SAME", "bfloat16",
               ((2, 8, 13, 15), (3, 3), (2, 2), "SAME", "float32", False),
               ((8, 64, 56, 56), (3, 3), (2, 2), "SAME", "bfloat16", True))
 POOL_PATH_STEPS = 3                # max_pool forward + backward calls
+
+# phase 14 (realdata): the reference's real-data command on the committed
+# fixture of ImageNet-schema shards; (b)-(e) and (g) at these depths
+REAL_BATCHES = {"b": (50, 100), "c": (20, 50), "d": (20, 50), "e": (5, 20),
+                "g": (10, 30)}
+# the reference's flag line, less --device=cpu (here the caller's CPU)
+REFERENCE_LINE = [
+    "--data_name=imagenet", "--data_format=NCHW", "--optimizer=momentum",
+    "--forward_only=False", "--mkl=TRUE", "--variable_update=horovod",
+    "--horovod_device=cpu", "--local_parameter_device=cpu",
+    "--num_intra_threads=7", "--num_inter_threads=2", "--kmp_blocktime=1",
+    "--kmp_affinity=granularity=fine,compact,1,0"]
+FIXTURE_SIZE, FIXTURE_BATCH = 64, 16     # expected_crops.npz's crops
+# the fixture's crops against the JAX pipeline's (libjpeg): bit-equal with
+# the port's libjpeg decoder; with nvJPEG the mean |difference| over every
+# pixel, within 12 levels: the fixture's noise JPEGs have 4:2:0 chroma of
+# full-band noise, where nvJPEG's chroma upsampling and IDCT rounding part
+# from libjpeg's (9.65-9.91 levels, max 88-94, on a first card run)
+NVJPEG_MEAN_TOL = 12.0
+OPT_BATCH = 32
+OPT_STEPS = 3
+# each optimizer against the plain one (optax's formulas written out) on
+# the same gradients, relative to the parameters' scale: the CPU tests'
+# tolerances (tests/test_torch_realdata.py OPT_TOL)
+OPT_TOL = {"adam": 1e-5, "adamw": 1e-5, "rmsprop": 2.4e-7}
+TOKEN_CORPUS = 1 << 21                    # gpt2 tokens in train.bin
+
 
 
 def emit(obj: dict) -> None:
@@ -1351,9 +1401,10 @@ def phase_lm_train_parity(torch, dev, smi) -> None:
         torch.cuda.empty_cache()
 
 
-def phase_lm_train(torch, smi) -> dict:
+def phase_lm_train(torch, smi) -> tuple[dict, float]:
     """Phase 10: the LM lanes' main paths, the runs of ``LM_RUNS``;
-    returns each flash and xent kernel's launch count from the first."""
+    returns each flash and xent kernel's launch count from the first,
+    and its sequences/s."""
     from tpu_hc_bench_torch import launcher
     from tpu_hc_bench_torch.models import get_model_spec
     from tpu_hc_bench_torch.ops.flash_attention import flash_attention
@@ -1409,7 +1460,8 @@ def phase_lm_train(torch, smi) -> dict:
                                  f"{fused}) failed: {rec}")
         if main_launches is None:
             main_launches = launches
-    return main_launches
+            main_rate = res["total_images_per_sec"]
+    return main_launches, main_rate
 
 
 def phase_xent(torch, dev, timer, smi) -> dict:
@@ -1854,14 +1906,306 @@ def phase_dp_multi(torch, smi, cards: int, rate_one: float) -> None:
         raise AssertionError(f"the OSU sweep across {cards} cards failed")
 
 
+def _fixture():
+    from pathlib import Path
+
+    from tpu_hc_bench_torch.data import imagenet
+
+    return Path(imagenet.__file__).resolve().parent / "testdata" / \
+        "imagenet_tiny"
+
+
+def realdata_decode(smi) -> None:
+    """Phase 14 (a): the port's pipeline on the fixture against the JAX
+    pipeline's crops (``expected_crops.npz``)."""
+    import numpy as np
+
+    from tpu_hc_bench_torch.data.imagenet import ImageNetDataset
+
+    fx = _fixture()
+    want = np.load(fx / "expected_crops.npz")
+    got = {}
+    for name, split, n in (("train", "train", 2), ("eval", "validation", 1)):
+        ds = ImageNetDataset(fx, FIXTURE_BATCH, image_size=FIXTURE_SIZE,
+                             split=split, train=name == "train", seed=0,
+                             wire_dtype="uint8")
+        it = iter(ds)
+        batches = [next(it) for _ in range(n)]
+        it.close()
+        got[name] = (np.stack([b[0] for b in batches]),
+                     np.stack([b[1] for b in batches]))
+    diff = np.concatenate([
+        np.abs(got["train"][0].astype(np.int16)
+               - want["train_images"].astype(np.int16)).ravel(),
+        np.abs(got["eval"][0][0].astype(np.int16)
+               - want["eval_images"].astype(np.int16)).ravel()])
+    labels_equal = bool((got["train"][1] == want["train_labels"]).all()
+                        and (got["eval"][1][0] == want["eval_labels"]).all())
+    stats = ds.stats()
+    rec = {"phase": "realdata", "part": "a_decode_parity",
+           "decoder": stats["decoder"], "reader": stats["reader"],
+           "pil_fallbacks": stats["pil_fallbacks"],
+           "max_abs_diff": int(diff.max()),
+           "mean_abs_diff": float(diff.mean()),
+           "tol": ("bit-equal" if stats["decoder"] == "libjpeg"
+                   else f"mean_abs_diff <= {NVJPEG_MEAN_TOL}"),
+           "labels_equal": labels_equal, "nvidia_smi": smi}
+    emit(rec)
+    ok = (diff.max() == 0 if stats["decoder"] == "libjpeg"
+          else diff.mean() <= NVJPEG_MEAN_TOL)
+    if not (ok and labels_equal and stats["reader"] == "native"
+            and stats["pil_fallbacks"] == 0):
+        raise AssertionError(f"real-data decode parity failed: {rec}")
+
+
+def _real_argv(part: str, batch: int, *extra: str) -> list[str]:
+    warmup, timed = REAL_BATCHES[part]
+    return ["1", "1", str(batch), "ib", "--model=resnet50",
+            "--use_fp16=true", "--fused_conv=true", f"--data_dir={_fixture()}",
+            *REFERENCE_LINE, f"--num_warmup_batches={warmup}",
+            f"--num_batches={timed}", "--display_every=10", *extra]
+
+
+REAL_KEYS = ("total_images_per_sec", "mean_step_ms", "p50_step_ms", "mfu",
+             "final_loss", "global_batch", "forward_only", "eval_top_1",
+             "data")
+
+
+def _real_run(part: str, argv: list[str], steps: int, smi, **ctx):
+    """One main-path run: every count set to 0 just before, read just
+    after; 8 fused-conv launches a step."""
+    _zero_counts()
+    rc, res = _launch(argv)
+    counts = _read_counts()
+    conv = counts["fused_bn_relu_conv"]
+    rec = {"phase": "realdata", "part": part, "argv": argv, "rc": rc,
+           "steps": steps, "launches": counts,
+           "conv_launches_per_step": conv / steps,
+           "expected_per_step": FUSED_LAUNCHES_PER_STEP, "nvidia_smi": smi,
+           **ctx, **{k: res[k] for k in REAL_KEYS}}
+    emit(rec)
+    if not (rc == 0 and conv == FUSED_LAUNCHES_PER_STEP * steps
+            and res["total_images_per_sec"] > 0
+            and math.isfinite(res["final_loss"])
+            and res["data"]["reader"] == "native"
+            and res["data"]["pil_fallbacks"] == 0):
+        raise AssertionError(f"real-data run {part} failed: {rec}")
+    return res, counts
+
+
+def _forward_only_run(torch, smi, argv: list[str], steps: int):
+    """(d): the run through the launcher, its model's parameters and BN
+    buffers snapshotted at creation and compared bit for bit after."""
+    from tpu_hc_bench_torch.train import driver
+
+    made = []
+    create = driver.create_model
+
+    def create_and_keep(*a, **kw):
+        model, spec = create(*a, **kw)
+        made.append((model, {k: v.clone()
+                             for k, v in model.state_dict().items()}))
+        return model, spec
+
+    driver.create_model = create_and_keep
+    try:
+        res, counts = _real_run("d_forward_only", argv, steps, smi)
+    finally:
+        driver.create_model = create
+    model, before = made[0]
+    changed = [k for k, v in model.state_dict().items()
+               if not torch.equal(v, before[k])]
+    emit({"phase": "realdata", "part": "d_forward_only_state",
+          "tensors": len(before), "changed": changed})
+    if changed or not res["forward_only"]:
+        raise AssertionError(f"forward-only changed the state: {changed}")
+    return res, counts
+
+
+def _plain_update(torch, name: str, p, g, st: dict, t: int, lr: float):
+    """optax's update of ``p`` by ``g``, written out (float32 tensors;
+    the bias corrections in float64)."""
+    if name == "rmsprop":
+        nu = st.setdefault("nu", torch.zeros_like(p))
+        nu.copy_(0.1 * (g * g) + 0.9 * nu)
+        return p - lr * (g * torch.rsqrt(nu + 1.0))
+    m = st.setdefault("m", torch.zeros_like(p))
+    v = st.setdefault("v", torch.zeros_like(p))
+    m.copy_(0.1 * g + 0.9 * m)
+    v.copy_(0.001 * (g * g) + 0.999 * v)
+    u = (m / (1 - 0.9 ** t)) / (torch.sqrt(v / (1 - 0.999 ** t)) + 1e-8)
+    if name == "adamw":
+        u = u + 1e-4 * p
+    return p - lr * u
+
+
+def realdata_optimizers(torch, dev, smi) -> None:
+    """(f): three steps of each optax optimizer on real batches, resnet50
+    bf16 at batch 32; each step's update against the plain one on the
+    same gradients."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.feed import DeviceFeeder
+    from tpu_hc_bench_torch.data.imagenet import ImageNetDataset
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    lr = 0.01
+    for name in ("adam", "adamw", "rmsprop"):
+        cfg = flags.BenchmarkConfig(optimizer=name, init_learning_rate=lr,
+                                    use_fp16=True).resolve()
+        model, spec = create_model("resnet50", torch.bfloat16, device=dev,
+                                   seed=0, train=True)
+        state = step_mod.make_train_state(model, cfg)
+        ds = ImageNetDataset(_fixture(), OPT_BATCH,
+                             image_size=spec.input_shape[0], seed=0,
+                             wire_dtype="uint8")
+        feeder = DeviceFeeder(iter(ds), dev)
+        batches = iter(feeder)
+        params = [p for p in model.parameters()]
+        ref_state = [{} for _ in params]
+        losses, errs = [], []
+        for t in range(1, OPT_STEPS + 1):
+            state.optimizer.zero_grad(set_to_none=True)
+            loss = step_mod.batch_loss(model, next(batches))
+            loss.backward()
+            with torch.no_grad():
+                want = [_plain_update(torch, name, p.detach().clone(),
+                                      p.grad, s, t, lr)
+                        for p, s in zip(params, ref_state)]
+            state.optimizer.step()
+            err = max(float((p.detach() - w).abs().max())
+                      / max(float(w.abs().max()), 1.0)
+                      for p, w in zip(params, want))
+            losses.append(float(loss))
+            errs.append(err)
+        batches.close()
+        feeder.close()
+        rec = {"phase": "realdata", "part": "f_optimizer", "optimizer": name,
+               "batch": OPT_BATCH, "steps": OPT_STEPS, "losses": losses,
+               "max_rel_err_per_step": errs, "tol": OPT_TOL[name],
+               "nvidia_smi": smi}
+        emit(rec)
+        if not (all(math.isfinite(x) for x in losses)
+                and max(errs) <= OPT_TOL[name]):
+            raise AssertionError(f"optimizer {name} failed: {rec}")
+        del model, state
+        torch.cuda.empty_cache()
+
+
+def realdata_text(torch, smi, lm_rate: float) -> tuple[dict, dict]:
+    """(g): gpt2 on a uint16 token corpus written here with numpy; 12
+    launches of each flash kernel and one of each xent kernel a step."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpu_hc_bench_torch.data.tokens import write_token_file
+    from tpu_hc_bench_torch.models import get_model_spec
+
+    spec = get_model_spec("gpt2")
+    corpus = Path(__file__).resolve().parent / "build" / "realdata_tokens"
+    write_token_file(corpus / "train.bin", np.random.default_rng(0).integers(
+        0, spec.vocab_size, TOKEN_CORPUS), spec.vocab_size)
+    warmup, timed = REAL_BATCHES["g"]
+    steps = warmup + timed
+    argv = ["1", "1", "16", "sock", "--model=gpt2", "--use_fp16=true",
+            "--attention_impl=flash", "--fused_xent=true",
+            f"--data_dir={corpus}", f"--num_warmup_batches={warmup}",
+            f"--num_batches={timed}", "--display_every=10"]
+    _zero_counts()
+    rc, res = _launch(argv)
+    counts = _read_counts()
+    expected = {**{FLASH_KERNELS[k][0]: LM_LAYERS * steps
+                   for k in FLASH_KERNELS},
+                **{XENT_KERNELS[k][0]: steps for k in XENT_KERNELS}}
+    rate = res["total_images_per_sec"]
+    rec = {"phase": "realdata", "part": "g_gpt2_corpus", "argv": argv,
+           "rc": rc, "steps": steps, "launches": counts,
+           "expected_launches": expected, "sequences_per_sec": rate,
+           "synthetic_sequences_per_sec": lm_rate,
+           "vs_synthetic": rate / lm_rate, "nvidia_smi": smi,
+           **{k: res[k] for k in ("mean_step_ms", "p50_step_ms",
+                                   "final_loss", "data")}}
+    emit(rec)
+    if not (rc == 0 and {k: counts[k] for k in expected} == expected
+            and math.isfinite(res["final_loss"])
+            and res["data"]["reader"] == "memmap"):
+        raise AssertionError(f"real-data gpt2 run failed: {rec}")
+    return res, counts
+
+
+def phase_realdata(torch, dev, smi, sock_rate: float,
+                   lm_rate: float) -> dict:
+    """Phase 14; returns every kernel's launches summed over the main-path
+    runs (b)-(e) and (g).  ``sock_rate``: phase 7's synthetic images/s,
+    ``lm_rate``: phase 10's gpt2 sequences/s."""
+    realdata_decode(smi)
+    torch.cuda.empty_cache()
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    # (b) the reference's command on real data
+    b = REAL_BATCHES["b"]
+    res, counts = _real_run(
+        "b_reference_line", _real_argv("b", TRAIN_BATCH), sum(b), smi,
+        synthetic_images_per_sec=sock_rate)
+    rate_b = res["total_images_per_sec"]
+    emit({"phase": "realdata", "part": "b_vs_synthetic",
+          "images_per_sec": rate_b, "synthetic_images_per_sec": sock_rate,
+          "ratio": rate_b / sock_rate,
+          "input_wait_ms_per_step": res["data"]["input_wait_ms_per_step"],
+          "decode_wall_s": res["data"]["decode_wall_s"],
+          "decode_workers": res["data"]["decode_workers"],
+          "decoder": res["data"]["decoder"]})
+    add(counts)
+    torch.cuda.empty_cache()
+    # (c) the host taken out
+    res, counts = _real_run(
+        "c_repeat_cached_sample", _real_argv(
+            "c", TRAIN_BATCH, "--datasets_repeat_cached_sample=true"),
+        sum(REAL_BATCHES["c"]), smi, synthetic_images_per_sec=sock_rate)
+    emit({"phase": "realdata", "part": "c_vs_synthetic",
+          "ratio": res["total_images_per_sec"] / sock_rate})
+    add(counts)
+    torch.cuda.empty_cache()
+    # (d) forward-only
+    res, counts = _forward_only_run(torch, smi, _real_argv(
+        "d", TRAIN_BATCH, "--forward_only=true"), sum(REAL_BATCHES["d"]))
+    emit({"phase": "realdata", "part": "d_vs_b",
+          "ratio": res["total_images_per_sec"] / rate_b})
+    add(counts)
+    torch.cuda.empty_cache()
+    # (e) eval on the validation shard (the random init's top-1)
+    res, counts = _real_run("e_eval", _real_argv("e", TRAIN_BATCH,
+                                                 "--eval=true"),
+                            sum(REAL_BATCHES["e"]), smi)
+    if res["data"]["split"] != "validation" or res["eval_top_1"] is None:
+        raise AssertionError(f"eval did not read the validation split: "
+                             f"{res['data']}")
+    add(counts)
+    torch.cuda.empty_cache()
+    # (f) the optax optimizers (not a main path: not counted)
+    realdata_optimizers(torch, dev, smi)
+    # (g) the text arm on a token corpus
+    _, counts = realdata_text(torch, smi, lm_rate)
+    add(counts)
+    torch.cuda.empty_cache()
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(description="Smoke run of the port on "
                                 "the GPUs of this machine.")
-    p.add_argument("--only", choices=("dp",), default=None,
+    p.add_argument("--only", choices=("dp", "realdata"), default=None,
                    help="dp: the build, then phase 13 alone (beside a "
-                        "one-worker sock run at its step counts)")
+                        "one-worker sock run at its step counts); "
+                        "realdata: the build, then phase 14 alone (beside "
+                        "phase 7's fused run and phase 10's first run)")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -1907,6 +2251,25 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "realdata":
+        _, res = _launch(["1", "1", str(TRAIN_BATCH), "sock",
+                          "--model=resnet50", "--use_fp16=true",
+                          "--fused_conv=true",
+                          f"--num_warmup_batches={TRAIN_WARMUP}",
+                          f"--num_batches={TRAIN_BATCHES}"])
+        _, lm = _launch(["1", "1", "16", "sock", "--model=gpt2",
+                         "--use_fp16=true", "--attention_impl=flash",
+                         "--fused_xent=true",
+                         f"--num_warmup_batches={LM_WARMUP}",
+                         f"--num_batches={LM_BATCHES}"])
+        phase_realdata(torch, dev, smi, res["total_images_per_sec"],
+                       lm["total_images_per_sec"])
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     timer = Timer(torch, dev)
     main_rows = phase_kernels(torch, dev, timer, smi)
     main_rows["fused_bn_relu_conv"] = phase_conv(torch, dev, timer, smi)
@@ -1936,7 +2299,8 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     phase_lm_train_parity(torch, dev, smi)
     torch.cuda.empty_cache()
-    launches.update(phase_lm_train(torch, smi))
+    lm_launches, lm_rate = phase_lm_train(torch, smi)
+    launches.update(lm_launches)
     torch.cuda.empty_cache()
 
     timer = Timer(torch, dev)
@@ -1947,6 +2311,7 @@ def main(argv: list[str] | None = None) -> int:
     torch.cuda.empty_cache()
     dp_launches = phase_dp(torch, dev, smi, sock_rate,
                            f"phase 7, {TRAIN_WARMUP} + {TRAIN_BATCHES} steps")
+    realdata_launches = phase_realdata(torch, dev, smi, sock_rate, lm_rate)
 
     sources = {
         "paged_decode_attention": (
@@ -1990,7 +2355,8 @@ def main(argv: list[str] | None = None) -> int:
                       "bound_by": r["bound_by"],
                       "library_ms": r["library_ms"],
                       "design": designs[name],
-                      "dp_launches": dp_launches[name]})
+                      "dp_launches": dp_launches[name],
+                      "realdata_launches": realdata_launches[name]})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -683,9 +683,13 @@ def test_hostfile_contract(monkeypatch, tmp_path):
 
 
 def test_spawn_stops_the_world_when_a_rank_fails():
+    # rank 0 prints its line in one write, and rank 2 fails a second
+    # after starting: on a loaded host rank 2 used to fail before rank 0
+    # had written its whole line
     script = ("import os, sys, time\n"
               "r = int(os.environ['TPU_HC_BENCH_RANK'])\n"
-              "print('rank', r, flush=True)\n"
+              "sys.stdout.write(f'rank {r}\\n'); sys.stdout.flush()\n"
+              "time.sleep(1.0) if r == 2 else None\n"
               "sys.exit(3) if r == 2 else time.sleep(120)\n")
     workers = [distributed.Worker(r, r, WORLD, "file:///unused")
                for r in range(WORLD)]

@@ -39,7 +39,10 @@ GPU, and the plain versions are held against the JAX package in
   largest magnitudes (with one key, dQ and dK within 1e-5 (f32) or 1e-3
   (bf16) of zero on both sides); at head dim 320 (padded to 512: two
   256-wide chunks) the same; and ``flash_attention`` at head dim 192
-  through autograd, padded to 256.
+  through autograd, padded to 256;
+- ``data.feed.DeviceFeeder``, the real-data runs' pinned copies on a
+  copy stream: 40 batches through a ring of 3 slots, with a slow step
+  after each, arrive bit-equal.
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpu_hc_bench_torch.data.feed import DeviceFeeder
 from tpu_hc_bench_torch.ops import flash_attention as fa
 from tpu_hc_bench_torch.ops import pool_bwd
 from tpu_hc_bench_torch.ops.fused_residual_ln import (
@@ -473,3 +477,23 @@ def test_flash_attention_head_dim_192_on_card(cuda_device, dtype):
     for got, want in zip(outs[1], outs[0]):
         assert got.shape == want.shape
         assert _rel(got, want) <= tol
+
+
+@pytest.mark.cuda
+def test_feeder_on_the_card(cuda_device):
+    """Pinned copies on the copy stream: every batch arrives intact,
+    each held on the card while the ring's three slots are refilled many
+    times over behind a slow step."""
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 256, (64, 32, 32, 3), np.uint8),
+             rng.integers(0, 1000, (64,), np.int32)) for _ in range(40)]
+    got = []
+    for x, y in DeviceFeeder(iter(host), cuda_device, depth=2):
+        torch.cuda._sleep(100_000)            # a slow step
+        got.append((x.clone(), y.clone()))
+    for (gx, gy), (hx, hy) in zip(got, host):
+        assert gx.dtype == torch.uint8 and gy.dtype == torch.int64
+        np.testing.assert_array_equal(gx.permute(0, 2, 3, 1).cpu().numpy(),
+                                      hx)
+        np.testing.assert_array_equal(gy.cpu().numpy(), hy)
+    assert len(got) == len(host)

@@ -445,7 +445,7 @@ def test_lm_flags_pass_and_later_slices_raise():
     for bad, match in ((["--attention_impl=ring"], "not ported"),
                        (["--attention_impl=ulysses_flash"], "not ported"),
                        (["--attention_impl=paged"], "dense|flash"),
-                       (["--wire_dtype=bf16"], "not ported"),
+                       (["--wire_dtype=bf16"], "float32|uint8"),
                        (["--gradient_checkpointing=true"], "not ported"),
                        (["--seq_len=0"], "seq_len")):
         with pytest.raises(ValueError, match=match):

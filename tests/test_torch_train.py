@@ -426,15 +426,16 @@ def test_benchmark_flags_defaults_and_rejections():
                  "gradient_accumulation_steps", "overlap_grad_comm",
                  "fusion_threshold_bytes"):
         assert getattr(d, name) == getattr(j, name), name
-    assert d.num_batches == jax_flags.DEFAULT_NUM_BATCHES
+    assert d.num_batches is j.num_batches is None     # unset until resolved
+    assert d.resolve().num_batches == jax_flags.DEFAULT_NUM_BATCHES
     cfg = flags.parse_benchmark_flags(["--use_fp16=true", "--fused_conv",
                                        "TRUE", "--device=cpu"])
     assert cfg.use_fp16 and cfg.fused_conv and cfg.compute_dtype == \
         "bfloat16"
-    for bad, match in ((["--data_dir=/x"], "not ported"),
+    for bad, match in ((["--train_dir=/x"], "not ported"),
                        (["--gradient_accumulation_steps=3"], "divisible"),
                        (["--variable_update=zero1"], "not ported"),
-                       (["--optimizer=adam"], "not ported"),
+                       (["--input_service=on"], "not ported"),
                        (["--optimizer=lbfgs"], "momentum|sgd"),
                        (["--device=tpu"], "cuda|cpu")):
         with pytest.raises(ValueError, match=match):

@@ -9,12 +9,15 @@ host code it needs).  Two lanes are ported:
   with continuous batching over a paged KV pool, with hand-written CUDA
   kernels for paged decode attention and the fused residual+norm;
 - training (``python -m tpu_hc_bench_torch NUM_HOSTS WORKERS BATCH
-  FABRIC``): ResNet v1.5 (resnet50/101/152) on synthetic images, GPT-2
-  and BERT masked-LM on synthetic tokens, momentum SGD, on one worker
-  or data parallel over ``torch.distributed`` (one process a worker,
-  gradients averaged through Horovod-style fusion buckets), with
-  hand-written CUDA kernels for the fused BN-relu-conv3x3
-  (``--fused_conv``), flash attention and the blocked cross-entropy.
+  FABRIC``, the reference's flag line): ResNet v1.5 (resnet50/101/152)
+  on synthetic images or ImageNet TFRecords (``--data_dir``: a native
+  scanner and JPEG decode pool, ``native/``), GPT-2 and BERT masked-LM
+  on synthetic tokens or a token corpus, momentum SGD or optax's
+  adam/adamw/rmsprop, forward-only or eval, on one worker or data
+  parallel over ``torch.distributed`` (one process a worker, gradients
+  averaged through Horovod-style fusion buckets), with hand-written
+  CUDA kernels for the fused BN-relu-conv3x3 (``--fused_conv``), flash
+  attention and the blocked cross-entropy.
 
 Every entry point runs on the GPU (``device="cuda"``) unless the caller
 passes ``device="cpu"``; without a GPU the default raises.  float32 work

@@ -9,6 +9,18 @@ Flag spellings and defaults are the JAX package's (``flags.py``), for
 the part of each lane ported so far, plus ``--device=cuda|cpu``.  Flags
 of the JAX lane that are not ported yet parse and are rejected loudly,
 so no run silently ignores one; the other lane's flags are unknown.
+
+The training lane takes the reference's whole flag line
+(``run-tf-sing-ucx-openmpi.sh``'s tf_cnn_benchmarks command) and
+translates its literal values as the JAX package does, each translation
+recorded in ``translations`` and printed in the banner: ``--data_format=
+NCHW`` (the port's tensors are NCHW views of NHWC memory), ``--mkl``,
+``--horovod_device``/``--local_parameter_device`` (the fabric's own
+device), the CPU thread knobs (no-ops) and ``--variable_update=horovod``.
+The one exception is ``--device``: JAX translates the reference's
+``cpu`` to its accelerator, while here ``--device=cpu`` is how a caller
+asks for the CPU, so the port's form of the reference line leaves it
+out.
 """
 
 from __future__ import annotations
@@ -175,18 +187,14 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 
 # training knobs of the JAX lane that this port does not carry yet
 LATER_SLICE_TRAIN_FLAGS = (
-    "num_epochs", "forward_only", "eval", "data_dir", "data_name",
-    "data_format", "mkl", "horovod_device",
-    "local_parameter_device", "num_intra_threads", "num_inter_threads",
-    "kmp_blocktime", "kmp_affinity", "datasets_num_private_threads",
-    "datasets_repeat_cached_sample", "train_dir", "save_model_steps",
-    "async_checkpoint", "compile_cache", "prefetch_depth", "input_service",
-    "service_decode_workers", "config", "full_batch_identity",
+    "train_dir", "save_model_steps",
+    "async_checkpoint", "compile_cache",
+    "service_decode_workers", "config",
     "on_nonfinite", "max_bad_steps", "resume", "step_timeout_s",
     "keep_checkpoints", "inject_fault", "moe_capacity_factor",
     "trace_dir", "profile_steps", "metrics_dir",
     "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
-    "wire_dtype", "accum_dtype", "model_parallel",
+    "accum_dtype", "model_parallel",
     "expert_parallel", "pipeline_parallel", "num_microbatches",
     "sequence_parallel", "virtual_devices", "gradient_checkpointing",
     "moe_impl", "rnn_impl", "scan_layers", "moe_f_chunk",
@@ -196,10 +204,25 @@ LATER_SLICE_TRAIN_FLAGS = (
 # the JAX package's default
 DEFAULT_FUSION_THRESHOLD_BYTES = 134217728
 
+# the JAX lane's default timed steps, filled in by resolve() when neither
+# --num_batches nor --num_epochs is set
+DEFAULT_NUM_BATCHES = 100
+
+# the fabric's own device: where --horovod_device and
+# --local_parameter_device of the reference (cpu|gpu) land
+FABRIC_DEVICE = ("fabric (NCCL on the card for ib|ici|dcn, gloo through "
+                 "host memory for sock|host)")
+
 # attention impls of the JAX lane: the single-device two are ported, the
 # sequence-parallel ones come with the multi-card slices
 ATTENTION_IMPLS = ("dense", "flash")
 SEQ_SHARDED_IMPLS = ("ring", "ulysses", "ulysses_flash")
+
+
+OPTIMIZERS = ("momentum", "sgd", "adam", "adamw", "rmsprop")
+
+# fields whose default is None: the type their flag parses to
+_OPTIONAL_TYPES = {"seq_len": int, "num_batches": int, "data_dir": str}
 
 
 def _parse_bool(v: str | bool) -> bool:
@@ -223,9 +246,19 @@ class BenchmarkConfig:
     model: str = "resnet50"
     batch_size: int = 64                      # per worker
     num_warmup_batches: int = 50
-    num_batches: int = 100
+    # None = unset: resolve() fills DEFAULT_NUM_BATCHES, so an explicit
+    # --num_batches still conflicts with --num_epochs
+    num_batches: int | None = None
+    num_epochs: float = 0.0                   # dataset passes: run_benchmark
+                                              # derives num_batches from
+                                              # the shards and the global
+                                              # batch
     display_every: int = 10
-    optimizer: str = "momentum"               # momentum | sgd
+    optimizer: str = "momentum"               # momentum | sgd | adam |
+                                              # adamw | rmsprop (optax's)
+    forward_only: bool = False                # the loss with no update
+    eval: bool = False                        # forward + top-1 accuracy
+                                              # on running statistics
     init_learning_rate: float = 0.01
     momentum: float = 0.9
     use_fp16: bool = False                    # bf16 compute, f32 params
@@ -249,31 +282,93 @@ class BenchmarkConfig:
     fused_xent: bool = False                  # text models: the CUDA
                                               # blocked cross-entropy
 
+    # --- data (the reference's --data_dir/--data_name, JAX's pipeline
+    # knobs) ---
+    data_dir: str | None = None               # None: synthetic data
+    data_name: str = "imagenet"
+    data_format: str = "NHWC"                 # the reference passes NCHW:
+                                              # translated, see resolve()
+    wire_dtype: str = "uint8"                 # host->card image wire:
+                                              # uint8 (normalized on the
+                                              # card) | float32
+    prefetch_depth: int = 2                   # batches in flight to the
+                                              # card (and the decode
+                                              # queue's depth)
+    datasets_num_private_threads: int = 0     # decode pool width (0 auto)
+    datasets_repeat_cached_sample: bool = False  # 8 real batches kept on
+                                              # the card, cycled
+    full_batch_identity: bool = False         # world > 1: decode the whole
+                                              # global batch, keep my rows
+                                              # (the sliced arm's control)
+    input_service: str = "auto"               # off | auto (the per-process
+                                              # pipelines); on: not ported
+
+    # --- the reference's engine and thread knobs: parsed, translated ---
+    mkl: bool = False
+    horovod_device: str = "fabric"
+    local_parameter_device: str = "fabric"
+    num_intra_threads: int = 0
+    num_inter_threads: int = 2
+    kmp_blocktime: int = 1
+    kmp_affinity: str = "granularity=fine,noverbose,compact,1,0"
+
+    translations: dict = dataclasses.field(default_factory=dict)
+
     @property
     def compute_dtype(self) -> str:
         return "bfloat16" if self.use_fp16 else "float32"
 
     def resolve(self) -> "BenchmarkConfig":
-        """Validate (the JAX training matrix, for the ported knobs)."""
+        """Translate the reference's literal values and validate (the JAX
+        training matrix, for the ported knobs)."""
+        t: dict[str, str] = {}
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda|cpu: {self.device!r}")
+        if self.data_format.upper() == "NCHW":
+            t["data_format"] = ("NCHW->channels_last (NCHW tensors in NHWC "
+                                "memory, the JAX lane's NHWC byte for byte)")
+            self.data_format = "NHWC"
+        if self.data_format != "NHWC":
+            raise ValueError(
+                f"--data_format must be NCHW|NHWC: {self.data_format!r}")
+        if self.mkl:
+            t["mkl"] = "TRUE->no-op (cuDNN and cuBLAS are the compute engine)"
+            self.mkl = False
+        for name in ("horovod_device", "local_parameter_device"):
+            v = getattr(self, name)
+            if v in ("cpu", "gpu"):
+                t[name] = f"{v}->{FABRIC_DEVICE}"
+                setattr(self, name, "fabric")
+            elif v != "fabric":
+                raise ValueError(f"--{name} must be cpu|gpu: {v!r}")
+        if self.num_intra_threads or self.kmp_blocktime != 1:
+            t["thread_tuning"] = (
+                "num_intra/inter_threads,kmp_* parsed but no-op (PyTorch "
+                "and the decode pool size their own threads)")
+        if self.num_epochs and self.num_batches is not None:
+            raise ValueError(
+                "--num_batches and --num_epochs cannot both be set")
+        if self.num_epochs < 0:
+            raise ValueError(f"--num_epochs must be >= 0: {self.num_epochs}")
+        if self.num_batches is None and not self.num_epochs:
+            self.num_batches = DEFAULT_NUM_BATCHES
         if self.batch_size < 1:
             raise ValueError(f"--batch_size must be >= 1: {self.batch_size}")
-        if self.num_warmup_batches < 0 or self.num_batches < 1:
+        if self.num_warmup_batches < 0 or (self.num_batches is not None
+                                           and self.num_batches < 1):
             raise ValueError(
                 f"--num_warmup_batches must be >= 0 and --num_batches >= 1: "
                 f"{self.num_warmup_batches}, {self.num_batches}")
         if self.display_every < 1:
             raise ValueError(
                 f"--display_every must be >= 1: {self.display_every}")
-        if self.optimizer in ("adam", "adamw", "rmsprop"):
-            raise ValueError(f"--optimizer={self.optimizer} is not ported "
-                             "yet (momentum|sgd)")
-        if self.optimizer not in ("momentum", "sgd"):
-            raise ValueError(
-                f"--optimizer must be momentum|sgd: {self.optimizer!r}")
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(f"--optimizer must be "
+                             f"{'|'.join(OPTIMIZERS)}: {self.optimizer!r}")
         if self.variable_update == "horovod":
-            self.variable_update = "psum"           # as the JAX lane
+            t["variable_update"] = ("horovod->psum (the fusion-bucket "
+                                    "all-reduce)")
+            self.variable_update = "psum"
         if self.variable_update == "zero1":
             raise ValueError("--variable_update=zero1 is not ported yet "
                              "(psum|horovod|replicated)")
@@ -283,6 +378,11 @@ class BenchmarkConfig:
         if self.gradient_accumulation_steps < 1:
             raise ValueError(f"--gradient_accumulation_steps must be >= 1: "
                              f"{self.gradient_accumulation_steps}")
+        if self.gradient_accumulation_steps > 1 and (self.forward_only
+                                                     or self.eval):
+            raise ValueError(
+                "--gradient_accumulation_steps is a training-step "
+                "knob; it has no meaning forward-only / under --eval")
         if self.batch_size % self.gradient_accumulation_steps:
             raise ValueError(
                 f"--batch_size={self.batch_size} (per worker) is not "
@@ -306,16 +406,49 @@ class BenchmarkConfig:
                              f"{self.attention_impl!r}")
         if self.seq_len is not None and self.seq_len < 1:
             raise ValueError(f"--seq_len must be >= 1: {self.seq_len}")
+        if self.wire_dtype not in ("uint8", "float32"):
+            raise ValueError(
+                f"--wire_dtype must be float32|uint8: {self.wire_dtype!r}")
+        if self.prefetch_depth < 1:
+            raise ValueError(
+                f"--prefetch_depth must be >= 1 (1 = no lookahead): "
+                f"{self.prefetch_depth}")
+        if self.datasets_num_private_threads < 0:
+            raise ValueError(
+                f"--datasets_num_private_threads must be >= 0 (0 = auto): "
+                f"{self.datasets_num_private_threads}")
+        if self.input_service == "on":
+            raise ValueError("--input_service=on (the shared host decode "
+                             "service) is not ported yet (off|auto: the "
+                             "per-process pipelines)")
+        if self.input_service not in ("off", "auto"):
+            raise ValueError(f"--input_service must be on|off|auto: "
+                             f"{self.input_service!r}")
+        if self.datasets_repeat_cached_sample and (self.eval
+                                                   or self.num_epochs):
+            raise ValueError(
+                "--datasets_repeat_cached_sample is a throughput-isolation "
+                "mode (a handful of batches cycled forever); it cannot "
+                "define an epoch (--num_epochs) or a split-wide metric "
+                "(--eval)")
+        self.translations = t
         return self
 
     def summary_lines(self) -> list[str]:
-        return [
+        lines = [
             f"train: model={self.model} batch_size={self.batch_size} "
             f"device={self.device} dtype={self.compute_dtype} "
             f"seed={self.seed}",
             f"warmup={self.num_warmup_batches} timed={self.num_batches} "
             f"display_every={self.display_every} optimizer={self.optimizer} "
             f"lr={self.init_learning_rate} momentum={self.momentum}",
+            f"forward_only={self.forward_only} eval={self.eval} data="
+            + ("synthetic" if self.data_dir is None else self.data_dir)
+            + (" [repeat_cached_sample]"
+               if self.datasets_repeat_cached_sample else "")
+            + f" ({self.data_name}, {self.data_format}) "
+            f"wire_dtype={self.wire_dtype} "
+            f"prefetch_depth={self.prefetch_depth}",
             f"fused_conv={self.fused_conv} "
             f"use_space_to_depth={self.use_space_to_depth} "
             f"num_classes={self.num_classes}",
@@ -328,6 +461,9 @@ class BenchmarkConfig:
             f"gradient_accumulation_steps="
             f"{self.gradient_accumulation_steps}",
         ]
+        for k, v in self.translations.items():
+            lines.append(f"translated: {k}: {v}")
+        return lines
 
 
 def build_benchmark_parser() -> argparse.ArgumentParser:
@@ -338,8 +474,10 @@ def build_benchmark_parser() -> argparse.ArgumentParser:
         description="Train on synthetic data to the tf_cnn_benchmarks "
                     "protocol (PyTorch/CUDA port).")
     for f in dataclasses.fields(BenchmarkConfig):
+        if f.name == "translations":
+            continue
         v = getattr(d, f.name)
-        kind = int if f.name == "seq_len" else type(v)
+        kind = _OPTIONAL_TYPES.get(f.name, type(v))
         p.add_argument(f"--{f.name}", default=v,
                        type=_parse_bool if isinstance(v, bool) else kind)
     for name in LATER_SLICE_TRAIN_FLAGS:
@@ -356,5 +494,6 @@ def parse_benchmark_flags(argv: list[str]) -> BenchmarkConfig:
             "flag(s) of the JAX training lane not ported yet: "
             + ", ".join(f"--{n}" for n in later))
     vals = {f.name: getattr(args, f.name)
-            for f in dataclasses.fields(BenchmarkConfig)}
+            for f in dataclasses.fields(BenchmarkConfig)
+            if f.name != "translations"}
     return BenchmarkConfig(**vals).resolve()

@@ -6,7 +6,10 @@ run-script contract::
 ``FABRIC`` takes the JAX package's names (``ib``/``ici``, ``sock``/
 ``host``, ``dcn``); ``BATCH_SIZE`` is per worker; ``WORKERS_PER_HOST`` 0
 means one worker per local card (one on the CPU).  tf_cnn-style
-``--flags`` follow (``flags.BenchmarkConfig``).
+``--flags`` follow (``flags.BenchmarkConfig``), the reference's whole
+line among them, and reach every worker unchanged (each runs this
+command).  The workers of one host split its decode budget
+(``run_benchmark``'s ``local_workers``).
 
 The world is NUM_HOSTS x WORKERS_PER_HOST workers, one process each:
 
@@ -80,11 +83,12 @@ def world_size(num_hosts: int, workers_per_host: int, device: str) -> int:
 
 
 def _train(argv: list[str], cfg: flags.BenchmarkConfig, fabric: str,
-           tee: Callable[[str], None]) -> int:
+           tee: Callable[[str], None], local: int) -> int:
     from tpu_hc_bench_torch.train import driver
 
     tee(f"command: python -m tpu_hc_bench_torch {' '.join(argv)}")
-    result = driver.run_benchmark(cfg, fabric=fabric, print_fn=tee)
+    result = driver.run_benchmark(cfg, fabric=fabric, print_fn=tee,
+                                  local_workers=local)
     tee(json.dumps(result.json_line()))
     return EXIT_OK if result.total_images_per_sec > 0 else \
         EXIT_ZERO_THROUGHPUT
@@ -125,12 +129,12 @@ def main(argv: list[str] | None = None,
         out = tee if worker.rank == 0 else (lambda _m: None)
         return _in_group(
             lambda: distributed.init_group(backend, worker),
-            lambda: _train(argv, cfg, fabric, out))
+            lambda: _train(argv, cfg, fabric, out, local))
     if world == 1:
         if not fab.is_fast:
-            return _train(argv, cfg, fabric, tee)
+            return _train(argv, cfg, fabric, tee, local)
         return _in_group(lambda: distributed.init_single(backend),
-                         lambda: _train(argv, cfg, fabric, tee))
+                         lambda: _train(argv, cfg, fabric, tee, local))
 
     num_hosts = int(pos[0])
     tmp = None

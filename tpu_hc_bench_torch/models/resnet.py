@@ -26,7 +26,9 @@ What must match the JAX modules exactly, and how:
   it has them.  Both update the running statistics with the *biased*
   batch variance, ``ra = 0.9 ra + 0.1 batch``, eps 1e-5, written out
   under ``torch.no_grad()`` (``F.batch_norm``'s update uses the unbiased
-  variance).
+  variance).  Inside ``running_stats_frozen(model)`` (the forward-only
+  step) both rules normalize with the batch's statistics and leave the
+  running averages as they are.
 
 One module layout serves both routes: ``FusedBottleneckBlock`` has the
 children of ``BottleneckBlock`` under the same names, with the 3x3 conv a
@@ -36,6 +38,7 @@ children of ``BottleneckBlock`` under the same names, with the 3x3 conv a
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Sequence
 
@@ -47,7 +50,8 @@ from tpu_hc_bench_torch.ops import fused_conv as fc
 
 __all__ = ["BatchNorm", "BottleneckBlock", "Conv", "FusedBNReluConv3x3",
            "FusedBottleneckBlock", "ResNet", "StatsBatchNorm", "max_pool",
-           "resnet50", "resnet101", "resnet152", "same_pads"]
+           "resnet50", "resnet101", "resnet152", "running_stats_frozen",
+           "same_pads"]
 
 _C = (1, -1, 1, 1)      # a [C] vector broadcast over NCHW
 
@@ -109,6 +113,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.empty(c))
         self.dtype, self.zero_init = dtype, zero_init
         self.momentum, self.eps = momentum, eps
+        self.frozen = False            # running_stats_frozen sets it
 
     def init_weights(self, gen: torch.Generator | None = None) -> None:
         del gen
@@ -119,7 +124,10 @@ class BatchNorm(nn.Module):
             self.running_var.fill_(1.0)
 
     def update_running(self, mean: torch.Tensor, var: torch.Tensor) -> None:
-        """``ra = momentum * ra + (1 - momentum) * batch`` (biased var)."""
+        """``ra = momentum * ra + (1 - momentum) * batch`` (biased var);
+        nothing while ``frozen``."""
+        if self.frozen:
+            return
         with torch.no_grad():
             m = self.momentum
             self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)
@@ -137,6 +145,22 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(var + self.eps) * self.weight
         y = (xf - mean.view(_C)) * mul.view(_C) + self.bias.view(_C)
         return y.to(self.dtype)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(model: nn.Module):
+    """Within: every ``BatchNorm`` of ``model`` still normalizes with the
+    batch's statistics in training mode but leaves its running averages
+    untouched (JAX's forward-only step, which discards the new
+    ``batch_stats``)."""
+    bns = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.frozen = True
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.frozen = False
 
 
 def _bn_scale_shift(bn: BatchNorm, x: torch.Tensor, stats=None):

@@ -27,10 +27,12 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from typing import Callable
 
 import torch
 
-__all__ = ["pad_up", "load_library", "check", "stream_ptr", "BUILD_DIR"]
+__all__ = ["pad_up", "load_library", "check", "build_stamped", "stream_ptr",
+           "BUILD_DIR"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -138,23 +140,36 @@ def _locked(build_dir: Path):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
-def build(build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
-    """Compile the sources into the shared library when the stamped hash
-    differs; returns ``(library path, seconds spent, compiler log)``."""
-    lib = build_dir / _LIB_NAME
-    stamp = build_dir / (_LIB_NAME + ".sha256")
-    digest = source_hash()
+def build_stamped(lib: Path, digest: str,
+                  make: Callable[[Path, Path], tuple[float, str]]
+                  ) -> tuple[float, str]:
+    """Run ``make(lib, stamp)`` under the build directory's lock unless
+    the stamp beside ``lib`` already holds ``digest`` (checked again
+    under the lock: another process may have built it meanwhile);
+    returns what ``make`` returns, or ``(0.0, "")`` when nothing was
+    built.  ``make`` replaces the library, then writes the stamp."""
+    stamp = lib.with_name(lib.name + ".sha256")
 
     def current() -> bool:
         return lib.exists() and stamp.exists() and \
             stamp.read_text() == digest
 
     if current():
-        return lib, 0.0, ""
-    with _locked(build_dir):
-        if current():                   # another process built it
-            return lib, 0.0, ""
-        return lib, *_compile(build_dir, lib, stamp, digest)
+        return 0.0, ""
+    with _locked(lib.parent):
+        if current():
+            return 0.0, ""
+        return make(lib, stamp)
+
+
+def build(build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
+    """Compile the sources into the shared library when the stamped hash
+    differs; returns ``(library path, seconds spent, compiler log)``."""
+    lib = build_dir / _LIB_NAME
+    digest = source_hash()
+    return lib, *build_stamped(
+        lib, digest, lambda lib, stamp: _compile(build_dir, lib, stamp,
+                                                 digest))
 
 
 def _compile(build_dir: Path, lib: Path, stamp: Path,

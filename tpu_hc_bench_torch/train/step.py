@@ -1,5 +1,5 @@
-"""The training step of the port: momentum SGD, on one worker or data
-parallel over ``torch.distributed``.
+"""The training step of the port, on one worker or data parallel over
+``torch.distributed``, with its forward-only and eval arms.
 
 The counterpart of the JAX package's ``train/step.py``
 (``build_train_step``, ``_loss_and_updates``, ``_accumulated_grads``,
@@ -39,20 +39,46 @@ step's starting statistics and their results are averaged, as JAX's
 scan does (a plain loop would chain N decays).  The gradient buckets
 launch only during the last microbatch's backward.
 
-``optax.sgd(lr, momentum=m)`` keeps ``trace = g + m * trace`` and steps
-``-lr * trace``, which is ``torch.optim.SGD(lr, momentum=m)`` with no
-dampening and no Nesterov (its first buffer is ``g``, optax's
-``g + m * 0``).
+Real images arrive on the card as uint8 (``--wire_dtype=uint8``):
+``prep_inputs`` normalizes them there, ``(x - MEAN) / STD`` in float32,
+JAX's order (a subtraction, then a division by the float32 ``STD``), so
+the normalized inputs are JAX's bit for bit on the CPU.
+
+``--forward_only`` (``forward_step``): the training-mode loss (batch
+statistics, dropout) with no update; the parameters, the optimizer state
+and the BatchNorm running statistics stay as they are (JAX's step throws
+the new statistics away).  ``--eval`` (``eval_step``): the loss and the
+top-1 count with running statistics and no dropout, summed over the
+ranks (the image loss averaged, the text loss the global weighted mean).
+
+The optimizers are optax's (``make_optimizer``):
+
+- ``optax.sgd(lr, momentum=m)`` keeps ``trace = g + m * trace`` and
+  steps ``-lr * trace``, which is ``torch.optim.SGD(lr, momentum=m)``
+  with no dampening and no Nesterov (its first buffer is ``g``, optax's
+  ``g + m * 0``);
+- ``optax.adam(lr)`` and ``optax.adamw(lr)`` (b1 0.9, b2 0.999, eps 1e-8
+  outside the root; adamw's weight decay 1e-4 on every parameter) are
+  ``torch.optim.Adam``/``AdamW`` so configured, equal up to rounding
+  (torch divides by the bias corrections in another order);
+- ``optax.rmsprop(lr, decay=0.9, eps=1.0)`` (tf_cnn_benchmarks' values)
+  puts eps inside the root, ``g * rsqrt(nu + eps)``, with ``nu`` from 0:
+  ``OptaxRMSprop``.  ``torch.optim.RMSprop`` divides by ``sqrt(nu) +
+  eps``, which at eps 1.0 is another optimizer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
+from tpu_hc_bench_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
 from tpu_hc_bench_torch.flags import BenchmarkConfig
+from tpu_hc_bench_torch.models.resnet import running_stats_frozen
 from tpu_hc_bench_torch.ops.xent import softmax_xent
 from tpu_hc_bench_torch.parallel import collectives
 from tpu_hc_bench_torch.parallel.fabric import Fabric, host_allreduce
@@ -104,16 +130,46 @@ class TrainState:
     dp: DataParallel | None = None
 
 
+class OptaxRMSprop(torch.optim.Optimizer):
+    """``optax.rmsprop(lr, decay, eps)`` (not centered, no momentum):
+    ``nu = decay * nu + (1 - decay) * g^2`` from ``nu = 0``, then ``p -=
+    lr * g * rsqrt(nu + eps)``, eps inside the root."""
+
+    def __init__(self, params, lr: float, decay: float = 0.9,
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, decay=decay, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, decay, eps = group["lr"], group["decay"], group["eps"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if not state:
+                    state["nu"] = torch.zeros_like(p)
+                nu, g = state["nu"], p.grad
+                nu.mul_(decay).add_(g * g, alpha=1.0 - decay)
+                p.add_(g * torch.rsqrt(nu + eps), alpha=-lr)
+
+
 def make_optimizer(cfg: BenchmarkConfig,
                    params) -> torch.optim.Optimizer:
-    """--optimizer dispatch, for the ported arms."""
+    """--optimizer dispatch: JAX ``make_optimizer``'s optax optimizers."""
     lr = cfg.init_learning_rate
     if cfg.optimizer == "momentum":
         return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum)
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=lr)
-    raise ValueError(f"--optimizer={cfg.optimizer} is not ported yet "
-                     "(momentum|sgd)")
+    if cfg.optimizer == "adam":
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    if cfg.optimizer == "adamw":
+        return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
+                                 eps=1e-8, weight_decay=1e-4)
+    if cfg.optimizer == "rmsprop":
+        return OptaxRMSprop(params, lr=lr, decay=0.9, eps=1.0)
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
 
 
 def check_arm(cfg: BenchmarkConfig, fabric: Fabric) -> None:
@@ -164,6 +220,25 @@ def lm_loss_fn(logits: torch.Tensor, targets: torch.Tensor,
     return (losses * weights).sum() / weights.sum().clamp_min(1.0)
 
 
+@functools.lru_cache(maxsize=None)
+def _norm_consts(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """ImageNet's mean and std (x 255) as float32 ``[1, 3, 1, 1]`` on
+    ``device``, copied there once."""
+    return tuple(torch.from_numpy(a).to(device).view(1, 3, 1, 1)
+                 for a in (IMAGENET_MEAN, IMAGENET_STD))
+
+
+def prep_inputs(images: torch.Tensor) -> torch.Tensor:
+    """JAX ``prep_inputs``: a uint8 image batch (an NCHW view of NHWC
+    crops) to float32 ``(x - MEAN) / STD`` on its device, in
+    ``channels_last`` memory like the batch; float images pass
+    through."""
+    if images.dtype != torch.uint8:
+        return images
+    mean, std = _norm_consts(images.device)
+    return (images.float() - mean) / std
+
+
 def batch_loss(model: torch.nn.Module, batch,
                fused_xent: bool = False) -> torch.Tensor:
     """The forward and the loss arm that ``batch`` calls for;
@@ -172,7 +247,7 @@ def batch_loss(model: torch.nn.Module, batch,
         tokens, targets, weights = batch
         return lm_loss_fn(model(tokens), targets, weights, fused_xent)
     images, labels = batch
-    return loss_fn(model(images), labels)
+    return loss_fn(model(prep_inputs(images)), labels)
 
 
 def _accumulated_backward(state: TrainState, batch,
@@ -230,3 +305,62 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     state.optimizer.step()
     state.step += 1
     return state, {"loss": loss}
+
+
+def _ranks_sum(dp: DataParallel | None, t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks (JAX's ``psum``): NCCL on the fast
+    fabric, a gloo sum through host memory on the host fabric."""
+    if dp is None:
+        return t
+    if dp.grads is None:
+        host = t.cpu()
+        dist.all_reduce(host)
+        return host.to(t.device)
+    dist.all_reduce(t)
+    return t
+
+
+def forward_step(state: TrainState, batch) -> tuple[TrainState, dict]:
+    """``--forward_only``: the loss in training mode (batch statistics,
+    dropout drawn) with no backward and no update; the parameters, the
+    optimizer state, the step count and the running statistics are left
+    as they were.  The loss is averaged over the ranks."""
+    with torch.no_grad(), running_stats_frozen(state.model):
+        loss = batch_loss(state.model, batch, state.fused_xent).float()
+    if state.dp is not None:
+        loss = _ranks_sum(state.dp, loss) / dist.get_world_size()
+    return state, {"loss": loss}
+
+
+def weighted_text_metrics(logits: torch.Tensor, targets: torch.Tensor,
+                          weights: torch.Tensor) -> torch.Tensor:
+    """JAX ``weighted_text_metrics``: ``[sum of weighted losses, sum of
+    weights, weighted top-1 count]`` of one rank's tokens, float32."""
+    losses = F.cross_entropy(logits.flatten(0, -2).float(),
+                             targets.flatten(), reduction="none")
+    w = weights.flatten()
+    correct = ((logits.argmax(-1).flatten() == targets.flatten()) * w).sum()
+    return torch.stack([(losses * w).sum(), w.sum(), correct.float()])
+
+
+def eval_step(state: TrainState, batch) -> tuple[torch.Tensor,
+                                                 torch.Tensor]:
+    """JAX ``build_eval_step``: ``(loss, top-1 count)`` of ``batch`` with
+    the model as it is (``run_benchmark`` puts it in eval mode: running
+    statistics, no dropout).  Images: the mean cross-entropy averaged
+    over the ranks; text: the weighted mean over every rank's tokens.
+    The count is summed over the ranks."""
+    model = state.model
+    with torch.no_grad():
+        if len(batch) == 3:
+            tokens, targets, weights = batch
+            m = _ranks_sum(state.dp, weighted_text_metrics(
+                model(tokens), targets, weights))
+            return m[0] / m[1].clamp_min(1.0), m[2]
+        images, labels = batch
+        logits = model(prep_inputs(images))
+        m = _ranks_sum(state.dp, torch.stack([
+            loss_fn(logits, labels),
+            (logits.argmax(-1) == labels).sum().float()]))
+    world = dist.get_world_size() if state.dp is not None else 1
+    return m[0] / world, m[1]
