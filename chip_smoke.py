@@ -157,10 +157,36 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    written here, 10 + 30 steps, against phase 10's first run, 12
    launches of each flash kernel and one of each xent kernel a step.
 
+15. **slice7**: sync-BN, the decoder, the input service and
+   checkpoints: (a) ``--variable_update=replicated`` (every BatchNorm's
+   statistics all-reduced) against ``psum`` in a one-rank NCCL group,
+   phase 6's seeded resnet50 in float32 at batch 16, two steps each,
+   cuDNN deterministic: bit-equal (sync over one rank is the identity),
+   and the all-reduce calls a step of each; (b) phase 14 (a): the
+   decoder ``jpeg_decoder()`` picks (``pil`` where libjpeg's headers are
+   missing) bit-equal to the JAX pipeline's crops, nvJPEG forced by
+   name within ``NVJPEG_MEAN_TOL``; (c) phase 14 (b) again, on that
+   decoder: images/s, the pool's ms a batch, the input wait a step; (d)
+   the same with ``--input_service=on`` at world 1: images/s against
+   (c) and the ring's stall, wait and occupancy counters; (e) resnet50
+   bf16 batch 128 ``--fused_conv=true --train_dir=<dir>
+   --save_model_steps=25``, 10 + 50 steps with synchronous saves, then
+   ``--resume=must`` for 10 + 50 more with async saves, then ``--eval``
+   on the fixture's validation shard from the same ``--train_dir``: the
+   saved and restored fingerprints equal, each save's blocking ms,
+   images/s against phase 7; (c)-(e) every count zeroed just before each
+   run, 8 conv launches a step; (f) with two cards or more, ``1 0 128
+   ib`` on the fixture with ``--input_service=auto`` (the service
+   engages) and ``off``, images/s and the decode pool's width, then
+   ``replicated`` on the auto run: its parameters differ from psum's
+   and its loss is finite; with one card, one record naming the card
+   count it lacked.
+
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
-and ``realdata_launches``: its launches in phase 14's runs (b)-(e) and
-(g), every kernel's count set to 0 before each and read after it),
+``realdata_launches``: its launches in phase 14's runs (b)-(e) and (g),
+and ``slice7_launches``: its launches in phase 15's runs (c)-(e), every
+kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -169,7 +195,8 @@ package beside it, the script exits non-zero and prints no result.
 beside a one-worker ``sock`` run at its step counts (no kernel table):
 the data-parallel path on a machine with several cards.  ``--only
 realdata`` runs the build and phase 14 alone, beside phase 7's fused
-run and phase 10's first run.
+run and phase 10's first run; ``--only slice7`` the build and phase 15
+alone, beside phase 7's fused run (with several cards, (f) runs).
 """
 
 from __future__ import annotations
@@ -376,6 +403,11 @@ FIXTURE_SIZE, FIXTURE_BATCH = 64, 16     # expected_crops.npz's crops
 # full-band noise, where nvJPEG's chroma upsampling and IDCT rounding part
 # from libjpeg's (9.65-9.91 levels, max 88-94, on a first card run)
 NVJPEG_MEAN_TOL = 12.0
+# each decoder's crops of the fixture against the JAX pipeline's: libjpeg
+# is that pipeline's decoder, and pil decodes with PIL's libjpeg-turbo
+# at the same DCT scale into the same crop and resize (bit-equal to
+# libjpeg at scales 1-8 in the CPU tests); nvJPEG as above
+DECODER_MEAN_TOL = {"libjpeg": 0.0, "pil": 0.0, "nvjpeg": NVJPEG_MEAN_TOL}
 OPT_BATCH = 32
 OPT_STEPS = 3
 # each optimizer against the plain one (optax's formulas written out) on
@@ -383,6 +415,11 @@ OPT_STEPS = 3
 # tolerances (tests/test_torch_realdata.py OPT_TOL)
 OPT_TOL = {"adam": 1e-5, "adamw": 1e-5, "rmsprop": 2.4e-7}
 TOKEN_CORPUS = 1 << 21                    # gpt2 tokens in train.bin
+
+# phase 15 (slice7): (c) and (d) at phase 14 (b)'s depth; (e) the
+# checkpoint legs (save, then resume), (f) across cards
+SLICE7_BATCHES = {"e": (10, 50), "f": (20, 60)}
+SLICE7_SAVE_STEPS = 25
 
 
 
@@ -1915,47 +1952,59 @@ def _fixture():
         "imagenet_tiny"
 
 
-def realdata_decode(smi) -> None:
+def realdata_decode(smi) -> str:
     """Phase 14 (a): the port's pipeline on the fixture against the JAX
-    pipeline's crops (``expected_crops.npz``)."""
+    pipeline's crops (``expected_crops.npz``), with the decoder
+    ``native.jpeg_decoder()`` picks, then with nvJPEG forced by name;
+    returns the decoder picked."""
     import numpy as np
 
     from tpu_hc_bench_torch.data.imagenet import ImageNetDataset
 
     fx = _fixture()
     want = np.load(fx / "expected_crops.npz")
-    got = {}
-    for name, split, n in (("train", "train", 2), ("eval", "validation", 1)):
-        ds = ImageNetDataset(fx, FIXTURE_BATCH, image_size=FIXTURE_SIZE,
-                             split=split, train=name == "train", seed=0,
-                             wire_dtype="uint8")
-        it = iter(ds)
-        batches = [next(it) for _ in range(n)]
-        it.close()
-        got[name] = (np.stack([b[0] for b in batches]),
-                     np.stack([b[1] for b in batches]))
-    diff = np.concatenate([
-        np.abs(got["train"][0].astype(np.int16)
-               - want["train_images"].astype(np.int16)).ravel(),
-        np.abs(got["eval"][0][0].astype(np.int16)
-               - want["eval_images"].astype(np.int16)).ravel()])
-    labels_equal = bool((got["train"][1] == want["train_labels"]).all()
-                        and (got["eval"][1][0] == want["eval_labels"]).all())
-    stats = ds.stats()
-    rec = {"phase": "realdata", "part": "a_decode_parity",
-           "decoder": stats["decoder"], "reader": stats["reader"],
-           "pil_fallbacks": stats["pil_fallbacks"],
-           "max_abs_diff": int(diff.max()),
-           "mean_abs_diff": float(diff.mean()),
-           "tol": ("bit-equal" if stats["decoder"] == "libjpeg"
-                   else f"mean_abs_diff <= {NVJPEG_MEAN_TOL}"),
-           "labels_equal": labels_equal, "nvidia_smi": smi}
-    emit(rec)
-    ok = (diff.max() == 0 if stats["decoder"] == "libjpeg"
-          else diff.mean() <= NVJPEG_MEAN_TOL)
-    if not (ok and labels_equal and stats["reader"] == "native"
-            and stats["pil_fallbacks"] == 0):
-        raise AssertionError(f"real-data decode parity failed: {rec}")
+    picked = None
+    for forced in (None, "nvjpeg"):
+        got = {}
+        for name, split, n in (("train", "train", 2),
+                               ("eval", "validation", 1)):
+            ds = ImageNetDataset(fx, FIXTURE_BATCH, image_size=FIXTURE_SIZE,
+                                 split=split, train=name == "train", seed=0,
+                                 wire_dtype="uint8", decoder=forced)
+            it = iter(ds)
+            batches = [next(it) for _ in range(n)]
+            it.close()
+            got[name] = (np.stack([b[0] for b in batches]),
+                         np.stack([b[1] for b in batches]))
+        diff = np.concatenate([
+            np.abs(got["train"][0].astype(np.int16)
+                   - want["train_images"].astype(np.int16)).ravel(),
+            np.abs(got["eval"][0][0].astype(np.int16)
+                   - want["eval_images"].astype(np.int16)).ravel()])
+        labels_equal = bool(
+            (got["train"][1] == want["train_labels"]).all()
+            and (got["eval"][1][0] == want["eval_labels"]).all())
+        stats = ds.stats()
+        decoder = stats["decoder"]
+        picked = picked or decoder
+        mean_tol = DECODER_MEAN_TOL[decoder]
+        rec = {"phase": "realdata", "part": "a_decode_parity",
+               "decoder": decoder,
+               "how": "forced by name" if forced else "jpeg_decoder()'s pick",
+               "reader": stats["reader"],
+               "pil_fallbacks": stats["pil_fallbacks"],
+               "max_abs_diff": int(diff.max()),
+               "mean_abs_diff": float(diff.mean()),
+               "tol": ("bit-equal" if mean_tol == 0
+                       else f"mean_abs_diff <= {mean_tol}"),
+               "labels_equal": labels_equal, "nvidia_smi": smi}
+        emit(rec)
+        ok = diff.max() == 0 if mean_tol == 0 else diff.mean() <= mean_tol
+        if not (ok and labels_equal and stats["reader"] == "native"
+                and stats["pil_fallbacks"] == 0
+                and decoder == (forced or decoder)):
+            raise AssertionError(f"real-data decode parity failed: {rec}")
+    return picked
 
 
 def _real_argv(part: str, batch: int, *extra: str) -> list[str]:
@@ -1968,27 +2017,29 @@ def _real_argv(part: str, batch: int, *extra: str) -> list[str]:
 
 REAL_KEYS = ("total_images_per_sec", "mean_step_ms", "p50_step_ms", "mfu",
              "final_loss", "global_batch", "forward_only", "eval_top_1",
-             "data")
+             "data", "variable_update", "resume", "checkpoint")
 
 
-def _real_run(part: str, argv: list[str], steps: int, smi, **ctx):
+def _real_run(part: str, argv: list[str], steps: int, smi,
+              phase: str = "realdata", **ctx):
     """One main-path run: every count set to 0 just before, read just
     after; 8 fused-conv launches a step."""
     _zero_counts()
     rc, res = _launch(argv)
     counts = _read_counts()
     conv = counts["fused_bn_relu_conv"]
-    rec = {"phase": "realdata", "part": part, "argv": argv, "rc": rc,
+    rec = {"phase": phase, "part": part, "argv": argv, "rc": rc,
            "steps": steps, "launches": counts,
            "conv_launches_per_step": conv / steps,
            "expected_per_step": FUSED_LAUNCHES_PER_STEP, "nvidia_smi": smi,
            **ctx, **{k: res[k] for k in REAL_KEYS}}
     emit(rec)
+    data = res["data"] or {"reader": "native"}      # None: synthetic
     if not (rc == 0 and conv == FUSED_LAUNCHES_PER_STEP * steps
             and res["total_images_per_sec"] > 0
             and math.isfinite(res["final_loss"])
-            and res["data"]["reader"] == "native"
-            and res["data"]["pil_fallbacks"] == 0):
+            and data["reader"] == "native"
+            and data.get("pil_fallbacks", 0) == 0):
         raise AssertionError(f"real-data run {part} failed: {rec}")
     return res, counts
 
@@ -2139,7 +2190,8 @@ def phase_realdata(torch, dev, smi, sock_rate: float,
     """Phase 14; returns every kernel's launches summed over the main-path
     runs (b)-(e) and (g).  ``sock_rate``: phase 7's synthetic images/s,
     ``lm_rate``: phase 10's gpt2 sequences/s."""
-    realdata_decode(smi)
+    emit({"phase": "realdata", "part": "a_decoder_picked",
+          "decoder": realdata_decode(smi)})
     torch.cuda.empty_cache()
     total: dict = {}
 
@@ -2196,16 +2248,269 @@ def phase_realdata(torch, dev, smi, sock_rate: float,
     return total
 
 
+def slice7_replicated(torch, dev, smi) -> None:
+    """Phase 15 (a): ``--variable_update=replicated`` (sync-BN) against
+    ``psum`` in a one-rank NCCL group, phase 6's seeded resnet50 in
+    float32 at batch 16, two steps each, cuDNN deterministic: bit-equal
+    where psum is bit-equal to itself (sync over one rank is the
+    identity), and the all-reduce calls a step of each arm."""
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.parallel import distributed
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    ref, spec = seeded_resnet50(torch, dev)
+    init = {k: v.clone() for k, v in ref.state_dict().items()}
+    del ref
+    batch = to_device(SyntheticImages(
+        PARITY_BATCH, spec.input_shape, spec.num_classes, seed=0).batch(),
+        dev)
+
+    def run(update: str):
+        model = create_model("resnet50", torch.float32, device=dev,
+                             fused_conv=True, train=True)[0]
+        model.load_state_dict(init)
+        cfg = flags.BenchmarkConfig(init_learning_rate=0.1,
+                                    batch_size=PARITY_BATCH,
+                                    variable_update=update).resolve()
+        distributed.init_single("nccl")
+        try:
+            state = step_mod.make_train_state(model, cfg, Fabric.ICI)
+            losses = []
+            for _ in range(DP_PARITY_STEPS):
+                state, metrics = step_mod.train_step(state, batch)
+                losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+            return ({k: v.detach().clone()
+                     for k, v in model.state_dict().items()}, losses,
+                    state.dp.allreduce_calls)
+        finally:
+            dist.destroy_process_group()
+
+    det = torch.backends.cudnn.deterministic
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        psum, again, rep = run("psum"), run("psum"), run("replicated")
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(a[k], b[k]) for k in b)
+
+    deterministic = equal(again[0], psum[0]) and again[1] == psum[1]
+    floor = norm_err(again[0], psum[0])
+    err = norm_err(rep[0], psum[0])
+    bit_equal = equal(rep[0], psum[0]) and rep[1] == psum[1]
+    rec = {"phase": "slice7", "part": "a_replicated_vs_psum_world1",
+           "model": "resnet50", "dtype": "float32", "batch": PARITY_BATCH,
+           "steps": DP_PARITY_STEPS, "losses_psum": psum[1],
+           "losses_replicated": rep[1], "bit_equal": bit_equal,
+           "psum_bit_equal_to_itself": deterministic,
+           "run_to_run_floor": floor, "norm_err": err,
+           "allreduce_per_step": {"psum": psum[2], "replicated": rep[2]},
+           "rule": ("bit-equal" if deterministic else
+                    f"within {DP_NOISE_FACTOR} x the run-to-run floor"),
+           "nvidia_smi": smi}
+    emit(rec)
+    ok = bit_equal if deterministic else err <= DP_NOISE_FACTOR * floor
+    if not (ok and rep[2] > psum[2]):
+        raise AssertionError(f"replicated disagrees with psum at world 1: "
+                             f"{rec}")
+
+
+def _fingerprints_equal(a: dict | None, b: dict | None) -> bool:
+    return bool(a and b and a["fingerprint"] == b["fingerprint"])
+
+
+def phase_slice7(torch, dev, smi, sock_rate: float) -> dict:
+    """Phase 15; returns every kernel's launches summed over the
+    main-path runs (c)-(e).  ``sock_rate``: phase 7's synthetic
+    images/s."""
+    import shutil
+    from pathlib import Path
+
+    slice7_replicated(torch, dev, smi)
+    torch.cuda.empty_cache()
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    # (b) is phase 14 (a) (the decoder picked); under --only slice7 here
+    emit({"phase": "slice7", "part": "b_decoder_picked",
+          "decoder": realdata_decode(smi)})
+    # (c) the reference line on the decoder picked
+    warmup, timed = REAL_BATCHES["b"]
+    res_c, counts = _real_run("c_reference_line", _real_argv(
+        "b", TRAIN_BATCH), warmup + timed, smi, phase="slice7",
+        synthetic_images_per_sec=sock_rate)
+    rate_c = res_c["total_images_per_sec"]
+    add(counts)
+    torch.cuda.empty_cache()
+    # (d) the same through the input service at world 1
+    res, counts = _real_run("d_input_service", _real_argv(
+        "b", TRAIN_BATCH, "--input_service=on"), warmup + timed, smi,
+        phase="slice7")
+    d = res["data"]
+    emit({"phase": "slice7", "part": "d_vs_c",
+          "images_per_sec": res["total_images_per_sec"],
+          "per_process_images_per_sec": rate_c,
+          "ratio": res["total_images_per_sec"] / rate_c,
+          "input_wait_ms_per_step": d["input_wait_ms_per_step"],
+          "per_process_input_wait_ms_per_step":
+              res_c["data"]["input_wait_ms_per_step"],
+          "per_process_decode_ms_per_batch":
+              1e3 * res_c["data"]["decode_wall_s"]
+              / max(res_c["data"]["batches"], 1),
+          "ring": {k: d[k] for k in (
+              "ring_depth", "ring_occ_p50", "ring_occ_p99",
+              "consumer_wait_s", "producer_stall_s")},
+          "service": d["service"]})
+    if not (d["input_service"] and d["service"]["errors"] == 0):
+        raise AssertionError(f"the input service did not serve: {d}")
+    add(counts)
+    torch.cuda.empty_cache()
+    # (e) checkpoints: save, resume, eval from one --train_dir
+    ckdir = Path(__file__).resolve().parent / "build" / "slice7_ckpt"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    warmup, timed = SLICE7_BATCHES["e"]
+    base = ["1", "1", str(TRAIN_BATCH), "ib", "--model=resnet50",
+            "--use_fp16=true", "--fused_conv=true", f"--train_dir={ckdir}",
+            f"--save_model_steps={SLICE7_SAVE_STEPS}",
+            f"--num_warmup_batches={warmup}", f"--num_batches={timed}",
+            "--display_every=10"]
+    try:
+        first, counts = _real_run(
+            "e_train_sync_saves", base + ["--async_checkpoint=false"],
+            warmup + timed, smi, phase="slice7",
+            synthetic_images_per_sec=sock_rate)
+        add(counts)
+        second, counts = _real_run(
+            "e_resume_async_saves", base + ["--resume=must"],
+            warmup + timed, smi, phase="slice7",
+            synthetic_images_per_sec=sock_rate)
+        add(counts)
+        ev_warm, ev_timed = REAL_BATCHES["e"]
+        ev, counts = _real_run(
+            "e_eval_restored", _real_argv("e", TRAIN_BATCH, "--eval=true",
+                                          f"--train_dir={ckdir}"),
+            ev_warm + ev_timed, smi, phase="slice7")
+        add(counts)
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    rec = {"phase": "slice7", "part": "e_checkpoints",
+           "saved_fingerprint": first["checkpoint"]["fingerprint"],
+           "restored_fingerprint": second["resume"]["fingerprint"],
+           "restored_step": second["resume"]["restored_step"],
+           "eval_restored_step": ev["resume"]["restored_step"],
+           "sync_save_blocking_ms": [
+               x["blocking_ms"] for x in first["checkpoint"]["saves"]],
+           "async_save_blocking_ms": [
+               x["blocking_ms"] for x in second["checkpoint"]["saves"]],
+           "images_per_sec": [first["total_images_per_sec"],
+                              second["total_images_per_sec"]],
+           "synthetic_images_per_sec": sock_rate,
+           "vs_synthetic": [first["total_images_per_sec"] / sock_rate,
+                            second["total_images_per_sec"] / sock_rate],
+           "eval_top_1": ev["eval_top_1"], "nvidia_smi": smi}
+    emit(rec)
+    if not (_fingerprints_equal(first["checkpoint"], second["resume"])
+            and _fingerprints_equal(second["checkpoint"], ev["resume"])
+            and second["resume"]["restored_step"] == warmup + timed
+            and not any(x["async"] for x in first["checkpoint"]["saves"])
+            and all(x["async"] for x in second["checkpoint"]["saves"])):
+        raise AssertionError(f"the checkpoint round trip failed: {rec}")
+    torch.cuda.empty_cache()
+    # (f) across the cards of this machine
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"phase": "slice7", "part": "f_multi_card", "ran": False,
+              "cards": cards,
+              "reason": f"needs 2 or more cards; this machine has {cards}"})
+    else:
+        slice7_multi_card(torch, smi, cards, ckdir)
+    return total
+
+
+def slice7_multi_card(torch, smi, cards: int, ckdir) -> None:
+    """Phase 15 (f): ``1 0 128 ib`` on the fixture across every card,
+    with ``--input_service=auto`` (the service engages: several workers
+    on one host) and ``off``, then ``replicated`` against ``psum`` on
+    the auto run: the parameters differ (sync-BN), the loss is
+    finite."""
+    import shutil
+
+    warmup, timed = SLICE7_BATCHES["f"]
+    base = ["1", "0", str(TRAIN_BATCH), "ib", "--model=resnet50",
+            "--use_fp16=true", "--fused_conv=true",
+            f"--data_dir={_fixture()}", *REFERENCE_LINE,
+            f"--num_warmup_batches={warmup}", f"--num_batches={timed}",
+            "--display_every=10"]
+    runs = {}
+    try:
+        for name, extra in (
+                ("auto", ["--input_service=auto",
+                          f"--train_dir={ckdir}/psum"]),
+                ("off", ["--input_service=off"]),
+                ("auto_replicated", [
+                    "--input_service=auto",
+                    "--variable_update=replicated",
+                    f"--train_dir={ckdir}/replicated"])):
+            argv = base + extra
+            rc, res = _launch(argv)
+            d = res["data"]
+            rec = {"phase": "slice7", "part": "f_multi_card", "ran": True,
+                   "run": name, "cards": cards, "argv": argv, "rc": rc,
+                   "input_service": d["input_service"],
+                   "decode_workers": (d["service"]["decode_workers"]
+                                      if d["input_service"]
+                                      else d["decode_workers"]),
+                   "nvidia_smi": smi,
+                   **{k: res[k] for k in DP_RESULT_KEYS}}
+            emit(rec)
+            runs[name] = res
+            if not (rc == 0 and res["total_workers"] == cards
+                    and math.isfinite(res["final_loss"])
+                    and d["input_service"] == (name != "off")):
+                raise AssertionError(f"slice7 run across {cards} cards "
+                                     f"failed: {rec}")
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    apart = not _fingerprints_equal(runs["auto"]["checkpoint"],
+                                    runs["auto_replicated"]["checkpoint"])
+    emit({"phase": "slice7", "part": "f_replicated_vs_psum",
+          "cards": cards, "parameters_differ": apart,
+          "final_loss": {k: runs[k]["final_loss"]
+                         for k in ("auto", "auto_replicated")},
+          "auto_vs_off_images_per_sec":
+              runs["auto"]["total_images_per_sec"]
+              / runs["off"]["total_images_per_sec"]})
+    if not apart:
+        raise AssertionError("replicated trained the same parameters as "
+                             "psum across the cards")
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(description="Smoke run of the port on "
                                 "the GPUs of this machine.")
-    p.add_argument("--only", choices=("dp", "realdata"), default=None,
+    p.add_argument("--only", choices=("dp", "realdata", "slice7"),
+                   default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
                         "realdata: the build, then phase 14 alone (beside "
-                        "phase 7's fused run and phase 10's first run)")
+                        "phase 7's fused run and phase 10's first run); "
+                        "slice7: the build, then phase 15 alone (beside "
+                        "phase 7's fused run)")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -2270,6 +2575,19 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice7":
+        _, res = _launch(["1", "1", str(TRAIN_BATCH), "sock",
+                          "--model=resnet50", "--use_fp16=true",
+                          "--fused_conv=true",
+                          f"--num_warmup_batches={TRAIN_WARMUP}",
+                          f"--num_batches={TRAIN_BATCHES}"])
+        phase_slice7(torch, dev, smi, res["total_images_per_sec"])
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     timer = Timer(torch, dev)
     main_rows = phase_kernels(torch, dev, timer, smi)
     main_rows["fused_bn_relu_conv"] = phase_conv(torch, dev, timer, smi)
@@ -2312,6 +2630,7 @@ def main(argv: list[str] | None = None) -> int:
     dp_launches = phase_dp(torch, dev, smi, sock_rate,
                            f"phase 7, {TRAIN_WARMUP} + {TRAIN_BATCHES} steps")
     realdata_launches = phase_realdata(torch, dev, smi, sock_rate, lm_rate)
+    slice7_launches = phase_slice7(torch, dev, smi, sock_rate)
 
     sources = {
         "paged_decode_attention": (
@@ -2356,7 +2675,8 @@ def main(argv: list[str] | None = None) -> int:
                       "library_ms": r["library_ms"],
                       "design": designs[name],
                       "dp_launches": dp_launches[name],
-                      "realdata_launches": realdata_launches[name]})
+                      "realdata_launches": realdata_launches[name],
+                      "slice7_launches": slice7_launches[name]})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

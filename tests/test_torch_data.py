@@ -10,6 +10,11 @@
   both decode with the same libjpeg, so the tolerance is 0.  The PIL
   route and its count.  The committed fixture's expected crops are
   regenerated with the JAX pipeline and must equal the file.
+- **the pil decoder** (PIL's libjpeg-turbo, DCT-scaled by
+  ``Image.draft``, then ``crop_resize.cpp``), forced by name: the
+  fixture's expected crops bit for bit, libjpeg's crops bit for bit at
+  DCT scales 1, 2, 4 and 8, the PNG and CMYK streams to the PIL route,
+  and ``jpeg_decoder()``'s order: libjpeg, then pil, then nvJPEG.
 - **tokens**: ``TokenDataset`` windows equal to JAX's, causal and MLM,
   one worker and two.
 - **feed**: ``DeviceFeeder`` on the CPU hands out the model's layouts.
@@ -323,6 +328,139 @@ def test_committed_fixture_crops_are_the_jax_pipeline_s():
     for k, (im, lb) in enumerate(mine):
         np.testing.assert_array_equal(im, want["train_images"][k])
         np.testing.assert_array_equal(lb, want["train_labels"][k])
+
+
+def _fixture_crops(decoder: str) -> dict[str, np.ndarray]:
+    """The port's pipeline on the fixture with ``decoder``, laid out as
+    ``expected_crops.npz``."""
+    def take(split, train, n):
+        got = _batches(imagenet.ImageNetDataset(
+            FIXTURE, FIXTURE_BATCH, image_size=FIXTURE_SIZE, split=split,
+            train=train, seed=0, wire_dtype="uint8", decoder=decoder), n)
+        return np.stack([g[0] for g in got]), np.stack([g[1] for g in got])
+
+    ti, tl = take("train", True, 2)
+    ei, el = take("validation", False, 1)
+    return {"train_images": ti, "train_labels": tl,
+            "eval_images": ei[0], "eval_labels": el[0]}
+
+
+def test_pil_decoder_reproduces_the_fixture_crops():
+    assert native.jpeg_decoder("pil").name == "pil"
+    with np.load(FIXTURE / "expected_crops.npz") as f:
+        want = dict(f)
+    got = _fixture_crops("pil")
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _photo(w: int, h: int, seed: int) -> bytes:
+    """A smooth 4:2:0 JPEG with some texture (a photo's spectrum more
+    than noise's)."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    img = np.stack([128 + 100 * np.sin(x / (17 + 5 * c) + y / 23 + c)
+                    for c in range(3)], -1)
+    img += rng.normal(0, 12, img.shape)
+    buf = io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+        buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("denom", [1, 2, 4, 8])
+def test_pil_decoder_equals_libjpeg_at_every_dct_scale(denom):
+    """Crops that make ``decode_rgb``'s rule pick 1/``denom``: the pil
+    decoder's pixels are libjpeg's, bit for bit, flipped or not."""
+    out = 24
+    cw = ch = out * denom + 5
+    assert native._scale_denom(cw, ch, out) == denom
+    pil, lj = native.jpeg_decoder("pil"), native.jpeg_decoder("libjpeg")
+    for seed, (w, h) in enumerate(((333, 250), (250, 333), (401, 401))):
+        data = _photo(w, h, seed)
+        assert pil.dims(data) == lj.dims(data) == (w, h)
+        for crop in ((0, 0, cw, ch), (w - cw, h - ch, cw, ch),
+                     (7, 3, cw, ch)):
+            for flip in (False, True):
+                np.testing.assert_array_equal(
+                    pil.decode_crop_resize(data, crop, out, flip),
+                    lj.decode_crop_resize(data, crop, out, flip))
+
+
+@pytest.mark.parametrize("mode", ["RGB", "L"])
+def test_pil_decoder_opens_each_stream_once(monkeypatch, mode):
+    """``decode_sampled``, the dataset's call: one ``Image.open`` a
+    stream, ``sample`` called once with the header's size, and the
+    pixels libjpeg's (a gray JPEG expanded to RGB alike)."""
+    from PIL import Image
+
+    pil, lj = native.jpeg_decoder("pil"), native.jpeg_decoder("libjpeg")
+    data = _photo(333, 250, 3)
+    if mode == "L":
+        buf = io.BytesIO()
+        Image.open(io.BytesIO(data)).convert("L").save(buf, format="JPEG")
+        data = buf.getvalue()
+    opens, sizes = [], []
+    real_open = pil._image.open
+    monkeypatch.setattr(pil._image, "open",
+                        lambda *a: opens.append(1) or real_open(*a))
+
+    def sample(w, h):
+        sizes.append((w, h))
+        return (9, 4, 110, 120), True
+
+    got = pil.decode_sampled(data, sample, 24)
+    assert opens == [1] and sizes == [(333, 250)]
+    np.testing.assert_array_equal(
+        got, lj.decode_crop_resize(data, (9, 4, 110, 120), 24, True))
+
+
+def test_pil_decoder_sends_png_and_cmyk_to_the_pil_route(tmp_path):
+    from PIL import Image
+
+    pil = native.jpeg_decoder("pil")
+    arr = np.random.default_rng(1).integers(0, 256, (40, 40, 3), np.uint8)
+    for fmt, mode in (("PNG", "RGB"), ("JPEG", "CMYK")):
+        buf = io.BytesIO()
+        Image.fromarray(arr).convert(mode).save(buf, format=fmt)
+        with pytest.raises(ValueError):
+            pil.dims(buf.getvalue())
+        with pytest.raises(ValueError):
+            pil.decode_crop_resize(buf.getvalue(), (0, 0, 40, 40), 16)
+    png = io.BytesIO()
+    Image.fromarray(arr).save(png, format="PNG")
+    tfrecord.write_records(tmp_path / "train-00000-of-00001", [
+        tfrecord.build_example({"image/encoded": [png.getvalue()],
+                                "image/class/label": [3]})] * 2)
+    kw = dict(image_size=16, train=True, seed=0, wire_dtype="uint8",
+              decode_workers=1)
+    ds = imagenet.ImageNetDataset(tmp_path, 2, decoder="pil", **kw)
+    gen = ds._batches()
+    got = next(gen)
+    gen.close()
+    assert ds.stats()["pil_fallbacks"] == 2 and ds.decoder == "pil"
+    _assert_equal_batches([got], _batches(
+        jax_imagenet.ImageNetDataset(tmp_path, 2, **kw), 1))
+
+
+def test_jpeg_decoder_order_is_libjpeg_pil_nvjpeg(monkeypatch):
+    assert native.DECODERS == ("libjpeg", "pil", "nvjpeg")
+    built = []
+    real = native.build
+
+    def no_libjpeg(name, build_dir=native.BUILD_DIR):
+        built.append(name)
+        if name == "libjpeg":
+            raise RuntimeError("no jpeglib.h")
+        return real(name, build_dir)
+
+    monkeypatch.setattr(native, "build", no_libjpeg)
+    assert native._decoder.__wrapped__().name == "pil"
+    assert built == ["libjpeg", "crop_resize"]
+    with pytest.raises(ValueError, match="one of"):
+        native.jpeg_decoder("turbo")
 
 
 # --- tokens -----------------------------------------------------------------

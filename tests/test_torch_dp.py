@@ -28,11 +28,15 @@ CPU (gloo; no card here).
   (``test_accumulation_miss_at_lr_005_is_a_relu_kink``).
   Arms: ``psum`` with overlap on and off (several buckets: a 4096-byte
   threshold on both sides), ``replicated``, accumulation 2 and the host
-  arm.  ``replicated`` is the port's one all-reduce a tensor with
-  per-worker BatchNorm, held against JAX's psum arm at threshold 0 (one
-  psum a leaf, per-worker BatchNorm): JAX's own ``replicated`` arm is
-  GSPMD over the global batch, whose BatchNorm normalizes over all
-  workers, which no per-tensor all-reduce reproduces.  Checks: the loss
+  arm.  ``replicated`` (one all-reduce a tensor, and sync-BN: every
+  BatchNorm all-reduces its per-channel sum, sum of squares and count)
+  is held against JAX's own ``replicated`` arm, ``_build_gspmd_step``,
+  GSPMD over the global batch, with ``--fused_conv`` false and true
+  (the fused block's three BatchNorm routes).  On batches whose ranks
+  differ clearly in their statistics (each rank's images scaled and
+  shifted by its rank: the ``_skewed`` arms) ``replicated`` still
+  matches GSPMD, ``psum`` still matches JAX's per-worker psum arm, and
+  the two part by far more than the tolerance.  Checks: the loss
   of each step within 1e-4 relative, every parameter and BN running
   statistic within 1e-4 of its scale (``test_torch_train.py``'s
   ``LOSS_RTOL`` and ``PARAM_TOL``), and every rank's state bit-equal to
@@ -94,7 +98,16 @@ ARMS = {
         "ib"),
     "replicated": (
         dict(variable_update="replicated"),
-        dict(fusion_threshold_bytes=0), "ib"),
+        dict(variable_update="replicated"), "ib"),
+    "replicated_fused": (
+        dict(variable_update="replicated"),
+        dict(variable_update="replicated"), "ib"),
+    "replicated_skewed": (
+        dict(variable_update="replicated"),
+        dict(variable_update="replicated"), "ib"),
+    "psum_skewed": (
+        dict(fusion_threshold_bytes=THRESHOLD),
+        dict(fusion_threshold_bytes=THRESHOLD), "ib"),
     "accum2": (
         dict(gradient_accumulation_steps=2,
              fusion_threshold_bytes=THRESHOLD),
@@ -102,11 +115,18 @@ ARMS = {
              fusion_threshold_bytes=THRESHOLD), "ib"),
     "host": ({}, {}, "sock"),
 }
+# the arms on the fused block (--fused_conv=true), and on batches whose
+# ranks differ in their statistics
+FUSED_ARMS = ("replicated_fused",)
+SKEWED_ARMS = ("replicated_skewed", "psum_skewed")
+# where replicated and psum part on the skewed batches, in PARAM_TOL
+SKEW_APART = 100.0
 REPO = Path(__file__).resolve().parent.parent
 
 
-def _narrow_port() -> resnet.ResNet:
-    return resnet.ResNet([1, 1, 1, 1], resnet.BottleneckBlock, **NARROW)
+def _narrow_port(fused: bool = False) -> resnet.ResNet:
+    return resnet.ResNet([1, 1, 1, 1], resnet.BottleneckBlock,
+                         fused_conv=fused, **NARROW)
 
 
 def _port_cfg(lr: float = LR, per_rank: int = PER_RANK,
@@ -116,14 +136,21 @@ def _port_cfg(lr: float = LR, per_rank: int = PER_RANK,
         momentum=0.9, device="cpu", **kw).resolve()
 
 
-def _images(image=IMAGE):
+def _images(image=IMAGE, skew: bool = False):
     """The one global batch of the step tests: ``WORLD * PER_RANK``
-    images."""
-    return SyntheticImages(WORLD * PER_RANK, image, 10, seed=3).batch()
+    images; with ``skew`` rank r's rows scaled by ``1 + r`` and shifted
+    by ``r``, so each rank's batch statistics differ clearly."""
+    images, labels = SyntheticImages(WORLD * PER_RANK, image, 10,
+                                     seed=3).batch()
+    if skew:
+        r = np.repeat(np.arange(WORLD, dtype=np.float32), PER_RANK)
+        images = images * (1 + r)[:, None, None, None] + \
+            r[:, None, None, None]
+    return images, labels
 
 
-def _batch(rank: int, per_rank: int = PER_RANK):
-    return to_device(rank_rows(_images(), rank, per_rank),
+def _batch(rank: int, per_rank: int = PER_RANK, skew: bool = False):
+    return to_device(rank_rows(_images(skew=skew), rank, per_rank),
                      torch.device("cpu"))
 
 
@@ -188,14 +215,14 @@ def _init_state() -> dict:
             for k, t in _narrow_port().state_dict().items()}
 
 
-def _two_steps(fabric, cfg, init, rank=0):
-    model = _narrow_port()
+def _two_steps(fabric, cfg, init, rank=0, fused=False, skew=False):
+    model = _narrow_port(fused)
     model.load_state_dict(init)
     state = step_mod.make_train_state(model, cfg, fabric)
     losses = []
     for _ in range(STEPS):
         state, metrics = step_mod.train_step(
-            state, _batch(rank, cfg.batch_size))
+            state, _batch(rank, cfg.batch_size, skew))
         losses.append(float(metrics["loss"]))
     return state, losses
 
@@ -218,6 +245,33 @@ def test_world1_fast_arm_is_bit_equal_to_one_worker(one_rank_group):
         n_stats = len(collectives.plan_buckets(
             list(state.model.buffers()), THRESHOLD))
         assert state.dp.allreduce_calls == n_buckets + n_stats + 1
+
+
+def test_world1_replicated_is_bit_equal_to_psum(one_rank_group):
+    """Sync-BN over one rank is the identity: ``replicated`` (every
+    BatchNorm's sums through an all-reduce, forward and backward) gives
+    ``psum``'s parameters, statistics and losses bit for bit, fused and
+    not; its all-reduce calls a step are one a parameter, the loss, and
+    two a BatchNorm."""
+    init = _init_state()
+    for fused in (False, True):
+        runs = {}
+        for update in ("psum", "replicated"):
+            model = _narrow_port(fused)
+            model.load_state_dict(init)
+            state = step_mod.make_train_state(
+                model, _port_cfg(variable_update=update), Fabric.ICI)
+            losses = [float(step_mod.train_step(state, _batch(0))[1]["loss"])
+                      for _ in range(STEPS)]
+            runs[update] = (model.state_dict(), losses,
+                            state.dp.allreduce_calls)
+            state.dp.grads.close()
+        (want, want_losses, _), (got, losses, calls) = runs.values()
+        assert losses == want_losses, fused
+        for k in want:
+            assert torch.equal(got[k], want[k]), (fused, k)
+        bns = sum(isinstance(m, resnet.BatchNorm) for m in model.modules())
+        assert calls == len(list(model.parameters())) + 1 + 2 * bns
 
 
 def test_hooks_launch_buckets_during_backward_only_with_overlap(
@@ -278,7 +332,8 @@ def _worker(out_dir: str, arms: str) -> None:
     worker = distributed.worker_from_env()
     distributed.init_group("gloo", worker)
     try:
-        init = torch.load(Path(out_dir) / "init.pt")
+        inits = {fused: torch.load(Path(out_dir) / f"init{tag}.pt")
+                 for fused, tag in ((False, ""), (True, "_fused"))}
         if arms == "main":
             todo = {arm: (resolve_fabric(fabric), _port_cfg(**port_kw))
                     for arm, (port_kw, _, fabric) in ARMS.items()}
@@ -289,7 +344,10 @@ def _worker(out_dir: str, arms: str) -> None:
                                                  **WITNESS_ARMS[arms]))}
         out = {}
         for arm, (fabric, cfg) in todo.items():
-            state, losses = _two_steps(fabric, cfg, init, worker.rank)
+            fused = arm in FUSED_ARMS
+            state, losses = _two_steps(fabric, cfg, inits[fused],
+                                       worker.rank, fused,
+                                       arm in SKEWED_ARMS)
             out[arm] = {"losses": losses,
                         "state": state.model.state_dict(),
                         "allreduce_calls": state.dp.allreduce_calls}
@@ -313,11 +371,12 @@ def _spawn_port(out_dir: Path, arms: str, world: int) -> list[dict]:
 
 def _jax_steps(model, variables, devices: int, per_rank: int, lr: float,
                jax_kw: dict, fabric: str,
-               image=IMAGE) -> tuple[list, list]:
+               image=IMAGE, skew: bool = False) -> tuple[list, list]:
     """JAX ``build_train_step`` on a ``devices``-device mesh from
-    ``variables``, ``STEPS`` steps on ``_images(image)``: the losses and
-    the state after each step, as ``(params, batch_stats)`` numpy
-    trees."""
+    ``variables`` (``--variable_update=replicated``: its GSPMD arm,
+    ``_build_gspmd_step``), ``STEPS`` steps on ``_images(image, skew)``:
+    the losses and the state after each step, as ``(params,
+    batch_stats)`` numpy trees."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
@@ -330,7 +389,7 @@ def _jax_steps(model, variables, devices: int, per_rank: int, lr: float,
     from tpu_hc_bench.train import step as jax_step
 
     mesh = Mesh(np.array(jax.devices()[:devices]), (DATA_AXIS,))
-    batch = jax_step.shard_batch(_images(image), mesh)
+    batch = jax_step.shard_batch(_images(image, skew), mesh)
     cfg = jax_flags.BenchmarkConfig(
         model="resnet50", batch_size=per_rank, optimizer="momentum",
         init_learning_rate=lr, momentum=0.9, num_classes=10, **jax_kw)
@@ -369,19 +428,27 @@ def narrow_flax():
 @pytest.fixture(scope="module")
 def dp_runs(tmp_path_factory, narrow_flax):
     """The port's four ranks (spawned) and JAX's 4-device steps, every
-    arm, from the same perturbed weights; the ranks also run the
-    witness's accumulation arm."""
+    arm, from the same perturbed weights (the fused arms from the fused
+    Flax ResNet's); the ranks also run the witness's accumulation
+    arm."""
+    from test_torch_train import _narrow
+
     from tpu_hc_bench_torch import convert
 
-    model, variables = narrow_flax
+    nets = {False: narrow_flax, True: _narrow(True)}
     out_dir = tmp_path_factory.mktemp("dp")
-    torch.save(convert.resnet_variables_from_flax(
-        variables["params"], variables["batch_stats"]), out_dir / "init.pt")
+    for fused, tag in ((False, ""), (True, "_fused")):
+        variables = nets[fused][1]
+        torch.save(convert.resnet_variables_from_flax(
+            variables["params"], variables["batch_stats"]),
+            out_dir / f"init{tag}.pt")
     port = _spawn_port(out_dir, "main", WORLD)
     ref = {}
     for arm, (_, jax_kw, fabric) in ARMS.items():
+        model, variables = nets[arm in FUSED_ARMS]
         losses, states = _jax_steps(model, variables, WORLD, PER_RANK, LR,
-                                    jax_kw, fabric)
+                                    jax_kw, fabric,
+                                    skew=arm in SKEWED_ARMS)
         ref[arm] = {"losses": losses, "state": _port_layout(states[-1])}
     return port, ref, out_dir
 
@@ -426,15 +493,39 @@ def test_four_ranks_hold_one_state(dp_runs, arm):
         assert port[r][arm]["losses"] == r0["losses"], (arm, r)
         for name, t in port[r][arm]["state"].items():
             assert torch.equal(t, r0["state"][name]), (arm, r, name)
-    model = _narrow_port()
+    model = _narrow_port(arm in FUSED_ARMS)
     params, stats = list(model.parameters()), list(model.buffers())
-    fuse = arm != "replicated"
+    fuse = not arm.startswith("replicated")
     threshold = ARMS[arm][0].get("fusion_threshold_bytes",
                                  flags.DEFAULT_FUSION_THRESHOLD_BYTES)
+    # replicated: no running-statistics all-reduce, and sync-BN's two
+    # (forward and backward) a BatchNorm
+    bns = sum(isinstance(m, resnet.BatchNorm) for m in model.modules())
     expected = 1 if arm == "host" else (
-        len(collectives.plan_buckets(params, threshold, fuse))
-        + len(collectives.plan_buckets(stats, threshold, fuse)) + 1)
+        len(collectives.plan_buckets(params, threshold, fuse)) + 1
+        + (2 * bns if not fuse else
+           len(collectives.plan_buckets(stats, threshold, fuse))))
     assert r0["allreduce_calls"] == expected
+
+
+def test_replicated_normalizes_over_the_global_batch(dp_runs):
+    """On ranks whose batches differ clearly in their statistics,
+    ``replicated`` (sync-BN, as JAX's GSPMD arm) and ``psum`` (each
+    worker's own statistics, as Horovod) train different models: their
+    parameters part by more than ``SKEW_APART`` x ``PARAM_TOL``, while
+    each matches its JAX arm within ``PARAM_TOL``
+    (``test_four_ranks_match_jax_step``)."""
+    from test_torch_train import PARAM_TOL
+
+    port, ref, _ = dp_runs
+    rep = port[0]["replicated_skewed"]["state"]
+    per_worker = port[0]["psum_skewed"]["state"]
+    apart = _worst(rep, per_worker) / PARAM_TOL
+    jax_apart = _worst(ref["replicated_skewed"]["state"],
+                       ref["psum_skewed"]["state"]) / PARAM_TOL
+    print(f"replicated vs psum on skewed ranks, in PARAM_TOL: port "
+          f"{apart:.4g}, JAX {jax_apart:.4g}")
+    assert apart > SKEW_APART and jax_apart > SKEW_APART
 
 
 # --- the witness at learning rate 0.05 --------------------------------------

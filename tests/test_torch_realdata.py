@@ -385,12 +385,12 @@ def test_jax_s_refusals_are_raised(i):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--input_service=on"], "not ported"),
+    (["--resume=elastic", "--train_dir=/x"], "not ported"),
     (["--wire_dtype=bf16"], "float32|uint8"),
     (["--data_format=NCWH"], "NCHW|NHWC"),
     (["--horovod_device=tpu"], "cpu|gpu"),
     (["--datasets_repeat_cached_sample=true", "--eval=true"], "epoch"),
-    (["--train_dir=/x"], "not ported"),
+    (["--compile_cache=/x"], "not ported"),
     (["--optimizer=lbfgs"], "rmsprop"),
 ])
 def test_port_refusals(argv, match):

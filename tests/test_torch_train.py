@@ -432,10 +432,11 @@ def test_benchmark_flags_defaults_and_rejections():
                                        "TRUE", "--device=cpu"])
     assert cfg.use_fp16 and cfg.fused_conv and cfg.compute_dtype == \
         "bfloat16"
-    for bad, match in ((["--train_dir=/x"], "not ported"),
+    for bad, match in ((["--compile_cache=/x"], "not ported"),
                        (["--gradient_accumulation_steps=3"], "divisible"),
                        (["--variable_update=zero1"], "not ported"),
-                       (["--input_service=on"], "not ported"),
+                       (["--resume=elastic", "--train_dir=/x"],
+                        "not ported"),
                        (["--optimizer=lbfgs"], "momentum|sgd"),
                        (["--device=tpu"], "cuda|cpu")):
         with pytest.raises(ValueError, match=match):

@@ -22,12 +22,18 @@ What differs from the JAX package, where it cannot be the same:
   CRC-verified); there is no fallback to the pure-Python reader, and
   ``reader`` says so.
 - JPEGs are decoded by ``native.jpeg_decoder()``: libjpeg, the JAX
-  package's decoder (the same pixels), or where libjpeg's headers are
-  missing nvJPEG on the GPU (its crops differ by decoder rounding and
-  resize from full resolution: see ``native/nvjpeg_decoder.cpp``).
-  ``decoder`` names it.  As in JAX, a stream the native decoder rejects
-  (ImageNet has a few CMYK JPEGs and one PNG) goes to PIL; ``stats()``
-  counts those as ``pil_fallbacks``.
+  package's decoder (the same pixels); where libjpeg's headers are
+  missing ``pil``, PIL's libjpeg-turbo scaled as libjpeg is, then the
+  same crop and resize (the same pixels where the two libraries decode
+  alike); else nvJPEG on the GPU (its crops differ by decoder rounding
+  and resize from full resolution: see ``native/nvjpeg_decoder.cpp``).
+  ``decoder`` names it; the ``decoder`` argument takes one by name.  As
+  in JAX, a stream the decoder rejects (ImageNet has a few CMYK JPEGs
+  and one PNG) goes to PIL's whole-image route; ``stats()`` counts those
+  as ``pil_fallbacks``.
+- ``decode_pool``: a pool owned elsewhere (the host input service's
+  shared pool, ``data.service``) that ``_batches`` submits to instead of
+  a private one, as in JAX.
 - ``make_synthetic_shards`` takes a ``split``, so it can write the
   validation shards of a fixture too.
 """
@@ -95,20 +101,20 @@ def _decode_and_crop(
     """Decode -> (random-resized | central) crop -> [size, size, 3].
 
     The native ``decoder`` does decode+crop+resize in one C call; the
-    crop box and flip are drawn HERE so the augmentation stream is
+    crop box and flip are drawn HERE (``sample``, given the header's
+    size) so the augmentation stream is
     identical to the PIL fallback (same rng draws in the same order).
     ``on_fallback()`` is called when the stream goes to PIL.
     """
-    try:
-        w, h = decoder.dims(jpeg_bytes)
+    def sample(w, h):
         if train:
-            crop, flip = _sample_train_crop(w, h, rng)
-        else:
-            # central 87.5% square crop (the eval standard), resized
-            cs = int(round(0.875 * min(w, h)))
-            crop = ((w - cs) // 2, (h - cs) // 2, cs, cs)
-            flip = False
-        arr = decoder.decode_crop_resize(jpeg_bytes, crop, image_size, flip)
+            return _sample_train_crop(w, h, rng)
+        # central 87.5% square crop (the eval standard), resized
+        cs = int(round(0.875 * min(w, h)))
+        return ((w - cs) // 2, (h - cs) // 2, cs, cs), False
+
+    try:
+        arr = decoder.decode_sampled(jpeg_bytes, sample, image_size)
     except ValueError:
         # not a baseline RGB JPEG (ImageNet has a few CMYK files and one
         # mislabeled PNG) -- PIL handles those
@@ -193,6 +199,8 @@ class ImageNetDataset:
         decode_workers: int | None = None,
         local_workers: int | None = None,
         decode_rows: tuple[int, int] | None = None,
+        decode_pool: ThreadPoolExecutor | None = None,
+        decoder: str | None = None,
     ):
         if wire_dtype not in ("float32", "uint8"):
             raise ValueError(f"wire_dtype must be float32|uint8: {wire_dtype}")
@@ -217,6 +225,9 @@ class ImageNetDataset:
             share = max(1, int(local_workers or 1))
             decode_workers = max(1, host_decode_budget() // share)
         self.decode_workers = decode_workers
+        # an externally owned pool (the host input service's shared
+        # pool): _batches submits there and never shuts it down
+        self._decode_pool = decode_pool
         # decode only batch rows [lo, hi): at world > 1 each worker
         # builds the global batch of its own shards and keeps one slice;
         # sliced mode decodes just that slice (records are still read/parsed
@@ -239,7 +250,7 @@ class ImageNetDataset:
         # the native scanner and decoder, built (or refused) here, in the
         # caller's thread, before any producer thread starts
         self._scanner = native.tfrecord_scanner()
-        self._decoder = native.jpeg_decoder()
+        self._decoder = native.jpeg_decoder(decoder)
         self.reader = self._scanner.name
         self.decoder = self._decoder.name
         self._pil_fallbacks = 0
@@ -285,8 +296,14 @@ class ImageNetDataset:
                                          on_fallback=self._count_pil)
             labels[i] = label
 
-        pool = (ThreadPoolExecutor(self.decode_workers)
-                if self.decode_workers > 1 else None)
+        own_pool = None
+        if self._decode_pool is not None:
+            pool = self._decode_pool
+        else:
+            own_pool = pool = (ThreadPoolExecutor(self.decode_workers)
+                               if self.decode_workers > 1 else None)
+        # one task per pool thread (a shared pool: its width)
+        width = max(1, getattr(pool, "_max_workers", self.decode_workers))
         stream_idx = 0
         try:
             while True:
@@ -315,7 +332,7 @@ class ImageNetDataset:
                     # invisible to the output: each image's augmentation
                     # RNG is keyed by its stream index, not by task
                     # placement.
-                    step_ = -(-len(items) // self.decode_workers)
+                    step_ = -(-len(items) // width)
                     chunks = [items[i:i + step_]
                               for i in range(0, len(items), step_)]
 
@@ -332,8 +349,8 @@ class ImageNetDataset:
                 self._decode_wall_s += time.perf_counter() - t0
                 yield images, labels
         finally:
-            if pool is not None:
-                pool.shutdown(wait=False, cancel_futures=True)
+            if own_pool is not None:
+                own_pool.shutdown(wait=False, cancel_futures=True)
 
     def stats(self) -> dict:
         """Decode-pool counters for the run's result (its ``data``).

@@ -17,6 +17,13 @@ lane's pre-tokenized corpus, copies of the JAX package's
   members take next-token targets from a ``seq_len + 1`` window, MLM
   members BERT's 15 % masking from the same rng: the batch contract of
   ``SyntheticTokens``, ``(tokens, targets, weights)``.
+- ``split_documents``, ``pack_sequences``, ``PackedTokenDataset``: the
+  packed-sequence batches of the input service (``data.service
+  .make_packed_token_service``): documents split on an end-of-document
+  id, packed greedily first-fit into one fixed ``(batch, seq_len)``
+  bucket, long ones chunked, with segment ids; the weights drop padding
+  and the targets that would cross a document.  As in JAX they exist at
+  the API level; no driver path serves them yet.
 """
 
 from __future__ import annotations
@@ -134,6 +141,122 @@ class TokenDataset:
         mask = rng.random(win.shape) < self.mask_rate
         tokens = np.where(mask, 0, targets).astype(np.int32)
         return tokens, targets, mask.astype(np.float32)
+
+    def __iter__(self) -> Iterator[tuple[np.ndarray, ...]]:
+        step = 0
+        while True:
+            yield self.batch(step)
+            step += 1
+
+
+# --- packed sequences (the input service's packed-token batches) ---------
+
+
+def split_documents(tokens: np.ndarray, eod_id: int) -> list[np.ndarray]:
+    """A flat token stream split into documents on ``eod_id``; each keeps
+    its trailing end-of-document token, a trailing partial document is
+    kept, and empty documents (consecutive eods) are dropped."""
+    tokens = np.asarray(tokens)
+    ends = np.flatnonzero(tokens == eod_id)
+    docs: list[np.ndarray] = []
+    start = 0
+    for e in ends:
+        if e > start:
+            docs.append(tokens[start:e + 1])
+        start = e + 1
+    if start < len(tokens):
+        docs.append(tokens[start:])
+    return docs
+
+
+def pack_sequences(docs: list[np.ndarray], seq_len: int,
+                   pad_id: int = 0) -> dict[str, np.ndarray]:
+    """Documents packed into rows of ``seq_len`` (greedy first-fit in
+    arrival order; longer documents chunked): ``tokens``, ``segment_ids``
+    (1-based document index in the row, 0 = padding) and ``positions``
+    (offset in the segment), each ``[N, seq_len]`` int32."""
+    if seq_len < 1:
+        raise ValueError(f"seq_len must be >= 1: {seq_len}")
+    rows: list[list[np.ndarray]] = []
+    space: list[int] = []           # free slots per row
+    for doc in docs:
+        doc = np.asarray(doc)
+        for i in range(0, len(doc), seq_len):
+            chunk = doc[i:i + seq_len]
+            for r, free in enumerate(space):
+                if len(chunk) <= free:
+                    rows[r].append(chunk)
+                    space[r] -= len(chunk)
+                    break
+            else:
+                rows.append([chunk])
+                space.append(seq_len - len(chunk))
+    n = len(rows)
+    tokens = np.full((n, seq_len), pad_id, np.int32)
+    segment_ids = np.zeros((n, seq_len), np.int32)
+    positions = np.zeros((n, seq_len), np.int32)
+    for r, segs in enumerate(rows):
+        off = 0
+        for s, seg in enumerate(segs, start=1):
+            tokens[r, off:off + len(seg)] = seg
+            segment_ids[r, off:off + len(seg)] = s
+            positions[r, off:off + len(seg)] = np.arange(len(seg))
+            off += len(seg)
+    return {"tokens": tokens, "segment_ids": segment_ids,
+            "positions": positions}
+
+
+@dataclasses.dataclass
+class PackedTokenDataset:
+    """Endless fixed-shape packed causal batches ``(tokens, targets,
+    weights, segment_ids)``, each ``[global_batch, seq_len]``, from a
+    memory-mapped corpus whose documents end in ``eod_id``; a window of
+    the worker's stripe drawn from a counter rng keyed ``(seed, worker,
+    step)``, as ``TokenDataset``'s."""
+
+    data_dir: str | Path
+    global_batch: int
+    seq_len: int
+    eod_id: int = 0
+    split: str = "train"
+    worker: int = 0
+    num_workers: int = 1
+    seed: int = 0
+
+    def __post_init__(self):
+        path, dtype = _resolve(self.data_dir, self.split)
+        data = np.memmap(path, dtype=dtype, mode="r")
+        shard = len(data) // self.num_workers
+        lo = self.worker * shard
+        self._data = data[lo:lo + shard]
+        # enough of the stream to fill the bucket after packing losses
+        # (first-fit wastes less than one document a row)
+        self._draw = min(len(self._data),
+                         2 * self.global_batch * (self.seq_len + 1))
+        if len(self._data) < self.seq_len + 1:
+            raise ValueError(
+                f"{path}: worker shard has {len(self._data)} tokens < "
+                f"window {self.seq_len + 1}")
+
+    def batch(self, step: int = 0) -> tuple[np.ndarray, ...]:
+        rng = np.random.default_rng((self.seed, self.worker, step))
+        start = int(rng.integers(0, len(self._data) - self._draw + 1))
+        window = np.asarray(self._data[start:start + self._draw])
+        packed = pack_sequences(split_documents(window, self.eod_id),
+                                self.seq_len + 1)
+        b, lw = self.global_batch, self.seq_len + 1
+        toks = np.zeros((b, lw), np.int32)
+        segs = np.zeros((b, lw), np.int32)
+        n = min(b, len(packed["tokens"]))
+        toks[:n] = packed["tokens"][:n]
+        segs[:n] = packed["segment_ids"][:n]
+        tokens, targets = toks[:, :-1], toks[:, 1:]
+        seg_t, seg_n = segs[:, :-1], segs[:, 1:]
+        # a target counts where it continues the same document
+        weights = ((seg_t != 0) & (seg_t == seg_n)).astype(np.float32)
+        return (np.ascontiguousarray(tokens),
+                np.ascontiguousarray(targets), weights,
+                np.ascontiguousarray(seg_t))
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, ...]]:
         step = 0

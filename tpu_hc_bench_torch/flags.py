@@ -187,11 +187,9 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 
 # training knobs of the JAX lane that this port does not carry yet
 LATER_SLICE_TRAIN_FLAGS = (
-    "train_dir", "save_model_steps",
-    "async_checkpoint", "compile_cache",
-    "service_decode_workers", "config",
-    "on_nonfinite", "max_bad_steps", "resume", "step_timeout_s",
-    "keep_checkpoints", "inject_fault", "moe_capacity_factor",
+    "compile_cache", "config",
+    "on_nonfinite", "max_bad_steps", "step_timeout_s",
+    "inject_fault", "moe_capacity_factor",
     "trace_dir", "profile_steps", "metrics_dir",
     "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
     "accum_dtype", "model_parallel",
@@ -222,7 +220,9 @@ SEQ_SHARDED_IMPLS = ("ring", "ulysses", "ulysses_flash")
 OPTIMIZERS = ("momentum", "sgd", "adam", "adamw", "rmsprop")
 
 # fields whose default is None: the type their flag parses to
-_OPTIONAL_TYPES = {"seq_len": int, "num_batches": int, "data_dir": str}
+_OPTIONAL_TYPES = {"seq_len": int, "num_batches": int, "data_dir": str,
+                   "train_dir": str}
+RESUME_POLICIES = ("auto", "never", "must", "elastic")
 
 
 def _parse_bool(v: str | bool) -> bool:
@@ -300,8 +300,25 @@ class BenchmarkConfig:
     full_batch_identity: bool = False         # world > 1: decode the whole
                                               # global batch, keep my rows
                                               # (the sliced arm's control)
-    input_service: str = "auto"               # off | auto (the per-process
-                                              # pipelines); on: not ported
+    input_service: str = "auto"               # on | off | auto (on when
+                                              # several workers share one
+                                              # host): one decode pool a
+                                              # host, shared-memory rings
+    service_decode_workers: int = 0           # the host pool's width
+                                              # (0 auto: the host budget)
+
+    # --- checkpoints (tf_cnn_benchmarks --train_dir) ---
+    train_dir: str | None = None              # save here; --eval and a
+                                              # resumed run restore from it
+    save_model_steps: int = 0                 # save every N timed steps
+                                              # (0: the final state only)
+    async_checkpoint: bool = True             # world 1: the write on a
+                                              # thread, one in flight
+    resume: str = "auto"                      # auto (the latest complete
+                                              # checkpoint, if any) | never
+                                              # | must (raise if none);
+                                              # elastic: not ported
+    keep_checkpoints: int = 0                 # keep the newest N (0: all)
 
     # --- the reference's engine and thread knobs: parsed, translated ---
     mkl: bool = False
@@ -417,13 +434,31 @@ class BenchmarkConfig:
             raise ValueError(
                 f"--datasets_num_private_threads must be >= 0 (0 = auto): "
                 f"{self.datasets_num_private_threads}")
-        if self.input_service == "on":
-            raise ValueError("--input_service=on (the shared host decode "
-                             "service) is not ported yet (off|auto: the "
-                             "per-process pipelines)")
-        if self.input_service not in ("off", "auto"):
+        if self.input_service not in ("on", "off", "auto"):
             raise ValueError(f"--input_service must be on|off|auto: "
                              f"{self.input_service!r}")
+        if self.service_decode_workers < 0:
+            raise ValueError(
+                f"--service_decode_workers must be >= 0 (0 = auto): "
+                f"{self.service_decode_workers}")
+        if self.input_service == "on":
+            self._translate_input_service(t)
+        if self.resume not in RESUME_POLICIES:
+            raise ValueError(f"--resume must be auto|never|must|elastic: "
+                             f"{self.resume!r}")
+        if self.resume == "elastic":
+            raise ValueError(
+                "--resume=elastic is not ported yet: elastic resume and "
+                "zero1's optimizer-shard resplit come with the zero1 "
+                "slice (auto|never|must)")
+        if self.resume == "must" and not self.train_dir:
+            raise ValueError(f"--resume={self.resume} needs --train_dir")
+        if self.keep_checkpoints < 0:
+            raise ValueError(
+                f"--keep_checkpoints must be >= 0: {self.keep_checkpoints}")
+        if self.save_model_steps < 0:
+            raise ValueError(
+                f"--save_model_steps must be >= 0: {self.save_model_steps}")
         if self.datasets_repeat_cached_sample and (self.eval
                                                    or self.num_epochs):
             raise ValueError(
@@ -433,6 +468,36 @@ class BenchmarkConfig:
                 "(--eval)")
         self.translations = t
         return self
+
+    def _translate_input_service(self, t: dict) -> None:
+        """``--input_service=on`` where no host pipeline can be shared
+        turns to ``off``, loudly (JAX's translations); the world's shape
+        is the driver's to check."""
+        is_text = False
+        if self.data_dir is not None:
+            from tpu_hc_bench_torch.models import get_model_spec
+
+            try:
+                is_text = get_model_spec(self.model).is_text
+            except ValueError:
+                pass            # an unknown model: create_model raises
+        if self.data_dir is None:
+            why = "synthetic input has no host decode pipeline to share"
+        elif is_text:
+            why = ("text members read a memmapped corpus per-process; the "
+                   "packed-token service is not driver-wired yet — see "
+                   "data.service.make_packed_token_service")
+        elif self.datasets_repeat_cached_sample:
+            why = ("--datasets_repeat_cached_sample decodes a handful of "
+                   "batches once and shuts the pipeline down — nothing "
+                   "to serve")
+        elif self.eval:
+            why = ("--eval reads the validation split per-process; the "
+                   "service targets the sustained training input plane")
+        else:
+            return
+        t["input_service"] = f"on->off ({why})"
+        self.input_service = "off"
 
     def summary_lines(self) -> list[str]:
         lines = [
@@ -460,6 +525,12 @@ class BenchmarkConfig:
             f"fusion_threshold_bytes={self.fusion_threshold_bytes} "
             f"gradient_accumulation_steps="
             f"{self.gradient_accumulation_steps}",
+            f"input_service={self.input_service} "
+            f"service_decode_workers={self.service_decode_workers or 'auto'}"
+            f" train_dir={self.train_dir} resume={self.resume} "
+            f"save_model_steps={self.save_model_steps} "
+            f"async_checkpoint={self.async_checkpoint} "
+            f"keep_checkpoints={self.keep_checkpoints}",
         ]
         for k, v in self.translations.items():
             lines.append(f"translated: {k}: {v}")

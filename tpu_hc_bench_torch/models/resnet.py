@@ -29,6 +29,14 @@ What must match the JAX modules exactly, and how:
   variance).  Inside ``running_stats_frozen(model)`` (the forward-only
   step) both rules normalize with the batch's statistics and leave the
   running averages as they are.
+- **Sync-BN.** A batch's statistics are its per-channel ``(sum, sumsq,
+  count)``, then ``mean = sum / count`` (``mean`` on the CPU is that sum
+  and division, bit for bit).  With ``sync`` set on a BatchNorm (the
+  data-parallel ``replicated`` arm: JAX's GSPMD step normalizes over the
+  global batch) the three are summed over the ranks first, by
+  ``sync_sum``, an all-reduce whose backward all-reduces the gradient,
+  so every rank also carries the global statistics' gradient.  Over one
+  rank it is the identity, bit for bit.
 
 One module layout serves both routes: ``FusedBottleneckBlock`` has the
 children of ``BottleneckBlock`` under the same names, with the 3x3 conv a
@@ -43,6 +51,7 @@ import math
 from typing import Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -51,9 +60,64 @@ from tpu_hc_bench_torch.ops import fused_conv as fc
 __all__ = ["BatchNorm", "BottleneckBlock", "Conv", "FusedBNReluConv3x3",
            "FusedBottleneckBlock", "ResNet", "StatsBatchNorm", "max_pool",
            "resnet50", "resnet101", "resnet152", "running_stats_frozen",
-           "same_pads"]
+           "same_pads", "sync_sum"]
 
 _C = (1, -1, 1, 1)      # a [C] vector broadcast over NCHW
+_DIMS = (0, 2, 3)       # a channel's values in NCHW
+
+# all-reduce calls of ``sync_sum``, forward and backward; the train step
+# reads and clears it
+sync_calls = 0
+
+
+def _allreduce_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the default group's ranks, in a new tensor; a
+    card's tensor takes the host round trip where the group is gloo."""
+    global sync_calls
+    sync_calls += 1
+    if t.is_cuda and dist.get_backend() == "gloo":
+        host = t.cpu()
+        dist.all_reduce(host)
+        return host.to(t.device)
+    out = t.clone()
+    dist.all_reduce(out)
+    return out
+
+
+class _SyncSum(torch.autograd.Function):
+    """The sum over the ranks; its gradient is the sum of every rank's
+    gradient of that sum (each rank's loss depends on every rank's
+    input through it)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return _allreduce_sum(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _allreduce_sum(g)
+
+
+def sync_sum(t: torch.Tensor) -> torch.Tensor:
+    """``t`` summed over the ranks of the default process group, with
+    the backward of a global sum (one all-reduce each way)."""
+    return _SyncSum.apply(t)
+
+
+def batch_moments(bn: "BatchNorm", s1: torch.Tensor, s2: torch.Tensor,
+                  n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean, E[x^2])`` from a batch's per-channel float32 ``sum`` and
+    ``sumsq`` over ``n`` values, summed over the ranks first where
+    ``bn.sync`` is set.  Both routes divide by the count as a tensor, so
+    over one rank they agree bit for bit.  A float32 count is exact
+    while its odd part is below 2**24 (a count is batch x H x W, and its
+    sum over ranks a multiple of it)."""
+    c = s1.shape[0]
+    tot = torch.cat([s1, s2, s1.new_full((1,), float(n))])
+    if bn.sync:
+        tot = sync_sum(tot)
+    count = tot[2 * c]
+    return tot[:c] / count, tot[c:2 * c] / count
 
 
 def same_pads(size: int, k: int, s: int) -> tuple[int, int]:
@@ -114,6 +178,7 @@ class BatchNorm(nn.Module):
         self.dtype, self.zero_init = dtype, zero_init
         self.momentum, self.eps = momentum, eps
         self.frozen = False            # running_stats_frozen sets it
+        self.sync = False              # statistics over every rank
 
     def init_weights(self, gen: torch.Generator | None = None) -> None:
         del gen
@@ -136,9 +201,9 @@ class BatchNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean((0, 2, 3))
-            var = torch.clamp((xf * xf).mean((0, 2, 3)) - mean * mean,
-                              min=0.0)
+            mean, sq = batch_moments(self, xf.sum(_DIMS), (xf * xf).sum(_DIMS),
+                                     xf.numel() // xf.shape[1])
+            var = torch.clamp(sq - mean * mean, min=0.0)
             self.update_running(mean, var)
         else:
             mean, var = self.running_mean, self.running_var
@@ -167,19 +232,17 @@ def _bn_scale_shift(bn: BatchNorm, x: torch.Tensor, stats=None):
     """BatchNorm folded to per-channel ``(a, b)`` with ``bn``'s
     parameters: batch statistics from ``stats = (sum, sumsq)`` when given
     (the fused kernel's epilogue) or by reducing ``x`` (variance
-    unclamped), and the running averages updated in training mode."""
+    unclamped), over every rank under ``bn.sync``, and the running
+    averages updated in training mode."""
     if not bn.training:
         mean, var = bn.running_mean, bn.running_var
     else:
         if stats is None:
             xf = x.float()
-            mean = xf.mean((0, 2, 3))
-            var = (xf * xf).mean((0, 2, 3)) - mean * mean
-        else:
-            s1, s2 = stats
-            n = x.shape[0] * x.shape[2] * x.shape[3]
-            mean = s1 / n
-            var = s2 / n - mean * mean
+            stats = xf.sum(_DIMS), (xf * xf).sum(_DIMS)
+        mean, sq = batch_moments(bn, *stats,
+                                 x.shape[0] * x.shape[2] * x.shape[3])
+        var = sq - mean * mean
         bn.update_running(mean, var)
     a = bn.weight * torch.rsqrt(var + bn.eps)
     return a, bn.bias - mean * a

@@ -1,7 +1,8 @@
 """ctypes bindings of the port's native input code: the TFRecord scanner
 (``tfrecord_reader.cpp``) and the JPEG decoders (``jpeg_decoder.cpp`` on
-libjpeg, ``nvjpeg_decoder.cpp`` on nvJPEG), copies of the JAX package's
-``native/`` sources plus the nvJPEG decoder.
+libjpeg, ``crop_resize.cpp`` behind PIL's decode, ``nvjpeg_decoder.cpp``
+on nvJPEG), copies of the JAX package's ``native/`` sources plus the
+last two.
 
 Each library is built by ``g++`` at first use into ``build/torch_native/``
 at the root of the checkout (never at import, and never by ``nvcc``), under
@@ -10,10 +11,22 @@ rebuilt when the hash of its source and flags differs from the one
 stamped beside it.
 
 - ``tfrecord_scanner()``: the scanner, required; a failed build raises.
-- ``jpeg_decoder()``: the decoder that builds here, libjpeg first (the JAX
-  package's decoder: the same pixels), then nvJPEG from the CUDA toolkit
-  (``$CUDA_HOME``, else ``/usr/local/cuda``) where there is a GPU.  Its
-  ``name`` says which; neither building raises, naming both failures.
+- ``jpeg_decoder()``: the first decoder that builds here, in this order:
+
+  1. ``libjpeg``: the system libjpeg, the JAX package's decoder (the same
+     pixels); it needs ``jpeglib.h``;
+  2. ``pil``: PIL's own libjpeg-turbo, DCT-scaled as libjpeg is
+     (``Image.draft("RGB", (W // d, H // d))`` with ``d`` picked by
+     ``decode_rgb``'s rule), then ``crop_resize.cpp``: the same pixels as
+     libjpeg where the two libraries decode alike, and no headers needed;
+     PIL's decode leaves the GIL, so it runs in the decode pool's threads;
+  3. ``nvjpeg``: nvJPEG from the CUDA toolkit (``$CUDA_HOME``, else
+     ``/usr/local/cuda``) where there is a GPU; it decodes at full
+     resolution, so its crops differ by decoder rounding and resize.
+
+  Its ``name`` says which; none building raises, naming every failure.
+  ``jpeg_decoder(name)`` takes one by name, and raises if it does not
+  build.
 """
 
 from __future__ import annotations
@@ -30,8 +43,8 @@ import numpy as np
 
 from tpu_hc_bench_torch.ops._build import build_stamped
 
-__all__ = ["BUILD_DIR", "JpegDecoder", "TfrecordScanner", "jpeg_decoder",
-           "tfrecord_scanner"]
+__all__ = ["BUILD_DIR", "DECODERS", "JpegDecoder", "PilDecoder",
+           "TfrecordScanner", "jpeg_decoder", "tfrecord_scanner"]
 
 _DIR = Path(__file__).resolve().parent
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_native"
@@ -54,7 +67,9 @@ def _link_args(name: str) -> list[str]:
 
 
 _SOURCES = {"tfrecord": "tfrecord_reader.cpp", "libjpeg": "jpeg_decoder.cpp",
-            "nvjpeg": "nvjpeg_decoder.cpp"}
+            "nvjpeg": "nvjpeg_decoder.cpp", "crop_resize": "crop_resize.cpp"}
+# jpeg_decoder()'s order
+DECODERS = ("libjpeg", "pil", "nvjpeg")
 
 
 def build(name: str, build_dir: Path = BUILD_DIR) -> Path:
@@ -192,6 +207,96 @@ class JpegDecoder:
             1 if flip else 0, out.ctypes.data_as(ctypes.c_void_p)), "decode")
         return out
 
+    def decode_sampled(self, data: bytes, sample, out_size: int) -> np.ndarray:
+        """``decode_crop_resize`` of the ``(crop, flip)`` that
+        ``sample(width, height)`` draws from the header's size."""
+        crop, flip = sample(*self.dims(data))
+        return self.decode_crop_resize(data, crop, out_size, flip)
+
+
+def _scale_denom(cw: int, ch: int, out_size: int) -> int:
+    """``decode_rgb``'s DCT scale rule (``jpeg_decoder.cpp``): the largest
+    of 1, 2, 4, 8 that keeps the crop at least ``out_size`` on both
+    axes."""
+    denom = 1
+    for d in (2, 4, 8):
+        if cw // d >= out_size and ch // d >= out_size:
+            denom = d
+    return denom
+
+
+class PilDecoder:
+    """The ``pil`` decoder: PIL decodes (its libjpeg-turbo, DCT-scaled
+    through ``Image.draft`` as ``jpeg_decoder.cpp`` scales libjpeg), and
+    ``crop_resize.cpp`` crops and resizes; the calls of ``JpegDecoder``.
+    A stream that is not a JPEG, or a CMYK one (which libjpeg's RGB
+    output refuses too), raises ``ValueError``."""
+
+    name = "pil"
+
+    def __init__(self, path: Path):
+        from PIL import Image
+
+        lib = ctypes.CDLL(str(path))
+        lib.thb_crop_resize.restype = ctypes.c_int
+        lib.thb_crop_resize.argtypes = [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        self._lib, self._image = lib, Image
+
+    def _open(self, data: bytes):
+        import io
+
+        try:
+            img = self._image.open(io.BytesIO(data))
+        except OSError as e:
+            raise ValueError(f"pil cannot parse the stream: {e}") from None
+        if img.format != "JPEG" or img.mode not in ("RGB", "L"):
+            raise ValueError(f"pil decoder: a {img.format} {img.mode} "
+                             "stream, not a baseline RGB or gray JPEG")
+        return img
+
+    def dims(self, data: bytes) -> tuple[int, int]:
+        """``(width, height)`` from the header, without decoding."""
+        return self._open(data).size
+
+    def decode_crop_resize(self, data: bytes,
+                           crop: tuple[int, int, int, int], out_size: int,
+                           flip: bool = False) -> np.ndarray:
+        """As ``JpegDecoder.decode_crop_resize``."""
+        return self._crop_resize(self._open(data), crop, out_size, flip)
+
+    def decode_sampled(self, data: bytes, sample, out_size: int) -> np.ndarray:
+        """As ``JpegDecoder.decode_sampled``, the stream opened once."""
+        img = self._open(data)
+        crop, flip = sample(*img.size)
+        return self._crop_resize(img, crop, out_size, flip)
+
+    def _crop_resize(self, img, crop: tuple[int, int, int, int],
+                     out_size: int, flip: bool) -> np.ndarray:
+        w, h = img.size
+        d = _scale_denom(crop[2], crop[3], out_size)
+        img.draft("RGB", (w // d, h // d))
+        want = (-(-w // d), -(-h // d))
+        if img.size != want:
+            raise RuntimeError(f"pil decoder: draft scaled {w}x{h} to "
+                               f"{img.size}, not 1/{d} ({want})")
+        try:
+            # a gray JPEG stays "L" under draft; an RGB one is read as is
+            pixels = np.asarray(img if img.mode == "RGB"
+                                else img.convert("RGB"))
+        except OSError as e:
+            raise ValueError(f"pil cannot decode the stream: {e}") from None
+        out = np.empty((out_size, out_size, 3), np.uint8)
+        rc = self._lib.thb_crop_resize(
+            pixels.ctypes.data_as(ctypes.c_void_p), pixels.shape[1],
+            pixels.shape[0], d, crop[0], crop[1], crop[2], crop[3], out_size,
+            1 if flip else 0, out.ctypes.data_as(ctypes.c_void_p))
+        if rc:
+            raise ValueError(f"pil decode failed with code {rc}")
+        return out
+
 
 _lock = threading.Lock()
 
@@ -201,19 +306,27 @@ def _scanner() -> TfrecordScanner:
     return TfrecordScanner(build("tfrecord"))
 
 
-@functools.lru_cache(maxsize=1)
-def _decoder() -> JpegDecoder:
-    errors = []
-    for name in ("libjpeg", "nvjpeg"):
-        if name == "nvjpeg":
-            import torch
+def _make_decoder(name: str) -> JpegDecoder | PilDecoder:
+    if name == "pil":
+        return PilDecoder(build("crop_resize"))
+    if name == "nvjpeg":
+        import torch
 
-            if not torch.cuda.is_available():
-                errors.append("nvjpeg: no CUDA device")
-                continue
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device")
+    return JpegDecoder(name, build(name))
+
+
+_named_decoder = functools.lru_cache(maxsize=None)(_make_decoder)
+
+
+@functools.lru_cache(maxsize=1)
+def _decoder() -> JpegDecoder | PilDecoder:
+    errors = []
+    for name in DECODERS:
         try:
-            return JpegDecoder(name, build(name))
-        except (RuntimeError, OSError) as e:
+            return _make_decoder(name)
+        except (RuntimeError, OSError, ImportError) as e:
             errors.append(f"{name}: {e}")
     raise RuntimeError("no native JPEG decoder builds on this machine:\n"
                        + "\n".join(errors))
@@ -226,8 +339,14 @@ def tfrecord_scanner() -> TfrecordScanner:
         return _scanner()
 
 
-def jpeg_decoder() -> JpegDecoder:
-    """The native JPEG decoder of this machine: libjpeg where its headers
-    are, else nvJPEG on the GPU; raises when neither builds."""
+def jpeg_decoder(name: str | None = None) -> JpegDecoder | PilDecoder:
+    """The JPEG decoder of this machine, the first of ``DECODERS`` that
+    builds (raises when none does); or the one ``name``d, which raises
+    when it does not build."""
     with _lock:
-        return _decoder()
+        if name is None:
+            return _decoder()
+        if name not in DECODERS:
+            raise ValueError(f"JPEG decoder must be one of {DECODERS}: "
+                             f"{name!r}")
+        return _named_decoder(name)

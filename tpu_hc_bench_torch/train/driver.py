@@ -28,6 +28,15 @@ Inputs (as JAX's driver wires them):
   them: the real-data step with the host taken out.
 - **a token corpus** (``--data_dir``, text models):
   ``data.tokens.TokenDataset`` on ``<split>.bin``, this rank's stripe.
+- **the host's input service** (``--input_service``; ``auto`` engages
+  where several workers share one host, as JAX's ``_input_service_on``):
+  rank 0 starts the host's decode pool in processes of its own, one a
+  worker's stream (``data.service.ServiceProcess``), and each rank
+  reads its own shared-memory ring (its rows only when sliced), every
+  rank deriving the ring's name from a nonce rank 0 broadcasts; the
+  stream is the per-process pipeline's, bit for bit.  The result's
+  ``data`` says ``input_service`` and carries the ring's
+  counters (on rank 0 the whole service's under ``service``).
 
 Real batches reach the card through ``data.feed.DeviceFeeder`` (pinned
 buffers, a copy stream, ``--prefetch_depth`` in flight); the host time
@@ -35,6 +44,15 @@ the step loop waits for its next batch is the result's
 ``data["input_wait_ms_per_step"]``, beside the decode pool's counters.
 ``--num_epochs`` sets ``num_batches`` to ``ceil(num_epochs x examples /
 global_batch)`` over the split's shards.
+
+Checkpoints (``--train_dir``, ``utils.checkpoint``; JAX's flow): the
+latest complete checkpoint is restored before the first step (``--resume
+auto|never|must``; ``--eval`` restores and raises on a ``--train_dir``
+with none); training saves every ``--save_model_steps`` timed steps and
+the final state after the timed window, async at world 1 under
+``--async_checkpoint``, with ``--keep_checkpoints`` retention after each
+save.  The result carries ``resume`` and ``checkpoint`` (the saves'
+blocking milliseconds, the final state's fingerprint).
 
 Data parallel: where a process group is up (the launcher starts one at a
 world above one worker, and a one-rank group on the fast fabric at
@@ -113,7 +131,11 @@ class BenchmarkResult:
     eval_top_1: float | None = None  # --eval: top-1 accuracy
     data: dict | None = None         # real data: the split, the decode
                                      # pool's counters (reader, decoder),
-                                     # the input wait a step
+                                     # the input service's, the input
+                                     # wait a step
+    resume: dict | None = None       # --train_dir: the step restored
+    checkpoint: dict | None = None   # --train_dir: the saves, the final
+                                     # state's fingerprint
 
     def json_line(self) -> dict:
         """The fields as a dict for strict JSON: NaN (no MFU) is None."""
@@ -157,6 +179,119 @@ RANDOM_INIT_EVAL_WARNING = (
     "params — the accuracy line is meaningless; train with --train_dir "
     "first and pass it here")
 REPEAT_CACHED_BATCHES = 8        # --datasets_repeat_cached_sample
+
+
+def _maybe_restore(state, cfg: BenchmarkConfig, topo: dict | None,
+                   rank: int, print_fn) -> dict | None:
+    """--train_dir's resume (JAX ``_maybe_restore``): the latest complete
+    checkpoint into ``state``, per ``--resume`` (auto: if there is one;
+    never: a fresh start; must: raise if there is none), every rank from
+    the same files; returns the resume record, None where nothing was
+    restored.  Step directories without a sentinel are never restored,
+    and never started over silently either: a warning names them."""
+    if not cfg.train_dir or cfg.resume == "never":
+        return None
+    from pathlib import Path
+
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    if ckpt.latest_step(cfg.train_dir) is None:
+        orphans = [p.name for p in Path(cfg.train_dir).glob("step_*")
+                   if p.is_dir() and not p.name.endswith(".tmp")]
+        if orphans:
+            print_fn(
+                f"WARNING: {cfg.train_dir} has step dir(s) without a "
+                f"commit sentinel ({', '.join(sorted(orphans)[:4])}"
+                f"{'...' if len(orphans) > 4 else ''}): crashed saves — "
+                f"verify and `touch <dir>/step_NNNNNNNN.complete` to "
+                f"adopt; starting fresh")
+        if cfg.resume == "must":
+            raise FileNotFoundError(
+                f"--resume=must: no complete checkpoint under "
+                f"{cfg.train_dir}")
+        return None
+    saved = ckpt.read_topology(cfg.train_dir)
+    if saved is not None:
+        _, plan = ckpt.check_topology(saved, topo, cfg.train_dir)
+        if plan:
+            print_fn(f"resume: {plan}")
+    ckpt.restore(state, cfg.train_dir, rank=rank)
+    fp = ckpt.fingerprint(state.model.state_dict())
+    print_fn(f"restored checkpoint step {state.step} from {cfg.train_dir}")
+    print_fn(f"state fingerprint: {fp}")
+    return {"restored_step": state.step,
+            "saved_world": (saved or {}).get("world"),
+            "live_world": topo["world"],
+            "arm": (saved or {}).get("variable_update"),
+            "fingerprint": fp}
+
+
+def _require_checkpoint_for_eval(cfg: BenchmarkConfig, restored: bool,
+                                 print_fn) -> None:
+    """--eval's restore policy (JAX ``_require_checkpoint_for_eval``): a
+    named --train_dir with no checkpoint raises; no --train_dir warns
+    that random weights are measured."""
+    if restored:
+        return
+    if cfg.train_dir:
+        raise FileNotFoundError(
+            f"--eval: no checkpoint found under {cfg.train_dir}")
+    print_fn(RANDOM_INIT_EVAL_WARNING)
+
+
+class _Saver:
+    """--train_dir's saves during training (JAX ``save_now``): every
+    --save_model_steps timed steps and at the end.  At world 1 with
+    --async_checkpoint the write runs on the writer's thread and only
+    the snapshot holds the loop; otherwise rank 0 snapshots and writes
+    (every rank gathers the dropout states), and a barrier holds the ranks until the files are there.
+    The retention pass follows each save."""
+
+    def __init__(self, cfg: BenchmarkConfig, topo: dict, rank: int,
+                 world: int, grouped: bool, print_fn):
+        from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+        self.ckpt, self.cfg, self.topo = ckpt, cfg, topo
+        self.rank, self.grouped, self.print = rank, grouped, print_fn
+        self.writer = (ckpt.AsyncCheckpointWriter(cfg.train_dir, print_fn)
+                       if cfg.async_checkpoint and world == 1 else None)
+        self.saves: list[dict] = []
+        print_fn("checkpointing: "
+                 + ("async (snapshot blocks, write overlapped, one in "
+                    "flight)" if self.writer else
+                    "sync (rank 0 snapshots and writes)"))
+
+    def save(self, state) -> None:
+        cfg, t0 = self.cfg, time.perf_counter()
+        if self.writer is not None:
+            self.writer.submit(state, gc_keep=cfg.keep_checkpoints,
+                               topology=self.topo)
+            self.print(f"checkpoint snapshot: step {state.step} "
+                       f"({time.perf_counter() - t0:.3f}s blocking; write "
+                       f"overlapped)")
+        else:
+            path = self.ckpt.save(state, cfg.train_dir, self.topo,
+                                  write=self.rank == 0)
+            if self.rank == 0:
+                self.ckpt.gc_checkpoints(cfg.train_dir,
+                                         cfg.keep_checkpoints,
+                                         print_fn=self.print)
+            if self.grouped:
+                distributed.barrier()
+            self.print(f"checkpoint saved: {path}")
+        self.saves.append({"step": state.step, "async": bool(self.writer),
+                           "blocking_ms":
+                               1e3 * (time.perf_counter() - t0)})
+
+    def finish(self, state) -> dict:
+        """Land the write in flight; the result's ``checkpoint``
+        record."""
+        if self.writer is not None:
+            self.writer.wait()
+        return {"train_dir": self.cfg.train_dir, "saves": self.saves,
+                "final_step": state.step,
+                "fingerprint": self.ckpt.fingerprint(
+                    state.model.state_dict())}
 
 
 @dataclasses.dataclass
@@ -227,15 +362,135 @@ def _synthetic_input(cfg, spec, dev, rank: int,
     return _Input(itertools.repeat(batch))
 
 
+def _input_service_on(cfg: BenchmarkConfig, world: int,
+                      local_workers: int) -> bool:
+    """``--input_service`` against the world's shape (JAX
+    ``_input_service_on``): ``auto`` engages where more than one worker
+    shares one host; ``on`` with workers on several hosts raises (one
+    ring set a host); never under --datasets_repeat_cached_sample or
+    --eval (``resolve`` turned an explicit ``on`` off for those)."""
+    if cfg.input_service == "off":
+        return False
+    if cfg.datasets_repeat_cached_sample or cfg.eval:
+        return False
+    one_host = local_workers >= world
+    if cfg.input_service == "on":
+        if world > 1 and not one_host:
+            raise ValueError(
+                "--input_service=on requires all workers on one host "
+                "(one shared-memory ring set per host); multi-host runs "
+                "start one service per host via their own local launch")
+        return True
+    return world > 1 and one_host
+
+
+def _service_nonce(world: int) -> int:
+    """A name part every rank shares: rank 0's pid and clock, broadcast
+    over the process group, so a relaunch never attaches to a crashed
+    run's segments and two runs on one host stay apart."""
+    nonce = [os.getpid() * 1000 + (time.monotonic_ns() // 1000) % 1000]
+    if world > 1:
+        dist.broadcast_object_list(nonce, src=0)
+    return int(nonce[0])
+
+
+def _service_input(cfg, spec, dev, rank: int, world: int,
+                   global_batch: int, split: str, sliced: bool,
+                   rows: tuple[int, int], print_fn) -> _Input:
+    """The host's shared input service (``data.service``): rank 0 starts
+    the owner, one process a worker's stream with the host's decode
+    budget split over them; each rank reads its own ring (its rows only
+    when ``sliced``) through the feeder.  JAX's driver runs the owner's
+    threads in rank 0's process; here they run in processes of their
+    own: eager PyTorch's step loop needs the GIL for each kernel launch,
+    and on four cards the pool in rank 0's process held every rank to
+    0.38 of the per-process pipelines' images/s, one owner process to
+    0.45 (``PERF.md`` §6)."""
+    from tpu_hc_bench_torch import native
+    from tpu_hc_bench_torch.data import service as service_mod
+
+    image_size = spec.input_shape[0]
+    depth = max(2, cfg.prefetch_depth)
+    name = service_mod.service_name(
+        cfg.data_dir, split, cfg.seed, global_batch, image_size,
+        cfg.wire_dtype, cfg.model, cfg.train_dir or "",
+        "sliced" if sliced else "full", _service_nonce(world))
+    svc = None
+    if rank == 0:
+        svc = service_mod.ServiceProcess(dict(
+            data_dirs=[cfg.data_dir], num_workers=world,
+            global_batch=global_batch, image_size=image_size, split=split,
+            train=not cfg.eval, seed=cfg.seed, wire_dtype=cfg.wire_dtype,
+            decode_workers=cfg.service_decode_workers, depth=depth,
+            name=name, slice_per_worker=sliced))
+        print_fn(f"decode pool: input service {name}: host decode pool "
+                 f"{svc.decode_workers} thread(s) in {world} process(es) "
+                 f"of its own serving {world} worker(s) over shared-memory "
+                 f"rings (depth {depth}; "
+                 f"decoder={native.jpeg_decoder().name}"
+                 + (f"; sliced rings: each worker's ring carries only its "
+                    f"{global_batch // world} rows" if sliced else "")
+                 + ")")
+    try:
+        # copy=True: the feeder thread copies each batch on while the
+        # next is read; a stall of 10 minutes means a dead service
+        client = service_mod.ServiceClient(
+            name, service_mod.image_batch_layout(
+                global_batch // world if sliced else global_batch,
+                image_size, cfg.wire_dtype),
+            worker=rank, depth=depth, copy=True, stall_timeout_s=600.0)
+    except BaseException:
+        if svc is not None:
+            svc.stop()
+        raise
+
+    def my_rows():
+        for b in client:
+            yield b if sliced else tuple(a[rows[0]:rows[1]] for a in b)
+
+    feeder = DeviceFeeder(my_rows(), dev, cfg.prefetch_depth)
+
+    def close():
+        feeder.close()
+        client.close()
+        if svc is not None:
+            svc.stop()
+
+    data = {"split": split, "wire_dtype": cfg.wire_dtype,
+            "sliced_rows": list(rows) if sliced else None,
+            "repeat_cached_sample": False, "input_service": True,
+            "reader": "native",
+            "decoder": native.jpeg_decoder().name if svc else None}
+    return _Input(iter(feeder), _ServiceStats(client, svc), data, close)
+
+
+class _ServiceStats:
+    """The result's counters under the service: this rank's ring, and on
+    rank 0 the whole service's under ``service``."""
+
+    def __init__(self, client, svc):
+        self.client, self.svc = client, svc
+
+    def stats(self) -> dict:
+        rec = self.client.stats()
+        if self.svc is not None:
+            rec["service"] = self.svc.stats()
+        return rec
+
+
 def _image_input(cfg, spec, dev, rank: int, world: int, global_batch: int,
                  split: str, local_workers: int, print_fn) -> _Input:
     """ImageNet TFRecords: this rank's shards, its rows of each global
     batch (decoded alone unless --full_batch_identity), through the
-    feeder; or --datasets_repeat_cached_sample's 8 batches on the card."""
+    feeder, from this process's decode pool or the host's input service;
+    or --datasets_repeat_cached_sample's 8 batches on the card."""
     from tpu_hc_bench_torch.data.imagenet import ImageNetDataset
 
     rows = (rank * cfg.batch_size, (rank + 1) * cfg.batch_size)
     sliced = world > 1 and not cfg.full_batch_identity
+    if _input_service_on(cfg, world, local_workers):
+        return _service_input(cfg, spec, dev, rank, world, global_batch,
+                              split, sliced, rows, print_fn)
     ds = ImageNetDataset(
         cfg.data_dir, global_batch=global_batch,
         image_size=spec.input_shape[0], split=split, train=not cfg.eval,
@@ -264,7 +519,8 @@ def _image_input(cfg, spec, dev, rank: int, world: int, global_batch: int,
     feeder = DeviceFeeder(my_rows(), dev, cfg.prefetch_depth)
     data = {"split": split, "wire_dtype": cfg.wire_dtype,
             "sliced_rows": list(rows) if sliced else None,
-            "repeat_cached_sample": cfg.datasets_repeat_cached_sample}
+            "repeat_cached_sample": cfg.datasets_repeat_cached_sample,
+            "input_service": False}
     if not cfg.datasets_repeat_cached_sample:
         return _Input(iter(feeder), ds, data, feeder.close)
     stream = iter(feeder)
@@ -298,7 +554,6 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
     """tf_cnn_benchmarks --eval (JAX ``_run_eval``): at most 5 warmup
     batches, then ``num_batches`` timed forward passes with running
     statistics; top-1 over every timed example."""
-    print_fn(RANDOM_INIT_EVAL_WARNING)
     state.model.eval()
     for _ in range(max(1, min(cfg.num_warmup_batches, 5))):
         loss, _ = step_mod.eval_step(state, next(inp.batches))
@@ -416,6 +671,19 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         print_fn(f"data parallel: total_workers={total_workers} "
                  f"fabric={fab.value} backend={dist.get_backend()} "
                  f"grad_buckets={len(grads.buckets) if grads else 0}")
+    topo = None
+    if cfg.train_dir:
+        from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+        topo = ckpt.topology_record(total_workers, cfg)
+    try:
+        resume = _maybe_restore(state, cfg, topo, rank, print_fn)
+        if cfg.eval:
+            _require_checkpoint_for_eval(cfg, resume is not None, print_fn)
+    except BaseException:
+        if grads:
+            grads.close()
+        raise
     if split is None:
         inp = _synthetic_input(cfg, spec, dev, rank, global_batch)
     elif spec.is_text:
@@ -426,12 +694,17 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
                            global_batch, split, local_workers, print_fn)
     try:
         if cfg.eval:
-            return _run_eval(cfg, spec, state, inp, global_batch,
-                             total_workers, dev, kind, fabric, grouped,
-                             print_fn)
-        return _run_train(cfg, spec, state, inp, global_batch,
-                          total_workers, dev, kind, fabric, grouped,
-                          print_fn)
+            result = _run_eval(cfg, spec, state, inp, global_batch,
+                               total_workers, dev, kind, fabric, grouped,
+                               print_fn)
+        else:
+            saver = (_Saver(cfg, topo, rank, total_workers, grouped,
+                            print_fn) if cfg.train_dir else None)
+            result = _run_train(cfg, spec, state, inp, global_batch,
+                                total_workers, dev, kind, fabric, grouped,
+                                print_fn, saver)
+        result.resume = resume
+        return result
     finally:
         inp.close()
         if grads:
@@ -440,9 +713,12 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
 
 def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
                total_workers: int, dev, kind: str, fabric: str,
-               grouped: bool, print_fn) -> BenchmarkResult:
+               grouped: bool, print_fn,
+               saver: _Saver | None = None) -> BenchmarkResult:
     """The warmup and the timed steps of the train (or forward-only)
-    step."""
+    step; with a ``saver`` (--train_dir) a save every --save_model_steps
+    timed steps (inside the timed window: it holds the loop) and one of
+    the final state after it."""
     step_fn = (step_mod.forward_step if cfg.forward_only
                else step_mod.train_step)
     for _ in range(cfg.num_warmup_batches):
@@ -466,11 +742,18 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
             rate = cfg.display_every * global_batch / (now - t_window)
             t_window = now
             print_fn(f"{i}\timages/sec: {rate:.1f}\tloss: {loss:.3f}")
+        if (saver is not None and cfg.save_model_steps
+                and i % cfg.save_model_steps == 0 and i < cfg.num_batches):
+            saver.save(state)
     final_loss = float(metrics["loss"])
     _sync(dev)
     if grouped:
         distributed.barrier()
     total_s = time.perf_counter() - t0
+    checkpoint = None
+    if saver is not None:
+        saver.save(state)               # the final state
+        checkpoint = saver.finish(state)
 
     total_rate = cfg.num_batches * global_batch / total_s
     per_chip = total_rate / total_workers
@@ -495,7 +778,8 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         grad_buckets=len(grads.buckets) if grads else 0,
         allreduce_per_step=state.dp.allreduce_calls if state.dp else 0,
         forward_only=cfg.forward_only,
-        data=_data_record(inp, wait_s, cfg.num_batches))
+        data=_data_record(inp, wait_s, cfg.num_batches),
+        checkpoint=checkpoint)
     print_fn("-" * 40)
     print_fn(f"total images/sec: {total_rate:.2f}")
     mfu_txt = (f"{100 * mfu:.1f}% (analytic)" if peak

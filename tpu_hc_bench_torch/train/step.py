@@ -20,15 +20,20 @@ rank holds the same state and its own rows of the batch):
 - **fast fabric** (``ib|ici|dcn``): the gradients are averaged through
   the fusion buckets of ``parallel.collectives.GradReducer`` (``psum``;
   ``replicated``: one all-reduce a tensor), the BatchNorm running
-  statistics through the same buckets (per tensor under
-  ``replicated``), and the loss, each rank's own mean, averaged over the
-  ranks (JAX's ``pmean``; for MLM weights that is not the global
-  weighted mean).  BatchNorm normalizes with each worker's own batch, as
-  Horovod's does; JAX's GSPMD ``replicated`` arm normalizes over the
-  global batch, which a per-tensor all-reduce cannot.
+  statistics through the same buckets, and the loss, each rank's own
+  mean, averaged over the ranks (JAX's ``pmean``; for MLM weights that
+  is not the global weighted mean).
 - **host fabric** (``sock|host``): gradients, statistics and loss in one
   host round trip (``fabric.host_allreduce``).  It takes no gradient
   accumulation, as in JAX.
+- **BatchNorm**: under ``psum`` (and ``horovod``) each worker normalizes
+  with its own batch, as Horovod's does.  Under ``replicated`` every
+  BatchNorm takes its statistics over the global batch, as JAX's GSPMD
+  arm does: each layer all-reduces its per-channel ``(sum, sumsq,
+  count)`` in the forward and the gradient of those sums in the backward
+  (``models.resnet.sync_sum``), so the running averages come out equal
+  on every rank and are not all-reduced again (JAX's GSPMD step has no
+  such all-reduce either).
 
 ``--gradient_accumulation_steps=N`` splits a rank's batch into N
 microbatches: a forward and backward each, the gradients summed in
@@ -78,6 +83,7 @@ import torch.nn.functional as F
 
 from tpu_hc_bench_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
 from tpu_hc_bench_torch.flags import BenchmarkConfig
+from tpu_hc_bench_torch.models import resnet
 from tpu_hc_bench_torch.models.resnet import running_stats_frozen
 from tpu_hc_bench_torch.ops.xent import softmax_xent
 from tpu_hc_bench_torch.parallel import collectives
@@ -88,18 +94,22 @@ from tpu_hc_bench_torch.parallel.fabric import Fabric, host_allreduce
 class DataParallel:
     """A step's data-parallel arm over the default process group: the
     fast fabric's gradient buckets (``grads``), or the host round trip
-    when ``grads`` is None; ``allreduce_calls`` counts the last step's
-    all-reduce calls."""
+    when ``grads`` is None; ``sync_bn``: BatchNorm statistics over the
+    global batch (``replicated``), whose running averages then need no
+    all-reduce; ``allreduce_calls`` counts the last step's all-reduce
+    calls, sync-BN's included."""
 
     fuse: bool
     threshold_bytes: int
     grads: collectives.GradReducer | None
+    sync_bn: bool = False
     allreduce_calls: int = 0
 
     def reduce(self, model: torch.nn.Module, loss: torch.Tensor) -> None:
-        """Average the gradients, the running statistics and ``loss`` over
-        the ranks, in place, after the backward."""
-        stats = list(model.buffers())
+        """Average the gradients, the running statistics (not under
+        ``sync_bn``) and ``loss`` over the ranks, in place, after the
+        backward."""
+        stats = [] if self.sync_bn else list(model.buffers())
         if self.grads is None:
             params = [p for p in model.parameters() if p.requires_grad]
             for p in params:
@@ -109,8 +119,9 @@ class DataParallel:
             self.allreduce_calls = 1
             return
         n = self.grads.finish()
-        n += collectives.allreduce_mean_(
-            stats, threshold_bytes=self.threshold_bytes, fuse=self.fuse)
+        if stats:
+            n += collectives.allreduce_mean_(
+                stats, threshold_bytes=self.threshold_bytes, fuse=self.fuse)
         n += collectives.allreduce_mean_([loss])
         self.allreduce_calls = n
 
@@ -191,7 +202,11 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
             model.parameters(), threshold_bytes=cfg.fusion_threshold_bytes,
             fuse=fuse, overlap=cfg.overlap_grad_comm == "on",
         ) if fabric.is_fast else None
-        dp = DataParallel(fuse, cfg.fusion_threshold_bytes, grads)
+        dp = DataParallel(fuse, cfg.fusion_threshold_bytes, grads,
+                          sync_bn=cfg.variable_update == "replicated")
+        for m in model.modules():
+            if isinstance(m, resnet.BatchNorm):
+                m.sync = dp.sync_bn
     return TrainState(model.train(),
                       make_optimizer(cfg, model.parameters()),
                       fused_xent=cfg.fused_xent,
@@ -292,6 +307,7 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     state.optimizer.zero_grad(set_to_none=True)
     dp = state.dp
     grads = dp.grads if dp is not None else None
+    resnet.sync_calls = 0
     if state.accum > 1:
         loss = _accumulated_backward(state, batch, grads)
     else:
@@ -302,6 +318,7 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss = loss.detach()
     if dp is not None:
         dp.reduce(state.model, loss)
+        dp.allreduce_calls += resnet.sync_calls
     state.optimizer.step()
     state.step += 1
     return state, {"loss": loss}

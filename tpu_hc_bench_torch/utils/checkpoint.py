@@ -1,0 +1,462 @@
+"""Checkpoints of the training lane: save, resume, retain, restore.
+
+The counterpart of the JAX package's ``utils/checkpoint.py``, with the
+port's own on-disk form: one directory ``<dir>/step_<n>`` a step, holding
+``state.pt``, a ``torch.save`` of
+
+- ``model``: the model's ``state_dict`` (parameters and BatchNorm running
+  statistics), on the host;
+- ``optimizer``: the optimizer's ``state_dict`` (momentum traces, Adam's
+  moments and counts, RMSprop's ``nu``), on the host;
+- ``step``: the optimizer steps taken (warmup included);
+- ``rng``: what the step's randomness depends on, each rank's dropout
+  generator state (``dropout``; a text model's masks continue where the
+  run stopped), None for a model that draws none.
+
+The data stream's position is not saved (as in JAX): a resumed run starts
+its input stream anew.
+
+Crash-safe commit, as JAX's: a save writes ``step_<n>.tmp/state.pt``,
+fsyncs it, renames the directory to ``step_<n>``, writes the topology
+sidecar ``step_<n>.topology.json`` and then the ``step_<n>.complete``
+sentinel.  Discovery (``complete_steps``, ``latest_step``) believes only
+sentinelled steps, so a crash leaves an ignored ``.tmp`` or an ignored
+sentinel-less directory and ``restore`` falls back to the newest complete
+step.  ``gc_checkpoints`` (``--keep_checkpoints=N``) keeps the newest N
+complete steps and reaps ``.tmp`` debris, after waiting on an in-flight
+writer.  ``AsyncCheckpointWriter`` (``--async_checkpoint``, world 1)
+snapshots to the host on the step loop's thread and writes on its own,
+one save in flight.
+
+The topology sidecar (``topology_record``: world, process count,
+variable-update arm, layout ``"host"``, dtype) is checked at restore:
+``check_topology`` raises one ``TopologyMismatchError`` naming both sides
+where the saved state cannot be placed on the live world.  A host-layout
+``psum``/``replicated`` state is world-neutral (every rank holds all of
+it), so those restore at any world, as in JAX; a zero1, pipeline or
+sharded checkpoint is refused (their slices are not ported).
+
+Under data parallel every rank takes part in gathering the dropout
+states, rank 0 alone copies the state to the host and writes it, and
+every rank restores the same state.
+"""
+
+from __future__ import annotations
+
+import collections
+import hashlib
+import json
+import os
+import re
+import shutil
+import threading
+import time
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+__all__ = ["AsyncCheckpointWriter", "TopologyMismatchError", "check_topology",
+           "complete_steps", "describe_topology", "elastic_plan",
+           "fingerprint", "gc_checkpoints", "latest_step", "read_topology",
+           "restore", "save", "snapshot_to_host", "topology_record",
+           "write_host_payload"]
+
+_STEP_RE = re.compile(r"step_(\d+)")
+STATE_FILE = "state.pt"
+# the arms whose saved state is the same tree (replicated parameters and
+# a parameter-shaped optimizer state): moving between them is free
+REPLICATED_ARMS = ("psum", "replicated")
+
+
+class TopologyMismatchError(ValueError):
+    """A checkpoint's recorded topology does not fit the live one."""
+
+
+def _step_dir(base: Path, step: int) -> Path:
+    return base / f"step_{step:08d}"
+
+
+def _marker(base: Path, step: int) -> Path:
+    """The commit sentinel, next to the step directory."""
+    return base / f"step_{step:08d}.complete"
+
+
+def _topology_sidecar(base: Path, step: int) -> Path:
+    return base / f"step_{step:08d}.topology.json"
+
+
+def _fsync_path(path: Path) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+        finally:
+            os.close(fd)
+    except OSError:
+        pass    # not every filesystem fsyncs a directory
+
+
+def _commit_step_dir(base: Path, step: int, tmp: Path,
+                     topology: dict | None = None) -> Path:
+    """``tmp`` -> ``step_<n>`` -> sidecar -> sentinel, each durable
+    before the next.  An earlier save of the same step loses its
+    sentinel only here, once the new write has landed in ``tmp``."""
+    final = _step_dir(base, step)
+    marker = _marker(base, step)
+    _fsync_path(tmp)
+    marker.unlink(missing_ok=True)
+    if final.exists():
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    side = _topology_sidecar(base, step)
+    if topology is not None:
+        with open(side, "w") as f:
+            json.dump(topology, f, indent=2, sort_keys=True)
+            f.write("\n")
+            f.flush()
+            os.fsync(f.fileno())
+    else:
+        side.unlink(missing_ok=True)
+    with open(marker, "w") as f:
+        f.write("ok\n")
+        f.flush()
+        os.fsync(f.fileno())
+    _fsync_path(base)
+    return final
+
+
+# --- the topology sidecar ---------------------------------------------------
+
+
+def topology_record(world: int, cfg, process_count: int | None = None,
+                    layout: str = "host") -> dict:
+    """What ``restore`` must know of the world that wrote a checkpoint
+    (JAX ``topology.topology_record``, less the mesh and the pipeline
+    degree, which the port does not have)."""
+    return {"schema": 1, "world": int(world),
+            "process_count": int(world if process_count is None
+                                 else process_count),
+            "variable_update": cfg.variable_update, "layout": layout,
+            "dtype": cfg.compute_dtype}
+
+
+def describe_topology(rec: dict | None) -> str:
+    """One line of a topology record."""
+    if not rec:
+        return "unknown (no topology sidecar)"
+    return (f"world={rec.get('world')} processes={rec.get('process_count')} "
+            f"arm={rec.get('variable_update')} layout={rec.get('layout')} "
+            f"dtype={rec.get('dtype')}")
+
+
+def elastic_plan(saved: dict, live: dict) -> tuple[str, str]:
+    """``(action, line)``: ``ok`` (the same topology), ``noop`` (another
+    world or arm, but a host-layout replicated state restores as it is),
+    or ``refuse`` (a tree the port cannot place: another layout, or a
+    zero1 state, whose resplit is not ported)."""
+    if all(saved.get(k) == live.get(k)
+           for k in ("world", "variable_update", "layout")):
+        return "ok", ""
+    s_arm, l_arm = saved.get("variable_update"), live.get("variable_update")
+    s_lay, l_lay = saved.get("layout", "host"), live.get("layout", "host")
+    if s_lay != "host" or l_lay != "host":
+        return ("refuse",
+                f"layout {s_lay}->{l_lay}: the port restores host-layout "
+                f"checkpoints only (pipeline and sharded checkpoints are "
+                f"not ported)")
+    if s_arm not in REPLICATED_ARMS or l_arm not in REPLICATED_ARMS:
+        return ("refuse",
+                f"arm {s_arm}->{l_arm}: only the replicated arms "
+                f"{'|'.join(REPLICATED_ARMS)} are ported (zero1 and its "
+                f"resplit come with the zero1 slice)")
+    extra = ("" if saved.get("dtype") == live.get("dtype")
+             else f"; note: dtype policy {saved.get('dtype')}->"
+                  f"{live.get('dtype')} (parameters restore bit for bit, "
+                  f"the compute dtype changes)")
+    return ("noop", f"replicated {s_arm} state placed on the live world "
+                    f"(world {saved.get('world')}->{live.get('world')}, "
+                    f"arm {s_arm}->{l_arm}){extra}")
+
+
+def check_topology(saved: dict, live: dict, directory=None,
+                   step: int | None = None) -> tuple[str, str]:
+    """``elastic_plan``'s verdict; raises ``TopologyMismatchError``,
+    naming the saved and the live topology, where it refuses."""
+    action, plan = elastic_plan(saved, live)
+    if action != "refuse":
+        return action, plan
+    where = ""
+    if directory is not None:
+        where = f" under {directory}" + (
+            f" (step {step})" if step is not None else "")
+    raise TopologyMismatchError(
+        f"checkpoint topology mismatch{where}: saved "
+        f"{describe_topology(saved)} vs live {describe_topology(live)} "
+        f"— {plan}")
+
+
+def read_topology(directory: str | Path,
+                  step: int | None = None) -> dict | None:
+    """A checkpoint's topology sidecar (the latest complete step's by
+    default); None where there is none."""
+    base = Path(directory)
+    if step is None:
+        step = latest_step(base)
+        if step is None:
+            return None
+    try:
+        return json.loads(_topology_sidecar(base, step).read_text())
+    except (OSError, json.JSONDecodeError):
+        return None
+
+
+# --- save -------------------------------------------------------------------
+
+
+def _host(obj):
+    """``obj`` with every tensor copied to the host (a snapshot: the
+    live tensors change under the next step)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host(v) for v in obj)
+    return obj
+
+
+def _dropout_states(model) -> list | None:
+    """Every rank's dropout generator state, by rank (a collective under
+    data parallel); None for a model with no dropout generator."""
+    gen = getattr(model, "dropout_generator", None)
+    if gen is None:
+        return None
+    mine = gen.get_state()
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, mine)
+        return out
+    return [mine]
+
+
+def snapshot_to_host(state) -> tuple[int, dict]:
+    """``(step, payload)``: the train state copied to the host, the only
+    part of a save that must hold the step loop.  Under data parallel
+    every rank takes part in its dropout states' gather."""
+    payload = {"step": int(state.step),
+               "model": _host(state.model.state_dict()),
+               "optimizer": _host(state.optimizer.state_dict()),
+               "rng": {"dropout": _dropout_states(state.model)}}
+    return payload["step"], payload
+
+
+def write_host_payload(payload: dict, directory: str | Path, step: int,
+                       topology: dict | None = None) -> Path:
+    """``payload`` written under the commit protocol; returns the step
+    directory."""
+    base = Path(directory)
+    base.mkdir(parents=True, exist_ok=True)
+    tmp = base / (_step_dir(base, step).name + ".tmp")
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir()
+    path = tmp / STATE_FILE
+    with open(path, "wb") as f:
+        torch.save(payload, f)
+        f.flush()
+        os.fsync(f.fileno())
+    return _commit_step_dir(base, step, tmp, topology)
+
+
+def save(state, directory: str | Path, topology: dict | None = None,
+         write: bool = True) -> Path | None:
+    """Save ``state`` at its step where ``write`` (rank 0 under data
+    parallel); a rank that does not write only takes its part in the
+    dropout states' gather."""
+    if not write:
+        _dropout_states(state.model)
+        return None
+    step, payload = snapshot_to_host(state)
+    return write_host_payload(payload, directory, step, topology)
+
+
+class AsyncCheckpointWriter:
+    """A background writer with at most one save in flight (world 1).
+
+    ``submit`` waits on the previous save, snapshots the state to the
+    host (the blocking part), and hands the payload to a thread that
+    writes it under the commit protocol and then runs the retention pass.
+    ``wait()`` joins that thread and re-raises its error here; the driver
+    calls it before every save, GC and exit.  ``commits`` holds a record
+    ``{"step", "write_s", "path"}`` for each landed save."""
+
+    def __init__(self, directory: str | Path, print_fn=None):
+        self._dir = Path(directory)
+        self._print = print_fn or (lambda s: None)
+        self._thread: threading.Thread | None = None
+        self._error: BaseException | None = None
+        self.commits: collections.deque = collections.deque()
+
+    @property
+    def in_flight(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def submit(self, state, gc_keep: int = 0,
+               topology: dict | None = None) -> int:
+        """Wait on the previous save, snapshot, hand off; returns the
+        step snapshotted."""
+        self.wait()
+        step, payload = snapshot_to_host(state)
+        self._thread = threading.Thread(
+            target=self._write, args=(step, payload, gc_keep, topology),
+            name=f"checkpoint-writer-{step}", daemon=True)
+        self._thread.start()
+        return step
+
+    def _write(self, step: int, payload: dict, gc_keep: int,
+               topology: dict | None) -> None:
+        t0 = time.monotonic()
+        try:
+            path = write_host_payload(payload, self._dir, step, topology)
+            if gc_keep:
+                # on this thread, after its own commit: no writer to wait
+                gc_checkpoints(self._dir, gc_keep, print_fn=self._print)
+            dt = time.monotonic() - t0
+            self.commits.append({"step": step, "write_s": dt,
+                                 "path": str(path)})
+            self._print(f"checkpoint saved: {path} (async write "
+                        f"{dt:.2f}s, overlapped)")
+        except BaseException as e:
+            self._error = e
+
+    def wait(self) -> None:
+        """Join the write in flight; re-raise its error here."""
+        t = self._thread
+        if t is not None:
+            t.join()
+            self._thread = None
+        if self._error is not None:
+            exc, self._error = self._error, None
+            exc.add_note("raised in the async checkpoint writer thread, "
+                         "re-raised at its next wait()")
+            raise exc
+
+
+# --- discovery, retention, restore -------------------------------------------
+
+
+def complete_steps(directory: str | Path) -> list[int]:
+    """The steps with a commit sentinel, ascending: the only checkpoints
+    discovery believes (``.tmp`` and sentinel-less directories are
+    crashed saves)."""
+    base = Path(directory)
+    if not base.exists():
+        return []
+    return sorted(
+        int(m.group(1)) for p in base.iterdir()
+        if p.is_dir() and (m := _STEP_RE.fullmatch(p.name))
+        and _marker(base, int(m.group(1))).exists())
+
+
+def latest_step(directory: str | Path) -> int | None:
+    steps = complete_steps(directory)
+    return steps[-1] if steps else None
+
+
+def gc_checkpoints(directory: str | Path, keep: int, print_fn=None,
+                   writer: AsyncCheckpointWriter | None = None) -> list[int]:
+    """``--keep_checkpoints``: keep the newest ``keep`` complete steps,
+    delete the older ones and every ``.tmp``; returns the steps deleted.
+    Waits on ``writer`` first, whose ``.tmp`` it would otherwise reap
+    mid-write.  Sentinel-less ``step_<n>`` directories are left alone:
+    they may be checkpoints to adopt by hand."""
+    if keep <= 0:
+        return []
+    if writer is not None:
+        writer.wait()
+    base = Path(directory)
+    doomed = complete_steps(base)[:-keep]
+    for step in doomed:
+        # the sentinel first: a crash mid-delete leaves no sentinel on
+        # a half-deleted directory
+        _marker(base, step).unlink(missing_ok=True)
+        _topology_sidecar(base, step).unlink(missing_ok=True)
+        shutil.rmtree(_step_dir(base, step), ignore_errors=True)
+    for p in base.glob("step_*.tmp"):
+        shutil.rmtree(p, ignore_errors=True)
+    if doomed and print_fn is not None:
+        print_fn(f"checkpoint GC: removed step(s) "
+                 f"{', '.join(str(s) for s in doomed)} "
+                 f"(--keep_checkpoints={keep})")
+    return doomed
+
+
+def _tensors(obj):
+    """Every tensor of a nested payload, in a fixed order."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for k in sorted(obj, key=str):
+            yield from _tensors(obj[k])
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from _tensors(v)
+
+
+def fingerprint(tree) -> str:
+    """A digest of every tensor's dtype, shape and bytes, in a fixed
+    order (a ``state_dict`` or a whole payload)."""
+    h = hashlib.blake2b(digest_size=10)
+    for t in _tensors(tree):
+        t = t.detach().to("cpu")
+        h.update(str(t.dtype).encode())
+        h.update(str(tuple(t.shape)).encode())
+        # logical order, whatever the memory format
+        h.update(t.contiguous().reshape(-1).view(torch.uint8).numpy()
+                 .tobytes() if t.numel() else b"")
+    return h.hexdigest()
+
+
+def load_payload(directory: str | Path, step: int | None = None
+                 ) -> tuple[int, dict]:
+    """``(step, payload)`` of ``step``, by default the newest complete
+    one; raises ``FileNotFoundError`` where there is none, or where
+    ``step`` has no sentinel."""
+    base = Path(directory)
+    if step is None:
+        step = latest_step(base)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoints under {base}")
+    elif not _marker(base, step).exists():
+        raise FileNotFoundError(
+            f"checkpoint step {step} under {base} is incomplete (no "
+            f"{_marker(base, step).name} sentinel: a crashed save?); "
+            f"complete steps: {complete_steps(base) or 'none'}")
+    return step, torch.load(_step_dir(base, step) / STATE_FILE,
+                            map_location="cpu", weights_only=True)
+
+
+def restore(state, directory: str | Path, step: int | None = None,
+            expect_topology: dict | None = None, rank: int = 0) -> dict:
+    """Load a checkpoint into ``state`` in place (its model, optimizer,
+    step and ``rank``'s dropout generator); returns the payload.
+    ``expect_topology``: the live record, checked against the sidecar
+    first (``check_topology``)."""
+    base = Path(directory)
+    if step is None:
+        step = latest_step(base)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoints under {base}")
+    if expect_topology is not None:
+        saved = read_topology(base, step)
+        if saved is not None:
+            check_topology(saved, expect_topology, base, step)
+    step, payload = load_payload(base, step)
+    state.model.load_state_dict(payload["model"])
+    state.optimizer.load_state_dict(payload["optimizer"])
+    state.step = int(payload["step"])
+    dropout = (payload.get("rng") or {}).get("dropout")
+    gen = getattr(state.model, "dropout_generator", None)
+    if gen is not None and dropout and rank < len(dropout):
+        gen.set_state(dropout[rank])
+    return payload
