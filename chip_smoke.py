@@ -182,11 +182,38 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    and its loss is finite; with one card, one record naming the card
    count it lacked.
 
+16. **serve2**: the serving lane's second slice, run right after phase 4
+   on its llama_1b model; every count zeroed just before each run and
+   read just after, row 1 held to L and row 2 to 2L - 1 launches a decode
+   step: (a) gpt2 at full width, float32, seeded weights (a position
+   table of 1024 rows for phase 4's 576-token context): phase 3's fixed
+   feed through the ``paged`` program against the ``gather`` one within
+   ``GPT2_PARITY_TOL``; (b) gpt2 served on phase 4's trace
+   (``--decode_attention=paged``), 12 and 23 launches a step, the design
+   ``norm_design`` picks at 8 rows of 768; (e) that engine on one shared
+   100-token prompt (16 requests, 32 outputs) under ``--kv_reserve=
+   worst``, ``lazy`` and ``lazy`` + ``--prefix_cache=on`` in virtual time
+   (``SERVE2_VCOSTS``): tokens equal across the arms, prefix hits and
+   copy-on-write copies, lazy's ``pages_peak`` under worst's; (f) gpt2
+   with ``--kv_pages``, ``--shed=deadline``, ``--kv_preempt=on`` and
+   ``--deadline_ms`` under ``SERVE2_F``'s plan in virtual time: sheds,
+   preempts, requeues and the one quarantine the plan forces; then
+   ``python -m tpu_hc_bench_torch serve --model=gpt2`` in a subprocess
+   with ``--serve_faults=sigterm@`` (a real SIGTERM): exit 75 and a
+   journal, and ``--serve_resume`` exits 0 having served exactly the
+   journaled requests; (c) llama_1b under ``--quant=int8_kv`` on phase
+   4's trace, 16 launches a step on int8 pools: the pool bytes against
+   f32's, the share of tokens equal to phase 4's, and the fixed feed's
+   logits against the f32 program's within ``INT8_KV_REL_TOL``; (d)
+   llama_1b under ``--quant=int8_w``: tokens/s against phase 4 and the
+   weight bytes.
+
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
 ``realdata_launches``: its launches in phase 14's runs (b)-(e) and (g),
-and ``slice7_launches``: its launches in phase 15's runs (c)-(e), every
-kernel's count set to 0 before each and read after it),
+``slice7_launches``: its launches in phase 15's runs (c)-(e), and
+``serve2_launches``: its launches in phase 16's runs (b)-(f) in this
+process, every kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -196,7 +223,8 @@ beside a one-worker ``sock`` run at its step counts (no kernel table):
 the data-parallel path on a machine with several cards.  ``--only
 realdata`` runs the build and phase 14 alone, beside phase 7's fused
 run and phase 10's first run; ``--only slice7`` the build and phase 15
-alone, beside phase 7's fused run (with several cards, (f) runs).
+alone, beside phase 7's fused run (with several cards, (f) runs);
+``--only serve2`` the build and phase 16 alone, beside phase 4's run.
 """
 
 from __future__ import annotations
@@ -420,6 +448,29 @@ TOKEN_CORPUS = 1 << 21                    # gpt2 tokens in train.bin
 # checkpoint legs (save, then resume), (f) across cards
 SLICE7_BATCHES = {"e": (10, 50), "f": (20, 60)}
 SLICE7_SAVE_STEPS = 25
+# phase 16 (serve2): phase 4's trace; gpt2 fits it (512 + 64 <= 1024)
+SERVE2_TRACE = ("--max_prompt_len=512", "--max_output_len=64",
+                "--max_in_flight=8", "--kv_page_size=16",
+                "--num_requests=16", "--arrival=poisson",
+                "--arrival_rate=64", "--seed=0")
+GPT2_PARITY_TOL = 1e-3             # 12 layers of f32 at width 768
+# int8_kv's logits against the f32 program's, relative to the f32
+# logits' largest magnitude: each K/V value rounds within amax/254 of its
+# page, and the error passes through 16 layers
+INT8_KV_REL_TOL = 0.05
+SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
+                                   # (6 pages + a 4-token tail), outputs
+# (e) and (f) in virtual time: modeled seconds a step, so the arms see
+# the same batches and (f)'s plan forces the same dispositions every run
+SERVE2_VCOSTS = {"prefill": 0.03, "decode": 0.02, "page_copy": 0.001}
+# (f): a burst of phase 4's 16 requests into 3 worst-case tables' pages,
+# 20 withheld from t = 0.5 s, request 2 poisoned, a 3 s deadline: in
+# these modeled costs 7 sheds (both causes), 9 preempts, 4 requeues and
+# 1 quarantine (a CPU rehearsal of the same schedule; the dispositions
+# depend on the clock and the plan, not on the weights)
+SERVE2_F = dict(kv_pages=1 + 3 * 36,
+                plan="nan_logits@2,pool_squeeze@0.5:20", deadline_ms=3000.0)
+SERVE2_SIGTERM = (32, 0.3)         # (f) subprocess: requests, SIGTERM at s
 
 
 
@@ -849,9 +900,10 @@ def phase_serve(torch, model) -> dict:
         "--arrival_rate=64", "--seed=0"])
     engine, requests = cli.build_engine_and_requests(
         cfg, lambda m: print(m, file=sys.stderr, flush=True), model=model)
+    tap = TokenTap()
     paged_decode_attention.launches = 0
     fused_residual_norm.launches = 0
-    summary = engine.run(requests)
+    summary = engine.run(requests, writer=tap)
     launches = {"paged_decode_attention": paged_decode_attention.launches,
                 "fused_residual_norm": fused_residual_norm.launches}
     torch.cuda.synchronize()
@@ -874,7 +926,23 @@ def phase_serve(torch, model) -> dict:
             and fused_residual_norm.design == norm_design(
                 8, model.hidden, torch.float32)):
         raise AssertionError(f"serve run off its kernels: {rec}")
-    return launches
+    return launches, {"tokens": tap.tokens, "summary": summary,
+                      "weight_bytes": engine.weight_bytes,
+                      "kv_pool_bytes": engine.kv_pool_bytes}
+
+
+class TokenTap:
+    """An engine writer that keeps each served request's tokens and
+    every record by kind."""
+
+    def __init__(self):
+        self.tokens: dict[int, list[int]] = {}
+        self.kinds: dict[str, int] = {}
+
+    def event(self, kind: str, **fields) -> None:
+        self.kinds[kind] = self.kinds.get(kind, 0) + 1
+        if kind == "request":
+            self.tokens[fields["id"]] = fields["generated"]
 
 
 def rel_err(got, want) -> float:
@@ -2498,19 +2566,346 @@ def slice7_multi_card(torch, smi, cards: int, ckdir) -> None:
                              "psum across the cards")
 
 
+
+def serve2_feed(torch, dev, model, arm: str, quant: str = "off"):
+    """Phase 3's fixed feed (two prompts, 4 decode steps) through one
+    program pair of ``model``; the stacked logits ``[4, 2, vocab]``."""
+    import numpy as np
+
+    from tpu_hc_bench_torch.serve import decode as decode_mod
+
+    family = decode_mod.build_family(model, quant=quant)
+    ps, w, b, steps = 16, 36, 2, 4
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, model.vocab_size, n).astype(np.int32)
+               for n in (100, 37)]
+    feed = rng.integers(1, model.vocab_size, (steps, b)).astype(np.int32)
+    tables = np.arange(1, 1 + b * w, dtype=np.int32).reshape(b, w)
+    t = lambda a: torch.from_numpy(a).to(dev)       # noqa: E731
+    kv = decode_mod.init_kv_state(family, 1 + b * w, ps, quant=quant,
+                                  device=dev)
+    prefill = decode_mod.build_prefill_fn(family, ps, w, quant=quant)
+    decode = decode_mod.build_decode_fn(family, ps, w, attention=arm,
+                                        quant=quant)
+    lengths = np.zeros((b,), np.int32)
+    for i, prompt in enumerate(prompts):
+        toks = np.zeros((1, 128), np.int32)
+        toks[0, :len(prompt)] = prompt
+        prefill(kv, t(toks), len(prompt), t(tables[i]))
+        lengths[i] = len(prompt)
+    out = []
+    for s in range(steps):
+        _, lg, kv = decode(kv, t(feed[s]), t(tables), t(lengths),
+                           t(np.ones((b,), bool)))
+        out.append(lg)
+        lengths += 1
+    del kv, family
+    return torch.stack(out)
+
+
+def serve2_engine(model, name: str, *extra: str):
+    """A ``--decode_attention=paged`` engine over ``model`` on phase 4's
+    trace (``extra`` flags added), and the trace."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.serve import cli
+
+    cfg = flags.parse_flags([f"--model={name}", "--decode_attention=paged",
+                             *SERVE2_TRACE, *extra])
+    return cli.build_engine_and_requests(
+        cfg, lambda m: print(m, file=sys.stderr, flush=True), model=model)
+
+
+def serve2_run(torch, engine, requests, layers: int, **run_kw):
+    """One run, every count zeroed just before and read just after: the
+    summary, the token tap and the counts, held to ``layers`` row-1
+    launches and ``2 layers - 1`` row-2 launches a decode step."""
+    tap = TokenTap()
+    _zero_counts()
+    summary = engine.run(requests, writer=tap, **run_kw)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    steps = summary["decode_steps"]
+    want = {"paged_decode_attention": layers * steps,
+            "fused_residual_norm": (2 * layers - 1) * steps}
+    if not (steps > 0 and all(counts[k] == v for k, v in want.items())
+            and not any(n for k, n in counts.items() if k not in want)):
+        raise AssertionError(f"serve2 run off its kernels: {counts}, "
+                             f"expected {want} in {steps} decode steps")
+    return summary, tap, counts
+
+
+def _token_share(got: dict, want: dict) -> float:
+    """The share of generated positions equal between two runs."""
+    same = total = 0
+    for rid, ref in want.items():
+        other = got.get(rid, [])
+        total += len(ref)
+        same += sum(a == b for a, b in zip(ref, other))
+    return same / max(total, 1)
+
+
+SERVE2_KEYS = ("requests", "completed", "wall_s", "tokens", "tokens_per_s",
+               "decode_steps", "prefill_steps", "p50_ttft_ms", "p99_ttft_ms",
+               "p50_e2e_ms", "p99_e2e_ms", "kv_pages", "kv_pool_bytes",
+               "weight_bytes", "quant")
+
+
+def phase_serve2(torch, dev, smi, llama, phase4: dict) -> dict:
+    """Phase 16: the serving lane's second slice; returns every kernel's
+    launches summed over its in-process runs (b)-(f).  ``llama`` and
+    ``phase4`` are phase 4's model and its run (tokens, summary)."""
+    import os
+    import shutil
+    from pathlib import Path
+
+    import numpy as np
+
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.ops.fused_residual_ln import (
+        fused_residual_norm, norm_design)
+    from tpu_hc_bench_torch.serve import faults as faults_mod
+    from tpu_hc_bench_torch.serve.arrivals import Request
+    from tpu_hc_bench_torch.serve.engine import VirtualClock
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    # (a) gpt2 at full width: the paged program against the gather one
+    t0 = time.perf_counter()
+    gpt2, _ = create_model("gpt2", device=dev, seed=0, seq_len=576)
+    torch.cuda.synchronize()
+    emit({"phase": "serve2", "part": "a_model", "name": "gpt2",
+          "params": sum(p.numel() for p in gpt2.parameters()),
+          "position_rows": gpt2.wpe.weight.shape[0],
+          "init_s": time.perf_counter() - t0, "nvidia_smi": smi})
+    ref = serve2_feed(torch, dev, gpt2, "gather")
+    got = serve2_feed(torch, dev, gpt2, "paged")
+    err = float((got - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * GPT2_PARITY_TOL
+    rec = {"phase": "serve2", "part": "a_gpt2_parity",
+           "shape": list(got.shape), "finite": bool(torch.isfinite(got).all()),
+           "max_abs_err": err, "tol": GPT2_PARITY_TOL,
+           "argmax_equal_where_top2_gap_gt_2tol": bool(
+               (got.argmax(-1) == ref.argmax(-1))[clear].all()),
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (rec["finite"] and err <= GPT2_PARITY_TOL
+            and rec["argmax_equal_where_top2_gap_gt_2tol"]):
+        raise AssertionError(f"gpt2 paged program disagrees: {rec}")
+    del ref, got
+    torch.cuda.empty_cache()
+
+    # (b) gpt2 serving on phase 4's trace
+    engine, requests = serve2_engine(gpt2, "gpt2")
+    summary, _, counts = serve2_run(torch, engine, requests, 12)
+    add(counts)
+    rec = {"phase": "serve2", "part": "b_gpt2_serve", "launches": counts,
+           "norm_design_8x768": norm_design(8, 768, torch.float32),
+           "norm_design_last_launch": fused_residual_norm.design,
+           "nvidia_smi": smi, **{k: summary[k] for k in SERVE2_KEYS}}
+    emit(rec)
+    if summary["completed"] != 16:
+        raise AssertionError(f"gpt2 serve incomplete: {rec}")
+
+    # (e) one gpt2 engine, three KV arms, on one shared prompt
+    n, plen, out = SERVE2_SHARED
+    block = np.random.default_rng(3).integers(
+        1, gpt2.vocab_size, plen).astype(np.int32)
+    shared = [Request(rid=i, arrival_s=i / 64, prompt=block.copy(),
+                      output_len=out) for i in range(n)]
+    arms = {}
+    for arm, kw in (("worst", dict(kv_reserve="worst")),
+                    ("lazy", dict(kv_reserve="lazy")),
+                    ("lazy_prefix", dict(kv_reserve="lazy",
+                                         prefix_cache="on"))):
+        s, tap, counts = serve2_run(torch, engine, shared, 12,
+                                    clock=VirtualClock(SERVE2_VCOSTS), **kw)
+        add(counts)
+        arms[arm] = (s, tap)
+        kvf = s["kv_pool"]
+        emit({"phase": "serve2", "part": "e_kv_arm", "arm": arm,
+              "completed": s["completed"], "decode_steps": s["decode_steps"],
+              "pages_peak": kvf["pages_peak"], "kv_pool_util": kvf["util"],
+              "pages_grown": kvf["pages_grown"],
+              "cow_copies": kvf["cow_copies"],
+              "prefix_hits": kvf["prefix_hits"],
+              "prefix_lookups": kvf["prefix_lookups"],
+              "prefix_hit_frac": kvf["prefix_hit_frac"],
+              "prefix_pages_shared": kvf["prefix_pages_shared"],
+              "launches": counts, "nvidia_smi": smi})
+    worst, lazy, pre = (arms[a][0]["kv_pool"] for a in
+                        ("worst", "lazy", "lazy_prefix"))
+    equal = all(arms[a][1].tokens == arms["worst"][1].tokens
+                for a in arms)
+    rec = {"phase": "serve2", "part": "e_kv_arms", "tokens_equal": equal,
+           "completed": [arms[a][0]["completed"] for a in arms],
+           "pages_peak": [worst["pages_peak"], lazy["pages_peak"],
+                          pre["pages_peak"]],
+           "prefix_hits": pre["prefix_hits"], "cow_copies": pre["cow_copies"],
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (equal and all(c == n for c in rec["completed"])
+            and pre["prefix_hits"] > 0 and pre["cow_copies"] > 0
+            and lazy["pages_peak"] < worst["pages_peak"]):
+        raise AssertionError(f"the KV arms disagree: {rec}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # (f) degradation in virtual time, then a real SIGTERM and a resume
+    engine, requests = serve2_engine(
+        gpt2, "gpt2", f"--kv_pages={SERVE2_F['kv_pages']}")
+    burst = [Request(rid=r.rid, arrival_s=0.0, prompt=r.prompt,
+                     output_len=r.output_len) for r in requests]
+    s, tap, counts = serve2_run(
+        torch, engine, burst, 12, clock=VirtualClock(SERVE2_VCOSTS),
+        faults=faults_mod.parse_serve_plan(SERVE2_F["plan"]),
+        shed="deadline", kv_preempt="on",
+        deadline_ms=SERVE2_F["deadline_ms"])
+    add(counts)
+    deg = s["degrade"]
+    rec = {"phase": "serve2", "part": "f_degrade", **SERVE2_F,
+           "completed": s["completed"], "degrade": deg,
+           "records": tap.kinds, "launches": counts, "nvidia_smi": smi}
+    emit(rec)
+    if not (sum(deg["shed"].values()) > 0 and deg["preempts"] > 0
+            and deg["requeues"] > 0 and deg["quarantined"] == 1
+            and s["completed"] + sum(deg["shed"].values())
+            + deg["quarantined"] == len(burst)):
+        raise AssertionError(f"the plan did not force its dispositions: "
+                             f"{rec}")
+    del engine, gpt2
+    torch.cuda.empty_cache()
+    root = Path(__file__).resolve().parent
+    jdir = root / "build" / "serve2_journal"
+    shutil.rmtree(jdir, ignore_errors=True)
+    journal = jdir / "serve_journal.json"
+    nreq, at = SERVE2_SIGTERM
+    argv = [sys.executable, "-m", "tpu_hc_bench_torch", "serve",
+            "--model=gpt2", "--decode_attention=paged",
+            *[a for a in SERVE2_TRACE if not a.startswith("--num_requests")],
+            f"--num_requests={nreq}", f"--serve_journal={journal}",
+            "--serve_step_timeout_s=120"]
+
+    def served(out: str) -> tuple[int, int]:
+        import re
+
+        m = re.search(r"serve: (\d+)/(\d+) requests", out)
+        return (int(m.group(1)), int(m.group(2))) if m else (-1, -1)
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    first = subprocess.run(argv + [f"--serve_faults=sigterm@{at}"],
+                           cwd=root, env=env, capture_output=True,
+                           text=True, timeout=600)
+    unfinished = (json.loads(journal.read_text())["unfinished"]
+                  if journal.exists() else -1)
+    second = subprocess.run(argv + [f"--serve_resume={journal}"], cwd=root,
+                            env=env, capture_output=True, text=True,
+                            timeout=600)
+    shutil.rmtree(jdir, ignore_errors=True)
+    rec = {"phase": "serve2", "part": "f_sigterm_resume",
+           "rc": [first.returncode, second.returncode],
+           "served": [served(first.stdout), served(second.stdout)],
+           "journal_unfinished": unfinished, "requests": nreq,
+           "sigterm_at_s": at, "nvidia_smi": smi}
+    emit(rec)
+    done1, total1 = rec["served"][0]
+    if not (first.returncode == 75 and second.returncode == 0
+            and total1 == nreq and unfinished >= 1
+            and done1 + unfinished == nreq
+            and rec["served"][1] == (unfinished, unfinished)):
+        raise AssertionError(
+            f"drain/resume failed: {rec}\n{first.stdout[-2000:]}"
+            f"{first.stderr[-2000:]}\n{second.stdout[-2000:]}"
+            f"{second.stderr[-2000:]}")
+
+    # (c) llama_1b under int8_kv on phase 4's trace
+    layers = llama.num_layers
+    engine, requests = serve2_engine(llama, "llama_1b", "--quant=int8_kv")
+    s, tap, counts = serve2_run(torch, engine, requests, layers)
+    add(counts)
+    f32 = serve2_feed(torch, dev, llama, "paged")
+    q8 = serve2_feed(torch, dev, llama, "paged", quant="int8_kv")
+    err = float((q8 - f32).abs().max())
+    scale = float(f32.abs().max())
+    base = phase4["summary"]
+    rec = {"phase": "serve2", "part": "c_llama_int8_kv",
+           "pool_dtype": str(engine._kv[0].dtype),
+           "kv_pool_bytes": s["kv_pool_bytes"],
+           "kv_scale_bytes": s["kv_scale_bytes"],
+           "f32_kv_pool_bytes": phase4["kv_pool_bytes"],
+           "pool_bytes_ratio": s["kv_pool_bytes"] / phase4["kv_pool_bytes"],
+           "feed_max_abs_err": err, "feed_f32_max_abs": scale,
+           "feed_rel_tol": INT8_KV_REL_TOL,
+           "feed_argmax_equal_share": float(
+               (q8.argmax(-1) == f32.argmax(-1)).float().mean()),
+           "token_share_equal_phase4": _token_share(tap.tokens,
+                                                    phase4["tokens"]),
+           "phase4_tokens_per_s": base["tokens_per_s"], "launches": counts,
+           "nvidia_smi": smi, **{k: s[k] for k in SERVE2_KEYS}}
+    emit(rec)
+    if not (rec["pool_dtype"] == "torch.int8" and s["completed"] == 16
+            and bool(torch.isfinite(q8).all())
+            and err <= INT8_KV_REL_TOL * scale):
+        raise AssertionError(f"int8_kv run failed: {rec}")
+    del engine, f32, q8
+    torch.cuda.empty_cache()
+
+    # (d) llama_1b under int8_w on phase 4's trace
+    engine, requests = serve2_engine(llama, "llama_1b", "--quant=int8_w")
+    s, tap, counts = serve2_run(torch, engine, requests, layers)
+    add(counts)
+    # the cast eager PyTorch pays at each product: every int8 projection
+    # of one decode step cast to float32 once, timed alone
+    leaves = engine.family.qweights.values()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    cast_ms = []
+    for _ in range(5):
+        start.record()
+        for leaf in leaves:
+            leaf["q"].to(torch.float32)
+        end.record()
+        end.synchronize()
+        cast_ms.append(start.elapsed_time(end))
+    rec = {"phase": "serve2", "part": "d_llama_int8_w",
+           "cast_ms_a_step": statistics.median(cast_ms),
+           "wall_ms_per_decode_step": 1e3 * s["wall_s"] / s["decode_steps"],
+           "phase4_wall_ms_per_decode_step": 1e3 * base["wall_s"]
+           / base["decode_steps"],
+           "f32_weight_bytes": phase4["weight_bytes"],
+           "weight_bytes_ratio": s["weight_bytes"] / phase4["weight_bytes"],
+           "phase4_tokens_per_s": base["tokens_per_s"],
+           "tokens_per_s_ratio": s["tokens_per_s"] / base["tokens_per_s"],
+           "token_share_equal_phase4": _token_share(tap.tokens,
+                                                    phase4["tokens"]),
+           "launches": counts, "nvidia_smi": smi,
+           **{k: s[k] for k in SERVE2_KEYS}}
+    emit(rec)
+    if s["completed"] != 16:
+        raise AssertionError(f"int8_w run incomplete: {rec}")
+    del engine
+    torch.cuda.empty_cache()
+    return total
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(description="Smoke run of the port on "
                                 "the GPUs of this machine.")
-    p.add_argument("--only", choices=("dp", "realdata", "slice7"),
+    p.add_argument("--only", choices=("dp", "realdata", "slice7",
+                                      "serve2"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
                         "realdata: the build, then phase 14 alone (beside "
                         "phase 7's fused run and phase 10's first run); "
                         "slice7: the build, then phase 15 alone (beside "
-                        "phase 7's fused run)")
+                        "phase 7's fused run); serve2: the build, then "
+                        "phase 16 alone (beside phase 4's run)")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -2588,6 +2983,16 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "serve2":
+        model, _ = create_model("llama_1b", device=dev, seed=0)
+        _, phase4 = phase_serve(torch, model)
+        phase_serve2(torch, dev, smi, model, phase4)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     timer = Timer(torch, dev)
     main_rows = phase_kernels(torch, dev, timer, smi)
     main_rows["fused_bn_relu_conv"] = phase_conv(torch, dev, timer, smi)
@@ -2602,8 +3007,9 @@ def main(argv: list[str] | None = None) -> int:
           "init_s": time.perf_counter() - t0})
     phase_parity(torch, dev, model)
     torch.cuda.empty_cache()
-    launches = phase_serve(torch, model)
-    del model
+    launches, phase4 = phase_serve(torch, model)
+    serve2_launches = phase_serve2(torch, dev, smi, model, phase4)
+    del model, phase4
     torch.cuda.empty_cache()
 
     phase_train_parity(torch, dev, smi)
@@ -2676,7 +3082,8 @@ def main(argv: list[str] | None = None) -> int:
                       "design": designs[name],
                       "dp_launches": dp_launches[name],
                       "realdata_launches": realdata_launches[name],
-                      "slice7_launches": slice7_launches[name]})
+                      "slice7_launches": slice7_launches[name],
+                      "serve2_launches": serve2_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -170,13 +170,23 @@ def test_paged_program_matches_gather_program():
 
 
 def test_quant_arms_are_not_ported_yet():
+    """Both int8 arms are ported now; what stays refused is JAX's one
+    refused combination: ``int8_kv`` under the gather arm, whose read
+    path has no scales (no quiet fallback to ``paged`` or ``off``)."""
     _, _, port = _mini_pair()
     for quant in ("int8_w", "int8_kv"):
-        with pytest.raises(ValueError, match="not ported"):
-            decode_mod.build_family(port, quant=quant)
-        with pytest.raises(ValueError, match="not ported"):
-            flags.ServeConfig(quant=quant,
-                              decode_attention="paged").resolve()
+        assert decode_mod.build_family(port, quant=quant).num_layers == 2
+        assert flags.ServeConfig(quant=quant,
+                                 decode_attention="paged").resolve()
+    family = decode_mod.build_family(port, quant="int8_kv")
+    with pytest.raises(ValueError, match="gather reference has no "
+                       "scale-fused read path"):
+        decode_mod.build_decode_fn(family, 4, 4, attention="gather",
+                                   quant="int8_kv")
+    with pytest.raises(ValueError, match="set --decode_attention=paged"):
+        flags.ServeConfig(quant="int8_kv").resolve()
+    with pytest.raises(ValueError, match="int8_w\\|int8_kv"):
+        flags.ServeConfig(quant="int4").resolve()
 
 
 # --- engine ---------------------------------------------------------------
@@ -332,8 +342,10 @@ def test_flags_defaults_and_rejections():
                              "--decode_attention=paged",
                              "--decode_block_pages=2"])
     assert cfg.decode_block_pages == 2 and cfg.device == "cpu"
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="kv_reserve=lazy"):
         flags.parse_flags(["--prefix_cache=on"])
+    with pytest.raises(ValueError, match="not ported"):
+        flags.parse_flags(["--metrics_dir=/tmp/x"])
     with pytest.raises(ValueError, match="decode_block_pages"):
         flags.parse_flags(["--decode_block_pages=2"])
     with pytest.raises(SystemExit):
@@ -366,7 +378,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
         [sys.executable, "-c",
          "import sys, tpu_hc_bench_torch, tpu_hc_bench_torch.serve.cli, "
-         "tpu_hc_bench_torch.serve.engine, tpu_hc_bench_torch.convert; "
+         "tpu_hc_bench_torch.serve.engine, tpu_hc_bench_torch.convert, "
+         "tpu_hc_bench_torch.serve.decode, tpu_hc_bench_torch.serve.faults, "
+         "tpu_hc_bench_torch.serve.prefix_cache, "
+         "tpu_hc_bench_torch.serve.kv, tpu_hc_bench_torch.serve.slo, "
+         "tpu_hc_bench_torch.resilience.preempt, "
+         "tpu_hc_bench_torch.resilience.watchdog, "
+         "tpu_hc_bench_torch.data.tokens; "
          "assert 'jax' not in sys.modules; "
          "assert 'tpu_hc_bench' not in sys.modules"],
         cwd=REPO, capture_output=True, text=True, timeout=120,

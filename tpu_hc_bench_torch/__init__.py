@@ -5,9 +5,12 @@ held against it by the ``tests/test_torch_*.py`` parity tests and imports
 nothing from it (no JAX, no shared module: it keeps its own copies of the
 host code it needs).  Two lanes are ported:
 
-- serving (``python -m tpu_hc_bench_torch serve``): ``llama_1b`` served
-  with continuous batching over a paged KV pool, with hand-written CUDA
-  kernels for paged decode attention and the fused residual+norm;
+- serving (``python -m tpu_hc_bench_torch serve``): the llama and GPT-2
+  decoders served with continuous batching over a paged KV pool (int8
+  weights or an int8 pool on request, lazy reservation with a shared
+  prefix cache, shedding, preemption, a drain journal), with
+  hand-written CUDA kernels for paged decode attention and the fused
+  residual+norm;
 - training (``python -m tpu_hc_bench_torch NUM_HOSTS WORKERS BATCH
   FABRIC``, the reference's flag line): ResNet v1.5 (resnet50/101/152)
   on synthetic images or ImageNet TFRecords (``--data_dir``: a native

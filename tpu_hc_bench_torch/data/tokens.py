@@ -2,12 +2,11 @@
 lane's pre-tokenized corpus, copies of the JAX package's
 ``data/tokens.py``.
 
-- ``PromptSampler``: the synthetic branch of the JAX sampler: uniform
-  ids over ``[1, vocab_size)`` at exactly the requested length (0 is the
-  reserved eod/pad id), from a numpy counter rng keyed ``(seed, 11,
-  rid)``.  The keys are kept verbatim, so a trace here equals the JAX
-  lane's for the same seed.  The corpus branch (``data_dir``) is not
-  ported yet.
+- ``PromptSampler``: the JAX sampler: corpus windows cut at the first
+  end-of-document (``data_dir``), or uniform synthetic ids over ``[1,
+  vocab_size)``, from a numpy counter rng keyed ``(seed, 11, rid)``.
+  The keys are kept verbatim, so a trace here equals the JAX lane's for
+  the same seed and corpus.
 - ``TokenDataset``: the text models' ``--data_dir``, a memory-mapped
   ``<data_dir>/<split>.bin`` holding a raw little-endian uint16 (vocab
   <= 65536) or uint32 token stream (the nanoGPT/Megatron convention;
@@ -38,23 +37,48 @@ import numpy as np
 
 @dataclasses.dataclass
 class PromptSampler:
+    """The serving lane's per-request prompts, deterministic per
+    ``(seed, rid)`` through a counter rng keyed ``(seed, 11, rid)``:
+
+    - **corpus** (``data_dir`` set): a window drawn from the
+      memory-mapped ``<data_dir>/<split>.bin`` and cut at its first
+      end-of-document id by ``split_documents``, so a prompt may be
+      shorter than asked;
+    - **synthetic** (``data_dir`` None): uniform ids over ``[1,
+      vocab_size)`` at exactly the asked length (0 is the eod/pad id).
+    """
+
     vocab_size: int
     data_dir: str | Path | None = None
+    split: str = "train"
+    eod_id: int = 0
     seed: int = 0
 
     def __post_init__(self):
+        self._data = None
         if self.data_dir is not None:
-            raise NotImplementedError(
-                "corpus prompts (data_dir) are not ported yet; the port "
-                "samples synthetic prompts")
+            path, dtype = _resolve(self.data_dir, self.split)
+            self._data = np.memmap(path, dtype=dtype, mode="r")
+            if len(self._data) < 2:
+                raise ValueError(f"{path}: corpus too small to sample "
+                                 f"prompts from")
 
     def sample(self, rid: int, length: int) -> np.ndarray:
-        """The prompt for request ``rid`` at ``length`` tokens."""
+        """The prompt for request ``rid`` at (up to) ``length`` tokens."""
         if length < 1:
             raise ValueError(f"prompt length must be >= 1: {length}")
         rng = np.random.default_rng((self.seed, 11, rid))
-        return rng.integers(1, max(2, self.vocab_size), size=(length,),
-                            dtype=np.int64).astype(np.int32)
+        if self._data is None:
+            return rng.integers(1, max(2, self.vocab_size), size=(length,),
+                                dtype=np.int64).astype(np.int32)
+        span = min(length, len(self._data))
+        start = int(rng.integers(0, len(self._data) - span + 1))
+        window = np.asarray(self._data[start:start + span])
+        docs = split_documents(window, self.eod_id)
+        prompt = docs[0] if docs else window
+        out = np.clip(np.asarray(prompt, dtype=np.int64), 0,
+                      self.vocab_size - 1)
+        return out.astype(np.int32)
 
 
 def write_token_file(path: str | Path, tokens: np.ndarray,

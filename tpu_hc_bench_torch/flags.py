@@ -30,10 +30,8 @@ import dataclasses
 
 # serving knobs of the JAX lane that this port does not carry yet
 LATER_SLICE_FLAGS = (
-    "slo_e2e_ms", "deadline_ms", "shed", "kv_preempt", "serve_faults",
-    "serve_journal", "serve_resume", "serve_step_timeout_s", "kv_reserve",
-    "prefix_cache", "kv_growth_headroom", "metrics_dir", "data_dir",
-    "compile_cache", "hbm_budget", "flight_recorder", "config",
+    "metrics_dir", "compile_cache", "hbm_budget", "flight_recorder",
+    "config",
 )
 
 
@@ -86,9 +84,40 @@ class ServeConfig:
     max_output_len: int = 32
     batching: str = "continuous"              # continuous | static
     decode_attention: str = "gather"          # gather | paged
-    quant: str = "off"                        # only off is ported
+    quant: str = "off"                        # off | int8_w (per-channel
+                                              # int8 projections, scale
+                                              # on the product) | int8_kv
+                                              # (int8 pool + per-page
+                                              # scales; paged arm only)
     decode_block_pages: int = 0               # paged kernel pages per step
                                               # (0 = auto: 1)
+    slo_e2e_ms: float = 0.0                   # e2e SLO target: windowed
+                                              # burn rate in the summary
+    deadline_ms: float = 0.0                  # per-request deadline the
+                                              # shed policies judge by
+                                              # (0 = slo_e2e_ms)
+    shed: str = "off"                         # off | admit | deadline
+    kv_preempt: str = "off"                   # off | on: preempt the
+                                              # resident with most pages
+                                              # per token and requeue it
+                                              # with its generated prefix
+    serve_faults: str | None = None           # hang@STEP:S, nan_logits@RID,
+                                              # sigterm@T, pool_squeeze@T:P
+    serve_journal: str | None = None          # drain journal path
+                                              # (default ./serve_journal.json)
+    serve_resume: str | None = None           # replay a drain journal
+    serve_step_timeout_s: str | None = None   # scheduler-iteration
+                                              # watchdog (exit 70)
+    kv_reserve: str = "worst"                 # worst | lazy (prompt pages
+                                              # + headroom, grown on demand)
+    prefix_cache: str = "off"                 # off | on: shared prompt
+                                              # pages, copy-on-write;
+                                              # needs kv_reserve=lazy
+    kv_growth_headroom: int = 1               # pages past the prompt a
+                                              # lazy admission reserves
+    data_dir: str | None = None               # prompt corpus
+                                              # (<data_dir>/train.bin);
+                                              # None = synthetic prompts
 
     def resolve(self) -> "ServeConfig":
         """Validate (the JAX serving matrix, for the ported knobs)."""
@@ -122,12 +151,15 @@ class ServeConfig:
             raise ValueError(
                 f"--decode_attention must be gather|paged: "
                 f"{self.decode_attention!r}")
-        if self.quant in ("int8_w", "int8_kv"):
-            raise ValueError(
-                f"--quant={self.quant} is not ported yet (off only)")
-        if self.quant != "off":
+        if self.quant not in ("off", "int8_w", "int8_kv"):
             raise ValueError(
                 f"--quant must be off|int8_w|int8_kv: {self.quant!r}")
+        if self.quant == "int8_kv" and self.decode_attention != "paged":
+            raise ValueError(
+                "--quant=int8_kv stores per-page scales that are "
+                "consumed INSIDE the paged decode kernel; set "
+                "--decode_attention=paged (the gather reference has no "
+                "scale-fused read path)")
         if self.decode_block_pages < 0:
             raise ValueError(
                 f"--decode_block_pages must be >= 0 (0 = auto): "
@@ -136,13 +168,57 @@ class ServeConfig:
             raise ValueError(
                 "--decode_block_pages sizes the paged kernel's page "
                 "blocks; it has no meaning under --decode_attention=gather")
+        if self.slo_e2e_ms < 0:
+            raise ValueError(
+                f"--slo_e2e_ms must be >= 0 ms (0 = no SLO tracking): "
+                f"{self.slo_e2e_ms}")
+        if self.deadline_ms < 0:
+            raise ValueError(
+                f"--deadline_ms must be >= 0 ms (0 = use --slo_e2e_ms): "
+                f"{self.deadline_ms}")
+        if self.shed not in ("off", "admit", "deadline"):
+            raise ValueError(
+                f"--shed must be off|admit|deadline: {self.shed!r}")
+        if self.shed != "off" and not (self.deadline_ms
+                                       or self.slo_e2e_ms):
+            raise ValueError(
+                "--shed needs a deadline to shed against: set "
+                "--deadline_ms (or --slo_e2e_ms, its fallback)")
+        if self.kv_preempt not in ("off", "on"):
+            raise ValueError(
+                f"--kv_preempt must be off|on: {self.kv_preempt!r}")
+        if self.kv_reserve not in ("worst", "lazy"):
+            raise ValueError(
+                f"--kv_reserve must be worst|lazy: {self.kv_reserve!r}")
+        if self.prefix_cache not in ("off", "on"):
+            raise ValueError(
+                f"--prefix_cache must be off|on: {self.prefix_cache!r}")
+        if self.prefix_cache == "on" and self.kv_reserve != "lazy":
+            raise ValueError(
+                "--prefix_cache=on shares pages a worst-case "
+                "reservation would immediately duplicate; set "
+                "--kv_reserve=lazy (sharing only saves pages when "
+                "admission stops reserving the worst case)")
+        if self.kv_growth_headroom < 0:
+            raise ValueError(
+                f"--kv_growth_headroom must be >= 0 pages: "
+                f"{self.kv_growth_headroom}")
+        if self.serve_faults:
+            from tpu_hc_bench_torch.serve.faults import parse_serve_plan
+
+            parse_serve_plan(self.serve_faults)     # loud format check
+        if self.serve_step_timeout_s is not None:
+            from tpu_hc_bench_torch.resilience.watchdog import (
+                resolve_timeout)
+
+            resolve_timeout(self.serve_step_timeout_s)
         parse_serve_buckets(self.serve_buckets, self.max_in_flight)
         return self
 
     def summary_lines(self) -> list[str]:
         buckets = ",".join(str(b) for b in parse_serve_buckets(
             self.serve_buckets, self.max_in_flight))
-        return [
+        lines = [
             f"serve: model={self.model} device={self.device} "
             f"batching={self.batching} seed={self.seed}",
             f"arrival={self.arrival} rate={self.arrival_rate}/s "
@@ -155,6 +231,27 @@ class ServeConfig:
             + (f" decode_block_pages={self.decode_block_pages}"
                if self.decode_block_pages else ""),
         ]
+        if self.kv_reserve != "worst" or self.prefix_cache != "off":
+            lines.append(
+                f"kv_reserve={self.kv_reserve} "
+                f"prefix_cache={self.prefix_cache} "
+                f"growth_headroom={self.kv_growth_headroom}")
+        if (self.shed != "off" or self.kv_preempt != "off"
+                or self.serve_faults or self.serve_resume
+                or self.serve_step_timeout_s):
+            lines.append(
+                f"shed={self.shed} kv_preempt={self.kv_preempt}"
+                + (f" deadline_ms={self.deadline_ms:g}"
+                   if self.deadline_ms else "")
+                + (f" faults={self.serve_faults}"
+                   if self.serve_faults else "")
+                + (f" resume={self.serve_resume}"
+                   if self.serve_resume else "")
+                + (f" watchdog={self.serve_step_timeout_s}s"
+                   if self.serve_step_timeout_s else ""))
+        if self.data_dir is not None:
+            lines.append(f"prompts from {self.data_dir}")
+        return lines
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -164,8 +261,10 @@ def build_parser() -> argparse.ArgumentParser:
         description="Serve a decoder with continuous batching over a "
                     "paged KV pool (PyTorch/CUDA port).")
     for f in dataclasses.fields(ServeConfig):
-        p.add_argument(f"--{f.name}", type=type(getattr(d, f.name)),
-                       default=getattr(d, f.name))
+        default = getattr(d, f.name)
+        p.add_argument(f"--{f.name}",
+                       type=str if default is None else type(default),
+                       default=default)
     for name in LATER_SLICE_FLAGS:
         p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     return p

@@ -1,7 +1,8 @@
 """Model registry of the port: the ``--model=`` dispatch, for the members
 ported so far (``llama_1b`` and ``llama_tiny`` for serving; ``resnet50``,
 ``resnet101``, ``resnet152``, ``gpt2``, ``gpt2_medium``, ``bert_base``,
-``bert_large`` and ``bert_tiny`` for training).
+``bert_large`` and ``bert_tiny`` for training; the serving lane serves
+every ``causal_lm`` member: the llamas, ``gpt2`` and ``gpt2_medium``).
 
 ``get_model_spec`` and ``create_model`` keep the JAX package's names and
 return values (``create_model`` returns ``(model, spec)``); the port's

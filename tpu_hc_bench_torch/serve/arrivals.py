@@ -132,7 +132,9 @@ def build_requests(cfg, vocab_size: int | None,
 
     prompt_lens = sample_lengths(cfg.num_requests, cfg.max_prompt_len,
                                  seed=seed + 2)
-    sampler = PromptSampler(vocab_size=vocab_size, seed=seed)
+    sampler = PromptSampler(vocab_size=vocab_size,
+                            data_dir=cfg.data_dir,
+                            seed=seed)
     return [
         Request(rid=i, arrival_s=float(times[i]),
                 prompt=sampler.sample(i, int(prompt_lens[i])),

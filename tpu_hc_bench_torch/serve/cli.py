@@ -2,8 +2,11 @@
 
 Exit codes, as in the JAX lane:
 
-- ``0``  clean (every request completed)
+- ``0``  clean (every request completed, shed, or quarantined)
 - ``1``  run completed but zero requests finished
+- ``70`` the scheduler-iteration watchdog fired (``--serve_step_timeout_s``)
+- ``75`` SIGTERM honored: the engine drained and journaled every
+  unfinished request; ``--serve_resume=<journal>`` replays each once
 
 Example (on the GPU; add ``--device=cpu`` and a small model to run on
 the CPU)::
@@ -44,9 +47,21 @@ def main(argv: list[str] | None = None,
     for line in cfg.summary_lines():
         print_fn(line)
     engine, requests = build_engine_and_requests(cfg, print_fn)
+    if cfg.serve_resume:
+        # drain-journal replay: the journal is the trace
+        from tpu_hc_bench_torch.serve import faults as faults_mod
+
+        payload = faults_mod.read_journal(cfg.serve_resume)
+        requests = faults_mod.journal_requests(payload)
+        print_fn(f"resume: {len(requests)} unfinished request(s) from "
+                 f"{cfg.serve_resume} (reason={payload.get('reason')})")
     summary = engine.run(requests)
     for line in slo_mod.slo_lines(summary):
         print_fn(line)
+    if summary.get("drained"):
+        from tpu_hc_bench_torch.resilience import EXIT_PREEMPTED
+
+        return EXIT_PREEMPTED
     return 0 if summary["completed"] > 0 else 1
 
 
