@@ -63,8 +63,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 8. **flash**: the three flash-attention kernels (forward, dQ, dK/dV)
    against their plain versions on the same inputs, at the GPT-2 shape
    ``[16, 1024, 12, 64]`` causal in bf16 (q, k, v views of one fused
-   projection, as the model hands them over) and in float32, at an
-   unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, at BERT-base's
+   projection, as the model hands them over) and in float32, at
+   llama_1b's ``[2, 2048, 32, 64]`` causal in bf16 (the GQA-repeated
+   K/V of phase 17's main path), at an unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, at BERT-base's
    non-causal ``[128, 128, 12, 64]`` in bf16, at bert_tiny's head dim
    32 (``[128, 128, 4, 32]``, zero-padded to 64 as ``flash_attention``
    pads it), at head dim 256 (``[2, 512, 8, 256]`` causal, bf16 and
@@ -102,8 +103,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    memory of each.
 11. **xent**: the cross-entropy forward and backward kernels against
    their plain versions at GPT-2's logits ``[16384, 50257]`` float32 (the
-   main path), BERT-base's ``[16384, 30522]`` float32 and a bf16
-   ``[4096, 50257]``; ``library_ms`` is ``F.cross_entropy(reduction=
+   main path), BERT-base's ``[16384, 30522]`` float32, llama_1b's
+   ``[4096, 32000]`` float32 and a bf16 ``[4096, 50257]``; ``library_ms`` is ``F.cross_entropy(reduction=
    "none")``'s forward, and its backward alone.
 12. **pool**: ``max_pool``'s backward kernel, which no model runs: three
    forward-and-backward calls through the op at googlenet/resnet's stem
@@ -208,12 +209,41 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    llama_1b under ``--quant=int8_w``: tokens/s against phase 4 and the
    weight bytes.
 
+17. **slice9**: the decoder lane's rest, every training run through
+   ``launcher.main`` with every count zeroed just before and read just
+   after, and its peak memory: (a) llama_1b at full width, bf16, flash,
+   batch 2 x 2048, 10 + 30 steps, ``--fused_xent`` false and true (16
+   launches of each flash kernel a step, one of each xent kernel with
+   the fused loss), the loss falling below the first step's, whose
+   logits and loss are held to the dense arm's within
+   ``SLICE9_FIRST_LOGITS_TOL`` and ``SLICE9_FIRST_LOSS_TOL`` (the
+   kernels themselves are held at llama_1b's shapes in phases 8 and
+   11); (b) the
+   same with ``--gradient_checkpointing`` (the forward kernel 32 a step,
+   the final loss within ``SLICE9_REMAT_LOSS_TOL`` of (a)'s, less
+   memory), and at the end of the phase the largest power-of-two batch
+   that fits under remat, with its sequences/s; (c) gpt2_moe, bf16,
+   flash, batch 8 x 1024, ``--moe_impl=einsum`` and ``ragged`` (12 a
+   step), aux loss and einsum's drop fraction; (d) gpt2_moe at
+   ``--gradient_accumulation_steps=8`` through a one-rank NCCL group,
+   ``--accum_dtype=f32`` against ``bf16`` within
+   ``SLICE9_ACCUM_LOSS_TOL``, each arm's final loss at least
+   ``SLICE9_ACCUM_MOVED`` times that far from a ``--forward_only`` run's
+   on the same batch (the loss with no update); (e) gpt2 and llama_1b
+   with ``--scan_layers`` against unrolled from one seed, each run at
+   one launch of each flash kernel a layer and step; (f) gpt2_moe served
+   in float32 on phase 4's trace: paged against gather on phase 3's
+   feed, rows 1 and 2 at 12 and 23 launches a decode step, the ragged
+   route's host syncs a decode step, and the greedy tokens against the
+   full forward's argmax.
+
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
 ``realdata_launches``: its launches in phase 14's runs (b)-(e) and (g),
 ``slice7_launches``: its launches in phase 15's runs (c)-(e), and
 ``serve2_launches``: its launches in phase 16's runs (b)-(f) in this
-process, every kernel's count set to 0 before each and read after it),
+process, ``slice9_launches``: its launches in phase 17's runs (a)-(c)
+and (f), every kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -224,7 +254,8 @@ the data-parallel path on a machine with several cards.  ``--only
 realdata`` runs the build and phase 14 alone, beside phase 7's fused
 run and phase 10's first run; ``--only slice7`` the build and phase 15
 alone, beside phase 7's fused run (with several cards, (f) runs);
-``--only serve2`` the build and phase 16 alone, beside phase 4's run.
+``--only serve2`` the build and phase 16 alone, beside phase 4's run;
+``--only slice9`` the build and phase 17 alone.
 """
 
 from __future__ import annotations
@@ -315,11 +346,13 @@ HEAD_START_CYCLES = 400_000
 # before their products, where a last-bit difference in the f32 score
 # can flip a rounding
 FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
-# (b, s, h, d, dtype, causal): the main path's shape first; head dim 32
+# (b, s, h, d, dtype, causal): the main path's shape first; llama_1b's
+# (batch 2 x seq 2048, 32 heads after the GQA repeat); head dim 32
 # (bert_tiny's widths, batch 128 x seq 128) runs zero-padded to 64; head
 # dim 256 runs the FMA kernels at 32-row tiles in both dtypes, and head
 # dim 320 the same kernels zero-padded to 512 (two 256-wide chunks)
 FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
+               (2, 2048, 32, 64, "bfloat16", True),         # llama_1b
                (16, 1024, 12, 64, "float32", True),
                (4, 1000, 6, 128, "bfloat16", False),
                (128, 128, 12, 64, "bfloat16", False),       # bert_base
@@ -391,9 +424,10 @@ DP_SMALL_THRESHOLD = 25 << 20      # several buckets in resnet50's 102 MB
 # (2^-7 of the largest) in bf16, where an f32 value a last bit apart can
 # round the other way
 XENT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
-# (rows, vocab, dtype): GPT-2's logits (the main path), BERT-base's, bf16
+# (rows, vocab, dtype): GPT-2's logits (the main path), BERT-base's,
+# llama_1b's (batch 2 x seq 2048, untied 32000 head), bf16
 XENT_CASES = ((16384, 50257, "float32"), (16384, 30522, "float32"),
-              (4096, 50257, "bfloat16"))
+              (4096, 32000, "float32"), (4096, 50257, "bfloat16"))
 XENT_KERNELS = {                   # kernel -> (row name, Pallas call)
     "fwd": ("softmax_xent_fwd", "tpu_hc_bench/ops/xent.py:99"),
     "bwd": ("softmax_xent_bwd", "tpu_hc_bench/ops/xent.py:151"),
@@ -471,6 +505,32 @@ SERVE2_VCOSTS = {"prefill": 0.03, "decode": 0.02, "page_copy": 0.001}
 SERVE2_F = dict(kv_pages=1 + 3 * 36,
                 plan="nan_logits@2,pool_squeeze@0.5:20", deadline_ms=3000.0)
 SERVE2_SIGTERM = (32, 0.3)         # (f) subprocess: requests, SIGTERM at s
+
+# phase 17 (slice9): the decoder lane's rest; (warmup, timed) steps
+SLICE9_LLAMA_BATCH = 2             # llama_1b: batch 2 x seq 2048
+SLICE9_MOE_BATCH = 8               # gpt2_moe: batch 8 x seq 1024
+SLICE9_STEPS = (10, 30)
+# llama_1b's first forward, bf16 flash against bf16 dense from one seed
+# (summation order and bf16 rounding through 16 layers): the loss
+# relative, the logits relative to their largest magnitude
+SLICE9_FIRST_LOSS_TOL = 1e-3
+SLICE9_FIRST_LOGITS_TOL = 5e-2
+# (b) remat recomputes the same products: its final loss against (a)'s
+SLICE9_REMAT_LOSS_TOL = 1e-3
+SLICE9_SEARCH_STEPS = (2, 3)       # (b)'s batch search, each batch
+SLICE9_MAX_BATCH = 64
+SLICE9_ACCUM = 8                   # (d): microbatch 1 of 1024 tokens
+SLICE9_ACCUM_STEPS = (3, 10)
+# (d) bf16 accumulation against f32 after 13 steps: each microbatch's
+# gradient rounded to bf16 (2^-8 relative), relative final-loss change;
+# each arm's final loss must also lie SLICE9_ACCUM_MOVED times as far
+# from the loss with no update (a forward-only run on the same batch)
+SLICE9_ACCUM_LOSS_TOL = 2e-3
+SLICE9_ACCUM_MOVED = 5.0
+SLICE9_SCAN_STEPS = (3, 10)        # (e): scanned against unrolled
+SLICE9_SCAN_GPT2_BATCH = 8
+SLICE9_SCAN_LOSS_TOL = 1e-3
+SLICE9_GREEDY_CHECKS = 4           # (f): requests held to the forward
 
 
 
@@ -2891,13 +2951,326 @@ def phase_serve2(torch, dev, smi, llama, phase4: dict) -> dict:
     torch.cuda.empty_cache()
     return total
 
+def _slice9_run(torch, part: str, argv: list[str], smi: str,
+                expect: dict | None = None) -> tuple[dict, dict, list]:
+    """One training run of phase 17 through ``launcher.main``: every
+    count zeroed just before and read just after, peak memory from a
+    reset; ``expect``: each listed kernel's count (the rest must be 0).
+    Returns the result line, the counts and the display losses."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    rc, res = _launch(argv)
+    counts = _read_counts()
+    rec = {"phase": "slice9", "part": part, "argv": argv, "rc": rc,
+           "launches": counts, "expected_launches": expect,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "nvidia_smi": smi,
+           **{k: res.get(k) for k in (
+               "total_images_per_sec", "mean_step_ms", "p50_step_ms", "mfu",
+               "final_loss", "global_batch", "gradient_accumulation_steps",
+               "extra", "device_kind")}}
+    rec["sequences_per_sec"] = res.get("total_images_per_sec")
+    emit(rec)
+    ok = (rc == 0 and math.isfinite(res["final_loss"])
+          and res["total_images_per_sec"] > 0)
+    if expect is not None:
+        ok = ok and all(counts[k] == expect.get(k, 0) for k in counts)
+    if not ok:
+        raise AssertionError(f"slice9 run {part} failed: {rec}")
+    return res, counts, rec
+
+
+def _slice9_argv(fabric: str, batch: int, model: str, steps: tuple,
+                 *extra: str) -> list[str]:
+    warmup, timed = steps
+    return ["1", "1", str(batch), fabric, f"--model={model}",
+            "--use_fp16=true", "--attention_impl=flash",
+            f"--num_warmup_batches={warmup}", f"--num_batches={timed}",
+            "--display_every=10", *extra]
+
+
+def _slice9_expect(layers: int, steps: int, fused: bool,
+                   fwd_per_layer: int = 1) -> dict:
+    return {FLASH_KERNELS["fwd"][0]: fwd_per_layer * layers * steps,
+            FLASH_KERNELS["dq"][0]: layers * steps,
+            FLASH_KERNELS["dkv"][0]: layers * steps,
+            **{XENT_KERNELS[k][0]: steps if fused else 0
+               for k in XENT_KERNELS}}
+
+
+def slice9_first_loss(torch, dev, smi) -> float:
+    """(a)'s first-step check: llama_1b's logits and loss on the runs'
+    batch, bf16, flash against dense from one seed (forward only; these
+    launches are not counted)."""
+    from tpu_hc_bench_torch.data.synthetic import (SyntheticTokens,
+                                                   tokens_to_device)
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    losses, logits = {}, {}
+    for impl in ("dense", "flash"):
+        model, spec = create_model("llama_1b", torch.bfloat16, impl,
+                                   device=dev, seed=0, train=True)
+        tokens, targets, weights = tokens_to_device(SyntheticTokens(
+            SLICE9_LLAMA_BATCH, spec.input_shape[0], seed=0,
+            vocab_size=spec.vocab_size, causal_lm=True).batch(), dev)
+        with torch.no_grad():
+            logits[impl] = model(tokens)
+            losses[impl] = float(step_mod.lm_loss_fn(logits[impl], targets,
+                                                     weights))
+        del model
+        torch.cuda.empty_cache()
+    rel = abs(losses["flash"] - losses["dense"]) / abs(losses["dense"])
+    logits_rel = rel_err(logits["flash"], logits["dense"])
+    finite = bool(torch.isfinite(logits["flash"]).all())
+    del logits
+    torch.cuda.empty_cache()
+    rec = {"phase": "slice9", "part": "a_first_loss", "losses": losses,
+           "rel_err": rel, "tol": SLICE9_FIRST_LOSS_TOL,
+           "logits_rel_err": logits_rel,
+           "logits_tol": SLICE9_FIRST_LOGITS_TOL, "nvidia_smi": smi}
+    emit(rec)
+    if not (finite and math.isfinite(losses["flash"])
+            and rel <= SLICE9_FIRST_LOSS_TOL
+            and logits_rel <= SLICE9_FIRST_LOGITS_TOL):
+        raise AssertionError(f"llama_1b flash first forward off dense: "
+                             f"{rec}")
+    return losses["flash"]
+
+
+def slice9_serve(torch, dev, smi) -> dict:
+    """(f): gpt2_moe served, float32, on phase 4's trace; returns the
+    run's counts."""
+    import numpy as np
+
+    from tpu_hc_bench_torch.models import create_model, moe
+
+    t0 = time.perf_counter()
+    model, _ = create_model("gpt2_moe", device=dev, seed=0, seq_len=576)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    ref = serve2_feed(torch, dev, model, "gather")
+    got = serve2_feed(torch, dev, model, "paged")
+    err = float((got - ref).abs().max())
+    top2 = ref.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * GPT2_PARITY_TOL
+    parity = {"max_abs_err": err, "tol": GPT2_PARITY_TOL,
+              "finite": bool(torch.isfinite(got).all()),
+              "argmax_equal_where_top2_gap_gt_2tol": bool(
+                  (got.argmax(-1) == ref.argmax(-1))[clear].all())}
+    del ref, got
+    engine, requests = serve2_engine(model, "gpt2_moe")
+    reads0 = moe.host_reads
+    summary, tap, counts = serve2_run(torch, engine, requests,
+                                      model.num_layers)
+    reads = moe.host_reads - reads0
+    steps, prefills = summary["decode_steps"], summary["prefill_steps"]
+    syncs_per_step = (reads - model.num_layers * prefills) / steps
+    # greedy decode against the full forward's argmax (ragged, as served)
+    for layer in model.layers:
+        layer.moe.impl = "ragged"
+    agree = checked = 0
+    for r in requests[:SLICE9_GREEDY_CHECKS]:
+        gen = tap.tokens[r.rid]
+        seq = np.concatenate([r.prompt, np.asarray(gen[:-1], np.int32)])
+        with torch.no_grad():
+            lg = model(torch.from_numpy(seq[None].astype(np.int64)).to(dev))
+        pred = lg[0, len(r.prompt) - 1:].float()
+        top2 = pred.topk(2, dim=-1).values
+        clear_tok = ((top2[:, 0] - top2[:, 1]) > 2 * GPT2_PARITY_TOL).cpu()
+        same = (pred.argmax(-1).cpu() == torch.tensor(gen))
+        agree += int(same[clear_tok].sum())
+        checked += int(clear_tok.sum())
+    rec = {"phase": "slice9", "part": "f_gpt2_moe_serve",
+           "params": sum(p.numel() for p in model.parameters()),
+           "init_s": init_s, "parity": parity, "launches": counts,
+           "expected_launches": {
+               "paged_decode_attention": model.num_layers * steps,
+               "fused_residual_norm": (2 * model.num_layers - 1) * steps},
+           "ragged_host_reads": reads,
+           "host_syncs_per_decode_step": syncs_per_step,
+           "greedy_checked_tokens": checked, "greedy_equal_tokens": agree,
+           "nvidia_smi": smi,
+           **{k: summary[k] for k in SERVE2_KEYS if k in summary},
+           "p99_e2e_ms": summary["p99_e2e_ms"]}
+    emit(rec)
+    del engine, model
+    torch.cuda.empty_cache()
+    if not (parity["finite"] and err <= GPT2_PARITY_TOL
+            and parity["argmax_equal_where_top2_gap_gt_2tol"]
+            and summary["completed"] == summary["requests"]
+            and checked > 0 and agree == checked
+            and syncs_per_step == rec["expected_launches"][
+                "paged_decode_attention"] / steps):
+        raise AssertionError(f"gpt2_moe serving failed: {rec}")
+    return counts
+
+
+def slice9_batch_search(torch, smi, rate_b2: float) -> None:
+    """(b) continued: llama_1b under remat at batches 4, 8, ... until one
+    does not fit (the card's OutOfMemoryError ends the search), each
+    with its sequences/s."""
+    import gc
+
+    found = []
+    batch = 2 * SLICE9_LLAMA_BATCH
+    while batch <= SLICE9_MAX_BATCH:
+        argv = _slice9_argv("sock", batch, "llama_1b", SLICE9_SEARCH_STEPS,
+                            "--gradient_checkpointing=true")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            rc, res = _launch(argv)
+        except torch.cuda.OutOfMemoryError:
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit({"phase": "slice9", "part": "b_batch_search",
+                  "batch": batch, "fits": False, "nvidia_smi": smi})
+            break
+        if rc != 0 or not math.isfinite(res["final_loss"]):
+            raise AssertionError(f"remat batch {batch} run failed: {res}")
+        found.append((batch, res["total_images_per_sec"]))
+        emit({"phase": "slice9", "part": "b_batch_search", "batch": batch,
+              "fits": True, "sequences_per_sec": res["total_images_per_sec"],
+              "mfu": res["mfu"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "nvidia_smi": smi})
+        batch *= 2
+    emit({"phase": "slice9", "part": "b_largest_batch",
+          "batch": found[-1][0] if found else SLICE9_LLAMA_BATCH,
+          "sequences_per_sec": found[-1][1] if found else rate_b2,
+          "searched_up_to": SLICE9_MAX_BATCH, "nvidia_smi": smi})
+
+
+def phase_slice9(torch, dev, smi) -> dict:
+    """Phase 17: the decoder lane's rest; returns every kernel's
+    launches summed over the main-path runs (a)-(c) and (f)."""
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    steps = sum(SLICE9_STEPS)
+    llama_layers, moe_layers = 16, 12
+    # (a) llama_1b training, plain and --fused_xent
+    first = slice9_first_loss(torch, dev, smi)
+    runs = {}
+    for fused in (False, True):
+        res, counts, rec = _slice9_run(
+            torch, f"a_llama_1b_fused_xent_{str(fused).lower()}",
+            _slice9_argv("sock", SLICE9_LLAMA_BATCH, "llama_1b", SLICE9_STEPS,
+                         f"--fused_xent={str(fused).lower()}"),
+            smi, _slice9_expect(llama_layers, steps, fused))
+        if not res["final_loss"] < first:
+            raise AssertionError(f"llama_1b loss did not fall: {rec}")
+        runs[fused] = rec
+        add(counts)
+    # (b) --gradient_checkpointing at (a)'s batch: the same losses, less
+    # memory, the forward kernel twice a layer
+    res_b, counts, rec_b = _slice9_run(
+        torch, "b_llama_1b_remat",
+        _slice9_argv("sock", SLICE9_LLAMA_BATCH, "llama_1b", SLICE9_STEPS,
+                     "--fused_xent=true", "--gradient_checkpointing=true"),
+        smi, _slice9_expect(llama_layers, steps, True, fwd_per_layer=2))
+    add(counts)
+    rel = abs(res_b["final_loss"] - runs[True]["final_loss"]) / abs(
+        runs[True]["final_loss"])
+    rec = {"phase": "slice9", "part": "b_remat_vs_a",
+           "final_loss_rel_err": rel, "tol": SLICE9_REMAT_LOSS_TOL,
+           "peak_mem_gb": rec_b["peak_mem_gb"],
+           "peak_mem_gb_a": runs[True]["peak_mem_gb"], "nvidia_smi": smi}
+    emit(rec)
+    if not (rel <= SLICE9_REMAT_LOSS_TOL
+            and rec_b["peak_mem_gb"] < runs[True]["peak_mem_gb"]):
+        raise AssertionError(f"remat run off (a): {rec}")
+    # (c) gpt2_moe training, einsum and ragged
+    for impl in ("einsum", "ragged"):
+        res, counts, rec = _slice9_run(
+            torch, f"c_gpt2_moe_{impl}",
+            _slice9_argv("sock", SLICE9_MOE_BATCH, "gpt2_moe", SLICE9_STEPS,
+                         f"--moe_impl={impl}"),
+            smi, _slice9_expect(moe_layers, steps, False))
+        add(counts)
+        extra = res["extra"] or {}
+        if not (math.isfinite(extra.get("moe_aux_loss", math.nan))
+                and (impl == "ragged") == (extra["moe_drop_fraction"] == 0)):
+            raise AssertionError(f"gpt2_moe {impl} aux/drops off: {extra}")
+    # (d) accumulation 8 into bf16 against f32 (a one-rank NCCL group),
+    # and the loss with no update on the same batch (forward only)
+    frozen, _, _ = _slice9_run(
+        torch, "d_gpt2_moe_no_update",
+        _slice9_argv("sock", SLICE9_MOE_BATCH, "gpt2_moe",
+                     SLICE9_ACCUM_STEPS, "--forward_only=true"),
+        smi, {FLASH_KERNELS["fwd"][0]: moe_layers * sum(SLICE9_ACCUM_STEPS)})
+    accum = {}
+    for dt in ("f32", "bf16"):
+        res, counts, rec = _slice9_run(
+            torch, f"d_gpt2_moe_accum_{dt}",
+            _slice9_argv("ib", SLICE9_MOE_BATCH, "gpt2_moe",
+                         SLICE9_ACCUM_STEPS,
+                         f"--gradient_accumulation_steps={SLICE9_ACCUM}",
+                         f"--accum_dtype={dt}"),
+            smi, _slice9_expect(moe_layers,
+                                SLICE9_ACCUM * sum(SLICE9_ACCUM_STEPS),
+                                False))
+        accum[dt] = rec
+    ref = accum["f32"]["final_loss"]
+    rel = abs(accum["bf16"]["final_loss"] - ref) / abs(ref)
+    moved = {k: abs(v["final_loss"] - frozen["final_loss"])
+             / abs(frozen["final_loss"]) for k, v in accum.items()}
+    rec = {"phase": "slice9", "part": "d_accum_bf16_vs_f32",
+           "final_loss": {k: v["final_loss"] for k, v in accum.items()},
+           "final_loss_rel_diff": rel, "tol": SLICE9_ACCUM_LOSS_TOL,
+           "no_update_loss": frozen["final_loss"],
+           "rel_diff_from_no_update": moved,
+           "min_rel_diff_from_no_update":
+               SLICE9_ACCUM_MOVED * SLICE9_ACCUM_LOSS_TOL,
+           "peak_mem_gb": {k: v["peak_mem_gb"] for k, v in accum.items()},
+           "sequences_per_sec": {k: v["sequences_per_sec"]
+                                 for k, v in accum.items()},
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (rel <= SLICE9_ACCUM_LOSS_TOL
+            and min(moved.values())
+            >= SLICE9_ACCUM_MOVED * SLICE9_ACCUM_LOSS_TOL):
+        raise AssertionError(f"bf16 accumulation off f32: {rec}")
+    # (e) --scan_layers against unrolled from the same seed
+    for name, batch, layers in (("gpt2", SLICE9_SCAN_GPT2_BATCH, 12),
+                                ("llama_1b", SLICE9_LLAMA_BATCH,
+                                 llama_layers)):
+        losses = {}
+        for scan in (False, True):
+            res, _, _ = _slice9_run(
+                torch, f"e_{name}_scan_{str(scan).lower()}",
+                _slice9_argv("sock", batch, name, SLICE9_SCAN_STEPS,
+                             f"--scan_layers={str(scan).lower()}"), smi,
+                _slice9_expect(layers, sum(SLICE9_SCAN_STEPS), False))
+            losses[scan] = res["final_loss"]
+        rel = abs(losses[True] - losses[False]) / abs(losses[False])
+        rec = {"phase": "slice9", "part": f"e_{name}_scan_vs_unrolled",
+               "final_loss": {"unrolled": losses[False],
+                              "scan": losses[True]},
+               "rel_err": rel, "tol": SLICE9_SCAN_LOSS_TOL,
+               "nvidia_smi": smi}
+        emit(rec)
+        if rel > SLICE9_SCAN_LOSS_TOL:
+            raise AssertionError(f"{name} scanned off unrolled: {rec}")
+    # (f) gpt2_moe served
+    add(slice9_serve(torch, dev, smi))
+    # (b) continued: the largest remat batch that fits
+    slice9_batch_search(torch, smi, rec_b["sequences_per_sec"])
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(description="Smoke run of the port on "
                                 "the GPUs of this machine.")
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
-                                      "serve2"),
+                                      "serve2", "slice9"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -2905,7 +3278,8 @@ def main(argv: list[str] | None = None) -> int:
                         "phase 7's fused run and phase 10's first run); "
                         "slice7: the build, then phase 15 alone (beside "
                         "phase 7's fused run); serve2: the build, then "
-                        "phase 16 alone (beside phase 4's run)")
+                        "phase 16 alone (beside phase 4's run); slice9: "
+                        "the build, then phase 17 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -2993,6 +3367,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice9":
+        phase_slice9(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     timer = Timer(torch, dev)
     main_rows = phase_kernels(torch, dev, timer, smi)
     main_rows["fused_bn_relu_conv"] = phase_conv(torch, dev, timer, smi)
@@ -3037,6 +3419,8 @@ def main(argv: list[str] | None = None) -> int:
                            f"phase 7, {TRAIN_WARMUP} + {TRAIN_BATCHES} steps")
     realdata_launches = phase_realdata(torch, dev, smi, sock_rate, lm_rate)
     slice7_launches = phase_slice7(torch, dev, smi, sock_rate)
+    torch.cuda.empty_cache()
+    slice9_launches = phase_slice9(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -3083,7 +3467,8 @@ def main(argv: list[str] | None = None) -> int:
                       "dp_launches": dp_launches[name],
                       "realdata_launches": realdata_launches[name],
                       "slice7_launches": slice7_launches[name],
-                      "serve2_launches": serve2_launches.get(name, 0)})
+                      "serve2_launches": serve2_launches.get(name, 0),
+                      "slice9_launches": slice9_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -885,7 +885,7 @@ def test_data_parallel_flags_follow_jax():
     assert flags.parse_benchmark_flags(
         ["--variable_update=replicated"]).variable_update == "replicated"
     for bad, match in ((["--variable_update=zero1"], "not ported"),
-                       (["--accum_dtype=bf16"], "not ported"),
+                       (["--rnn_impl=flax"], "not ported"),
                        (["--variable_update=ring"], "psum"),
                        (["--batch_size=6", "--gradient_accumulation_steps=4"],
                         "divisible"),

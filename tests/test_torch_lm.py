@@ -399,7 +399,7 @@ def test_gptlm_dropout_draws_from_its_seeded_generator():
 
 def test_gpt2_registry_rows_and_seq_len_override(monkeypatch):
     spec = get_model_spec("gpt2")
-    assert spec.is_text and spec.causal_lm and not spec.serve_only
+    assert spec.is_text and spec.causal_lm
     assert spec.input_shape == (1024,) and spec.vocab_size == 50257
     assert spec.flops_per_example == 2 * 124e6 * 1024
     assert get_model_spec("gpt2_medium").flops_per_example == \
@@ -446,14 +446,14 @@ def test_lm_flags_pass_and_later_slices_raise():
                        (["--attention_impl=ulysses_flash"], "not ported"),
                        (["--attention_impl=paged"], "dense|flash"),
                        (["--wire_dtype=bf16"], "float32|uint8"),
-                       (["--gradient_checkpointing=true"], "not ported"),
+                       (["--model_parallel=2"], "not ported"),
                        (["--seq_len=0"], "seq_len")):
         with pytest.raises(ValueError, match=match):
             flags.parse_benchmark_flags(bad)
     with pytest.raises(ValueError, match="not ported"):
-        gpt.DecoderLayer(64, 2, 128, num_experts=4)
+        flags.parse_benchmark_flags(["--expert_parallel=2"])
     with pytest.raises(ValueError, match="not ported"):
-        gpt.GPTLM(scan_layers=True)
+        flags.parse_benchmark_flags(["--sequence_parallel=2"])
 
 
 def test_gpt2_launcher_on_the_cpu():

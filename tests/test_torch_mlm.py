@@ -590,7 +590,7 @@ def test_bert_registry_rows_and_widths():
             ("bert_large", (128,), 2 * 335e6 * 128, 30522),
             ("bert_tiny", (64,), 2 * 4.5e6 * 64, 1024)):
         spec = get_model_spec(name)
-        assert spec.is_text and not spec.causal_lm and not spec.serve_only
+        assert spec.is_text and not spec.causal_lm
         assert (spec.input_shape, spec.flops_per_example,
                 spec.vocab_size) == (shape, flops, vocab)
     with torch.device("meta"):
@@ -609,9 +609,11 @@ def test_bert_registry_rows_and_widths():
     assert model.pos_embed.weight.shape == (128, 128)
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert float(model.mlm_bias.detach().abs().sum()) == 0.0
-    for bad in (dict(remat=True), dict(seq_axis="seq")):
-        with pytest.raises(ValueError, match="not ported"):
-            bert.BertMLM(**TINY, **bad)
+    with pytest.raises(ValueError, match="not ported"):
+        bert.BertMLM(**TINY, seq_axis="seq")
+    with pytest.raises(ValueError, match="not ported"):
+        flags.parse_benchmark_flags(["--model=bert_tiny",
+                                     "--sequence_parallel=2"])
     with pytest.raises(ValueError, match="mask"):
         bert.TransformerLayer(128, 4, 512)(torch.zeros((1, 4, 128)),
                                            torch.ones((1, 4)))

@@ -17,6 +17,14 @@
   two kernel wrappers is contiguous and of a dtype the CUDA kernels
   take (they refuse others on the card; their plain versions here take
   anything).
+- **MoE**: a Flax ``GPTLM`` mini with 4 top-2 experts a layer (the
+  ``moe_tiny`` shape, narrowed as the GPT mini), its experts perturbed
+  too: the port's programs (both attention arms, and ``int8_w``, whose
+  router and experts stay float32) against JAX's over the fixed feed
+  (atol 1e-4, tokens equal); both dispatch ragged, whatever the model's
+  ``moe_impl``; the engine's tokens equal the mini's own full-context
+  greedy forward under the ragged dispatch; and ``serve --model=moe_tiny``
+  on the CPU.
 """
 
 from __future__ import annotations
@@ -101,6 +109,79 @@ def port_feed(port, attention: str, quant: str = "off"):
         return logits.numpy(), kv
 
     return _fixed_feed(prefill, decode, kv)
+
+
+MOE_MINI = dict(GPT_MINI, num_experts=4)
+
+
+@functools.lru_cache(maxsize=None)
+def moe_mini_pair():
+    """A Flax MoE GPT mini with perturbed params, and the port's twin
+    (einsum: serving dispatches ragged all the same)."""
+    model = jax_gpt.GPTLM(**MOE_MINI)
+    params = model.init(jax.random.PRNGKey(4), jnp.zeros((1, 8), jnp.int32),
+                        train=False)["params"]
+    rng = np.random.default_rng(6)
+    params = jax.tree_util.tree_map(
+        lambda x: np.asarray(x) + 0.1 * rng.standard_normal(
+            x.shape).astype(np.float32), params)
+    port = gpt.GPTLM(**MOE_MINI)
+    port.load_state_dict(convert.gpt_params_from_flax(params))
+    return model, params, port.eval()
+
+
+@pytest.mark.parametrize("attention,quant", [
+    ("paged", "off"), ("gather", "off"), ("paged", "int8_w")])
+def test_moe_programs_match_jax_fixed_feed(attention, quant):
+    model, params, port = moe_mini_pair()
+    want, want_first = jax_feed(model, params, attention, quant=quant)
+    got, first = port_feed(port, attention, quant=quant)
+    assert first == want_first
+    np.testing.assert_allclose(got, want, atol=PROGRAM_ATOL)
+    assert (got.argmax(-1) == want.argmax(-1)).all()
+
+
+def test_moe_family_keeps_experts_float32_under_int8_w():
+    _, _, port = moe_mini_pair()
+    fam = decode_mod.build_family(port, quant="int8_w")
+    assert fam.quant_paths(1) == ["layers.1.attn.qkv.weight",
+                                  "layers.1.attn.out.weight"]
+    assert not any("moe" in k for k in fam.qweights)
+    assert fam.weight_bytes() < sum(p.nbytes for p in port.parameters())
+
+
+def test_moe_engine_tokens_match_ragged_greedy():
+    """The engine (paged) decodes the greedy tokens of the mini's full
+    forward under the ragged dispatch (no capacity drops)."""
+    model, params, _ = moe_mini_pair()
+    port = gpt.GPTLM(**MOE_MINI, moe_impl="ragged")
+    port.load_state_dict(convert.gpt_params_from_flax(params))
+    port.eval()
+    eng = engine_mod.ServeEngine(_gpt_cfg(model="moe_tiny",
+                                          decode_attention="paged"),
+                                 print_fn=lambda _m: None, model=port)
+    rng = np.random.default_rng(9)
+    reqs = [engine_mod.Request(
+        rid=i, arrival_s=0.01 * i,
+        prompt=rng.integers(1, 128, 3 + 2 * i).astype(np.int32),
+        output_len=2 + i % 4) for i in range(5)]
+    tap = _TokenTap()
+    summary = eng.run(reqs, writer=tap, clock=engine_mod.VirtualClock(VCOSTS))
+    assert summary["completed"] == 5
+    for r in reqs:
+        assert tap.tokens[r.rid] == _greedy(port, r.prompt, r.output_len)
+
+
+def test_moe_tiny_serve_cli_on_the_cpu():
+    from tpu_hc_bench_torch.serve import cli
+
+    lines: list[str] = []
+    rc = cli.main(["--model=moe_tiny", "--device=cpu",
+                   "--decode_attention=paged", "--num_requests=4",
+                   "--max_prompt_len=12", "--max_output_len=4",
+                   "--max_in_flight=2", "--kv_page_size=4"],
+                  print_fn=lines.append)
+    assert rc == 0 and any("tokens" in ln for ln in lines)
 
 
 @pytest.mark.parametrize("attention", ["paged", "gather"])

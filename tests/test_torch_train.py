@@ -397,9 +397,9 @@ def test_registry_and_model_specs():
     assert sum(p.numel() for p in model.parameters()) == 25557032
     assert not model.blocks[0].bn3.weight.detach().any()
     with pytest.raises(ValueError, match="float32"):
-        create_model("llama_tiny", torch.bfloat16, device="cpu")
-    with pytest.raises(ValueError, match="serving"):
-        create_model("llama_tiny", device="cpu", train=True)
+        create_model("llama_tiny", torch.float16, device="cpu")
+    with pytest.raises(ValueError, match="resnets"):
+        create_model("llama_tiny", device="cpu", train=True, fused_conv=True)
 
 
 def test_peak_flops_table():

@@ -4,9 +4,16 @@ The converters take trees whose leaves are numpy arrays (the caller
 converts them with ``np.asarray``) and return a port ``state_dict``; they
 need neither JAX nor Flax.
 
+Scanned trees (``--scan_layers``: one ``layers`` subtree whose every leaf
+is stacked ``[L, ...]``) convert too.  The decoder converters keep the
+tree's own layout: a stacked tree gives the ``state_dict`` of the port's
+scanned model, ``layers.<name> [L, ...]``; each layer's slice follows the
+rules below, and ``models.layer_stack.stack_state_dict`` stacks them
+(``unstack_state_dict`` gives the unrolled layout back).
+
 ``llama_params_from_flax(params)`` takes a ``LlamaLM`` Flax param tree
-(unrolled ``layer_i`` layout) and returns the ``state_dict`` of the
-port's ``models.llama.LlamaLM``.  Layout rules:
+and returns the ``state_dict`` of the port's ``models.llama.LlamaLM``,
+for serving and training alike.  Layout rules:
 
 - ``tok_embed.embedding [V, H]`` maps unchanged;
 - ``attn.w{q,k,v}.kernel [H, n, d]`` maps to Linear weights ``[n*d, H]``;
@@ -16,8 +23,8 @@ port's ``models.llama.LlamaLM``.  Layout rules:
 - ``lm_head [H, V]`` keeps the JAX orientation.
 
 ``gpt_params_from_flax(params)`` takes a ``GPTLM`` Flax param tree
-(unrolled ``layer_i`` layout, dense MLP) and returns the ``state_dict`` of
-the port's ``models.gpt.GPTLM``.  Layout rules:
+(dense MLP or MoE) and returns the ``state_dict`` of the port's
+``models.gpt.GPTLM``.  Layout rules:
 
 - ``wte``/``wpe`` ``.embedding`` map to the ``nn.Embedding`` weights;
 - LayerNorm ``scale``/``bias`` (``ln1``, ``ln2``, ``ln_f``) map to
@@ -25,7 +32,10 @@ the port's ``models.gpt.GPTLM``.  Layout rules:
 - ``MultiHeadAttention_0/qkv.kernel [H, 3, n, d]`` maps to ``[3*n*d, H]``
   and its bias ``[3, n, d]`` to ``[3*n*d]``;
   ``MultiHeadAttention_0/out.kernel [n, d, H]`` maps to ``[H, n*d]``;
-- ``fc``/``proj`` ``.kernel [in, out]`` are transposed.
+- ``fc``/``proj`` ``.kernel [in, out]`` are transposed;
+- an MoE layer's ``moe/router.kernel [H, E]`` is transposed to
+  ``moe.router.weight [E, H]``; the expert-major ``moe/wi [E, H, F]`` and
+  ``moe/wo [E, F, H]`` map unchanged.
 
 It is built from ``decoder_layer_params_from_flax`` (one ``layer_i``) and
 ``attention_params_from_flax`` (one ``MultiHeadAttention_0``), which
@@ -67,36 +77,64 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from tpu_hc_bench_torch.models.layer_stack import stack_state_dict
+
 
 def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32))   # a copy
 
 
-def llama_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+def _slice_tree(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _slice_tree(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def layer_trees(params: dict) -> list[dict]:
+    """The trunk's per-layer trees, in order: ``layer_<i>`` of an
+    unrolled tree, or the slices ``i`` of a scanned tree's ``layers``."""
     if "layers" in params:
-        raise ValueError("scan_layers param trees (stacked layers/...) "
-                         "are not servable; convert an unrolled layer_i "
-                         "tree")
+        leaf = params["layers"]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        return [_slice_tree(params["layers"], i)
+                for i in range(np.asarray(leaf).shape[0])]
+    n_layers = sum(1 for k in params if k.startswith("layer_"))
+    return [params[f"layer_{i}"] for i in range(n_layers)]
+
+
+def _finish(sd: dict, layers: list[dict],
+            params: dict) -> dict[str, torch.Tensor]:
+    """``sd`` plus the converted layers, stacked where ``params`` is."""
+    for i, layer in enumerate(layers):
+        sd.update({f"layers.{i}.{k}": v for k, v in layer.items()})
+    if "layers" in params:
+        return stack_state_dict(sd, len(layers))
+    return sd
+
+
+def llama_layer_params_from_flax(p: dict) -> dict[str, torch.Tensor]:
+    """One ``LlamaBlock``: the ``state_dict`` of the port's block."""
+    sd: dict[str, torch.Tensor] = {}
+    a = p["attn"]
+    for name in ("wq", "wk", "wv"):
+        k = np.asarray(a[name]["kernel"])                   # [H, n, d]
+        sd[f"attn.{name}.weight"] = _t(k.reshape(k.shape[0], -1).T)
+    wo = np.asarray(a["wo"]["kernel"])                      # [n, d, H]
+    sd["attn.wo.weight"] = _t(wo.reshape(-1, wo.shape[-1]).T)
+    for name in ("gate", "up", "down"):
+        sd[f"{name}.weight"] = _t(np.asarray(p[name]["kernel"]).T)
+    sd["attn_norm.weight"] = _t(p["attn_norm"]["scale"])
+    sd["mlp_norm.weight"] = _t(p["mlp_norm"]["scale"])
+    return sd
+
+
+def llama_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
     sd = {"tok_embed.weight": _t(params["tok_embed"]["embedding"]),
           "final_norm.weight": _t(params["final_norm"]["scale"]),
           "lm_head": _t(params["lm_head"])}
-    n_layers = sum(1 for k in params if k.startswith("layer_"))
-    for i in range(n_layers):
-        p = params[f"layer_{i}"]
-        a = p["attn"]
-        pre = f"layers.{i}."
-        for name in ("wq", "wk", "wv"):
-            k = np.asarray(a[name]["kernel"])              # [H, n, d]
-            sd[pre + f"attn.{name}.weight"] = _t(
-                k.reshape(k.shape[0], -1).T)
-        wo = np.asarray(a["wo"]["kernel"])                # [n, d, H]
-        sd[pre + "attn.wo.weight"] = _t(wo.reshape(-1, wo.shape[-1]).T)
-        for name in ("gate", "up", "down"):
-            sd[pre + f"{name}.weight"] = _t(
-                np.asarray(p[name]["kernel"]).T)
-        sd[pre + "attn_norm.weight"] = _t(p["attn_norm"]["scale"])
-        sd[pre + "mlp_norm.weight"] = _t(p["mlp_norm"]["scale"])
-    return sd
+    return _finish(sd, [llama_layer_params_from_flax(p)
+                        for p in layer_trees(params)], params)
 
 
 def _dense(sd: dict, pre: str, p: dict) -> None:
@@ -123,33 +161,35 @@ def attention_params_from_flax(p: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+def moe_params_from_flax(p: dict) -> dict[str, torch.Tensor]:
+    """One ``MoEFFN`` (``router``, ``wi``, ``wo``): the ``state_dict`` of
+    the port's ``models.moe.MoEFFN``."""
+    return {"router.weight": _t(np.asarray(p["router"]["kernel"]).T),
+            "wi": _t(p["wi"]), "wo": _t(p["wo"])}
+
+
 def decoder_layer_params_from_flax(p: dict) -> dict[str, torch.Tensor]:
-    """One dense-MLP ``DecoderLayer``: the ``state_dict`` of the port's
-    ``models.gpt.DecoderLayer``."""
-    if "moe" in p:
-        raise ValueError("MoE decoder layers are not ported yet")
+    """One ``DecoderLayer`` (dense MLP or MoE): the ``state_dict`` of the
+    port's ``models.gpt.DecoderLayer``."""
     sd = {"attn." + k: v for k, v in
           attention_params_from_flax(p["MultiHeadAttention_0"]).items()}
     for name in ("ln1", "ln2"):
         _layer_norm(sd, name + ".", p[name])
-    for name in ("fc", "proj"):
-        _dense(sd, name + ".", p[name])
+    if "moe" in p:
+        sd.update({"moe." + k: v
+                   for k, v in moe_params_from_flax(p["moe"]).items()})
+    else:
+        for name in ("fc", "proj"):
+            _dense(sd, name + ".", p[name])
     return sd
 
 
 def gpt_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
-    if "layers" in params:
-        raise ValueError("scan_layers param trees (stacked layers/...) are "
-                         "not ported; convert an unrolled layer_i tree")
     sd = {"wte.weight": _t(params["wte"]["embedding"]),
           "wpe.weight": _t(params["wpe"]["embedding"])}
     _layer_norm(sd, "ln_f.", params["ln_f"])
-    n_layers = sum(1 for k in params if k.startswith("layer_"))
-    for i in range(n_layers):
-        for k, v in decoder_layer_params_from_flax(
-                params[f"layer_{i}"]).items():
-            sd[f"layers.{i}.{k}"] = v
-    return sd
+    return _finish(sd, [decoder_layer_params_from_flax(p)
+                        for p in layer_trees(params)], params)
 
 
 def bert_layer_params_from_flax(p: dict) -> dict[str, torch.Tensor]:

@@ -288,13 +288,12 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 LATER_SLICE_TRAIN_FLAGS = (
     "compile_cache", "config",
     "on_nonfinite", "max_bad_steps", "step_timeout_s",
-    "inject_fault", "moe_capacity_factor",
+    "inject_fault",
     "trace_dir", "profile_steps", "metrics_dir",
     "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
-    "accum_dtype", "model_parallel",
+    "model_parallel",
     "expert_parallel", "pipeline_parallel", "num_microbatches",
-    "sequence_parallel", "virtual_devices", "gradient_checkpointing",
-    "moe_impl", "rnn_impl", "scan_layers", "moe_f_chunk",
+    "sequence_parallel", "virtual_devices", "rnn_impl",
 )
 
 # Horovod's fusion buffer, 128 MiB (HOROVOD_FUSION_THRESHOLD=134217728),
@@ -380,6 +379,22 @@ class BenchmarkConfig:
                                               # registry sequence length
     fused_xent: bool = False                  # text models: the CUDA
                                               # blocked cross-entropy
+    accum_dtype: str = "f32"                  # the microbatch gradient
+                                              # accumulator: f32 | bf16
+                                              # (each microbatch's
+                                              # gradient rounded, summed
+                                              # and reduced in bf16)
+    gradient_checkpointing: bool = False      # transformers: recompute
+                                              # each layer in the backward
+    scan_layers: bool = False                 # decoders: one layer body
+                                              # over stacked [L, ...]
+                                              # parameters
+    moe_impl: str = "einsum"                  # MoE dispatch: einsum |
+                                              # ragged | auto
+    moe_capacity_factor: float = 1.25         # einsum slots an expert =
+                                              # ceil(cf * k * S / E)
+    moe_f_chunk: int = 0                      # ragged: the FFN-dim tile
+                                              # (0: full width)
 
     # --- data (the reference's --data_dir/--data_name, JAX's pipeline
     # knobs) ---
@@ -504,6 +519,16 @@ class BenchmarkConfig:
                 f"--batch_size={self.batch_size} (per worker) is not "
                 f"divisible by --gradient_accumulation_steps="
                 f"{self.gradient_accumulation_steps}")
+        if self.accum_dtype not in ("f32", "bf16"):
+            raise ValueError(
+                f"--accum_dtype must be f32 or bf16: {self.accum_dtype!r}")
+        if (self.accum_dtype != "f32"
+                and self.gradient_accumulation_steps == 1):
+            raise ValueError(
+                "--accum_dtype selects the microbatch grad-accumulator "
+                "dtype; it has no meaning without "
+                "--gradient_accumulation_steps > 1")
+        self._resolve_moe(t)
         if self.overlap_grad_comm not in ("on", "off"):
             raise ValueError(f"--overlap_grad_comm must be on|off: "
                              f"{self.overlap_grad_comm!r}")
@@ -568,6 +593,43 @@ class BenchmarkConfig:
         self.translations = t
         return self
 
+    def _resolve_moe(self, t: dict) -> None:
+        """JAX's MoE flag rules: ``--moe_impl=auto`` picks einsum below
+        seq 4096 and ragged from there (the port has no expert or model
+        parallelism, so JAX's EP/TP conditions hold), and the capacity
+        factor belongs to the einsum dispatch."""
+        if self.moe_impl == "auto":
+            from tpu_hc_bench_torch.models import get_model_spec
+
+            try:
+                is_moe = get_model_spec(self.model).moe
+            except ValueError:
+                is_moe = False      # an unknown model: create_model raises
+            if not is_moe:
+                raise ValueError(f"--moe_impl=auto only applies to MoE "
+                                 f"members, not {self.model}")
+            long_seq = (self.seq_len or 0) >= 4096
+            new = ("ragged" if long_seq and self.moe_capacity_factor == 1.25
+                   else "einsum")
+            t["moe_impl"] = (f"auto->{new} (einsum short-seq, ragged at "
+                             f"seq>=4096)")
+            self.moe_impl = new
+        if self.moe_impl not in ("einsum", "ragged"):
+            raise ValueError(f"--moe_impl must be einsum|ragged|auto: "
+                             f"{self.moe_impl!r}")
+        if self.moe_impl == "ragged" and self.moe_capacity_factor != 1.25:
+            raise ValueError(
+                "--moe_capacity_factor applies to the einsum dispatch "
+                "only: the ragged grouped-matmul path has no capacity "
+                "concept (zero token drops), so the flag would be silently "
+                "ignored")
+        if self.moe_capacity_factor <= 0:
+            raise ValueError(f"--moe_capacity_factor must be > 0: "
+                             f"{self.moe_capacity_factor}")
+        if self.moe_f_chunk < 0:
+            raise ValueError(f"--moe_f_chunk must be >= 0: "
+                             f"{self.moe_f_chunk}")
+
     def _translate_input_service(self, t: dict) -> None:
         """``--input_service=on`` where no host pipeline can be shared
         turns to ``off``, loudly (JAX's translations); the world's shape
@@ -623,7 +685,12 @@ class BenchmarkConfig:
             f"overlap_grad_comm={self.overlap_grad_comm} "
             f"fusion_threshold_bytes={self.fusion_threshold_bytes} "
             f"gradient_accumulation_steps="
-            f"{self.gradient_accumulation_steps}",
+            f"{self.gradient_accumulation_steps} "
+            f"accum_dtype={self.accum_dtype}",
+            f"gradient_checkpointing={self.gradient_checkpointing} "
+            f"scan_layers={self.scan_layers} moe_impl={self.moe_impl} "
+            f"moe_capacity_factor={self.moe_capacity_factor} "
+            f"moe_f_chunk={self.moe_f_chunk}",
             f"input_service={self.input_service} "
             f"service_decode_workers={self.service_decode_workers or 'auto'}"
             f" train_dir={self.train_dir} resume={self.resume} "

@@ -32,9 +32,10 @@ GELU, dense, dropout, add, LayerNorm; dropout 0.1, no attention mask,
 non-causal ``dense|flash`` attention through ``local_attention``), then
 the MLM head: ``mlm_dense``, GELU, ``mlm_ln``, the tied product against
 the token table (float32 logits) plus the float32 ``mlm_bias``.  The
-masking lives in the loss (the weights of the MLM batch).
-Rematerialisation and sequence parallelism come with later slices and
-raise here.
+masking lives in the loss (the weights of the MLM batch).  ``remat``
+(``--gradient_checkpointing``) recomputes each layer in the backward
+with the forward's dropout masks (``models.layer_stack.remat``).
+Sequence parallelism comes with a later slice and raises here.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from tpu_hc_bench_torch.models import layer_stack
 from tpu_hc_bench_torch.models.llama import lecun_normal_
 from tpu_hc_bench_torch.parallel.sequence import local_attention
 
@@ -226,9 +228,9 @@ class BertMLM(nn.Module):
                  attention_impl: str = "dense", remat: bool = False,
                  seq_axis: str | None = None):
         super().__init__()
-        if remat or seq_axis is not None:
-            raise ValueError("remat (--gradient_checkpointing) and sequence "
-                             "parallelism are not ported yet")
+        if seq_axis is not None:
+            raise ValueError("sequence parallelism is not ported yet")
+        self.remat = remat
         self.vocab_size, self.hidden = vocab_size, hidden
         self.num_layers, self.heads, self.max_len = num_layers, heads, max_len
         self.dtype = dtype
@@ -268,7 +270,11 @@ class BertMLM(nn.Module):
         gen = self.dropout_generator
         x = dropout(self.ln_embed(x), DROPOUT, gen, self.training)
         for layer in self.layers:
-            x = layer(x, None, gen)
+            if self.remat and torch.is_grad_enabled():
+                x = layer_stack.remat(
+                    lambda h, layer=layer: layer(h, None, gen), gen, x)
+            else:
+                x = layer(x, None, gen)
         x = self.mlm_ln(F.gelu(self.mlm_dense(x), approximate="tanh"))
         return tied_logits(x, self.tok_embed.weight, self.dtype) \
             + self.mlm_bias
@@ -276,27 +282,30 @@ class BertMLM(nn.Module):
 
 def bert_base_mlm(dtype: torch.dtype = torch.float32,
                   attention_impl: str = "dense",
-                  max_len: int | None = None) -> BertMLM:
+                  max_len: int | None = None,
+                  remat: bool = False) -> BertMLM:
     """BERT-base (~110M).  ``max_len`` only ever grows the position table
     past the canonical 512."""
     return BertMLM(dtype=dtype, attention_impl=attention_impl,
-                   max_len=max(BERT_MAX_LEN, max_len or 0))
+                   max_len=max(BERT_MAX_LEN, max_len or 0), remat=remat)
 
 
 def bert_large_mlm(dtype: torch.dtype = torch.float32,
                    attention_impl: str = "dense",
-                   max_len: int | None = None) -> BertMLM:
+                   max_len: int | None = None,
+                   remat: bool = False) -> BertMLM:
     """BERT-large (24L/1024H/16 heads/4096 FFN, ~335M)."""
     return BertMLM(hidden=1024, num_layers=24, heads=16, ffn=4096,
                    max_len=max(BERT_MAX_LEN, max_len or 0), dtype=dtype,
-                   attention_impl=attention_impl)
+                   attention_impl=attention_impl, remat=remat)
 
 
 def bert_tiny_mlm(dtype: torch.dtype = torch.float32,
                   attention_impl: str = "dense",
-                  max_len: int | None = None) -> BertMLM:
+                  max_len: int | None = None,
+                  remat: bool = False) -> BertMLM:
     """4-layer/128-hidden variant for tests and CPU smoke runs (head dim
     32: its flash arm runs the kernels at head dim 64, zero-padded)."""
     return BertMLM(vocab_size=1024, hidden=128, num_layers=4, heads=4,
                    ffn=512, max_len=max(128, max_len or 0), dtype=dtype,
-                   attention_impl=attention_impl)
+                   attention_impl=attention_impl, remat=remat)

@@ -11,30 +11,64 @@ initialiser families from an explicit ``torch.Generator``: lecun-normal
 ``Embed`` default (normal, std 1/sqrt(hidden)) for ``tok_embed``, ones
 for the norm scales and normal(0.02) for ``lm_head``.  The numbers differ
 from JAX's for the same seed; only the families match.
+
+The training arm follows the JAX dtype policy: float32 parameters, every
+projection in the compute ``dtype`` (``Linear``), RMSNorm statistics in
+float32 and its output in ``dtype``, the embedding gathered from the
+float32 table and rounded, attention through ``local_attention``
+(``dense|flash``, GQA's K/V repeated up front), and the untied head a
+float32 product of ``dtype``-rounded operands (JAX's
+``preferred_element_type=float32``; ``models.bert.tied_logits``'s
+product).  Llama has no dropout.  ``remat`` recomputes each block in the
+backward and ``scan_layers`` stacks the blocks' parameters ``[L, ...]``
+under ``layers`` (``models.layer_stack``); the stacked layout is not
+servable and a checkpoint does not move between the two layouts.  At
+float32 the serving lane's numbers are unchanged.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from tpu_hc_bench_torch.parallel.sequence import dense_attention
+from tpu_hc_bench_torch.models import layer_stack
+from tpu_hc_bench_torch.parallel.sequence import local_attention
 
 # std of a standard normal truncated at +-2, which lecun_normal divides out
 _TRUNC_STD = 0.87962566103423978
 
 
 class RMSNorm(nn.Module):
-    def __init__(self, dim: int, eps: float = 1e-5):
+    """Float32 statistics and scale, output in ``dtype`` (None: the
+    input's)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5,
+                 dtype: torch.dtype | None = None):
         super().__init__()
-        self.eps = eps
+        self.eps, self.dtype = eps, dtype
         self.weight = nn.Parameter(torch.ones(dim))
 
     def forward(self, x):
         xf = x.float()
         var = (xf * xf).mean(-1, keepdim=True)
         y = xf * torch.rsqrt(var + self.eps)
-        return (y * self.weight.float()).to(x.dtype)
+        return (y * self.weight.float()).to(self.dtype or x.dtype)
+
+
+class Linear(nn.Linear):
+    """A bias-free ``nn.Linear`` whose product runs in ``dtype`` (Flax's
+    ``Dense(dtype=...)`` over float32 parameters)."""
+
+    def __init__(self, fan_in: int, out: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(fan_in, out, bias=False)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
 
 
 def apply_rope(x, positions, theta: float = 10000.0):
@@ -70,18 +104,21 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 class LlamaAttention(nn.Module):
     """Causal self-attention with RoPE and grouped-query KV heads."""
 
-    def __init__(self, hidden: int, heads: int, num_kv_heads: int):
+    def __init__(self, hidden: int, heads: int, num_kv_heads: int,
+                 dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "dense"):
         super().__init__()
         if heads % num_kv_heads:
             raise ValueError(f"heads={heads} not divisible by "
                              f"num_kv_heads={num_kv_heads}")
         self.heads, self.kv_heads = heads, num_kv_heads
         self.head_dim = hidden // heads
+        self.attention_impl = attention_impl
         d = self.head_dim
-        self.wq = nn.Linear(hidden, heads * d, bias=False)
-        self.wk = nn.Linear(hidden, num_kv_heads * d, bias=False)
-        self.wv = nn.Linear(hidden, num_kv_heads * d, bias=False)
-        self.wo = nn.Linear(heads * d, hidden, bias=False)
+        self.wq = Linear(hidden, heads * d, dtype)
+        self.wk = Linear(hidden, num_kv_heads * d, dtype)
+        self.wv = Linear(hidden, num_kv_heads * d, dtype)
+        self.wo = Linear(heads * d, hidden, dtype)
 
     def qkv(self, x, positions):
         """``x`` [b, s, hidden] -> q [b, s, heads, d], k and v
@@ -99,27 +136,36 @@ class LlamaAttention(nn.Module):
 
     def forward(self, x):
         q, k, v = self.qkv(x, torch.arange(x.shape[1], device=x.device))
-        group = self.heads // self.kv_heads
-        if group > 1:
-            k = k.repeat_interleave(group, dim=2)
-            v = v.repeat_interleave(group, dim=2)
-        return self.out(dense_attention(q, k, v, causal=True))
+        # GQA: the K/V heads repeated up front (contiguous copies)
+        return self.out(local_attention(
+            q, k, v, impl=self.attention_impl, causal=True,
+            kv_repeat=self.heads // self.kv_heads))
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, num_kv_heads: int,
-                 ffn: int):
+                 ffn: int, dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "dense"):
         super().__init__()
-        self.attn_norm = RMSNorm(hidden)
-        self.attn = LlamaAttention(hidden, heads, num_kv_heads)
-        self.mlp_norm = RMSNorm(hidden)
-        self.gate = nn.Linear(hidden, ffn, bias=False)
-        self.up = nn.Linear(hidden, ffn, bias=False)
-        self.down = nn.Linear(ffn, hidden, bias=False)
+        self.attn_norm = RMSNorm(hidden, dtype=dtype)
+        self.attn = LlamaAttention(hidden, heads, num_kv_heads, dtype,
+                                   attention_impl)
+        self.mlp_norm = RMSNorm(hidden, dtype=dtype)
+        self.gate = Linear(hidden, ffn, dtype)
+        self.up = Linear(hidden, ffn, dtype)
+        self.down = Linear(ffn, hidden, dtype)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        for lin in (self.attn.wq, self.attn.wk, self.attn.wv, self.attn.wo,
+                    self.gate, self.up, self.down):
+            lecun_normal_(lin.weight, generator)
+        self.attn_norm.weight.fill_(1.0)
+        self.mlp_norm.weight.fill_(1.0)
 
     def ffn(self, h):
         """SwiGLU on the normed stream."""
-        return self.down(nn.functional.silu(self.gate(h)) * self.up(h))
+        return self.down(F.silu(self.gate(h)) * self.up(h))
 
     def forward(self, x):
         x = x + self.attn(self.attn_norm(x))
@@ -129,17 +175,31 @@ class LlamaBlock(nn.Module):
 class LlamaLM(nn.Module):
     def __init__(self, vocab_size: int = 32000, hidden: int = 2048,
                  num_layers: int = 16, heads: int = 32,
-                 num_kv_heads: int = 8, ffn: int = 8192):
+                 num_kv_heads: int = 8, ffn: int = 8192,
+                 max_len: int = 2048, dtype: torch.dtype = torch.float32,
+                 attention_impl: str = "dense", remat: bool = False,
+                 scan_layers: bool = False):
         super().__init__()
         self.vocab_size, self.hidden = vocab_size, hidden
         self.num_layers, self.heads = num_layers, heads
         self.num_kv_heads, self.ffn = num_kv_heads, ffn
+        self.max_len, self.dtype = max_len, dtype
+        self.remat, self.scan_layers = remat, scan_layers
+        self._block_kw = dict(hidden=hidden, heads=heads,
+                              num_kv_heads=num_kv_heads, ffn=ffn,
+                              dtype=dtype, attention_impl=attention_impl)
         self.tok_embed = nn.Embedding(vocab_size, hidden)
-        self.layers = nn.ModuleList(
-            LlamaBlock(hidden, heads, num_kv_heads, ffn)
-            for _ in range(num_layers))
-        self.final_norm = RMSNorm(hidden)
+        if scan_layers:
+            self.layers = layer_stack.stack_parameters_(self.make_layer(),
+                                                        num_layers)
+        else:
+            self.layers = nn.ModuleList(self.make_layer()
+                                        for _ in range(num_layers))
+        self.final_norm = RMSNorm(hidden, dtype=dtype)
         self.lm_head = nn.Parameter(torch.empty(hidden, vocab_size))
+
+    def make_layer(self) -> LlamaBlock:
+        return LlamaBlock(**self._block_kw)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -147,35 +207,63 @@ class LlamaLM(nn.Module):
         in a fixed module order."""
         nn.init.normal_(self.tok_embed.weight, 0.0, self.hidden ** -0.5,
                         generator=generator)
-        for blk in self.layers:
-            for lin in (blk.attn.wq, blk.attn.wk, blk.attn.wv, blk.attn.wo,
-                        blk.gate, blk.up, blk.down):
-                lecun_normal_(lin.weight, generator)
-            blk.attn_norm.weight.fill_(1.0)
-            blk.mlp_norm.weight.fill_(1.0)
+        if self.scan_layers:
+            layer_stack.init_stacked_(self.layers, self.make_layer,
+                                      self.num_layers, generator)
+        else:
+            for blk in self.layers:
+                blk.init_weights(generator)
         self.final_norm.weight.fill_(1.0)
         nn.init.normal_(self.lm_head, 0.0, 0.02, generator=generator)
 
     def head(self, x):
         """Final norm + untied LM head; float32 logits."""
-        return self.final_norm(x).float() @ self.lm_head.float()
+        x = self.final_norm(x)
+        if self.dtype == torch.float32:
+            return x.float() @ self.lm_head.float()
+        from tpu_hc_bench_torch.models.bert import tied_logits
+
+        return tied_logits(x, self.lm_head.t(), self.dtype)
+
+    def _block(self, i: int, x, slices):
+        if self.scan_layers:
+            fn = functools.partial(layer_stack.call_layer, self.layers,
+                                   slices[i])
+        else:
+            fn = self.layers[i]
+        if self.remat and torch.is_grad_enabled():
+            return layer_stack.remat(fn, None, x)
+        return fn(x)
 
     def forward(self, token_ids):
         """Full-context causal forward: ``[b, s]`` ids -> ``[b, s, vocab]``
         float32 logits."""
-        x = self.tok_embed(token_ids)
-        for blk in self.layers:
-            x = blk(x)
+        if token_ids.shape[1] > self.max_len:
+            raise ValueError(f"sequence {token_ids.shape[1]} exceeds "
+                             f"max_len {self.max_len}")
+        x = F.embedding(token_ids, self.tok_embed.weight).to(self.dtype)
+        slices = (layer_stack.layer_slices(self.layers) if self.scan_layers
+                  else None)
+        for i in range(self.num_layers):
+            x = self._block(i, x, slices)
         return self.head(x)
 
 
-def llama_1b() -> LlamaLM:
+def llama_1b(dtype: torch.dtype = torch.float32,
+             attention_impl: str = "dense", max_len: int | None = None,
+             remat: bool = False, scan_layers: bool = False) -> LlamaLM:
     """Llama-3.2-1B-shaped decoder (16L/2048H, 32q/8kv heads, SwiGLU
     8192, 32k vocab; ~1.1B params)."""
-    return LlamaLM()
+    return LlamaLM(max_len=max(2048, max_len or 0), dtype=dtype,
+                   attention_impl=attention_impl, remat=remat,
+                   scan_layers=scan_layers)
 
 
-def llama_tiny() -> LlamaLM:
+def llama_tiny(dtype: torch.dtype = torch.float32,
+               attention_impl: str = "dense", max_len: int | None = None,
+               remat: bool = False, scan_layers: bool = False) -> LlamaLM:
     """4-layer/128-hidden 8q/2kv variant for tests and CPU smoke runs."""
     return LlamaLM(vocab_size=1024, hidden=128, num_layers=4, heads=8,
-                   num_kv_heads=2, ffn=256)
+                   num_kv_heads=2, ffn=256, max_len=max(128, max_len or 0),
+                   dtype=dtype, attention_impl=attention_impl, remat=remat,
+                   scan_layers=scan_layers)

@@ -28,6 +28,10 @@ first step and carry no BatchNorm statistics.
   ``backward()`` returns (JAX's ``_serialize_after_backward``).  Buckets
   launch in index order on every rank, so the ranks issue their
   collectives in one order.
+- ``GradReducer.reduce_tree`` averages a tree the step hands it, one
+  tensor a parameter, in buckets planned on that tree's own sizes and
+  dtype: ``--accum_dtype=bf16``'s accumulated mean, reduced in bf16 (JAX
+  keeps that tree bf16 through the all-reduce) after the backward.
 - ``allreduce_mean_`` averages a list of tensors in place through the
   same buckets: the BatchNorm running statistics and the loss.
 - ``psum``, ``pmean``, ``all_gather``, ``reduce_scatter`` and
@@ -212,6 +216,24 @@ class GradReducer:
                     functools.partial(self._on_grad, i)))
         self._armed = False
         self._divisor = 1
+        self._fuse, self._overlap = fuse, overlap
+        self._threshold = threshold_bytes
+        self._tree_buckets: list[list[int]] | None = None
+        self.tree_calls = 0
+
+    def reduce_tree(self, tree: Sequence[torch.Tensor]) -> int:
+        """Average ``tree`` (one tensor a parameter, in ``params`` order)
+        over the group in place, in buckets planned on the tree's own
+        sizes and dtype; returns the all-reduce calls (also kept in
+        ``tree_calls``)."""
+        if self._tree_buckets is None:
+            self._tree_buckets = plan_buckets(tree, self._threshold,
+                                              self._fuse, self._overlap)
+        for idx in self._tree_buckets:
+            members = [tree[i] for i in idx]
+            unpack(pmean(pack(members), self.group), members)
+        self.tree_calls = len(self._tree_buckets)
+        return self.tree_calls
 
     def arm(self, divisor: int = 1) -> None:
         self._pending = [len(b) for b in self.buckets]

@@ -1,11 +1,17 @@
 """Paged-KV prefill/decode programs for the port's decoder families.
 
-The port of the JAX package's ``serve/decode.py`` for its dense decoder
+The port of the JAX package's ``serve/decode.py`` for its decoder
 families: ``GPTLM`` (gpt2, gpt2_medium: learned positions, a fused qkv
-projection with biases, LayerNorm, the gelu MLP) and ``LlamaLM``
-(llama_*: RoPE, GQA, RMSNorm, SwiGLU).  The model modules hold a
-full-context forward; serving needs incremental decode, one token per
-request per step over everything generated so far.  The ``_Family``
+projection with biases, LayerNorm, the gelu MLP; gpt2_moe, moe_tiny: the
+same with ``MoEFFN`` layers) and ``LlamaLM`` (llama_*: RoPE, GQA,
+RMSNorm, SwiGLU).  An MoE layer always dispatches ragged here, whatever
+the model's ``moe_impl``, as the JAX programs do: no capacity, so no
+token loses its FFN and prefill and decode agree with the full forward.
+The ragged route reads each layer's group sizes to the host (one device
+sync a layer).  Scanned (``scan_layers``) models are not servable, as in
+JAX.  The model modules hold a full-context forward; serving needs
+incremental decode, one token per request per step over everything
+generated so far.  The ``_Family``
 adapter walks the model's own modules, and only the attention inner
 product, the part that reads the KV cache, is written here.
 
@@ -32,9 +38,10 @@ the JAX programs' signature).
 **Quantization arms** (``--quant``):
 
 - ``int8_w``: ``quantize_weights`` holds the decode projections (qkv,
-  the attention output, the dense FFN or SwiGLU) as per-output-channel
-  int8 with float32 scales; the int8 tensor is cast at the matmul and
-  the scale multiplies the product's output, the JAX form.  Eager
+  the attention output, the dense FFN or SwiGLU; an MoE layer's router
+  and experts stay float32) as per-output-channel int8 with float32
+  scales; the int8 tensor is cast at the matmul and the scale
+  multiplies the product's output, the JAX form.  Eager
   PyTorch materializes the cast weight at each call (XLA fuses it).
 - ``int8_kv``: the pool is int8 with one float32 scale per (layer,
   page), written at prefill (a scale per page-sized chunk,
@@ -162,6 +169,9 @@ def build_family(model, quant: str = "off") -> _Family:
     def proj(name: str, module, x):
         return _qlinear(x, qw[name]) if int8_w else module(x)
 
+    if getattr(model, "scan_layers", False):
+        raise ValueError("serving decodes the unrolled layers.<i> layout; "
+                         "scan_layers models are not servable")
     if isinstance(model, GPTLM):
         d = model.hidden // model.heads
         dt = model.dtype
@@ -194,6 +204,8 @@ def build_family(model, quant: str = "off") -> _Family:
         def ffn(l, h):
             blk = layers[l]
             h = h.to(dt)
+            if model.num_experts:
+                return blk.moe(h, impl="ragged")[0]
             if int8_w:
                 h = _qlinear(h, qw[f"layers.{l}.fc.weight"]) \
                     + blk.fc.bias.to(dt)
@@ -218,7 +230,8 @@ def build_family(model, quant: str = "off") -> _Family:
             head=lambda x: tied_logits(model.ln_f(x), model.wte.weight,
                                        dt),
             quant_paths=lambda l: [f"layers.{l}.{n}.weight" for n in (
-                "attn.qkv", "attn.out", "fc", "proj")],
+                ("attn.qkv", "attn.out") if model.num_experts
+                else ("attn.qkv", "attn.out", "fc", "proj"))],
         )
     elif isinstance(model, LlamaLM):
         d = model.hidden // model.heads

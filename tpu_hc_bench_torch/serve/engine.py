@@ -33,9 +33,10 @@ Timing goes through an injectable clock, so tests drive the closed loop
 in virtual time (``VirtualClock``).  On the GPU every step ends in
 ``torch.cuda.synchronize()`` before its time is read.
 
-Not ported yet: the classify mode (non-text members), MoE members, and
-the obs writers (metrics stream, flight recorder, fleet heartbeat,
-latency sketches and signals).
+The MoE members (``gpt2_moe``, ``moe_tiny``) serve through the ragged
+dispatch (``serve.decode``).  Not ported yet: the classify mode
+(non-text members) and the obs writers (metrics stream, flight
+recorder, fleet heartbeat, latency sketches and signals).
 """
 
 from __future__ import annotations
@@ -291,9 +292,8 @@ class ServeEngine:
                 "requests of non-text members) is not ported yet")
         self.max_ctx = cfg.max_prompt_len + cfg.max_output_len
         if model is None:
-            kw = {} if self.spec.serve_only else {"seq_len": self.max_ctx}
             model, _ = create_model(cfg.model, device=self.device,
-                                    seed=cfg.seed, **kw)
+                                    seed=cfg.seed, seq_len=self.max_ctx)
         self.model = model
         self.decode_attention = cfg.decode_attention
         self.quant = cfg.quant

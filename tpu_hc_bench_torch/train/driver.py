@@ -136,6 +136,9 @@ class BenchmarkResult:
     resume: dict | None = None       # --train_dir: the step restored
     checkpoint: dict | None = None   # --train_dir: the saves, the final
                                      # state's fingerprint
+    extra: dict | None = None        # MoE members: the dispatch, the
+                                     # last step's aux loss and
+                                     # dropped-pair fraction
 
     def json_line(self) -> dict:
         """The fields as a dict for strict JSON: NaN (no MFU) is None."""
@@ -606,6 +609,19 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
     return result
 
 
+def _extra(cfg: BenchmarkConfig, model) -> dict | None:
+    """An MoE model's dispatch, last aux loss and dropped fraction (read
+    once, after the timed window); None for the other models."""
+    if not getattr(model, "num_experts", 0):
+        return None
+    rec = {"moe_impl": cfg.moe_impl}
+    for key, attr in (("moe_aux_loss", "aux_loss"),
+                      ("moe_drop_fraction", "moe_dropped")):
+        t = getattr(model, attr, None)
+        rec[key] = None if t is None else float(t)
+    return rec
+
+
 def _data_record(inp: _Input, wait_s: float, steps: int) -> dict | None:
     if inp.data is None:
         return None
@@ -634,10 +650,6 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         print_fn = lambda _m: None                           # noqa: E731
     dev = resolve_device(cfg.device)
     spec = get_model_spec(cfg.model)
-    if spec.serve_only:
-        raise ValueError(f"--model={cfg.model}: the port's training lane "
-                         "runs resnet50/101/152, gpt2/gpt2_medium and "
-                         "bert_base/bert_large/bert_tiny")
     if cfg.fused_conv and not spec.fused_conv:
         raise ValueError(f"--fused_conv applies to the v1 bottleneck "
                          f"resnets, not {cfg.model}")
@@ -660,7 +672,10 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         cfg.model, dtype, cfg.attention_impl, device=dev, seed=cfg.seed,
         fused_conv=cfg.fused_conv, train=True, num_classes=cfg.num_classes,
         space_to_depth=cfg.use_space_to_depth, seq_len=cfg.seq_len,
-        rank=rank)
+        rank=rank, gradient_checkpointing=cfg.gradient_checkpointing,
+        scan_layers=cfg.scan_layers, moe_impl=cfg.moe_impl,
+        moe_capacity_factor=cfg.moe_capacity_factor,
+        moe_f_chunk=cfg.moe_f_chunk)
     state = step_mod.make_train_state(model, cfg, fab if grouped else None)
     grads = state.dp.grads if state.dp else None
     kind = hw.device_name(dev)
@@ -779,7 +794,7 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         allreduce_per_step=state.dp.allreduce_calls if state.dp else 0,
         forward_only=cfg.forward_only,
         data=_data_record(inp, wait_s, cfg.num_batches),
-        checkpoint=checkpoint)
+        checkpoint=checkpoint, extra=_extra(cfg, state.model))
     print_fn("-" * 40)
     print_fn(f"total images/sec: {total_rate:.2f}")
     mfu_txt = (f"{100 * mfu:.1f}% (analytic)" if peak

@@ -44,6 +44,22 @@ step's starting statistics and their results are averaged, as JAX's
 scan does (a plain loop would chain N decays).  The gradient buckets
 launch only during the last microbatch's backward.
 
+``--accum_dtype=bf16`` (JAX's accumulator for the parameter-bound
+members): each microbatch's gradient is rounded to bf16 as it lands
+(a post-accumulate-grad hook folds it into a bf16 accumulator of its own
+and frees ``.grad``, so no float32 gradient tree outlives its
+microbatch) and summed there in bf16; the mean is taken in float32 and
+rounded to bf16, averaged over the ranks in bf16 fusion buckets
+(``GradReducer.reduce_tree``, after the backward), and handed to the
+optimizer as float32 ``.grad`` (optax promotes the bf16 tree against its
+float32 state the same way; plain ``sgd`` there rounds ``-lr * g`` to
+bf16 first, here it stays float32).
+
+The MoE members add ``AUX_LOSS_COEF`` times the layers' summed Switch
+aux terms (the model's ``aux_loss``) to the text loss in the train and
+forward-only steps, as the JAX step adds the sown ``"losses"``; the eval
+step does not, as in JAX.
+
 Real images arrive on the card as uint8 (``--wire_dtype=uint8``):
 ``prep_inputs`` normalizes them there, ``(x - MEAN) / STD`` in float32,
 JAX's order (a subtraction, then a division by the float32 ``STD``), so
@@ -84,6 +100,7 @@ import torch.nn.functional as F
 from tpu_hc_bench_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
 from tpu_hc_bench_torch.flags import BenchmarkConfig
 from tpu_hc_bench_torch.models import resnet
+from tpu_hc_bench_torch.models.moe import AUX_LOSS_COEF
 from tpu_hc_bench_torch.models.resnet import running_stats_frozen
 from tpu_hc_bench_torch.ops.xent import softmax_xent
 from tpu_hc_bench_torch.parallel import collectives
@@ -105,10 +122,12 @@ class DataParallel:
     sync_bn: bool = False
     allreduce_calls: int = 0
 
-    def reduce(self, model: torch.nn.Module, loss: torch.Tensor) -> None:
-        """Average the gradients, the running statistics (not under
-        ``sync_bn``) and ``loss`` over the ranks, in place, after the
-        backward."""
+    def reduce(self, model: torch.nn.Module, loss: torch.Tensor,
+               grads_reduced: bool = False) -> None:
+        """Average the gradients (unless ``grads_reduced``: the bf16
+        accumulator's went through ``GradReducer.reduce_tree``), the
+        running statistics (not under ``sync_bn``) and ``loss`` over the
+        ranks, in place, after the backward."""
         stats = [] if self.sync_bn else list(model.buffers())
         if self.grads is None:
             params = [p for p in model.parameters() if p.requires_grad]
@@ -118,7 +137,8 @@ class DataParallel:
             host_allreduce([p.grad for p in params] + stats + [loss], None)
             self.allreduce_calls = 1
             return
-        n = self.grads.finish()
+        n = (self.grads.tree_calls if grads_reduced
+             else self.grads.finish())
         if stats:
             n += collectives.allreduce_mean_(
                 stats, threshold_bytes=self.threshold_bytes, fuse=self.fuse)
@@ -139,6 +159,7 @@ class TrainState:
     fused_xent: bool = False
     accum: int = 1
     dp: DataParallel | None = None
+    accum_dtype: str = "f32"
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -210,7 +231,8 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
     return TrainState(model.train(),
                       make_optimizer(cfg, model.parameters()),
                       fused_xent=cfg.fused_xent,
-                      accum=cfg.gradient_accumulation_steps, dp=dp)
+                      accum=cfg.gradient_accumulation_steps, dp=dp,
+                      accum_dtype=cfg.accum_dtype)
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -257,10 +279,13 @@ def prep_inputs(images: torch.Tensor) -> torch.Tensor:
 def batch_loss(model: torch.nn.Module, batch,
                fused_xent: bool = False) -> torch.Tensor:
     """The forward and the loss arm that ``batch`` calls for;
-    ``fused_xent`` applies to the text arm only."""
+    ``fused_xent`` applies to the text arm only, where an MoE model's aux
+    term joins the loss."""
     if len(batch) == 3:
         tokens, targets, weights = batch
-        return lm_loss_fn(model(tokens), targets, weights, fused_xent)
+        loss = lm_loss_fn(model(tokens), targets, weights, fused_xent)
+        aux = getattr(model, "aux_loss", None)
+        return loss if aux is None else loss + AUX_LOSS_COEF * aux
     images, labels = batch
     return loss_fn(model(prep_inputs(images)), labels)
 
@@ -273,6 +298,21 @@ def _accumulated_backward(state: TrainState, batch,
     gradients (``grads`` divides them as it packs them) and the averaged
     running statistics."""
     n, model = state.accum, state.model
+    bf16 = state.accum_dtype == "bf16"
+    if bf16:
+        params = [p for p in model.parameters() if p.requires_grad]
+        acc: list = [None] * len(params)
+
+        def fold(i: int, p) -> None:
+            g = p.grad.to(torch.bfloat16)
+            if acc[i] is None:
+                acc[i] = g
+            else:
+                acc[i].add_(g)
+            p.grad = None
+
+        hooks = [p.register_post_accumulate_grad_hook(
+            functools.partial(fold, i)) for i, p in enumerate(params)]
     stats = list(model.buffers())
     start = [t.clone() for t in stats]
     sums = [torch.zeros_like(t, dtype=torch.promote_types(
@@ -282,16 +322,34 @@ def _accumulated_backward(state: TrainState, batch,
         if i:
             for t, t0 in zip(stats, start):
                 t.copy_(t0)
-        if grads is not None and i == n - 1:
+        if grads is not None and i == n - 1 and not bf16:
             grads.arm(divisor=n)
         loss = batch_loss(model, micro, state.fused_xent)
-        loss.backward()
+        try:
+            loss.backward()
+        except BaseException:
+            if bf16:
+                for h in hooks:
+                    h.remove()
+            raise
         loss = loss.detach().float()
         total = loss if total is None else total + loss
         for a, t in zip(sums, stats):
             a.add_(t)
     for t, a in zip(stats, sums):
         t.copy_(a / n)
+    if bf16:
+        for h in hooks:
+            h.remove()
+        for i, (a, p) in enumerate(zip(acc, params)):
+            acc[i] = (torch.zeros(p.shape, dtype=torch.bfloat16,
+                                  device=p.device) if a is None
+                      else (a.float() / n).to(torch.bfloat16))
+        if grads is not None:
+            grads.reduce_tree(acc)
+        for i, p in enumerate(params):  # the bf16 tree freed as .grad grows
+            p.grad, acc[i] = acc[i].float(), None
+        return total / n
     if grads is None:
         for p in model.parameters():
             if p.grad is not None:
@@ -308,6 +366,9 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     dp = state.dp
     grads = dp.grads if dp is not None else None
     resnet.sync_calls = 0
+    # the bf16 accumulator's gradients are reduced inside, in bf16
+    reduced = grads is not None and state.accum > 1 \
+        and state.accum_dtype == "bf16"
     if state.accum > 1:
         loss = _accumulated_backward(state, batch, grads)
     else:
@@ -317,7 +378,7 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         loss.backward()
         loss = loss.detach()
     if dp is not None:
-        dp.reduce(state.model, loss)
+        dp.reduce(state.model, loss, grads_reduced=reduced)
         dp.allreduce_calls += resnet.sync_calls
     state.optimizer.step()
     state.step += 1

@@ -34,7 +34,10 @@ variable-update arm, layout ``"host"``, dtype) is checked at restore:
 where the saved state cannot be placed on the live world.  A host-layout
 ``psum``/``replicated`` state is world-neutral (every rank holds all of
 it), so those restore at any world, as in JAX; a zero1, pipeline or
-sharded checkpoint is refused (their slices are not ported).
+sharded checkpoint is refused (their slices are not ported).  The
+stacked (``--scan_layers``) and unrolled layouts are not interchangeable
+(as in JAX): a restore across them is refused by the saved parameter
+names (``check_layers_layout``), before anything is loaded.
 
 Under data parallel every rank takes part in gathering the dropout
 states, rank 0 alone copies the state to the host and writes it, and
@@ -57,7 +60,8 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["AsyncCheckpointWriter", "TopologyMismatchError", "check_topology",
-           "complete_steps", "describe_topology", "elastic_plan",
+           "check_layers_layout", "complete_steps", "describe_topology",
+           "elastic_plan",
            "fingerprint", "gc_checkpoints", "latest_step", "read_topology",
            "restore", "save", "snapshot_to_host", "topology_record",
            "write_host_payload"]
@@ -177,6 +181,29 @@ def elastic_plan(saved: dict, live: dict) -> tuple[str, str]:
     return ("noop", f"replicated {s_arm} state placed on the live world "
                     f"(world {saved.get('world')}->{live.get('world')}, "
                     f"arm {s_arm}->{l_arm}){extra}")
+
+
+_UNROLLED_KEY = re.compile(r"layers\.\d+\.")
+
+
+def check_layers_layout(model_sd: dict, saved_sd: dict,
+                        directory=None) -> None:
+    """Raise ``TopologyMismatchError`` where one ``state_dict`` holds the
+    stacked trunk and the other the unrolled one."""
+    def stacked(sd):
+        keys = [k for k in sd if k.startswith("layers.")]
+        return bool(keys) and not any(_UNROLLED_KEY.match(k) for k in keys)
+
+    s, l = stacked(saved_sd), stacked(model_sd)
+    if s != l:
+        name = {True: "stacked (--scan_layers)", False: "unrolled"}
+        where = f" under {directory}" if directory is not None else ""
+        raise TopologyMismatchError(
+            f"checkpoint layout mismatch{where}: trunk {name[s]} -> "
+            f"{name[l]}: the stacked layers.<name> [L, ...] and the "
+            f"unrolled layers.<i>.<name> parameters are not "
+            f"interchangeable; resume with the --scan_layers the "
+            f"checkpoint was written with")
 
 
 def check_topology(saved: dict, live: dict, directory=None,
@@ -452,6 +479,7 @@ def restore(state, directory: str | Path, step: int | None = None,
         if saved is not None:
             check_topology(saved, expect_topology, base, step)
     step, payload = load_payload(base, step)
+    check_layers_layout(state.model.state_dict(), payload["model"], base)
     state.model.load_state_dict(payload["model"])
     state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
