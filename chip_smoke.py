@@ -65,8 +65,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``[16, 1024, 12, 64]`` causal in bf16 (q, k, v views of one fused
    projection, as the model hands them over) and in float32, at
    llama_1b's ``[2, 2048, 32, 64]`` causal in bf16 (the GQA-repeated
-   K/V of phase 17's main path), at an unaligned non-causal ``[4, 1000, 6, 128]`` in bf16, at BERT-base's
-   non-causal ``[128, 128, 12, 64]`` in bf16, at bert_tiny's head dim
+   K/V of phase 17's main path), at an unaligned non-causal ``[4, 1000,
+   6, 128]`` in bf16, at vit_b16's and vit_l16's ``[64, 197, 12, 64]``
+   and ``[64, 197, 16, 64]`` non-causal in bf16 (phase 18's main path:
+   69 valid rows in the last query tile, 5 in the last key tile), at
+   BERT-base's non-causal ``[128, 128, 12, 64]`` in bf16, at bert_tiny's
+   head dim
    32 (``[128, 128, 4, 32]``, zero-padded to 64 as ``flash_attention``
    pads it), at head dim 256 (``[2, 512, 8, 256]`` causal, bf16 and
    float32: the FMA kernels at 32-row tiles) and at head dim 320
@@ -237,13 +241,34 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    route's host syncs a decode step, and the greedy tokens against the
    full forward's argmax.
 
+18. **zoo**: the image zoo, every training run through
+   ``launcher.main`` with every count zeroed just before and read just
+   after, and its peak memory: (a) vit_b16 at full width, bf16, batch
+   64, 10 + 30 steps, ``--attention_impl=flash`` (12 launches of rows
+   3, 4a, 4b a step) and ``dense`` (none), the first training-mode loss
+   on the runs' batch, flash against dense from one seed, within
+   ``ZOO_VIT_FIRST_LOSS_TOL``; (b) the same with
+   ``--gradient_checkpointing`` (row 3 24 a step, the final loss within
+   ``ZOO_REMAT_LOSS_TOL`` of (a)'s flash run, less memory), then batches
+   128 to ``ZOO_MAX_BATCH`` under remat until one does not fit, each
+   with its images/s; (c) vit_l16, flash, batch 64 (halved until it
+   fits), 5 + 15 (24 launches of each a step); (d) every other image
+   member once at ``ZOO_BATCHES``, 2 + 5 steps, resnet18 and
+   resnet50_v2 again with ``--use_space_to_depth``: images/s, ms a
+   step, MFU, peak memory, a finite final loss, no kernel of the table
+   launched, and the first bf16 loss within ``ZOO_BF16_LOSS_TOL`` of
+   the float32 forward of the same seeded model on the same batch; (e)
+   nasnet's and lenet's device idle share and kernels a step over
+   ``ZOO_STEPS`` under ``torch.profiler``.
+
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
 ``realdata_launches``: its launches in phase 14's runs (b)-(e) and (g),
 ``slice7_launches``: its launches in phase 15's runs (c)-(e), and
 ``serve2_launches``: its launches in phase 16's runs (b)-(f) in this
 process, ``slice9_launches``: its launches in phase 17's runs (a)-(c)
-and (f), every kernel's count set to 0 before each and read after it),
+and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
+every kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -255,7 +280,8 @@ realdata`` runs the build and phase 14 alone, beside phase 7's fused
 run and phase 10's first run; ``--only slice7`` the build and phase 15
 alone, beside phase 7's fused run (with several cards, (f) runs);
 ``--only serve2`` the build and phase 16 alone, beside phase 4's run;
-``--only slice9`` the build and phase 17 alone.
+``--only slice9`` the build and phase 17 alone; ``--only zoo`` the
+build, phase 8 at ViT's two shapes, then phase 18.
 """
 
 from __future__ import annotations
@@ -350,7 +376,8 @@ FLASH_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # (batch 2 x seq 2048, 32 heads after the GQA repeat); head dim 32
 # (bert_tiny's widths, batch 128 x seq 128) runs zero-padded to 64; head
 # dim 256 runs the FMA kernels at 32-row tiles in both dtypes, and head
-# dim 320 the same kernels zero-padded to 512 (two 256-wide chunks)
+# dim 320 the same kernels zero-padded to 512 (two 256-wide chunks);
+# last, vit_b16's and vit_l16's batch 64 x 197 tokens
 FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
                (2, 2048, 32, 64, "bfloat16", True),         # llama_1b
                (16, 1024, 12, 64, "float32", True),
@@ -360,7 +387,12 @@ FLASH_CASES = ((16, 1024, 12, 64, "bfloat16", True),
                (2, 512, 8, 256, "bfloat16", True),
                (2, 512, 8, 256, "float32", True),
                (2, 256, 4, 320, "bfloat16", True),
-               (2, 256, 4, 320, "float32", True))
+               (2, 256, 4, 320, "float32", True),
+               (64, 197, 12, 64, "bfloat16", False),       # vit_b16
+               (64, 197, 16, 64, "bfloat16", False))       # vit_l16
+# phase 18's kernel cases: ViT's 197 tokens, non-causal (69 valid rows in
+# the last 128-row query tile, 5 in the last 64-wide key tile)
+VIT_FLASH_CASES = FLASH_CASES[-2:]
 # b * h just above 65535 (the grid's y limit): the three kernels at once,
 # the first and last batch rows held to the plain version on them alone
 FLASH_WIDE_CASE = (16385, 40, 4, 64, "bfloat16", True)
@@ -532,9 +564,52 @@ SLICE9_SCAN_GPT2_BATCH = 8
 SLICE9_SCAN_LOSS_TOL = 1e-3
 SLICE9_GREEDY_CHECKS = 4           # (f): requests held to the forward
 
+# phase 18 (zoo): the image zoo; (warmup, timed) steps
+ZOO_VIT_BATCH = 64
+ZOO_VIT_STEPS = (10, 30)           # (a), (b)
+ZOO_VIT_L_STEPS = (5, 15)          # (c)
+ZOO_STEPS = (2, 5)                 # (d), and (e)'s profiled steps
+ZOO_SEARCH_STEPS = (1, 2)          # (b)'s batch search, each batch
+ZOO_MAX_BATCH = 4096
+ZOO_VIT_LAYERS = {"vit_b16": 12, "vit_l16": 24}
+# (a) vit_b16's first forward on the runs' batch, bf16 flash against bf16
+# dense from one seed, dropout drawn alike (summation order and bf16
+# rounding through 12 layers): the loss relative
+ZOO_VIT_FIRST_LOSS_TOL = 2e-3     # 1.54e-4 measured
+# (b) remat recomputes the same products with the forward's masks: its
+# final loss against (a)'s flash run
+ZOO_REMAT_LOSS_TOL = 1e-3
+# (d) each member's first bf16 loss against the float32 forward of the
+# same seeded model on the same batch (bf16 activations through up to
+# ~100 layers; BatchNorm renormalizes each), relative; measured up to
+# 1.3e-2 (nasnetlarge at batch 16), 2.4e-3 elsewhere
+ZOO_BF16_LOSS_TOL = 5e-2
+# (d) the members at the JAX package's plain batches (BASELINE.md's zoo
+# table, a configuration here), each once, then resnet18 and resnet50_v2
+# again with --use_space_to_depth
+ZOO_BATCHES = {"trivial": 512, "lenet": 2048, "alexnet": 512,
+               "overfeat": 256, "googlenet": 256, "mobilenet": 256,
+               "densenet40_k12": 512, "densenet100_k12": 256,
+               "nasnet": 128, "nasnetlarge": 16, "resnet18": 256,
+               "resnet34": 256, "resnet50_v2": 128, "resnet101_v2": 128,
+               "resnet152_v2": 128, "resnet20_cifar": 1024,
+               "resnet32_cifar": 1024, "resnet44_cifar": 512,
+               "resnet56_cifar": 512, "resnet110_cifar": 256,
+               "vgg11": 128, "vgg16": 128, "vgg19": 128,
+               "inception3": 128, "inception4": 64}
+ZOO_S2D = ("resnet18", "resnet50_v2")
+ZOO_IDLE = ("nasnet", "lenet")     # (e): host-bound members profiled
+
+
+
+T0 = time.perf_counter()
 
 
 def emit(obj: dict) -> None:
+    """One JSON line; a phase's record also carries ``t_s``, the seconds
+    since the script started."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": round(time.perf_counter() - T0, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1261,8 +1336,10 @@ def _flash_case_inputs(torch, F, fa_mod, gen, dev, b, s, h, d, dtype):
     return q, k, v, do, d ** -0.5
 
 
-def phase_flash(torch, dev, timer, smi) -> dict:
-    """Phase 8; returns the main-path row of each flash kernel."""
+def phase_flash(torch, dev, timer, smi, cases=FLASH_CASES,
+                extras: bool = True) -> dict:
+    """Phase 8 (``cases``; with ``extras`` the wide and padded routes
+    after them); returns the main-path row of each flash kernel."""
     import torch.nn.functional as F
 
     from tpu_hc_bench_torch.ops import flash_attention as fa_mod
@@ -1271,7 +1348,7 @@ def phase_flash(torch, dev, timer, smi) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(3)
     rows = {}
-    for b, s, h, d, dname, causal in FLASH_CASES:
+    for b, s, h, d, dname, causal in cases:
         dtype = getattr(torch, dname)
         q, k, v, do, scale = _flash_case_inputs(torch, F, fa_mod, gen, dev,
                                                 b, s, h, d, dtype)
@@ -1363,9 +1440,10 @@ def phase_flash(torch, dev, timer, smi) -> dict:
                 rows[FLASH_KERNELS[name][0]] = rec
         del q, k, v, do, o_fwd, lse_fwd, delta, calls, bwd_args
         torch.cuda.empty_cache()
-    phase_flash_wide(torch, dev, timer, smi, fa_mod)
-    for case in FLASH_PADDED_CASES:
-        phase_flash_padded(torch, dev, smi, fa_mod, case)
+    if extras:
+        phase_flash_wide(torch, dev, timer, smi, fa_mod)
+        for case in FLASH_PADDED_CASES:
+            phase_flash_padded(torch, dev, smi, fa_mod, case)
     fa.launches.update(dict.fromkeys(fa.launches, 0))
     return rows
 
@@ -2952,17 +3030,18 @@ def phase_serve2(torch, dev, smi, llama, phase4: dict) -> dict:
     return total
 
 def _slice9_run(torch, part: str, argv: list[str], smi: str,
-                expect: dict | None = None) -> tuple[dict, dict, list]:
-    """One training run of phase 17 through ``launcher.main``: every
-    count zeroed just before and read just after, peak memory from a
-    reset; ``expect``: each listed kernel's count (the rest must be 0).
-    Returns the result line, the counts and the display losses."""
+                expect: dict | None = None,
+                phase: str = "slice9") -> tuple[dict, dict, list]:
+    """One training run of phase 17 (or 18) through ``launcher.main``:
+    every count zeroed just before and read just after, peak memory from
+    a reset; ``expect``: each listed kernel's count (the rest must be
+    0).  Returns the result line, the counts and the record."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     _zero_counts()
     rc, res = _launch(argv)
     counts = _read_counts()
-    rec = {"phase": "slice9", "part": part, "argv": argv, "rc": rc,
+    rec = {"phase": phase, "part": part, "argv": argv, "rc": rc,
            "launches": counts, "expected_launches": expect,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "nvidia_smi": smi,
@@ -2977,7 +3056,7 @@ def _slice9_run(torch, part: str, argv: list[str], smi: str,
     if expect is not None:
         ok = ok and all(counts[k] == expect.get(k, 0) for k in counts)
     if not ok:
-        raise AssertionError(f"slice9 run {part} failed: {rec}")
+        raise AssertionError(f"{phase} run {part} failed: {rec}")
     return res, counts, rec
 
 
@@ -3264,13 +3343,257 @@ def phase_slice9(torch, dev, smi) -> dict:
     return total
 
 
+def _zoo_argv(model: str, batch: int, steps: tuple, *extra: str,
+              fabric: str = "sock") -> list[str]:
+    warmup, timed = steps
+    return ["1", "1", str(batch), fabric, f"--model={model}",
+            "--use_fp16=true", f"--num_warmup_batches={warmup}",
+            f"--num_batches={timed}", "--display_every=10", *extra]
+
+
+def _zoo_expect(layers: int, steps: int, remat: bool = False) -> dict:
+    """Rows 3/4a/4b's launches in a flash ViT run: one a layer and step,
+    the forward twice under remat; every other kernel none."""
+    return {FLASH_KERNELS["fwd"][0]: (2 if remat else 1) * layers * steps,
+            FLASH_KERNELS["dq"][0]: layers * steps,
+            FLASH_KERNELS["dkv"][0]: layers * steps}
+
+
+def zoo_first_losses(torch, dev, name: str, batch: int,
+                     arms: tuple, s2d: bool = False) -> dict:
+    """The first training-mode loss of ``name`` seeded as the runs seed
+    it (weights and dropout from seed 0) on the runs' first batch, once
+    per ``(dtype, attention_impl)`` arm (forward only; these launches
+    are not counted)."""
+    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    losses = {}
+    # one forward a shape: cuDNN's heuristic picks, no algorithm search
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        for dname, impl in arms:
+            model, spec = create_model(name, getattr(torch, dname), impl,
+                                       device=dev, seed=0, train=True,
+                                       space_to_depth=s2d)
+            batch_t = to_device(SyntheticImages(
+                batch, spec.input_shape, 1000, 0).batch(), dev)
+            with torch.no_grad():
+                losses[f"{dname}_{impl}"] = float(
+                    step_mod.batch_loss(model, batch_t))
+            del model, batch_t
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    return losses
+
+
+def zoo_vit(torch, dev, smi, add) -> None:
+    """(a)-(c): vit_b16 flash and dense, remat and its batch search,
+    vit_l16."""
+    import gc
+
+    steps = sum(ZOO_VIT_STEPS)
+    layers = ZOO_VIT_LAYERS["vit_b16"]
+    first = zoo_first_losses(torch, dev, "vit_b16", ZOO_VIT_BATCH,
+                             (("bfloat16", "flash"), ("bfloat16", "dense")))
+    rel = abs(first["bfloat16_flash"] - first["bfloat16_dense"]) / abs(
+        first["bfloat16_dense"])
+    rec = {"phase": "zoo", "part": "a_vit_b16_first_loss", "losses": first,
+           "rel_err": rel, "tol": ZOO_VIT_FIRST_LOSS_TOL, "nvidia_smi": smi}
+    emit(rec)
+    if not (math.isfinite(first["bfloat16_flash"])
+            and rel <= ZOO_VIT_FIRST_LOSS_TOL):
+        raise AssertionError(f"vit_b16 flash first loss off dense: {rec}")
+    runs = {}
+    for impl in ("flash", "dense"):
+        _, counts, runs[impl] = _slice9_run(
+            torch, f"a_vit_b16_{impl}",
+            _zoo_argv("vit_b16", ZOO_VIT_BATCH, ZOO_VIT_STEPS,
+                      f"--attention_impl={impl}"), smi,
+            _zoo_expect(layers, steps) if impl == "flash" else {},
+            phase="zoo")
+        add(counts)
+    # (b) remat at (a)'s batch: the same losses, less memory, row 3 twice
+    _, counts, rec_b = _slice9_run(
+        torch, "b_vit_b16_remat",
+        _zoo_argv("vit_b16", ZOO_VIT_BATCH, ZOO_VIT_STEPS,
+                  "--attention_impl=flash", "--gradient_checkpointing=true"),
+        smi, _zoo_expect(layers, steps, remat=True), phase="zoo")
+    add(counts)
+    a = runs["flash"]
+    rel = abs(rec_b["final_loss"] - a["final_loss"]) / abs(a["final_loss"])
+    rec = {"phase": "zoo", "part": "b_remat_vs_a", "final_loss_rel_err": rel,
+           "tol": ZOO_REMAT_LOSS_TOL, "peak_mem_gb": rec_b["peak_mem_gb"],
+           "peak_mem_gb_a": a["peak_mem_gb"], "nvidia_smi": smi}
+    emit(rec)
+    if not (rel <= ZOO_REMAT_LOSS_TOL
+            and rec_b["peak_mem_gb"] < a["peak_mem_gb"]):
+        raise AssertionError(f"vit_b16 remat off (a): {rec}")
+    found = [(ZOO_VIT_BATCH, rec_b["total_images_per_sec"])]
+    batch = 2 * ZOO_VIT_BATCH
+    while batch <= ZOO_MAX_BATCH:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            rc, res = _launch(_zoo_argv(
+                "vit_b16", batch, ZOO_SEARCH_STEPS, "--attention_impl=flash",
+                "--gradient_checkpointing=true"))
+        except torch.cuda.OutOfMemoryError:
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit({"phase": "zoo", "part": "b_batch_search", "batch": batch,
+                  "fits": False, "nvidia_smi": smi})
+            break
+        if rc != 0 or not math.isfinite(res["final_loss"]):
+            raise AssertionError(f"remat batch {batch} run failed: {res}")
+        found.append((batch, res["total_images_per_sec"]))
+        emit({"phase": "zoo", "part": "b_batch_search", "batch": batch,
+              "fits": True, "images_per_sec": res["total_images_per_sec"],
+              "mfu": res["mfu"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "nvidia_smi": smi})
+        batch *= 2
+    emit({"phase": "zoo", "part": "b_largest_batch", "batch": found[-1][0],
+          "images_per_sec": found[-1][1], "searched_up_to": ZOO_MAX_BATCH,
+          "nvidia_smi": smi})
+    # (c) vit_l16 at (a)'s batch, or the largest power of two below it
+    # that fits
+    batch, layers = ZOO_VIT_BATCH, ZOO_VIT_LAYERS["vit_l16"]
+    while True:
+        try:
+            _, counts, _ = _slice9_run(
+                torch, f"c_vit_l16_batch_{batch}",
+                _zoo_argv("vit_l16", batch, ZOO_VIT_L_STEPS,
+                          "--attention_impl=flash"), smi,
+                _zoo_expect(layers, sum(ZOO_VIT_L_STEPS)), phase="zoo")
+            add(counts)
+            break
+        except torch.cuda.OutOfMemoryError:
+            gc.collect()
+            torch.cuda.empty_cache()
+            if batch == 1:
+                raise
+            batch //= 2
+
+
+def zoo_members(torch, dev, smi, add) -> None:
+    """(d): every other image member once at its batch (resnet18 and
+    resnet50_v2 again with --use_space_to_depth): no kernel of the table
+    launches; the first bf16 loss against the float32 forward."""
+    runs = [(name, batch, False) for name, batch in ZOO_BATCHES.items()]
+    runs += [(name, ZOO_BATCHES[name], True) for name in ZOO_S2D]
+    for name, batch, s2d in runs:
+        first = zoo_first_losses(torch, dev, name, batch,
+                                 (("bfloat16", "dense"),
+                                  ("float32", "dense")), s2d)
+        ref = first["float32_dense"]
+        rel = abs(first["bfloat16_dense"] - ref) / abs(ref)
+        extra = ["--use_space_to_depth=true"] if s2d else []
+        part = f"d_{name}" + ("_s2d" if s2d else "")
+        res, counts, rec = _slice9_run(
+            torch, part, _zoo_argv(name, batch, ZOO_STEPS, *extra), smi, {},
+            phase="zoo")
+        add(counts)
+        out = {"phase": "zoo", "part": part + "_summary", "model": name,
+               "batch": batch, "space_to_depth": s2d,
+               "images_per_sec": res["total_images_per_sec"],
+               "ms_per_step": res["mean_step_ms"], "mfu": res["mfu"],
+               "peak_mem_gb": rec["peak_mem_gb"],
+               "final_loss": res["final_loss"], "first_loss": first,
+               "first_loss_bf16_vs_f32_rel": rel, "tol": ZOO_BF16_LOSS_TOL,
+               "nvidia_smi": smi}
+        emit(out)
+        if not (math.isfinite(ref) and rel <= ZOO_BF16_LOSS_TOL):
+            raise AssertionError(f"{name} bf16 first loss off f32: {out}")
+
+
+def _busy_s(torch, prof) -> float:
+    """Device busy seconds of a profile: the union of its kernel
+    intervals (one stream)."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, None
+    for t0, t1 in spans:
+        if end is None or t0 > end:
+            busy, end = busy + t1 - t0, t1
+        elif t1 > end:
+            busy, end = busy + t1 - end, t1
+    return busy * 1e-6
+
+
+def zoo_idle(torch, dev, smi) -> None:
+    """(e): the host-bound members' device idle share over timed steps:
+    the step loop of the runs (bf16, momentum SGD, one synthetic batch),
+    ``ZOO_STEPS`` warmup then timed steps under ``torch.profiler``
+    tracing the device alone (host-side tracing of nasnet's ~18k
+    launches a step would slow the host it measures)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    for name in ZOO_IDLE:
+        batch = ZOO_BATCHES[name]
+        cfg = flags.parse_benchmark_flags(["--use_fp16=true",
+                                           f"--model={name}"])
+        model, spec = create_model(name, torch.bfloat16, device=dev, seed=0,
+                                   train=True)
+        state = step_mod.make_train_state(model, cfg)
+        batch_t = to_device(SyntheticImages(batch, spec.input_shape, 1000,
+                                            0).batch(), dev)
+        warmup, timed = ZOO_STEPS
+        for _ in range(warmup):
+            step_mod.train_step(state, batch_t)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(timed):
+                step_mod.train_step(state, batch_t)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = _busy_s(torch, prof)
+        kernels = sum(1 for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA)
+        rec = {"phase": "zoo", "part": f"e_{name}_idle", "batch": batch,
+               "profiled_steps": timed, "step_ms": 1e3 * wall / timed,
+               "device_busy_ms_per_step": 1e3 * busy / timed,
+               "device_idle_share": (1.0 - busy / wall) if busy else None,
+               "kernels_per_step": kernels / timed, "nvidia_smi": smi}
+        emit(rec)
+        del state, model, batch_t, prof
+        torch.cuda.empty_cache()
+        if not busy:
+            raise AssertionError(f"the profiler saw no device time: {rec}")
+
+
+def phase_zoo(torch, dev, smi) -> dict:
+    """Phase 18: the image zoo; returns every kernel's launches summed
+    over the main-path runs (a)-(d)."""
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    zoo_vit(torch, dev, smi, add)
+    zoo_members(torch, dev, smi, add)
+    zoo_idle(torch, dev, smi)
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(description="Smoke run of the port on "
                                 "the GPUs of this machine.")
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
-                                      "serve2", "slice9"),
+                                      "serve2", "slice9", "zoo"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -3279,7 +3602,8 @@ def main(argv: list[str] | None = None) -> int:
                         "slice7: the build, then phase 15 alone (beside "
                         "phase 7's fused run); serve2: the build, then "
                         "phase 16 alone (beside phase 4's run); slice9: "
-                        "the build, then phase 17 alone")
+                        "the build, then phase 17 alone; zoo: the build, "
+                        "phase 8 at ViT's shapes, then phase 18")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -3367,6 +3691,18 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "zoo":
+        timer = Timer(torch, dev)
+        phase_flash(torch, dev, timer, smi, VIT_FLASH_CASES, extras=False)
+        del timer
+        torch.cuda.empty_cache()
+        phase_zoo(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice9":
         phase_slice9(torch, dev, smi)
         print(smi, flush=True)
@@ -3421,6 +3757,8 @@ def main(argv: list[str] | None = None) -> int:
     slice7_launches = phase_slice7(torch, dev, smi, sock_rate)
     torch.cuda.empty_cache()
     slice9_launches = phase_slice9(torch, dev, smi)
+    torch.cuda.empty_cache()
+    zoo_launches = phase_zoo(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -3468,7 +3806,8 @@ def main(argv: list[str] | None = None) -> int:
                       "realdata_launches": realdata_launches[name],
                       "slice7_launches": slice7_launches[name],
                       "serve2_launches": serve2_launches.get(name, 0),
-                      "slice9_launches": slice9_launches.get(name, 0)})
+                      "slice9_launches": slice9_launches.get(name, 0),
+                      "zoo_launches": zoo_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

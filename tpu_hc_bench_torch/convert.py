@@ -70,9 +70,39 @@ one layout serves both routes.  Layout rules:
   ``conv2`` (kernel), ``StatsBatchNorm_0`` is ``bn2``, and ``Conv_1`` and
   ``BatchNorm_0`` are the block's *third* conv and BN; ``shortcut_conv``
   and ``shortcut_bn`` keep their names.
+
+It takes the other ResNet trees the same way: ``BasicBlock_i``
+(resnet18/34 and the CIFAR resnets: ``Conv_0..1``/``BatchNorm_0..1``)
+and ``PreactBottleneckBlock_i`` (the v2 members: ``BatchNorm_0`` is the
+preactivation ``bn1``, then ``Conv_0``, ``BatchNorm_1``, ...), with
+``bn_init`` where the tree has it and the v2 ``bn_final``.
+
+``vit_params_from_flax(params)`` takes a ``ViT`` tree: ``patchify``
+(conv kernel and bias), ``cls`` and ``pos_embed`` unchanged, each
+``layer_i`` through ``decoder_layer_params_from_flax``, ``ln_f`` and
+the transposed ``head``.
+
+``zoo_variables_from_flax(name, params, batch_stats)`` takes the tree of
+any image member (by registry name, alias or family: ``trivial``,
+``alexnet``, ``vgg``, ``lenet``, ``overfeat``, ``googlenet``,
+``mobilenet``, ``densenet``, ``inception``, ``nasnet``, the resnets, the
+ViTs) and returns its ``state_dict``.  Past the resnets and the ViTs the
+rule is one walk over the tree: each module path renamed segment by
+segment through the family's table (Flax's auto-names such as
+``InceptionModule_3`` or ``ConvBN_2`` to the port's lists,
+``inception.3``, ``convs.2``; explicit names map unchanged), and each
+leaf by its kind: a 4-D ``kernel`` (HWIO, depthwise ``[kh, kw, 1, C]``
+too) to an OIHW ``weight``, a 2-D one (Dense ``[in, out]``) transposed,
+``bias``, ``scale`` to ``weight``, ``mean``/``var`` to
+``running_mean``/``running_var``.
+
+Every ``*_from_flax`` consumes each leaf of the trees it is given or
+raises: a leaf with no rule, or a tree with leaves left over.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
@@ -257,19 +287,141 @@ def resnet_block_from_flax(params: dict,
     return sd
 
 
+def _leaves(tree: dict, path: tuple = ()):
+    """``(path, leaf)`` of every leaf of a nested dict, in order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def _check_consumed(sd: dict, *trees) -> None:
+    """Each converter maps one leaf to one ``state_dict`` entry: a tree
+    with more leaves than ``sd`` has entries holds leaves it left."""
+    n = sum(1 for t in trees if t for _ in _leaves(t))
+    if n != len(sd):
+        raise ValueError(f"the Flax tree has {n} leaves, of which the "
+                         f"converter consumed {len(sd)}")
+
+
+_RESNET_BLOCKS = ("FusedBottleneckBlock_", "PreactBottleneckBlock_",
+                  "BottleneckBlock_", "BasicBlock_")
+
+
 def resnet_variables_from_flax(params: dict,
                                batch_stats: dict) -> dict[str, torch.Tensor]:
     sd: dict[str, torch.Tensor] = {}
     stem = "conv_init_s2d" if "conv_init_s2d" in params else "conv_init"
     sd[stem + ".weight"] = _conv(params[stem]["kernel"])
-    _bn(sd, "bn_init.", params["bn_init"], batch_stats["bn_init"])
-    fused = any(k.startswith("FusedBottleneckBlock_") for k in params)
-    prefix = "FusedBottleneckBlock_" if fused else "BottleneckBlock_"
-    n_blocks = sum(1 for k in params if k.startswith(prefix))
+    for name in ("bn_init", "bn_final"):
+        if name in params:
+            _bn(sd, name + ".", params[name], batch_stats[name])
+    prefix = next((p for p in _RESNET_BLOCKS
+                   if any(k.startswith(p) for k in params)), None)
+    n_blocks = (sum(1 for k in params if k.startswith(prefix))
+                if prefix else 0)
     for i in range(n_blocks):
         block = resnet_block_from_flax(params[f"{prefix}{i}"],
                                        batch_stats[f"{prefix}{i}"])
         sd.update({f"blocks.{i}.{k}": v for k, v in block.items()})
     sd["head.weight"] = _t(np.asarray(params["head"]["kernel"]).T)
     sd["head.bias"] = _t(params["head"]["bias"])
+    _check_consumed(sd, params, batch_stats)
+    return sd
+
+
+def vit_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    sd = {"patchify.weight": _conv(params["patchify"]["kernel"]),
+          "patchify.bias": _t(params["patchify"]["bias"]),
+          "cls": _t(params["cls"]), "pos_embed": _t(params["pos_embed"]),
+          "head.weight": _t(np.asarray(params["head"]["kernel"]).T),
+          "head.bias": _t(params["head"]["bias"])}
+    _layer_norm(sd, "ln_f.", params["ln_f"])
+    sd = _finish(sd, [decoder_layer_params_from_flax(p)
+                      for p in layer_trees(params)], params)
+    _check_consumed(sd, params)
+    return sd
+
+
+# per family: (Flax module name pattern, port name) for the segments the
+# port names otherwise; every other segment keeps its name
+_INCEPTION_RENAMES = (
+    (r"ConvBN_(\d+)", r"convs.\1"), ("Conv_0", "conv"), ("BatchNorm_0", "bn"),
+    ("StemV4_0", "stem"),
+    (r"InceptionA4?_(\d+)", r"inception_a.\1"),
+    (r"InceptionB4_(\d+)", r"inception_b.\1"),
+    (r"InceptionC4?_(\d+)", r"inception_c.\1"),
+    (r"InceptionE_(\d+)", r"inception_e.\1"),
+    (r"ReductionA4_(\d+)", r"reduction_a.\1"),
+    (r"ReductionB4?_(\d+)", r"reduction_b.\1"),
+    (r"ReductionD_(\d+)", r"reduction_d.\1"))
+_ZOO_RENAMES = {
+    "trivial": (("Dense_0", "head"),),
+    "googlenet": ((r"InceptionModule_(\d+)", r"inception.\1"),),
+    "inception": _INCEPTION_RENAMES,
+    "alexnet": (), "vgg": (), "lenet": (), "overfeat": (), "mobilenet": (),
+    "densenet": (), "nasnet": (),
+}
+_ZOO_FAMILY = (("vit", "vit"), ("resnet", "resnet"), ("vgg", "vgg"),
+               ("inception", "inception"), ("nasnet", "nasnet"),
+               ("densenet", "densenet"), ("lenet", "lenet"),
+               ("mobilenet", "mobilenet"))
+_LEAF_RULES = {("params", "bias"): "bias", ("params", "scale"): "weight",
+               ("params", "kernel"): "weight",
+               ("batch_stats", "mean"): "running_mean",
+               ("batch_stats", "var"): "running_var"}
+
+
+def _rename(segment: str, renames) -> str:
+    for pattern, port in renames:
+        if re.fullmatch(pattern, segment):
+            return re.sub(pattern, port, segment)
+    return segment
+
+
+def _zoo_leaf(col: str, path: tuple, leaf) -> torch.Tensor:
+    a = np.asarray(leaf)
+    if path[-1] != "kernel":
+        return _t(a.reshape(-1))
+    if a.ndim == 4:
+        return _conv(a)
+    if a.ndim == 2:
+        return _t(a.T)
+    raise ValueError(f"{col}/{'/'.join(path)}: a kernel of shape "
+                     f"{a.shape} has no rule")
+
+
+def zoo_family(name: str) -> str:
+    """The converter family of an image member (registry name or alias),
+    or ``name`` itself where it names a family."""
+    key = name.lower()
+    if key in _ZOO_RENAMES:
+        return key
+    for stem, family in _ZOO_FAMILY:
+        if stem in key:
+            return family
+    raise ValueError(f"no image converter for {name!r}")
+
+
+def zoo_variables_from_flax(name: str, params: dict,
+                            batch_stats: dict | None = None
+                            ) -> dict[str, torch.Tensor]:
+    family = zoo_family(name)
+    if family == "resnet":
+        return resnet_variables_from_flax(params, batch_stats or {})
+    if family == "vit":
+        return vit_params_from_flax(params)
+    renames = _ZOO_RENAMES[family]
+    sd: dict[str, torch.Tensor] = {}
+    for col, tree in (("params", params), ("batch_stats", batch_stats)):
+        for path, leaf in _leaves(tree or {}):
+            rule = _LEAF_RULES.get((col, path[-1]))
+            if rule is None:
+                raise ValueError(f"{col}/{'/'.join(path)}: no rule for "
+                                 f"this leaf in the {family} converter")
+            key = ".".join([_rename(seg, renames) for seg in path[:-1]]
+                           + [rule])
+            sd[key] = _zoo_leaf(col, path, leaf)
+    _check_consumed(sd, params, batch_stats)
     return sd

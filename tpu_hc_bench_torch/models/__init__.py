@@ -1,9 +1,15 @@
-"""Model registry of the port: the ``--model=`` dispatch, for the members
-ported so far (``resnet50``, ``resnet101``, ``resnet152``, ``gpt2``,
-``gpt2_medium``, the MoE members ``gpt2_moe`` and ``moe_tiny``,
-``llama_1b``, ``llama_tiny``, ``bert_base``, ``bert_large`` and
-``bert_tiny`` for training; the serving lane serves every ``causal_lm``
-member: the llamas, ``gpt2``, ``gpt2_medium`` and the MoE members).
+"""Model registry of the port: the ``--model=`` dispatch, the JAX
+registry's members (tf_cnn_benchmarks' zoo and the transformer
+families) and its aliases.
+
+Ported: every image member (``trivial``, alexnet, googlenet, lenet,
+overfeat, mobilenet, nasnet/nasnetlarge, the densenets, the resnets v1,
+v2 and CIFAR, the vggs, the ViTs, inception3/4), the text members
+(``gpt2``, ``gpt2_medium``, ``gpt2_moe``, ``moe_tiny``, ``llama_1b``,
+``llama_tiny``, ``bert_base``, ``bert_large``, ``bert_tiny``); the
+serving lane serves every ``causal_lm`` member.  ``deepspeech2``,
+``deepspeech2_tiny``, ``ncf`` and ``ncf_tiny`` resolve and raise "not
+ported yet".
 
 ``get_model_spec`` and ``create_model`` keep the JAX package's names and
 return values (``create_model`` returns ``(model, spec)``); the port's
@@ -12,9 +18,14 @@ its weights from ``seed``.  ``flops_per_example`` is the forward FLOP
 count at ``input_shape`` (2 x multiply-adds), the JAX registry's figure,
 used for MFU (a train step is ~3x the forward); a text model's
 ``seq_len`` override rescales it linearly and grows the position table,
-as the JAX ``create_model`` does.  ``gradient_checkpointing`` (every
-transformer), ``scan_layers`` (the decoder families) and the MoE knobs
-(the MoE members) follow the JAX ``create_model``'s guards.
+as the JAX ``create_model`` does.  The guards are the JAX
+``create_model``'s: ``attention_impl`` and ``gradient_checkpointing``
+reach the transformers (text members and the ``attention`` members, the
+ViTs; the other image members ignore ``attention_impl``, as in JAX, and
+refuse ``gradient_checkpointing``), ``space_to_depth`` the
+``supports_s2d`` members (the ImageNet resnets), ``fused_conv`` the v1
+bottleneck resnets, ``scan_layers`` the decoder families and the MoE
+knobs the MoE members.
 """
 
 from __future__ import annotations
@@ -24,13 +35,16 @@ from typing import Callable
 
 import numpy as np
 import torch
+from torch import nn
 
 from tpu_hc_bench_torch import resolve_device
-from tpu_hc_bench_torch.models import bert, gpt, llama, resnet
+from tpu_hc_bench_torch.models import (
+    alexnet, bert, cifar_resnet, densenet, googlenet, gpt, inception, llama,
+    mobilenet, nasnet, resnet, small_cnns, vgg, vit)
 from tpu_hc_bench_torch.models.moe import MOE_IMPLS
 
 
-# a text model's dropout stream is seeded apart from its weights' stream
+# a model's dropout stream is seeded apart from its weights' stream
 DROPOUT_SEED_OFFSET = 1
 
 
@@ -43,6 +57,20 @@ def dropout_seed(seed: int, rank: int = 0) -> int:
         return seed + DROPOUT_SEED_OFFSET
     return int(np.random.SeedSequence(
         [seed + DROPOUT_SEED_OFFSET, rank]).generate_state(1)[0])
+
+
+class TrivialModel(resnet.FlaxInit):
+    """tf_cnn_benchmarks' ``trivial``: the image flattened in Flax's NHWC
+    order, then one float32 dense layer."""
+
+    def __init__(self, num_classes: int = 1000,
+                 dtype: torch.dtype = torch.float32, image_size: int = 224):
+        super().__init__()
+        self.dtype = dtype
+        self.head = nn.Linear(image_size * image_size * 3, num_classes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(resnet.flatten_nhwc(x.to(self.dtype)).float())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,11 +86,19 @@ class ModelSpec:
                                        # fused BN-relu-conv3x3 kernel)
     is_text: bool = False              # token input; input_shape = (seq,)
     moe: bool = False                  # factory takes the MoE knobs
+    supports_s2d: bool = False         # factory takes space_to_depth
+    attention: bool = False            # image transformer (ViT): factory
+                                       # takes attention_impl and remat
+
+
+def _image(name: str, create, flops: float, size: int = 224,
+           **kw) -> ModelSpec:
+    return ModelSpec(name, create, input_shape=(size, size, 3),
+                     num_classes=1000, flops_per_example=flops, **kw)
 
 
 def _registry() -> dict[str, ModelSpec]:
-    image = dict(input_shape=(224, 224, 3), num_classes=1000,
-                 fused_conv=True)
+    s2d = dict(supports_s2d=True)
     specs = [
         # decoder families: 2 x params x seq forward FLOPs, the JAX
         # figures (the MoE members count the active parameters a token)
@@ -94,24 +130,81 @@ def _registry() -> dict[str, ModelSpec]:
         ModelSpec("bert_tiny", bert.bert_tiny_mlm, vocab_size=1024,
                   is_text=True, input_shape=(64,),
                   flops_per_example=2 * 4.5e6 * 64),
-        # ResNet v1.5 forward FLOPs at 224^2 (2 x MACs), the JAX figures
-        ModelSpec("resnet50", resnet.resnet50, flops_per_example=8.2e9,
-                  **image),
-        ModelSpec("resnet101", resnet.resnet101, flops_per_example=15.7e9,
-                  **image),
-        ModelSpec("resnet152", resnet.resnet152, flops_per_example=23.1e9,
-                  **image),
+        # the image zoo at the JAX registry's sizes and forward FLOPs
+        # (2 x MACs of the conv and dense layers)
+        _image("trivial", TrivialModel, 2 * 150528 * 1000),
+        _image("alexnet", alexnet.alexnet, 1.43e9),
+        _image("googlenet", googlenet.googlenet, 3.0e9),
+        _image("lenet", small_cnns.lenet, 2.46e7, 28),
+        _image("overfeat", small_cnns.overfeat, 7.53e9, 231),
+        _image("mobilenet", mobilenet.mobilenet, 1.16e9),
+        _image("nasnet", nasnet.nasnet, 1.13e9),
+        _image("nasnetlarge", nasnet.nasnetlarge, 4.76e10, 331),
+        _image("densenet40_k12", densenet.densenet40_k12, 5.08e8, 32),
+        _image("densenet100_k12", densenet.densenet100_k12, 1.88e9, 32),
+        # ResNet v1.5 (and v2: the same conv stack) at 224^2
+        _image("resnet18", resnet.resnet18, 3.64e9, **s2d),
+        _image("resnet34", resnet.resnet34, 7.34e9, **s2d),
+        _image("resnet50", resnet.resnet50, 8.2e9, fused_conv=True, **s2d),
+        _image("resnet101", resnet.resnet101, 15.7e9, fused_conv=True,
+               **s2d),
+        _image("resnet152", resnet.resnet152, 23.1e9, fused_conv=True,
+               **s2d),
+        _image("resnet50_v2", resnet.resnet50_v2, 8.2e9, **s2d),
+        _image("resnet101_v2", resnet.resnet101_v2, 15.7e9, **s2d),
+        _image("resnet152_v2", resnet.resnet152_v2, 23.1e9, **s2d),
+        _image("resnet20_cifar", cifar_resnet.resnet20_cifar, 8.2e7, 32),
+        _image("resnet32_cifar", cifar_resnet.resnet32_cifar, 1.4e8, 32),
+        _image("resnet44_cifar", cifar_resnet.resnet44_cifar, 1.9e8, 32),
+        _image("resnet56_cifar", cifar_resnet.resnet56_cifar, 2.5e8, 32),
+        _image("resnet110_cifar", cifar_resnet.resnet110_cifar, 5.1e8, 32),
+        _image("vgg11", vgg.vgg11, 15.2e9),
+        _image("vgg16", vgg.vgg16, 30.9e9),
+        _image("vgg19", vgg.vgg19, 39.3e9),
+        _image("vit_b16", vit.vit_b16, 35.2e9, attention=True),
+        _image("vit_l16", vit.vit_l16, 123.2e9, attention=True),
+        _image("vit_tiny", vit.vit_tiny, 5.3e6, 32, attention=True),
+        _image("inception3", inception.inception_v3, 11.4e9, 299),
+        _image("inception4", inception.inception_v4, 24.5e9, 299),
     ]
     return {s.name: s for s in specs}
 
 
+# the JAX registry's members a later slice brings: each with its own
+# input stream and objective
+LATER_SLICE_MODELS = ("deepspeech2", "deepspeech2_tiny", "ncf", "ncf_tiny")
+
+_ALIASES = {
+    "resnet50_v1.5": "resnet50",
+    "inception_v3": "inception3",
+    "bert": "bert_base",
+    "bert-base": "bert_base",
+    "lenet5": "lenet",
+    "densenet": "densenet40_k12",
+    "mobilenet_v1": "mobilenet",
+    "inception_v4": "inception4",
+    # tf_cnn_benchmarks names the CIFAR family bare resnet<depth>
+    "resnet20": "resnet20_cifar",
+    "resnet32": "resnet32_cifar",
+    "resnet44": "resnet44_cifar",
+    "resnet56": "resnet56_cifar",
+    "resnet110": "resnet110_cifar",
+}
+
+
 def get_model_spec(name: str) -> ModelSpec:
     reg = _registry()
-    key = name.lower()
+    key = _ALIASES.get(name.lower(), name.lower())
+    if key in LATER_SLICE_MODELS:
+        raise ValueError(f"model {name!r} is not ported yet (its input "
+                         "stream and objective come with a later slice)")
     if key not in reg:
-        raise ValueError(f"unknown model {name!r}; the port has "
-                         f"{sorted(reg)}")
+        raise ValueError(f"unknown model {name!r}; have {sorted(reg)}")
     return reg[key]
+
+
+def list_models() -> list[str]:
+    return sorted(_registry())
 
 
 def create_model(name: str, dtype=torch.float32,
@@ -129,10 +222,13 @@ def create_model(name: str, dtype=torch.float32,
     training mode when ``train``.  Models keep float32 parameters and
     compute in ``dtype`` (float32 or bfloat16); image models live in
     ``channels_last`` memory.  Every data-parallel rank draws the same
-    weights; a text model's dropout draws from its own generator, seeded
-    with ``dropout_seed(seed, rank)``.  A scanned decoder
-    (``scan_layers``) holds the unrolled one's weights for the same
-    seed."""
+    weights; a model with dropout (a text model, a ViT, alexnet, vgg,
+    googlenet, overfeat, inception3/4, nasnet) draws its masks from its
+    own generator, seeded with ``dropout_seed(seed, rank)``.  Image
+    models take ``num_classes`` classes (the registry's 1000 when None,
+    CIFAR members too, as JAX's driver passes ``--num_classes``).  A
+    scanned decoder (``scan_layers``) holds the unrolled one's weights
+    for the same seed."""
     spec = get_model_spec(name)
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"models compute in float32|bfloat16: {dtype}")
@@ -157,41 +253,45 @@ def create_model(name: str, dtype=torch.float32,
     if scan_layers and not spec.causal_lm:    # the decoder families
         raise ValueError(f"--scan_layers is not supported for {name} "
                          "(decoder families only: gpt2*/moe*/llama*)")
+    if space_to_depth and not spec.supports_s2d:
+        raise ValueError(f"--use_space_to_depth: {name} has no s2d stem")
+    if fused_conv and not spec.fused_conv:
+        raise ValueError(f"--fused_conv applies to the v1 bottleneck "
+                         f"resnets, not {name}")
+    if gradient_checkpointing and not (spec.is_text or spec.attention):
+        raise ValueError("--gradient_checkpointing currently applies to "
+                         f"transformer members only, not {name}")
+    if seq_len is not None and not spec.is_text:
+        raise ValueError(f"--seq_len only applies to text models, not "
+                         f"{name}")
+    kw: dict = dict(moe_kw, dtype=dtype)
+    if spec.is_text or spec.attention:      # the transformers
+        kw["attention_impl"] = attention_impl
+        if gradient_checkpointing:
+            kw["remat"] = True
+    if scan_layers:
+        kw["scan_layers"] = True
     if spec.is_text:
-        if fused_conv or space_to_depth:
-            raise ValueError(f"--fused_conv and --use_space_to_depth "
-                             f"apply to the resnets, not {name}")
         if seq_len is not None:
             spec = dataclasses.replace(
                 spec, input_shape=(seq_len,),
                 flops_per_example=spec.flops_per_example
                 * seq_len / spec.input_shape[0])
-        extra = dict(moe_kw)
-        if gradient_checkpointing:
-            extra["remat"] = True
-        if scan_layers:
-            extra["scan_layers"] = True
-        factory = lambda: spec.create(                      # noqa: E731
-            dtype=dtype, attention_impl=attention_impl, max_len=seq_len,
-            **extra)
+        kw["max_len"] = seq_len
     else:
-        if attention_impl != "dense" or seq_len is not None:
-            raise ValueError(f"--attention_impl and --seq_len apply to "
-                             f"text models, not {name}")
-        if gradient_checkpointing:
-            raise ValueError("--gradient_checkpointing currently applies "
-                             f"to transformer members only, not {name}")
-        factory = lambda: spec.create(                      # noqa: E731
-            num_classes=num_classes or spec.num_classes, dtype=dtype,
-            space_to_depth=space_to_depth, fused_conv=fused_conv)
+        kw["num_classes"] = num_classes or spec.num_classes
+    if spec.supports_s2d:
+        kw["space_to_depth"] = space_to_depth
+    if spec.fused_conv:
+        kw["fused_conv"] = fused_conv
     dev = resolve_device(device)
     with torch.device("meta"):
-        model = factory()
+        model = spec.create(**kw)
     model = model.to_empty(device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     model.init_weights(gen)
-    if spec.is_text:
+    if hasattr(model, "dropout_generator"):
         model.dropout_generator = torch.Generator(device=dev)
         model.dropout_generator.manual_seed(dropout_seed(seed, rank))
     if not spec.is_text:

@@ -1,10 +1,20 @@
-"""ResNet v1.5, the bottleneck family (resnet50/101/152), in PyTorch.
+"""The ResNet family in PyTorch, and the image zoo's shared layers.
 
-The counterpart of the JAX package's ``models/resnet.py`` for the
-training lane: the 7x7/s2 stem (or its space-to-depth 4x4/s1 form), a
-3x3/s2 SAME max-pool, bottleneck blocks with the stride on the 3x3
-(v1.5), a global mean-pool and a float32 head.  Tensors are NCHW in
-``channels_last`` memory, which is the JAX package's NHWC byte for byte.
+The counterpart of the JAX package's ``models/resnet.py``: the 7x7/s2
+stem (or its space-to-depth 4x4/s1 form), a 3x3/s2 SAME max-pool, then
+v1.5 bottleneck blocks (resnet50/101/152, the stride on the 3x3),
+two-3x3 basic blocks (resnet18/34) or full-preactivation bottlenecks
+(the v2 members: no BN after the stem, BN-relu before every conv and a
+``bn_final`` BN-relu before the pool), a global mean-pool and a float32
+head.  Tensors are NCHW in ``channels_last`` memory, which is the JAX
+package's NHWC byte for byte.
+
+The layers every image member shares live here too: ``Conv`` (Flax
+``nn.Conv``: any kernel, SAME, VALID or explicit padding, a bias,
+feature groups), ``BatchNorm`` (any momentum and epsilon),
+``max_pool`` and ``avg_pool`` (Flax's, SAME or VALID; ``avg_pool``
+counts the zero padding, as Flax's ``count_include_pad=True`` does) and
+``flax_init_``, Flax's initialisers over a model.
 
 What must match the JAX modules exactly, and how:
 
@@ -57,10 +67,13 @@ from torch import nn
 
 from tpu_hc_bench_torch.ops import fused_conv as fc
 
-__all__ = ["BatchNorm", "BottleneckBlock", "Conv", "FusedBNReluConv3x3",
-           "FusedBottleneckBlock", "ResNet", "StatsBatchNorm", "max_pool",
-           "resnet50", "resnet101", "resnet152", "running_stats_frozen",
-           "same_pads", "sync_sum"]
+__all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "Conv",
+           "FlaxInit", "FusedBNReluConv3x3", "FusedBottleneckBlock",
+           "PreactBottleneckBlock", "ResNet", "StatsBatchNorm", "avg_pool",
+           "flatten_nhwc", "flax_init_", "global_pool", "max_pool",
+           "resnet18", "resnet34", "resnet50", "resnet101", "resnet152",
+           "resnet50_v2", "resnet101_v2", "resnet152_v2",
+           "running_stats_frozen", "same_pads", "sync_sum"]
 
 _C = (1, -1, 1, 1)      # a [C] vector broadcast over NCHW
 _DIMS = (0, 2, 3)       # a channel's values in NCHW
@@ -134,32 +147,62 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
     nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
-class Conv(nn.Module):
-    """Flax ``nn.Conv(use_bias=False, padding="SAME")`` in ``dtype``;
-    ``padding`` ``((top, bottom), (left, right))`` overrides SAME."""
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32, padding=None):
+
+def _pads(x: torch.Tensor, k, s, padding) -> tuple:
+    """``((top, bottom), (left, right))`` of a window ``k`` at strides
+    ``s`` over ``x``'s spatial dims: ``"SAME"`` (XLA's rule),
+    ``"VALID"``, or explicit pairs."""
+    if padding == "SAME":
+        return (same_pads(x.shape[2], k[0], s[0]),
+                same_pads(x.shape[3], k[1], s[1]))
+    if padding == "VALID":
+        return (0, 0), (0, 0)
+    return padding
+
+
+class Conv(nn.Module):
+    """Flax ``nn.Conv`` in ``dtype``: a ``k`` (int or ``(kh, kw)``)
+    window at ``stride``, ``padding`` ``"SAME"`` (XLA's rule; None
+    means SAME), ``"VALID"`` or ``((top, bottom), (left, right))``;
+    ``groups`` is Flax's ``feature_group_count``, and ``bias`` adds a
+    bias in ``dtype`` after the product, as Flax does."""
+
+    def __init__(self, cin: int, cout: int, k, stride=1,
+                 dtype: torch.dtype = torch.float32, padding=None,
+                 bias: bool = False, groups: int = 1):
         super().__init__()
-        self.weight = nn.Parameter(torch.empty(cout, cin, k, k))
-        self.k, self.stride, self.dtype, self.padding = k, stride, dtype, \
-            padding
+        self.kernel, self.strides = _pair(k), _pair(stride)
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups,
+                                               *self.kernel))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+        self.stride, self.dtype, self.groups = stride, dtype, groups
+        self.padding = padding or "SAME"
 
     def _conv(self, x: torch.Tensor) -> torch.Tensor:
         """The conv of an input already in ``dtype``."""
-        (t, bt), (l, r) = self.padding or (
-            same_pads(x.shape[2], self.k, self.stride),
-            same_pads(x.shape[3], self.k, self.stride))
+        (t, bt), (l, r) = _pads(x, self.kernel, self.strides, self.padding)
         w = self.weight.to(self.dtype)
         if t == bt and l == r:
-            return F.conv2d(x, w, stride=self.stride, padding=(t, l))
-        return F.conv2d(F.pad(x, (l, r, t, bt)), w, stride=self.stride)
+            y = F.conv2d(x, w, stride=self.strides, padding=(t, l),
+                         groups=self.groups)
+        else:
+            y = F.conv2d(F.pad(x, (l, r, t, bt)), w, stride=self.strides,
+                         groups=self.groups)
+        if self.bias is not None:
+            y = y + self.bias.to(self.dtype).view(_C)
+        return y
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv(x.to(self.dtype))
 
     def init_weights(self, gen: torch.Generator) -> None:
         lecun_normal_(self.weight, self.weight[0].numel(), gen)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
 
 class BatchNorm(nn.Module):
@@ -290,6 +333,7 @@ class BottleneckBlock(nn.Module):
     shortcut where the shape changes; the last BN's scale starts at 0."""
 
     conv2_cls, bn2_cls = Conv, BatchNorm
+    expansion = 4
 
     def __init__(self, cin: int, filters: int, strides: int,
                  dtype: torch.dtype = torch.float32):
@@ -331,28 +375,141 @@ class FusedBottleneckBlock(BottleneckBlock):
         return self._tail(x, y)
 
 
-def max_pool(x: torch.Tensor, k: int = 3, s: int = 2) -> torch.Tensor:
-    """``nn.max_pool(x, (k, k), (s, s), "SAME")``: -inf padding."""
-    t, b = same_pads(x.shape[2], k, s)
-    l, r = same_pads(x.shape[3], k, s)
-    return F.max_pool2d(F.pad(x, (l, r, t, b), value=float("-inf")), k, s)
+def max_pool(x: torch.Tensor, k=3, s=2,
+             padding: str = "SAME") -> torch.Tensor:
+    """Flax ``nn.max_pool(x, k, s, padding)``: -inf padding."""
+    k, s = _pair(k), _pair(s)
+    (t, b), (l, r) = _pads(x, k, s, padding)
+    if t or b or l or r:
+        x = F.pad(x, (l, r, t, b), value=float("-inf"))
+    return F.max_pool2d(x, k, s)
 
 
-class ResNet(nn.Module):
-    """ImageNet ResNet, v1 bottleneck blocks; takes NCHW images (any
-    float dtype) and returns float32 logits."""
+def avg_pool(x: torch.Tensor, k, s=None,
+             padding: str = "VALID") -> torch.Tensor:
+    """Flax ``nn.avg_pool(x, k, s, padding)``: every window's sum over
+    the window's size, zero padding counted (``count_include_pad``)."""
+    k = _pair(k)
+    s = _pair(s) if s is not None else (1, 1)
+    (t, b), (l, r) = _pads(x, k, s, padding)
+    if t == b and l == r:
+        return F.avg_pool2d(x, k, s, padding=(t, l))
+    return F.avg_pool2d(F.pad(x, (l, r, t, b)), k, s)
+
+
+def global_pool(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``jnp.mean(x, axis=(1, 2))`` of an NHWC array in ``dtype``:
+    float32 sums, the mean rounded to ``dtype``."""
+    return x.float().mean((2, 3)).to(dtype)
+
+
+def flax_init_(model: nn.Module, gen: torch.Generator) -> None:
+    """Flax's initialisers over ``model``, drawn from ``gen`` in module
+    order: lecun-normal conv, Dense and ``nn.Linear`` kernels, zero
+    biases, BatchNorm scale 1 (0 where ``zero_init``), and any other
+    module's own ``init_weights`` (a transformer layer's, a LayerNorm's)
+    where it has one."""
+    done: set[int] = set()
+    with torch.no_grad():
+        for m in model.modules():
+            if m is model or id(m) in done:
+                continue
+            if isinstance(m, nn.Linear):
+                lecun_normal_(m.weight, m.in_features, gen)
+                m.bias.zero_()
+            elif hasattr(m, "init_weights"):
+                m.init_weights(gen)
+                done.update(id(c) for c in m.modules())
+
+
+def flatten_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """Flax's ``x.reshape((n, -1))`` of an NHWC map: the NCHW tensor's
+    values in (h, w, c) order, so a Dense converted from Flax sees its
+    rows in their order."""
+    return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+
+
+class FlaxInit(nn.Module):
+    """A model whose ``init_weights(gen)`` is ``flax_init_``."""
+
+    def init_weights(self, gen: torch.Generator) -> None:
+        flax_init_(self, gen)
+
+
+class BasicBlock(nn.Module):
+    """The two-3x3 block of resnet18/34 (and the CIFAR resnets): 3x3
+    (stride) -> BN -> relu -> 3x3 -> BN, a projection shortcut where the
+    shape changes; the last BN's scale starts at 0."""
+
+    expansion = 1
+
+    def __init__(self, cin: int, filters: int, strides: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = Conv(cin, filters, 3, strides, dtype)
+        self.bn1 = BatchNorm(filters, dtype)
+        self.conv2 = Conv(filters, filters, 3, dtype=dtype)
+        self.bn2 = BatchNorm(filters, dtype, zero_init=True)
+        self.shortcut_conv = self.shortcut_bn = None
+        if cin != filters or strides != 1:
+            self.shortcut_conv = Conv(cin, filters, 1, strides, dtype)
+            self.shortcut_bn = BatchNorm(filters, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        if self.shortcut_conv is not None:
+            x = self.shortcut_bn(self.shortcut_conv(x))
+        return torch.relu(x + y)
+
+
+class PreactBottleneckBlock(nn.Module):
+    """ResNet-v2 bottleneck (full preactivation): BN-relu before every
+    conv, the projection shortcut on the preactivated input, no
+    activation after the sum."""
+
+    expansion = 4
+
+    def __init__(self, cin: int, filters: int, strides: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        out = 4 * filters
+        self.bn1 = BatchNorm(cin, dtype)
+        self.conv1 = Conv(cin, filters, 1, dtype=dtype)
+        self.bn2 = BatchNorm(filters, dtype)
+        self.conv2 = Conv(filters, filters, 3, strides, dtype)
+        self.bn3 = BatchNorm(filters, dtype)
+        self.conv3 = Conv(filters, out, 1, dtype=dtype)
+        self.shortcut_conv = None
+        if cin != out or strides != 1:
+            self.shortcut_conv = Conv(cin, out, 1, strides, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pre = torch.relu(self.bn1(x))
+        residual = (x if self.shortcut_conv is None
+                    else self.shortcut_conv(pre))
+        y = torch.relu(self.bn2(self.conv1(pre)))
+        y = torch.relu(self.bn3(self.conv2(y)))
+        return residual + self.conv3(y)
+
+
+class ResNet(FlaxInit):
+    """ImageNet ResNet of ``block_cls`` blocks (``BottleneckBlock``,
+    ``BasicBlock`` or ``PreactBottleneckBlock``, the v2 arm); takes NCHW
+    images (any float dtype) and returns float32 logits."""
 
     def __init__(self, stage_sizes: Sequence[int],
                  block_cls: type = BottleneckBlock, num_classes: int = 1000,
                  num_filters: int = 64, dtype: torch.dtype = torch.float32,
                  fused_conv: bool = False, space_to_depth: bool = False):
         super().__init__()
-        if block_cls is not BottleneckBlock:
-            raise ValueError("the port has the v1 bottleneck family "
-                             "(resnet50/101/152) only")
         if fused_conv:
+            if block_cls is not BottleneckBlock:
+                raise ValueError("fused_conv applies to the v1 bottleneck "
+                                 "family (resnet50/101/152) only")
             block_cls = FusedBottleneckBlock
         self.dtype, self.space_to_depth = dtype, space_to_depth
+        self.preact = block_cls is PreactBottleneckBlock
         nf = num_filters
         if space_to_depth:
             # the 7x7/s2 stem as a 4x4/s1 conv over 2x2-packed pixels;
@@ -361,26 +518,19 @@ class ResNet(nn.Module):
                                       padding=((1, 2), (1, 2)))
         else:
             self.conv_init = Conv(3, nf, 7, 2, dtype)
-        self.bn_init = BatchNorm(nf, dtype)
+        if not self.preact:
+            self.bn_init = BatchNorm(nf, dtype)
         blocks, cin = [], nf
         for i, count in enumerate(stage_sizes):
             for j in range(count):
                 filters = nf * 2 ** i
                 blocks.append(block_cls(cin, filters,
                                         2 if i > 0 and j == 0 else 1, dtype))
-                cin = 4 * filters
+                cin = block_cls.expansion * filters
         self.blocks = nn.ModuleList(blocks)
+        if self.preact:
+            self.bn_final = BatchNorm(cin, dtype)
         self.head = nn.Linear(cin, num_classes)
-
-    def init_weights(self, gen: torch.Generator) -> None:
-        """Flax's initialisers, drawn from ``gen``: lecun-normal convs and
-        head, BN scale 1 (0 on each block's last BN), zero biases."""
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (Conv, BatchNorm)):
-                    m.init_weights(gen)
-            lecun_normal_(self.head.weight, self.head.in_features, gen)
-            self.head.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(self.dtype)
@@ -393,22 +543,30 @@ class ResNet(nn.Module):
                 memory_format=torch.channels_last))
         else:
             x = self.conv_init(x)
-        x = max_pool(torch.relu(self.bn_init(x)))
+        if not self.preact:
+            x = torch.relu(self.bn_init(x))
+        x = max_pool(x)
         for block in self.blocks:
             x = block(x)
-        x = x.float().mean((2, 3)).to(self.dtype)    # global average pool
-        return self.head(x.float())
+        if self.preact:
+            x = torch.relu(self.bn_final(x))
+        return self.head(global_pool(x, self.dtype).float())
 
 
-def _family(stages):
+def _family(stages, block_cls=BottleneckBlock):
     def create(num_classes: int = 1000, dtype: torch.dtype = torch.float32,
                space_to_depth: bool = False, fused_conv: bool = False):
-        return ResNet(stages, BottleneckBlock, num_classes=num_classes,
+        return ResNet(stages, block_cls, num_classes=num_classes,
                       dtype=dtype, fused_conv=fused_conv,
                       space_to_depth=space_to_depth)
     return create
 
 
+resnet18 = _family([2, 2, 2, 2], BasicBlock)
+resnet34 = _family([3, 4, 6, 3], BasicBlock)
 resnet50 = _family([3, 4, 6, 3])
 resnet101 = _family([3, 4, 23, 3])
 resnet152 = _family([3, 8, 36, 3])
+resnet50_v2 = _family([3, 4, 6, 3], PreactBottleneckBlock)
+resnet101_v2 = _family([3, 4, 23, 3], PreactBottleneckBlock)
+resnet152_v2 = _family([3, 8, 36, 3], PreactBottleneckBlock)
