@@ -261,6 +261,24 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    nasnet's and lenet's device idle share and kernels a step over
    ``ZOO_STEPS`` under ``torch.profiler``.
 
+19. **slice11**: the speech and recommendation members and the classify
+   mode, every training run through ``launcher.main`` with every count
+   zeroed just before and read just after, and its peak memory: (a)
+   deepspeech2 at full width, bf16, batch 256, ``--rnn_impl=hoisted``,
+   2 + 5 steps: examples/s, ms a step, MFU, and over the same steps
+   under ``torch.profiler`` (the device alone) kernels a step and the
+   device's idle share; the first bf16 CTC loss against the float32
+   forward of the same weights within ``SLICE11_BF16_LOSS_TOL``; (b)
+   ``bidi`` and ``flax`` at batch 256, 1 + 3: ms a step against (a),
+   the first loss of each on (a)'s weights within
+   ``SLICE11_ARM_LOSS_TOL`` of hoisted's; (c) ncf at full width, bf16,
+   batch 2^20, 2 + 5, then ``--eval`` top-1 on 2 batches; (d) the
+   classify mode, float32 at full width: resnet50 and deepspeech2 each
+   serving 32 Poisson requests at 8 in flight, every request completed,
+   classify steps and no decode step, p99 ttft equal to p99 e2e,
+   requests/s and e2e percentiles; ncf refused; (e) no kernel of the
+   table launched over (a)-(d).
+
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
 ``realdata_launches``: its launches in phase 14's runs (b)-(e) and (g),
@@ -268,7 +286,8 @@ Then the kernel table line (each kernel's design beside its numbers,
 ``serve2_launches``: its launches in phase 16's runs (b)-(f) in this
 process, ``slice9_launches``: its launches in phase 17's runs (a)-(c)
 and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
-every kernel's count set to 0 before each and read after it),
+``slice11_launches``: its launches in phase 19's runs (a)-(d), every
+kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -281,7 +300,8 @@ run and phase 10's first run; ``--only slice7`` the build and phase 15
 alone, beside phase 7's fused run (with several cards, (f) runs);
 ``--only serve2`` the build and phase 16 alone, beside phase 4's run;
 ``--only slice9`` the build and phase 17 alone; ``--only zoo`` the
-build, phase 8 at ViT's two shapes, then phase 18.
+build, phase 8 at ViT's two shapes, then phase 18; ``--only slice11``
+the build and phase 19 alone.
 """
 
 from __future__ import annotations
@@ -599,6 +619,26 @@ ZOO_BATCHES = {"trivial": 512, "lenet": 2048, "alexnet": 512,
                "inception3": 128, "inception4": 64}
 ZOO_S2D = ("resnet18", "resnet50_v2")
 ZOO_IDLE = ("nasnet", "lenet")     # (e): host-bound members profiled
+# phase 19 (slice11): the speech and recommendation members and the
+# classify mode, at the JAX package's tuned plain batches
+# (tpu_hc_bench/tune/space.py), a configuration here; (warmup, timed)
+SLICE11_DS2_BATCH = 256
+SLICE11_DS2_STEPS = (2, 5)         # (a), and its profiled steps
+SLICE11_ARM_STEPS = (1, 3)         # (b)
+SLICE11_NCF_BATCH = 1048576
+SLICE11_NCF_STEPS = (2, 5)         # (c)
+SLICE11_NCF_EVAL = (1, 2)          # (c)'s --eval batches
+# (a) the first bf16 CTC loss against the float32 forward of the same
+# weights on the same batch (bf16 through a 5-layer, 75-frame recurrence)
+SLICE11_BF16_LOSS_TOL = 5e-2
+# (b) each arm's first bf16 loss against hoisted's on one set of weights:
+# bidi runs the same products batched over the directions, flax keeps
+# the carry in float32 (Flax's GRUCell)
+SLICE11_ARM_LOSS_TOL = 2e-2
+# (d) the classify mode: resnet50 and deepspeech2 at full width, float32
+SLICE11_SERVE_MODELS = ("resnet50", "deepspeech2")
+SLICE11_SERVE_TRACE = ["--num_requests=32", "--max_in_flight=8",
+                       "--arrival=poisson", "--arrival_rate=64"]
 
 
 
@@ -3587,13 +3627,251 @@ def phase_zoo(torch, dev, smi) -> dict:
     return total
 
 
+def _slice11_batch(torch, dev, name: str, batch: int, model):
+    """The runs' synthetic batch of ``name`` (seed 0) on the card."""
+    from tpu_hc_bench_torch.data import synthetic
+    from tpu_hc_bench_torch.models import get_model_spec
+    from tpu_hc_bench_torch.models.deepspeech import max_label_for
+
+    spec = get_model_spec(name)
+    if spec.ctc:
+        frames, freq = spec.input_shape
+        return synthetic.speech_to_device(synthetic.SyntheticSpeech(
+            batch, frames, freq, max_label_for(frames)).batch(), dev)
+    return synthetic.ids_to_device(synthetic.SyntheticIds(
+        batch, model.num_users, model.num_items).batch(), dev)
+
+
+def slice11_first_losses(torch, dev, arms: tuple) -> dict:
+    """deepspeech2's first training-mode CTC loss on the runs' batch, per
+    ``(dtype, rnn_impl)`` arm, every arm on the first arm's weights (seed
+    0, as the runs); forward only, cuDNN's heuristic picks."""
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    losses, state = {}, None
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        for dname, impl in arms:
+            model, _ = create_model("deepspeech2", getattr(torch, dname),
+                                    device=dev, seed=0, train=True,
+                                    rnn_impl=impl)
+            if state is None:
+                state = {k: t.clone() for k, t in model.state_dict().items()}
+            model.load_state_dict(state)
+            batch = _slice11_batch(torch, dev, "deepspeech2",
+                                   SLICE11_DS2_BATCH, model)
+            with torch.no_grad():
+                losses[f"{dname}_{impl}"] = float(
+                    step_mod.batch_loss(model, batch, ctc=True))
+            del model, batch
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    return losses
+
+
+def _slice11_argv(model: str, batch: int, steps: tuple,
+                  *extra: str) -> list[str]:
+    warmup, timed = steps
+    return ["1", "1", str(batch), "sock", f"--model={model}",
+            "--use_fp16=true", f"--num_warmup_batches={warmup}",
+            f"--num_batches={timed}", "--display_every=10", *extra]
+
+
+def slice11_profile(torch, dev, smi) -> dict:
+    """(a) continued: deepspeech2 hoisted's step loop (bf16, momentum
+    SGD, the runs' batch) under ``torch.profiler`` tracing the device
+    alone: kernels a step and the device's idle share over the timed
+    steps."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    cfg = flags.parse_benchmark_flags(["--use_fp16=true",
+                                       "--model=deepspeech2"])
+    model, _ = create_model("deepspeech2", torch.bfloat16, device=dev,
+                            seed=0, train=True)
+    state = step_mod.make_train_state(model, cfg)
+    batch = _slice11_batch(torch, dev, "deepspeech2", SLICE11_DS2_BATCH,
+                           model)
+    warmup, timed = SLICE11_DS2_STEPS
+    for _ in range(warmup):
+        step_mod.train_step(state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step_mod.train_step(state, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = _busy_s(torch, prof)
+    kernels = sum(1 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    rec = {"phase": "slice11", "part": "a_deepspeech2_idle",
+           "batch": SLICE11_DS2_BATCH, "profiled_steps": timed,
+           "step_ms": 1e3 * wall / timed,
+           "device_busy_ms_per_step": 1e3 * busy / timed,
+           "device_idle_share": (1.0 - busy / wall) if busy else None,
+           "kernels_per_step": kernels / timed, "nvidia_smi": smi}
+    emit(rec)
+    del state, model, batch, prof
+    torch.cuda.empty_cache()
+    if not busy:
+        raise AssertionError(f"the profiler saw no device time: {rec}")
+    return rec
+
+
+def slice11_deepspeech(torch, dev, smi, add) -> None:
+    """(a), (b): deepspeech2 trained in its three --rnn_impl arms."""
+    first = slice11_first_losses(torch, dev, (
+        ("bfloat16", "hoisted"), ("float32", "hoisted"),
+        ("bfloat16", "bidi"), ("bfloat16", "flax")))
+    ref = first["bfloat16_hoisted"]
+    rel = {"bf16_vs_f32": abs(ref - first["float32_hoisted"])
+           / abs(first["float32_hoisted"]),
+           **{impl: abs(first[f"bfloat16_{impl}"] - ref) / abs(ref)
+              for impl in ("bidi", "flax")}}
+    rec = {"phase": "slice11", "part": "ab_first_losses", "losses": first,
+           "rel_err": rel, "tol": {"bf16_vs_f32": SLICE11_BF16_LOSS_TOL,
+                                   "arms": SLICE11_ARM_LOSS_TOL},
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (all(math.isfinite(v) for v in first.values())
+            and rel["bf16_vs_f32"] <= SLICE11_BF16_LOSS_TOL
+            and max(rel["bidi"], rel["flax"]) <= SLICE11_ARM_LOSS_TOL):
+        raise AssertionError(f"deepspeech2 first losses off: {rec}")
+    runs = {}
+    for impl, steps in (("hoisted", SLICE11_DS2_STEPS),
+                        ("bidi", SLICE11_ARM_STEPS),
+                        ("flax", SLICE11_ARM_STEPS)):
+        part = ("a" if impl == "hoisted" else "b") + f"_deepspeech2_{impl}"
+        res, counts, runs[impl] = _slice9_run(
+            torch, part, _slice11_argv("deepspeech2", SLICE11_DS2_BATCH,
+                                       steps, f"--rnn_impl={impl}"),
+            smi, {}, phase="slice11")
+        add(counts)
+    a = runs["hoisted"]
+    emit({"phase": "slice11", "part": "ab_summary",
+          "examples_per_sec": {k: r["total_images_per_sec"]
+                               for k, r in runs.items()},
+          "ms_per_step": {k: r["mean_step_ms"] for k, r in runs.items()},
+          "step_vs_hoisted": {k: r["mean_step_ms"] / a["mean_step_ms"]
+                              for k, r in runs.items()},
+          "mfu": {k: r["mfu"] for k, r in runs.items()},
+          "peak_mem_gb": {k: r["peak_mem_gb"] for k, r in runs.items()},
+          "nvidia_smi": smi})
+    slice11_profile(torch, dev, smi)
+
+
+def slice11_ncf(torch, dev, smi, add) -> None:
+    """(c): ncf trained at batch 2^20, then --eval's top-1 (binary
+    accuracy) on 2 batches."""
+    res, counts, rec = _slice9_run(
+        torch, "c_ncf", _slice11_argv("ncf", SLICE11_NCF_BATCH,
+                                      SLICE11_NCF_STEPS), smi, {},
+        phase="slice11")
+    add(counts)
+    res, counts, rec = _slice9_run(
+        torch, "c_ncf_eval", _slice11_argv("ncf", SLICE11_NCF_BATCH,
+                                           SLICE11_NCF_EVAL,
+                                           "--eval=true"), smi, {},
+        phase="slice11")
+    add(counts)
+    top1 = res["eval_top_1"]
+    emit({"phase": "slice11", "part": "c_ncf_eval_top_1", "top_1": top1,
+          "nvidia_smi": smi})
+    if top1 is None or not 0.0 <= top1 <= 1.0:
+        raise AssertionError(f"ncf eval top-1 off: {res}")
+
+
+def slice11_classify(torch, smi, add) -> None:
+    """(d): the classify mode, float32 at full width, 32 Poisson requests
+    at 8 in flight each; ncf refused.  cuDNN's heuristic picks the
+    convs (an algorithm search at each of resnet50's shapes and buckets
+    would dominate the phase)."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.serve import cli
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        for name in SLICE11_SERVE_MODELS:
+            cfg = flags.parse_flags([f"--model={name}",
+                                     *SLICE11_SERVE_TRACE])
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            engine, requests = cli.build_engine_and_requests(
+                cfg, lambda m: print(m, file=sys.stderr, flush=True))
+            build_s = time.perf_counter() - t0
+            _zero_counts()
+            summary = engine.run(requests)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+            add(counts)
+            rec = {"phase": "slice11", "part": f"d_classify_{name}",
+                   "build_and_warm_s": build_s, "launches": counts,
+                   "requests_per_s": summary["completed"]
+                   / summary["wall_s"],
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+                   "nvidia_smi": smi,
+                   **{k: summary[k] for k in (
+                       "requests", "completed", "wall_s", "classify_steps",
+                       "decode_steps", "prefill_steps", "p50_e2e_ms",
+                       "p99_e2e_ms", "p50_ttft_ms", "p99_ttft_ms",
+                       "p99_queue_ms", "max_in_flight", "weight_bytes")}}
+            emit(rec)
+            del engine
+            if not (summary["completed"] == summary["requests"] == 32
+                    and summary["classify_steps"] > 0
+                    and summary["decode_steps"] == 0
+                    and summary["p99_ttft_ms"] == summary["p99_e2e_ms"]
+                    and not any(counts.values())):
+                raise AssertionError(f"classify serving failed: {rec}")
+        try:
+            cli.build_engine_and_requests(
+                flags.parse_flags(["--model=ncf", *SLICE11_SERVE_TRACE]),
+                lambda m: None)
+        except ValueError as e:
+            emit({"phase": "slice11", "part": "d_classify_ncf_refused",
+                  "error": str(e), "nvidia_smi": smi})
+        else:
+            raise AssertionError("ncf classify was not refused")
+    finally:
+        torch.backends.cudnn.benchmark = bench
+        torch.cuda.empty_cache()
+
+
+def phase_slice11(torch, dev, smi) -> dict:
+    """Phase 19: deepspeech2 in its three arms, ncf, the classify mode;
+    returns every kernel's launches summed over (a)-(d), all 0."""
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    slice11_deepspeech(torch, dev, smi, add)
+    slice11_ncf(torch, dev, smi, add)
+    slice11_classify(torch, smi, add)
+    emit({"phase": "slice11", "part": "e_launches", "launches": total,
+          "nvidia_smi": smi})
+    if any(total.values()):
+        raise AssertionError(f"a table kernel ran in phase 19: {total}")
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(description="Smoke run of the port on "
                                 "the GPUs of this machine.")
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
-                                      "serve2", "slice9", "zoo"),
+                                      "serve2", "slice9", "zoo", "slice11"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -3603,7 +3881,8 @@ def main(argv: list[str] | None = None) -> int:
                         "phase 7's fused run); serve2: the build, then "
                         "phase 16 alone (beside phase 4's run); slice9: "
                         "the build, then phase 17 alone; zoo: the build, "
-                        "phase 8 at ViT's shapes, then phase 18")
+                        "phase 8 at ViT's shapes, then phase 18; slice11: "
+                        "the build, then phase 19 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -3703,6 +3982,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice11":
+        phase_slice11(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice9":
         phase_slice9(torch, dev, smi)
         print(smi, flush=True)
@@ -3759,6 +4046,8 @@ def main(argv: list[str] | None = None) -> int:
     slice9_launches = phase_slice9(torch, dev, smi)
     torch.cuda.empty_cache()
     zoo_launches = phase_zoo(torch, dev, smi)
+    torch.cuda.empty_cache()
+    slice11_launches = phase_slice11(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -3807,7 +4096,8 @@ def main(argv: list[str] | None = None) -> int:
                       "slice7_launches": slice7_launches[name],
                       "serve2_launches": serve2_launches.get(name, 0),
                       "slice9_launches": slice9_launches.get(name, 0),
-                      "zoo_launches": zoo_launches.get(name, 0)})
+                      "zoo_launches": zoo_launches.get(name, 0),
+                      "slice11_launches": slice11_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

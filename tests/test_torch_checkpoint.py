@@ -43,6 +43,7 @@ from tpu_hc_bench_torch.models import dropout_seed, resnet
 from tpu_hc_bench_torch.train import driver
 from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import checkpoint as ckpt
+from torch_threads import cpu_share  # noqa: F401
 
 NARROW = dict(num_classes=10, num_filters=8)
 K = 2                                  # steps before the save

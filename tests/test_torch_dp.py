@@ -77,6 +77,7 @@ from tpu_hc_bench_torch.models import resnet
 from tpu_hc_bench_torch.parallel import collectives, distributed
 from tpu_hc_bench_torch.parallel.fabric import Fabric, resolve_fabric
 from tpu_hc_bench_torch.train import step as step_mod
+from torch_threads import cpu_share  # noqa: F401
 
 WORLD = 4
 PER_RANK = 2                           # the step's images a rank
@@ -733,7 +734,7 @@ def test_launcher_world4_on_the_cpu(fabric):
     assert res["images_per_sec_per_chip"] == pytest.approx(
         res["total_images_per_sec"] / WORLD)
     assert res["allreduce_per_step"] >= 1
-    assert sum("\timages/sec: " in ln for ln in lines) == 2
+    assert sum("\texamples/sec: " in ln for ln in lines) == 2
 
 
 def test_launcher_rejects_what_the_world_cannot_run(monkeypatch, tmp_path):
@@ -885,7 +886,7 @@ def test_data_parallel_flags_follow_jax():
     assert flags.parse_benchmark_flags(
         ["--variable_update=replicated"]).variable_update == "replicated"
     for bad, match in ((["--variable_update=zero1"], "not ported"),
-                       (["--rnn_impl=flax"], "not ported"),
+                       (["--rnn_impl=lstm"], "hoisted|bidi|flax"),
                        (["--variable_update=ring"], "psum"),
                        (["--batch_size=6", "--gradient_accumulation_steps=4"],
                         "divisible"),

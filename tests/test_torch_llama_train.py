@@ -46,6 +46,7 @@ from tpu_hc_bench_torch.models import create_model, get_model_spec, llama
 from tpu_hc_bench_torch.train import step as step_mod
 
 from test_torch_lm import DTYPES, TOL, _close, _close_tree, _np_tree, _perturb
+from torch_threads import cpu_share  # noqa: F401
 
 VOCAB, SEQ = 1024, 64
 # bfloat16 logits: within this multiple of the JAX reference's own
@@ -248,4 +249,4 @@ def test_llama_registry_rows_and_launcher_on_the_cpu():
                         "--num_batches=2", "--display_every=1"],
                        print_fn=lines.append)
     assert rc == 0
-    assert sum("\timages/sec: " in ln for ln in lines) == 2
+    assert sum("\texamples/sec: " in ln for ln in lines) == 2

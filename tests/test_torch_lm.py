@@ -54,6 +54,7 @@ from tpu_hc_bench_torch.models import bert, create_model, get_model_spec, gpt
 from tpu_hc_bench_torch.ops.flash_attention import flash_attention
 from tpu_hc_bench_torch.parallel.sequence import local_attention
 from tpu_hc_bench_torch.train import driver, step as step_mod
+from torch_threads import cpu_share  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 NARROW = dict(vocab_size=1024, hidden=128, num_layers=2, heads=4, ffn=512,
@@ -467,8 +468,8 @@ def test_gpt2_launcher_on_the_cpu():
                         "--num_warmup_batches=1", "--num_batches=2",
                         "--display_every=1"], print_fn=lines.append)
     assert rc == 0
-    assert sum("\timages/sec: " in ln for ln in lines) == 2
-    assert any(ln.startswith("total images/sec: ") for ln in lines)
+    assert sum("\texamples/sec: " in ln for ln in lines) == 2
+    assert any(ln.startswith("total examples/sec: ") for ln in lines)
     result = json.loads(lines[-1], parse_constant=pytest.fail)
     assert result["model"] == "gpt2" and result["global_batch"] == 2
     assert np.isfinite(result["final_loss"]) and result["mfu"] is None

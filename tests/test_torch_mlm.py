@@ -67,6 +67,7 @@ from tpu_hc_bench_torch.ops.xent import (softmax_xent, softmax_xent_plain,
                                          softmax_xent_reference,
                                          xent_bwd_plain, xent_fwd_plain)
 from tpu_hc_bench_torch.train import step as step_mod
+from torch_threads import cpu_share  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(vocab_size=1024, hidden=128, num_layers=2, heads=4, ffn=512,
@@ -644,7 +645,7 @@ def test_bert_base_launcher_on_the_cpu():
                         "--num_batches=2", "--display_every=1"],
                        print_fn=lines.append)
     assert rc == 0
-    assert sum("\timages/sec: " in ln for ln in lines) == 2
+    assert sum("\texamples/sec: " in ln for ln in lines) == 2
     result = json.loads(lines[-1], parse_constant=pytest.fail)
     assert result["model"] == "bert_base" and result["global_batch"] == 2
     assert result["fused_xent"] is True

@@ -65,6 +65,7 @@ from tpu_hc_bench_torch.parallel.fabric import Fabric
 from tpu_hc_bench_torch.train import driver, step as step_mod
 
 from test_torch_data import FIXTURE
+from torch_threads import cpu_share  # noqa: F401
 
 CPU = torch.device("cpu")
 EVAL_LOSS_RTOL = 1e-5

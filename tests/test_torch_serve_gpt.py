@@ -11,8 +11,10 @@
   version here).
 - **engine**: a ``ServeEngine`` over the mini in virtual time whose
   tokens equal the mini's own full-context greedy forward.
-- **gate**: MLM members refused with JAX's message, the classify mode
-  refused as not ported, gpt2's position table sized to the context.
+- **gate**: MLM members refused with JAX's message, a classify member
+  refused the decode lane's knobs (the classify mode itself:
+  ``test_torch_serve_classify.py``), gpt2's position table sized to the
+  context.
 - **the kernels' contract**: every operand the paged programs hand the
   two kernel wrappers is contiguous and of a dtype the CUDA kernels
   take (they refuse others on the card; their plain versions here take
@@ -45,6 +47,7 @@ from tpu_hc_bench_torch.serve import decode as decode_mod
 from tpu_hc_bench_torch.serve import engine as engine_mod
 
 from test_torch_serve import _fixed_feed, _greedy, _TokenTap
+from torch_threads import cpu_share  # noqa: F401
 
 GPT_MINI = dict(vocab_size=128, hidden=64, num_layers=2, heads=4, ffn=128,
                 max_len=32)
@@ -238,8 +241,9 @@ def test_engine_gate_refuses_mlm_and_classify_members():
                        "autoregressive serving story"):
         engine_mod.ServeEngine(_gpt_cfg(model="bert_tiny"),
                                print_fn=lambda _m: None)
-    with pytest.raises(ValueError, match="classify mode"):
-        engine_mod.ServeEngine(_gpt_cfg(model="resnet50"),
+    with pytest.raises(ValueError, match="single-forward classify"):
+        engine_mod.ServeEngine(_gpt_cfg(model="resnet50",
+                                        decode_attention="paged"),
                                print_fn=lambda _m: None)
 
 

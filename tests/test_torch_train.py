@@ -46,6 +46,7 @@ from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
 from tpu_hc_bench_torch.models import create_model, get_model_spec, resnet
 from tpu_hc_bench_torch.train import driver, step as step_mod
 from tpu_hc_bench_torch.utils import hw
+from torch_threads import cpu_share  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 ATOL = 1e-5

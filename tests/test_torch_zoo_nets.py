@@ -17,9 +17,9 @@ the CPU, and the registry as a whole (NASNet-A: ``test_torch_zoo_nasnet.py``).
   stem_filters=8)`` at 64 px (its last maps 2 x 2: 8 values a channel
   for the last BatchNorms; logits in eval mode, dropout).
 - **registry**: all 44 names of the JAX registry and its aliases
-  resolve, the 28 image members build on the ``meta`` device,
-  deepspeech2* and ncf* raise "not ported yet"; the new modules import
-  no JAX.
+  resolve, the 28 image members build on the ``meta`` device (the
+  speech and id members: ``test_torch_deepspeech.py``,
+  ``test_torch_ncf.py``); the new modules import no JAX.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ from tpu_hc_bench_torch.models import (densenet, get_model_spec, inception,
 from torch_zoo_common import (NET_TOL, check_forward, check_stats,
                               check_tree, close, flax_variables, images,
                               jax_apply, load, nchw, nhwc)
+from torch_threads import cpu_share  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 MEMBERS = ("densenet40_k12", "densenet100_k12", "inception3", "inception4")
@@ -122,17 +123,15 @@ def test_inception3_forward_matches_jax():
 def test_registry_names_aliases_and_later_slices():
     jax_names = jax_list_models()
     assert len(jax_names) == 44
-    later = {"deepspeech2", "deepspeech2_tiny", "ncf", "ncf_tiny"}
-    assert set(list_models()) == set(jax_names) - later
-    for name in later:
-        with pytest.raises(ValueError, match="not ported yet"):
-            get_model_spec(name)
+    assert set(list_models()) == set(jax_names)      # every member
     with pytest.raises(ValueError, match="unknown model"):
         get_model_spec("resnet51")
     for alias, name in JAX_ALIASES.items():
         assert get_model_spec(alias).name == name
         assert get_model_spec(alias.upper()).name == name
-    image = [n for n in list_models() if not get_model_spec(n).is_text]
+    image = [n for n in list_models() if not (
+        get_model_spec(n).is_text or get_model_spec(n).ctc
+        or get_model_spec(n).integer_input)]
     assert len(image) == 31                  # 28 new, resnet50/101/152
     for name in image:
         spec = get_model_spec(name)

@@ -96,6 +96,30 @@ too) to an OIHW ``weight``, a 2-D one (Dense ``[in, out]``) transposed,
 ``bias``, ``scale`` to ``weight``, ``mean``/``var`` to
 ``running_mean``/``running_var``.
 
+``deepspeech2_variables_from_flax(params, batch_stats)`` takes a
+``DeepSpeech2`` tree of any ``rnn_impl`` arm and returns the
+``state_dict`` of the port's ``models.deepspeech.DeepSpeech2``, whose
+one layout serves the three arms: ``conv1``/``conv2`` (HWIO to OIHW),
+``conv{1,2}_bn`` and ``rnn{i}_bn`` (scale, bias, mean, var) to
+``conv{1,2}_bn`` and ``rnn_bns.{i}``, ``ctc_head`` transposed, and each
+layer's two directions to ``grus.{i}.{fwd,bwd}`` (``input_gates``
+transposed to ``[3H, I]``, ``hidden_gates [H, 3H]`` and
+``candidate_bias`` unchanged), from
+
+- ``hoisted``: ``gru{i}_{fwd,bwd}/{input_gates,hidden_gates,
+  candidate_bias}``;
+- ``bidi``: ``bigru{i}/{fwd,bwd}_{input_gates,hidden_gates,
+  candidate_bias}``;
+- ``flax``: the cells at the top level, ``GRUCell_{2i}`` forward and
+  ``GRUCell_{2i+1}`` backward, each ``ir/iz/in`` (kernels ``[I, H]`` and
+  biases, concatenated in gate order to the input gates) and
+  ``hr/hz/hn`` (kernels ``[H, H]`` concatenated to the hidden gates;
+  ``hn``'s bias is the candidate bias).
+
+``ncf_params_from_flax(params)`` takes a ``NeuMF`` tree: the four
+``*.embedding`` tables unchanged, ``mlp_{i}`` to ``mlp.{i}`` and
+``head``, their kernels transposed.
+
 Every ``*_from_flax`` consumes each leaf of the trees it is given or
 raises: a leaf with no rule, or a tree with leaves left over.
 """
@@ -296,13 +320,14 @@ def _leaves(tree: dict, path: tuple = ()):
             yield path + (k,), v
 
 
-def _check_consumed(sd: dict, *trees) -> None:
-    """Each converter maps one leaf to one ``state_dict`` entry: a tree
-    with more leaves than ``sd`` has entries holds leaves it left."""
+def _check_consumed(sd: dict, *trees, merged: int = 0) -> None:
+    """Each converter maps one leaf to one ``state_dict`` entry, or
+    ``merged`` more leaves into entries of several: a tree with more
+    leaves than that holds leaves it left."""
     n = sum(1 for t in trees if t for _ in _leaves(t))
-    if n != len(sd):
+    if n != len(sd) + merged:
         raise ValueError(f"the Flax tree has {n} leaves, of which the "
-                         f"converter consumed {len(sd)}")
+                         f"converter consumed {len(sd) + merged}")
 
 
 _RESNET_BLOCKS = ("FusedBottleneckBlock_", "PreactBottleneckBlock_",
@@ -424,4 +449,71 @@ def zoo_variables_from_flax(name: str, params: dict,
                            + [rule])
             sd[key] = _zoo_leaf(col, path, leaf)
     _check_consumed(sd, params, batch_stats)
+    return sd
+
+
+def _gru_direction(sd: dict, pre: str, input_gates: dict, hidden_gates,
+                   candidate_bias) -> None:
+    sd[pre + "input_gates.weight"] = _t(np.asarray(input_gates["kernel"]).T)
+    sd[pre + "input_gates.bias"] = _t(input_gates["bias"])
+    sd[pre + "hidden_gates"] = _t(hidden_gates)
+    sd[pre + "candidate_bias"] = _t(candidate_bias)
+
+
+def _flax_cell(cell: dict) -> tuple:
+    """A Flax ``GRUCell``'s six Denses as ``(input_gates, hidden_gates,
+    candidate_bias)`` in the hoisted layout, gate order ``[r | z | n]``."""
+    gates = ("r", "z", "n")
+    kernel = np.concatenate([np.asarray(cell["i" + g]["kernel"])
+                             for g in gates], 1)
+    bias = np.concatenate([np.asarray(cell["i" + g]["bias"])
+                           for g in gates])
+    hidden = np.concatenate([np.asarray(cell["h" + g]["kernel"])
+                             for g in gates], 1)
+    return {"kernel": kernel, "bias": bias}, hidden, cell["hn"]["bias"]
+
+
+def deepspeech2_variables_from_flax(params: dict, batch_stats: dict
+                                    ) -> dict[str, torch.Tensor]:
+    sd: dict[str, torch.Tensor] = {}
+    for name in ("conv1", "conv2"):
+        sd[name + ".weight"] = _conv(params[name]["kernel"])
+        _bn(sd, f"{name}_bn.", params[f"{name}_bn"],
+            batch_stats[f"{name}_bn"])
+    layers = sum(1 for k in params if re.fullmatch(r"rnn\d+_bn", k))
+    merged = 0
+    for i in range(layers):
+        _bn(sd, f"rnn_bns.{i}.", params[f"rnn{i}_bn"],
+            batch_stats[f"rnn{i}_bn"])
+        for d, direction in enumerate(("fwd", "bwd")):
+            pre = f"grus.{i}.{direction}."
+            if f"gru{i}_{direction}" in params:              # hoisted
+                p = params[f"gru{i}_{direction}"]
+                _gru_direction(sd, pre, p["input_gates"], p["hidden_gates"],
+                               p["candidate_bias"])
+            elif f"bigru{i}" in params:                       # bidi
+                p = params[f"bigru{i}"]
+                _gru_direction(sd, pre, p[f"{direction}_input_gates"],
+                               p[f"{direction}_hidden_gates"],
+                               p[f"{direction}_candidate_bias"])
+            else:                                             # flax
+                cell = params[f"GRUCell_{2 * i + d}"]
+                _gru_direction(sd, pre, *_flax_cell(cell))
+                merged += 10 - 4  # six Denses: ten leaves, four entries
+    sd["ctc_head.weight"] = _t(np.asarray(params["ctc_head"]["kernel"]).T)
+    sd["ctc_head.bias"] = _t(params["ctc_head"]["bias"])
+    _check_consumed(sd, params, batch_stats, merged=merged)
+    return sd
+
+
+def ncf_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
+    sd = {f"{name}.weight": _t(params[name]["embedding"])
+          for name in ("mf_user", "mf_item", "mlp_user", "mlp_item")}
+    dense = sorted((k for k in params if re.fullmatch(r"mlp_\d+", k)),
+                   key=lambda k: int(k.split("_")[1]))
+    for name, port in [(k, "mlp." + k.split("_")[1]) for k in dense] + [
+            ("head", "head")]:
+        sd[port + ".weight"] = _t(np.asarray(params[name]["kernel"]).T)
+        sd[port + ".bias"] = _t(params[name]["bias"])
+    _check_consumed(sd, params)
     return sd

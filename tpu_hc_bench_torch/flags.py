@@ -118,6 +118,7 @@ class ServeConfig:
     data_dir: str | None = None               # prompt corpus
                                               # (<data_dir>/train.bin);
                                               # None = synthetic prompts
+    num_classes: int = 1000                   # classify members' labels
 
     def resolve(self) -> "ServeConfig":
         """Validate (the JAX serving matrix, for the ported knobs)."""
@@ -199,6 +200,8 @@ class ServeConfig:
                 "reservation would immediately duplicate; set "
                 "--kv_reserve=lazy (sharing only saves pages when "
                 "admission stops reserving the worst case)")
+        if self.num_classes < 1:
+            raise ValueError(f"--num_classes must be >= 1: {self.num_classes}")
         if self.kv_growth_headroom < 0:
             raise ValueError(
                 f"--kv_growth_headroom must be >= 0 pages: "
@@ -293,7 +296,7 @@ LATER_SLICE_TRAIN_FLAGS = (
     "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
     "model_parallel",
     "expert_parallel", "pipeline_parallel", "num_microbatches",
-    "sequence_parallel", "virtual_devices", "rnn_impl",
+    "sequence_parallel", "virtual_devices",
 )
 
 # Horovod's fusion buffer, 128 MiB (HOROVOD_FUSION_THRESHOLD=134217728),
@@ -395,6 +398,11 @@ class BenchmarkConfig:
                                               # ceil(cf * k * S / E)
     moe_f_chunk: int = 0                      # ragged: the FFN-dim tile
                                               # (0: full width)
+    rnn_impl: str = "hoisted"                 # RNN members' GRU: hoisted
+                                              # (input products out of the
+                                              # loop) | bidi (both
+                                              # directions in one loop) |
+                                              # flax (every product in it)
 
     # --- data (the reference's --data_dir/--data_name, JAX's pipeline
     # knobs) ---
@@ -529,6 +537,9 @@ class BenchmarkConfig:
                 "dtype; it has no meaning without "
                 "--gradient_accumulation_steps > 1")
         self._resolve_moe(t)
+        if self.rnn_impl not in ("hoisted", "bidi", "flax"):
+            raise ValueError(f"--rnn_impl must be hoisted|bidi|flax: "
+                             f"{self.rnn_impl!r}")
         if self.overlap_grad_comm not in ("on", "off"):
             raise ValueError(f"--overlap_grad_comm must be on|off: "
                              f"{self.overlap_grad_comm!r}")
@@ -690,7 +701,7 @@ class BenchmarkConfig:
             f"gradient_checkpointing={self.gradient_checkpointing} "
             f"scan_layers={self.scan_layers} moe_impl={self.moe_impl} "
             f"moe_capacity_factor={self.moe_capacity_factor} "
-            f"moe_f_chunk={self.moe_f_chunk}",
+            f"moe_f_chunk={self.moe_f_chunk} rnn_impl={self.rnn_impl}",
             f"input_service={self.input_service} "
             f"service_decode_workers={self.service_decode_workers or 'auto'}"
             f" train_dir={self.train_dir} resume={self.resume} "

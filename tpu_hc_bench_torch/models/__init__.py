@@ -6,10 +6,12 @@ Ported: every image member (``trivial``, alexnet, googlenet, lenet,
 overfeat, mobilenet, nasnet/nasnetlarge, the densenets, the resnets v1,
 v2 and CIFAR, the vggs, the ViTs, inception3/4), the text members
 (``gpt2``, ``gpt2_medium``, ``gpt2_moe``, ``moe_tiny``, ``llama_1b``,
-``llama_tiny``, ``bert_base``, ``bert_large``, ``bert_tiny``); the
-serving lane serves every ``causal_lm`` member.  ``deepspeech2``,
-``deepspeech2_tiny``, ``ncf`` and ``ncf_tiny`` resolve and raise "not
-ported yet".
+``llama_tiny``, ``bert_base``, ``bert_large``, ``bert_tiny``), the
+speech member (``deepspeech2``, ``deepspeech2_tiny``: ``ctc``, spectrogram
+input and the CTC loss) and the recommendation member (``ncf``,
+``ncf_tiny``: ``integer_input``, id pairs); every member of the JAX
+registry.  The serving lane serves every ``causal_lm`` member by decode
+and the image and speech members by classify.
 
 ``get_model_spec`` and ``create_model`` keep the JAX package's names and
 return values (``create_model`` returns ``(model, spec)``); the port's
@@ -24,8 +26,8 @@ reach the transformers (text members and the ``attention`` members, the
 ViTs; the other image members ignore ``attention_impl``, as in JAX, and
 refuse ``gradient_checkpointing``), ``space_to_depth`` the
 ``supports_s2d`` members (the ImageNet resnets), ``fused_conv`` the v1
-bottleneck resnets, ``scan_layers`` the decoder families and the MoE
-knobs the MoE members.
+bottleneck resnets, ``scan_layers`` the decoder families, the MoE
+knobs the MoE members and ``rnn_impl`` the RNN (CTC) members.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ from torch import nn
 
 from tpu_hc_bench_torch import resolve_device
 from tpu_hc_bench_torch.models import (
-    alexnet, bert, cifar_resnet, densenet, googlenet, gpt, inception, llama,
-    mobilenet, nasnet, resnet, small_cnns, vgg, vit)
+    alexnet, bert, cifar_resnet, deepspeech, densenet, googlenet, gpt,
+    inception, llama, mobilenet, nasnet, ncf, resnet, small_cnns, vgg, vit)
 from tpu_hc_bench_torch.models.moe import MOE_IMPLS
 
 
@@ -89,6 +91,9 @@ class ModelSpec:
     supports_s2d: bool = False         # factory takes space_to_depth
     attention: bool = False            # image transformer (ViT): factory
                                        # takes attention_impl and remat
+    ctc: bool = False                  # spectrogram input, CTC loss;
+                                       # factory takes rnn_impl
+    integer_input: bool = False        # [B, 2] int id pairs
 
 
 def _image(name: str, create, flops: float, size: int = 224,
@@ -166,13 +171,21 @@ def _registry() -> dict[str, ModelSpec]:
         _image("vit_tiny", vit.vit_tiny, 5.3e6, 32, attention=True),
         _image("inception3", inception.inception_v3, 11.4e9, 299),
         _image("inception4", inception.inception_v4, 24.5e9, 299),
+        # speech: 2 strided convs + 5 x 800 summed BiGRU + CTC, forward
+        # FLOPs ~= 2 x MACs at [300, 161] frames
+        ModelSpec("deepspeech2", deepspeech.deepspeech2,
+                  input_shape=(300, 161), flops_per_example=1.0e10,
+                  ctc=True),
+        ModelSpec("deepspeech2_tiny", deepspeech.deepspeech2_tiny,
+                  input_shape=(64, 32), flops_per_example=2.0e7, ctc=True),
+        # NeuMF at ml-20m: 2 x MACs of the MLP tower and head (the
+        # embedding gathers are bytes, not MACs)
+        ModelSpec("ncf", ncf.ncf, input_shape=(2,), flops_per_example=2.8e5,
+                  integer_input=True),
+        ModelSpec("ncf_tiny", ncf.ncf_tiny, input_shape=(2,),
+                  flops_per_example=5.0e3, integer_input=True),
     ]
     return {s.name: s for s in specs}
-
-
-# the JAX registry's members a later slice brings: each with its own
-# input stream and objective
-LATER_SLICE_MODELS = ("deepspeech2", "deepspeech2_tiny", "ncf", "ncf_tiny")
 
 _ALIASES = {
     "resnet50_v1.5": "resnet50",
@@ -195,9 +208,6 @@ _ALIASES = {
 def get_model_spec(name: str) -> ModelSpec:
     reg = _registry()
     key = _ALIASES.get(name.lower(), name.lower())
-    if key in LATER_SLICE_MODELS:
-        raise ValueError(f"model {name!r} is not ported yet (its input "
-                         "stream and objective come with a later slice)")
     if key not in reg:
         raise ValueError(f"unknown model {name!r}; have {sorted(reg)}")
     return reg[key]
@@ -215,7 +225,8 @@ def create_model(name: str, dtype=torch.float32,
                  space_to_depth: bool = False, seq_len: int | None = None,
                  rank: int = 0, gradient_checkpointing: bool = False,
                  scan_layers: bool = False, moe_impl: str = "einsum",
-                 moe_capacity_factor: float = 1.25, moe_f_chunk: int = 0):
+                 moe_capacity_factor: float = 1.25, moe_f_chunk: int = 0,
+                 rnn_impl: str = "hoisted"):
     """``(model, spec)``: the model built on ``device`` with its weights
     drawn from a ``torch.Generator`` seeded with ``seed`` (on the same
     device, so a full-width model never passes through host memory), in
@@ -228,8 +239,15 @@ def create_model(name: str, dtype=torch.float32,
     models take ``num_classes`` classes (the registry's 1000 when None,
     CIFAR members too, as JAX's driver passes ``--num_classes``).  A
     scanned decoder (``scan_layers``) holds the unrolled one's weights
-    for the same seed."""
+    for the same seed; an RNN member runs ``rnn_impl``'s arm
+    (``hoisted|bidi|flax``), every arm on the same weights."""
     spec = get_model_spec(name)
+    if spec.ctc:
+        if rnn_impl not in deepspeech.RNN_IMPLS:
+            raise ValueError(f"unknown rnn_impl {rnn_impl!r}")
+    elif rnn_impl != "hoisted":
+        raise ValueError(f"--rnn_impl only applies to RNN members, not "
+                         f"{name}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"models compute in float32|bfloat16: {dtype}")
     if spec.moe:
@@ -271,6 +289,8 @@ def create_model(name: str, dtype=torch.float32,
             kw["remat"] = True
     if scan_layers:
         kw["scan_layers"] = True
+    if spec.ctc:
+        kw["rnn_impl"] = rnn_impl
     if spec.is_text:
         if seq_len is not None:
             spec = dataclasses.replace(

@@ -15,6 +15,8 @@ the CPU)::
         --decode_attention=paged --max_prompt_len=512 \
         --max_output_len=64 --max_in_flight=8 --num_requests=16 \
         --arrival_rate=64
+    python -m tpu_hc_bench_torch serve --model=resnet50 \
+        --max_in_flight=8 --num_requests=32       # classify requests
 """
 
 from __future__ import annotations
@@ -26,12 +28,14 @@ from tpu_hc_bench_torch import flags as flags_mod
 
 
 def build_engine_and_requests(cfg, print_fn, model=None):
-    """Construct the warmed engine, then the arrival trace."""
+    """Construct the warmed engine, then the arrival trace: classify
+    members carry no vocabulary, so their trace has no prompts."""
     from tpu_hc_bench_torch.serve import arrivals
     from tpu_hc_bench_torch.serve.engine import ServeEngine
 
     engine = ServeEngine(cfg, print_fn=print_fn, model=model)
-    return engine, arrivals.build_requests(cfg, engine.spec.vocab_size)
+    vocab = engine.spec.vocab_size if engine.decode_mode else None
+    return engine, arrivals.build_requests(cfg, vocab)
 
 
 def main(argv: list[str] | None = None,

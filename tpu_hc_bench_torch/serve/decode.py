@@ -52,6 +52,12 @@ the JAX programs' signature).
 
 ``build_page_copy_fn`` is the prefix cache's copy-on-write: one
 physical page duplicated across every KV leaf, scales included.
+
+``build_classify_fn`` is the classify mode's program (JAX
+``_warm_classify``): the argmax over the last axis of the eval-mode
+forward of a float32 batch, ``[B]`` for an image member (the NHWC batch
+as an NCHW view, the image models' layout) and ``[B, T']`` for the
+speech member, frame by frame.
 """
 
 from __future__ import annotations
@@ -299,6 +305,19 @@ def init_kv_state(family: _Family, num_pages: int, page_size: int,
                            dtype=torch.float32, device=device))
     return (torch.zeros(shape, dtype=dtype, device=device),
             torch.zeros(shape, dtype=dtype, device=device))
+
+
+def build_classify_fn(model, spec) -> Callable:
+    """``fn(x) -> (argmax, logits)`` of ``model`` in eval mode on a
+    float32 batch ``x`` of ``spec.input_shape`` rows."""
+    image = len(spec.input_shape) == 3
+    model.eval()
+
+    @torch.no_grad()
+    def classify(x):
+        logits = model(x.permute(0, 3, 1, 2) if image else x)
+        return logits.argmax(-1), logits
+    return classify
 
 
 def build_page_copy_fn():

@@ -28,15 +28,26 @@ program half), ported from the JAX package's ``serve/engine.py``:
    scheduler-iteration watchdog (``--serve_step_timeout_s``).  Every
    knob defaults off; the logits guard (one host read a step) arms only
    under ``shed`` or ``kv_preempt``.
+5. **Classify mode**: the image and speech members serve
+   single-forward requests (JAX's ``decode_mode`` off): no KV pool, one
+   classify program a batch bucket (``decode.build_classify_fn``), each
+   request's input drawn from ``(seed, 13, rid)``, every resident
+   request answered by one ``classify_step`` (``t_first`` is its
+   completion, so ttft equals e2e, and its resident window is the
+   decode lane's: ``t_first := t_admit`` in the breakdown).  The decode
+   lane's knobs, ``--serve_faults`` and ``--kv_preempt`` are refused,
+   with JAX's messages; ``ncf`` is refused at construction (its
+   embeddings take integer ids; JAX's float example fails in Flax's
+   ``Embed``).
 
 Timing goes through an injectable clock, so tests drive the closed loop
 in virtual time (``VirtualClock``).  On the GPU every step ends in
 ``torch.cuda.synchronize()`` before its time is read.
 
 The MoE members (``gpt2_moe``, ``moe_tiny``) serve through the ragged
-dispatch (``serve.decode``).  Not ported yet: the classify mode
-(non-text members) and the obs writers (metrics stream, flight
-recorder, fleet heartbeat, latency sketches and signals).
+dispatch (``serve.decode``).  Not ported yet: the obs writers
+(metrics stream, flight recorder, fleet heartbeat, latency sketches and
+signals).
 """
 
 from __future__ import annotations
@@ -262,6 +273,27 @@ class _InFlight:
     prefix_shared: int = 0          # slots admitted on shared pages
 
 
+def _check_classify(cfg: ServeConfig, spec) -> None:
+    """JAX's refusals for a classify member: the decode lane's knobs, and
+    the id member, whose embeddings take no float example."""
+    if (cfg.decode_attention != "gather" or cfg.quant != "off"
+            or cfg.decode_block_pages):
+        raise ValueError(
+            f"--model {cfg.model} serves single-forward classify "
+            "requests; --decode_attention/--quant/--decode_block_pages "
+            "shape the paged decode step and have no meaning here")
+    if cfg.kv_reserve != "worst" or cfg.prefix_cache != "off":
+        raise ValueError(
+            f"--model {cfg.model} serves single-forward classify requests "
+            "with no KV pool; --kv_reserve/--prefix_cache shape "
+            "paged-decode admission and have no meaning here")
+    if spec.integer_input:
+        raise ValueError(
+            f"--model {cfg.model}: classify requests carry float inputs "
+            "and its embeddings take integer ids (Flax's Embed: Input "
+            "type must be an integer or unsigned integer)")
+
+
 class ServeEngine:
     """One model's serving engine: bucket programs + scheduler.
 
@@ -286,18 +318,19 @@ class ServeEngine:
                 f"--model {cfg.model}: MLM members have no "
                 "autoregressive serving story; serve a decoder family "
                 "(gpt2*/moe*/llama*) or a classify member")
-        if not self.spec.causal_lm:
-            raise ValueError(
-                f"--model {cfg.model}: the classify mode (single-forward "
-                "requests of non-text members) is not ported yet")
+        self.decode_mode = bool(self.spec.causal_lm)
         self.max_ctx = cfg.max_prompt_len + cfg.max_output_len
-        if model is None:
-            model, _ = create_model(cfg.model, device=self.device,
-                                    seed=cfg.seed, seq_len=self.max_ctx)
-        self.model = model
         self.decode_attention = cfg.decode_attention
         self.quant = cfg.quant
         self.block_pages = cfg.decode_block_pages or 1
+        if not self.decode_mode:
+            _check_classify(cfg, self.spec)
+        if model is None:
+            kw = (dict(seq_len=self.max_ctx) if self.decode_mode
+                  else dict(num_classes=cfg.num_classes))
+            model, _ = create_model(cfg.model, device=self.device,
+                                    seed=cfg.seed, **kw)
+        self.model = model
 
         # --- bucket ladders + KV pool geometry ---
         self.batch_buckets = parse_serve_buckets(cfg.serve_buckets,
@@ -317,6 +350,11 @@ class ServeEngine:
         self.page_size = cfg.kv_page_size
         self.table_width = -(-self.max_ctx // self.page_size)
         self.num_pages = cfg.kv_pages or (1 + self.cap * self.table_width)
+        if not self.decode_mode:
+            # a classify member allocates no pool: an explicit --kv_pages
+            # does not fail its construction
+            self._init_classify(print_fn)
+            return
         if self.num_pages < 1 + self.table_width:
             raise ValueError(
                 f"--kv_pages={cfg.kv_pages} cannot hold even one request "
@@ -354,6 +392,34 @@ class ServeEngine:
         print_fn(f"serve warmup: {len(self.prefill_buckets)} prefill + "
                  f"{len(self.batch_buckets)} decode bucket(s) run in "
                  f"{self.warm_s:.1f}s on {self.device}")
+
+    def _init_classify(self, print_fn) -> None:
+        """The classify mode's one program a batch bucket (JAX
+        ``_warm_classify``), each run once; no KV pool."""
+        from tpu_hc_bench_torch.serve import decode as decode_mod
+
+        self.family = None
+        self.weight_bytes = sum(p.nbytes for p in self.model.parameters())
+        self.kv_pool_bytes, self.kv_scale_bytes = None, 0
+        self.classify_fn = decode_mod.build_classify_fn(self.model,
+                                                        self.spec)
+        t0 = time.perf_counter()
+        shape = tuple(self.spec.input_shape)
+        for b in self.batch_buckets:
+            self.classify_fn(self._tensor(np.zeros((b,) + shape,
+                                                   np.float32)))
+        self._sync()
+        self.warm_s = time.perf_counter() - t0
+        self.warm_programs = len(self.batch_buckets)
+        print_fn(f"serve classify: {self.warm_programs} bucket program(s) "
+                 f"run in {self.warm_s:.1f}s on {self.device}")
+
+    def _classify_input(self, req: Request) -> np.ndarray:
+        """Request ``rid``'s input, JAX's draw: float32, the spec's shape
+        (NHWC for an image)."""
+        rng = np.random.default_rng((self.cfg.seed, 13, req.rid))
+        return rng.standard_normal(
+            tuple(self.spec.input_shape)).astype(np.float32)
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -438,14 +504,25 @@ class ServeEngine:
                 "--shed needs a deadline to shed against: set "
                 "--deadline_ms (or --slo_e2e_ms, its fallback)")
         deadline_s = (deadline_ms or 0.0) / 1e3
+        decode = self.decode_mode
+        if not decode and (faults or kv_preempt == "on"):
+            raise ValueError(
+                f"--model {cfg.model} serves single-forward classify "
+                "requests; --serve_faults/--kv_preempt drive the paged "
+                "decode path and have no meaning here")
+        if not decode and (kv_reserve != "worst" or prefix_cache != "off"):
+            raise ValueError(
+                f"--model {cfg.model} serves single-forward classify "
+                "requests with no KV pool; --kv_reserve/--prefix_cache "
+                "have no meaning here")
         # the quarantine guard arms with either policy knob: it reads
         # the step's logits back to the host (with both off, an injected
         # NaN flows through: the faults A/B's control arm)
         guard = shed != "off" or kv_preempt == "on"
         writer = writer or _NullWriter()
         clock = clock or MonotonicClock()
-        allocator = PageAllocator(self.num_pages)
-        ledger = KVLedger(self.page_size)
+        allocator = PageAllocator(self.num_pages) if decode else None
+        ledger = KVLedger(self.page_size) if decode else None
         cache = None
         if prefix_cache == "on":
             from tpu_hc_bench_torch.serve import prefix_cache as prefix_mod
@@ -461,8 +538,8 @@ class ServeEngine:
         pending = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
         n = len(pending)
         over = [r for r in pending
-                if r.prompt_len > cfg.max_prompt_len
-                or r.output_len > cfg.max_output_len]
+                if decode and (r.prompt_len > cfg.max_prompt_len
+                               or r.output_len > cfg.max_output_len)]
         if over:
             raise ValueError(
                 f"{len(over)} request(s) exceed the bucket ladder "
@@ -470,13 +547,13 @@ class ServeEngine:
                 f"output<={cfg.max_output_len}); request "
                 f"{over[0].rid} is {over[0].prompt_len}/"
                 f"{over[0].output_len}")
-        kv = self._kv
+        kv = self._kv if decode else None
         queue: collections.deque[Request] = collections.deque()
         active: list[_InFlight] = []
         done: list[dict] = []
         state = {"finished": 0, "service_ewma_s": None, "idx": 0,
                  "squeezed": 0}
-        steps = {"prefill": 0, "decode": 0}
+        steps = {"prefill": 0, "decode": 0, "classify": 0}
         drained: dict | None = None
         t0 = clock.now()
 
@@ -501,18 +578,22 @@ class ServeEngine:
                 rec["cause"] = cause
             if fl.preempts:
                 rec["preempts"] = fl.preempts
+            # a classify request has no prompt pass: its resident window
+            # is the decode lane's (t_first := t_admit)
             rec.update(slo_mod.components_ms(
                 fl.req.arrival_s, fl.t_admit,
-                fl.t_first if fl.t_first is not None else fl.t_admit,
+                (fl.t_first if decode and fl.t_first is not None
+                 else fl.t_admit),
                 fl.t_last if fl.t_last is not None else t_done,
                 t_done, fl.active_s))
-            rec["generated"] = list(fl.out_tokens)
-            final_pages = ledger.retire(len(fl.pages), fl.length)
-            rec["pages_reserved"] = len(fl.pages)
-            rec["pages_peak_used"] = final_pages
-            rec["pages_final"] = final_pages
-            rec["pages_grown"] = fl.pages_grown
-            rec["prefix_pages_shared"] = fl.prefix_shared
+            if decode:
+                rec["generated"] = list(fl.out_tokens)
+                final_pages = ledger.retire(len(fl.pages), fl.length)
+                rec["pages_reserved"] = len(fl.pages)
+                rec["pages_peak_used"] = final_pages
+                rec["pages_final"] = final_pages
+                rec["pages_grown"] = fl.pages_grown
+                rec["prefix_pages_shared"] = fl.prefix_shared
             if status == "ok":
                 if not fl.preempts:
                     # the predictive-shed estimate: first admission to
@@ -530,7 +611,8 @@ class ServeEngine:
             else:
                 degrade["quarantined"] += 1
                 writer.event("quarantine", **rec)
-            allocator.free(fl.pages)
+            if decode:
+                allocator.free(fl.pages)
 
         def shed_queued(req: Request, cause: str, t: float) -> None:
             """Admission-time shed: terminal, with its cause."""
@@ -596,8 +678,9 @@ class ServeEngine:
                     fl.req, produced=fl.produced,
                     prefix=list(fl.out_tokens),
                     preempts=fl.preempts + 1))
-                ledger.retire(len(fl.pages), fl.length)
-                allocator.free(fl.pages)
+                if decode:
+                    ledger.retire(len(fl.pages), fl.length)
+                    allocator.free(fl.pages)
             active.clear()
             for req in queue:
                 c = carry.pop(req.rid, None)
@@ -663,6 +746,11 @@ class ServeEngine:
         def admit(req: Request) -> None:
             nonlocal kv
             t_admit = now()
+            if not decode:
+                active.append(_InFlight(req=req, pages=[],
+                                        table=np.zeros(0, np.int32),
+                                        t_admit=t_admit))
+                return
             c = carry.pop(req.rid, None)
             prefix = c["prefix"] if c else []
             if c:
@@ -829,6 +917,26 @@ class ServeEngine:
                              if fl.req.rid not in dropped]
             return True
 
+        def classify_step() -> None:
+            """One forward of every resident request, padded to its batch
+            bucket; each finishes with its answer."""
+            b = pick_bucket(self.batch_buckets, len(active))
+            x = np.zeros((b,) + tuple(self.spec.input_shape), np.float32)
+            for i, fl in enumerate(active):
+                x[i] = self._classify_input(fl.req)
+            _, dt = self._timed(clock, "classify",
+                                lambda: self.classify_fn(self._tensor(x)))
+            steps["classify"] += 1
+            counts["tokens"] += len(active)
+            t_done = now()
+            for fl in active:
+                fl.t_first = t_done
+                fl.produced = 1
+                fl.active_s += dt
+                fl.t_last = t_done
+                finish(fl, t_done, status="ok")
+            active.clear()
+
         own_handler = None
         handler = drain_handler
         if handler is None:
@@ -898,7 +1006,7 @@ class ServeEngine:
                                         "deadline_predicted", now())
                             progressed = True
                             continue
-                        if free_now() >= need_pages(head):
+                        if not decode or free_now() >= need_pages(head):
                             admit(queue.popleft())
                             progressed = True
                             continue
@@ -914,13 +1022,17 @@ class ServeEngine:
                 elif not active:
                     # static: wait for a full batch (or the trace tail),
                     # bounded by what the KV pool can hold
-                    want = min(self.cap, n - state["finished"],
-                               free_now() // self.table_width)
+                    want = min(self.cap, n - state["finished"])
+                    if decode:
+                        want = min(want, free_now() // self.table_width)
                     if len(queue) >= want or state["idx"] == n:
                         for _ in range(min(want, len(queue))):
                             admit(queue.popleft())
                             progressed = True
-                if active and decode_step():
+                if active and not decode:
+                    classify_step()
+                    progressed = True
+                elif active and decode_step():
                     progressed = True
                 if not progressed:
                     if state["idx"] >= n:
@@ -948,19 +1060,21 @@ class ServeEngine:
             if own_handler is not None:
                 own_handler.uninstall()
 
-        self._kv = kv
         wall = max(now(), 1e-9)
-        kv_fold = kv_mod.fold_ledger(
-            reserved_page_s=ledger.reserved_page_s,
-            written_page_s=ledger.written_page_s,
-            pages_peak=allocator.pages_peak,
-            pages_recycled=allocator.recycled,
-            pages_grown=counts["grown"],
-            cow_copies=allocator.cow_copies,
-            prefix_hits=counts["hits"],
-            prefix_lookups=counts["lookups"],
-            prefix_pages_shared=counts["shared"],
-            request_records=done)
+        kv_fold = None
+        if decode:
+            self._kv = kv
+            kv_fold = kv_mod.fold_ledger(
+                reserved_page_s=ledger.reserved_page_s,
+                written_page_s=ledger.written_page_s,
+                pages_peak=allocator.pages_peak,
+                pages_recycled=allocator.recycled,
+                pages_grown=counts["grown"],
+                cow_copies=allocator.cow_copies,
+                prefix_hits=counts["hits"],
+                prefix_lookups=counts["lookups"],
+                prefix_pages_shared=counts["shared"],
+                request_records=done)
         shed_total = sum(degrade["shed"].values())
         summary = {
             "workload": "serve",
@@ -978,18 +1092,19 @@ class ServeEngine:
             "max_in_flight": self.cap,
             "kv_page_size": self.page_size,
             "kv_pages": self.num_pages,
-            "kv_layers": self.family.num_layers,
+            "kv_layers": self.family.num_layers if decode else None,
             "kv_pool_bytes": self.kv_pool_bytes,
             "kv_scale_bytes": self.kv_scale_bytes,
             "weight_bytes": self.weight_bytes,
             "kv_pool": kv_fold,
             **kv_mod.flatten_kv(kv_fold),
-            "kv_reserve": kv_reserve,
-            "prefix_cache": prefix_cache,
-            "decode_attention": self.decode_attention,
+            "kv_reserve": kv_reserve if decode else None,
+            "prefix_cache": prefix_cache if decode else None,
+            "decode_attention": self.decode_attention if decode else None,
             "quant": self.quant,
             "decode_block_pages": (self.block_pages
-                                   if self.decode_attention == "paged"
+                                   if decode
+                                   and self.decode_attention == "paged"
                                    else None),
             **{f"{k}_steps": v for k, v in steps.items()},
             **slo_mod.fold_requests(done),

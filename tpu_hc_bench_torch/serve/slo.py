@@ -128,14 +128,17 @@ def slo_lines(fold: dict) -> list[str]:
         f"  tokens {fold.get('tokens', 0)} in {fold.get('wall_s', 0)}s = "
         f"{fold.get('tokens_per_s', 0)} tokens/s  "
         f"(decode steps {fold.get('decode_steps', 0)}, "
-        f"prefills {fold.get('prefill_steps', 0)})",
-        f"  decode arm: attention={fold.get('decode_attention')} "
-        f"quant={fold.get('quant')}"
-        + (f" block_pages={fold['decode_block_pages']}"
-           if fold.get("decode_block_pages") else "")
-        + f"  kv pages {fold.get('kv_pages')} x {fold.get('kv_page_size')}"
-          f" tokens",
+        f"prefills {fold.get('prefill_steps', 0)}, "
+        f"classify steps {fold.get('classify_steps', 0)})",
     ]
+    if fold.get("decode_attention"):      # None for a classify member
+        lines.append(
+            f"  decode arm: attention={fold.get('decode_attention')} "
+            f"quant={fold.get('quant')}"
+            + (f" block_pages={fold['decode_block_pages']}"
+               if fold.get("decode_block_pages") else "")
+            + f"  kv pages {fold.get('kv_pages')} x "
+              f"{fold.get('kv_page_size')} tokens")
     kvf = fold.get("kv_pool")
     if kvf:
         lines.append(

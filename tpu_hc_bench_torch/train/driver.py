@@ -3,18 +3,24 @@
 The counterpart of the JAX package's ``train/driver.py``:
 ``num_warmup_batches`` untimed steps (cuDNN's algorithm search and the
 allocator's warm-up fall there, as XLA's compile does in the JAX lane),
-then ``num_batches`` timed steps, a line ``{step}\\timages/sec: {rate}\\tloss:
-{loss}`` every ``display_every`` steps, and a final ``total images/sec``
-line.  The step is the train step, or with ``--forward_only`` the loss
-with no update; ``--eval`` runs ``_run_eval`` instead (at most 5 warmup
-batches, ``top_1`` display lines, ``eval top_1 accuracy``).
+then ``num_batches`` timed steps, a line
+``{step}\\t{units}/sec: {rate}\\tloss: {loss}`` every ``display_every``
+steps, and a final ``total {units}/sec`` line, where ``units`` is
+"examples" for the text, CTC and integer-input members and "images"
+for the image members, as JAX's ``_example_units`` has it (the result's
+keys keep JAX's names, ``total_images_per_sec`` and
+``images_per_sec_per_chip``, for every member).  The step is the train
+step, or with ``--forward_only`` the loss with no update; ``--eval``
+runs ``_run_eval`` instead (at most 5 warmup batches, ``top_1`` display
+lines, ``eval top_1 accuracy``).
 
 Inputs (as JAX's driver wires them):
 
 - **synthetic** (no ``--data_dir``): one fixed batch made once from
   ``--seed`` and fed every step, ``SyntheticImages`` for the image
-  models, ``SyntheticTokens`` for the text models ("images" are
-  sequences there).
+  models, ``SyntheticTokens`` for the text models, ``SyntheticSpeech``
+  for the CTC member and ``SyntheticIds`` for the id member (these two
+  take no ``--data_dir``, and the CTC member no ``--eval``, as in JAX).
 - **ImageNet TFRecords** (``--data_dir``, image models):
   ``data.imagenet.ImageNetDataset`` on this rank's shards (``worker =
   rank``), the train split with augmentation, or under ``--eval`` the
@@ -79,6 +85,7 @@ NaN.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 import os
@@ -92,8 +99,8 @@ import torch.distributed as dist
 from tpu_hc_bench_torch import resolve_device
 from tpu_hc_bench_torch.data.feed import DeviceFeeder
 from tpu_hc_bench_torch.data.synthetic import (
-    SyntheticImages, SyntheticTokens, rank_rows, to_device,
-    tokens_to_device)
+    SyntheticIds, SyntheticImages, SyntheticSpeech, SyntheticTokens,
+    ids_to_device, rank_rows, speech_to_device, to_device, tokens_to_device)
 from tpu_hc_bench_torch.flags import BenchmarkConfig
 from tpu_hc_bench_torch.models import create_model, get_model_spec
 from tpu_hc_bench_torch.parallel import distributed
@@ -175,6 +182,12 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _example_units(spec) -> str:
+    """What the rate lines count (JAX ``_example_units``): "examples"
+    for the text, CTC and integer-input members, else "images"."""
+    if spec.is_text or spec.ctc or spec.integer_input:
+        return "examples"
+    return "images"
 
 
 RANDOM_INIT_EVAL_WARNING = (
@@ -351,17 +364,47 @@ def _resolve_epochs(cfg: BenchmarkConfig, spec, split: str | None,
     cfg.num_epochs = 0.0
 
 
-def _synthetic_input(cfg, spec, dev, rank: int,
-                     global_batch: int) -> _Input:
+def _check_synthetic_only(cfg: BenchmarkConfig, spec) -> None:
+    """JAX's refusals for the members with synthetic input only: the CTC
+    member's and the id member's ``--data_dir``, the CTC member's
+    ``--eval``."""
+    if spec.ctc or spec.integer_input:
+        if cfg.data_dir is not None:
+            what = ("synthetic spectrograms" if spec.ctc
+                    else "synthetic implicit-feedback pairs")
+            raise ValueError(f"--data_dir is not supported for {cfg.model} "
+                             f"({what} only)")
+    if spec.ctc and cfg.eval:
+        raise ValueError("--eval is not supported for the CTC member "
+                         "(decode/CER is outside the benchmark protocol)")
+
+
+def _synthetic_input(cfg, spec, dev, rank: int, global_batch: int,
+                     model) -> _Input:
+    """One fixed batch on the card: tokens, spectrograms with CTC
+    transcripts (labels bounded by the frames after the conv strides),
+    (user, item) ids over ``model``'s tables, or images."""
+    rows = functools.partial(rank_rows, rank=rank, rows=cfg.batch_size)
     if spec.is_text:
-        batch = tokens_to_device(rank_rows(SyntheticTokens(
+        batch = tokens_to_device(rows(SyntheticTokens(
             global_batch, spec.input_shape[0], seed=cfg.seed,
-            vocab_size=spec.vocab_size, causal_lm=spec.causal_lm).batch(),
-            rank, cfg.batch_size), dev)
+            vocab_size=spec.vocab_size, causal_lm=spec.causal_lm).batch()),
+            dev)
+    elif spec.ctc:
+        from tpu_hc_bench_torch.models.deepspeech import max_label_for
+
+        frames, freq = spec.input_shape
+        batch = speech_to_device(rows(SyntheticSpeech(
+            global_batch, frames, freq, max_label_for(frames),
+            seed=cfg.seed).batch()), dev)
+    elif spec.integer_input:
+        batch = ids_to_device(rows(SyntheticIds(
+            global_batch, model.num_users, model.num_items,
+            seed=cfg.seed).batch()), dev)
     else:
-        batch = to_device(rank_rows(SyntheticImages(
+        batch = to_device(rows(SyntheticImages(
             global_batch, spec.input_shape, cfg.num_classes,
-            cfg.seed).batch(), rank, cfg.batch_size), dev)
+            cfg.seed).batch()), dev)
     return _Input(itertools.repeat(batch))
 
 
@@ -605,7 +648,7 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
         data=_data_record(inp, wait_s, cfg.num_batches))
     print_fn("-" * 40)
     print_fn(f"eval top_1 accuracy: {top1:.4f}")
-    print_fn(f"total images/sec: {total_rate:.2f}")
+    print_fn(f"total {_example_units(spec)}/sec: {total_rate:.2f}")
     return result
 
 
@@ -650,6 +693,7 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         print_fn = lambda _m: None                           # noqa: E731
     dev = resolve_device(cfg.device)
     spec = get_model_spec(cfg.model)
+    _check_synthetic_only(cfg, spec)
     if cfg.fused_conv and not spec.fused_conv:
         raise ValueError(f"--fused_conv applies to the v1 bottleneck "
                          f"resnets, not {cfg.model}")
@@ -675,7 +719,7 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         rank=rank, gradient_checkpointing=cfg.gradient_checkpointing,
         scan_layers=cfg.scan_layers, moe_impl=cfg.moe_impl,
         moe_capacity_factor=cfg.moe_capacity_factor,
-        moe_f_chunk=cfg.moe_f_chunk)
+        moe_f_chunk=cfg.moe_f_chunk, rnn_impl=cfg.rnn_impl)
     state = step_mod.make_train_state(model, cfg, fab if grouped else None)
     grads = state.dp.grads if state.dp else None
     kind = hw.device_name(dev)
@@ -700,7 +744,7 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
             grads.close()
         raise
     if split is None:
-        inp = _synthetic_input(cfg, spec, dev, rank, global_batch)
+        inp = _synthetic_input(cfg, spec, dev, rank, global_batch, model)
     elif spec.is_text:
         inp = _token_input(cfg, spec, dev, rank, total_workers,
                            global_batch, split)
@@ -736,6 +780,7 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
     the final state after it."""
     step_fn = (step_mod.forward_step if cfg.forward_only
                else step_mod.train_step)
+    units = _example_units(spec)
     for _ in range(cfg.num_warmup_batches):
         state, metrics = step_fn(state, next(inp.batches))
     _sync(dev)
@@ -756,7 +801,7 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
             now = time.perf_counter()
             rate = cfg.display_every * global_batch / (now - t_window)
             t_window = now
-            print_fn(f"{i}\timages/sec: {rate:.1f}\tloss: {loss:.3f}")
+            print_fn(f"{i}\t{units}/sec: {rate:.1f}\tloss: {loss:.3f}")
         if (saver is not None and cfg.save_model_steps
                 and i % cfg.save_model_steps == 0 and i < cfg.num_batches):
             saver.save(state)
@@ -796,10 +841,10 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         data=_data_record(inp, wait_s, cfg.num_batches),
         checkpoint=checkpoint, extra=_extra(cfg, state.model))
     print_fn("-" * 40)
-    print_fn(f"total images/sec: {total_rate:.2f}")
+    print_fn(f"total {units}/sec: {total_rate:.2f}")
     mfu_txt = (f"{100 * mfu:.1f}% (analytic)" if peak
                else f"unknown (no peak for {kind})")
-    print_fn(f"images/sec/chip: {per_chip:.2f}  step: {mean_ms:.2f}ms "
+    print_fn(f"{units}/sec/chip: {per_chip:.2f}  step: {mean_ms:.2f}ms "
              f"(p50/step {p50_ms:.2f}ms)  MFU: {mfu_txt}")
     if result.data is not None:
         print_fn(f"input wait: {result.data['input_wait_ms_per_step']:.3f}"

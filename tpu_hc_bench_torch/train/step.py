@@ -6,13 +6,16 @@ The counterpart of the JAX package's ``train/step.py``
 ``make_optimizer``): forward in training mode (BatchNorm normalizes with
 the batch's statistics and updates its running averages as a side effect
 of the forward; a text model draws its dropout masks), the loss,
-backward, optimizer update.  Two loss arms, by the batch: ``(images,
+backward, optimizer update.  Three loss arms, by the model's spec (the
+state's ``ctc``, JAX's ``ctc`` flag) and then the batch: ``(images,
 labels)`` takes the integer-label softmax cross-entropy averaged over
-the batch; ``(tokens, targets, weights)`` the per-token cross-entropy on
-float32 logits, weighted and averaged over the weights (the text arm),
-where ``--fused_xent`` swaps ``F.cross_entropy`` for the blocked kernels
-of ``ops.xent.softmax_xent``, as in the JAX step; the image arm keeps
-``F.cross_entropy`` either way.
+the batch (an id batch, ``ncf``'s, too); ``(tokens, targets, weights)``
+the per-token cross-entropy on float32 logits, weighted and averaged
+over the weights (the text arm), where ``--fused_xent`` swaps
+``F.cross_entropy`` for the blocked kernels of ``ops.xent.softmax_xent``,
+as in the JAX step; the image arm keeps ``F.cross_entropy`` either way.
+``(features, labels, label_paddings)`` of the CTC member, a 3-tuple like
+a text batch, takes ``optax.ctc_loss(...).mean()`` (``ctc_loss_fn``).
 
 Data parallel (``DataParallel``, over the default process group; every
 rank holds the same state and its own rows of the batch):
@@ -99,7 +102,7 @@ import torch.nn.functional as F
 
 from tpu_hc_bench_torch.data.imagenet import IMAGENET_MEAN, IMAGENET_STD
 from tpu_hc_bench_torch.flags import BenchmarkConfig
-from tpu_hc_bench_torch.models import resnet
+from tpu_hc_bench_torch.models import get_model_spec, resnet
 from tpu_hc_bench_torch.models.moe import AUX_LOSS_COEF
 from tpu_hc_bench_torch.models.resnet import running_stats_frozen
 from tpu_hc_bench_torch.ops.xent import softmax_xent
@@ -160,6 +163,7 @@ class TrainState:
     accum: int = 1
     dp: DataParallel | None = None
     accum_dtype: str = "f32"
+    ctc: bool = False
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -232,7 +236,8 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
                       make_optimizer(cfg, model.parameters()),
                       fused_xent=cfg.fused_xent,
                       accum=cfg.gradient_accumulation_steps, dp=dp,
-                      accum_dtype=cfg.accum_dtype)
+                      accum_dtype=cfg.accum_dtype,
+                      ctc=get_model_spec(cfg.model).ctc)
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -257,6 +262,22 @@ def lm_loss_fn(logits: torch.Tensor, targets: torch.Tensor,
     return (losses * weights).sum() / weights.sum().clamp_min(1.0)
 
 
+def ctc_loss_fn(logits: torch.Tensor, labels: torch.Tensor,
+                label_paddings: torch.Tensor) -> torch.Tensor:
+    """The JAX CTC arm, ``optax.ctc_loss(logits, zeros, labels,
+    label_paddings).mean()``: log-softmax over float32 logits ``[B, T,
+    C]``, blank 0, every frame valid, each utterance's negative
+    log-likelihood over its ``sum(1 - label_paddings)`` labels, averaged
+    over the batch (``reduction="mean"`` would also divide each by its
+    label count)."""
+    b, t = logits.shape[:2]
+    logp = F.log_softmax(logits.float(), -1).transpose(0, 1)
+    frames = torch.full((b,), t, dtype=torch.int64, device=logits.device)
+    lengths = (1.0 - label_paddings).sum(-1).round().to(torch.int64)
+    return F.ctc_loss(logp, labels, frames, lengths, blank=0,
+                      reduction="none").mean()
+
+
 @functools.lru_cache(maxsize=None)
 def _norm_consts(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """ImageNet's mean and std (x 255) as float32 ``[1, 3, 1, 1]`` on
@@ -276,11 +297,14 @@ def prep_inputs(images: torch.Tensor) -> torch.Tensor:
     return (images.float() - mean) / std
 
 
-def batch_loss(model: torch.nn.Module, batch,
-               fused_xent: bool = False) -> torch.Tensor:
-    """The forward and the loss arm that ``batch`` calls for;
-    ``fused_xent`` applies to the text arm only, where an MoE model's aux
-    term joins the loss."""
+def batch_loss(model: torch.nn.Module, batch, fused_xent: bool = False,
+               ctc: bool = False) -> torch.Tensor:
+    """The forward and the loss arm: CTC where ``ctc`` (the spec's),
+    else the one ``batch`` calls for; ``fused_xent`` applies to the text
+    arm only, where an MoE model's aux term joins the loss."""
+    if ctc:
+        feats, labels, paddings = batch
+        return ctc_loss_fn(model(feats), labels, paddings)
     if len(batch) == 3:
         tokens, targets, weights = batch
         loss = lm_loss_fn(model(tokens), targets, weights, fused_xent)
@@ -324,7 +348,7 @@ def _accumulated_backward(state: TrainState, batch,
                 t.copy_(t0)
         if grads is not None and i == n - 1 and not bf16:
             grads.arm(divisor=n)
-        loss = batch_loss(model, micro, state.fused_xent)
+        loss = batch_loss(model, micro, state.fused_xent, state.ctc)
         try:
             loss.backward()
         except BaseException:
@@ -358,8 +382,9 @@ def _accumulated_backward(state: TrainState, batch,
 
 
 def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
-    """One optimizer step on this rank's ``batch``, ``(images, labels)``
-    or ``(tokens, targets, weights)``; returns the state and ``{"loss":
+    """One optimizer step on this rank's ``batch``, ``(images, labels)``,
+    ``(tokens, targets, weights)`` or ``(features, labels,
+    label_paddings)``; returns the state and ``{"loss":
     tensor}``, averaged over the ranks (left on the device: reading it
     is a host sync, which the driver does at display steps only)."""
     state.optimizer.zero_grad(set_to_none=True)
@@ -374,7 +399,7 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     else:
         if grads is not None:
             grads.arm()
-        loss = batch_loss(state.model, batch, state.fused_xent)
+        loss = batch_loss(state.model, batch, state.fused_xent, state.ctc)
         loss.backward()
         loss = loss.detach()
     if dp is not None:
@@ -404,7 +429,8 @@ def forward_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     optimizer state, the step count and the running statistics are left
     as they were.  The loss is averaged over the ranks."""
     with torch.no_grad(), running_stats_frozen(state.model):
-        loss = batch_loss(state.model, batch, state.fused_xent).float()
+        loss = batch_loss(state.model, batch, state.fused_xent,
+                          state.ctc).float()
     if state.dp is not None:
         loss = _ranks_sum(state.dp, loss) / dist.get_world_size()
     return state, {"loss": loss}
