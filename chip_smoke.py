@@ -279,6 +279,31 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    requests/s and e2e percentiles; ncf refused; (e) no kernel of the
    table launched over (a)-(d).
 
+20. **slice12**: the serving lane's observability, every run with every
+   count zeroed just before and read just after: (a) phase 4's llama_1b
+   engine (full width, f32, paged, ``--hbm_budget=auto``) serves phase
+   4's 16 requests twice in virtual time (``SERVE2_VCOSTS``, so both
+   runs see the same batches), once with no writer and the flight
+   recorder off, once through ``cli.run_serve`` with ``--metrics_dir``
+   and ``--flight_recorder=on``: tokens and launch counts equal between
+   the runs (16 paged calls and 31 norm launches a decode step), every
+   file of the run dir parses, ``serve_summary`` equals the returned
+   summary, ``python -m tpu_hc_bench_torch.obs summarize`` exits 0 and
+   prints the serve lines, the budget line names the warmed ladder's
+   measured peak against the card's memory; real wall tokens/s of both
+   runs and the obs calls' host time a decode step (the writer, the
+   sketches, the signal engine, the spans and the heartbeat, each timed
+   where it is called); (b) resnet50 classify, 32 requests at 8 in
+   flight, with ``--metrics_dir``: ``classify`` spans and records, no
+   table kernel; (c) a SIGTERM drain (``sigterm@`` delivered to this
+   process) with ``--metrics_dir``: the journal in the run dir, the
+   streams closed and parsing, ``timeline_dump.json``; (d) gpt2_moe
+   under ``--accum_dtype=bf16`` at phase 17 (d)'s settings, 1 + 2
+   steps: the run's peak memory, each optimizer step's allocation before,
+   after and at its peak, what a step holds beyond the larger of before
+   and after (no float32 gradient tree: under a quarter of the float32
+   parameter bytes), and a finite loss.
+
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
 ``realdata_launches``: its launches in phase 14's runs (b)-(e) and (g),
@@ -286,7 +311,8 @@ Then the kernel table line (each kernel's design beside its numbers,
 ``serve2_launches``: its launches in phase 16's runs (b)-(f) in this
 process, ``slice9_launches``: its launches in phase 17's runs (a)-(c)
 and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
-``slice11_launches``: its launches in phase 19's runs (a)-(d), every
+``slice11_launches``: its launches in phase 19's runs (a)-(d),
+``slice12_launches``: its launches in phase 20's runs (a)-(d), every
 kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -301,7 +327,8 @@ alone, beside phase 7's fused run (with several cards, (f) runs);
 ``--only serve2`` the build and phase 16 alone, beside phase 4's run;
 ``--only slice9`` the build and phase 17 alone; ``--only zoo`` the
 build, phase 8 at ViT's two shapes, then phase 18; ``--only slice11``
-the build and phase 19 alone.
+the build and phase 19 alone; ``--only slice12`` the build, phase 4 and
+phase 20.
 """
 
 from __future__ import annotations
@@ -312,6 +339,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 F32_OPS_PER_S = 67e12              # H100 SXM float32, outside tensor cores
@@ -639,6 +667,14 @@ SLICE11_ARM_LOSS_TOL = 2e-2
 SLICE11_SERVE_MODELS = ("resnet50", "deepspeech2")
 SLICE11_SERVE_TRACE = ["--num_requests=32", "--max_in_flight=8",
                        "--arrival=poisson", "--arrival_rate=64"]
+# phase 20 (slice12): (c)'s SIGTERM in engine seconds (virtual time, as
+# (a)); (d) phase 17 (d)'s run at 1 + 2 steps, and the share of the
+# float32 parameter bytes the optimizer step may add over the bf16
+# gradients (one parameter's float32 gradient at a time: gpt2_moe's
+# largest, the embedding, is 0.15 of 1.05 GB)
+SLICE12_SIGTERM_S = 0.3
+SLICE12_ACCUM_STEPS = (1, 2)
+SLICE12_STEP_SHARE = 0.25
 
 
 
@@ -1060,6 +1096,13 @@ def phase_parity(torch, dev, model) -> None:
         raise AssertionError(f"paged program disagrees with gather: {rec}")
 
 
+PHASE4_FLAGS = ["--model=llama_1b", "--decode_attention=paged",
+                "--max_prompt_len=512", "--max_output_len=64",
+                "--max_in_flight=8", "--kv_page_size=16",
+                "--num_requests=16", "--arrival=poisson",
+                "--arrival_rate=64", "--seed=0"]
+
+
 def phase_serve(torch, model) -> dict:
     """Phase 4: the main path; returns each kernel's launch count."""
     from tpu_hc_bench_torch import flags
@@ -1068,11 +1111,7 @@ def phase_serve(torch, model) -> dict:
     from tpu_hc_bench_torch.ops.paged_attention import paged_decode_attention
     from tpu_hc_bench_torch.serve import cli
 
-    cfg = flags.parse_flags([
-        "--model=llama_1b", "--decode_attention=paged",
-        "--max_prompt_len=512", "--max_output_len=64", "--max_in_flight=8",
-        "--kv_page_size=16", "--num_requests=16", "--arrival=poisson",
-        "--arrival_rate=64", "--seed=0"])
+    cfg = flags.parse_flags(PHASE4_FLAGS)
     engine, requests = cli.build_engine_and_requests(
         cfg, lambda m: print(m, file=sys.stderr, flush=True), model=model)
     tap = TokenTap()
@@ -3865,13 +3904,339 @@ def phase_slice11(torch, dev, smi) -> dict:
     return total
 
 
+class ObsTimer:
+    """Host seconds in the serving lane's obs calls, each wrapped where
+    the engine calls it (module functions, class methods, one writer's
+    ``event``); ``restore`` puts the originals back."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._undo: list = []
+
+    def wrap(self, owner, name: str, key: str) -> None:
+        orig = getattr(owner, name)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.seconds[key] = (self.seconds.get(key, 0.0)
+                                     + time.perf_counter() - t0)
+
+        setattr(owner, name, timed)
+        self._undo.append((owner, name, orig))
+
+    def wrap_engine_calls(self) -> None:
+        from tpu_hc_bench_torch.obs import fleet, requests, signals, sketch
+        from tpu_hc_bench_torch.obs import timeline
+
+        self.wrap(timeline, "record_span", "spans")
+        self.wrap(timeline, "instant", "spans")
+        self.wrap(sketch.QuantileSketch, "add", "sketches")
+        self.wrap(signals.SignalEngine, "observe", "signals")
+        self.wrap(signals, "append_events", "signals")
+        self.wrap(fleet.FleetWriter, "heartbeat", "heartbeat")
+        self.wrap(requests, "components_ms", "records")
+
+    def restore(self) -> None:
+        for owner, name, orig in reversed(self._undo):
+            setattr(owner, name, orig)
+        self._undo.clear()
+
+
+def _parsed_run_dir(run_dir) -> dict:
+    """Every file of a serve run dir parsed (JSON, or JSON lines): name
+    -> lines; raises on a line that does not parse."""
+    out = {}
+    for path in sorted(Path(run_dir).iterdir()):
+        text = path.read_text()
+        if path.suffix == ".json":
+            json.loads(text)
+            out[path.name] = 1
+        else:
+            out[path.name] = len([json.loads(ln)
+                                  for ln in text.splitlines() if ln])
+    return out
+
+
+def slice12_serve(torch, smi, model) -> dict:
+    """Phase 20 (a) and (c) over phase 4's model; returns their
+    launches."""
+    import dataclasses
+    import shutil
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.obs import metrics as obs_metrics
+    from tpu_hc_bench_torch.serve import cli, slo
+    from tpu_hc_bench_torch.serve.engine import VirtualClock
+
+    root = Path(__file__).resolve().parent
+    base = root / "build" / "slice12"
+    shutil.rmtree(base, ignore_errors=True)
+    run_dir = str(base / "a")
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        print(m, file=sys.stderr, flush=True)
+
+    cfg = flags.parse_flags([*PHASE4_FLAGS, f"--metrics_dir={run_dir}",
+                             "--flight_recorder=on", "--hbm_budget=auto"])
+    engine, requests = cli.build_engine_and_requests(cfg, tee, model=model)
+    layers = model.num_layers
+    runs, total = {}, {}
+    for arm in ("off", "on"):
+        engine.cfg = dataclasses.replace(cfg, flight_recorder=arm)
+        timer = ObsTimer()
+        timer.wrap_engine_calls()
+        tap = TokenTap()
+        writer = tap if arm == "off" else cli.serve_writer(cfg, run_dir)
+        if arm == "on":
+            timer.wrap(writer, "event", "writer")
+        _zero_counts()
+        t0 = time.perf_counter()
+        try:
+            if arm == "off":
+                summary = engine.run(requests, writer=tap,
+                                     clock=VirtualClock(SERVE2_VCOSTS))
+            else:
+                summary = cli.run_serve(engine, requests, writer,
+                                        clock=VirtualClock(SERVE2_VCOSTS))
+            torch.cuda.synchronize()
+        finally:
+            timer.restore()
+        wall = time.perf_counter() - t0
+        counts = _read_counts()
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+        runs[arm] = (summary, counts, wall, timer.seconds, tap.tokens)
+    (s_off, c_off, w_off, obs_off, tok_off), (s_on, c_on, w_on, obs_on,
+                                               _) = runs["off"], runs["on"]
+    _, records = obs_metrics.read_run(run_dir)
+    tok_on = {r["id"]: r["generated"] for r in records
+              if r["kind"] == "request"}
+    steps = s_on["decode_steps"]
+    want = {"paged_decode_attention": layers * steps,
+            "fused_residual_norm": (2 * layers - 1) * steps}
+    files = _parsed_run_dir(run_dir)
+    (final,) = [{k: v for k, v in r.items() if k != "kind"}
+                for r in records if r["kind"] == "serve_summary"]
+    proc = subprocess.run(
+        [sys.executable, "-m", "tpu_hc_bench_torch.obs", "summarize",
+         run_dir], cwd=root, capture_output=True, text=True, timeout=300)
+    serve_lines = slo.slo_lines(slo.fold_serve_records(records))
+    budget = engine.compile_record.get("hbm_budget") or {}
+    card_bytes = torch.cuda.mem_get_info()[1]
+    hbm_lines = [ln for ln in lines if "hbm budget" in ln]
+    rec = {"phase": "slice12", "part": "a_obs_off_on",
+           "tokens_equal": tok_on == tok_off, "launches": c_on,
+           "launches_off": c_off, "expected": want,
+           "decode_steps": [s_off["decode_steps"], steps],
+           "wall_s_real": [w_off, w_on],
+           "tokens_per_s_real": [s_off["tokens"] / w_off,
+                                 s_on["tokens"] / w_on],
+           "obs_host_s": {"off": obs_off, "on": obs_on},
+           "obs_host_ms_per_decode_step": {
+               "off": 1e3 * sum(obs_off.values()) / max(1, steps),
+               "on": 1e3 * sum(obs_on.values()) / max(1, steps)},
+           "files": files, "summarize_rc": proc.returncode,
+           "summary_equal": final == json.loads(json.dumps(s_on)),
+           "hbm_lines": hbm_lines, "hbm_budget_bytes":
+               budget.get("budget_bytes"), "card_bytes": card_bytes,
+           "measured": budget.get("measured"),
+           "decode_peak_bytes": s_on["decode_peak_bytes"],
+           "signals_fired": s_on["signals_fired"],
+           "kernel_library": engine.compile_record["kernel_library"],
+           "nvidia_smi": smi,
+           **{k: s_on[k] for k in SERVE2_KEYS}}
+    emit(rec)
+    missing = [ln for ln in serve_lines if ln not in proc.stdout]
+    if not (rec["tokens_equal"] and c_on == c_off == {
+                **dict.fromkeys(c_on, 0), **want}
+            and s_off["decode_steps"] == steps > 0
+            and s_on["completed"] == 16 and rec["summary_equal"]
+            and {"manifest.json", "metrics.jsonl", "metrics.0.jsonl",
+                 "spans.0.jsonl"} <= set(files)
+            and ("signals.jsonl" in files) == bool(s_on["signals_fired"])
+            and proc.returncode == 0 and not missing
+            and budget.get("budget_bytes") == card_bytes
+            and (budget.get("measured") or {}).get("total_bytes", 0) > 0
+            and len(hbm_lines) == 1
+            and hbm_lines[0].startswith("hbm budget: measured peak")):
+        raise AssertionError(f"phase 20 (a) failed: {rec}, summarize "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}, "
+                             f"missing {missing}")
+
+    # (c) a SIGTERM drain into the metrics dir
+    drain_dir = str(base / "c")
+    engine.cfg = dataclasses.replace(
+        cfg, metrics_dir=drain_dir,
+        serve_faults=f"sigterm@{SLICE12_SIGTERM_S}")
+    writer = cli.serve_writer(engine.cfg, drain_dir)
+    _zero_counts()
+    summary = cli.run_serve(engine, requests, writer,
+                            clock=VirtualClock(SERVE2_VCOSTS))
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    files = _parsed_run_dir(drain_dir)
+    journal = str(Path(drain_dir) / "serve_journal.json")
+    steps = summary["decode_steps"]
+    rec = {"phase": "slice12", "part": "c_sigterm_drain",
+           "drained": summary.get("drained"), "completed":
+               summary["completed"], "decode_steps": steps,
+           "files": files, "writer_closed": not writer.enabled,
+           "launches": counts, "nvidia_smi": smi}
+    emit(rec)
+    engine.cfg = cfg
+    drained = summary.get("drained") or {}
+    if not (drained.get("journal") == journal
+            and summary["completed"] + drained.get("unfinished", 0) == 16
+            and drained.get("unfinished", 0) > 0
+            and {"serve_journal.json", "timeline_dump.json",
+                 "metrics.jsonl", "spans.0.jsonl"} <= set(files)
+            and rec["writer_closed"]
+            and counts["paged_decode_attention"] == layers * steps
+            and counts["fused_residual_norm"] == (2 * layers - 1) * steps):
+        raise AssertionError(f"phase 20 (c) failed: {rec}")
+    del engine
+    torch.cuda.empty_cache()
+    return total
+
+
+def slice12_classify(torch, smi) -> dict:
+    """Phase 20 (b): resnet50 classify requests with ``--metrics_dir``;
+    returns the launches (all 0)."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.obs import metrics as obs_metrics
+    from tpu_hc_bench_torch.obs import timeline
+    from tpu_hc_bench_torch.serve import cli
+
+    run_dir = str(Path(__file__).resolve().parent / "build" / "slice12"
+                  / "b")
+    cfg = flags.parse_flags(["--model=resnet50", *SLICE11_SERVE_TRACE,
+                             f"--metrics_dir={run_dir}"])
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    try:
+        engine, requests = cli.build_engine_and_requests(
+            cfg, lambda m: print(m, file=sys.stderr, flush=True))
+        writer = cli.serve_writer(cfg, run_dir)
+        _zero_counts()
+        summary = cli.run_serve(engine, requests, writer)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+    finally:
+        torch.backends.cudnn.benchmark = bench
+    files = _parsed_run_dir(run_dir)
+    _, records = obs_metrics.read_run(run_dir)
+    spans = [s["name"] for s in timeline.read_spans(run_dir)[0]]
+    rec = {"phase": "slice12", "part": "b_classify_resnet50",
+           "files": files, "launches": counts,
+           "request_records": sum(r["kind"] == "request" for r in records),
+           "classify_spans": spans.count("classify"),
+           "classify_steps": summary["classify_steps"],
+           "p99_e2e_ms": summary["p99_e2e_ms"],
+           "completed": summary["completed"], "nvidia_smi": smi}
+    emit(rec)
+    del engine
+    torch.cuda.empty_cache()
+    if not (summary["completed"] == rec["request_records"] == 32
+            and rec["classify_spans"] == summary["classify_steps"] > 0
+            and not any(counts.values())
+            and {"manifest.json", "metrics.jsonl", "metrics.0.jsonl",
+                 "spans.0.jsonl"} <= set(files)):
+        raise AssertionError(f"phase 20 (b) failed: {rec}")
+    return counts
+
+
+def slice12_accum(torch, smi) -> dict:
+    """Phase 20 (d): gpt2_moe under ``--accum_dtype=bf16`` at phase 17
+    (d)'s settings, every count zeroed just before and read just after.
+    Each optimizer step is measured where it runs: the allocation
+    before and after it and its peak, so the run's peak is the largest
+    of the peaks read before each reset; returns the launches."""
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    seen: list[dict] = []
+    peaks: list[int] = []
+    apply = step_mod.apply_bf16_grads
+
+    def measured(opt, params, grads):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        peaks.append(torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        f32_bytes = 4 * sum(p.numel() for p in params)
+        apply(opt, params, grads)
+        torch.cuda.synchronize()
+        seen.append({"before": before, "after": torch.cuda.memory_allocated(),
+                     "peak": torch.cuda.max_memory_allocated(),
+                     "f32_param_bytes": f32_bytes})
+
+    argv = _slice9_argv("ib", SLICE9_MOE_BATCH, "gpt2_moe",
+                        SLICE12_ACCUM_STEPS,
+                        f"--gradient_accumulation_steps={SLICE9_ACCUM}",
+                        "--accum_dtype=bf16")
+    expect = _slice9_expect(12, SLICE9_ACCUM * sum(SLICE12_ACCUM_STEPS),
+                            False)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step_mod.apply_bf16_grads = measured
+    _zero_counts()
+    try:
+        rc, res = _launch(argv)
+    finally:
+        step_mod.apply_bf16_grads = apply
+    counts = _read_counts()
+    peaks.append(torch.cuda.max_memory_allocated())
+    # what a step holds beyond the allocation it starts and ends with:
+    # the first step also creates the float32 momentum trace, which it
+    # keeps (in ``after``), so it is not counted against the step
+    added = max(s["peak"] - max(s["before"], s["after"]) for s in seen)
+    f32_bytes = seen[0]["f32_param_bytes"] if seen else 0
+    rec = {"phase": "slice12", "part": "d_accum_bf16", "argv": argv,
+           "rc": rc, "launches": counts, "expected_launches": expect,
+           "optimizer_steps": len(seen),
+           "steps_gb": [{k: v / 1e9 for k, v in st.items()} for st in seen],
+           "run_peak_gb": max(peaks) / 1e9,
+           "step_added_gb": added / 1e9,
+           "f32_gradient_tree_gb": f32_bytes / 1e9,
+           "step_share_limit": SLICE12_STEP_SHARE,
+           "final_loss": res.get("final_loss"),
+           "sequences_per_sec": res.get("total_images_per_sec"),
+           "extra": res.get("extra"), "nvidia_smi": smi}
+    emit(rec)
+    if not (rc == 0 and len(seen) == sum(SLICE12_ACCUM_STEPS)
+            and all(counts[k] == expect.get(k, 0) for k in counts)
+            and added < SLICE12_STEP_SHARE * f32_bytes
+            and math.isfinite(res["final_loss"])):
+        raise AssertionError(f"phase 20 (d) failed: {rec}")
+    return counts
+
+
+def phase_slice12_rest(torch, smi, total: dict) -> dict:
+    """Phase 20 (b) and (d), after phase 4's model is gone; ``total``
+    holds (a) and (c)'s launches (``slice12_serve``), and the sum over
+    (a)-(d) is returned."""
+    for counts in (slice12_classify(torch, smi), slice12_accum(torch, smi)):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    emit({"phase": "slice12", "part": "e_launches", "launches": total,
+          "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
     p = argparse.ArgumentParser(description="Smoke run of the port on "
                                 "the GPUs of this machine.")
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
-                                      "serve2", "slice9", "zoo", "slice11"),
+                                      "serve2", "slice9", "zoo", "slice11",
+                                      "slice12"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -3882,7 +4247,8 @@ def main(argv: list[str] | None = None) -> int:
                         "phase 16 alone (beside phase 4's run); slice9: "
                         "the build, then phase 17 alone; zoo: the build, "
                         "phase 8 at ViT's shapes, then phase 18; slice11: "
-                        "the build, then phase 19 alone")
+                        "the build, then phase 19 alone; slice12: the "
+                        "build, phase 4, then phase 20")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -3990,6 +4356,19 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice12":
+        model, _ = create_model("llama_1b", device=dev, seed=0)
+        phase_serve(torch, model)
+        total = slice12_serve(torch, smi, model)
+        del model
+        torch.cuda.empty_cache()
+        phase_slice12_rest(torch, smi, total)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice9":
         phase_slice9(torch, dev, smi)
         print(smi, flush=True)
@@ -4048,6 +4427,12 @@ def main(argv: list[str] | None = None) -> int:
     zoo_launches = phase_zoo(torch, dev, smi)
     torch.cuda.empty_cache()
     slice11_launches = phase_slice11(torch, dev, smi)
+    torch.cuda.empty_cache()
+    model, _ = create_model("llama_1b", device=dev, seed=0)
+    slice12_launches = slice12_serve(torch, smi, model)
+    del model
+    torch.cuda.empty_cache()
+    slice12_launches = phase_slice12_rest(torch, smi, slice12_launches)
 
     sources = {
         "paged_decode_attention": (
@@ -4097,7 +4482,8 @@ def main(argv: list[str] | None = None) -> int:
                       "serve2_launches": serve2_launches.get(name, 0),
                       "slice9_launches": slice9_launches.get(name, 0),
                       "zoo_launches": zoo_launches.get(name, 0),
-                      "slice11_launches": slice11_launches.get(name, 0)})
+                      "slice11_launches": slice11_launches.get(name, 0),
+                      "slice12_launches": slice12_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

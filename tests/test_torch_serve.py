@@ -346,7 +346,7 @@ def test_flags_defaults_and_rejections():
     with pytest.raises(ValueError, match="kv_reserve=lazy"):
         flags.parse_flags(["--prefix_cache=on"])
     with pytest.raises(ValueError, match="not ported"):
-        flags.parse_flags(["--metrics_dir=/tmp/x"])
+        flags.parse_flags(["--config=auto"])
     with pytest.raises(ValueError, match="decode_block_pages"):
         flags.parse_flags(["--decode_block_pages=2"])
     with pytest.raises(SystemExit):
@@ -382,8 +382,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
          "tpu_hc_bench_torch.serve.engine, tpu_hc_bench_torch.convert, "
          "tpu_hc_bench_torch.serve.decode, tpu_hc_bench_torch.serve.faults, "
          "tpu_hc_bench_torch.serve.prefix_cache, "
-         "tpu_hc_bench_torch.serve.kv, tpu_hc_bench_torch.serve.slo, "
+         "tpu_hc_bench_torch.serve.slo, "
+         "tpu_hc_bench_torch.obs, tpu_hc_bench_torch.obs.__main__, "
+         "tpu_hc_bench_torch.obs.fleet, tpu_hc_bench_torch.obs.kv, "
+         "tpu_hc_bench_torch.obs.memory, tpu_hc_bench_torch.obs.metrics, "
+         "tpu_hc_bench_torch.obs.requests, tpu_hc_bench_torch.obs.signals, "
+         "tpu_hc_bench_torch.obs.sketch, tpu_hc_bench_torch.obs.timeline, "
+         "tpu_hc_bench_torch.ops._build, "
          "tpu_hc_bench_torch.resilience.preempt, "
+         "tpu_hc_bench_torch.resilience.retry, "
          "tpu_hc_bench_torch.resilience.watchdog, "
          "tpu_hc_bench_torch.data.tokens; "
          "assert 'jax' not in sys.modules; "

@@ -214,6 +214,6 @@ def test_cli_serves_classify_requests():
                    "--arrival_rate=100"], print_fn=lines.append)
     assert rc == 0
     assert any("4/4 requests" in ln for ln in lines)
-    steps = [ln for ln in lines if "classify steps" in ln]
-    assert steps and "classify steps 0" not in steps[0]
+    steps = [ln for ln in lines if "/ classify " in ln]
+    assert steps and not steps[0].endswith("/ classify 0")
     assert not any("decode arm:" in ln for ln in lines)

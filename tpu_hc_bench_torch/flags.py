@@ -29,10 +29,7 @@ import argparse
 import dataclasses
 
 # serving knobs of the JAX lane that this port does not carry yet
-LATER_SLICE_FLAGS = (
-    "metrics_dir", "compile_cache", "hbm_budget", "flight_recorder",
-    "config",
-)
+LATER_SLICE_FLAGS = ("config",)
 
 
 def parse_serve_buckets(spec: str, max_in_flight: int) -> tuple[int, ...]:
@@ -119,6 +116,23 @@ class ServeConfig:
                                               # (<data_dir>/train.bin);
                                               # None = synthetic prompts
     num_classes: int = 1000                   # classify members' labels
+    metrics_dir: str | None = None            # manifest.json +
+                                              # metrics.jsonl, heartbeats
+                                              # metrics.0.jsonl, spans,
+                                              # signals.jsonl, the drain
+                                              # journal (obs.metrics)
+    flight_recorder: str = "on"               # on|off: the span ring
+                                              # (obs.timeline); with
+                                              # --metrics_dir spans.0.jsonl
+    hbm_budget: str | None = None             # bytes (KB/MB/GB/TB) or
+                                              # auto (the card's memory):
+                                              # the warmed ladder's
+                                              # measured peak is checked
+                                              # before traffic
+    compile_cache: str | None = None          # the kernel build directory
+                                              # (default build/
+                                              # torch_kernels); off =
+                                              # rebuild, stamp unread
 
     def resolve(self) -> "ServeConfig":
         """Validate (the JAX serving matrix, for the ported knobs)."""
@@ -215,7 +229,15 @@ class ServeConfig:
                 resolve_timeout)
 
             resolve_timeout(self.serve_step_timeout_s)
+        if self.flight_recorder not in ("on", "off"):
+            raise ValueError(
+                f"--flight_recorder must be on|off: "
+                f"{self.flight_recorder!r}")
         parse_serve_buckets(self.serve_buckets, self.max_in_flight)
+        if self.hbm_budget is not None:
+            from tpu_hc_bench_torch.obs.memory import parse_hbm_budget
+
+            parse_hbm_budget(self.hbm_budget)       # loud format check
         return self
 
     def summary_lines(self) -> list[str]:
@@ -254,6 +276,15 @@ class ServeConfig:
                    if self.serve_step_timeout_s else ""))
         if self.data_dir is not None:
             lines.append(f"prompts from {self.data_dir}")
+        if (self.metrics_dir or self.hbm_budget or self.compile_cache
+                or self.flight_recorder != "on"):
+            lines.append(
+                f"metrics_dir={self.metrics_dir} "
+                f"flight_recorder={self.flight_recorder}"
+                + (f" hbm_budget={self.hbm_budget}"
+                   if self.hbm_budget else "")
+                + (f" compile_cache={self.compile_cache}"
+                   if self.compile_cache else ""))
         return lines
 
 
@@ -263,11 +294,12 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m tpu_hc_bench_torch serve",
         description="Serve a decoder with continuous batching over a "
                     "paged KV pool (PyTorch/CUDA port).")
+    choices = {"flight_recorder": ["on", "off"]}
     for f in dataclasses.fields(ServeConfig):
         default = getattr(d, f.name)
         p.add_argument(f"--{f.name}",
                        type=str if default is None else type(default),
-                       default=default)
+                       default=default, choices=choices.get(f.name))
     for name in LATER_SLICE_FLAGS:
         p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     return p

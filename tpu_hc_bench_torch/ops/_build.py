@@ -13,6 +13,11 @@ the sources and flags differs from the one stamped beside the library.
 Processes that build at once (the workers of one host) take turns on a
 lock file in the build directory: the first compiles, the others find
 its stamp.
+
+``configure`` points the build elsewhere before the first load (the
+serving lane's ``--compile_cache=DIR``; ``off`` rebuilds without
+reading the stamp), and ``library_record`` says how this process got
+its library: built or loaded, in how many seconds, from where.
 """
 
 from __future__ import annotations
@@ -32,13 +37,18 @@ from typing import Callable
 import torch
 
 __all__ = ["pad_up", "load_library", "check", "build_stamped", "stream_ptr",
-           "BUILD_DIR"]
+           "BUILD_DIR", "configure", "library_record"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 _LIB_NAME = "libthb_kernels.so"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# this process's build directory, whether the stamp is read, the
+# compiles run so far and how the library was obtained
+_STATE: dict = {"build_dir": BUILD_DIR, "reuse": True, "builds": 0,
+                "record": None}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -140,18 +150,43 @@ def _locked(build_dir: Path):
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
+def configure(spec: str | os.PathLike) -> Path:
+    """``--compile_cache``: ``off`` rebuilds into the default directory
+    without reading its stamp; anything else is the build directory.
+    Only before this process first loads the library (pointing at the
+    directory it loaded from again is a no-op)."""
+    reuse = str(spec).strip().lower() not in ("off", "none", "0", "")
+    build_dir = Path(spec).resolve() if reuse else BUILD_DIR
+    if _STATE["record"] is not None and (
+            build_dir != _STATE["build_dir"] or reuse != _STATE["reuse"]):
+        raise RuntimeError(
+            f"--compile_cache={spec}: the kernel library is already "
+            f"loaded from {_STATE['build_dir']} in this process")
+    _STATE.update(build_dir=build_dir, reuse=reuse)
+    return build_dir
+
+
+def library_record() -> dict | None:
+    """How this process obtained the kernel library: ``{"build_dir",
+    "built", "seconds", "builds"}``, or None before the first load (a
+    run on the CPU never loads it)."""
+    rec = _STATE["record"]
+    return None if rec is None else {**rec, "builds": _STATE["builds"]}
+
+
 def build_stamped(lib: Path, digest: str,
-                  make: Callable[[Path, Path], tuple[float, str]]
-                  ) -> tuple[float, str]:
+                  make: Callable[[Path, Path], tuple[float, str]],
+                  reuse: bool = True) -> tuple[float, str]:
     """Run ``make(lib, stamp)`` under the build directory's lock unless
     the stamp beside ``lib`` already holds ``digest`` (checked again
     under the lock: another process may have built it meanwhile);
     returns what ``make`` returns, or ``(0.0, "")`` when nothing was
-    built.  ``make`` replaces the library, then writes the stamp."""
+    built.  ``make`` replaces the library, then writes the stamp;
+    ``reuse`` False builds whatever the stamp says."""
     stamp = lib.with_name(lib.name + ".sha256")
 
     def current() -> bool:
-        return lib.exists() and stamp.exists() and \
+        return reuse and lib.exists() and stamp.exists() and \
             stamp.read_text() == digest
 
     if current():
@@ -162,14 +197,17 @@ def build_stamped(lib: Path, digest: str,
         return make(lib, stamp)
 
 
-def build(build_dir: Path = BUILD_DIR) -> tuple[Path, float, str]:
+def build(build_dir: Path | None = None) -> tuple[Path, float, str]:
     """Compile the sources into the shared library when the stamped hash
-    differs; returns ``(library path, seconds spent, compiler log)``."""
+    differs; returns ``(library path, seconds spent, compiler log)``.
+    ``build_dir`` defaults to this process's (``configure``)."""
+    reuse = build_dir is not None or _STATE["reuse"]
+    build_dir = Path(build_dir or _STATE["build_dir"])
     lib = build_dir / _LIB_NAME
     digest = source_hash()
     return lib, *build_stamped(
         lib, digest, lambda lib, stamp: _compile(build_dir, lib, stamp,
-                                                 digest))
+                                                 digest), reuse=reuse)
 
 
 def _compile(build_dir: Path, lib: Path, stamp: Path,
@@ -202,6 +240,7 @@ def _compile(build_dir: Path, lib: Path, stamp: Path,
         raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
     os.replace(tmp, lib)
     stamp.write_text(digest)
+    _STATE["builds"] += 1
     return time.perf_counter() - t0, "\n".join(log)
 
 
@@ -209,12 +248,16 @@ def _compile(build_dir: Path, lib: Path, stamp: Path,
 def load_library() -> ctypes.CDLL:
     """The built library with every entry's ``argtypes``/``restype`` set
     (built first if needed; once per process)."""
-    path, _, _ = build()
+    t0 = time.perf_counter()
+    path, build_s, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    _STATE["record"] = {"build_dir": str(path.parent),
+                        "built": build_s > 0,
+                        "seconds": time.perf_counter() - t0}
     return lib
 
 

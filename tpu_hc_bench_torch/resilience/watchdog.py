@@ -19,7 +19,7 @@ import os
 import sys
 import threading
 import time
-from typing import Callable
+from typing import Any, Callable
 
 from tpu_hc_bench_torch.resilience import EXIT_WATCHDOG
 
@@ -65,16 +65,26 @@ class Watchdog:
 
     ``progress_fn`` returns the ``time.perf_counter`` instant of the last
     completed iteration, or None before the first (the arming instant
-    stands in).  ``on_timeout(age_s)`` replaces ``os._exit``.
+    stands in).  ``on_timeout(age_s)`` replaces ``os._exit``.  On a
+    metrics run the firing path also prints ``last_record_fn()`` (the
+    stream's newest record), runs ``forensics_fn`` (the flight
+    recorder's and memory dumps; bounded, best-effort) and writes a
+    ``watchdog_dump`` record into ``obs_writer`` before closing it.
     """
 
     def __init__(self, timeout_s: float,
                  progress_fn: Callable[[], float | None],
                  on_timeout: Callable[[float], None] | None = None,
-                 poll_s: float | None = None):
+                 poll_s: float | None = None,
+                 last_record_fn: Callable[[], Any] | None = None,
+                 obs_writer: Any = None,
+                 forensics_fn: Callable[[], Any] | None = None):
         self.timeout_s = float(timeout_s)
         self._progress = progress_fn
         self._on_timeout = on_timeout
+        self._last_record = last_record_fn
+        self._obs = obs_writer
+        self._forensics = forensics_fn
         self._poll_s = poll_s or max(0.05, min(5.0, self.timeout_s / 4))
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
@@ -114,6 +124,32 @@ class Watchdog:
             faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
         except Exception:
             pass
+        if self._last_record is not None:
+            try:
+                rec = self._last_record()
+                if rec is not None:
+                    sys.stderr.write(f"watchdog: last metrics record: "
+                                     f"{rec}\n")
+            except Exception:
+                pass
+        if self._forensics is not None:
+            # a daemon thread with a capped join: the abort stays
+            # guaranteed even when the probe hangs on the wedged runtime
+            try:
+                t = threading.Thread(target=self._forensics,
+                                     name="tpu-hc-bench-torch-forensics",
+                                     daemon=True)
+                t.start()
+                t.join(timeout=10.0)
+            except Exception:
+                pass
+        if self._obs is not None:
+            try:
+                self._obs.event("watchdog_dump", age_s=age,
+                                timeout_s=self.timeout_s)
+                self._obs.close()
+            except Exception:
+                pass
         sys.stderr.flush()
         if self._on_timeout is not None:
             self._on_timeout(age)

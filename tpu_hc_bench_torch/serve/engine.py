@@ -40,20 +40,40 @@ program half), ported from the JAX package's ``serve/engine.py``:
    embeddings take integer ids; JAX's float example fails in Flax's
    ``Embed``).
 
+6. **Observability**, JAX's ``run`` wiring on the port's copies of
+   ``obs/``: one ``request`` record a completion (its conserved latency
+   components and queue-wait cause split), a ``serve`` record and a
+   ``kv_pool`` snapshot every ``_SERVE_RECORD_EVERY`` steps and a
+   terminal one, a ``latency_sketch`` window and one signal-engine
+   observation a cadence (``signals.jsonl``), the ``serve_clock``
+   anchor, the flight recorder's step spans and lifecycle instants,
+   the fleet heartbeat, and the final ``serve_summary`` and
+   ``serve_compile``.  Percentiles fold through run-lifetime sketches
+   (JAX's numbers bit for bit); raw records are kept to the freshest
+   ``_DONE_SAMPLE_CAP``.  The JAX lane's compile keys have the port's
+   counterparts: ``aot_decode_temp_bytes`` -> ``decode_peak_bytes``
+   (the allocator's peak over the warmed decode buckets, None on the
+   CPU), the XLA cache's entry counts -> ``kernel_library`` (the CUDA
+   library built or loaded, its seconds and directory,
+   ``--compile_cache``) and ``post_warmup_compiles`` ->
+   ``post_warmup_builds``.  ``--hbm_budget`` checks the warmed
+   ladder's measured peak before traffic.  The SIGTERM drain also drops
+   the flight recorder's ``timeline_dump.json`` on a metrics run.
+
 Timing goes through an injectable clock, so tests drive the closed loop
 in virtual time (``VirtualClock``).  On the GPU every step ends in
-``torch.cuda.synchronize()`` before its time is read.
+``torch.cuda.synchronize()`` before its time is read and its span
+closes.
 
 The MoE members (``gpt2_moe``, ``moe_tiny``) serve through the ragged
-dispatch (``serve.decode``).  Not ported yet: the obs writers
-(metrics stream, flight recorder, fleet heartbeat, latency sketches and
-signals).
+dispatch (``serve.decode``).
 """
 
 from __future__ import annotations
 
 import collections
 import dataclasses
+import os
 import time
 from typing import Callable
 
@@ -62,12 +82,27 @@ import torch
 
 from tpu_hc_bench_torch import resolve_device
 from tpu_hc_bench_torch.flags import ServeConfig, parse_serve_buckets
+from tpu_hc_bench_torch.obs import kv as kv_mod
+from tpu_hc_bench_torch.obs import memory as obs_memory
+from tpu_hc_bench_torch.obs import metrics as obs_metrics
+from tpu_hc_bench_torch.obs import requests as requests_mod
+from tpu_hc_bench_torch.obs import signals as signals_mod
+from tpu_hc_bench_torch.obs import sketch as sketch_mod
+from tpu_hc_bench_torch.obs import timeline as timeline_mod
+from tpu_hc_bench_torch.ops import _build
 from tpu_hc_bench_torch.resilience import preempt as preempt_mod
 from tpu_hc_bench_torch.resilience import watchdog as watchdog_mod
 from tpu_hc_bench_torch.serve import faults as faults_mod
-from tpu_hc_bench_torch.serve import kv as kv_mod
 from tpu_hc_bench_torch.serve import slo as slo_mod
 from tpu_hc_bench_torch.serve.arrivals import Request
+
+# serve records land every this-many engine steps (JAX's cadence)
+_SERVE_RECORD_EVERY = 16
+
+# raw request records kept for the folds that need rows (attribution,
+# burn-rate windows, the KV gap): the freshest N; the percentiles
+# stream through run-lifetime sketches instead
+_DONE_SAMPLE_CAP = 4096
 
 
 def ceil_pow2(n: int) -> int:
@@ -247,11 +282,6 @@ class VirtualClock:
         self.t += self.costs.get(kind, real_s)
 
 
-class _NullWriter:
-    def event(self, kind: str, **fields) -> None:
-        del kind, fields
-
-
 @dataclasses.dataclass
 class _InFlight:
     """Host-side bookkeeping for one admitted request."""
@@ -325,6 +355,8 @@ class ServeEngine:
         self.block_pages = cfg.decode_block_pages or 1
         if not self.decode_mode:
             _check_classify(cfg, self.spec)
+        if cfg.compile_cache:
+            _build.configure(cfg.compile_cache)
         if model is None:
             kw = (dict(seq_len=self.max_ctx) if self.decode_mode
                   else dict(num_classes=cfg.num_classes))
@@ -354,6 +386,7 @@ class ServeEngine:
             # a classify member allocates no pool: an explicit --kv_pages
             # does not fail its construction
             self._init_classify(print_fn)
+            self._finish_warmup(print_fn)
             return
         if self.num_pages < 1 + self.table_width:
             raise ValueError(
@@ -381,17 +414,21 @@ class ServeEngine:
 
         # --- warmup: every bucket once, writing only the trash page ---
         t0 = time.perf_counter()
-        self._warm()
+        self.memory_report = self._warm()
         self.warm_s = time.perf_counter() - t0
         self.warm_programs = (len(self.prefill_buckets)
                               + len(self.batch_buckets) + 1)
+        peak = (self.memory_report or {}).get("decode_peak_bytes")
         print_fn(f"serve decode arm: attention={self.decode_attention} "
                  f"quant={self.quant}"
                  + (f" block_pages={self.block_pages}"
-                    if self.decode_attention == "paged" else ""))
+                    if self.decode_attention == "paged" else "")
+                 + (f"; warmed decode ladder peak {peak / 2**20:.1f} MiB"
+                    if peak is not None else ""))
         print_fn(f"serve warmup: {len(self.prefill_buckets)} prefill + "
                  f"{len(self.batch_buckets)} decode bucket(s) run in "
                  f"{self.warm_s:.1f}s on {self.device}")
+        self._finish_warmup(print_fn)
 
     def _init_classify(self, print_fn) -> None:
         """The classify mode's one program a batch bucket (JAX
@@ -405,14 +442,50 @@ class ServeEngine:
                                                         self.spec)
         t0 = time.perf_counter()
         shape = tuple(self.spec.input_shape)
-        for b in self.batch_buckets:
-            self.classify_fn(self._tensor(np.zeros((b,) + shape,
-                                                   np.float32)))
+
+        def warm():
+            for b in self.batch_buckets:
+                self.classify_fn(self._tensor(np.zeros((b,) + shape,
+                                                       np.float32)))
+
+        self.memory_report = obs_memory.ladder_report(
+            self.device, [("classify", warm)])
         self._sync()
         self.warm_s = time.perf_counter() - t0
         self.warm_programs = len(self.batch_buckets)
         print_fn(f"serve classify: {self.warm_programs} bucket program(s) "
                  f"run in {self.warm_s:.1f}s on {self.device}")
+
+    def _finish_warmup(self, print_fn) -> None:
+        """The compile record (JAX's keys where they carry over, the
+        port's counterparts named in the module docstring) and the
+        ``--hbm_budget`` verdict, before traffic."""
+        lib = _build.library_record()
+        self.builds_after_warmup = (lib or {}).get("builds", 0)
+        self.compile_record = {
+            "buckets": self.warm_programs,
+            "warmup_s": round(self.warm_s, 3),
+            "cache_dir": lib["build_dir"] if lib else None,
+            "kernel_library": lib,
+            "warm": bool(lib) and not lib["built"],
+            "decode_attention": (self.decode_attention
+                                 if self.decode_mode else None),
+            "quant": self.quant,
+            "decode_block_pages": (
+                self.block_pages if self.decode_mode
+                and self.decode_attention == "paged" else None),
+            "decode_peak_bytes": (self.memory_report or {}).get(
+                "decode_peak_bytes"),
+        }
+        if self.cfg.hbm_budget is None:
+            return
+        budget_bytes, note = obs_memory.resolve_hbm_budget_bytes(
+            obs_memory.parse_hbm_budget(self.cfg.hbm_budget), self.device)
+        for ln in obs_memory.budget_lines(self.memory_report, budget_bytes,
+                                          note):
+            print_fn(ln)
+        self.compile_record["hbm_budget"] = {
+            "budget_bytes": budget_bytes, "measured": self.memory_report}
 
     def _classify_input(self, req: Request) -> np.ndarray:
         """Request ``rid``'s input, JAX's draw: float32, the spec's shape
@@ -424,50 +497,74 @@ class ServeEngine:
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _warm(self) -> None:
+    def _warm(self) -> dict | None:
+        """Every bucket once; returns the memory report (the allocator's
+        peak over the ladder and each kind's, None off the card)."""
         w = self.table_width
-        for s in self.prefill_buckets:
-            self.prefill_fn(self._kv, self._tensor(np.zeros((1, s),
-                                                            np.int32)),
-                            1, self._tensor(np.zeros((w,), np.int32)))
-        for b in self.batch_buckets:
-            self.decode_fn(self._kv, self._tensor(np.zeros((b,), np.int32)),
-                           self._tensor(np.zeros((b, w), np.int32)),
-                           self._tensor(np.zeros((b,), np.int32)),
-                           self._tensor(np.zeros((b,), bool)))
-        self.page_copy_fn(self._kv, 0, 0)
+
+        def prefill():
+            for s in self.prefill_buckets:
+                self.prefill_fn(self._kv,
+                                self._tensor(np.zeros((1, s), np.int32)),
+                                1, self._tensor(np.zeros((w,), np.int32)))
+
+        def decode():
+            for b in self.batch_buckets:
+                self.decode_fn(self._kv,
+                               self._tensor(np.zeros((b,), np.int32)),
+                               self._tensor(np.zeros((b, w), np.int32)),
+                               self._tensor(np.zeros((b,), np.int32)),
+                               self._tensor(np.zeros((b,), bool)))
+
+        report = obs_memory.ladder_report(self.device, [
+            ("prefill", prefill), ("decode", decode),
+            ("page_copy", lambda: self.page_copy_fn(self._kv, 0, 0))])
         self._sync()
+        return report
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
     def _timed(self, clock, kind: str, fn):
-        """``(fn(), engine-clock seconds the step took)``."""
+        """``(fn(), engine-clock seconds the step took)``; the step lands
+        in the flight recorder as a span of real wall, even under a
+        ``VirtualClock``."""
         c0 = clock.now()
+        m0 = time.monotonic()
         t0 = time.perf_counter()
         out = fn()
         self._sync()
         clock.charge(kind, time.perf_counter() - t0)
+        timeline_mod.record_span(kind, m0, time.monotonic())
         return out, clock.now() - c0
 
     def run(self, requests: list[Request], batching: str | None = None,
-            writer=None, clock=None, *, faults=None, shed=None,
+            writer=None, clock=None, fleet=None, *, faults=None, shed=None,
             deadline_ms=None, kv_preempt=None, kv_reserve=None,
             prefix_cache=None, journal_path=None, drain_handler=None,
             step_timeout_s=None, on_watchdog=None) -> dict:
         """Play a request trace; returns the serve summary record.
 
-        ``writer`` is any object with ``event(kind, **fields)``: it gets
-        one ``request`` record per completed request (the greedy tokens
-        under ``generated``), and ``shed``, ``quarantine``, ``preempt``
-        and ``injected_fault`` records.  The keyword-only knobs override
-        their config twins for this run, so one engine drives every arm.
-        A ``faults`` plan is consumed as it fires: pass a fresh
-        ``faults.parse_serve_plan`` result each run.  ``drain_handler``
-        (anything with ``requested()``) replaces the engine's own
-        SIGTERM/SIGINT handler; ``on_watchdog(age_s)`` replaces the
-        watchdog's ``os._exit``.
+        ``writer`` is an ``obs.metrics.MetricsWriter`` (or anything with
+        ``event(kind, **fields)``: tests pass taps).  It gets one
+        ``request`` record per completed request (the greedy tokens under
+        ``generated``), the ``shed``, ``quarantine``, ``preempt`` and
+        ``injected_fault`` records, ``serve_clock``, ``serve_summary``
+        and ``serve_compile``; an enabled writer also gets the periodic
+        ``serve``, ``kv_pool`` and ``latency_sketch`` records, and its
+        ``out_dir`` receives ``signals.jsonl``, the flight recorder's
+        spans and the drain journal.  ``fleet`` is an optional
+        ``obs.fleet.FleetWriter``: the engine heartbeats at the
+        serve-record cadence with the pool's high-water under
+        ``kv_peak_pages``.
+
+        The keyword-only knobs override their config twins for this run,
+        so one engine drives every arm.  A ``faults`` plan is consumed as
+        it fires: pass a fresh ``faults.parse_serve_plan`` result each
+        run.  ``drain_handler`` (anything with ``requested()``) replaces
+        the engine's own SIGTERM/SIGINT handler; ``on_watchdog(age_s)``
+        replaces the watchdog's ``os._exit``.
         """
         cfg = self.cfg
         batching = batching or cfg.batching
@@ -519,7 +616,13 @@ class ServeEngine:
         # the step's logits back to the host (with both off, an injected
         # NaN flows through: the faults A/B's control arm)
         guard = shed != "off" or kv_preempt == "on"
-        writer = writer or _NullWriter()
+        writer = writer or obs_metrics.MetricsWriter(None)
+        enabled = bool(getattr(writer, "enabled", False))
+        out_dir = getattr(writer, "out_dir", None)
+        # the flight recorder: --flight_recorder, and on metrics runs
+        # this process's spans beside the stream
+        timeline_mod.configure(enabled=cfg.flight_recorder != "off",
+                               run_dir=out_dir)
         clock = clock or MonotonicClock()
         allocator = PageAllocator(self.num_pages) if decode else None
         ledger = KVLedger(self.page_size) if decode else None
@@ -528,13 +631,22 @@ class ServeEngine:
             from tpu_hc_bench_torch.serve import prefix_cache as prefix_mod
 
             cache = prefix_mod.PrefixCache(allocator, self.page_size)
-        counts = {"grown": 0, "hits": 0, "lookups": 0, "shared": 0,
-                  "tokens": 0}
+        pages_grown_total = 0
+        prefix_hits = 0
+        prefix_lookups = 0
+        prefix_shared_total = 0
+        # queue-wait cause split: rid -> seconds blocked on
+        # [pool_starved, batch_full] while queued
+        wait_causes: dict[int, list[float]] = {}
         degrade: dict = {"shed": {}, "preempts": 0, "requeues": 0,
                          "quarantined": 0}
         # a preempted victim's carry: rid -> its generated prefix and
         # first-residency instants, so its record spans both residencies
         carry: dict[int, dict] = {}
+        finished = 0
+        service_ewma_s: float | None = None
+        squeezed_seen = 0
+        drained: dict | None = None
         pending = sorted(requests, key=lambda r: (r.arrival_s, r.rid))
         n = len(pending)
         over = [r for r in pending
@@ -550,19 +662,119 @@ class ServeEngine:
         kv = self._kv if decode else None
         queue: collections.deque[Request] = collections.deque()
         active: list[_InFlight] = []
-        done: list[dict] = []
-        state = {"finished": 0, "service_ewma_s": None, "idx": 0,
-                 "squeezed": 0}
+        done: collections.deque[dict] = collections.deque(
+            maxlen=_DONE_SAMPLE_CAP)
+        completed_ok = 0
+        run_sk = {f: sketch_mod.QuantileSketch()
+                  for f in slo_mod.LATENCY_FIELDS}
+        win_sk = {f: sketch_mod.QuantileSketch()
+                  for f in slo_mod.LATENCY_FIELDS}
+        win_idx = 0
+        win_t0 = 0.0
+        last_productive = 0.0
+        win_stats: dict = {"n": 0, "viol": 0, "blocked": [0.0, 0.0]}
+        # live health signals: one observation a record window, events
+        # appended to signals.jsonl; the e2e target is the deadline (or
+        # SLO) when set
+        sig_engine = signals_mod.SignalEngine()
+        sig_target_ms = deadline_ms or cfg.slo_e2e_ms or None
+        signals_file = (signals_mod.signals_path(out_dir)
+                        if enabled and out_dir else None)
+        idx = 0
         steps = {"prefill": 0, "decode": 0, "classify": 0}
-        drained: dict | None = None
+        tokens_out = 0
+        productive_s = 0.0
+        queue_depths: list[int] = []
+        # per-(kind, bucket) utilization: key -> [steps, rows, active
+        # rows, wall s]
+        butil: dict[str, list] = {}
         t0 = clock.now()
+        last_record_step = 0
+        # the request lanes' anchor: engine-relative instants placed on
+        # the wall by `obs timeline`
+        writer.event("serve_clock", t_unix=time.time(),
+                     t_mono=time.monotonic(), batching=batching)
 
         def now() -> float:
             return clock.now() - t0
 
+        def flush_window() -> None:
+            """Close one sketch/signal window: land the window's delta
+            sketches and feed the signal engine one observation."""
+            nonlocal win_idx, win_t0, last_productive
+            t = now()
+            if enabled and any(sk.count for sk in win_sk.values()):
+                writer.event(
+                    "latency_sketch", t=round(t, 4), window=win_idx,
+                    fields={f: sk.to_record()
+                            for f, sk in win_sk.items() if sk.count})
+            measures: dict = {}
+            causes: dict = {}
+            if sig_target_ms and win_stats["n"]:
+                measures["SUSTAINED_OVERLOAD"] = (win_stats["viol"]
+                                                  / win_stats["n"])
+                causes["SUSTAINED_OVERLOAD"] = {
+                    "violations": win_stats["viol"],
+                    "completed": win_stats["n"],
+                    "target_ms": sig_target_ms}
+            blk = win_stats["blocked"]
+            if blk[0] + blk[1] > 1e-9:
+                measures["KV_PRESSURE"] = blk[0] / (blk[0] + blk[1])
+                causes["KV_PRESSURE"] = {
+                    "pool_starved_s": round(blk[0], 4),
+                    "batch_full_s": round(blk[1], 4),
+                    "queued": len(queue),
+                    "free_pages": (allocator.free_pages
+                                   if allocator else None)}
+            dt_win = t - win_t0
+            if dt_win > 1e-9 and (queue or active):
+                # goodput only means collapse while a backlog exists
+                gw = (productive_s - last_productive) / dt_win
+                measures["GOODPUT_COLLAPSE"] = gw
+                causes["GOODPUT_COLLAPSE"] = {
+                    "window_goodput": round(gw, 4),
+                    "queued": len(queue), "in_flight": len(active)}
+            events = sig_engine.observe(round(t, 4), measures, causes)
+            if events and signals_file:
+                signals_mod.append_events(signals_file, events)
+            for f in list(win_sk):
+                win_sk[f] = sketch_mod.QuantileSketch()
+            win_stats["n"] = win_stats["viol"] = 0
+            win_stats["blocked"] = [0.0, 0.0]
+            win_t0 = t
+            last_productive = productive_s
+            win_idx += 1
+
+        def kv_pool_event() -> None:
+            """One pool-ledger snapshot (the periodic cadence and the
+            terminal flush share it): host counters, no device reads."""
+            writer.event(
+                "kv_pool", t=round(now(), 4),
+                pages_reserved=ledger.reserved_now,
+                pages_written=ledger.written_now,
+                free_pages=allocator.free_pages,
+                pages_peak=allocator.pages_peak,
+                pages_recycled=allocator.recycled,
+                reserved_page_s=round(ledger.reserved_page_s, 6),
+                written_page_s=round(ledger.written_page_s, 6),
+                pages_grown=pages_grown_total,
+                pages_cow=allocator.cow_copies,
+                prefix_hits=prefix_hits,
+                prefix_lookups=prefix_lookups,
+                prefix_pages_shared=prefix_shared_total)
+
+        def bucket_acct(kind: str, bucket: int, active_rows: int,
+                        dt: float) -> None:
+            u = butil.setdefault(f"{kind}@{bucket}", [0, 0, 0, 0.0])
+            u[0] += 1
+            u[1] += bucket
+            u[2] += active_rows
+            u[3] += dt
+
         def finish(fl: _InFlight, t_done: float, status: str = "ok",
                    cause: str | None = None) -> None:
-            state["finished"] += 1
+            nonlocal finished, service_ewma_s, completed_ok
+            finished += 1
             rec = {
                 "id": fl.req.rid,
                 "status": status,
@@ -580,12 +792,15 @@ class ServeEngine:
                 rec["preempts"] = fl.preempts
             # a classify request has no prompt pass: its resident window
             # is the decode lane's (t_first := t_admit)
-            rec.update(slo_mod.components_ms(
+            rec.update(requests_mod.components_ms(
                 fl.req.arrival_s, fl.t_admit,
                 (fl.t_first if decode and fl.t_first is not None
                  else fl.t_admit),
                 fl.t_last if fl.t_last is not None else t_done,
                 t_done, fl.active_s))
+            causes = wait_causes.pop(fl.req.rid, None) or [0.0, 0.0]
+            rec["queue_pool_starved_ms"] = round(1e3 * causes[0], 3)
+            rec["queue_batch_full_ms"] = round(1e3 * causes[1], 3)
             if decode:
                 rec["generated"] = list(fl.out_tokens)
                 final_pages = ledger.retire(len(fl.pages), fl.length)
@@ -600,31 +815,48 @@ class ServeEngine:
                     # done of never-preempted requests only (a requeued
                     # request's span holds its requeue wait)
                     svc = t_done - fl.t_admit
-                    ewma = state["service_ewma_s"]
-                    state["service_ewma_s"] = (
-                        svc if ewma is None else 0.7 * ewma + 0.3 * svc)
+                    service_ewma_s = (svc if service_ewma_s is None
+                                      else 0.7 * service_ewma_s + 0.3 * svc)
+                completed_ok += 1
+                for f in slo_mod.LATENCY_FIELDS:
+                    v = rec.get(f)
+                    if isinstance(v, (int, float)):
+                        run_sk[f].add(float(v))
+                        win_sk[f].add(float(v))
+                win_stats["n"] += 1
+                if sig_target_ms and rec["e2e_ms"] > sig_target_ms:
+                    win_stats["viol"] += 1
                 done.append(rec)
                 writer.event("request", **rec)
             elif status == "shed":
                 degrade["shed"][cause] = degrade["shed"].get(cause, 0) + 1
                 writer.event("shed", **rec)
+                timeline_mod.instant("shed", rid=fl.req.rid, cause=cause)
             else:
                 degrade["quarantined"] += 1
                 writer.event("quarantine", **rec)
+                timeline_mod.instant("quarantine", rid=fl.req.rid,
+                                     cause=cause)
+            timeline_mod.instant("retire", rid=fl.req.rid)
             if decode:
                 allocator.free(fl.pages)
 
         def shed_queued(req: Request, cause: str, t: float) -> None:
             """Admission-time shed: terminal, with its cause."""
-            state["finished"] += 1
+            nonlocal finished
+            finished += 1
             degrade["shed"][cause] = degrade["shed"].get(cause, 0) + 1
+            causes = wait_causes.pop(req.rid, None) or [0.0, 0.0]
             c = carry.pop(req.rid, None)
             rec = {"id": req.rid, "status": "shed", "cause": cause,
                    "arrival_s": round(req.arrival_s, 6),
-                   "waited_ms": round(1e3 * (t - req.arrival_s), 3)}
+                   "waited_ms": round(1e3 * (t - req.arrival_s), 3),
+                   "queue_pool_starved_ms": round(1e3 * causes[0], 3),
+                   "queue_batch_full_ms": round(1e3 * causes[1], 3)}
             if c:
                 rec["preempts"] = c["preempts"]
             writer.event("shed", **rec)
+            timeline_mod.instant("shed", rid=req.rid, cause=cause)
 
         def free_now() -> int:
             """Free pages less any injected squeeze: admission's one
@@ -663,6 +895,8 @@ class ServeEngine:
             }
             queue.append(victim.req)
             degrade["preempts"] += 1
+            timeline_mod.instant("preempt", rid=victim.req.rid)
+            timeline_mod.instant("requeue", rid=victim.req.rid)
             writer.event("preempt", rid=victim.req.rid,
                          cause="pool_starved",
                          pages_freed=len(victim.pages),
@@ -671,7 +905,11 @@ class ServeEngine:
 
         def drain(t: float) -> dict:
             """SIGTERM drain: stop admitting, journal every resident,
-            queued and not-yet-arrived request (tmp, fsync, rename)."""
+            queued and not-yet-arrived request (tmp, fsync, rename); on
+            a metrics run the journal lands in the run directory and the
+            flight recorder's tail in ``timeline_dump.json``."""
+            timeline_mod.instant("drain", queued=len(queue),
+                                 in_flight=len(active))
             entries = []
             for fl in list(active):
                 entries.append(faults_mod.journal_entry(
@@ -689,15 +927,18 @@ class ServeEngine:
                     req, produced=len(pfx), prefix=list(pfx),
                     preempts=c["preempts"] if c else 0))
             queue.clear()
-            for req in pending[state["idx"]:]:
+            for req in pending[idx:]:
                 entries.append(faults_mod.journal_entry(req))
             path = (journal_path or cfg.serve_journal
-                    or faults_mod.JOURNAL_NAME)
+                    or os.path.join(out_dir or ".",
+                                    faults_mod.JOURNAL_NAME))
             faults_mod.write_journal(path, entries, model=cfg.model,
                                      seed=cfg.seed)
             writer.event("preempt", scope="drain", cause="sigterm",
                          t=round(t, 4), unfinished=len(entries),
                          journal=path)
+            timeline_mod.dump_timeline(out_dir, "serve_drain",
+                                       step=sum(steps.values()))
             self.print_fn(
                 f"serve drain: {len(entries)} unfinished request(s) "
                 f"journaled to {path} — relaunch with "
@@ -744,14 +985,16 @@ class ServeEngine:
             return ok
 
         def admit(req: Request) -> None:
-            nonlocal kv
+            nonlocal kv, tokens_out, productive_s
+            nonlocal prefix_hits, prefix_lookups, prefix_shared_total
             t_admit = now()
+            c = carry.pop(req.rid, None)
+            timeline_mod.instant("admit", rid=req.rid)
             if not decode:
                 active.append(_InFlight(req=req, pages=[],
                                         table=np.zeros(0, np.int32),
                                         t_admit=t_admit))
                 return
-            c = carry.pop(req.rid, None)
             prefix = c["prefix"] if c else []
             if c:
                 degrade["requeues"] += 1
@@ -759,12 +1002,12 @@ class ServeEngine:
             plen = int(len(feed))
             shared: list[int] = []
             if cache is not None:
-                counts["lookups"] += 1
+                prefix_lookups += 1
                 m = cache.match(feed)
                 if m.slots:
-                    counts["hits"] += 1
+                    prefix_hits += 1
                     shared = cache.acquire(m)
-                    counts["shared"] += len(shared)
+                    prefix_shared_total += len(shared)
             if kv_reserve == "lazy":
                 slots = min(self.table_width,
                             -(-plen // self.page_size) + headroom)
@@ -792,7 +1035,9 @@ class ServeEngine:
             tok = int(next_tok[0])
             steps["prefill"] += 1
             if not c:
-                counts["tokens"] += 1   # a re-prefill regenerates one
+                tokens_out += 1     # a re-prefill regenerates one
+            productive_s += dt * (plen / s)
+            bucket_acct("prefill", s, plen, dt)
             ledger.charge(dt)
             fl = _InFlight(
                 req=req, pages=pages, table=table, length=plen,
@@ -821,7 +1066,7 @@ class ServeEngine:
             """Make this step's append slot an exclusively owned page:
             grow a page at a boundary, copy a shared page on the first
             append into it.  False pauses the row this step."""
-            nonlocal kv
+            nonlocal kv, pages_grown_total
             slot = fl.length // self.page_size
             if slot >= len(fl.pages):
                 if free_now() < 1 and cache is not None:
@@ -833,7 +1078,7 @@ class ServeEngine:
                 fl.pages.append(grown[0])
                 ledger.grow(1)
                 fl.pages_grown += 1
-                counts["grown"] += 1
+                pages_grown_total += 1
                 return True
             page = fl.pages[slot]
             if allocator.refcount(page) == 1:
@@ -852,7 +1097,7 @@ class ServeEngine:
             return True
 
         def decode_step() -> bool:
-            nonlocal kv
+            nonlocal kv, tokens_out, productive_s
             if faults is not None:
                 hang_s = faults.hang_before_decode(steps["decode"] + 1)
                 if hang_s:
@@ -887,7 +1132,9 @@ class ServeEngine:
                                        self._tensor(lengths),
                                        self._tensor(mask)))
             steps["decode"] += 1
-            counts["tokens"] += len(sched)
+            tokens_out += len(sched)
+            productive_s += dt * (len(sched) / b)
+            bucket_acct("decode", b, len(sched), dt)
             ledger.charge(dt)
             next_toks = next_toks.cpu().numpy()
             ok = (finite_rows(logits, [fl.req.rid for fl in sched],
@@ -920,6 +1167,7 @@ class ServeEngine:
         def classify_step() -> None:
             """One forward of every resident request, padded to its batch
             bucket; each finishes with its answer."""
+            nonlocal tokens_out, productive_s
             b = pick_bucket(self.batch_buckets, len(active))
             x = np.zeros((b,) + tuple(self.spec.input_shape), np.float32)
             for i, fl in enumerate(active):
@@ -927,7 +1175,9 @@ class ServeEngine:
             _, dt = self._timed(clock, "classify",
                                 lambda: self.classify_fn(self._tensor(x)))
             steps["classify"] += 1
-            counts["tokens"] += len(active)
+            tokens_out += len(active)
+            productive_s += dt * (len(active) / b)
+            bucket_acct("classify", b, len(active), dt)
             t_done = now()
             for fl in active:
                 fl.t_first = t_done
@@ -948,28 +1198,44 @@ class ServeEngine:
             else cfg.serve_step_timeout_s,
             warmup_step_s=self.warm_s / self.warm_programs)
         last_iter_t: list = [None]
+
+        def watchdog_forensics() -> None:
+            # the flight recorder's tail and the live-tensor dump,
+            # best-effort by contract (both swallow their own failures)
+            timeline_mod.dump_timeline(out_dir, "serve_watchdog",
+                                       step=sum(steps.values()))
+            if out_dir:
+                obs_memory.dump_forensics(out_dir, "serve_watchdog",
+                                          device=self.device,
+                                          step=sum(steps.values()))
+
         dog = None
         if timeout_s:
             dog = watchdog_mod.Watchdog(
                 timeout_s, lambda: last_iter_t[0],
-                on_timeout=on_watchdog).start()
+                on_timeout=on_watchdog,
+                last_record_fn=lambda: getattr(writer, "last_record",
+                                               None),
+                obs_writer=writer if enabled else None,
+                forensics_fn=watchdog_forensics).start()
+
+        last_blocked: str | None = None
         try:
-            while state["finished"] < n:
+            while finished < n:
                 t = now()
-                while state["idx"] < n and \
-                        pending[state["idx"]].arrival_s <= t:
-                    queue.append(pending[state["idx"]])
-                    state["idx"] += 1
+                while idx < n and pending[idx].arrival_s <= t:
+                    queue.append(pending[idx])
+                    idx += 1
                 if faults is not None:
                     sq = faults.squeezed_pages(t)
-                    if sq != state["squeezed"]:
+                    if sq != squeezed_seen:
                         self.print_fn(
                             f"inject: pool_squeeze -> {sq} page(s) "
                             f"withheld at t={t:.3f}s")
                         writer.event("injected_fault",
                                      fault="pool_squeeze", pages=sq,
                                      t=round(t, 4))
-                        state["squeezed"] = sq
+                        squeezed_seen = sq
                     if faults.sigterm_due(t):
                         self.print_fn(f"inject: sigterm at t={t:.3f}s")
                         writer.event("injected_fault", fault="sigterm",
@@ -978,6 +1244,7 @@ class ServeEngine:
                 if handler is not None and handler.requested():
                     drained = drain(t)
                     break
+                queue_depths.append(len(queue))
                 progressed = False
                 if shed != "off":
                     # a request past its deadline decodes only dead
@@ -996,10 +1263,9 @@ class ServeEngine:
                 if batching == "continuous":
                     while queue and len(active) < self.cap:
                         head = queue[0]
-                        ewma = state["service_ewma_s"]
-                        if (shed == "deadline" and ewma is not None
-                                and (now() - head.arrival_s) + ewma
-                                > deadline_s):
+                        if (shed == "deadline" and service_ewma_s is not None
+                                and (now() - head.arrival_s)
+                                + service_ewma_s > deadline_s):
                             # queue wait plus the admit-to-done EWMA
                             # already blows the deadline
                             shed_queued(queue.popleft(),
@@ -1022,20 +1288,36 @@ class ServeEngine:
                 elif not active:
                     # static: wait for a full batch (or the trace tail),
                     # bounded by what the KV pool can hold
-                    want = min(self.cap, n - state["finished"])
+                    want = min(self.cap, n - finished)
                     if decode:
                         want = min(want, free_now() // self.table_width)
-                    if len(queue) >= want or state["idx"] == n:
+                    if len(queue) >= want or idx == n:
                         for _ in range(min(want, len(queue))):
                             admit(queue.popleft())
                             progressed = True
+                # admission forensics: name the resource the queue is
+                # blocked on (continuous: a full batch gates before a
+                # full pool; static: the batch policy always gates)
+                blocked_cause = None
+                if queue:
+                    if batching != "continuous" or len(active) >= self.cap:
+                        blocked_cause = "batch_full"
+                    elif decode and free_now() < need_pages(queue[0]):
+                        blocked_cause = "pool_starved"
+                if blocked_cause != last_blocked:
+                    # edge-triggered instants: bounded by transitions
+                    if blocked_cause is not None:
+                        timeline_mod.instant(blocked_cause,
+                                             queued=len(queue))
+                    last_blocked = blocked_cause
+                t_blocked = now()
                 if active and not decode:
                     classify_step()
                     progressed = True
                 elif active and decode_step():
                     progressed = True
                 if not progressed:
-                    if state["idx"] >= n:
+                    if idx >= n:
                         if shed == "off" or not queue:
                             raise RuntimeError(
                                 "serve engine stalled: no request can "
@@ -1048,34 +1330,85 @@ class ServeEngine:
                         nxt = min(r.arrival_s for r in queue) + deadline_s
                         clock.sleep(max(1e-4, nxt - now() + 1e-4))
                     else:
-                        gap = pending[state["idx"]].arrival_s - now()
+                        gap = pending[idx].arrival_s - now()
                         if timeout_s:
                             # an idle arrival gap is not a wedged step
                             gap = min(gap, timeout_s / 2)
                         clock.sleep(gap)
+                if blocked_cause is not None:
+                    # charge the elapsed step or sleep to the blocking
+                    # cause of every request that sat queued through it
+                    dt_blk = now() - t_blocked
+                    if dt_blk > 0:
+                        ci = 0 if blocked_cause == "pool_starved" else 1
+                        win_stats["blocked"][ci] += dt_blk
+                        for r in queue:
+                            wait_causes.setdefault(
+                                r.rid, [0.0, 0.0])[ci] += dt_blk
+                total_steps = sum(steps.values())
+                if total_steps - last_record_step >= _SERVE_RECORD_EVERY:
+                    last_record_step = total_steps
+                    if enabled:
+                        writer.event(
+                            "serve", t=round(now(), 4),
+                            queue_depth=len(queue),
+                            in_flight=len(active),
+                            free_pages=(allocator.free_pages
+                                        if allocator else None),
+                            tokens=tokens_out,
+                            bucket_occ={k: round(u[2] / u[1], 3)
+                                        for k, u in butil.items()
+                                        if u[1]},
+                            **{f"{k}_steps": v
+                               for k, v in steps.items()})
+                        if ledger is not None:
+                            kv_pool_event()
+                    if fleet is not None:
+                        fleet.heartbeat(
+                            step=total_steps,
+                            step_ewma_ms=1e3 * now() / max(1, total_steps),
+                            kv_peak_pages=(allocator.pages_peak
+                                           if allocator else None),
+                            phase="serve")
+                    flush_window()
                 last_iter_t[0] = time.perf_counter()
         finally:
             if dog is not None:
                 dog.stop()
             if own_handler is not None:
                 own_handler.uninstall()
+            timeline_mod.detach()   # flush the spans, close the file
 
-        wall = max(now(), 1e-9)
-        kv_fold = None
         if decode:
             self._kv = kv
+        wall = max(now(), 1e-9)
+        if ledger is not None and enabled:
+            # terminal snapshot: a run shorter than one record window
+            # still lands its page-second integrals
+            kv_pool_event()
+        if fleet is not None:
+            fleet.heartbeat(
+                step=sum(steps.values()),
+                step_ewma_ms=1e3 * wall / max(1, sum(steps.values())),
+                kv_peak_pages=(allocator.pages_peak if allocator else None),
+                phase="serve")
+        # the tail window lands its sketch and one final observation
+        flush_window()
+        fold = slo_mod.fold_sketches(run_sk)
+        attribution = requests_mod.fold_attribution(list(done))
+        kv_fold = None
+        if decode:
             kv_fold = kv_mod.fold_ledger(
                 reserved_page_s=ledger.reserved_page_s,
                 written_page_s=ledger.written_page_s,
                 pages_peak=allocator.pages_peak,
                 pages_recycled=allocator.recycled,
-                pages_grown=counts["grown"],
+                pages_grown=pages_grown_total,
                 cow_copies=allocator.cow_copies,
-                prefix_hits=counts["hits"],
-                prefix_lookups=counts["lookups"],
-                prefix_pages_shared=counts["shared"],
-                request_records=done)
-        shed_total = sum(degrade["shed"].values())
+                prefix_hits=prefix_hits,
+                prefix_lookups=prefix_lookups,
+                prefix_pages_shared=prefix_shared_total,
+                request_records=list(done))
         summary = {
             "workload": "serve",
             "model": cfg.model,
@@ -1084,10 +1417,14 @@ class ServeEngine:
             "arrival": cfg.arrival,
             "arrival_rate": cfg.arrival_rate,
             "requests": n,
-            "completed": len(done),
+            "completed": completed_ok,
             "wall_s": round(wall, 4),
-            "tokens": counts["tokens"],
-            "tokens_per_s": round(counts["tokens"] / wall, 3),
+            "tokens": tokens_out,
+            "tokens_per_s": round(tokens_out / wall, 3),
+            "goodput": round(productive_s / wall, 4),
+            "queue_depth_max": max(queue_depths, default=0),
+            "queue_depth_mean": round(
+                float(np.mean(queue_depths)) if queue_depths else 0.0, 3),
             "buckets": list(self.batch_buckets),
             "max_in_flight": self.cap,
             "kv_page_size": self.page_size,
@@ -1102,14 +1439,28 @@ class ServeEngine:
             "prefix_cache": prefix_cache if decode else None,
             "decode_attention": self.decode_attention if decode else None,
             "quant": self.quant,
-            "decode_block_pages": (self.block_pages
-                                   if decode
-                                   and self.decode_attention == "paged"
-                                   else None),
+            "decode_block_pages": self.compile_record["decode_block_pages"],
+            "decode_peak_bytes": self.compile_record["decode_peak_bytes"],
+            "attribution": attribution,
+            **requests_mod.flatten_attribution(attribution),
+            "bucket_util": {
+                k: {"steps": u[0], "rows": u[1], "active_rows": u[2],
+                    "wall_s": round(u[3], 4),
+                    "occupancy": round(u[2] / u[1], 4) if u[1] else 0.0}
+                for k, u in butil.items()},
             **{f"{k}_steps": v for k, v in steps.items()},
-            **slo_mod.fold_requests(done),
-            "shed_frac": round(shed_total / max(1, n), 4),
+            **fold,
+            # the mergeable-sketch account: on one host the run sketch
+            # is the merge of its windows, so p99_merged_ms = p99_e2e_ms
+            "latency_source": "sketch",
+            "latency_sample_cap": _DONE_SAMPLE_CAP,
+            "sketch_windows": win_idx,
+            "p99_merged_ms": round(run_sk["e2e_ms"].quantile(99), 3),
+            "signals_fired": dict(sorted(sig_engine.fired.items())),
+            "signals_fired_total": sum(sig_engine.fired.values()),
         }
+        shed_total = sum(degrade["shed"].values())
+        summary["shed_frac"] = round(shed_total / max(1, n), 4)
         summary["degrade"] = {
             "shed": dict(sorted(degrade["shed"].items())),
             "shed_frac": summary["shed_frac"],
@@ -1120,5 +1471,11 @@ class ServeEngine:
         if drained is not None:
             summary["drained"] = drained
         if cfg.slo_e2e_ms:
-            summary["slo"] = slo_mod.fold_burn_rate(done, cfg.slo_e2e_ms)
+            summary["slo"] = slo_mod.fold_burn_rate(list(done),
+                                                    cfg.slo_e2e_ms)
+        writer.event("serve_summary", **summary)
+        lib = _build.library_record()
+        writer.event("serve_compile", **self.compile_record,
+                     post_warmup_builds=((lib or {}).get("builds", 0)
+                                         - self.builds_after_warmup))
         return summary

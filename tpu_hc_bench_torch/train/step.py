@@ -53,10 +53,13 @@ members): each microbatch's gradient is rounded to bf16 as it lands
 and frees ``.grad``, so no float32 gradient tree outlives its
 microbatch) and summed there in bf16; the mean is taken in float32 and
 rounded to bf16, averaged over the ranks in bf16 fusion buckets
-(``GradReducer.reduce_tree``, after the backward), and handed to the
-optimizer as float32 ``.grad`` (optax promotes the bf16 tree against its
-float32 state the same way; plain ``sgd`` there rounds ``-lr * g`` to
-bf16 first, here it stays float32).
+(``GradReducer.reduce_tree``, after the backward), and stepped from
+that bf16 list by ``apply_bf16_grads`` with optax's promotions, one
+parameter at a time, so no float32 gradient tree is ever built: plain
+``sgd`` adds ``round_bf16(bf16(-lr) * g)`` to the float32 parameter (optax
+casts the weak-typed ``-lr`` to the gradient's dtype), and the other
+optimizers promote ``g`` against their float32 state (momentum's trace,
+Adam's and RMSprop's moments).
 
 The MoE members add ``AUX_LOSS_COEF`` times the layers' summed Switch
 aux terms (the model's ``aux_loss``) to the text loss in the train and
@@ -314,13 +317,38 @@ def batch_loss(model: torch.nn.Module, batch, fused_xent: bool = False,
     return loss_fn(model(prep_inputs(images)), labels)
 
 
+@torch.no_grad()
+def apply_bf16_grads(optimizer: torch.optim.Optimizer, params: list,
+                     grads: list) -> None:
+    """optax's update from the bf16 accumulator's gradients ``grads``
+    (one a parameter of ``params``), freed as it goes: plain ``sgd``
+    adds ``bf16(-lr) * g``, rounded to bf16, to the float32 parameter;
+    the other optimizers step on ``g`` widened to float32, one
+    parameter's ``.grad`` at a time (the promotion optax applies against
+    their float32 state)."""
+    group = optimizer.param_groups[0]
+    plain_sgd = (isinstance(optimizer, torch.optim.SGD)
+                 and not group["momentum"])
+    for i, (p, g) in enumerate(zip(params, grads)):
+        if plain_sgd:
+            p.add_(g * torch.tensor(-group["lr"], dtype=torch.bfloat16,
+                                    device=g.device))
+        else:
+            p.grad = g.float()
+            optimizer.step()
+            p.grad = None
+        grads[i] = None
+
+
 def _accumulated_backward(state: TrainState, batch,
                           grads: collectives.GradReducer | None
-                          ) -> torch.Tensor:
+                          ) -> tuple[torch.Tensor, tuple | None]:
     """``state.accum`` microbatches' forwards and backwards (JAX
-    ``_accumulated_grads``); returns the mean loss and leaves the mean
-    gradients (``grads`` divides them as it packs them) and the averaged
-    running statistics."""
+    ``_accumulated_grads``); returns the mean loss and, under the bf16
+    accumulator, ``(params, their mean bf16 gradients)`` for
+    ``apply_bf16_grads`` (else None: the mean gradients are left in
+    ``.grad``, ``grads`` dividing them as it packs them), and leaves
+    the averaged running statistics."""
     n, model = state.accum, state.model
     bf16 = state.accum_dtype == "bf16"
     if bf16:
@@ -371,14 +399,12 @@ def _accumulated_backward(state: TrainState, batch,
                       else (a.float() / n).to(torch.bfloat16))
         if grads is not None:
             grads.reduce_tree(acc)
-        for i, p in enumerate(params):  # the bf16 tree freed as .grad grows
-            p.grad, acc[i] = acc[i].float(), None
-        return total / n
+        return total / n, (params, acc)
     if grads is None:
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(n)
-    return total / n
+    return total / n, None
 
 
 def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -394,8 +420,9 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     # the bf16 accumulator's gradients are reduced inside, in bf16
     reduced = grads is not None and state.accum > 1 \
         and state.accum_dtype == "bf16"
+    bf16_grads = None
     if state.accum > 1:
-        loss = _accumulated_backward(state, batch, grads)
+        loss, bf16_grads = _accumulated_backward(state, batch, grads)
     else:
         if grads is not None:
             grads.arm()
@@ -405,7 +432,10 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     if dp is not None:
         dp.reduce(state.model, loss, grads_reduced=reduced)
         dp.allreduce_calls += resnet.sync_calls
-    state.optimizer.step()
+    if bf16_grads is not None:
+        apply_bf16_grads(state.optimizer, *bf16_grads)
+    else:
+        state.optimizer.step()
     state.step += 1
     return state, {"loss": loss}
 
