@@ -303,6 +303,37 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    after and at its peak, what a step holds beyond the larger of before
    and after (no float32 gradient tree: under a quarter of the float32
    parameter bytes), and a finite loss.
+21. **slice13**: the training lane's guards and observability, every
+   driver run through ``launcher.main`` with every count zeroed just
+   before and read just after, cuDNN deterministic in (a)-(d) so runs
+   compare bit for bit: (0) the fused conv (row 7) against its plain
+   version on a ``y1`` with NaN entries at both bf16 shapes and in f32
+   (NaN in the same places of y2, s1 and s2, the rest to phase 5's
+   tolerance), and NaN through the flash forward (the wgmma and FMA
+   designs) and the xent forward; (a) resnet50 bf16 ``--fused_conv`` at
+   batch 128, obs off, then on (``--metrics_dir``,
+   ``--flight_recorder=on``, ``--trace_dir``, ``--profile_steps=3:5``,
+   ``--hbm_budget=auto``, ``--fabric_ceiling`` on a one-card OSU sweep
+   written first): bit-equal losses and equal row-7 launches, the obs
+   calls' host time a step, the Kineto trace's four buckets and top
+   device ops (the fused conv kernel among them), MFU measured against
+   analytic, the budget line, JAX's ceiling line for a world with no
+   all-reduce, ``obs summarize`` exits 0; (b) ``nan_loss@3
+   --on_nonfinite=skip`` on resnet50 ends bit-equal to the fault-free
+   run one step shorter (guard on against guard off, both step times),
+   ``abort`` stops with JAX's message, and vit_b16 on the flash kernels
+   at the step: eight steps poisoned at 5 against seven clean steps whose
+   dropout generator skipped step 5's draws, bit-equal, and under
+   ``flag`` a bad step counted and applied; (c) ``--on_nonfinite=
+   rewind`` restores, replays and completes with goodput below 1 in the
+   summary, and a run poisoned on every step ends on
+   ``--max_bad_steps``; (d) ``sigterm@3`` exits 75 with an emergency
+   checkpoint and its fingerprint line, and ``--resume=auto`` ends on the
+   uninterrupted run's fingerprint; (e) ``hang@2:120
+   --step_timeout_s=8`` in a process of its own (the ``trivial`` model)
+   exits 70 with the thread dump, fired within the poll bound, while
+   (f) ``python -m tpu_hc_bench_torch.utils.sanity`` exits 0 in
+   another.
 
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
@@ -312,7 +343,8 @@ Then the kernel table line (each kernel's design beside its numbers,
 process, ``slice9_launches``: its launches in phase 17's runs (a)-(c)
 and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
 ``slice11_launches``: its launches in phase 19's runs (a)-(d),
-``slice12_launches``: its launches in phase 20's runs (a)-(d), every
+``slice12_launches``: its launches in phase 20's runs (a)-(d),
+``slice13_launches``: its launches in phase 21's runs (a)-(d), every
 kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -328,7 +360,7 @@ alone, beside phase 7's fused run (with several cards, (f) runs);
 ``--only slice9`` the build and phase 17 alone; ``--only zoo`` the
 build, phase 8 at ViT's two shapes, then phase 18; ``--only slice11``
 the build and phase 19 alone; ``--only slice12`` the build, phase 4 and
-phase 20.
+phase 20; ``--only slice13`` the build and phase 21.
 """
 
 from __future__ import annotations
@@ -572,6 +604,14 @@ GPT2_PARITY_TOL = 1e-3             # 12 layers of f32 at width 768
 # logits' largest magnitude: each K/V value rounds within amax/254 of its
 # page, and the error passes through 16 layers
 INT8_KV_REL_TOL = 0.05
+SLICE13_OBS_STEPS = (3, 10)         # phase 21 (a): warmup, timed steps
+SLICE13_PROFILE = "3:5"             # (a)'s profiler window
+SLICE13_SKIP = (2, 6, 3)            # (b): warmup, timed steps, poisoned
+SLICE13_VIT = (32, 8, 5)            # (b) vit_b16: batch, steps, poisoned
+SLICE13_SMALL_BATCH = 32            # (b)'s abort, (c), (d), (e)
+SLICE13_REWIND = 8                  # (c): timed steps
+SLICE13_SIGTERM = (6, 3)            # (d): timed steps, the SIGTERM's step
+SLICE13_HANG = (8.0, 120)           # (e): --step_timeout_s, hang seconds
 SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
                                    # (6 pages + a 4-token tail), outputs
 # (e) and (f) in virtual time: modeled seconds a step, so the arms see
@@ -2186,34 +2226,17 @@ def phase_dp(torch, dev, smi, sock_rate: float, sock_run: str) -> dict:
 
 
 def phase_dp_multi(torch, smi, cards: int, rate_one: float) -> None:
-    """Phase 13 (d): resnet50 over every card, one process a card, at
-    the default threshold, then ``--overlap_grad_comm`` on, off, off, on
-    at ``DP_SMALL_THRESHOLD`` (several buckets); then the OSU all-reduce
-    sweep."""
+    """Phase 13 (d): the OSU all-reduce sweep, then resnet50 over every
+    card, one process a card, at the default threshold with the sweep as
+    ``--fabric_ceiling`` and a profiled window (phase 21 (g): the
+    ceiling-utilization and collective-overlap lines), then
+    ``--overlap_grad_comm`` on, off, off, on at ``DP_SMALL_THRESHOLD``
+    (several buckets)."""
     import tempfile
 
+    from tpu_hc_bench_torch import launcher
     from tpu_hc_bench_torch.microbench import osu
 
-    base = ["1", "0", str(TRAIN_BATCH), "ib", "--model=resnet50",
-            "--use_fp16=true", "--fused_conv=true",
-            f"--num_warmup_batches={DP_WARMUP}",
-            f"--num_batches={DP_BATCHES}", "--display_every=10"]
-    arms = [[]] + [[f"--overlap_grad_comm={o}",
-                    f"--fusion_threshold_bytes={DP_SMALL_THRESHOLD}"]
-                   for o in ("on", "off", "off", "on")]
-    for extra in arms:
-        argv = base + extra
-        rc, res = _launch(argv)
-        rec = {"phase": "dp", "part": "d_multi_card", "ran": True,
-               "cards": cards, "argv": argv, "rc": rc,
-               "scaling_efficiency":
-                   res["images_per_sec_per_chip"] / rate_one,
-               "nvidia_smi": smi, **{k: res[k] for k in DP_RESULT_KEYS}}
-        emit(rec)
-        if not (rc == 0 and res["total_workers"] == cards
-                and math.isfinite(res["final_loss"])):
-            raise AssertionError(f"dp run across {cards} cards failed: "
-                                 f"{rec}")
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/sweep.json"
         rc = osu.main(["--op", "allreduce", "--nproc", str(cards),
@@ -2222,10 +2245,51 @@ def phase_dp_multi(torch, smi, cards: int, rate_one: float) -> None:
                       print_fn=lambda m: print(m, file=sys.stderr))
         with open(path) as f:
             rows = json.load(f)["sweeps"]["allreduce"]
-    emit({"phase": "dp", "part": "d_osu_allreduce", "cards": cards,
-          "rc": rc, "rows": rows, "nvidia_smi": smi})
-    if rc != 0:
-        raise AssertionError(f"the OSU sweep across {cards} cards failed")
+        emit({"phase": "dp", "part": "d_osu_allreduce", "cards": cards,
+              "rc": rc, "rows": rows, "nvidia_smi": smi})
+        if rc != 0:
+            raise AssertionError(f"the OSU sweep across {cards} cards "
+                                 "failed")
+        base = ["1", "0", str(TRAIN_BATCH), "ib", "--model=resnet50",
+                "--use_fp16=true", "--fused_conv=true",
+                f"--num_warmup_batches={DP_WARMUP}",
+                f"--num_batches={DP_BATCHES}", "--display_every=10"]
+        obs = [f"--fabric_ceiling={path}", f"--trace_dir={tmp}/trace",
+               "--profile_steps=11:13", f"--metrics_dir={tmp}/metrics"]
+        arms = [obs] + [[f"--overlap_grad_comm={o}",
+                         f"--fusion_threshold_bytes={DP_SMALL_THRESHOLD}"]
+                        for o in ("on", "off", "off", "on")]
+        for extra in arms:
+            argv = base + extra
+            lines: list[str] = []
+
+            def tee(m: str) -> None:
+                lines.append(m)
+                print(m, file=sys.stderr, flush=True)
+
+            rc = launcher.main(argv, print_fn=tee)
+            res = json.loads(next(ln for ln in reversed(lines)
+                                  if ln.startswith("{")))
+            rec = {"phase": "dp", "part": "d_multi_card", "ran": True,
+                   "cards": cards, "argv": argv, "rc": rc,
+                   "scaling_efficiency":
+                       res["images_per_sec_per_chip"] / rate_one,
+                   "nvidia_smi": smi, **{k: res[k] for k in DP_RESULT_KEYS}}
+            if extra is obs:
+                rec["ceiling_lines"] = [
+                    ln for ln in lines if ln.startswith(
+                        ("fabric ceiling", "fabric:", "collective "
+                                                      "exposure"))]
+                rec["trace_lines"] = [ln for ln in lines if ln.strip()
+                                      .split(" ")[0] in (
+                    "compute", "collective", "host-transfer",
+                    "idle-bubble", "total")]
+            emit(rec)
+            if not (rc == 0 and res["total_workers"] == cards
+                    and math.isfinite(res["final_loss"])
+                    and (extra is not obs or rec["ceiling_lines"])):
+                raise AssertionError(f"dp run across {cards} cards "
+                                     f"failed: {rec}")
 
 
 def _fixture():
@@ -4229,6 +4293,598 @@ def phase_slice12_rest(torch, smi, total: dict) -> dict:
     return total
 
 
+# --- phase 21 (slice13): the training lane's guards and observability ------
+
+
+def _nan_mask_check(torch, got, want, tol: float, exact=None) -> dict:
+    """NaN in ``got`` where ``exact`` (a bool mask broadcast over the
+    last dim; else where ``want`` has it), ``want``'s NaN a superset of
+    it (cuDNN's transform algorithms spread a NaN over a whole tile),
+    and the values finite in both within ``tol`` of ``want``'s largest
+    finite magnitude."""
+    g, w = got.float(), want.float()
+    mask = torch.isnan(w) if exact is None else exact.expand_as(g)
+    same = bool(torch.equal(torch.isnan(g), mask))
+    within = bool((torch.isnan(w) | ~mask).all())
+    fin = torch.isfinite(w) & torch.isfinite(g)
+    scale = float(w[fin].abs().max()) if bool(fin.any()) else 1.0
+    err = (float((g[fin] - w[fin]).abs().max()) if bool(fin.any())
+           else 0.0) / max(scale, 1e-30)
+    return {"nan_same": same, "plain_nan_covers": within,
+            "nan_count": int(mask.sum()),
+            "plain_nan_count": int(torch.isnan(w).sum()), "rel_err": err,
+            "ok": same and within and err <= tol}
+
+
+def _conv_nan_pixels(torch, y1, a, b):
+    """``[N, H, W, 1]``: the output pixels of a 3x3 SAME conv whose
+    window holds a NaN of ``relu(y1 * a + b)`` (every output channel of
+    such a pixel is NaN, exactly)."""
+    import torch.nn.functional as F
+
+    bad = torch.isnan(y1.float() * a + b).any(-1).float()[:, None]
+    return (F.max_pool2d(bad, 3, stride=1, padding=1) > 0)[:, 0, :, :,
+                                                           None]
+
+
+def slice13_nan(torch, dev, smi) -> None:
+    """Phase 21 (0): row 7 with NaN entries in ``y1`` at its two bf16
+    shapes and in f32: NaN in y2 exactly at the pixels whose 3x3 window
+    holds one (every channel), in every channel of s1 and s2, where the
+    plain version has NaN too (cuDNN's transform algorithms spread a
+    NaN over their whole tile, so its NaN may reach further), and the
+    values finite in both to phase 5's tolerance; then NaN through the
+    online softmax of the flash forward (both designs) and the xent
+    forward."""
+    from tpu_hc_bench_torch.ops.flash_attention import (
+        flash_attention, flash_attention_plain)
+    from tpu_hc_bench_torch.ops.fused_conv import (
+        fused_bn_relu_conv, fused_bn_relu_conv_plain)
+    from tpu_hc_bench_torch.ops.xent import softmax_xent, softmax_xent_plain
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    cases = [((128, 28, 128, 128), "bfloat16"),
+             ((128, 14, 256, 256), "bfloat16"),
+             ((128, 28, 128, 128), "float32")]
+    for (n, h, cin, cout), dname in cases:
+        dtype = getattr(torch, dname)
+        y1 = torch.randn((n, h, h, cin), generator=gen, device=dev)
+        y1[0, 3, 4, 5] = float("nan")
+        y1[n - 1, h - 1, 0, cin - 1] = float("nan")
+        y1 = y1.to(dtype)
+        a = 0.5 + torch.rand((cin,), generator=gen, device=dev)
+        b = 0.2 * torch.randn((cin,), generator=gen, device=dev)
+        w = (torch.randn((3, 3, cin, cout), generator=gen, device=dev)
+             * (2.0 / (9 * cin)) ** 0.5).to(dtype)
+        got = fused_bn_relu_conv(y1, a, b, w)
+        want = fused_bn_relu_conv_plain(y1, a, b, w)
+        exact = _conv_nan_pixels(torch, y1, a, b)
+        torch.cuda.synchronize()
+        outs = {name: _nan_mask_check(torch, g, wt, tol, ex)
+                for name, g, wt, tol, ex in zip(
+                    ("y2", "s1", "s2"), got, want,
+                    (CONV_Y_TOL[dname], CONV_STATS_TOL, CONV_STATS_TOL),
+                    (exact, exact.any().reshape(1), exact.any().reshape(1)))}
+        rec = {"phase": "slice13", "part": "0_conv_nan", "shape":
+               [n, h, h, cin, cout], "dtype": dname, **outs,
+               "nvidia_smi": smi,
+               "ok": all(o["ok"] for o in outs.values())
+               and outs["y2"]["nan_count"] > 0}
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"phase 21 (0): the fused conv drops NaN: "
+                                 f"{rec}")
+    for b_, s_, h_, d_, dname in ((4, 256, 8, 64, "bfloat16"),
+                                  (2, 128, 4, 256, "float32")):
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn((b_, s_, h_, d_), generator=gen,
+                               device=dev).to(dtype) for _ in range(3))
+        q[1, 7, 2, 3] = float("nan")
+        got = flash_attention(q, k, v, causal=True)
+        want = flash_attention_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        chk = _nan_mask_check(torch, got, want, FLASH_TOL[dname])
+        emit({"phase": "slice13", "part": "0_flash_nan", "shape":
+              [b_, s_, h_, d_], "dtype": dname, **chk, "nvidia_smi": smi})
+        if not (chk["ok"] and chk["nan_count"] > 0):
+            raise AssertionError(f"phase 21 (0): flash drops NaN: {chk}")
+    logits = torch.randn((512, 50257), generator=gen, device=dev)
+    logits[5, 100] = float("nan")
+    labels = torch.randint(0, 50257, (512,), generator=gen, device=dev)
+    chk = _nan_mask_check(torch, softmax_xent(logits, labels),
+                          softmax_xent_plain(logits, labels),
+                          XENT_TOL["float32"])
+    emit({"phase": "slice13", "part": "0_xent_nan", **chk,
+          "nvidia_smi": smi})
+    if not (chk["ok"] and chk["nan_count"] == 1):
+        raise AssertionError(f"phase 21 (0): xent drops NaN: {chk}")
+
+
+class _LossSpy:
+    """Every train step's loss (a device copy, no sync) while
+    installed; the steps' time stays the driver's."""
+
+    def __init__(self):
+        from tpu_hc_bench_torch.train import step as step_mod
+
+        self.mod, self.real, self.losses = step_mod, step_mod.train_step, []
+
+        def spy(state, batch):
+            state, m = self.real(state, batch)
+            self.losses.append(m["loss"].detach().clone())
+            return state, m
+
+        step_mod.train_step = spy
+
+    def restore(self) -> list[float]:
+        self.mod.train_step = self.real
+        return [float(x) for x in self.losses]
+
+
+def _slice13_run(torch, argv: list[str], expect_rc: int = 0):
+    """``launcher.main(argv)`` with every count zeroed just before and
+    read just after: ``(rc, lines, counts, seconds, losses)``; raises
+    unless it exits ``expect_rc``."""
+    from tpu_hc_bench_torch import launcher
+
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        print(m, file=sys.stderr, flush=True)
+
+    spy = _LossSpy()
+    torch.cuda.empty_cache()
+    _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = launcher.main(argv, print_fn=tee)
+    finally:
+        losses = spy.restore()
+    seconds = time.perf_counter() - t0
+    counts = _read_counts()
+    if rc != expect_rc:
+        raise AssertionError(f"phase 21: {argv} exited {rc}, not "
+                             f"{expect_rc}: {lines[-5:]}")
+    return rc, lines, counts, seconds, losses
+
+
+def _result(lines: list[str]) -> dict:
+    return json.loads(next(ln for ln in reversed(lines)
+                           if ln.startswith("{")))
+
+
+def _fp_line(lines: list[str]) -> str | None:
+    return next((ln.split(": ", 1)[1] for ln in lines
+                 if ln.startswith("state fingerprint:")), None)
+
+
+def _resnet_argv(batch: int, warm: int, steps: int, *extra: str) -> list:
+    return ["1", "1", str(batch), "sock", "--model=resnet50",
+            "--use_fp16=true", "--fused_conv=true",
+            f"--num_warmup_batches={warm}", f"--num_batches={steps}",
+            *extra]
+
+
+def _osu_sweep(torch, path: str) -> None:
+    """A one-card all-reduce sweep export (JAX's schema) at ``path``."""
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch.microbench import osu
+    from tpu_hc_bench_torch.parallel import distributed
+
+    distributed.init_single("nccl")
+    try:
+        rows = osu.run_sweep("allreduce", max_bytes=1 << 20)
+    finally:
+        dist.destroy_process_group()
+    with open(path, "w") as f:
+        json.dump(osu.sweep_json({"allreduce": rows},
+                                 torch.cuda.get_device_name(0)), f)
+
+
+def slice13_obs(torch, smi, base: Path, add) -> None:
+    """Phase 21 (a) and (g)'s one-card line: resnet50 bf16 fused at batch
+    128, obs off, then on (--metrics_dir, --flight_recorder=on,
+    --trace_dir, --profile_steps, --hbm_budget=auto, --fabric_ceiling);
+    bit-equal losses and equal row-7 launches, the obs host time a
+    step, the trace's buckets and top device ops, MFU measured against
+    analytic, the budget line, ``obs summarize``."""
+    from tpu_hc_bench_torch.obs import (fleet, goodput, memory, metrics,
+                                        timeline, trace)
+
+    run_dir, trace_dir = base / "a_metrics", base / "a_trace"
+    sweep = str(base / "sweep.json")
+    _osu_sweep(torch, sweep)
+    warm, steps = SLICE13_OBS_STEPS
+    runs = {}
+    for arm in ("off", "on"):
+        extra = ["--display_every=5"]
+        timer = ObsTimer()
+        if arm == "on":
+            extra += [f"--metrics_dir={run_dir}", "--flight_recorder=on",
+                      f"--trace_dir={trace_dir}",
+                      f"--profile_steps={SLICE13_PROFILE}",
+                      "--hbm_budget=auto", f"--fabric_ceiling={sweep}"]
+            timer.wrap(metrics.MetricsWriter, "event", "writer")
+            timer.wrap(fleet.FleetWriter, "heartbeat", "heartbeat")
+            timer.wrap(memory.MemoryLedger, "sample", "memory")
+            timer.wrap(goodput.PhaseTracker, "enter", "phases")
+            timer.wrap(goodput.PhaseTracker, "flush", "phases")
+            timer.wrap(timeline, "record_span", "spans")
+            timer.wrap(timeline, "flush", "spans")
+        else:
+            extra += ["--flight_recorder=off"]
+        try:
+            runs[arm] = _slice13_run(
+                torch, _resnet_argv(TRAIN_BATCH, warm, steps, *extra))
+        finally:
+            timer.restore()
+        runs[arm] = (*runs[arm], dict(timer.seconds))
+        add(runs[arm][2])
+    (_, off_lines, off_counts, off_s, off_losses, _) = runs["off"]
+    (_, on_lines, on_counts, on_s, on_losses, obs_s) = runs["on"]
+    res_off, res_on = _result(off_lines), _result(on_lines)
+    summary = [json.loads(ln) for ln in
+               (run_dir / "metrics.jsonl").read_text().splitlines()
+               if '"kind": "summary"' in ln][-1]
+    tsum = trace.summarize_trace_dir(str(trace_dir))
+    ops, counts = trace.device_op_times(str(trace_dir))
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:8]
+    conv_ops = {k: v for k, v in ops.items() if "fused_conv" in k
+                or "fused_bn_relu_conv" in k}
+    summ = subprocess.run(
+        [sys.executable, "-m", "tpu_hc_bench_torch.obs", "summarize",
+         str(run_dir), "--fabric_ceiling", sweep],
+        cwd=str(Path(__file__).resolve().parent), capture_output=True,
+        text=True, timeout=120)
+    timed = warm + steps
+    rec = {"phase": "slice13", "part": "a_obs_off_on", "model": "resnet50",
+           "batch": TRAIN_BATCH, "warmup": warm, "steps": steps,
+           "losses_bit_equal": off_losses == on_losses,
+           "losses": on_losses, "launches_off": off_counts,
+           "launches_on": on_counts,
+           "conv_launches_equal": (off_counts["fused_bn_relu_conv"]
+                                   == on_counts["fused_bn_relu_conv"]
+                                   == FUSED_LAUNCHES_PER_STEP * timed),
+           "step_ms_off": res_off["mean_step_ms"],
+           "step_ms_on": res_on["mean_step_ms"],
+           "obs_host_s": obs_s,
+           "obs_host_ms_per_step": 1e3 * sum(obs_s.values()) / timed,
+           "trace_buckets_us": tsum.totals, "trace_steps": len(tsum.steps),
+           "trace_step_source": tsum.step_source,
+           "top_device_ops_us": [[k[:80], v] for k, v in top],
+           "fused_conv_ops_us": {k[:80]: v for k, v in conv_ops.items()},
+           "collective_ops_us": {k[:120]: v for k, v in ops.items()
+                                 if trace.bucket_of(k) == "collective"},
+           "mfu": summary.get("mfu"), "mfu_source": summary.get("mfu_source"),
+           "mfu_measured": summary.get("mfu_measured"),
+           "mfu_analytic": summary.get("mfu_analytic"),
+           "aten_flops_per_step": summary.get("aten_flops_per_step"),
+           "kernel_flops_per_step": summary.get("kernel_flops_per_step"),
+           "analytic_flops_per_step": summary.get("analytic_flops_per_step"),
+           "flops_disagreement": summary.get("flops_disagreement"),
+           "goodput": res_on["goodput"],
+           "goodput_phases": res_on["goodput_phases"],
+           "peak_hbm_bytes": res_on["peak_hbm_bytes"],
+           "budget_lines": [ln for ln in on_lines if ln.startswith(
+               ("hbm budget", "WARNING: --hbm_budget"))],
+           "ceiling_lines": [ln for ln in on_lines
+                             if ln.startswith(("fabric ceiling", "fabric:"))],
+           "summarize_rc": summ.returncode,
+           "summarize": summ.stdout.splitlines()[-40:],
+           "nvidia_smi": smi, "t_off_s": off_s, "t_on_s": on_s}
+    text = summ.stdout
+    rec["ok"] = (rec["losses_bit_equal"] and rec["conv_launches_equal"]
+                 and len(on_losses) == timed and summ.returncode == 0
+                 and "goodput:" in text and "flops source:" in text
+                 and "memory: peak" in text and bool(conv_ops)
+                 and sum(tsum.totals.values()) > 0
+                 and rec["mfu_measured"] is not None
+                 and bool(rec["budget_lines"])
+                 and bool(rec["ceiling_lines"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 21 (a) failed: {rec}")
+
+
+def slice13_vit_skip(torch, dev, smi, add) -> None:
+    """Phase 21 (b), vit_b16 on the flash kernels at the step: a skip
+    run of eight steps poisoned at step 5 ends bit-equal to seven clean
+    steps whose dropout generator skipped step 5's draws (a forward
+    pass in training mode: a skipped step consumes its draws, as JAX's
+    folds its key by the loop index); the guard on and off step times
+    over steps 3-8; then under ``flag`` (rewind's detection) the step
+    is counted and applied."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.train import step as step_mod
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    batch_n, steps, bad = SLICE13_VIT
+    finals, times = {}, {}
+    _zero_counts()
+    for arm in ("skip", "clean", "off"):
+        model, spec = create_model("vit_b16", torch.bfloat16, "flash",
+                                   device=dev, seed=0, train=True)
+        cfg = flags.BenchmarkConfig(
+            model="vit_b16", batch_size=batch_n, use_fp16=True,
+            attention_impl="flash",
+            on_nonfinite="abort" if arm == "off" else "skip").resolve()
+        state = step_mod.make_train_state(model, cfg)
+        batch = to_device(SyntheticImages(batch_n, spec.input_shape,
+                                          spec.num_classes, 0).batch(), dev)
+        nonfinite = []
+        t0 = None
+        for i in range(1, steps + 1):
+            if i == 3:      # steps 1-2 make the state and its held copy
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if i == bad and arm == "skip":
+                state, m = step_mod.train_step(
+                    state, (batch[0] * float("nan"), batch[1]))
+            elif i == bad and arm == "clean":
+                step_mod.forward_step(state, batch)
+                continue
+            else:
+                state, m = step_mod.train_step(state, batch)
+            if "nonfinite" in m:
+                nonfinite.append(m["nonfinite"])
+        torch.cuda.synchronize()
+        times[arm] = 1e3 * (time.perf_counter() - t0) / (steps - 2)
+        finals[arm] = ckpt.fingerprint(state.model.state_dict())
+        if arm == "skip":
+            skipped = int(torch.stack(nonfinite).sum())
+        del model, state
+        torch.cuda.empty_cache()
+    counts = _read_counts()
+    add(counts)
+    model, spec = create_model("vit_b16", torch.bfloat16, "flash",
+                               device=dev, seed=0, train=True)
+    cfg = flags.BenchmarkConfig(model="vit_b16", batch_size=batch_n,
+                                use_fp16=True, attention_impl="flash",
+                                on_nonfinite="rewind",
+                                train_dir="unused").resolve()
+    state = step_mod.make_train_state(model, cfg)
+    state, m = step_mod.train_step(state, (batch[0] * float("nan"),
+                                           batch[1]))
+    flagged = int(m["nonfinite"])
+    applied = any(bool(torch.isnan(p).any()) for p in model.parameters())
+    del model, state
+    torch.cuda.empty_cache()
+    rec = {"phase": "slice13", "part": "b_vit_b16_skip", "batch": batch_n,
+           "steps": steps, "poisoned_step": bad, "skipped": skipped,
+           "bit_equal_to_shorter_run": finals["skip"] == finals["clean"],
+           "fingerprints": finals,
+           "step_ms_guard_on": times["skip"], "step_ms_guard_off":
+               times["off"], "flag_counted": flagged,
+           "flag_applied": applied, "launches": counts, "nvidia_smi": smi}
+    rec["ok"] = (rec["bit_equal_to_shorter_run"] and skipped == 1
+                 and flagged == 1 and applied
+                 and counts["flash_attention_fwd"] > 0)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 21 (b) vit_b16 failed: {rec}")
+
+
+def slice13_guards(torch, smi, base: Path, add) -> None:
+    """Phase 21 (b) resnet50, (c) and (d), cuDNN deterministic so runs
+    compare bit for bit: skip ends on the fault-free run one step
+    shorter (guard on against off), abort stops with JAX's message,
+    rewind restores, replays and completes with goodput below 1 and a
+    run poisoned on every step ends on --max_bad_steps, sigterm exits
+    75 with an emergency checkpoint and --resume=auto ends on the
+    uninterrupted run's fingerprint."""
+    from tpu_hc_bench_torch.resilience import guards
+
+    warm, steps, bad = SLICE13_SKIP
+    _, skip_lines, c1, _, skip_losses = _slice13_run(torch, _resnet_argv(
+        TRAIN_BATCH, warm, steps, "--display_every=1",
+        f"--train_dir={base / 'b_skip'}", f"--inject_fault=nan_loss@{bad}",
+        "--on_nonfinite=skip"))
+    _, clean_lines, c2, _, clean_losses = _slice13_run(torch, _resnet_argv(
+        TRAIN_BATCH, warm, steps - 1, "--display_every=1",
+        f"--train_dir={base / 'b_clean'}"))
+    add(c1)
+    add(c2)
+    skip_res, clean_res = _result(skip_lines), _result(clean_lines)
+    try:
+        _slice13_run(torch, _resnet_argv(
+            SLICE13_SMALL_BATCH, 1, 3, "--display_every=1",
+            "--inject_fault=nan_loss@2"))
+        abort_msg = None
+    except guards.NonFiniteError as e:
+        abort_msg = str(e)
+    add(_read_counts())
+    rec = {"phase": "slice13", "part": "b_resnet50_skip",
+           "batch": TRAIN_BATCH, "steps": steps, "poisoned_step": bad,
+           "fingerprint_skip": skip_res["checkpoint"]["fingerprint"],
+           "fingerprint_shorter": clean_res["checkpoint"]["fingerprint"],
+           "bit_equal_to_shorter_run": skip_res["checkpoint"]["fingerprint"]
+           == clean_res["checkpoint"]["fingerprint"],
+           "skip_line": [ln for ln in skip_lines if "nonfinite:" in ln],
+           "step_ms_guard_on": skip_res["mean_step_ms"],
+           "step_ms_guard_off": clean_res["mean_step_ms"],
+           "abort_message": abort_msg, "launches": {"skip": c1,
+                                                    "clean": c2},
+           "nvidia_smi": smi}
+    rec["ok"] = (rec["bit_equal_to_shorter_run"] and bool(rec["skip_line"])
+                 and abort_msg is not None and abort_msg.startswith(
+                     "non-finite loss at display step(s) [2, 3]")
+                 and c1["fused_bn_relu_conv"] == FUSED_LAUNCHES_PER_STEP
+                 * (warm + steps))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 21 (b) resnet50 failed: {rec}")
+    # (c) rewind, then the budget
+    steps_c = SLICE13_REWIND
+    _, rw_lines, c3, _, _ = _slice13_run(torch, _resnet_argv(
+        SLICE13_SMALL_BATCH, 1, steps_c, "--display_every=2",
+        f"--train_dir={base / 'c_rewind'}", "--save_model_steps=2",
+        "--on_nonfinite=rewind", "--inject_fault=nan_loss@3",
+        f"--metrics_dir={base / 'c_metrics'}"))
+    add(c3)
+    summ = subprocess.run(
+        [sys.executable, "-m", "tpu_hc_bench_torch.obs", "summarize",
+         str(base / "c_metrics")], cwd=str(Path(__file__).resolve().parent),
+        capture_output=True, text=True, timeout=120)
+    rw_res = _result(rw_lines)
+    spec = ",".join(f"nan_loss@{i}" for i in range(1, 9))
+    try:
+        _slice13_run(torch, _resnet_argv(
+            SLICE13_SMALL_BATCH, 1, 8, "--display_every=2",
+            f"--train_dir={base / 'c_budget'}", "--on_nonfinite=rewind",
+            "--max_bad_steps=2", f"--inject_fault={spec}"))
+        budget_msg = None
+    except guards.GuardBudgetError as e:
+        budget_msg = str(e)
+    add(_read_counts())
+    goodput_lines = [ln for ln in summ.stdout.splitlines()
+                     if "goodput:" in ln or "rewind" in ln]
+    rec = {"phase": "slice13", "part": "c_rewind",
+           "batch": SLICE13_SMALL_BATCH, "steps": steps_c,
+           "rewind_lines": [ln for ln in rw_lines if ln.startswith("rewind")],
+           "final_loss": rw_res["final_loss"], "goodput": rw_res["goodput"],
+           "goodput_phases": rw_res["goodput_phases"],
+           "summarize_rc": summ.returncode, "summarize_goodput":
+               goodput_lines, "budget_message": budget_msg,
+           "nvidia_smi": smi}
+    rec["ok"] = (bool(rec["rewind_lines"])
+                 and math.isfinite(rw_res["final_loss"])
+                 and rw_res["goodput"] < 1.0 and summ.returncode == 0
+                 and any(ln.strip().startswith("goodput:")
+                         for ln in goodput_lines)
+                 and budget_msg is not None
+                 and "consecutive rewinds without a clean window" in
+                 budget_msg)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 21 (c) failed: {rec}")
+    # (d) preemption and resume
+    k, at = SLICE13_SIGTERM
+    split = base / "d_split"
+    _, pre_lines, c4, _, _ = _slice13_run(torch, _resnet_argv(
+        SLICE13_SMALL_BATCH, 0, k, "--display_every=1",
+        f"--train_dir={split}", f"--inject_fault=sigterm@{at}"),
+        expect_rc=75)
+    _, res_lines, c5, _, _ = _slice13_run(torch, _resnet_argv(
+        SLICE13_SMALL_BATCH, 0, k - at, "--display_every=1",
+        f"--train_dir={split}", "--resume=auto"))
+    _, whole_lines, c6, _, _ = _slice13_run(torch, _resnet_argv(
+        SLICE13_SMALL_BATCH, 0, k, "--display_every=1",
+        f"--train_dir={base / 'd_whole'}"))
+    for c in (c4, c5, c6):
+        add(c)
+    resumed, whole = _result(res_lines), _result(whole_lines)
+    rec = {"phase": "slice13", "part": "d_sigterm_resume",
+           "batch": SLICE13_SMALL_BATCH, "steps": k, "sigterm_at": at,
+           "rc": 75, "emergency_fingerprint": _fp_line(pre_lines),
+           "restored_fingerprint": _fp_line(res_lines),
+           "resumed_final": resumed["checkpoint"]["fingerprint"],
+           "uninterrupted_final": whole["checkpoint"]["fingerprint"],
+           "preempt_line": [ln for ln in pre_lines
+                            if ln.startswith("preempted after")],
+           "nvidia_smi": smi}
+    rec["ok"] = (rec["emergency_fingerprint"] is not None
+                 and rec["emergency_fingerprint"]
+                 == rec["restored_fingerprint"]
+                 and rec["resumed_final"] == rec["uninterrupted_final"]
+                 and bool(rec["preempt_line"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 21 (d) failed: {rec}")
+
+
+def slice13_processes(smi) -> None:
+    """Phase 21 (e) and (f), each in a process of its own, side by side:
+    a hang ends with exit 70 and the thread dump within the timeout's
+    bound (the ``trivial`` model: the watchdog watches the step clock
+    whatever the model, and a process of resnet50 spends ~30 s before
+    its first timed step), and ``python -m
+    tpu_hc_bench_torch.utils.sanity`` exits 0."""
+    import re
+
+    root = str(Path(__file__).resolve().parent)
+    san = subprocess.Popen([sys.executable, "-m",
+                            "tpu_hc_bench_torch.utils.sanity"], cwd=root,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True)
+    timeout_s, hang_s = SLICE13_HANG
+    t0 = time.perf_counter()
+    try:
+        run = subprocess.run(
+            [sys.executable, "-m", "tpu_hc_bench_torch", "1", "1", "32",
+             "sock", "--model=trivial", "--num_warmup_batches=1",
+             "--num_batches=4", "--display_every=1",
+             f"--inject_fault=hang@2:{hang_s}",
+             f"--step_timeout_s={timeout_s}"],
+            cwd=root, capture_output=True, text=True, timeout=hang_s + 120)
+        wall = time.perf_counter() - t0
+        san_out, _ = san.communicate(timeout=300)
+    finally:
+        if san.poll() is None:
+            san.kill()
+            san.wait()
+    fired = re.search(r"no step completed in ([0-9.]+)s", run.stderr)
+    age = float(fired.group(1)) if fired else None
+    rec = {"phase": "slice13", "part": "e_hang", "rc": run.returncode,
+           "timeout_s": timeout_s, "fired_after_s": age,
+           "process_wall_s": wall,
+           "thread_dump": "Current thread" in run.stderr
+           or "Thread 0x" in run.stderr, "nvidia_smi": smi}
+    # the monitor polls every timeout/4: it fires within that of the bound
+    rec["ok"] = (run.returncode == 70 and rec["thread_dump"]
+                 and age is not None
+                 and timeout_s <= age <= 1.25 * timeout_s + 1.0
+                 and wall < hang_s)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 21 (e) failed: {rec}, "
+                             f"{run.stderr[-2000:]}")
+    rec = {"phase": "slice13", "part": "f_sanity", "rc": san.returncode,
+           "report": san_out.splitlines()[-12:], "nvidia_smi": smi,
+           "ok": san.returncode == 0}
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 21 (f) failed: {rec}")
+
+
+def phase_slice13(torch, dev, smi) -> dict:
+    """Phase 21: the training lane's guards and observability; returns
+    every kernel's launches summed over the main-path runs (a)-(d)."""
+    import shutil
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    base = Path(__file__).resolve().parent / "build" / "slice13"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    slice13_nan(torch, dev, smi)
+    det = torch.backends.cudnn.deterministic
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        slice13_obs(torch, smi, base, add)
+        slice13_guards(torch, smi, base, add)
+        slice13_vit_skip(torch, dev, smi, add)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+    torch.cuda.empty_cache()
+    slice13_processes(smi)
+    emit({"phase": "slice13", "part": "g_launches", "launches": total,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -4236,7 +4892,7 @@ def main(argv: list[str] | None = None) -> int:
                                 "the GPUs of this machine.")
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
                                       "serve2", "slice9", "zoo", "slice11",
-                                      "slice12"),
+                                      "slice12", "slice13"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -4248,7 +4904,8 @@ def main(argv: list[str] | None = None) -> int:
                         "the build, then phase 17 alone; zoo: the build, "
                         "phase 8 at ViT's shapes, then phase 18; slice11: "
                         "the build, then phase 19 alone; slice12: the "
-                        "build, phase 4, then phase 20")
+                        "build, phase 4, then phase 20; slice13: the "
+                        "build, then phase 21 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -4369,6 +5026,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice13":
+        phase_slice13(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice9":
         phase_slice9(torch, dev, smi)
         print(smi, flush=True)
@@ -4433,6 +5098,8 @@ def main(argv: list[str] | None = None) -> int:
     del model
     torch.cuda.empty_cache()
     slice12_launches = phase_slice12_rest(torch, smi, slice12_launches)
+    torch.cuda.empty_cache()
+    slice13_launches = phase_slice13(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -4483,7 +5150,8 @@ def main(argv: list[str] | None = None) -> int:
                       "slice9_launches": slice9_launches.get(name, 0),
                       "zoo_launches": zoo_launches.get(name, 0),
                       "slice11_launches": slice11_launches.get(name, 0),
-                      "slice12_launches": slice12_launches.get(name, 0)})
+                      "slice12_launches": slice12_launches.get(name, 0),
+                      "slice13_launches": slice13_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -40,6 +40,12 @@ GPU, and the plain versions are held against the JAX package in
   (bf16) of zero on both sides); at head dim 320 (padded to 512: two
   256-wide chunks) the same; and ``flash_attention`` at head dim 192
   through autograd, padded to 256;
+- the fused BN-relu-conv (``csrc/fused_conv_sm90.cu`` bf16,
+  ``csrc/fused_conv.cu`` f32) on a ``y1`` with NaN entries: NaN in y2
+  exactly at the pixels whose 3x3 window holds one, in every channel of
+  s1 and s2, where the plain version has NaN too (cuDNN's transform
+  algorithms may spread it further), the values finite in both within
+  1e-5 (f32) or 1e-2 (bf16) of the largest magnitude;
 - ``data.feed.DeviceFeeder``, the real-data runs' pinned copies on a
   copy stream: 40 batches through a ring of 3 slots, with a slow step
   after each, arrive bit-equal.
@@ -497,3 +503,41 @@ def test_feeder_on_the_card(cuda_device):
                                       hx)
         np.testing.assert_array_equal(gy.cpu().numpy(), hy)
     assert len(got) == len(host)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_conv_kernel_keeps_nan(cuda_device, dtype):
+    from tpu_hc_bench_torch.ops.fused_conv import (
+        fused_bn_relu_conv, fused_bn_relu_conv_plain)
+
+    rng = np.random.default_rng(5)
+    y1 = rng.standard_normal((2, 14, 14, 128)).astype(np.float32)
+    y1[0, 2, 3, 1] = np.nan
+    y1[1, 13, 0, 127] = np.nan
+    a = (0.5 + 0.5 * np.abs(rng.standard_normal(128))).astype(np.float32)
+    b = (0.1 * rng.standard_normal(128)).astype(np.float32)
+    w = (0.1 * rng.standard_normal((3, 3, 128, 128))).astype(np.float32)
+    args = [torch.from_numpy(y1).to(cuda_device, dtype),
+            torch.from_numpy(a).to(cuda_device),
+            torch.from_numpy(b).to(cuda_device),
+            torch.from_numpy(w).to(cuda_device, dtype)]
+    got = fused_bn_relu_conv(*args)
+    want = fused_bn_relu_conv_plain(*args)
+    # the exact NaN pixels: those whose 3x3 window holds a NaN input
+    bad = torch.isnan(args[0].float()).any(-1).float()[:, None]
+    exact = (torch.nn.functional.max_pool2d(bad, 3, stride=1, padding=1)
+             > 0)[:, 0, :, :, None]
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, wnt, ex in zip(got, want, (exact, exact.any().reshape(1),
+                                      exact.any().reshape(1))):
+        g, wnt = g.float(), wnt.float()
+        ex = ex.expand_as(g)
+        assert torch.equal(torch.isnan(g), ex)
+        # cuDNN's transform algorithms may spread a NaN over a tile
+        assert bool((torch.isnan(wnt) | ~ex).all())
+        fin = torch.isfinite(wnt) & torch.isfinite(g)
+        if bool(fin.any()):
+            scale = max(float(wnt[fin].abs().max()), 1.0)
+            assert float((g[fin] - wnt[fin]).abs().max()) <= tol * scale

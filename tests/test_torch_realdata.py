@@ -391,7 +391,7 @@ def test_jax_s_refusals_are_raised(i):
     (["--data_format=NCWH"], "NCHW|NHWC"),
     (["--horovod_device=tpu"], "cpu|gpu"),
     (["--datasets_repeat_cached_sample=true", "--eval=true"], "epoch"),
-    (["--compile_cache=/x"], "not ported"),
+    (["--model_parallel=2"], "not ported"),
     (["--optimizer=lbfgs"], "rmsprop"),
 ])
 def test_port_refusals(argv, match):

@@ -433,7 +433,7 @@ def test_benchmark_flags_defaults_and_rejections():
                                        "TRUE", "--device=cpu"])
     assert cfg.use_fp16 and cfg.fused_conv and cfg.compute_dtype == \
         "bfloat16"
-    for bad, match in ((["--compile_cache=/x"], "not ported"),
+    for bad, match in ((["--model_parallel=2"], "not ported"),
                        (["--gradient_accumulation_steps=3"], "divisible"),
                        (["--variable_update=zero1"], "not ported"),
                        (["--resume=elastic", "--train_dir=/x"],

@@ -58,8 +58,11 @@ constexpr int kLDC = kBN + 4;
 
 __device__ __forceinline__ float bn_relu(float x, float a, float b) {
   // mul then add, each rounded (no FMA contraction): the plain version's
-  // `x * a + b` exactly
-  return fmaxf(__fadd_rn(__fmul_rn(x, a), b), 0.f);
+  // `x * a + b` exactly; a NaN passes through as in `torch.relu` and
+  // `jnp.maximum` (`fmaxf(NaN, 0)` would return 0), and the bf16 packing
+  // (`__floats2bfloat162_rn`) keeps it a NaN
+  const float v = __fadd_rn(__fmul_rn(x, a), b);
+  return (v > 0.f || v != v) ? v : 0.f;
 }
 
 // --- staging: 4 consecutive input channels of one pixel -> shared -------

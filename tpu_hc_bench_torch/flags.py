@@ -321,15 +321,30 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 
 # training knobs of the JAX lane that this port does not carry yet
 LATER_SLICE_TRAIN_FLAGS = (
-    "compile_cache", "config",
-    "on_nonfinite", "max_bad_steps", "step_timeout_s",
-    "inject_fault",
-    "trace_dir", "profile_steps", "metrics_dir",
-    "flight_recorder", "fabric_ceiling", "hbm_budget", "num_slices",
-    "model_parallel",
-    "expert_parallel", "pipeline_parallel", "num_microbatches",
-    "sequence_parallel", "virtual_devices",
+    "config", "num_slices", "model_parallel", "expert_parallel",
+    "pipeline_parallel", "num_microbatches", "sequence_parallel",
+    "virtual_devices",
 )
+
+NONFINITE_POLICIES = ("abort", "skip", "rewind")
+
+
+def parse_profile_steps(spec: str) -> tuple[int, int]:
+    """``--profile_steps=a:b`` -> the inclusive timed-step window (JAX's
+    rule and messages); ``b`` may pass the run's end."""
+    parts = spec.split(":")
+    try:
+        if len(parts) != 2:
+            raise ValueError
+        a, b = int(parts[0]), int(parts[1])
+    except ValueError:
+        raise ValueError(
+            f"--profile_steps must be 'a:b' (1-based timed-step bounds, "
+            f"inclusive): {spec!r}") from None
+    if a < 1 or b < a:
+        raise ValueError(
+            f"--profile_steps window must satisfy 1 <= a <= b: {spec!r}")
+    return a, b
 
 # Horovod's fusion buffer, 128 MiB (HOROVOD_FUSION_THRESHOLD=134217728),
 # the JAX package's default
@@ -354,7 +369,11 @@ OPTIMIZERS = ("momentum", "sgd", "adam", "adamw", "rmsprop")
 
 # fields whose default is None: the type their flag parses to
 _OPTIONAL_TYPES = {"seq_len": int, "num_batches": int, "data_dir": str,
-                   "train_dir": str}
+                   "train_dir": str, "compile_cache": str,
+                   "step_timeout_s": str, "inject_fault": str,
+                   "trace_dir": str, "profile_steps": str,
+                   "metrics_dir": str, "fabric_ceiling": str,
+                   "hbm_budget": str}
 RESUME_POLICIES = ("auto", "never", "must", "elastic")
 
 
@@ -473,6 +492,41 @@ class BenchmarkConfig:
                                               # | must (raise if none);
                                               # elastic: not ported
     keep_checkpoints: int = 0                 # keep the newest N (0: all)
+
+    # --- resilience (JAX's round 8 surface) ---
+    on_nonfinite: str = "abort"               # abort (fail loudly) | skip
+                                              # (drop the update in the
+                                              # step) | rewind (restore
+                                              # the last checkpoint, skip
+                                              # a window of batches)
+    max_bad_steps: int = 10                   # consecutive-failure budget
+                                              # of skip/rewind
+    step_timeout_s: str | None = None         # watchdog: seconds, auto
+                                              # (10x the warmup's mean
+                                              # step, >= 60 s), off
+    inject_fault: str | None = None           # nan_loss@N, hang@N:S,
+                                              # sigterm@N, io_error@ckpt
+
+    # --- observability ---
+    metrics_dir: str | None = None            # manifest.json +
+                                              # metrics.jsonl (rank 0),
+                                              # metrics.<k>.jsonl
+                                              # heartbeats and
+                                              # spans.<k>.jsonl (every
+                                              # rank)
+    flight_recorder: str = "on"               # on|off: the span ring
+    trace_dir: str | None = None              # torch.profiler (Kineto)
+                                              # trace of a timed window
+    profile_steps: str | None = None          # "a:b": the window (unset:
+                                              # the first sync window)
+    hbm_budget: str | None = None             # bytes (KB/MB/GB/TB) or
+                                              # auto: checked against the
+                                              # first warmup step's peak
+    fabric_ceiling: str | None = None         # an OSU sweep export: judge
+                                              # the gradient all-reduce
+    compile_cache: str | None = None          # the kernel build directory
+                                              # (off: rebuild into the
+                                              # default one)
 
     # --- the reference's engine and thread knobs: parsed, translated ---
     mkl: bool = False
@@ -626,6 +680,7 @@ class BenchmarkConfig:
         if self.save_model_steps < 0:
             raise ValueError(
                 f"--save_model_steps must be >= 0: {self.save_model_steps}")
+        self._resolve_resilience_obs()
         if self.datasets_repeat_cached_sample and (self.eval
                                                    or self.num_epochs):
             raise ValueError(
@@ -635,6 +690,61 @@ class BenchmarkConfig:
                 "(--eval)")
         self.translations = t
         return self
+
+    def _resolve_resilience_obs(self) -> None:
+        """The resilience and observability flags, loud at flag time
+        (JAX's rules and messages)."""
+        if self.on_nonfinite not in NONFINITE_POLICIES:
+            raise ValueError(
+                f"--on_nonfinite must be abort|skip|rewind: "
+                f"{self.on_nonfinite!r}")
+        if self.on_nonfinite in ("skip", "rewind") and (self.forward_only
+                                                        or self.eval):
+            raise ValueError(
+                "--on_nonfinite=skip/rewind guards the optimizer "
+                "update; forward-only/--eval runs have none (abort "
+                "still applies)")
+        if self.on_nonfinite == "rewind" and not self.train_dir:
+            raise ValueError(
+                "--on_nonfinite=rewind restores the last checkpoint — "
+                "set --train_dir")
+        if self.on_nonfinite == "rewind" and self.resume == "never":
+            raise ValueError(
+                "--on_nonfinite=rewind restores from --train_dir; "
+                "--resume=never contradicts that (a rewind could "
+                "resurrect the very checkpoints you asked to ignore)")
+        if self.max_bad_steps < 1:
+            raise ValueError(
+                f"--max_bad_steps must be >= 1: {self.max_bad_steps}")
+        if self.step_timeout_s is not None:
+            from tpu_hc_bench_torch.resilience.watchdog import (
+                resolve_timeout)
+
+            resolve_timeout(self.step_timeout_s)        # loud check
+        if self.inject_fault:
+            from tpu_hc_bench_torch.resilience.inject import parse_plan
+
+            parse_plan(self.inject_fault)               # loud check
+        if self.flight_recorder not in ("on", "off"):
+            raise ValueError(
+                f"--flight_recorder must be on|off: "
+                f"{self.flight_recorder!r}")
+        if self.profile_steps is not None:
+            if not self.trace_dir:
+                raise ValueError(
+                    "--profile_steps selects WHICH timed steps to profile; "
+                    "--trace_dir says where the trace goes — set both")
+            if self.eval:
+                raise ValueError(
+                    "--profile_steps applies to the timed training loop; "
+                    "it has no meaning under --eval")
+            parse_profile_steps(self.profile_steps)     # loud check
+        if self.hbm_budget is not None:
+            from tpu_hc_bench_torch.obs.memory import parse_hbm_budget
+
+            parse_hbm_budget(self.hbm_budget)           # loud check
+        # --fabric_ceiling and --compile_cache are read at run start
+        # (resolve stays filesystem-pure, as JAX's)
 
     def _resolve_moe(self, t: dict) -> None:
         """JAX's MoE flag rules: ``--moe_impl=auto`` picks einsum below
@@ -740,7 +850,22 @@ class BenchmarkConfig:
             f"save_model_steps={self.save_model_steps} "
             f"async_checkpoint={self.async_checkpoint} "
             f"keep_checkpoints={self.keep_checkpoints}",
+            f"on_nonfinite={self.on_nonfinite} "
+            f"max_bad_steps={self.max_bad_steps} "
+            f"step_timeout_s={self.step_timeout_s} "
+            f"inject_fault={self.inject_fault}",
         ]
+        if (self.metrics_dir or self.trace_dir or self.hbm_budget
+                or self.fabric_ceiling or self.compile_cache
+                or self.flight_recorder != "on"):
+            lines.append(
+                f"metrics_dir={self.metrics_dir} "
+                f"flight_recorder={self.flight_recorder} "
+                f"trace_dir={self.trace_dir} "
+                f"profile_steps={self.profile_steps} "
+                f"hbm_budget={self.hbm_budget} "
+                f"fabric_ceiling={self.fabric_ceiling} "
+                f"compile_cache={self.compile_cache}")
         for k, v in self.translations.items():
             lines.append(f"translated: {k}: {v}")
         return lines

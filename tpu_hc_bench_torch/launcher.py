@@ -27,10 +27,14 @@ The world is NUM_HOSTS x WORKERS_PER_HOST workers, one process each:
   the hostfile contract of ``parallel.distributed``.
 
 Rank 0 prints the protocol lines and the result as one JSON line (no
-log file is written).  Exit codes: 0 clean success (nonzero throughput
-measured), 1 run completed but measured zero throughput; at world > 1
-the first failing worker's code (1 for a signal), the other workers
-stopped.
+log file is written).  Exit codes (``resilience``, JAX's contract): 0
+clean success (nonzero throughput measured), 1 run completed but
+measured zero throughput, 70 the watchdog ended a hung run
+(``--step_timeout_s``), 75 a SIGTERM/SIGINT was honored with an
+emergency checkpoint (``--resume=auto`` continues); at world > 1 the
+first failing worker's code (1 for a signal), the other workers
+stopped.  A SIGTERM or SIGINT to this process at world > 1 is passed on
+to every worker, whose ranks agree on the step to stop at.
 """
 
 from __future__ import annotations
@@ -47,9 +51,9 @@ import torch.distributed as dist
 from tpu_hc_bench_torch import flags, resolve_device
 from tpu_hc_bench_torch.parallel import distributed
 from tpu_hc_bench_torch.parallel.fabric import FABRICS, resolve_fabric
+from tpu_hc_bench_torch.resilience import (
+    EXIT_OK, EXIT_PREEMPTED, EXIT_ZERO_THROUGHPUT)
 
-EXIT_OK = 0
-EXIT_ZERO_THROUGHPUT = 1
 USAGE = ("usage: python -m tpu_hc_bench_torch NUM_HOSTS WORKERS_PER_HOST "
          f"BATCH_SIZE FABRIC({'|'.join(FABRICS)}) [--flags...]\n"
          "       python -m tpu_hc_bench_torch serve [--flags...]")
@@ -84,12 +88,22 @@ def world_size(num_hosts: int, workers_per_host: int, device: str) -> int:
 
 def _train(argv: list[str], cfg: flags.BenchmarkConfig, fabric: str,
            tee: Callable[[str], None], local: int) -> int:
+    from tpu_hc_bench_torch.resilience.preempt import PreemptedError
     from tpu_hc_bench_torch.train import driver
 
     tee(f"command: python -m tpu_hc_bench_torch {' '.join(argv)}")
-    result = driver.run_benchmark(cfg, fabric=fabric, print_fn=tee,
-                                  local_workers=local)
+    try:
+        result = driver.run_benchmark(cfg, fabric=fabric, print_fn=tee,
+                                      local_workers=local)
+    except PreemptedError as e:
+        tee(str(e))
+        return EXIT_PREEMPTED
     tee(json.dumps(result.json_line()))
+    if cfg.metrics_dir:
+        tee("summarize: python -m tpu_hc_bench_torch.obs summarize "
+            + cfg.metrics_dir
+            + (f" --fabric_ceiling {cfg.fabric_ceiling}"
+               if cfg.fabric_ceiling else ""))
     return EXIT_OK if result.total_images_per_sec > 0 else \
         EXIT_ZERO_THROUGHPUT
 

@@ -1,10 +1,17 @@
 """CLI: ``python -m tpu_hc_bench_torch.obs`` — summarize / timeline /
-signals over a serving run's ``--metrics_dir``.
+signals over a training or serving run's ``--metrics_dir``.
 
 Examples::
 
-    # render a metrics run (dir with metrics.jsonl + manifest.json)
-    python -m tpu_hc_bench_torch.obs summarize /runs/llama_serve
+    # render a metrics run (dir with metrics.jsonl + manifest.json):
+    # a training run's goodput, MFU (source labelled), memory, trace
+    # buckets and resilience events, or a serving run's SLO section
+    python -m tpu_hc_bench_torch.obs summarize /runs/resnet50
+    python -m tpu_hc_bench_torch.obs summarize /runs/resnet50 \
+        --fabric_ceiling sweep.json
+
+    # render a raw torch.profiler trace (--trace_dir) by step buckets
+    python -m tpu_hc_bench_torch.obs summarize /runs/resnet50_trace
 
     # merge the flight recorder's spans into ONE aligned Chrome-trace
     # file (open in chrome://tracing or Perfetto)
@@ -19,17 +26,54 @@ the JAX package's run directories as well as the port's.
 
 Exit codes: 0 clean; 1 degraded run dir (rendered what survived, each
 problem one WARNING line on stderr) or a signal fired (``signals``); 2
-unusable input (no metrics stream at the path — one-line error).
+unusable input (no metrics stream or trace at the path — one-line
+error).
 """
 
 from __future__ import annotations
 
 import argparse
+import glob
 import json
 import os
 import sys
 
 from tpu_hc_bench_torch.obs import metrics as metrics_mod
+from tpu_hc_bench_torch.obs import trace as trace_mod
+
+
+def _kind(path: str) -> str:
+    """Autodetect an artifact path: a 'metrics' run or a 'trace'."""
+    if os.path.isfile(path):
+        name = os.path.basename(path)
+        return "trace" if (name.endswith(".gz")
+                           or ".trace.json" in name) else "metrics"
+    if os.path.isfile(os.path.join(path, metrics_mod.METRICS_NAME)):
+        return "metrics"
+    if any(glob.glob(f"{path}/**/{pat}", recursive=True)
+           for pat in ("*.trace.json", "*.trace.json.gz")):
+        return "trace"
+    raise FileNotFoundError(
+        f"{path}: neither a metrics run (no {metrics_mod.METRICS_NAME}) "
+        "nor a trace dir (no *.trace.json[.gz])")
+
+
+def _summarize(path: str, out, fabric_ceiling: str | None = None) -> int:
+    if _kind(path) == "metrics":
+        problems: list[str] = []
+        lines = metrics_mod.summarize_run(
+            path, fabric_ceiling=fabric_ceiling, problems=problems)
+        print("\n".join(lines), file=out)
+        return _report_problems(problems)
+    lines = trace_mod.format_summary(trace_mod.summarize_trace_dir(path),
+                                     title=f"trace {path}")
+    if fabric_ceiling:
+        lines.append(
+            "fabric ceiling: --fabric_ceiling applies to metrics runs "
+            "(needs wall step times + allreduce bytes); pass the "
+            "--metrics_dir artifact instead of the raw trace dir")
+    print("\n".join(lines), file=out)
+    return 0
 
 
 def _report_problems(problems: list[str]) -> int:
@@ -66,12 +110,15 @@ def _timeline(run_dir: str, out_path: str | None, out) -> int:
 def main(argv: list[str] | None = None, out=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tpu_hc_bench_torch.obs",
-        description="summarize/timeline/signals over serving-run "
-                    "artifacts (--metrics_dir)")
+        description="summarize/timeline/signals over training- and "
+                    "serving-run artifacts (--metrics_dir, --trace_dir)")
     sub = ap.add_subparsers(dest="cmd", required=True)
-    s = sub.add_parser("summarize", help="render one run (metrics dir or "
-                                         "its metrics.jsonl)")
+    s = sub.add_parser("summarize", help="render one run (metrics dir, "
+                                         "its metrics.jsonl, or a trace)")
     s.add_argument("path")
+    s.add_argument("--fabric_ceiling", default=None, metavar="SWEEP_JSON",
+                   help="an OSU sweep export (microbench.osu --json): "
+                        "judge the gradient all-reduce against it")
     t = sub.add_parser("timeline",
                        help="merge every rank's flight-recorder spans "
                             "(spans.<k>.jsonl) into one clock-aligned "
@@ -96,10 +143,7 @@ def main(argv: list[str] | None = None, out=None) -> int:
     out = out or sys.stdout
     try:
         if args.cmd == "summarize":
-            problems: list[str] = []
-            lines = metrics_mod.summarize_run(args.path, problems=problems)
-            print("\n".join(lines), file=out)
-            return _report_problems(problems)
+            return _summarize(args.path, out, args.fabric_ceiling)
         if args.cmd == "timeline":
             return _timeline(args.run_dir, args.out, out)
         from tpu_hc_bench_torch.obs import signals as signals_mod

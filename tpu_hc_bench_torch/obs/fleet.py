@@ -1,6 +1,5 @@
 """Fleet-wide per-host visibility: heartbeats and their readers (the
-port's copy of the JAX package's ``obs/fleet.py``, the part the serving
-lane uses).
+port's copy of the JAX package's ``obs/fleet.py``).
 
 Every process appends one compact record per sync window to its *own*
 ``metrics.<process_index>.jsonl`` next to the main stream — host id,
@@ -11,9 +10,11 @@ signal).  ``read_heartbeats`` / ``straggler_lines`` /
 ``classify_liveness`` are pure file operations, so ``summarize``
 renders fleet state from artifacts on any machine.
 
-The collective straggler gather (``straggler_gather``) and the step
-EWMA belong to the training lane and come with it; ``process_index`` is
-a required argument here (the serve lane pins it to 0).
+The training lane adds the step EWMA (``StepEwma``), the collective
+straggler gather (``straggler_gather``: an all-gather of each rank's
+step and EWMA over the default process group) and the input-plane
+summary (``input_lines``); ``process_index`` is a required argument
+here (the serve lane pins it to 0, the training lane passes its rank).
 """
 
 from __future__ import annotations
@@ -28,6 +29,33 @@ _HEARTBEAT_RE = re.compile(r"^metrics\.(\d+)\.jsonl$")
 
 def heartbeat_path(out_dir: str, process_index: int) -> str:
     return os.path.join(out_dir, f"metrics.{process_index}.jsonl")
+
+
+class StepEwma:
+    """Step-duration EWMA from (step, wall-time) samples at sync windows.
+
+    ``update`` returns the current EWMA in milliseconds (0.0 until two
+    samples exist).  Smoothing favors recency (alpha 0.3) so a host
+    that *becomes* slow shows up within a few windows.
+    """
+
+    def __init__(self, alpha: float = 0.3):
+        self.alpha = alpha
+        self._last: tuple[int, float] | None = None
+        self.ewma_ms = 0.0
+
+    def update(self, step: int, now: float | None = None) -> float:
+        now = time.monotonic() if now is None else now
+        if self._last is not None:
+            last_step, last_t = self._last
+            dsteps = step - last_step
+            if dsteps > 0:
+                sample_ms = 1e3 * (now - last_t) / dsteps
+                self.ewma_ms = (sample_ms if self.ewma_ms == 0.0 else
+                                self.alpha * sample_ms
+                                + (1 - self.alpha) * self.ewma_ms)
+        self._last = (step, now)
+        return self.ewma_ms
 
 
 def _tail_record(path: str, nbytes: int = 8192) -> dict | None:
@@ -145,6 +173,28 @@ class FleetWriter:
                 pass
             self._f.close()
             self._f = None
+
+
+def straggler_gather(step: int, ewma_ms: float) -> dict | None:
+    """Every rank's (step, EWMA) gathered over the default process group
+    (a collective: every rank calls it at the same step); the straggler
+    record's fields, or None when the gather fails."""
+    import torch
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() <= 1:
+        return compute_skew([int(step)], [float(ewma_ms)])
+    try:
+        dev = (torch.device("cuda", torch.cuda.current_device())
+               if dist.get_backend() == "nccl" else torch.device("cpu"))
+        mine = torch.tensor([float(step), float(ewma_ms)],
+                            dtype=torch.float64, device=dev)
+        out = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+        dist.all_gather(out, mine)
+        rows = [t.tolist() for t in out]
+    except Exception:
+        return None
+    return compute_skew([int(r[0]) for r in rows], [float(r[1]) for r in rows])
 
 
 def compute_skew(host_steps: list[int],
@@ -272,6 +322,49 @@ def read_heartbeats(run_dir: str) -> dict[int, list[dict]]:
             continue
         out[int(m.group(1))] = read_jsonl(os.path.join(run_dir, name))
     return out
+
+
+def input_lines(run_dir: str | None, records: list[dict],
+                ledger=None) -> list[str]:
+    """The ``summarize`` input-plane account (real-data runs only):
+    data_wait fraction from the goodput ledger, the input service's
+    ring occupancy/stall record, and per-host ring occupancy mined from
+    the heartbeats' ``input`` fields."""
+    svc = [r for r in records if r.get("kind") == "input_service"]
+    data = [r for r in records if r.get("kind") == "data"]
+    if not svc and not data:
+        return []                   # synthetic input: no input plane
+    head = "  input:"
+    if ledger is not None and ledger.wall_s > 0:
+        dw = ledger.seconds.get("data_wait", 0.0)
+        head += f" data_wait {dw / ledger.wall_s:.1%} of wall"
+    if svc:
+        s = svc[-1]
+        depth = s.get("depth", "?")
+        head += (f"  service rings occ p50 {s.get('occ_p50', 0)}/{depth} "
+                 f"p99 {s.get('occ_p99', 0)}/{depth}  producer stalls "
+                 f"{s.get('producer_stall_s', 0.0):.2f}s  consumer waits "
+                 f"{s.get('consumer_wait_s', 0.0):.2f}s  "
+                 f"({s.get('decode_workers', '?')} decode thread(s) -> "
+                 f"{s.get('workers', '?')} worker(s))")
+    else:
+        head += " (per-process pipeline)"
+    lines = [head]
+    beats = read_heartbeats(run_dir) if run_dir else {}
+    occ = sorted(
+        rec["input"]["ring_occ"]
+        for recs in beats.values() for rec in recs
+        if isinstance(rec.get("input"), dict)
+        and "ring_occ" in rec["input"])
+    if occ:
+        def pct(q):
+            return occ[min(len(occ) - 1, int(q * (len(occ) - 1)))]
+
+        lines.append(
+            f"    host rings (heartbeats): occ p50 {pct(0.5)} "
+            f"p99 {pct(0.99)} over {len(occ)} window(s), "
+            f"{len(beats)} host(s)")
+    return lines
 
 
 def straggler_lines(run_dir: str, records: list[dict]) -> list[str]:

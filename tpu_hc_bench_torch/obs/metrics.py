@@ -1,16 +1,18 @@
 """Per-run machine-readable artifacts: ``metrics.jsonl`` + ``manifest.json``
-(the port's copy of the JAX package's ``obs/metrics.py``, the part the
-serving lane writes and reads).
+(the port's copy of the JAX package's ``obs/metrics.py``).
 
-A serve run with ``--metrics_dir`` leaves:
+A run with ``--metrics_dir`` leaves:
 
 - ``manifest.json`` — run identity: the resolved flag set, torch's and
-  CUDA's versions, the card's name, the world (1: the serve lane is one
-  process) and the git sha;
-- ``metrics.jsonl`` — one ``kind``-tagged record per event: ``request``,
-  ``serve``, ``kv_pool``, ``latency_sketch``, ``serve_clock``, the
-  degradation records and the final ``serve_summary`` and
-  ``serve_compile``.
+  CUDA's versions, the card's name, the world and the git sha (rank 0
+  writes it, and the stream);
+- ``metrics.jsonl`` — one ``kind``-tagged record per event.  A training
+  run writes ``phase``/``phase_acc`` (the goodput ledger), ``window``,
+  ``memory``, ``straggler``, the resilience records, ``memory_report``,
+  ``hbm_budget``, ``trace_buckets``, ``latency_sketch`` and the final
+  ``summary``; a serving run ``request``, ``serve``, ``kv_pool``,
+  ``latency_sketch``, ``serve_clock``, the degradation records and the
+  final ``serve_summary`` and ``serve_compile``.
 
 The record formats are the JAX package's, so either package's
 ``summarize`` renders the other's run directory.  ``read_run`` /
@@ -281,11 +283,13 @@ def read_run(path: str,
     return manifest, records
 
 
-# resilience-event record kinds of the serving lane: surfaced by
-# summarize_run so a degraded run says so instead of passing as clean
+# resilience-event record kinds of both lanes: surfaced by summarize_run
+# so a run that skipped, rewound, retried or shed its way to the finish
+# line says so instead of passing as clean
 RESILIENCE_KINDS = (
-    "injected_fault", "preempt", "watchdog_dump", "io_retry", "shed",
-    "quarantine",
+    "injected_fault", "nonfinite_skip", "nonfinite_abort", "rewind",
+    "emergency_ckpt", "preempt", "watchdog_dump", "io_retry",
+    "shed", "quarantine",
 )
 
 #: per-kind cap on detail lines in summarize (an overload run sheds
@@ -293,11 +297,13 @@ RESILIENCE_KINDS = (
 _RESILIENCE_DETAIL_CAP = 6
 
 
+def _of_kind(records: list[dict], kind: str) -> list[dict]:
+    return [r for r in records if r.get("kind") == kind]
+
+
 def _last(records: list[dict], kind: str) -> dict | None:
-    for r in reversed(records):
-        if r.get("kind") == kind:
-            return r
-    return None
+    recs = _of_kind(records, kind)
+    return recs[-1] if recs else None
 
 
 def compile_lines(rec: dict | None) -> list[str]:
@@ -324,38 +330,129 @@ def compile_lines(rec: dict | None) -> list[str]:
     return lines
 
 
-def summarize_run(path: str, problems: list[str] | None = None
-                  ) -> list[str]:
-    """Render one serving run as text lines: identity, the serving
-    section (``serve.slo.slo_lines``, the JAX lane's lines), the kernel
-    library and budget, heartbeats, the flight recorder's timeline and
-    the resilience events."""
+def _identity_lines(manifest: dict) -> list[str]:
+    """The manifest's two lines: a training run's in JAX's form (model,
+    fabric, world), a serving run's with its workload; then the
+    versions."""
+    if manifest.get("workload") == "serve" or "fabric" not in manifest:
+        head = (f"  model={manifest.get('model')} "
+                f"workload={manifest.get('workload')} "
+                f"world={manifest.get('world')} "
+                f"device={manifest.get('device_kind')}")
+    else:
+        mesh = manifest.get("mesh_shape")
+        head = (f"  model={manifest.get('model')} "
+                f"fabric={manifest.get('fabric')} "
+                f"world={manifest.get('process_count')}proc/"
+                f"{manifest.get('device_count')}dev "
+                f"mesh={mesh if mesh else '?'}")
+    return [head,
+            f"  torch={manifest.get('torch_version')} "
+            f"cuda={manifest.get('cuda_version')} "
+            f"git={str(manifest.get('git_sha', '?'))[:12]} "
+            f"platform={manifest.get('platform')}"]
+
+
+def summarize_run(path: str, fabric_ceiling: str | None = None,
+                  problems: list[str] | None = None) -> list[str]:
+    """Render one run as text lines (JAX's ``summarize_run``): identity;
+    a training run's windows, total, merged step sketch, MFU and its
+    source, goodput ledger, checkpoints, stragglers, input plane,
+    memory, budget, timeline, resume, resilience events, trace buckets,
+    collective overlap and fabric ceiling; a serving run's section
+    (``serve.slo.slo_lines``) and kernel-library lines.
+    ``fabric_ceiling``: an OSU sweep export to judge the achieved
+    gradient all-reduce bandwidth against."""
+    from tpu_hc_bench_torch.obs import efficiency as eff_mod
     from tpu_hc_bench_torch.obs import fleet as fleet_mod
+    from tpu_hc_bench_torch.obs import goodput as goodput_mod
+    from tpu_hc_bench_torch.obs import memory as mem_mod
+    from tpu_hc_bench_torch.obs import sketch as sketch_mod
     from tpu_hc_bench_torch.obs import timeline as timeline_mod
     from tpu_hc_bench_torch.serve import slo as slo_mod
 
     manifest, records = read_run(path, problems=problems)
     lines = [f"run: {path}"]
     if manifest:
-        lines.append(
-            f"  model={manifest.get('model')} "
-            f"workload={manifest.get('workload')} "
-            f"world={manifest.get('world')} "
-            f"device={manifest.get('device_kind')}")
-        lines.append(
-            f"  torch={manifest.get('torch_version')} "
-            f"cuda={manifest.get('cuda_version')} "
-            f"git={str(manifest.get('git_sha', '?'))[:12]} "
-            f"platform={manifest.get('platform')}")
+        lines.extend(_identity_lines(manifest))
+    windows = _of_kind(records, "window")
+    if windows:
+        lines.append(f"  {'step':>6s} {'ex/sec':>10s} {'step_ms':>9s} "
+                     f"{'loss':>8s}")
+        for w in windows:
+            lines.append(
+                f"  {w.get('step', '?'):>6} {w.get('rate', 0.0):10.1f} "
+                f"{w.get('step_ms', 0.0):9.2f} {w.get('loss', 0.0):8.3f}")
     serve_fold = slo_mod.fold_serve_records(records)
     if serve_fold is not None:
-        lines.append("  serving run (request-keyed metrics; no "
-                     "step-keyed training records)")
+        if not windows and not _last(records, "summary"):
+            lines.append("  serving run (request-keyed metrics; no "
+                         "step-keyed training records)")
         lines.extend(slo_mod.slo_lines(serve_fold))
     lines.extend(compile_lines(_last(records, "serve_compile")))
-    run_dir = os.path.dirname(resolve_run(path)[1])
-    lines.extend(fleet_mod.straggler_lines(run_dir, records))
+    summary = _last(records, "summary")
+    if summary:
+        lines.append(
+            f"  total: {summary.get('total_images_per_sec', 0.0):.2f} "
+            f"ex/s  mean {summary.get('mean_step_ms', 0.0):.2f}ms  "
+            f"p50 {summary.get('p50_step_ms', 0.0):.2f}ms"
+            f" (granularity {summary.get('p50_step_granularity', '?')} "
+            f"step)  MFU {100 * (summary.get('mfu') or 0.0):.1f}%")
+        step_sk = sketch_mod.merge_records(
+            (r.get("fields") or {}).get("step_ms")
+            for r in records if r.get("kind") == "latency_sketch")
+        if step_sk is not None and step_sk.count:
+            lines.append(
+                f"  step ms [sketch, merged] "
+                f"p50 {step_sk.quantile(50):.2f}  "
+                f"p95 {step_sk.quantile(95):.2f}  "
+                f"p99 {step_sk.quantile(99):.2f}")
+        lines.extend(eff_mod.mfu_lines(summary))
+    ledger = goodput_mod.build_ledger(records)
+    if ledger is not None:
+        lines.extend("  " + ln for ln in ledger.format_lines())
+    commits = _of_kind(records, "checkpoint_commit")
+    if commits:
+        total_w = sum(float(c.get("write_s", 0) or 0) for c in commits)
+        lines.append(f"  async checkpoints: {len(commits)} landed, "
+                     f"{total_w:.2f}s of writes overlapped with the "
+                     f"step loop")
+    run_dir = None
+    try:
+        run_dir = os.path.dirname(resolve_run(path)[1])
+        lines.extend(fleet_mod.straggler_lines(run_dir, records))
+    except FileNotFoundError:
+        pass
+    data = _last(records, "data")
+    if data:
+        lines.append(
+            f"  data: {data.get('examples', 0)} examples decoded, "
+            f"{data.get('decode_workers', '?')} workers, "
+            f"{data.get('decode_wall_s', 0.0):.1f}s decode wall")
+    lines.extend(fleet_mod.input_lines(run_dir, records, ledger))
+    lines.extend(mem_mod.memory_lines(mem_mod.fold_memory_records(records)))
+    mem_rep = _last(records, "memory_report")
+    if mem_rep:
+        lines.extend(mem_mod.memory_report_lines(mem_rep))
+    budget = _last(records, "hbm_budget")
+    if budget:
+        lines.append(
+            f"  hbm budget: {'EXCEEDED' if budget.get('exceeded') else 'ok'}"
+            f" (measured {budget.get('total_bytes', 0) / 2**30:.2f} GiB vs "
+            f"budget {budget.get('budget_bytes', 0) / 2**30:.2f} GiB)")
+    dump = _last(records, "memory_dump")
+    if dump:
+        lines.append(
+            f"  memory dump: {dump.get('path')} "
+            f"(reason {dump.get('reason')}, step {dump.get('step')})")
     lines.extend(timeline_mod.timeline_lines(run_dir))
+    resume = _last(records, "resume")
+    if resume:
+        lines.append(
+            f"  resume: step {resume.get('restored_step')}  world "
+            f"{resume.get('saved_world')}->{resume.get('live_world')}  "
+            f"arm={resume.get('arm')}"
+            + (" (elastic reshard)" if resume.get("elastic") else ""))
     res = [r for r in records if r.get("kind") in RESILIENCE_KINDS]
     if res:
         counts: dict[str, int] = {}
@@ -375,4 +472,19 @@ def summarize_run(path: str, problems: list[str] | None = None
             if n > _RESILIENCE_DETAIL_CAP:
                 lines.append(f"    {kind}: ... "
                              f"+{n - _RESILIENCE_DETAIL_CAP} more")
+    tb = _last(records, "trace_buckets")
+    if tb and tb.get("buckets"):
+        total = sum(tb["buckets"].values()) or 1.0
+        parts = ", ".join(f"{k} {v / total:.1%}"
+                          for k, v in sorted(tb["buckets"].items(),
+                                             key=lambda kv: -kv[1]))
+        lines.append(f"  trace buckets: {parts}")
+    if tb and tb.get("overlap"):
+        lines.extend(eff_mod.overlap_lines(tb["overlap"]))
+    if fabric_ceiling:
+        ceiling = eff_mod.load_fabric_ceiling(fabric_ceiling)
+        lines.extend(eff_mod.ceiling_utilization_lines(
+            summary or {}, tb, ceiling))
+    elif summary:
+        lines.extend(eff_mod.collective_busbw_lines(summary, tb))
     return lines

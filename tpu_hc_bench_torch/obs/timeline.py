@@ -109,6 +109,9 @@ class SpanRecorder:
         self._f = None              # open spans.<rank>.jsonl handle
         self._run_dir: str | None = None
         self.last_name: str | None = None
+        # the open coarse phase (the goodput ledger rides transition()):
+        # (name, t0, step) or None
+        self._open_phase: tuple[str, float, int | None] | None = None
 
     # -- hot path ------------------------------------------------------
 
@@ -131,6 +134,25 @@ class SpanRecorder:
         return _Span(self, name, step, meta)
 
     # -- persistence (cold path, never fatal) --------------------------
+
+    def transition(self, phase: str, step: int | None = None) -> None:
+        """Close the open coarse-phase span and (unless ``phase`` is the
+        terminal ``"end"``) open the next: the goodput ledger's
+        transitions mirrored into the span timeline."""
+        now = time.monotonic()
+        if self._open_phase is not None:
+            pname, pt0, pstep = self._open_phase
+            self.record(pname, pt0, now, step=step if step is not None
+                        else pstep)
+        self._open_phase = (None if phase == "end"
+                            else (phase, now, step))
+
+    def current_phase(self) -> str | None:
+        """The open coarse phase, else the newest recorded span's name:
+        the heartbeat's "where is this rank right now" field."""
+        if self._open_phase is not None:
+            return self._open_phase[0]
+        return self.last_name
 
     def attach(self, run_dir: str | None, rank: int | None = None) -> None:
         """Point persistence at ``run_dir`` (``spans.<rank>.jsonl``,
@@ -279,6 +301,17 @@ def instant(name: str, step: int | None = None, **meta) -> None:
     _RECORDER.instant(name, step=step, **meta)
 
 
+def transition(phase: str, step: int | None = None) -> None:
+    try:
+        _RECORDER.transition(phase, step=step)
+    except Exception:
+        pass
+
+
+def current_phase() -> str | None:
+    return _RECORDER.current_phase()
+
+
 def flush() -> int:
     try:
         return _RECORDER.flush()
@@ -315,7 +348,7 @@ def dump_timeline(out_dir: str | None, reason: str,
         ranks[str(_RECORDER.rank)] = _RECORDER.tail(last_k)
         payload = {"reason": reason, "step": step, "t_unix": time.time(),
                    "last_k": last_k, "dropped": _RECORDER.dropped,
-                   "current_phase": _RECORDER.last_name,
+                   "current_phase": _RECORDER.current_phase(),
                    "ranks": ranks}
         path = os.path.join(out_dir, TIMELINE_DUMP_NAME)
         tmp = path + ".tmp"

@@ -59,6 +59,7 @@ import ctypes
 
 import torch
 
+from tpu_hc_bench_torch.obs import efficiency
 from tpu_hc_bench_torch.ops import _build
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_fwd",
@@ -377,6 +378,8 @@ def flash_fwd(q, k, v, causal=False, scale=None):
     _build.check(err, "flash_attention forward")
     _check_design(design, fwd_design(q.dtype, d), "fwd")
     flash_attention.launches["fwd"] += 1
+    efficiency.kernel_ops(4.0 * b * h * efficiency.attn_pairs(sq, sk, causal)
+                          * d)
     return o, lse
 
 
@@ -404,6 +407,8 @@ def flash_dq(q, k, v, do, lse, delta, causal=False, scale=None):
     _build.check(err, "flash_attention dQ")
     _check_design(design, bwd_design(q.dtype, d), "dq")
     flash_attention.launches["dq"] += 1
+    efficiency.kernel_ops(6.0 * b * h * efficiency.attn_pairs(sq, sk, causal)
+                          * d)
     return dq
 
 
@@ -423,6 +428,8 @@ def flash_dkv(q, k, v, do, lse, delta, causal=False, scale=None):
     _build.check(err, "flash_attention dK/dV")
     _check_design(design, bwd_design(q.dtype, d), "dkv")
     flash_attention.launches["dkv"] += 1
+    efficiency.kernel_ops(8.0 * b * h * efficiency.attn_pairs(sq, sk, causal)
+                          * d)
     return dk, dv
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from tpu_hc_bench_torch.obs import efficiency
 from tpu_hc_bench_torch.ops import _build
 
 __all__ = ["fused_bn_relu_conv", "fused_bn_relu_conv_plain", "eligible",
@@ -141,6 +142,7 @@ def _launch(y1, a, b, w):
         _DESIGNS[design], rows, _build.stream_ptr(y1.device))
     _build.check(err, "fused_bn_relu_conv")
     fused_bn_relu_conv.launches += 1
+    efficiency.kernel_ops(2.0 * n * h * wd * cout * 9 * cin)
     return y2, stats[0], stats[1]
 
 
@@ -173,7 +175,10 @@ class _FusedBNReluConv(torch.autograd.Function):
             _nchw(y1).shape, w_oihw, geff_c, padding=1).permute(0, 2, 3, 1)
         dw = torch.nn.grad.conv2d_weight(
             _nchw(xn), w_oihw.shape, geff_c, padding=1).permute(2, 3, 1, 0)
-        t = dxn.float() * (xn_f > 0)
+        # the relu mask as a select, as XLA computes JAX's ``dxn * (xn >
+        # 0)`` (a product with a converted predicate becomes a select):
+        # a NaN of dxn where the mask is off is dropped, not carried
+        t = torch.where(xn_f > 0, dxn.float(), 0.0)
         dy1 = (t * a).to(y1.dtype)
         da = (t * y1.float()).sum((0, 1, 2))
         db = t.sum((0, 1, 2))

@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from tpu_hc_bench_torch.obs import efficiency
 from tpu_hc_bench_torch.ops import _build
 
 __all__ = ["softmax_xent", "softmax_xent_plain", "softmax_xent_reference",
@@ -131,6 +132,7 @@ def xent_fwd(logits, labels):
         _build.stream_ptr(logits.device))
     _build.check(err, "softmax_xent forward")
     softmax_xent.launches["fwd"] += 1
+    efficiency.kernel_ops(4.0 * n * v)
     return loss, lse
 
 
@@ -151,6 +153,7 @@ def xent_bwd(logits, labels, lse, g):
         _build.stream_ptr(logits.device))
     _build.check(err, "softmax_xent backward")
     softmax_xent.launches["bwd"] += 1
+    efficiency.kernel_ops(4.0 * n * v)
     return dlogits
 
 

@@ -30,6 +30,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -184,7 +185,9 @@ def spawn_local(cmd: Sequence[str], workers: Sequence[Worker],
 
     Global rank 0's standard output goes to ``on_line`` line by line;
     the other workers' output and every standard error pass through.
-    The first worker to exit non-zero stops the others (a rank blocked
+    A SIGTERM or SIGINT to this process is passed on to every worker
+    (each honors it at a step boundary the ranks agree on).  The first
+    worker to exit non-zero stops the others (a rank blocked
     in a collective on a dead peer would otherwise wait for the group's
     timeout); its exit code is returned (1 for a signal), else 0.  Each
     worker gets an equal share of the host's cores in
@@ -198,6 +201,16 @@ def spawn_local(cmd: Sequence[str], workers: Sequence[Worker],
                     str(max(1, (os.cpu_count() or 1) // len(workers))))
     procs: list[subprocess.Popen] = []
     first_failure: list[tuple[int, int]] = []
+
+    def forward(signum, frame) -> None:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    saved = {}
+    if threading.current_thread() is threading.main_thread():
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            saved[sig] = signal.signal(sig, forward)
     try:
         for w in workers:
             procs.append(subprocess.Popen(
@@ -225,6 +238,8 @@ def spawn_local(cmd: Sequence[str], workers: Sequence[Worker],
                     on_line(line.rstrip("\n"))
         watcher.join()
     finally:
+        for sig, old in saved.items():
+            signal.signal(sig, old)
         _stop(procs)
     if first_failure:
         rank_, code = first_failure[0]

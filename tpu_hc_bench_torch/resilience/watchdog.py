@@ -1,7 +1,8 @@
-"""Scheduler-iteration watchdog: end a wedged run with its stacks
-instead of hanging.
+"""Step and scheduler-iteration watchdog: end a wedged run with its
+stacks instead of hanging.
 
-A monitor thread reads the wall time of the last completed scheduler
+A monitor thread reads the wall time of the last completed training step
+(the step clock's CUDA events, queried from the thread) or scheduler
 iteration; when none completes within the timeout it writes every
 Python thread's stack to stderr (``faulthandler``, which works while the
 main thread is stuck in native code) and ends the process with
@@ -78,8 +79,10 @@ class Watchdog:
                  poll_s: float | None = None,
                  last_record_fn: Callable[[], Any] | None = None,
                  obs_writer: Any = None,
-                 forensics_fn: Callable[[], Any] | None = None):
+                 forensics_fn: Callable[[], Any] | None = None,
+                 what: str = "scheduler iteration"):
         self.timeout_s = float(timeout_s)
+        self._what = what
         self._progress = progress_fn
         self._on_timeout = on_timeout
         self._last_record = last_record_fn
@@ -89,6 +92,7 @@ class Watchdog:
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
         self._armed_t = 0.0
+        self._paused = False
         self.fired = False
 
     def start(self) -> "Watchdog":
@@ -104,8 +108,21 @@ class Watchdog:
         if self._thread is not None:
             self._thread.join(timeout=2 * self._poll_s)
 
+    def pause(self) -> None:
+        """Suspend the checks around a legitimate long stall the
+        progress clock cannot see (a checkpoint save or restore)."""
+        self._paused = True
+
+    def resume(self) -> None:
+        """Re-arm from now: the paused span does not count against the
+        next step."""
+        self._armed_t = time.perf_counter()
+        self._paused = False
+
     def _run(self) -> None:
         while not self._stop.wait(self._poll_s):
+            if self._paused:
+                continue
             last = self._progress()
             if last is None or last < self._armed_t:
                 last = self._armed_t
@@ -117,7 +134,7 @@ class Watchdog:
     def _fire(self, age: float) -> None:
         self.fired = True
         sys.stderr.write(
-            f"\nwatchdog: no scheduler iteration completed in {age:.1f}s "
+            f"\nwatchdog: no {self._what} completed in {age:.1f}s "
             f"(timeout {self.timeout_s:.1f}s) — dumping all thread "
             f"stacks and aborting (exit {EXIT_WATCHDOG})\n")
         try:
@@ -147,6 +164,11 @@ class Watchdog:
             try:
                 self._obs.event("watchdog_dump", age_s=age,
                                 timeout_s=self.timeout_s)
+                if self._what == "step":
+                    # the goodput ledger's end: the wedged span counts
+                    self._obs.event("phase", phase="end",
+                                    t=time.monotonic(), step=None,
+                                    reason="watchdog")
                 self._obs.close()
             except Exception:
                 pass

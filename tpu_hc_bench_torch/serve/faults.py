@@ -29,39 +29,8 @@ import json
 import os
 import signal
 
-# the two lanes' fault vocabularies, as the JAX package names them in
-# its one parse-error message
-TRAIN_VOCAB = ("nan_loss@STEP | hang@STEP:SECONDS | sigterm@STEP | "
-               "io_error@ckpt")
-SERVE_VOCAB = ("hang@STEP:SECONDS | nan_logits@RID | sigterm@T_SECONDS"
-               " | pool_squeeze@T_SECONDS:PAGES")
-
-
-def malformed(entry: str, lane: str = "serve") -> str:
-    """The parse error: the entry, its lane, and both grammars."""
-    return (f"malformed fault entry {entry!r} for the {lane} lane; "
-            f"train grammar (--inject_fault): {TRAIN_VOCAB}; "
-            f"serve grammar (--serve_faults): {SERVE_VOCAB}")
-
-
-def split_entries(spec: str | None, lane: str = "serve") -> list[tuple]:
-    """Comma-separated ``CLASS@WHERE[:ARG]`` entries -> ``(cls, where,
-    arg, entry)`` tuples (``arg`` None without a ``:`` part); loud on
-    structural malformation."""
-    out: list[tuple] = []
-    for entry in (spec or "").split(","):
-        entry = entry.strip()
-        if not entry:
-            continue
-        cls, sep, rest = entry.partition("@")
-        if not sep or not cls or not rest:
-            raise ValueError(malformed(entry, lane))
-        where, sep2, arg = rest.partition(":")
-        if not where or (sep2 and not arg):
-            raise ValueError(malformed(entry, lane))
-        out.append((cls, where, arg if sep2 else None, entry))
-    return out
-
+from tpu_hc_bench_torch.resilience.inject import (  # noqa: F401
+    SERVE_VOCAB, TRAIN_VOCAB, malformed, split_entries)
 
 JOURNAL_NAME = "serve_journal.json"
 

@@ -71,6 +71,26 @@ the slowest rank's time, and ``images_per_sec_per_chip`` the total over
 the world.  Without a group the step is the one-worker step (``sock``
 at world 1).
 
+Guards and observability (JAX's driver; ``_run_train``): the
+``--inject_fault`` plan fires before each timed step; SIGTERM/SIGINT is a
+flag honored at a step boundary (the ranks agree at sync-window
+boundaries), then one synchronous emergency save to ``--train_dir``, its
+``state fingerprint:`` line and ``PreemptedError`` (exit 75); the
+``--step_timeout_s`` watchdog reads the step clock's CUDA events from its
+thread and ends a run with no step done within it (exit 70); the
+non-finite guard's counters (``--on_nonfinite``) are read once a sync
+window, one window late, and settled before every save and at the end
+(``skip``: the step dropped the update; ``rewind``: the last complete
+checkpoint is restored and a window of batches skipped; ``abort``: a
+non-finite display loss fails the run); ``--max_bad_steps`` ends a
+poisoned run.  Under ``--metrics_dir`` rank 0 writes the stream (the
+goodput ledger's phases, windows, memory samples, stragglers, the
+resilience events, the summary) and every rank its heartbeats and spans
+once a sync window; ``--trace_dir``/``--profile_steps`` profile a window
+of timed steps; ``--hbm_budget`` is checked against the first warmup
+step's allocator peak, and the MFU probe counts that step's operations
+(``obs.efficiency.probe_step_flops``), both outside the timed window.
+
 Timing: the total is the host clock from the end of warmup to the
 device's end of the last step.  Each timed step also records a CUDA
 event after it, so the per-step median comes from device timestamps
@@ -84,12 +104,14 @@ NaN.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import itertools
 import math
 import os
 import statistics
+import threading
 import time
 from typing import Callable, Iterator
 
@@ -107,6 +129,7 @@ from tpu_hc_bench_torch.parallel import distributed
 from tpu_hc_bench_torch.parallel.fabric import resolve_fabric
 from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import hw
+from tpu_hc_bench_torch.utils.sync import drain
 
 
 @dataclasses.dataclass
@@ -146,6 +169,13 @@ class BenchmarkResult:
     extra: dict | None = None        # MoE members: the dispatch, the
                                      # last step's aux loss and
                                      # dropped-pair fraction
+    goodput: float = float("nan")    # the ledger (obs.goodput): productive
+                                     # step seconds / wall seconds
+    goodput_phases: dict | None = None   # phase -> wall seconds (zero
+                                         # phases omitted)
+    peak_hbm_bytes: int | None = None    # the memory ledger's high water
+    hbm_bytes_limit: int | None = None
+    mem_source: str | None = None
 
     def json_line(self) -> dict:
         """The fields as a dict for strict JSON: NaN (no MFU) is None."""
@@ -155,11 +185,20 @@ class BenchmarkResult:
 
 class _StepClock:
     """End-of-step marks: CUDA events on the card, the host clock on the
-    CPU (where every op has finished when it returns)."""
+    CPU (where every op has finished when it returns).
+
+    ``done()`` is the progress oracle of the watchdog, the trace window
+    and the heartbeats: the newest mark the device has reached and the
+    host time it was first seen reached, found by querying the events
+    (``cudaEventQuery``, no sync) from the newest known-done mark on; it
+    may run on another thread than the loop's."""
 
     def __init__(self, device: torch.device):
         self.cuda = device.type == "cuda"
         self.marks: list = []
+        self._done = -1                 # index of the newest done mark
+        self._done_t: float | None = None
+        self._lock = threading.Lock()
 
     def mark(self) -> None:
         if self.cuda:
@@ -169,17 +208,34 @@ class _StepClock:
         else:
             self.marks.append(time.perf_counter())
 
+    def done(self) -> tuple[int, float | None]:
+        """``(marks done, host time the newest was seen done)``: the
+        count includes the window's opening mark."""
+        with self._lock:
+            n = len(self.marks)
+            j = self._done
+            if not self.cuda:
+                j = n - 1
+            else:
+                while j + 1 < n and self.marks[j + 1].query():
+                    j += 1
+            if j > self._done:
+                self._done = j
+                self._done_t = (self.marks[j] if not self.cuda
+                                else time.perf_counter())
+            return self._done + 1, self._done_t
+
+    def wait(self, k: int) -> None:
+        """Block until mark ``k`` (0: the window's start) is done."""
+        if self.cuda and 0 <= k < len(self.marks):
+            self.marks[k].synchronize()
+
     def step_ms(self) -> list[float]:
         """Per-interval milliseconds (after the device has synced)."""
         pairs = zip(self.marks, self.marks[1:])
         if self.cuda:
             return [a.elapsed_time(b) for a, b in pairs]
         return [1e3 * (b - a) for a, b in pairs]
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _example_units(spec) -> str:
@@ -255,55 +311,144 @@ def _require_checkpoint_for_eval(cfg: BenchmarkConfig, restored: bool,
     print_fn(RANDOM_INIT_EVAL_WARNING)
 
 
+@dataclasses.dataclass
+class _Obs:
+    """The run's observability (JAX's driver wiring): the metrics stream
+    (rank 0; a no-op without --metrics_dir), this rank's heartbeats,
+    the goodput ledger's phase tracker and the memory ledger."""
+
+    writer: object
+    fleet: object
+    phases: object
+    memory: object
+    on: bool = False                 # --metrics_dir: the per-window work
+
+    def close(self) -> None:
+        self.writer.close()
+        self.fleet.close()
+
+
+def _make_obs(cfg: BenchmarkConfig, dev, rank: int, world: int,
+              fabric: str, topo: dict | None, print_fn) -> _Obs:
+    """The metrics stream and manifest (rank 0), the flight recorder
+    (every rank persists ``spans.<rank>.jsonl`` under --metrics_dir),
+    the heartbeats, and the phase tracker, which enters ``init``."""
+    from tpu_hc_bench_torch.obs import fleet, goodput, memory, metrics
+    from tpu_hc_bench_torch.obs import timeline
+
+    manifest = None
+    if cfg.metrics_dir and rank == 0:
+        manifest = metrics.run_manifest(
+            cfg=cfg, device=dev, world=world,
+            extra={"workload": "train", "fabric": fabric,
+                   "process_count": world, "device_count": world,
+                   "topology": topo})
+        print_fn(f"metrics: {cfg.metrics_dir}/{metrics.METRICS_NAME} "
+                 f"(+ {metrics.MANIFEST_NAME})")
+    writer = metrics.MetricsWriter(cfg.metrics_dir, manifest,
+                                   primary=rank == 0)
+    timeline.configure(enabled=cfg.flight_recorder != "off",
+                       run_dir=cfg.metrics_dir, rank=rank)
+    return _Obs(writer, fleet.FleetWriter(cfg.metrics_dir, rank),
+                goodput.PhaseTracker(writer), memory.MemoryLedger(dev),
+                on=bool(cfg.metrics_dir))
+
+
 class _Saver:
     """--train_dir's saves during training (JAX ``save_now``): every
     --save_model_steps timed steps and at the end.  At world 1 with
     --async_checkpoint the write runs on the writer's thread and only
     the snapshot holds the loop; otherwise rank 0 snapshots and writes
-    (every rank gathers the dropout states), and a barrier holds the ranks until the files are there.
-    The retention pass follows each save."""
+    (every rank gathers the dropout states), and a barrier holds the
+    ranks until the files are there.  The retention pass follows each
+    save.  A synchronous save retries an ``OSError`` (at world 1;
+    ``io_error@ckpt`` injects one), pauses the watchdog and is the
+    goodput ledger's ``checkpoint`` phase (the async snapshot its
+    ``checkpoint_async``); the emergency save is always synchronous."""
 
     def __init__(self, cfg: BenchmarkConfig, topo: dict, rank: int,
-                 world: int, grouped: bool, print_fn):
+                 world: int, grouped: bool, print_fn, obs: _Obs,
+                 plan=None):
         from tpu_hc_bench_torch.utils import checkpoint as ckpt
 
         self.ckpt, self.cfg, self.topo = ckpt, cfg, topo
         self.rank, self.grouped, self.print = rank, grouped, print_fn
+        self.world, self.obs, self.plan = world, obs, plan
+        self.dog = None                 # the watchdog, once armed
         self.writer = (ckpt.AsyncCheckpointWriter(cfg.train_dir, print_fn)
-                       if cfg.async_checkpoint and world == 1 else None)
+                       if cfg.async_checkpoint and world == 1
+                       and not (plan is not None and plan.io_error)
+                       else None)
         self.saves: list[dict] = []
         print_fn("checkpointing: "
                  + ("async (snapshot blocks, write overlapped, one in "
-                    "flight)" if self.writer else
+                    "flight; emergency saves stay synchronous)"
+                    if self.writer else
                     "sync (rank 0 snapshots and writes)"))
 
-    def save(self, state) -> None:
-        cfg, t0 = self.cfg, time.perf_counter()
+    def drain_commits(self) -> None:
+        """Landed async saves into the metrics stream (main thread)."""
+        while self.writer is not None and self.writer.commits:
+            self.obs.writer.event("checkpoint_commit",
+                                  **self.writer.commits.popleft())
+
+    def land(self) -> None:
+        """Wait for the write in flight (its error surfaces here)."""
         if self.writer is not None:
-            self.writer.submit(state, gc_keep=cfg.keep_checkpoints,
-                               topology=self.topo)
-            self.print(f"checkpoint snapshot: step {state.step} "
-                       f"({time.perf_counter() - t0:.3f}s blocking; write "
-                       f"overlapped)")
-        else:
-            path = self.ckpt.save(state, cfg.train_dir, self.topo,
-                                  write=self.rank == 0)
-            if self.rank == 0:
-                self.ckpt.gc_checkpoints(cfg.train_dir,
-                                         cfg.keep_checkpoints,
-                                         print_fn=self.print)
-            if self.grouped:
-                distributed.barrier()
-            self.print(f"checkpoint saved: {path}")
-        self.saves.append({"step": state.step, "async": bool(self.writer),
+            self.writer.wait()
+            self.drain_commits()
+
+    def save(self, state, i: int, phase: str = "checkpoint") -> None:
+        from tpu_hc_bench_torch.resilience.retry import retry_io
+
+        cfg, t0 = self.cfg, time.perf_counter()
+        overlapped = self.writer is not None and phase == "checkpoint"
+        if self.dog is not None:
+            self.dog.pause()
+        self.obs.phases.enter("checkpoint_async" if overlapped else phase,
+                              step=i)
+        try:
+            if overlapped:
+                self.writer.submit(state, gc_keep=cfg.keep_checkpoints,
+                                   topology=self.topo)
+                self.print(f"checkpoint snapshot: step {state.step} "
+                           f"({time.perf_counter() - t0:.3f}s blocking; "
+                           f"write overlapped)")
+            else:
+                self.land()
+
+                def write():
+                    if self.plan is not None:
+                        self.plan.maybe_io_error("ckpt")
+                    return self.ckpt.save(state, cfg.train_dir, self.topo,
+                                          write=self.rank == 0)
+
+                path = retry_io(write, what="checkpoint save",
+                                print_fn=self.print,
+                                obs_writer=self.obs.writer,
+                                attempts=1 if self.world > 1 else 3)
+                if self.rank == 0:
+                    self.ckpt.gc_checkpoints(cfg.train_dir,
+                                             cfg.keep_checkpoints,
+                                             print_fn=self.print)
+                if self.grouped:
+                    distributed.barrier()
+                self.print(f"checkpoint saved: {path}")
+        finally:
+            if self.obs.on:
+                self.obs.writer.event("memory", **self.obs.memory.sample(
+                    "checkpoint_async" if overlapped else phase, step=i))
+            self.obs.phases.enter("step", step=i)
+            if self.dog is not None:
+                self.dog.resume()
+        self.saves.append({"step": state.step, "async": overlapped,
                            "blocking_ms":
                                1e3 * (time.perf_counter() - t0)})
 
     def finish(self, state) -> dict:
         """Land the write in flight; the result's ``checkpoint``
         record."""
-        if self.writer is not None:
-            self.writer.wait()
+        self.land()
         return {"train_dir": self.cfg.train_dir, "saves": self.saves,
                 "final_step": state.step,
                 "fingerprint": self.ckpt.fingerprint(
@@ -603,7 +748,7 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
     state.model.eval()
     for _ in range(max(1, min(cfg.num_warmup_batches, 5))):
         loss, _ = step_mod.eval_step(state, next(inp.batches))
-    _sync(dev)
+    drain(dev)
     if grouped:
         distributed.barrier()
     clock = _StepClock(dev)
@@ -622,7 +767,7 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
             top1 = float(torch.stack(corrects).sum()) / (i * global_batch)
             print_fn(f"{i}\ttop_1: {top1:.4f}\tloss: {float(loss):.3f}")
     final_loss = float(loss)
-    _sync(dev)
+    drain(dev)
     if grouped:
         distributed.barrier()
     total_s = time.perf_counter() - t0
@@ -684,8 +829,20 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
     process group where one is up, else on one worker.  Every rank
     returns the result; only rank 0 prints.  ``local_workers``: the
     workers on this host, who share its decode budget."""
+    from tpu_hc_bench_torch.obs import efficiency, memory
+    from tpu_hc_bench_torch.ops import _build
+    from tpu_hc_bench_torch.resilience import inject
+
     fab = resolve_fabric(fabric)
     step_mod.check_arm(cfg, fab)
+    # read the artifacts and specs now, loudly: a typo'd path must die
+    # before warmup, not after the run when the summary needs it
+    fabric_ceiling = (efficiency.load_fabric_ceiling(cfg.fabric_ceiling)
+                      if cfg.fabric_ceiling else None)
+    budget = memory.parse_hbm_budget(cfg.hbm_budget)
+    plan = inject.parse_plan(cfg.inject_fault)
+    if cfg.compile_cache:
+        _build.configure(cfg.compile_cache)
     grouped = dist.is_initialized()
     total_workers = dist.get_world_size() if grouped else 1
     rank = distributed.rank()
@@ -703,9 +860,10 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
             "--datasets_repeat_cached_sample needs a real image dataset "
             "(--data_dir with TFRecord shards); it is meaningless for "
             "synthetic input and unsupported for text corpora")
-    if dev.type == "cuda":
+    if dev.type == "cuda" and not torch.backends.cudnn.deterministic:
         # the analog of XLA's autotuning: cuDNN picks its conv algorithms
-        # for these fixed shapes during warmup
+        # for these fixed shapes during warmup (not where the caller
+        # asked cuDNN for reproducible runs)
         torch.backends.cudnn.benchmark = True
     dtype = torch.bfloat16 if cfg.use_fp16 else torch.float32
     global_batch = cfg.batch_size * total_workers
@@ -743,77 +901,537 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         if grads:
             grads.close()
         raise
-    if split is None:
-        inp = _synthetic_input(cfg, spec, dev, rank, global_batch, model)
-    elif spec.is_text:
-        inp = _token_input(cfg, spec, dev, rank, total_workers,
-                           global_batch, split)
-    else:
-        inp = _image_input(cfg, spec, dev, rank, total_workers,
-                           global_batch, split, local_workers, print_fn)
+    obs = _make_obs(cfg, dev, rank, total_workers, fabric, topo, print_fn)
+    if resume is not None:
+        obs.writer.event("resume", **resume)
+    try:
+        if split is None:
+            inp = _synthetic_input(cfg, spec, dev, rank, global_batch,
+                                   model)
+        elif spec.is_text:
+            inp = _token_input(cfg, spec, dev, rank, total_workers,
+                               global_batch, split)
+        else:
+            inp = _image_input(cfg, spec, dev, rank, total_workers,
+                               global_batch, split, local_workers, print_fn)
+    except BaseException:
+        obs.close()
+        if grads:
+            grads.close()
+        raise
     try:
         if cfg.eval:
             result = _run_eval(cfg, spec, state, inp, global_batch,
                                total_workers, dev, kind, fabric, grouped,
                                print_fn)
+            obs.writer.event("summary", **dataclasses.asdict(result))
         else:
             saver = (_Saver(cfg, topo, rank, total_workers, grouped,
-                            print_fn) if cfg.train_dir else None)
+                            print_fn, obs, plan)
+                     if cfg.train_dir else None)
             result = _run_train(cfg, spec, state, inp, global_batch,
                                 total_workers, dev, kind, fabric, grouped,
-                                print_fn, saver)
+                                print_fn, obs, rank, saver, plan,
+                                fabric_ceiling, budget)
         result.resume = resume
         return result
     finally:
+        obs.close()
+        from tpu_hc_bench_torch.obs import timeline
+
+        timeline.detach()
         inp.close()
         if grads:
             grads.close()
 
 
+class _TraceWindow:
+    """``--trace_dir``/``--profile_steps=a:b`` (JAX's ``_TraceWindow``):
+    a ``torch.profiler`` (Kineto) trace of timed steps a..b, with ONE
+    stop path.  Without ``--profile_steps`` the window is the first sync
+    window.  The trace starts once step a-1 has completed on the device
+    (a quiesced window), each step in it is annotated
+    ``ProfilerStep#<step>``, and it stops once step b has completed;
+    ``stop()`` is idempotent, and the post-loop call stops a window
+    still open at the run's end.  The trace is written to
+    ``<trace_dir>/rank<k>.pt.trace.json`` after the timed window
+    (``post_summary``): Kineto's export of a few steps takes seconds.
+    Inside the window the profiler records every host op too, which
+    slows the host's dispatch: the window's idle share is larger than
+    the unprofiled step's."""
+
+    def __init__(self, cfg: BenchmarkConfig, print_fn, sync_every: int,
+                 dev, rank: int):
+        from tpu_hc_bench_torch.flags import parse_profile_steps
+
+        self.trace_dir, self.print_fn = cfg.trace_dir, print_fn
+        self.dev, self.rank = dev, rank
+        self.prof = self._done = None
+        self.started = False
+        if cfg.profile_steps:
+            self.start_step, self.stop_after = parse_profile_steps(
+                cfg.profile_steps)
+        else:
+            self.start_step, self.stop_after = 1, sync_every
+
+    @property
+    def active(self) -> bool:
+        return self.prof is not None
+
+    def maybe_start(self, next_step: int, clock: _StepClock) -> None:
+        if (self.trace_dir is None or self.started
+                or next_step < self.start_step):
+            return
+        if self.start_step > 1:
+            clock.wait(self.start_step - 1)
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.dev.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self.prof = torch.profiler.profile(activities=acts)
+        self.prof.start()
+        self.started = True
+
+    def annotate(self, i: int):
+        if self.prof is None:
+            return contextlib.nullcontext()
+        return torch.profiler.record_function(f"ProfilerStep#{i}")
+
+    def poll(self, i: int, clock: _StepClock) -> None:
+        if self.prof is not None and i >= self.stop_after:
+            clock.wait(self.stop_after)
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        drain(self.dev)
+        self._done, self.prof = self.prof, None
+        self._done.stop()
+
+    def _export(self) -> None:
+        os.makedirs(self.trace_dir, exist_ok=True)
+        path = os.path.join(self.trace_dir, f"rank{self.rank}.pt.trace.json")
+        self._done.export_chrome_trace(path)
+        self._done = None
+        self.print_fn(f"profiler trace written to {path}")
+
+    def post_summary(self):
+        """Print the bucket summary of the trace just written and return
+        it; None without a usable trace (on the CPU the profiler writes
+        no device track: one line says so)."""
+        if self.trace_dir is not None and not self.started:
+            self.print_fn(
+                f"WARNING: profile window {self.start_step}:"
+                f"{self.stop_after} never started (run ended first); "
+                f"no trace written to {self.trace_dir}")
+        if not self.started:
+            return None
+        self.stop()
+        if self._done is not None:
+            self._export()
+        from tpu_hc_bench_torch.obs import trace as obs_trace
+
+        try:
+            summary = obs_trace.summarize_trace_dir(self.trace_dir)
+        except Exception as e:      # a degraded summary must not kill a run
+            self.print_fn(f"trace summary unavailable: {e}")
+            return None
+        for line in obs_trace.format_summary(summary):
+            self.print_fn(line)
+        return summary
+
+
+def _trace_record(cfg: BenchmarkConfig, tsum, print_fn) -> dict | None:
+    """The ``trace_buckets`` record: the buckets, the per-kind collective
+    split and the collective overlap (JAX's driver)."""
+    if tsum is None:
+        return None
+    from tpu_hc_bench_torch.obs import efficiency
+    from tpu_hc_bench_torch.obs import trace as obs_trace
+
+    rec = {"buckets": tsum.totals, "steps": len(tsum.steps),
+           "collective_ops": {}}
+    try:
+        intervals = obs_trace.leaf_intervals(
+            obs_trace.load_events(cfg.trace_dir))
+        ops: dict[str, float] = {}
+        for name, a, b in intervals:
+            ops[name] = ops.get(name, 0.0) + (b - a)
+        rec["collective_ops"] = efficiency.collective_kind_times(ops)
+        overlap = efficiency.collective_overlap(intervals)
+    except Exception:
+        overlap = None
+    if overlap is not None:
+        rec["overlap"] = overlap
+        for ln in efficiency.overlap_lines(overlap):
+            print_fn(ln.strip())
+    return rec
+
+
+def _warmup(cfg: BenchmarkConfig, step_fn, state, inp: _Input, dev, obs,
+            budget, print_fn, probe: bool):
+    """The warmup steps (the goodput ledger's ``compile`` phase).  The
+    first is measured where asked: its allocator peak from a reset (the
+    ``--hbm_budget`` verdict, printed before the timed loop; JAX checks
+    the compiled step's AOT report instead) and its operations (the MFU
+    probe, ``obs.efficiency.probe_step_flops``).  Returns ``(state,
+    metrics, seconds, first-step memory report, probe record)``."""
+    from tpu_hc_bench_torch.obs import efficiency, memory
+
+    t0 = time.perf_counter()
+    metrics = mem_an = flops = None
+    box = [state]
+
+    def first():
+        batch = next(inp.batches)
+        box[0], out = step_fn(box[0], batch)
+        box.append(out)
+        warm_batch.append(batch)
+
+    warm_batch: list = []
+
+    for w in range(cfg.num_warmup_batches):
+        if w:
+            state, metrics = step_fn(state, next(inp.batches))
+            continue
+        run = first
+        if probe:
+            def run():
+                nonlocal flops
+                flops = efficiency.probe_step_flops(first)
+                if len(box) < 2:        # the counter failed mid-step
+                    first()
+        if budget is not None:
+            mem_an = memory.first_step_report(dev, run)
+        else:
+            run()
+        state, metrics = box[0], box[-1]
+    if budget is not None:
+        budget_bytes, note = memory.resolve_hbm_budget_bytes(budget, dev)
+        for ln in memory.budget_lines(
+                mem_an, budget_bytes, note, where="in the first warmup "
+                "step", advice="shrink --batch_size or raise "
+                "--gradient_accumulation_steps"):
+            print_fn(ln)
+        if budget_bytes is not None and mem_an:
+            obs.writer.event(
+                "hbm_budget", budget_bytes=budget_bytes,
+                total_bytes=mem_an["total_bytes"],
+                exceeded=mem_an["total_bytes"] > budget_bytes)
+    drain(dev)
+    return (state, metrics, time.perf_counter() - t0, mem_an, flops,
+            warm_batch[0] if warm_batch else None)
+
+
 def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
                total_workers: int, dev, kind: str, fabric: str,
-               grouped: bool, print_fn,
-               saver: _Saver | None = None) -> BenchmarkResult:
+               grouped: bool, print_fn, obs: _Obs, rank: int = 0,
+               saver: _Saver | None = None, plan=None,
+               fabric_ceiling: dict | None = None,
+               budget=None) -> BenchmarkResult:
     """The warmup and the timed steps of the train (or forward-only)
-    step; with a ``saver`` (--train_dir) a save every --save_model_steps
-    timed steps (inside the timed window: it holds the loop) and one of
-    the final state after it."""
+    step, with JAX's resilience runtime and observability around them:
+    the fault plan, the preemption flag (an emergency save, then
+    ``PreemptedError``), the watchdog, the non-finite guard's policy
+    (``--on_nonfinite``), the goodput ledger, memory samples, heartbeats
+    and the straggler gather once a sync window, and the profiler
+    window.  With a ``saver`` (--train_dir) a save every
+    --save_model_steps timed steps (inside the timed window: it holds
+    the loop) and one of the final state after it."""
+    from tpu_hc_bench_torch.obs import efficiency, fleet, goodput
+    from tpu_hc_bench_torch.obs import memory, timeline
+    from tpu_hc_bench_torch.resilience import guards, preempt, watchdog
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
     step_fn = (step_mod.forward_step if cfg.forward_only
                else step_mod.train_step)
     units = _example_units(spec)
-    for _ in range(cfg.num_warmup_batches):
-        state, metrics = step_fn(state, next(inp.batches))
-    _sync(dev)
+    world = total_workers if grouped else 1
+    probe = bool(cfg.metrics_dir or cfg.fabric_ceiling or budget is not None)
+    obs.phases.enter("compile")
+    try:
+        state, metrics, warm_s, mem_an, flops, warm_batch = _warmup(
+            cfg, step_fn, state, inp, dev, obs, budget, print_fn, probe)
+    except BaseException as e:
+        if memory.is_oom_error(e) and cfg.metrics_dir:
+            path = memory.dump_forensics(cfg.metrics_dir, reason="oom",
+                                         device=dev, print_fn=print_fn)
+            if path:
+                obs.writer.event("memory_dump",
+                                 path=os.path.basename(path), reason="oom")
+        raise
+    warmup_steps = max(1, cfg.num_warmup_batches)
+    print_fn(f"warmup done: {cfg.num_warmup_batches} steps in "
+             f"{warm_s:.1f}s (includes cuDNN's algorithm search and the "
+             f"kernel library's load)")
+    analytic_mem = memory.analytic_memory_table(state.model,
+                                                state.optimizer, warm_batch)
+    warm_batch = None
+    if mem_an:
+        # what the step's inputs hold once the optimizer's state exists
+        # (JAX's AOT argument bytes: the state and the batch); the next
+        # step drops the gradients first anyway
+        state.optimizer.zero_grad(set_to_none=True)
+        mem_an["argument_bytes"] = memory.device_memory_sample(dev)[
+            "bytes_in_use"]
+    if obs.on:
+        obs.writer.event("memory", **obs.memory.sample("compile"))
     if grouped:
         distributed.barrier()
+
+    sync_every = max(1, min(cfg.display_every, 16))
+    policy = cfg.on_nonfinite
+    tracker = (guards.GuardTracker(dev) if policy in ("skip", "rewind")
+               and not cfg.forward_only else None)
+    rewind_base_step = state.step - warmup_steps
+    preempt_h = preempt.PreemptionHandler(
+        print_fn=print_fn, action="checkpoint and exit at the next step "
+                                  "boundary").install()
+    timeout_s = watchdog.resolve_timeout(
+        cfg.step_timeout_s, warm_s / warmup_steps)
+    trace_window = _TraceWindow(cfg, print_fn, sync_every, dev, rank)
+    ewma = fleet.StepEwma()
     clock = _StepClock(dev)
+    dog = None
+    nonfinite_display: list[int] = []
+    g = {"seen_total": 0, "last_poll_i": 0, "rewind_streak": 0,
+         "wiped_until": -1, "pending": []}
+
+    def fatal(exc: BaseException, i: int) -> BaseException:
+        if saver is not None:
+            try:
+                saver.land()
+            except Exception as e:
+                print_fn(f"WARNING: async checkpoint write failed during "
+                         f"abort: {e}")
+                obs.writer.event("async_ckpt_error", error=str(e))
+        obs.phases.end(step=i)
+        obs.close()
+        timeline.detach()
+        return exc
+
+    def apply_guard(j: int, streak: int, total: int, peak: int,
+                    now_i: int) -> None:
+        """JAX's ``_apply_guard``: the budget, and rewind's restore, on
+        counters observed through step ``j``."""
+        steps_since = j - g["last_poll_i"]
+        g["last_poll_i"] = j
+        new_bad = total - g["seen_total"]
+        if new_bad <= 0:
+            if steps_since > 0 and j > g["wiped_until"]:
+                g["rewind_streak"] = 0
+            return
+        g["seen_total"] = total
+        if policy == "skip":
+            print_fn(f"nonfinite: dropped {new_bad} update(s) in window "
+                     f"ending step {j} (consecutive {streak}, "
+                     f"total {total})")
+            obs.writer.event("nonfinite_skip", step=j, new_bad=new_bad,
+                             streak=streak, total=total)
+            obs.phases.note_skipped_updates(new_bad)
+            if peak >= cfg.max_bad_steps:
+                raise fatal(guards.GuardBudgetError(
+                    f"{peak} consecutive non-finite steps "
+                    f"(--max_bad_steps={cfg.max_bad_steps})"), j)
+            return
+        g["rewind_streak"] += 1
+        if g["rewind_streak"] >= cfg.max_bad_steps:
+            raise fatal(guards.GuardBudgetError(
+                f"{g['rewind_streak']} consecutive rewinds without a clean "
+                f"window (--max_bad_steps={cfg.max_bad_steps})"), j)
+        obs.phases.enter("rewind_replay", step=now_i)
+        if dog is not None:
+            dog.pause()
+        try:
+            saver.land()
+            ckpt.restore(state, cfg.train_dir, rank=rank)
+        finally:
+            if dog is not None:
+                dog.resume()
+        restored_step = state.step
+        for _ in range(sync_every):
+            next(inp.batches)
+        tracker.reset()
+        g["pending"].clear()
+        g["wiped_until"] = now_i
+        g["seen_total"] = 0
+        lost = goodput.rewind_lost_steps(now_i, restored_step,
+                                         rewind_base_step, warmup_steps)
+        obs.phases.note_lost_steps(lost)
+        obs.phases.enter("step", step=now_i)
+        print_fn(f"rewind: non-finite step(s) in window ending step {j}; "
+                 f"restored checkpoint step {restored_step}, skipping "
+                 f"{sync_every} batches")
+        obs.writer.event("rewind", step=now_i, restored_step=restored_step,
+                         skipped_batches=sync_every, streak=streak,
+                         lost_steps=lost)
+
+    def settle_guard(i: int) -> None:
+        """Flush the deferred guard windows, then poll the live
+        counters: the one deliberate sync of the guard, before a save,
+        at preemption and at the run's end."""
+        while g["pending"]:
+            j, handles = g["pending"].pop(0)
+            apply_guard(j, *tracker.fetch(handles), now_i=i)
+        apply_guard(i, *tracker.poll(), now_i=i)
+
+    def emergency(completed: int) -> None:
+        """JAX's ``_emergency``: settle the guard, one synchronous save,
+        the fingerprint line, the forensics, then ``PreemptedError``."""
+        print_fn(f"preemption: stopping after timed step {completed} "
+                 f"(signal {preempt_h.signum})")
+        obs.phases.enter("emergency_save", step=completed)
+        saved = saver is not None
+        if saved:
+            saver.land()
+        if saved and tracker is not None:
+            try:
+                settle_guard(completed)
+            except guards.GuardBudgetError:
+                saved = False
+        if saved:
+            saver.save(state, completed, phase="emergency_save")
+            print_fn(f"state fingerprint: "
+                     f"{ckpt.fingerprint(state.model.state_dict())}")
+            obs.writer.event("emergency_ckpt", step=completed)
+        if cfg.metrics_dir:
+            obs.writer.event("memory", **obs.memory.sample(
+                "emergency_save", step=completed))
+            path = memory.dump_forensics(
+                cfg.metrics_dir, reason="emergency_save", device=dev,
+                step=completed, print_fn=print_fn)
+            if path:
+                obs.writer.event("memory_dump", path=os.path.basename(path),
+                                 reason="emergency_save", step=completed)
+            tpath = timeline.dump_timeline(
+                cfg.metrics_dir, reason="emergency_save", step=completed)
+            if tpath:
+                obs.writer.event("timeline_dump",
+                                 path=os.path.basename(tpath),
+                                 reason="emergency_save", step=completed)
+        topo = saver.topo if saver is not None else {}
+        obs.writer.event("preempt", step=completed,
+                         signal=preempt_h.signum, checkpoint_saved=saved,
+                         world=(topo or {}).get("world"),
+                         arm=(topo or {}).get("variable_update"))
+        raise fatal(preempt.PreemptedError(
+            completed, saved, preempt_h.signum, topology=topo), completed)
+
+    obs.phases.enter("step")
     clock.mark()
     wait_s = 0.0
     t0 = t_window = time.perf_counter()
-    for i in range(1, cfg.num_batches + 1):
-        t_in = time.perf_counter()
-        batch = next(inp.batches)
-        wait_s += time.perf_counter() - t_in
-        state, metrics = step_fn(state, batch)
-        clock.mark()
-        if i % cfg.display_every == 0:
-            loss = float(metrics["loss"])           # waits for the device
-            now = time.perf_counter()
-            rate = cfg.display_every * global_batch / (now - t_window)
-            t_window = now
-            print_fn(f"{i}\t{units}/sec: {rate:.1f}\tloss: {loss:.3f}")
-        if (saver is not None and cfg.save_model_steps
-                and i % cfg.save_model_steps == 0 and i < cfg.num_batches):
-            saver.save(state)
-    final_loss = float(metrics["loss"])
-    _sync(dev)
-    if grouped:
-        distributed.barrier()
+    try:
+        if timeout_s is not None:
+            forensics = ((lambda: (
+                memory.dump_forensics(cfg.metrics_dir, reason="watchdog",
+                                      device=dev, print_fn=print_fn),
+                timeline.dump_timeline(cfg.metrics_dir,
+                                       reason="watchdog")))
+                if cfg.metrics_dir else None)
+            dog = watchdog.Watchdog(
+                timeout_s, lambda: clock.done()[1],
+                last_record_fn=lambda: obs.writer.last_record,
+                obs_writer=obs.writer, forensics_fn=forensics,
+                what="step").start()
+            if saver is not None:
+                saver.dog = dog
+            print_fn(f"watchdog armed: step timeout {timeout_s:.1f}s")
+        if policy == "rewind" and ckpt.latest_step(cfg.train_dir) is None:
+            saver.save(state, 0)        # the rewind baseline
+        for i in range(1, cfg.num_batches + 1):
+            # step boundary: honor preemption (several ranks agree at
+            # sync-window boundaries: a collective, the same step on all)
+            if world == 1:
+                if preempt_h.requested():
+                    emergency(i - 1)
+            elif (i - 1) % sync_every == 0 and preempt_h.agreed(world):
+                emergency(i - 1)
+            trace_window.maybe_start(i, clock)
+            t_in = time.monotonic()
+            batch = next(inp.batches)
+            t_go = time.monotonic()
+            wait_s += t_go - t_in
+            obs.phases.note_data_wait(t_go - t_in)
+            timeline.record_span("input_wait", t_in, t_go, step=i)
+            if plan is not None:
+                plan.fire_step_faults(i, print_fn, obs.writer)
+                batch = plan.poison_batch(i, batch, print_fn, obs.writer)
+            with trace_window.annotate(i):
+                state, metrics = step_fn(state, batch)
+            timeline.record_span("step_dispatch", t_go, time.monotonic(),
+                                 step=i)
+            clock.mark()
+            if tracker is not None:
+                tracker.update(metrics["nonfinite"])
+                if i == cfg.num_batches:
+                    settle_guard(i)
+                elif i % sync_every == 0:
+                    if g["pending"]:
+                        j, handles = g["pending"].pop(0)
+                        apply_guard(j, *tracker.fetch(handles), now_i=i)
+                    g["pending"].append((i, tracker.handles()))
+            if i % cfg.display_every == 0 or i == cfg.num_batches:
+                loss = float(metrics["loss"])       # waits for the device
+                if not math.isfinite(loss):
+                    nonfinite_display.append(i)
+                if i % cfg.display_every == 0:
+                    now = time.perf_counter()
+                    rate = cfg.display_every * global_batch / (now - t_window)
+                    t_window = now
+                    print_fn(f"{i}\t{units}/sec: {rate:.1f}\tloss: "
+                             f"{loss:.3f}")
+                    obs.writer.event("window", step=i, rate=rate,
+                                     step_ms=1e3 * global_batch / rate,
+                                     loss=loss)
+            if i % sync_every == 0 or i == cfg.num_batches:
+                obs.phases.flush(i)
+                if saver is not None:
+                    saver.drain_commits()
+                if obs.on:
+                    done = clock.done()[0] - 1
+                    ewma_ms = ewma.update(done)
+                    obs.writer.event("memory",
+                                     **obs.memory.sample("step", step=i))
+                    timeline.flush()
+                    obs.fleet.heartbeat(
+                        step=done, step_ewma_ms=ewma_ms,
+                        mem_peak_bytes=obs.memory.peak_bytes or None,
+                        phase=timeline.current_phase())
+                    if world > 1:
+                        skew = fleet.straggler_gather(done, ewma_ms)
+                        if skew is not None:
+                            obs.writer.event("straggler", step=i, **skew)
+            if (saver is not None and cfg.save_model_steps
+                    and i % cfg.save_model_steps == 0
+                    and i < cfg.num_batches):
+                if tracker is not None:
+                    settle_guard(i)
+                saver.save(state, i)
+            trace_window.poll(i, clock)
+        final_loss = float(metrics["loss"])
+        drain(dev)
+        if grouped:
+            distributed.barrier()
+    finally:
+        if dog is not None:
+            dog.stop()
+        preempt_h.uninstall()
     total_s = time.perf_counter() - t0
+    trace_window.stop()
+    if policy == "abort" and nonfinite_display:
+        obs.writer.event("nonfinite_abort", steps=nonfinite_display[:16])
+        raise fatal(guards.NonFiniteError(
+            f"non-finite loss at display step(s) "
+            f"{nonfinite_display[:16]} (--on_nonfinite=abort; use skip "
+            f"or rewind to survive, or inspect the data/lr)"),
+            cfg.num_batches)
     checkpoint = None
     if saver is not None:
-        saver.save(state)               # the final state
+        saver.save(state, cfg.num_batches)      # the final state
         checkpoint = saver.finish(state)
+    obs.phases.end(step=cfg.num_batches)
+    ledger = obs.phases.ledger()
 
     total_rate = cfg.num_batches * global_batch / total_s
     per_chip = total_rate / total_workers
@@ -821,16 +1439,29 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
     p50_ms = statistics.median(clock.step_ms())
     peak = hw.peak_flops(cfg.compute_dtype, dev)
     flops_mult = 1.0 if cfg.forward_only else 3.0
-    mfu = (flops_mult * spec.flops_per_example * per_chip / peak if peak
-           else float("nan"))
+    analytic_flops = (flops_mult * spec.flops_per_example * global_batch
+                      / total_workers)
+    if peak:
+        mfu_rep = efficiency.mfu_report(
+            flops["flops"] if flops else None, analytic_flops,
+            mean_ms / 1e3, peak)
+        if flops:
+            mfu_rep["aten_flops_per_step"] = flops["aten_flops"]
+            mfu_rep["kernel_flops_per_step"] = flops["kernel_flops"]
+    else:
+        mfu_rep = {"mfu": float("nan"),
+                   "mfu_source": "no peak for this device",
+                   "analytic_flops_per_step": analytic_flops}
+        if flops:
+            mfu_rep["measured_flops_per_step"] = flops["flops"]
     grads = state.dp.grads if state.dp else None
     result = BenchmarkResult(
         model=cfg.model, total_workers=total_workers,
         global_batch=global_batch, total_images_per_sec=total_rate,
         images_per_sec_per_chip=per_chip, mean_step_ms=mean_ms,
-        p50_step_ms=p50_ms, p50_step_granularity=1, mfu=mfu,
+        p50_step_ms=p50_ms, p50_step_granularity=1, mfu=mfu_rep["mfu"],
         final_loss=final_loss, fabric=fabric, device_kind=kind,
-        mfu_source="analytic" if peak else "no peak for this device",
+        mfu_source=mfu_rep["mfu_source"],
         attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent,
         variable_update=cfg.variable_update,
         overlap_grad_comm=cfg.overlap_grad_comm,
@@ -839,13 +1470,58 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         allreduce_per_step=state.dp.allreduce_calls if state.dp else 0,
         forward_only=cfg.forward_only,
         data=_data_record(inp, wait_s, cfg.num_batches),
-        checkpoint=checkpoint, extra=_extra(cfg, state.model))
+        checkpoint=checkpoint, extra=_extra(cfg, state.model),
+        goodput=ledger.goodput if ledger is not None else float("nan"),
+        goodput_phases=({k: round(v, 3) for k, v in ledger.seconds.items()
+                         if v > 0.0} if ledger is not None else None))
+    trace_rec = _trace_record(cfg, trace_window.post_summary(), print_fn)
+    if trace_rec is not None:
+        obs.writer.event("trace_buckets", **trace_rec)
+    if inp.dataset is not None and hasattr(inp.dataset, "stats"):
+        obs.writer.event("data", **inp.dataset.stats())
+    obs.writer.event("memory", **obs.memory.sample("step",
+                                                   step=cfg.num_batches))
+    mem_rep = memory.memory_report(mem_an, analytic_mem)
+    obs.writer.event("memory_report", **mem_rep)
+    result.peak_hbm_bytes = obs.memory.peak_bytes or None
+    result.hbm_bytes_limit = obs.memory.bytes_limit
+    result.mem_source = obs.memory.source
+    # JAX's record: the result's fields as they are (NaN stays NaN)
+    summary = dataclasses.asdict(result)
+    summary.update({k: v for k, v in mfu_rep.items() if k != "mfu"})
+    if not cfg.forward_only and grouped and grads is not None:
+        summary["allreduce_bytes_per_step"] = \
+            efficiency.grad_allreduce_bytes(
+                [p for p in state.model.parameters() if p.requires_grad],
+                cfg.accum_dtype if cfg.gradient_accumulation_steps > 1
+                else "f32")
+    obs.writer.event("summary", **summary)
+    obs.close()
+    timeline.detach()
+
     print_fn("-" * 40)
     print_fn(f"total {units}/sec: {total_rate:.2f}")
-    mfu_txt = (f"{100 * mfu:.1f}% (analytic)" if peak
-               else f"unknown (no peak for {kind})")
+    mfu_txt = (f"{100 * mfu_rep['mfu']:.1f}% ({mfu_rep['mfu_source']})"
+               if peak else f"unknown (no peak for {kind})")
     print_fn(f"{units}/sec/chip: {per_chip:.2f}  step: {mean_ms:.2f}ms "
              f"(p50/step {p50_ms:.2f}ms)  MFU: {mfu_txt}")
+    if probe and peak:
+        for ln in efficiency.mfu_lines(summary)[1:]:
+            print_fn(ln.strip())
+        print_fn(f"MFU: measured {100 * summary.get('mfu_measured', 0):.1f}%"
+                 f" vs analytic {100 * summary['mfu_analytic']:.1f}%")
+    if ledger is not None and obs.on:
+        for ln in ledger.format_lines():
+            print_fn(ln)
+    for ln in memory.memory_lines(obs.memory.fold()):
+        print_fn(ln.strip())
+    if probe or mem_an:
+        for ln in memory.memory_report_lines(mem_rep):
+            print_fn(ln.strip())
+    if fabric_ceiling is not None:
+        for ln in efficiency.ceiling_utilization_lines(
+                summary, trace_rec, fabric_ceiling):
+            print_fn(ln.strip())
     if result.data is not None:
         print_fn(f"input wait: {result.data['input_wait_ms_per_step']:.3f}"
                  " ms/step")

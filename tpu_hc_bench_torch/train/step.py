@@ -78,6 +78,20 @@ the new statistics away).  ``--eval`` (``eval_step``): the loss and the
 top-1 count with running statistics and no dropout, summed over the
 ranks (the image loss averaged, the text loss the global weighted mean).
 
+``--on_nonfinite`` (``TrainState.guard``, ``resilience.guards.guard_mode``;
+JAX's in-step guard): under ``skip`` and ``rewind`` the step computes
+``ok = isfinite(loss) & isfinite(global_norm(grads))`` on the device,
+after the gradient all-reduce (every rank computes the same flag) and
+from what the optimizer steps from (the reduced ``.grad``, or the bf16
+accumulator's list), and returns it as ``metrics["nonfinite"]`` (int32
+0/1, left on the device).  ``skip`` also drops a bad update: the step
+holds a copy of the parameters, the BatchNorm buffers and the optimizer
+state before its forward (``HeldState``, buffers made once) and selects
+``where(ok, new, held)`` in place after the update, so a bad step leaves
+them bit-equal to its input and the loop never syncs.  Adam and AdamW
+keep their step count on the device under ``skip`` on the card
+(``capturable``), so the select covers it too.
+
 The optimizers are optax's (``make_optimizer``):
 
 - ``optax.sgd(lr, momentum=m)`` keeps ``trace = g + m * trace`` and
@@ -111,6 +125,7 @@ from tpu_hc_bench_torch.models.resnet import running_stats_frozen
 from tpu_hc_bench_torch.ops.xent import softmax_xent
 from tpu_hc_bench_torch.parallel import collectives
 from tpu_hc_bench_torch.parallel.fabric import Fabric, host_allreduce
+from tpu_hc_bench_torch.resilience import guards
 
 
 @dataclasses.dataclass
@@ -167,6 +182,8 @@ class TrainState:
     dp: DataParallel | None = None
     accum_dtype: str = "f32"
     ctc: bool = False
+    guard: str = "off"               # --on_nonfinite: off | flag | skip
+    held: guards.HeldState | None = None   # skip: the pre-step copy
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -195,17 +212,25 @@ class OptaxRMSprop(torch.optim.Optimizer):
 
 def make_optimizer(cfg: BenchmarkConfig,
                    params) -> torch.optim.Optimizer:
-    """--optimizer dispatch: JAX ``make_optimizer``'s optax optimizers."""
+    """--optimizer dispatch: JAX ``make_optimizer``'s optax optimizers.
+    Under ``--on_nonfinite=skip`` on the card Adam and AdamW keep their
+    step count on the device (``capturable``), where the skip's select
+    reaches it without a host sync."""
     lr = cfg.init_learning_rate
+    params = list(params)
     if cfg.optimizer == "momentum":
         return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum)
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=lr)
+    capturable = (getattr(cfg, "on_nonfinite", "abort") == "skip"
+                  and bool(params) and params[0].is_cuda)
     if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+        return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                capturable=capturable)
     if cfg.optimizer == "adamw":
         return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999),
-                                 eps=1e-8, weight_decay=1e-4)
+                                 eps=1e-8, weight_decay=1e-4,
+                                 capturable=capturable)
     if cfg.optimizer == "rmsprop":
         return OptaxRMSprop(params, lr=lr, decay=0.9, eps=1.0)
     raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
@@ -235,12 +260,14 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
         for m in model.modules():
             if isinstance(m, resnet.BatchNorm):
                 m.sync = dp.sync_bn
+    guard = guards.guard_mode(cfg)
     return TrainState(model.train(),
                       make_optimizer(cfg, model.parameters()),
                       fused_xent=cfg.fused_xent,
                       accum=cfg.gradient_accumulation_steps, dp=dp,
                       accum_dtype=cfg.accum_dtype,
-                      ctc=get_model_spec(cfg.model).ctc)
+                      ctc=get_model_spec(cfg.model).ctc, guard=guard,
+                      held=guards.HeldState() if guard == "skip" else None)
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -412,7 +439,10 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     ``(tokens, targets, weights)`` or ``(features, labels,
     label_paddings)``; returns the state and ``{"loss":
     tensor}``, averaged over the ranks (left on the device: reading it
-    is a host sync, which the driver does at display steps only)."""
+    is a host sync, which the driver does at display steps only), plus
+    ``"nonfinite"`` under a guard."""
+    if state.guard == "skip":
+        state.held.hold(state.model, state.optimizer)
     state.optimizer.zero_grad(set_to_none=True)
     dp = state.dp
     grads = dp.grads if dp is not None else None
@@ -432,12 +462,20 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     if dp is not None:
         dp.reduce(state.model, loss, grads_reduced=reduced)
         dp.allreduce_calls += resnet.sync_calls
+    ok = None
+    if state.guard != "off":
+        ok = guards.finite_flag(loss, bf16_grads[1] if bf16_grads else [
+            p.grad for p in state.model.parameters()])
     if bf16_grads is not None:
         apply_bf16_grads(state.optimizer, *bf16_grads)
     else:
         state.optimizer.step()
     state.step += 1
-    return state, {"loss": loss}
+    if ok is None:
+        return state, {"loss": loss}
+    if state.guard == "skip":
+        state.held.select(ok, state.model, state.optimizer)
+    return state, {"loss": loss, "nonfinite": guards.nonfinite_metric(ok)}
 
 
 def _ranks_sum(dp: DataParallel | None, t: torch.Tensor) -> torch.Tensor:
