@@ -151,7 +151,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    a mean difference within ``NVJPEG_MEAN_TOL``; (b) ``python -m
    tpu_hc_bench_torch 1 1 128 ib --model=resnet50 --use_fp16=true
    --fused_conv=true --data_dir=<fixture>`` with the reference's whole
-   flag line (all but ``--device=cpu``), 50 + 100 steps: images/s
+   flag line (all but ``--device=cpu``), 20 + 50 steps: images/s
    against phase 7's, the decode pool's counters, the input wait a
    step, 8 conv launches a step; (c) the same with
    ``--datasets_repeat_cached_sample``, (d) ``--forward_only`` (the
@@ -216,7 +216,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 17. **slice9**: the decoder lane's rest, every training run through
    ``launcher.main`` with every count zeroed just before and read just
    after, and its peak memory: (a) llama_1b at full width, bf16, flash,
-   batch 2 x 2048, 10 + 30 steps, ``--fused_xent`` false and true (16
+   batch 2 x 2048, 5 + 20 steps, ``--fused_xent`` false and true (16
    launches of each flash kernel a step, one of each xent kernel with
    the fused loss), the loss falling below the first step's, whose
    logits and loss are held to the dense arm's within
@@ -334,6 +334,27 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    exits 70 with the thread dump, fired within the poll bound, while
    (f) ``python -m tpu_hc_bench_torch.utils.sanity`` exits 0 in
    another.
+22. **slice14**: sequence parallelism and zero1, every driver run
+   through ``launcher.main`` with every count zeroed just before and
+   read just after: (a) the degenerate seq axis on one card (``1 1 B
+   ib``, a one-rank group): gpt2 16 x 1024 bf16 with ``--fused_xent``
+   and llama_1b 2 x 2048 bf16, each under ``dense``, ``ring``, ``flash``
+   and ``ulysses_flash`` from one seed; ``ulysses_flash``'s losses
+   bit-equal to ``flash``'s (its exchanges are copies at world 1),
+   ``ring``'s within ``SLICE14_RING_FIRST_TOL`` of ``dense``'s at the
+   first step and ``SLICE14_RING_LAST_TOL`` at the last; sequences/s of
+   each pair (the SP machinery's cost at world 1), rows 3, 4a and 4b
+   launched a layer a step on the flash arms only, rows 5 and 6 a step
+   on gpt2's; (b) zero1 against psum at world 1 on resnet50, bf16 batch
+   128 ``--fused_conv=true``, cuDNN deterministic: losses and the final
+   parameters' fingerprint bit-equal, images/s, the optimizer's bytes
+   and collectives a step, row 7's 8 launches a step; (c) with two
+   cards or more, llama_1b at 2048 tokens a shard over sp 2 (and sp 4,
+   dp 2 x sp 2 on four cards) with ``ring`` and ``ulysses_flash``
+   (``--gradient_checkpointing`` where the ring's saved folds pass
+   ``SLICE14_REMAT_GB``): sequences/s and rank 0's peak memory; then
+   resnet50 zero1 against psum over every card (images/s, the
+   optimizer's bytes a rank).
 
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
@@ -344,7 +365,8 @@ process, ``slice9_launches``: its launches in phase 17's runs (a)-(c)
 and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
 ``slice11_launches``: its launches in phase 19's runs (a)-(d),
 ``slice12_launches``: its launches in phase 20's runs (a)-(d),
-``slice13_launches``: its launches in phase 21's runs (a)-(d), every
+``slice13_launches``: its launches in phase 21's runs (a)-(d),
+``slice14_launches``: its launches in phase 22's runs (a) and (b), every
 kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -360,7 +382,8 @@ alone, beside phase 7's fused run (with several cards, (f) runs);
 ``--only slice9`` the build and phase 17 alone; ``--only zoo`` the
 build, phase 8 at ViT's two shapes, then phase 18; ``--only slice11``
 the build and phase 19 alone; ``--only slice12`` the build, phase 4 and
-phase 20; ``--only slice13`` the build and phase 21.
+phase 20; ``--only slice13`` the build and phase 21; ``--only slice14``
+the build and phase 22 (with several cards, (c) runs).
 """
 
 from __future__ import annotations
@@ -561,7 +584,9 @@ POOL_PATH_STEPS = 3                # max_pool forward + backward calls
 
 # phase 14 (realdata): the reference's real-data command on the committed
 # fixture of ImageNet-schema shards; (b)-(e) and (g) at these depths
-REAL_BATCHES = {"b": (50, 100), "c": (20, 50), "d": (20, 50), "e": (5, 20),
+# (b), and phase 15's (c)-(d): cut from the lane's 50 + 100 for the
+# script's time limit
+REAL_BATCHES = {"b": (20, 50), "c": (20, 50), "d": (20, 50), "e": (5, 20),
                 "g": (10, 30)}
 # the reference's flag line, less --device=cpu (here the caller's CPU)
 REFERENCE_LINE = [
@@ -612,6 +637,23 @@ SLICE13_SMALL_BATCH = 32            # (b)'s abort, (c), (d), (e)
 SLICE13_REWIND = 8                  # (c): timed steps
 SLICE13_SIGTERM = (6, 3)            # (d): timed steps, the SIGTERM's step
 SLICE13_HANG = (8.0, 120)           # (e): --step_timeout_s, hang seconds
+# phase 22 (slice14): sequence parallelism and zero1; (warmup, timed)
+SLICE14_STEPS = (3, 10)
+# (a): model, batch, layers, extra flags; each at its registry length
+SLICE14_LM = (("gpt2", 16, 12, ("--fused_xent=true",)),
+              ("llama_1b", 2, 16, ()))
+# (a) ring (float32 folds, float32 probabilities) against dense (bf16
+# probabilities) from one seed: the first step's loss, relative, and the
+# last one after the updates have compounded it
+SLICE14_RING_FIRST_TOL = 5e-3
+SLICE14_RING_LAST_TOL = 2e-2
+SLICE14_ZERO1_STEPS = (3, 20)      # (b) resnet50, batch 128
+SLICE14_SHARD_TOKENS = 2048        # (c) llama_1b tokens a rank's shard
+SLICE14_SHARD_BATCH = 2
+# (c): the ring keeps a float32 [b, h, s/n, s/n] tensor a fold, n folds a
+# layer; above this many GB of them a run recomputes each layer
+SLICE14_REMAT_GB = 40.0
+SLICE14_MULTI = ((2, 2), (4, 4), (4, 2))   # (c): (cards, sp)
 SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
                                    # (6 pages + a 4-token tail), outputs
 # (e) and (f) in virtual time: modeled seconds a step, so the arms see
@@ -629,7 +671,7 @@ SERVE2_SIGTERM = (32, 0.3)         # (f) subprocess: requests, SIGTERM at s
 # phase 17 (slice9): the decoder lane's rest; (warmup, timed) steps
 SLICE9_LLAMA_BATCH = 2             # llama_1b: batch 2 x seq 2048
 SLICE9_MOE_BATCH = 8               # gpt2_moe: batch 8 x seq 1024
-SLICE9_STEPS = (10, 30)
+SLICE9_STEPS = (5, 20)             # short: the script's time limit
 # llama_1b's first forward, bf16 flash against bf16 dense from one seed
 # (summation order and bf16 rounding through 16 layers): the loss
 # relative, the logits relative to their largest magnitude
@@ -4885,6 +4927,250 @@ def phase_slice13(torch, dev, smi) -> dict:
     return total
 
 
+def _ring_fold_gb(batch: int, heads: int, layers: int, shard: int,
+                  sp: int) -> float:
+    """What autograd keeps of the ring's folds (a float32 ``[b, h, s/n,
+    s/n]`` probability tensor a fold, ``sp`` folds a layer), GB."""
+    return 4 * batch * heads * shard * shard * sp * layers / 1e9
+
+
+def _slice14_run(torch, part: str, argv: list[str], smi: str,
+                 expect: dict | None):
+    """``_slice9_run`` under phase 22's name, with every train step's
+    loss: ``(result, counts, record, losses)``."""
+    spy = _LossSpy()
+    try:
+        res, counts, rec = _slice9_run(torch, part, argv, smi, expect,
+                                       phase="slice14")
+    finally:
+        losses = spy.restore()
+    return res, counts, rec, losses
+
+
+def slice14_degenerate(torch, smi, add) -> None:
+    """Phase 22 (a): the degenerate seq axis on one card through the
+    launcher on ``ib`` (a one-rank group): each member's ``ring`` against
+    ``dense`` and ``ulysses_flash`` against ``flash`` from one seed,
+    sequences/s of each, the flash and xent launches."""
+    warm, timed = SLICE14_STEPS
+    steps = warm + timed
+    for model, batch, layers, extra in SLICE14_LM:
+        fused = "--fused_xent=true" in extra
+        runs = {}
+        for impl in ("dense", "ring", "flash", "ulysses_flash"):
+            flash = impl in ("flash", "ulysses_flash")
+            expect = {**{FLASH_KERNELS[k][0]: layers * steps if flash else 0
+                         for k in FLASH_KERNELS},
+                      **{XENT_KERNELS[k][0]: steps if fused else 0
+                         for k in XENT_KERNELS}}
+            argv = ["1", "1", str(batch), "ib", f"--model={model}",
+                    "--use_fp16=true", f"--attention_impl={impl}",
+                    f"--num_warmup_batches={warm}",
+                    f"--num_batches={timed}", "--display_every=10", *extra]
+            res, counts, rec, losses = _slice14_run(
+                torch, f"a_{model}_{impl}", argv, smi, expect)
+            if (res["sequence_parallel"], res["attention_impl"]) != (1,
+                                                                    impl):
+                raise AssertionError(f"phase 22 (a): {rec}")
+            add(counts)
+            runs[impl] = (res, rec, losses)
+        for arm, base in (("ring", "dense"), ("ulysses_flash", "flash")):
+            (r_a, rec_a, l_a), (r_b, rec_b, l_b) = runs[arm], runs[base]
+            first = abs(l_a[0] - l_b[0]) / abs(l_b[0])
+            last = abs(l_a[-1] - l_b[-1]) / abs(l_b[-1])
+            rec = {"phase": "slice14", "part": f"a_{model}_{arm}_vs_{base}",
+                   "batch": batch, "steps": steps,
+                   "first_loss": [l_a[0], l_b[0]],
+                   "last_loss": [l_a[-1], l_b[-1]],
+                   "first_loss_rel": first, "last_loss_rel": last,
+                   "losses_bit_equal": l_a == l_b,
+                   "sequences_per_sec": {arm: r_a["total_images_per_sec"],
+                                         base: r_b["total_images_per_sec"]},
+                   "rate_ratio": r_a["total_images_per_sec"]
+                   / r_b["total_images_per_sec"],
+                   "peak_mem_gb": {arm: rec_a["peak_mem_gb"],
+                                   base: rec_b["peak_mem_gb"]},
+                   "launches": {arm: rec_a["launches"],
+                                base: rec_b["launches"]},
+                   "nvidia_smi": smi}
+            if arm == "ring":
+                rec["tol"] = [SLICE14_RING_FIRST_TOL, SLICE14_RING_LAST_TOL]
+                rec["ok"] = (first <= SLICE14_RING_FIRST_TOL
+                             and last <= SLICE14_RING_LAST_TOL)
+            else:
+                rec["ok"] = (l_a == l_b and len(l_a) == steps
+                             and r_a["final_loss"] == r_b["final_loss"])
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"phase 22 (a) failed: {rec}")
+
+
+def slice14_zero1(torch, smi, base: Path, add) -> None:
+    """Phase 22 (b): zero1 at world 1 on resnet50 (bf16, batch 128,
+    ``--fused_conv=true``, a one-rank group on ``ib``) against psum,
+    cuDNN deterministic: the losses and the final parameters'
+    fingerprint bit-equal, images/s and the optimizer's bytes."""
+    warm, timed = SLICE14_ZERO1_STEPS
+    steps = warm + timed
+    runs = {}
+    for vu in ("psum", "zero1"):
+        argv = ["1", "1", str(TRAIN_BATCH), "ib", "--model=resnet50",
+                "--use_fp16=true", "--fused_conv=true",
+                f"--variable_update={vu}", f"--num_warmup_batches={warm}",
+                f"--num_batches={timed}", "--display_every=10",
+                f"--train_dir={base / vu}"]
+        res, counts, rec, losses = _slice14_run(
+            torch, f"b_resnet50_{vu}", argv, smi,
+            {"fused_bn_relu_conv": FUSED_LAUNCHES_PER_STEP * steps})
+        add(counts)
+        runs[vu] = (res, losses)
+    (z, zl), (p, pl) = runs["zero1"], runs["psum"]
+    rec = {"phase": "slice14", "part": "b_zero1_vs_psum",
+           "images_per_sec": {"psum": p["total_images_per_sec"],
+                              "zero1": z["total_images_per_sec"]},
+           "optimizer_state_bytes": {"psum": p["optimizer_state_bytes"],
+                                     "zero1": z["optimizer_state_bytes"]},
+           "collectives_per_step": {"psum": p["allreduce_per_step"],
+                                    "zero1": z["allreduce_per_step"]},
+           "fingerprints": [z["checkpoint"]["fingerprint"],
+                            p["checkpoint"]["fingerprint"]],
+           "losses_bit_equal": zl == pl, "steps": len(zl),
+           "nvidia_smi": smi}
+    rec["ok"] = (zl == pl and len(zl) == steps
+                 and rec["fingerprints"][0] == rec["fingerprints"][1]
+                 and z["optimizer_state_bytes"]
+                 == p["optimizer_state_bytes"] > 0)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 22 (b) failed: {rec}")
+
+
+def slice14_multi(torch, smi, cards: int) -> None:
+    """Phase 22 (c), with two cards or more: llama_1b at 2048 tokens a
+    shard over sp 2 (and sp 4, dp 2 x sp 2 on four cards), ``ring`` and
+    ``ulysses_flash`` (the ring with each layer recomputed where its
+    saved folds would pass ``SLICE14_REMAT_GB``): peak memory (rank 0)
+    and sequences/s; then resnet50 zero1 against psum over every card."""
+    from tpu_hc_bench_torch import launcher
+
+    if cards < 2:
+        emit({"phase": "slice14", "part": "c_multi_card", "ran": False,
+              "cards": cards, "nvidia_smi": smi})
+        return
+
+    def launch(argv: list[str]) -> tuple[int, dict]:
+        lines: list[str] = []
+
+        def tee(m: str) -> None:
+            lines.append(m)
+            print(m, file=sys.stderr, flush=True)
+
+        rc = launcher.main(argv, print_fn=tee)
+        if rc != 0 or not any(ln.startswith("{") for ln in lines):
+            raise AssertionError(f"phase 22 (c): {argv} exited {rc}: "
+                                 f"{lines[-5:]}")
+        return rc, _result(lines)
+
+    warm, timed = SLICE14_STEPS
+    keys = ("total_workers", "global_batch", "total_images_per_sec",
+            "mean_step_ms", "final_loss", "sequence_parallel",
+            "attention_impl", "peak_hbm_bytes", "device_kind")
+    for world, sp in SLICE14_MULTI:
+        if world > cards:
+            continue
+        for impl in ("ring", "ulysses_flash"):
+            folds = _ring_fold_gb(SLICE14_SHARD_BATCH, 32, 16,
+                                  SLICE14_SHARD_TOKENS, sp)
+            remat = impl == "ring" and folds > SLICE14_REMAT_GB
+            argv = ["1", str(world), str(SLICE14_SHARD_BATCH), "ib",
+                    "--model=llama_1b", "--use_fp16=true",
+                    f"--sequence_parallel={sp}", f"--attention_impl={impl}",
+                    f"--seq_len={SLICE14_SHARD_TOKENS * sp}",
+                    f"--num_warmup_batches={warm}",
+                    f"--num_batches={timed}", "--display_every=10",
+                    f"--gradient_checkpointing={str(remat).lower()}"]
+            t0 = time.perf_counter()
+            rc, res = launch(argv)
+            rec = {"phase": "slice14", "part": f"c_llama_1b_w{world}_sp{sp}"
+                                               f"_{impl}",
+                   "argv": argv, "rc": rc, "cards": cards,
+                   "ring_fold_gb": folds if impl == "ring" else None,
+                   "remat": remat, "seconds": time.perf_counter() - t0,
+                   "sequences_per_sec": res.get("total_images_per_sec"),
+                   "nvidia_smi": smi, **{k: res.get(k) for k in keys}}
+            rec["ok"] = (rc == 0 and res["total_workers"] == world
+                         and res["sequence_parallel"] == sp
+                         and res["global_batch"]
+                         == SLICE14_SHARD_BATCH * world // sp
+                         and math.isfinite(res["final_loss"]))
+            emit(rec)
+            if not rec["ok"]:
+                raise AssertionError(f"phase 22 (c) failed: {rec}")
+    warm, timed = SLICE14_ZERO1_STEPS
+    runs = {}
+    for vu in ("psum", "zero1"):
+        argv = ["1", "0", str(TRAIN_BATCH), "ib", "--model=resnet50",
+                "--use_fp16=true", "--fused_conv=true",
+                f"--variable_update={vu}", f"--num_warmup_batches={warm}",
+                f"--num_batches={timed}", "--display_every=10"]
+        rc, res = launch(argv)
+        runs[vu] = res
+        if res["total_workers"] != cards:
+            raise AssertionError(f"phase 22 (c) resnet50 {vu}: {res}")
+    z, p = runs["zero1"], runs["psum"]
+    rec = {"phase": "slice14", "part": "c_resnet50_zero1_vs_psum",
+           "cards": cards,
+           "images_per_sec": {"psum": p["total_images_per_sec"],
+                              "zero1": z["total_images_per_sec"]},
+           "optimizer_state_bytes": {"psum": p["optimizer_state_bytes"],
+                                     "zero1": z["optimizer_state_bytes"]},
+           "final_loss": {"psum": p["final_loss"],
+                          "zero1": z["final_loss"]},
+           "peak_hbm_bytes": {"psum": p["peak_hbm_bytes"],
+                              "zero1": z["peak_hbm_bytes"]},
+           "nvidia_smi": smi}
+    rec["ok"] = (math.isfinite(z["final_loss"])
+                 and z["optimizer_state_bytes"]
+                 <= 1.01 * p["optimizer_state_bytes"] / cards)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 22 (c) zero1 failed: {rec}")
+
+
+def phase_slice14(torch, dev, smi) -> dict:
+    """Phase 22: sequence parallelism and zero1; returns every kernel's
+    launches summed over the main-path runs (a) and (b)."""
+    import shutil
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    base = Path(__file__).resolve().parent / "build" / "slice14"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    slice14_degenerate(torch, smi, add)
+    torch.cuda.empty_cache()
+    det = torch.backends.cudnn.deterministic
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        slice14_zero1(torch, smi, base, add)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
+        shutil.rmtree(base, ignore_errors=True)
+    torch.cuda.empty_cache()
+    slice14_multi(torch, smi, torch.cuda.device_count())
+    emit({"phase": "slice14", "part": "d_launches", "launches": total,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -4892,7 +5178,7 @@ def main(argv: list[str] | None = None) -> int:
                                 "the GPUs of this machine.")
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
                                       "serve2", "slice9", "zoo", "slice11",
-                                      "slice12", "slice13"),
+                                      "slice12", "slice13", "slice14"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -4905,7 +5191,8 @@ def main(argv: list[str] | None = None) -> int:
                         "phase 8 at ViT's shapes, then phase 18; slice11: "
                         "the build, then phase 19 alone; slice12: the "
                         "build, phase 4, then phase 20; slice13: the "
-                        "build, then phase 21 alone")
+                        "build, then phase 21 alone; slice14: the build, "
+                        "then phase 22 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -5026,6 +5313,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice14":
+        phase_slice14(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice13":
         phase_slice13(torch, dev, smi)
         print(smi, flush=True)
@@ -5100,6 +5395,8 @@ def main(argv: list[str] | None = None) -> int:
     slice12_launches = phase_slice12_rest(torch, smi, slice12_launches)
     torch.cuda.empty_cache()
     slice13_launches = phase_slice13(torch, dev, smi)
+    torch.cuda.empty_cache()
+    slice14_launches = phase_slice14(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -5151,7 +5448,8 @@ def main(argv: list[str] | None = None) -> int:
                       "zoo_launches": zoo_launches.get(name, 0),
                       "slice11_launches": slice11_launches.get(name, 0),
                       "slice12_launches": slice12_launches.get(name, 0),
-                      "slice13_launches": slice13_launches.get(name, 0)})
+                      "slice13_launches": slice13_launches.get(name, 0),
+                      "slice14_launches": slice14_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -885,7 +885,10 @@ def test_data_parallel_flags_follow_jax():
         ("psum", 4, "off", 0)
     assert flags.parse_benchmark_flags(
         ["--variable_update=replicated"]).variable_update == "replicated"
-    for bad, match in ((["--variable_update=zero1"], "not ported"),
+    assert flags.parse_benchmark_flags(
+        ["--variable_update=zero1"]).variable_update == "zero1"
+    for bad, match in ((["--variable_update=zero1",
+                         "--sequence_parallel=2"], "plain data"),
                        (["--rnn_impl=lstm"], "hoisted|bidi|flax"),
                        (["--variable_update=ring"], "psum"),
                        (["--batch_size=6", "--gradient_accumulation_steps=4"],

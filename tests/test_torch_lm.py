@@ -179,9 +179,12 @@ def test_bert_tiny_flash_matches_jax():
 
 
 def test_local_attention_rejects_sequence_parallel_impls():
+    """Without a seq group the sequence-sharded impls raise (JAX's
+    "requires axis_name"); with one they run
+    (``tests/test_torch_sequence.py``)."""
     q = torch.zeros((1, 8, 2, 8))
     for impl in ("ring", "ulysses", "ulysses_flash"):
-        with pytest.raises(ValueError, match="not ported"):
+        with pytest.raises(ValueError, match="requires a seq group"):
             local_attention(q, q, q, impl)
     with pytest.raises(ValueError, match="unknown"):
         local_attention(q, q, q, "paged")
@@ -443,9 +446,13 @@ def test_lm_flags_pass_and_later_slices_raise():
                for ln in cfg.summary_lines())
     assert flags.BenchmarkConfig().attention_impl == \
         jax_flags.BenchmarkConfig().attention_impl
-    for bad, match in ((["--attention_impl=ring"], "not ported"),
-                       (["--attention_impl=ulysses_flash"], "not ported"),
-                       (["--attention_impl=paged"], "dense|flash"),
+    # the sequence-sharded impls are ported (the degenerate seq axis at
+    # --sequence_parallel=1; tests/test_torch_sp_train.py)
+    for impl in ("ring", "ulysses_flash"):
+        cfg = flags.parse_benchmark_flags([f"--attention_impl={impl}"])
+        assert cfg.attention_impl == impl and cfg.sp_active
+        assert "degenerate seq axis" in cfg.translations["sequence_parallel"]
+    for bad, match in ((["--attention_impl=paged"], "dense|flash"),
                        (["--wire_dtype=bf16"], "float32|uint8"),
                        (["--model_parallel=2"], "not ported"),
                        (["--seq_len=0"], "seq_len")):
@@ -453,8 +460,8 @@ def test_lm_flags_pass_and_later_slices_raise():
             flags.parse_benchmark_flags(bad)
     with pytest.raises(ValueError, match="not ported"):
         flags.parse_benchmark_flags(["--expert_parallel=2"])
-    with pytest.raises(ValueError, match="not ported"):
-        flags.parse_benchmark_flags(["--sequence_parallel=2"])
+    assert flags.parse_benchmark_flags(
+        ["--sequence_parallel=2"]).attention_impl == "ring"
 
 
 def test_gpt2_launcher_on_the_cpu():

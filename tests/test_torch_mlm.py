@@ -610,11 +610,12 @@ def test_bert_registry_rows_and_widths():
     assert model.pos_embed.weight.shape == (128, 128)
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert float(model.mlm_bias.detach().abs().sum()) == 0.0
-    with pytest.raises(ValueError, match="not ported"):
-        bert.BertMLM(**TINY, seq_axis="seq")
-    with pytest.raises(ValueError, match="not ported"):
-        flags.parse_benchmark_flags(["--model=bert_tiny",
-                                     "--sequence_parallel=2"])
+    # sequence parallelism is ported: a seq axis is kept, and the flag
+    # takes the sequence-sharded impl (tests/test_torch_sequence.py)
+    assert bert.BertMLM(**TINY, seq_axis="seq").seq_axis == "seq"
+    assert flags.parse_benchmark_flags(
+        ["--model=bert_tiny", "--sequence_parallel=2"]).attention_impl \
+        == "ring"
     with pytest.raises(ValueError, match="mask"):
         bert.TransformerLayer(128, 4, 512)(torch.zeros((1, 4, 128)),
                                            torch.ones((1, 4)))

@@ -435,7 +435,8 @@ def test_benchmark_flags_defaults_and_rejections():
         "bfloat16"
     for bad, match in ((["--model_parallel=2"], "not ported"),
                        (["--gradient_accumulation_steps=3"], "divisible"),
-                       (["--variable_update=zero1"], "not ported"),
+                       (["--variable_update=zero1", "--forward_only=true"],
+                        "forward-only"),
                        (["--resume=elastic", "--train_dir=/x"],
                         "not ported"),
                        (["--optimizer=lbfgs"], "momentum|sgd"),

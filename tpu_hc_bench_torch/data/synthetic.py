@@ -8,7 +8,12 @@ both lanes see the same bytes.
 
 With several workers every rank builds the same global batch from
 ``seed`` and keeps its own rows (``rank_rows``), the layout the JAX
-lane's ``shard_batch`` gives over the data axis.
+lane's ``shard_batch`` gives over the data axis.  Under sequence
+parallelism a rank keeps its data group's rows and then its seq group's
+slice of every sequence (``seq_slice``), JAX's ``P(data, seq)`` layout:
+the targets and weights are sliced from the global batch, never rebuilt
+a shard, so the next-token target at a shard's edge is the next shard's
+first token.
 
 ``to_device`` hands an image batch to the port's models: the NHWC float32
 images as an NCHW tensor in ``channels_last`` memory (a view of the same
@@ -110,6 +115,18 @@ def rank_rows(batch: tuple[np.ndarray, ...], rank: int,
         raise ValueError(f"rank {rank} x {rows} rows is outside a batch "
                          f"of {len(batch[0])}")
     return tuple(a[rank * rows:(rank + 1) * rows] for a in batch)
+
+
+def seq_slice(batch: tuple[np.ndarray, ...], seq_index: int,
+              sp: int) -> tuple[np.ndarray, ...]:
+    """Slice ``seq_index`` of ``sp`` along dim 1 (the sequence) of every
+    array of a token batch."""
+    s = batch[0].shape[1]
+    if s % sp:
+        raise ValueError(f"sequence length {s} not divisible by "
+                         f"sequence_parallel={sp}")
+    k = s // sp
+    return tuple(a[:, seq_index * k:(seq_index + 1) * k] for a in batch)
 
 
 def to_device(batch: tuple[np.ndarray, np.ndarray],

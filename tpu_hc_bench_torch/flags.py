@@ -322,8 +322,7 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 # training knobs of the JAX lane that this port does not carry yet
 LATER_SLICE_TRAIN_FLAGS = (
     "config", "num_slices", "model_parallel", "expert_parallel",
-    "pipeline_parallel", "num_microbatches", "sequence_parallel",
-    "virtual_devices",
+    "pipeline_parallel", "num_microbatches", "virtual_devices",
 )
 
 NONFINITE_POLICIES = ("abort", "skip", "rewind")
@@ -359,8 +358,9 @@ DEFAULT_NUM_BATCHES = 100
 FABRIC_DEVICE = ("fabric (NCCL on the card for ib|ici|dcn, gloo through "
                  "host memory for sock|host)")
 
-# attention impls of the JAX lane: the single-device two are ported, the
-# sequence-parallel ones come with the multi-card slices
+# attention impls of the JAX lane: the single-device two, and the
+# sequence-sharded ones, which attend across a seq group
+# (``parallel.sequence``)
 ATTENTION_IMPLS = ("dense", "flash")
 SEQ_SHARDED_IMPLS = ("ring", "ulysses", "ulysses_flash")
 
@@ -420,15 +420,20 @@ class BenchmarkConfig:
     seed: int = 0
     device: str = "cuda"                      # cuda | cpu (on request)
     variable_update: str = "psum"             # psum (fusion buckets) |
-                                              # replicated (per tensor);
-                                              # horovod -> psum
+                                              # replicated (per tensor) |
+                                              # zero1 (sharded optimizer
+                                              # state); horovod -> psum
     gradient_accumulation_steps: int = 1      # microbatches a step
     overlap_grad_comm: str = "on"             # on: buckets launch during
                                               # the backward | off: after
     fusion_threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES
     attention_impl: str = "dense"             # transformer attention:
                                               # dense (plain) | flash (the
-                                              # CUDA flash kernels)
+                                              # CUDA flash kernels) | ring
+                                              # | ulysses | ulysses_flash
+                                              # (sequence-sharded)
+    sequence_parallel: int = 1                # sequence shards: ranks a
+                                              # seq group (text models)
     seq_len: int | None = None                # text models: override the
                                               # registry sequence length
     fused_xent: bool = False                  # text models: the CUDA
@@ -543,6 +548,14 @@ class BenchmarkConfig:
     def compute_dtype(self) -> str:
         return "bfloat16" if self.use_fp16 else "float32"
 
+    @property
+    def sp_active(self) -> bool:
+        """A seq group is bound: ``--sequence_parallel`` > 1, or a
+        sequence-sharded impl on the degenerate seq axis (JAX's
+        ``sp_active``)."""
+        return (self.sequence_parallel > 1
+                or self.attention_impl in SEQ_SHARDED_IMPLS)
+
     def resolve(self) -> "BenchmarkConfig":
         """Translate the reference's literal values and validate (the JAX
         training matrix, for the ported knobs)."""
@@ -595,9 +608,21 @@ class BenchmarkConfig:
                                     "all-reduce)")
             self.variable_update = "psum"
         if self.variable_update == "zero1":
-            raise ValueError("--variable_update=zero1 is not ported yet "
-                             "(psum|horovod|replicated)")
-        if self.variable_update not in ("psum", "replicated"):
+            # ZeRO-1 shards the optimizer state over the data axis; every
+            # unsupported composition dies at flag time (the port has no
+            # TP, EP or PP: those flags are refused as not ported)
+            if (self.sequence_parallel > 1
+                    or self.attention_impl in SEQ_SHARDED_IMPLS):
+                raise ValueError(
+                    "--variable_update=zero1 composes with plain data "
+                    "parallelism only: the SP step reduces over "
+                    "(data, seq) and the zero1 reduce-scatter layout is "
+                    "data-axis only")
+            if self.forward_only:
+                raise ValueError(
+                    "--variable_update=zero1 shards the OPTIMIZER state; "
+                    "forward-only runs have none (use psum)")
+        if self.variable_update not in ("psum", "replicated", "zero1"):
             raise ValueError(f"--variable_update must be psum|horovod|"
                              f"replicated|zero1: {self.variable_update!r}")
         if self.gradient_accumulation_steps < 1:
@@ -634,11 +659,8 @@ class BenchmarkConfig:
                              f"{self.fusion_threshold_bytes}")
         if self.num_classes < 1:
             raise ValueError(f"--num_classes must be >= 1: {self.num_classes}")
-        if self.attention_impl in SEQ_SHARDED_IMPLS:
-            raise ValueError(f"--attention_impl={self.attention_impl} is not "
-                             "ported yet (dense|flash: one worker, no "
-                             "sequence parallelism)")
-        if self.attention_impl not in ATTENTION_IMPLS:
+        self._resolve_sequence_parallel(t)
+        if self.attention_impl not in ATTENTION_IMPLS + SEQ_SHARDED_IMPLS:
             raise ValueError(f"--attention_impl must be dense|flash|ring|"
                              f"ulysses|ulysses_flash: "
                              f"{self.attention_impl!r}")
@@ -670,8 +692,8 @@ class BenchmarkConfig:
         if self.resume == "elastic":
             raise ValueError(
                 "--resume=elastic is not ported yet: elastic resume and "
-                "zero1's optimizer-shard resplit come with the zero1 "
-                "slice (auto|never|must)")
+                "zero1's optimizer-shard resplit across worlds come with "
+                "a later slice (auto|never|must)")
         if self.resume == "must" and not self.train_dir:
             raise ValueError(f"--resume={self.resume} needs --train_dir")
         if self.keep_checkpoints < 0:
@@ -690,6 +712,51 @@ class BenchmarkConfig:
                 "(--eval)")
         self.translations = t
         return self
+
+    def _resolve_sequence_parallel(self, t: dict) -> None:
+        """JAX's sequence-parallel rules and translation notes: SP > 1
+        takes the sequence-sharded attention (``dense->ring``,
+        ``flash->ulysses_flash``) and ``replicated->psum``; a
+        sequence-sharded impl at ``--sequence_parallel=1`` runs the
+        degenerate seq axis (a one-rank seq group)."""
+        if self.sequence_parallel < 1:
+            raise ValueError(f"--sequence_parallel must be >= 1: "
+                             f"{self.sequence_parallel}")
+        if self.sequence_parallel > 1:
+            if self.variable_update == "replicated":
+                note = (
+                    f"replicated->psum (sequence_parallel="
+                    f"{self.sequence_parallel} runs the explicit shard_map "
+                    f"step; gradients fuse-psum over both mesh axes)"
+                )
+                prior = t.get("variable_update")
+                t["variable_update"] = f"{prior}; {note}" if prior else note
+                self.variable_update = "psum"
+            # SP needs a sequence-sharded attention impl; translate the
+            # single-device names to their SP counterparts
+            sp_map = {"dense": "ring", "flash": "ulysses_flash"}
+            if self.attention_impl in sp_map:
+                new = sp_map[self.attention_impl]
+                t["attention_impl"] = (
+                    f"{self.attention_impl}->{new} (sequence_parallel="
+                    f"{self.sequence_parallel} shards the sequence axis)"
+                )
+                self.attention_impl = new
+        elif self.attention_impl in SEQ_SHARDED_IMPLS:
+            # degenerate SP: the seq-sharded impls run on a size-1 seq
+            # axis (world-1 collectives: copies), the SP machinery's cost
+            # on one card; plain data parallelism only (the port has no
+            # PP/EP/TP, whose flags are refused as not ported)
+            note = (f"sequence_parallel=1: degenerate seq axis (size 1) — "
+                    f"{self.attention_impl} collectives are world-1 no-ops")
+            t["sequence_parallel"] = note
+            if self.variable_update == "replicated":
+                note2 = ("replicated->psum (degenerate seq axis runs the "
+                         "explicit (data, seq) shard_map step)")
+                prior = t.get("variable_update")
+                t["variable_update"] = (f"{prior}; {note2}" if prior
+                                        else note2)
+                self.variable_update = "psum"
 
     def _resolve_resilience_obs(self) -> None:
         """The resilience and observability flags, loud at flag time
@@ -833,7 +900,8 @@ class BenchmarkConfig:
             f"num_classes={self.num_classes}",
             f"attention_impl={self.attention_impl} "
             f"seq_len={self.seq_len or 'model default'} "
-            f"fused_xent={self.fused_xent}",
+            f"fused_xent={self.fused_xent} "
+            f"sequence_parallel={self.sequence_parallel}",
             f"variable_update={self.variable_update} "
             f"overlap_grad_comm={self.overlap_grad_comm} "
             f"fusion_threshold_bytes={self.fusion_threshold_bytes} "

@@ -226,7 +226,7 @@ def create_model(name: str, dtype=torch.float32,
                  rank: int = 0, gradient_checkpointing: bool = False,
                  scan_layers: bool = False, moe_impl: str = "einsum",
                  moe_capacity_factor: float = 1.25, moe_f_chunk: int = 0,
-                 rnn_impl: str = "hoisted"):
+                 rnn_impl: str = "hoisted", seq_axis=None):
     """``(model, spec)``: the model built on ``device`` with its weights
     drawn from a ``torch.Generator`` seeded with ``seed`` (on the same
     device, so a full-width model never passes through host memory), in
@@ -240,7 +240,9 @@ def create_model(name: str, dtype=torch.float32,
     CIFAR members too, as JAX's driver passes ``--num_classes``).  A
     scanned decoder (``scan_layers``) holds the unrolled one's weights
     for the same seed; an RNN member runs ``rnn_impl``'s arm
-    (``hoisted|bidi|flax``), every arm on the same weights."""
+    (``hoisted|bidi|flax``), every arm on the same weights.  A text
+    model takes ``seq_axis``, the seq group its sequence is sharded over
+    (``models.bert``); the other members refuse it."""
     spec = get_model_spec(name)
     if spec.ctc:
         if rnn_impl not in deepspeech.RNN_IMPLS:
@@ -282,6 +284,9 @@ def create_model(name: str, dtype=torch.float32,
     if seq_len is not None and not spec.is_text:
         raise ValueError(f"--seq_len only applies to text models, not "
                          f"{name}")
+    if seq_axis is not None and not spec.is_text:
+        raise ValueError(f"--sequence_parallel only applies to text "
+                         f"models, not {name}")
     kw: dict = dict(moe_kw, dtype=dtype)
     if spec.is_text or spec.attention:      # the transformers
         kw["attention_impl"] = attention_impl
@@ -298,6 +303,8 @@ def create_model(name: str, dtype=torch.float32,
                 flops_per_example=spec.flops_per_example
                 * seq_len / spec.input_shape[0])
         kw["max_len"] = seq_len
+        if seq_axis is not None:
+            kw["seq_axis"] = seq_axis
     else:
         kw["num_classes"] = num_classes or spec.num_classes
     if spec.supports_s2d:

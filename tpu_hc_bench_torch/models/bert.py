@@ -20,8 +20,7 @@ the transformer pieces the decoder family (``models/gpt.py``) shares.
   same sums).  Its backward rounds the float32 logit cotangent to
   ``dtype`` before the two products (JAX keeps it float32), which keeps
   them on the tensor cores.
-- ``MultiHeadAttention`` and ``global_position_ids`` (without sequence
-  parallelism).
+- ``MultiHeadAttention`` and ``global_position_ids``.
 
 ``BertMLM`` is the encoder (BERT-base: 12 post-LN layers, hidden 768, 12
 heads, FFN 3072, vocab 30522; ``bert_large_mlm`` and ``bert_tiny_mlm``
@@ -35,12 +34,18 @@ the token table (float32 logits) plus the float32 ``mlm_bias``.  The
 masking lives in the loss (the weights of the MLM batch).  ``remat``
 (``--gradient_checkpointing``) recomputes each layer in the backward
 with the forward's dropout masks (``models.layer_stack.remat``).
-Sequence parallelism comes with a later slice and raises here.
+
+Sequence parallelism (``seq_axis``: the seq group, a
+``torch.distributed`` process group; None without): the model sees its
+rank's slice of the sequence, the positions are global
+(``global_position_ids``: the shard's offset ``seq_index x s``) and the
+attention is one of the sequence-sharded impls over the group.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -149,13 +154,15 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, hidden: int, heads: int,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense", causal: bool = False):
+                 attention_impl: str = "dense", causal: bool = False,
+                 seq_axis=None):
         super().__init__()
         if hidden % heads:
             raise ValueError(f"hidden={hidden} not divisible by "
                              f"heads={heads}")
         self.heads, self.head_dim = heads, hidden // heads
         self.attention_impl, self.causal = attention_impl, causal
+        self.seq_axis = seq_axis
         self.qkv = Dense(hidden, 3 * hidden, dtype)
         self.out = Dense(hidden, hidden, dtype)
 
@@ -168,21 +175,27 @@ class MultiHeadAttention(nn.Module):
         qkv = self.qkv(x).view(b, s, 3, self.heads, self.head_dim)
         q, k, v = qkv.unbind(2)
         out = local_attention(q, k, v, impl=self.attention_impl,
-                              causal=self.causal)
+                              seq_group=self.seq_axis, causal=self.causal)
         return self.out(out.reshape(b, s, hidden))
 
 
-def global_position_ids(s: int, seq_axis: str | None, max_len: int,
+def global_position_ids(s: int, seq_axis, max_len: int,
                         device: str | torch.device = "cpu") -> torch.Tensor:
-    """Position ids ``0 .. s-1`` of an unsharded block; ``s`` is checked
-    against the position table (the JAX ``nn.Embed`` would clamp).
-    Sequence-sharded blocks come with sequence parallelism."""
-    if seq_axis is not None:
-        raise ValueError("sequence parallelism is not ported yet "
-                         "(seq_axis must be None)")
-    if s > max_len:
-        raise ValueError(f"sequence {s} exceeds max_len {max_len}")
-    return torch.arange(s, device=device)
+    """Position ids of a block of ``s`` tokens: ``0 .. s-1``, or under
+    sequence parallelism (``seq_axis``, the seq group) the shard's offset
+    ``seq_index x s`` plus those; the global length is checked against
+    the position table (the JAX ``nn.Embed`` would clamp)."""
+    pos = torch.arange(s, device=device)
+    if seq_axis is None:
+        if s > max_len:
+            raise ValueError(f"sequence {s} exceeds max_len {max_len}")
+        return pos
+    global_s = s * dist.get_world_size(seq_axis)
+    if global_s > max_len:
+        raise ValueError(
+            f"global sequence {global_s} exceeds max_len {max_len} "
+            f"(nn.Embed would silently clamp)")
+    return pos + dist.get_rank(seq_axis) * s
 
 
 class TransformerLayer(nn.Module):
@@ -193,9 +206,10 @@ class TransformerLayer(nn.Module):
 
     def __init__(self, hidden: int, heads: int, ffn: int,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", seq_axis=None):
         super().__init__()
-        self.attn = MultiHeadAttention(hidden, heads, dtype, attention_impl)
+        self.attn = MultiHeadAttention(hidden, heads, dtype, attention_impl,
+                                       seq_axis=seq_axis)
         self.ln1 = LayerNorm(hidden, dtype)
         self.fc = Dense(hidden, ffn, dtype)
         self.proj = Dense(ffn, hidden, dtype)
@@ -226,11 +240,9 @@ class BertMLM(nn.Module):
                  max_len: int = BERT_MAX_LEN,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "dense", remat: bool = False,
-                 seq_axis: str | None = None):
+                 seq_axis=None):
         super().__init__()
-        if seq_axis is not None:
-            raise ValueError("sequence parallelism is not ported yet")
-        self.remat = remat
+        self.remat, self.seq_axis = remat, seq_axis
         self.vocab_size, self.hidden = vocab_size, hidden
         self.num_layers, self.heads, self.max_len = num_layers, heads, max_len
         self.dtype = dtype
@@ -238,7 +250,8 @@ class BertMLM(nn.Module):
         self.pos_embed = nn.Embedding(max_len, hidden)
         self.ln_embed = LayerNorm(hidden, dtype)
         self.layers = nn.ModuleList(
-            TransformerLayer(hidden, heads, ffn, dtype, attention_impl)
+            TransformerLayer(hidden, heads, ffn, dtype, attention_impl,
+                             seq_axis)
             for _ in range(num_layers))
         self.mlm_dense = Dense(hidden, hidden, dtype)
         self.mlm_ln = LayerNorm(hidden, dtype)
@@ -264,7 +277,8 @@ class BertMLM(nn.Module):
     def forward(self, token_ids):
         """``[b, s]`` ids -> ``[b, s, vocab]`` float32 logits."""
         b, s = token_ids.shape
-        pos = global_position_ids(s, None, self.max_len, token_ids.device)
+        pos = global_position_ids(s, self.seq_axis, self.max_len,
+                                  token_ids.device)
         x = (F.embedding(token_ids, self.tok_embed.weight).to(self.dtype)
              + F.embedding(pos, self.pos_embed.weight).to(self.dtype)[None])
         gen = self.dropout_generator
@@ -283,29 +297,32 @@ class BertMLM(nn.Module):
 def bert_base_mlm(dtype: torch.dtype = torch.float32,
                   attention_impl: str = "dense",
                   max_len: int | None = None,
-                  remat: bool = False) -> BertMLM:
+                  remat: bool = False, seq_axis=None) -> BertMLM:
     """BERT-base (~110M).  ``max_len`` only ever grows the position table
     past the canonical 512."""
     return BertMLM(dtype=dtype, attention_impl=attention_impl,
-                   max_len=max(BERT_MAX_LEN, max_len or 0), remat=remat)
+                   max_len=max(BERT_MAX_LEN, max_len or 0), remat=remat,
+                   seq_axis=seq_axis)
 
 
 def bert_large_mlm(dtype: torch.dtype = torch.float32,
                    attention_impl: str = "dense",
                    max_len: int | None = None,
-                   remat: bool = False) -> BertMLM:
+                   remat: bool = False, seq_axis=None) -> BertMLM:
     """BERT-large (24L/1024H/16 heads/4096 FFN, ~335M)."""
     return BertMLM(hidden=1024, num_layers=24, heads=16, ffn=4096,
                    max_len=max(BERT_MAX_LEN, max_len or 0), dtype=dtype,
-                   attention_impl=attention_impl, remat=remat)
+                   attention_impl=attention_impl, remat=remat,
+                   seq_axis=seq_axis)
 
 
 def bert_tiny_mlm(dtype: torch.dtype = torch.float32,
                   attention_impl: str = "dense",
                   max_len: int | None = None,
-                  remat: bool = False) -> BertMLM:
+                  remat: bool = False, seq_axis=None) -> BertMLM:
     """4-layer/128-hidden variant for tests and CPU smoke runs (head dim
     32: its flash arm runs the kernels at head dim 64, zero-padded)."""
     return BertMLM(vocab_size=1024, hidden=128, num_layers=4, heads=4,
                    ffn=512, max_len=max(128, max_len or 0), dtype=dtype,
-                   attention_impl=attention_impl, remat=remat)
+                   attention_impl=attention_impl, remat=remat,
+                   seq_axis=seq_axis)

@@ -7,8 +7,11 @@ trunk with 8-expert top-2 FFNs) and ``moe_tiny``, whose layers swap the
 dense MLP for ``models.moe.MoEFFN`` (``moe_impl`` einsum|ragged).
 ``remat`` (``--gradient_checkpointing``) recomputes each layer in the
 backward and ``scan_layers`` stacks the trunk's parameters ``[L, ...]``
-under ``layers`` (``models.layer_stack``).  The pipeline interface comes
-with a later slice.
+under ``layers`` (``models.layer_stack``).  ``seq_axis`` (the seq group;
+``models.bert``) shards the sequence: learned positions at the shard's
+global offsets, sequence-sharded attention in every layer (the MoE
+members' too; each shard routes its own tokens, as JAX's).  The pipeline
+interface comes with a later slice.
 
 What must match the Flax modules, and how (``Dense``, ``LayerNorm``,
 ``dropout`` and ``tied_logits`` live in ``models/bert.py``, which both
@@ -71,11 +74,11 @@ class DecoderLayer(nn.Module):
                  attention_impl: str = "dense", num_experts: int = 0,
                  causal: bool = True, top_k: int = 2,
                  moe_impl: str = "einsum", moe_capacity_factor: float = 1.25,
-                 moe_f_chunk: int = 0):
+                 moe_f_chunk: int = 0, seq_axis=None):
         super().__init__()
         self.ln1 = LayerNorm(hidden, dtype)
         self.attn = MultiHeadAttention(hidden, heads, dtype, attention_impl,
-                                       causal)
+                                       causal, seq_axis)
         self.ln2 = LayerNorm(hidden, dtype)
         if num_experts:
             self.moe = MoEFFN(hidden, ffn, num_experts, top_k=top_k,
@@ -118,8 +121,10 @@ class GPTLM(nn.Module):
                  attention_impl: str = "dense", remat: bool = False,
                  scan_layers: bool = False, num_experts: int = 0,
                  top_k: int = 2, moe_impl: str = "einsum",
-                 moe_capacity_factor: float = 1.25, moe_f_chunk: int = 0):
+                 moe_capacity_factor: float = 1.25, moe_f_chunk: int = 0,
+                 seq_axis=None):
         super().__init__()
+        self.seq_axis = seq_axis
         self.vocab_size, self.hidden = vocab_size, hidden
         self.num_layers, self.heads, self.max_len = num_layers, heads, max_len
         self.ffn, self.dtype = ffn, dtype
@@ -131,7 +136,8 @@ class GPTLM(nn.Module):
             hidden=hidden, heads=heads, ffn=ffn, dtype=dtype,
             attention_impl=attention_impl, num_experts=num_experts,
             top_k=top_k, moe_impl=moe_impl,
-            moe_capacity_factor=moe_capacity_factor, moe_f_chunk=moe_f_chunk)
+            moe_capacity_factor=moe_capacity_factor, moe_f_chunk=moe_f_chunk,
+            seq_axis=seq_axis)
         if scan_layers:
             self.layers = layer_stack.stack_parameters_(
                 self.make_layer(), num_layers)
@@ -179,7 +185,8 @@ class GPTLM(nn.Module):
     def forward(self, token_ids):
         """``[b, s]`` ids -> ``[b, s, vocab]`` float32 logits."""
         b, s = token_ids.shape
-        pos = global_position_ids(s, None, self.max_len, token_ids.device)
+        pos = global_position_ids(s, self.seq_axis, self.max_len,
+                                  token_ids.device)
         x = (F.embedding(token_ids, self.wte.weight).to(self.dtype)
              + F.embedding(pos, self.wpe.weight).to(self.dtype)[None])
         gen = self.dropout_generator
@@ -200,47 +207,49 @@ class GPTLM(nn.Module):
 
 def gpt2(dtype: torch.dtype = torch.float32, attention_impl: str = "dense",
          max_len: int | None = None, remat: bool = False,
-         scan_layers: bool = False) -> GPTLM:
+         scan_layers: bool = False, seq_axis=None) -> GPTLM:
     """GPT-2 small (124M)."""
     return GPTLM(dtype=dtype, attention_impl=attention_impl,
                  max_len=max(GPT2_CTX, max_len or 0), remat=remat,
-                 scan_layers=scan_layers)
+                 scan_layers=scan_layers, seq_axis=seq_axis)
 
 
 def gpt2_medium(dtype: torch.dtype = torch.float32,
                 attention_impl: str = "dense",
                 max_len: int | None = None, remat: bool = False,
-                scan_layers: bool = False) -> GPTLM:
+                scan_layers: bool = False, seq_axis=None) -> GPTLM:
     """GPT-2 medium (~355M: 24L/1024H/16 heads)."""
     return GPTLM(hidden=1024, num_layers=24, heads=16, ffn=4096,
                  dtype=dtype, attention_impl=attention_impl,
                  max_len=max(GPT2_CTX, max_len or 0), remat=remat,
-                 scan_layers=scan_layers)
+                 scan_layers=scan_layers, seq_axis=seq_axis)
 
 
 def gpt2_moe(dtype: torch.dtype = torch.float32,
              attention_impl: str = "dense", max_len: int | None = None,
              remat: bool = False, moe_impl: str = "einsum",
              moe_capacity_factor: float = 1.25, scan_layers: bool = False,
-             moe_f_chunk: int = 0) -> GPTLM:
+             moe_f_chunk: int = 0, seq_axis=None) -> GPTLM:
     """GPT-2-small trunk with 8-expert top-2 MoE FFNs (~520M parameters,
     ~180M active a token)."""
     return GPTLM(dtype=dtype, attention_impl=attention_impl,
                  max_len=max(GPT2_CTX, max_len or 0), remat=remat,
                  num_experts=8, top_k=2, moe_impl=moe_impl,
                  moe_capacity_factor=moe_capacity_factor,
-                 scan_layers=scan_layers, moe_f_chunk=moe_f_chunk)
+                 scan_layers=scan_layers, moe_f_chunk=moe_f_chunk,
+                 seq_axis=seq_axis)
 
 
 def moe_tiny(dtype: torch.dtype = torch.float32,
              attention_impl: str = "dense", max_len: int | None = None,
              remat: bool = False, moe_impl: str = "einsum",
              moe_capacity_factor: float = 1.25, scan_layers: bool = False,
-             moe_f_chunk: int = 0) -> GPTLM:
+             moe_f_chunk: int = 0, seq_axis=None) -> GPTLM:
     """4-layer/128-hidden 4-expert decoder for tests and CPU smoke runs."""
     return GPTLM(vocab_size=1024, hidden=128, num_layers=4, heads=4,
                  ffn=256, dtype=dtype, attention_impl=attention_impl,
                  max_len=max(128, max_len or 0), remat=remat,
                  num_experts=4, top_k=2, moe_impl=moe_impl,
                  moe_capacity_factor=moe_capacity_factor,
-                 scan_layers=scan_layers, moe_f_chunk=moe_f_chunk)
+                 scan_layers=scan_layers, moe_f_chunk=moe_f_chunk,
+                 seq_axis=seq_axis)

@@ -23,7 +23,10 @@ product).  Llama has no dropout.  ``remat`` recomputes each block in the
 backward and ``scan_layers`` stacks the blocks' parameters ``[L, ...]``
 under ``layers`` (``models.layer_stack``); the stacked layout is not
 servable and a checkpoint does not move between the two layouts.  At
-float32 the serving lane's numbers are unchanged.
+float32 the serving lane's numbers are unchanged.  ``seq_axis`` (the seq
+group; ``models.bert``) shards the sequence: RoPE at the shard's global
+positions, the sequence-sharded attention with GQA's ``kv_repeat``
+(the un-repeated K/V on the wire).
 """
 
 from __future__ import annotations
@@ -106,7 +109,8 @@ class LlamaAttention(nn.Module):
 
     def __init__(self, hidden: int, heads: int, num_kv_heads: int,
                  dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", max_len: int = 2048,
+                 seq_axis=None):
         super().__init__()
         if heads % num_kv_heads:
             raise ValueError(f"heads={heads} not divisible by "
@@ -114,6 +118,7 @@ class LlamaAttention(nn.Module):
         self.heads, self.kv_heads = heads, num_kv_heads
         self.head_dim = hidden // heads
         self.attention_impl = attention_impl
+        self.max_len, self.seq_axis = max_len, seq_axis
         d = self.head_dim
         self.wq = Linear(hidden, heads * d, dtype)
         self.wk = Linear(hidden, num_kv_heads * d, dtype)
@@ -135,21 +140,26 @@ class LlamaAttention(nn.Module):
         return self.wo(ctx.reshape(*ctx.shape[:2], -1))
 
     def forward(self, x):
-        q, k, v = self.qkv(x, torch.arange(x.shape[1], device=x.device))
-        # GQA: the K/V heads repeated up front (contiguous copies)
+        from tpu_hc_bench_torch.models.bert import global_position_ids
+
+        q, k, v = self.qkv(x, global_position_ids(
+            x.shape[1], self.seq_axis, self.max_len, x.device))
+        # GQA: the K/V heads repeated up front, or by the sharded impls
+        # after (or inside) their exchange
         return self.out(local_attention(
-            q, k, v, impl=self.attention_impl, causal=True,
-            kv_repeat=self.heads // self.kv_heads))
+            q, k, v, impl=self.attention_impl, seq_group=self.seq_axis,
+            causal=True, kv_repeat=self.heads // self.kv_heads))
 
 
 class LlamaBlock(nn.Module):
     def __init__(self, hidden: int, heads: int, num_kv_heads: int,
                  ffn: int, dtype: torch.dtype = torch.float32,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", max_len: int = 2048,
+                 seq_axis=None):
         super().__init__()
         self.attn_norm = RMSNorm(hidden, dtype=dtype)
         self.attn = LlamaAttention(hidden, heads, num_kv_heads, dtype,
-                                   attention_impl)
+                                   attention_impl, max_len, seq_axis)
         self.mlp_norm = RMSNorm(hidden, dtype=dtype)
         self.gate = Linear(hidden, ffn, dtype)
         self.up = Linear(hidden, ffn, dtype)
@@ -178,8 +188,9 @@ class LlamaLM(nn.Module):
                  num_kv_heads: int = 8, ffn: int = 8192,
                  max_len: int = 2048, dtype: torch.dtype = torch.float32,
                  attention_impl: str = "dense", remat: bool = False,
-                 scan_layers: bool = False):
+                 scan_layers: bool = False, seq_axis=None):
         super().__init__()
+        self.seq_axis = seq_axis
         self.vocab_size, self.hidden = vocab_size, hidden
         self.num_layers, self.heads = num_layers, heads
         self.num_kv_heads, self.ffn = num_kv_heads, ffn
@@ -187,7 +198,8 @@ class LlamaLM(nn.Module):
         self.remat, self.scan_layers = remat, scan_layers
         self._block_kw = dict(hidden=hidden, heads=heads,
                               num_kv_heads=num_kv_heads, ffn=ffn,
-                              dtype=dtype, attention_impl=attention_impl)
+                              dtype=dtype, attention_impl=attention_impl,
+                              max_len=max_len, seq_axis=seq_axis)
         self.tok_embed = nn.Embedding(vocab_size, hidden)
         if scan_layers:
             self.layers = layer_stack.stack_parameters_(self.make_layer(),
@@ -238,9 +250,10 @@ class LlamaLM(nn.Module):
     def forward(self, token_ids):
         """Full-context causal forward: ``[b, s]`` ids -> ``[b, s, vocab]``
         float32 logits."""
-        if token_ids.shape[1] > self.max_len:
-            raise ValueError(f"sequence {token_ids.shape[1]} exceeds "
-                             f"max_len {self.max_len}")
+        from tpu_hc_bench_torch.models.bert import global_position_ids
+
+        # the global length against max_len (raises)
+        global_position_ids(token_ids.shape[1], self.seq_axis, self.max_len)
         x = F.embedding(token_ids, self.tok_embed.weight).to(self.dtype)
         slices = (layer_stack.layer_slices(self.layers) if self.scan_layers
                   else None)
@@ -251,19 +264,21 @@ class LlamaLM(nn.Module):
 
 def llama_1b(dtype: torch.dtype = torch.float32,
              attention_impl: str = "dense", max_len: int | None = None,
-             remat: bool = False, scan_layers: bool = False) -> LlamaLM:
+             remat: bool = False, scan_layers: bool = False,
+             seq_axis=None) -> LlamaLM:
     """Llama-3.2-1B-shaped decoder (16L/2048H, 32q/8kv heads, SwiGLU
     8192, 32k vocab; ~1.1B params)."""
     return LlamaLM(max_len=max(2048, max_len or 0), dtype=dtype,
                    attention_impl=attention_impl, remat=remat,
-                   scan_layers=scan_layers)
+                   scan_layers=scan_layers, seq_axis=seq_axis)
 
 
 def llama_tiny(dtype: torch.dtype = torch.float32,
                attention_impl: str = "dense", max_len: int | None = None,
-               remat: bool = False, scan_layers: bool = False) -> LlamaLM:
+               remat: bool = False, scan_layers: bool = False,
+               seq_axis=None) -> LlamaLM:
     """4-layer/128-hidden 8q/2kv variant for tests and CPU smoke runs."""
     return LlamaLM(vocab_size=1024, hidden=128, num_layers=4, heads=8,
                    num_kv_heads=2, ffn=256, max_len=max(128, max_len or 0),
                    dtype=dtype, attention_impl=attention_impl, remat=remat,
-                   scan_layers=scan_layers)
+                   scan_layers=scan_layers, seq_axis=seq_axis)

@@ -36,6 +36,22 @@ first step and carry no BatchNorm statistics.
   same buckets: the BatchNorm running statistics and the loss.
 - ``psum``, ``pmean``, ``all_gather``, ``reduce_scatter`` and
   ``ppermute_ring``: the primitives of the OSU sweep.
+- ``ring_shift`` and ``all_to_all``: the differentiable collectives of
+  sequence parallelism (``parallel.sequence``).  ``ring_shift`` sends
+  to the next rank of the group and receives from the previous one; its
+  backward shifts the cotangent the other way (JAX's transpose of
+  ``ppermute``).  ``all_to_all`` is JAX's tiled ``all_to_all``: the
+  ``split`` dim cut into one chunk a rank, the received chunks
+  concatenated on the ``concat`` dim in rank order; its backward is the
+  inverse exchange.  In a one-rank group both are copies.
+- **ZeRO-1** (``--variable_update=zero1``): ``zero1_shard_len``,
+  ``leaf_to_rows`` (a tensor padded to ``[N, k]``, row ``i`` rank
+  ``i``'s shard of its flat elements), ``reduce_scatter_tree`` and
+  ``all_gather_tree`` (JAX's layout functions over the same buckets,
+  one collective a bucket) and ``Zero1Reducer``, ``GradReducer``'s
+  counterpart that reduce-scatters each bucket of gradients (from the
+  hooks under overlap) into this rank's shards and all-gathers the
+  updated parameter shards after the optimizer step.
 
 Which element rides in which bucket never changes its value, only the
 schedule.  A ``wait()`` on NCCL makes the current stream wait, not the
@@ -92,11 +108,67 @@ def ppermute_ring(x: torch.Tensor, group=None,
     if n == 1:
         return x.clone()
     out = torch.empty_like(x)
-    ops = [dist.P2POp(dist.isend, x.contiguous(), (r + shift) % n, group),
-           dist.P2POp(dist.irecv, out, (r - shift) % n, group)]
+    group = group or dist.group.WORLD
+
+    def peer(i: int) -> int:        # the point-to-point ops take global ranks
+        return dist.get_global_rank(group, i % n)
+
+    ops = [dist.P2POp(dist.isend, x.contiguous(), peer(r + shift), group),
+           dist.P2POp(dist.irecv, out, peer(r - shift), group)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
     return out
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return ppermute_ring(x, group, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ppermute_ring(g, ctx.group, -1), None
+
+
+def ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """``ppermute_ring(x, group, 1)``, differentiable: the gradient goes
+    back one rank."""
+    return _RingShift.apply(x, group)
+
+
+def _tiled_all_to_all(x: torch.Tensor, group, split: int,
+                      concat: int) -> torch.Tensor:
+    n = dist.get_world_size(group)
+    if n == 1:
+        return x.clone()
+    if x.shape[split] % n:
+        raise ValueError(f"dim {split} ({x.shape[split]}) is not divisible "
+                         f"by the group size {n}")
+    chunks = x.unflatten(split, (n, x.shape[split] // n)).movedim(
+        split, 0).contiguous()
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, group=group)
+    return out.movedim(0, concat).flatten(concat, concat + 1)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split, concat):
+        ctx.args = (group, split, concat)
+        return _tiled_all_to_all(x, group, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split, concat = ctx.args
+        return _tiled_all_to_all(g, group, concat, split), None, None, None
+
+
+def all_to_all(x: torch.Tensor, group, split: int,
+               concat: int) -> torch.Tensor:
+    """JAX's ``all_to_all(x, axis, split, concat, tiled=True)`` over
+    ``group``, differentiable."""
+    return _AllToAll.apply(x, group, split, concat)
 
 
 def flatten_to_buckets(sizes: Sequence[int], itemsizes: Sequence[int],
@@ -285,3 +357,179 @@ class GradReducer:
         for h in self._hooks:
             h.remove()
         self._hooks = []
+
+
+# --- ZeRO-1: the sharded optimizer's wire pair ------------------------------
+
+
+def zero1_shard_len(size: int, num_shards: int) -> int:
+    """A ``size``-element tensor's shard length on each of
+    ``num_shards`` ranks, ceil-divided (JAX's rule: the layout depends
+    on the shapes and N only, not on the fusion threshold)."""
+    return -(-size // num_shards)
+
+
+def leaf_to_rows(t: torch.Tensor, num_shards: int,
+                 dtype: torch.dtype | None = None) -> torch.Tensor:
+    """``t`` flattened (at ``dtype``), zero-padded to ``num_shards * k``
+    and viewed ``[num_shards, k]``: row ``i`` is rank ``i``'s shard
+    (JAX's ``_leaf_to_rows``)."""
+    k = zero1_shard_len(t.numel(), num_shards)
+    flat = t.detach().reshape(-1).to(dtype or t.dtype)
+    pad = num_shards * k - t.numel()
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    return flat.view(num_shards, k)
+
+
+def reduce_scatter_tree(tree: Sequence[torch.Tensor], group=None,
+                        threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES,
+                        average: bool = False, overlap: bool = True
+                        ) -> list[torch.Tensor]:
+    """This rank's 1-D shard (``zero1_shard_len`` elements, the tensor's
+    dtype) of the sum (``average``: the mean) of every rank's tensor of
+    ``tree``, one ``reduce_scatter`` a bucket of JAX's buckets (the
+    rows of a bucket's tensors side by side, at their widest dtype)."""
+    n = dist.get_world_size(group)
+    out: list = [None] * len(tree)
+    for bucket in plan_buckets(tree, threshold_bytes, True, overlap):
+        wire = _wire_dtype(tree[i] for i in bucket)
+        rows = torch.cat([leaf_to_rows(tree[i], n, wire) for i in bucket],
+                         dim=1)
+        reduced = reduce_scatter(rows, group).view(-1)
+        if average:
+            reduced = reduced / n
+        off = 0
+        for i in bucket:
+            k = zero1_shard_len(tree[i].numel(), n)
+            out[i] = reduced[off:off + k].to(tree[i].dtype)
+            off += k
+    return out
+
+
+def all_gather_tree(shards: Sequence[torch.Tensor],
+                    templates: Sequence[torch.Tensor], group=None,
+                    threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES,
+                    overlap: bool = True) -> list[torch.Tensor]:
+    """The return leg: every rank's shards (``reduce_scatter_tree``'s
+    layout) gathered back into tensors of ``templates``' shapes and
+    dtypes, one ``all_gather`` a bucket (the buckets of the
+    templates)."""
+    n = dist.get_world_size(group)
+    out: list = [None] * len(shards)
+    for bucket in plan_buckets(templates, threshold_bytes, True, overlap):
+        flat = torch.cat([shards[i].reshape(-1) for i in bucket])
+        gathered = all_gather(flat, group).view(n, -1)
+        off = 0
+        for i in bucket:
+            t = templates[i]
+            k = zero1_shard_len(t.numel(), n)
+            out[i] = gathered[:, off:off + k].reshape(-1)[:t.numel()] \
+                .view(t.shape).to(t.dtype)
+            off += k
+    return out
+
+
+class Zero1Reducer(GradReducer):
+    """``--variable_update=zero1``: each rank keeps the optimizer state
+    of its 1/N flat shard of every parameter only.
+
+    ``shards`` holds, for each parameter, this rank's
+    ``zero1_shard_len`` elements of it (a float32 leaf the optimizer
+    steps); ``refresh()`` copies them from the parameters (the step
+    calls it first, as JAX slices its replicated parameters each step,
+    so a restored model needs nothing more).  ``arm``/``finish`` are
+    ``GradReducer``'s, with a ``reduce_scatter`` a bucket in place of the
+    all-reduce (launched from the hooks under overlap): after
+    ``finish`` each shard's ``.grad`` is its slice of the mean gradient.
+    ``gather()`` all-gathers the updated shards, bucket by bucket, into
+    the parameters.  ``reduce_tree`` reduce-scatters a tree (the bf16
+    accumulator's) into ``tree_shards``."""
+
+    def __init__(self, params: Iterable[torch.nn.Parameter], group=None,
+                 threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES,
+                 overlap: bool = True):
+        super().__init__(params, group, threshold_bytes, fuse=True,
+                         overlap=overlap)
+        self.rank = dist.get_rank(group)
+        self.shard_lens = [zero1_shard_len(p.numel(), self.world)
+                           for p in self.params]
+        self.shards = [torch.nn.Parameter(p.new_empty(k))
+                       for p, k in zip(self.params, self.shard_lens)]
+        self.tree_shards: list[torch.Tensor] = []
+        self.refresh()
+
+    @torch.no_grad()
+    def refresh(self) -> None:
+        """Each shard from its parameter's current values."""
+        for p, s in zip(self.params, self.shards):
+            s.copy_(leaf_to_rows(p, self.world)[self.rank])
+
+    def _launch(self, b: int) -> None:
+        members = [self.params[i] for i in self.buckets[b]]
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in members]
+        wire = _wire_dtype(grads)
+        rows = torch.cat([leaf_to_rows(g, self.world, wire) for g in grads],
+                         dim=1)
+        if self._divisor != 1:
+            rows.div_(self._divisor)
+        out = rows.new_empty((1, rows.shape[1]))
+        self._work[b] = (out.view(-1), dist.reduce_scatter_tensor(
+            out, rows, group=self.group, async_op=True))
+        self._next = b + 1
+
+    def finish(self) -> int:
+        """Launch the buckets still pending, wait on all of them and put
+        this rank's slice of each mean gradient in its shard's
+        ``.grad``; returns the reduce-scatter calls."""
+        if not self._armed:
+            raise RuntimeError("Zero1Reducer.finish() without arm()")
+        self._armed = False
+        while self._next < len(self.buckets):
+            self._launch(self._next)
+        for b, (flat, work) in enumerate(self._work):
+            work.wait()
+            flat.div_(self.world)
+            off = 0
+            for i in self.buckets[b]:
+                k = self.shard_lens[i]
+                self.shards[i].grad = flat[off:off + k].to(
+                    self.shards[i].dtype)
+                off += k
+        self._work = []
+        return len(self.buckets)
+
+    def reduce_tree(self, tree: Sequence[torch.Tensor]) -> int:
+        """This rank's shards of the mean of ``tree`` (one tensor a
+        parameter) over the group, in ``tree_shards``; returns the
+        reduce-scatter calls."""
+        self.tree_shards = reduce_scatter_tree(
+            tree, self.group, self._threshold, average=True,
+            overlap=self._overlap)
+        self.tree_calls = len(plan_buckets(tree, self._threshold, True,
+                                           self._overlap))
+        return self.tree_calls
+
+    @torch.no_grad()
+    def gather(self) -> int:
+        """The updated shards all-gathered into the parameters; returns
+        the all-gather calls."""
+        full = all_gather_tree([s.detach() for s in self.shards],
+                               self.params, self.group, self._threshold,
+                               self._overlap)
+        for p, t in zip(self.params, full):
+            p.copy_(t)
+        return len(self.buckets)
+
+    def grad_sq_sum(self, grads: Sequence[torch.Tensor] | None = None
+                    ) -> torch.Tensor:
+        """The squared global norm of the mean gradient: this rank's
+        shards' squares summed, then summed over the group (JAX's
+        zero1 guard), float32."""
+        grads = grads if grads is not None else [s.grad for s in
+                                                 self.shards]
+        gsq = torch.stack([g.float().square().sum() for g in grads
+                           if g is not None]).sum()
+        dist.all_reduce(gsq, group=self.group)
+        return gsq

@@ -24,6 +24,15 @@ The reference forms a cluster from a ``nodeips.txt`` hostfile and
 - **World 1** on the fast fabric is a one-rank group over an in-process
   ``HashStore`` (``init_single``), as the JAX package runs its psum over
   a one-device mesh.
+- **The mesh** (``build_mesh``): the parts of JAX's ``topology.build_mesh``
+  that sequence parallelism needs, as process groups.  The rank order is
+  data-major and seq-minor, rank = data index x sp + seq index, so a seq
+  group holds consecutive ranks (one host's cards); every rank creates
+  every seq group and every data group, in one order.  A group that
+  spans the whole world is the default group (no second communicator).
+  At ``sequence_parallel=1`` under a sequence-sharded impl each seq group
+  is the one-rank group of its rank (JAX keeps the axis bound at size 1,
+  ``force_seq_axis``).
 """
 
 from __future__ import annotations
@@ -164,6 +173,40 @@ def barrier() -> None:
         dist.barrier(device_ids=[torch.cuda.current_device()])
     else:
         dist.barrier()
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """This rank's place on the (data, seq) mesh and its two groups."""
+
+    dp: int
+    sp: int
+    data_index: int
+    seq_index: int
+    data_group: object
+    seq_group: object
+
+
+def build_mesh(sequence_parallel: int = 1) -> Mesh:
+    """The (data, seq) mesh over the default process group, which must
+    be up; a collective call: every rank makes it."""
+    world, r, sp = dist.get_world_size(), dist.get_rank(), sequence_parallel
+    if sp < 1 or world % sp:
+        raise ValueError(
+            f"--model_parallel/--expert_parallel/--pipeline_parallel/"
+            f"--sequence_parallel product {sp} does not divide {world} "
+            f"workers")
+    dp = world // sp
+
+    def group(ranks: list[int]):
+        return (dist.group.WORLD if len(ranks) == world
+                else dist.new_group(ranks))
+
+    seq_groups = [group(list(range(d * sp, (d + 1) * sp)))
+                  for d in range(dp)]
+    data_groups = [group(list(range(s, world, sp))) for s in range(sp)]
+    return Mesh(dp, sp, r // sp, r % sp, data_groups[r % sp],
+                seq_groups[r // sp])
 
 
 def _stop(procs: Sequence[subprocess.Popen]) -> None:

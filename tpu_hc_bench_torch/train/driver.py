@@ -71,6 +71,18 @@ the slowest rank's time, and ``images_per_sec_per_chip`` the total over
 the world.  Without a group the step is the one-worker step (``sock``
 at world 1).
 
+Sequence parallelism (``--sequence_parallel``, or a sequence-sharded
+impl on the degenerate seq axis; JAX's ``sp_active``): the world is a
+(data, seq) mesh of process groups (``distributed.build_mesh``), the
+text model shards its sequence over its seq group, and each rank feeds
+its data group's rows and its seq group's slice of each sequence
+(``data.synthetic.seq_slice``).  The global batch counts sequences:
+the per-worker batch times the world over ``sp``, so the
+``examples/sec`` line counts sequences, not shards.  The gradients,
+the loss and the statistics are averaged over the whole world (both
+axes), as JAX's ``(data, seq)`` step.  The host fabric is refused under
+any sharded impl, the degenerate one included, as in JAX.
+
 Guards and observability (JAX's driver; ``_run_train``): the
 ``--inject_fault`` plan fires before each timed step; SIGTERM/SIGINT is a
 flag honored at a step boundary (the ranks agree at sync-window
@@ -122,7 +134,8 @@ from tpu_hc_bench_torch import resolve_device
 from tpu_hc_bench_torch.data.feed import DeviceFeeder
 from tpu_hc_bench_torch.data.synthetic import (
     SyntheticIds, SyntheticImages, SyntheticSpeech, SyntheticTokens,
-    ids_to_device, rank_rows, speech_to_device, to_device, tokens_to_device)
+    ids_to_device, rank_rows, seq_slice, speech_to_device, to_device,
+    tokens_to_device)
 from tpu_hc_bench_torch.flags import BenchmarkConfig
 from tpu_hc_bench_torch.models import create_model, get_model_spec
 from tpu_hc_bench_torch.parallel import distributed
@@ -151,13 +164,16 @@ class BenchmarkResult:
     mfu_source: str = "analytic"     # 3 x spec.flops_per_example
     attention_impl: str = "dense"    # text models: dense | flash
     fused_xent: bool = False         # text models: the blocked xent kernels
-    variable_update: str = "psum"    # psum | replicated
+    variable_update: str = "psum"    # psum | replicated | zero1
+    sequence_parallel: int = 1       # seq shards a seq group
     overlap_grad_comm: str = "on"
     gradient_accumulation_steps: int = 1
     grad_buckets: int = 0            # the fast fabric's gradient buckets
     allreduce_per_step: int = 0      # all-reduce calls a step (0: one
                                      # worker; 1: the host round trip)
     forward_only: bool = False       # the loss with no update
+    optimizer_state_bytes: int = 0   # this rank's optimizer state (zero1:
+                                     # its shards' only)
     eval_top_1: float | None = None  # --eval: top-1 accuracy
     data: dict | None = None         # real data: the split, the decode
                                      # pool's counters (reader, decoder),
@@ -525,16 +541,22 @@ def _check_synthetic_only(cfg: BenchmarkConfig, spec) -> None:
 
 
 def _synthetic_input(cfg, spec, dev, rank: int, global_batch: int,
-                     model) -> _Input:
+                     model, mesh=None) -> _Input:
     """One fixed batch on the card: tokens, spectrograms with CTC
     transcripts (labels bounded by the frames after the conv strides),
-    (user, item) ids over ``model``'s tables, or images."""
-    rows = functools.partial(rank_rows, rank=rank, rows=cfg.batch_size)
+    (user, item) ids over ``model``'s tables, or images.  Under sequence
+    parallelism (``mesh``) a rank's data group's rows, then its slice
+    of the sequence."""
+    rows = functools.partial(
+        rank_rows, rank=mesh.data_index if mesh else rank,
+        rows=cfg.batch_size)
     if spec.is_text:
-        batch = tokens_to_device(rows(SyntheticTokens(
+        batch = rows(SyntheticTokens(
             global_batch, spec.input_shape[0], seed=cfg.seed,
-            vocab_size=spec.vocab_size, causal_lm=spec.causal_lm).batch()),
-            dev)
+            vocab_size=spec.vocab_size, causal_lm=spec.causal_lm).batch())
+        if mesh is not None:
+            batch = seq_slice(batch, mesh.seq_index, mesh.sp)
+        batch = tokens_to_device(batch, dev)
     elif spec.ctc:
         from tpu_hc_bench_torch.models.deepspeech import max_label_for
 
@@ -724,17 +746,25 @@ def _image_input(cfg, spec, dev, rank: int, world: int, global_batch: int,
 
 
 def _token_input(cfg, spec, dev, rank: int, world: int, global_batch: int,
-                 split: str) -> _Input:
+                 split: str, mesh=None) -> _Input:
     """A token corpus: this rank's stripe; as JAX's multi-process arm,
-    each rank draws a global batch from its stripe and keeps its rows."""
+    each rank draws a global batch from its stripe and keeps its rows.
+    Under sequence parallelism (``mesh``) the stripe and the rows are
+    the data group's, and the rank keeps its slice of the sequence."""
     from tpu_hc_bench_torch.data.tokens import TokenDataset
 
+    if mesh is not None:
+        rank, world = mesh.data_index, mesh.dp
     ds = TokenDataset(cfg.data_dir, global_batch, spec.input_shape[0],
                       split=split, causal_lm=spec.causal_lm, worker=rank,
                       num_workers=world, seed=cfg.seed,
                       vocab_size=spec.vocab_size)
-    feeder = DeviceFeeder((rank_rows(b, rank, cfg.batch_size) for b in ds),
-                          dev, cfg.prefetch_depth)
+
+    def mine(b):
+        b = rank_rows(b, rank, cfg.batch_size)
+        return seq_slice(b, mesh.seq_index, mesh.sp) if mesh else b
+
+    feeder = DeviceFeeder((mine(b) for b in ds), dev, cfg.prefetch_depth)
     return _Input(iter(feeder), ds, {"split": split, "reader": "memmap"},
                   feeder.close)
 
@@ -789,6 +819,7 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
         mfu_source="analytic" if peak else "no peak for this device",
         attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent,
         variable_update=cfg.variable_update,
+        sequence_parallel=cfg.sequence_parallel,
         overlap_grad_comm=cfg.overlap_grad_comm, eval_top_1=top1,
         data=_data_record(inp, wait_s, cfg.num_batches))
     print_fn("-" * 40)
@@ -819,6 +850,24 @@ def _data_record(inp: _Input, wait_s: float, steps: int) -> dict | None:
     rec["input_wait_s"] = wait_s
     rec["input_wait_ms_per_step"] = 1e3 * wait_s / steps
     return rec
+
+
+def _sequence_mesh(cfg: BenchmarkConfig, fab, grouped: bool):
+    """The (data, seq) mesh under sequence parallelism (JAX's
+    ``sp_active`` checks), else None."""
+    if not cfg.sp_active:
+        return None
+    if not fab.is_fast:
+        raise ValueError(
+            "--model_parallel/--expert_parallel/--pipeline_parallel/"
+            "--sequence_parallel (incl. the degenerate seq axis of the "
+            "seq-sharded attention impls) requires a device fabric "
+            "(ici/dcn): the host path's shard_map binds no seq axis and "
+            "would silently re-replicate the shards")
+    if not grouped:
+        raise ValueError("sequence parallelism needs a process group "
+                         "(the launcher starts one on a fast fabric)")
+    return distributed.build_mesh(cfg.sequence_parallel)
 
 
 def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
@@ -866,7 +915,9 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         # asked cuDNN for reproducible runs)
         torch.backends.cudnn.benchmark = True
     dtype = torch.bfloat16 if cfg.use_fp16 else torch.float32
-    global_batch = cfg.batch_size * total_workers
+    mesh = _sequence_mesh(cfg, fab, grouped)
+    # the seq axis divides the data-parallel degree: sequences, not shards
+    global_batch = cfg.batch_size * total_workers // cfg.sequence_parallel
     split = _split(cfg, spec)
     _resolve_epochs(cfg, spec, split, global_batch, print_fn)
     # a text model's spec comes back rescaled to --seq_len
@@ -877,7 +928,12 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         rank=rank, gradient_checkpointing=cfg.gradient_checkpointing,
         scan_layers=cfg.scan_layers, moe_impl=cfg.moe_impl,
         moe_capacity_factor=cfg.moe_capacity_factor,
-        moe_f_chunk=cfg.moe_f_chunk, rnn_impl=cfg.rnn_impl)
+        moe_f_chunk=cfg.moe_f_chunk, rnn_impl=cfg.rnn_impl,
+        seq_axis=mesh.seq_group if mesh else None)
+    if mesh is not None and spec.input_shape[0] % cfg.sequence_parallel:
+        raise ValueError(
+            f"sequence length {spec.input_shape[0]} not divisible by "
+            f"sequence_parallel={cfg.sequence_parallel}")
     state = step_mod.make_train_state(model, cfg, fab if grouped else None)
     grads = state.dp.grads if state.dp else None
     kind = hw.device_name(dev)
@@ -888,6 +944,11 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         print_fn(f"data parallel: total_workers={total_workers} "
                  f"fabric={fab.value} backend={dist.get_backend()} "
                  f"grad_buckets={len(grads.buckets) if grads else 0}")
+    if mesh is not None:
+        print_fn(f"sequence parallel: mesh data={mesh.dp} x seq={mesh.sp} "
+                 f"attention_impl={cfg.attention_impl} (a rank holds "
+                 f"{cfg.batch_size} x {spec.input_shape[0] // mesh.sp} "
+                 f"tokens of a {global_batch}-sequence global batch)")
     topo = None
     if cfg.train_dir:
         from tpu_hc_bench_torch.utils import checkpoint as ckpt
@@ -907,10 +968,10 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
     try:
         if split is None:
             inp = _synthetic_input(cfg, spec, dev, rank, global_batch,
-                                   model)
+                                   model, mesh)
         elif spec.is_text:
             inp = _token_input(cfg, spec, dev, rank, total_workers,
-                               global_batch, split)
+                               global_batch, split, mesh)
         else:
             inp = _image_input(cfg, spec, dev, rank, total_workers,
                                global_batch, split, local_workers, print_fn)
@@ -1464,11 +1525,14 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         mfu_source=mfu_rep["mfu_source"],
         attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent,
         variable_update=cfg.variable_update,
+        sequence_parallel=cfg.sequence_parallel,
         overlap_grad_comm=cfg.overlap_grad_comm,
         gradient_accumulation_steps=cfg.gradient_accumulation_steps,
         grad_buckets=len(grads.buckets) if grads else 0,
         allreduce_per_step=state.dp.allreduce_calls if state.dp else 0,
         forward_only=cfg.forward_only,
+        optimizer_state_bytes=step_mod.optimizer_state_bytes(
+            state.optimizer),
         data=_data_record(inp, wait_s, cfg.num_batches),
         checkpoint=checkpoint, extra=_extra(cfg, state.model),
         goodput=ledger.goodput if ledger is not None else float("nan"),

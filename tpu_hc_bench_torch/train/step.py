@@ -38,6 +38,26 @@ rank holds the same state and its own rows of the batch):
   on every rank and are not all-reduced again (JAX's GSPMD step has no
   such all-reduce either).
 
+**ZeRO-1** (``--variable_update=zero1``, the fast fabric; JAX's zero1
+arm): each rank keeps the optimizer state of its 1/N flat shard of every
+parameter only (``collectives.Zero1Reducer``: the momentum traces, the
+Adam and RMSprop slots are built over the shards).  The step
+reduce-scatters the mean gradients into the shards (the same fusion
+buckets and ``--overlap_grad_comm`` order as ``psum``), steps the
+optimizer on the shards, and all-gathers the updated shards into the
+parameters; the BatchNorm statistics and the loss are averaged through
+the fused buckets as under ``psum``.  Under ``--on_nonfinite`` the
+gradient's squared norm is this rank's shards' summed over the group,
+so every rank computes the same flag.
+
+Sequence parallelism needs nothing of its own here: without TP the
+(data, seq) mesh is the whole world, so the gradients, the loss and the
+statistics are averaged over the default group as under ``psum``; the
+loss is each rank's local weighted mean, averaged over the ranks (JAX's
+approximation, not the exact global weighted mean), and each rank's
+dropout generator is seeded by its global rank, distinct by both its
+data and its seq index.
+
 ``--gradient_accumulation_steps=N`` splits a rank's batch into N
 microbatches: a forward and backward each, the gradients summed in
 ``.grad`` (float32: parameters are float32) and divided by N, the loss
@@ -143,6 +163,10 @@ class DataParallel:
     sync_bn: bool = False
     allreduce_calls: int = 0
 
+    @property
+    def zero1(self) -> bool:
+        return isinstance(self.grads, collectives.Zero1Reducer)
+
     def reduce(self, model: torch.nn.Module, loss: torch.Tensor,
                grads_reduced: bool = False) -> None:
         """Average the gradients (unless ``grads_reduced``: the bf16
@@ -241,6 +265,10 @@ def check_arm(cfg: BenchmarkConfig, fabric: Fabric) -> None:
     if cfg.gradient_accumulation_steps > 1 and fabric is Fabric.HOST:
         raise ValueError("--gradient_accumulation_steps is not supported "
                          "on the host (sock) fabric step")
+    if cfg.variable_update == "zero1" and fabric is Fabric.HOST:
+        raise ValueError(
+            "--variable_update=zero1 needs a device fabric (ici): the "
+            "host (sock-analog) path has no sharded optimizer")
 
 
 def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
@@ -249,25 +277,45 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
     of the data-parallel arm of ``fabric`` over the default process
     group, which must be up."""
     dp = None
+    zero1 = cfg.variable_update == "zero1"
+    if zero1 and fabric is None:
+        raise ValueError("--variable_update=zero1 shards the optimizer "
+                         "state over a process group; there is none")
     if fabric is not None:
-        fuse = cfg.variable_update == "psum"
-        grads = collectives.GradReducer(
-            model.parameters(), threshold_bytes=cfg.fusion_threshold_bytes,
-            fuse=fuse, overlap=cfg.overlap_grad_comm == "on",
-        ) if fabric.is_fast else None
+        check_arm(cfg, fabric)
+        fuse = cfg.variable_update in ("psum", "zero1")
+        overlap = cfg.overlap_grad_comm == "on"
+        if zero1:
+            grads = collectives.Zero1Reducer(
+                model.parameters(),
+                threshold_bytes=cfg.fusion_threshold_bytes, overlap=overlap)
+        elif fabric.is_fast:
+            grads = collectives.GradReducer(
+                model.parameters(),
+                threshold_bytes=cfg.fusion_threshold_bytes, fuse=fuse,
+                overlap=overlap)
+        else:
+            grads = None
         dp = DataParallel(fuse, cfg.fusion_threshold_bytes, grads,
                           sync_bn=cfg.variable_update == "replicated")
         for m in model.modules():
             if isinstance(m, resnet.BatchNorm):
                 m.sync = dp.sync_bn
     guard = guards.guard_mode(cfg)
-    return TrainState(model.train(),
-                      make_optimizer(cfg, model.parameters()),
+    stepped = dp.grads.shards if zero1 else model.parameters()
+    return TrainState(model.train(), make_optimizer(cfg, stepped),
                       fused_xent=cfg.fused_xent,
                       accum=cfg.gradient_accumulation_steps, dp=dp,
                       accum_dtype=cfg.accum_dtype,
                       ctc=get_model_spec(cfg.model).ctc, guard=guard,
                       held=guards.HeldState() if guard == "skip" else None)
+
+
+def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
+    """The bytes of this rank's optimizer state (its tensors)."""
+    return sum(v.numel() * v.element_size()
+               for st in optimizer.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor))
 
 
 def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -443,9 +491,13 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     ``"nonfinite"`` under a guard."""
     if state.guard == "skip":
         state.held.hold(state.model, state.optimizer)
-    state.optimizer.zero_grad(set_to_none=True)
     dp = state.dp
     grads = dp.grads if dp is not None else None
+    zero1 = dp is not None and dp.zero1
+    if zero1:
+        state.model.zero_grad(set_to_none=True)
+        grads.refresh()
+    state.optimizer.zero_grad(set_to_none=True)
     resnet.sync_calls = 0
     # the bf16 accumulator's gradients are reduced inside, in bf16
     reduced = grads is not None and state.accum > 1 \
@@ -462,14 +514,22 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     if dp is not None:
         dp.reduce(state.model, loss, grads_reduced=reduced)
         dp.allreduce_calls += resnet.sync_calls
+    if zero1 and bf16_grads is not None:
+        bf16_grads = (grads.shards, grads.tree_shards)
     ok = None
     if state.guard != "off":
-        ok = guards.finite_flag(loss, bf16_grads[1] if bf16_grads else [
-            p.grad for p in state.model.parameters()])
+        if zero1:
+            ok = guards.finite_flag(loss) & torch.isfinite(
+                grads.grad_sq_sum(bf16_grads[1] if bf16_grads else None))
+        else:
+            ok = guards.finite_flag(loss, bf16_grads[1] if bf16_grads else [
+                p.grad for p in state.model.parameters()])
     if bf16_grads is not None:
         apply_bf16_grads(state.optimizer, *bf16_grads)
     else:
         state.optimizer.step()
+    if zero1:
+        dp.allreduce_calls += grads.gather()
     state.step += 1
     if ok is None:
         return state, {"loss": loss}

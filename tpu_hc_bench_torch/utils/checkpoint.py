@@ -7,7 +7,9 @@ port's own on-disk form: one directory ``<dir>/step_<n>`` a step, holding
 - ``model``: the model's ``state_dict`` (parameters and BatchNorm running
   statistics), on the host;
 - ``optimizer``: the optimizer's ``state_dict`` (momentum traces, Adam's
-  moments and counts, RMSprop's ``nu``), on the host;
+  moments and counts, RMSprop's ``nu``), on the host; under zero1
+  ``{"zero1_shards": [...]}``, every rank's ``state_dict`` of its own
+  shards, by rank (gathered to the writer);
 - ``step``: the optimizer steps taken (warmup included);
 - ``rng``: what the step's randomness depends on, each rank's dropout
   generator state (``dropout``; a text model's masks continue where the
@@ -33,15 +35,19 @@ variable-update arm, layout ``"host"``, dtype) is checked at restore:
 ``check_topology`` raises one ``TopologyMismatchError`` naming both sides
 where the saved state cannot be placed on the live world.  A host-layout
 ``psum``/``replicated`` state is world-neutral (every rank holds all of
-it), so those restore at any world, as in JAX; a zero1, pipeline or
-sharded checkpoint is refused (their slices are not ported).  The
+it), so those restore at any world, as in JAX.  A zero1 state restores
+at the world that saved it, each rank its own shards' state; at another
+world it is refused (JAX reshards it under ``--resume=elastic``, which
+is not ported), as is a move between zero1 and a replicated arm, and a
+pipeline or sharded checkpoint (their slices are not ported).  The
 stacked (``--scan_layers``) and unrolled layouts are not interchangeable
 (as in JAX): a restore across them is refused by the saved parameter
 names (``check_layers_layout``), before anything is loaded.
 
 Under data parallel every rank takes part in gathering the dropout
-states, rank 0 alone copies the state to the host and writes it, and
-every rank restores the same state.
+states (and zero1's optimizer shards), rank 0 alone copies the state to
+the host and writes it, and every rank restores the same state (under
+zero1 the same model, and its own optimizer shards).
 """
 
 from __future__ import annotations
@@ -169,11 +175,21 @@ def elastic_plan(saved: dict, live: dict) -> tuple[str, str]:
                 f"layout {s_lay}->{l_lay}: the port restores host-layout "
                 f"checkpoints only (pipeline and sharded checkpoints are "
                 f"not ported)")
+    if (s_arm == "zero1") != (l_arm == "zero1"):
+        return ("refuse",
+                f"arm {s_arm}->{l_arm}: the zero1 optimizer-state tree "
+                f"(per-rank shards) and the replicated one are different "
+                f"structures — resume on --variable_update={s_arm}, or "
+                f"restart fresh")
+    if s_arm == "zero1":
+        return ("refuse",
+                f"zero1 optimizer shards saved at world {saved.get('world')}"
+                f" restore at that world only: their resplit to world "
+                f"{live.get('world')} (--resume=elastic) is not ported")
     if s_arm not in REPLICATED_ARMS or l_arm not in REPLICATED_ARMS:
         return ("refuse",
-                f"arm {s_arm}->{l_arm}: only the replicated arms "
-                f"{'|'.join(REPLICATED_ARMS)} are ported (zero1 and its "
-                f"resplit come with the zero1 slice)")
+                f"arm {s_arm}->{l_arm}: only the arms "
+                f"{'|'.join(REPLICATED_ARMS)}|zero1 are ported")
     extra = ("" if saved.get("dtype") == live.get("dtype")
              else f"; note: dtype policy {saved.get('dtype')}->"
                   f"{live.get('dtype')} (parameters restore bit for bit, "
@@ -267,13 +283,32 @@ def _dropout_states(model) -> list | None:
     return [mine]
 
 
+def _zero1(state) -> bool:
+    dp = getattr(state, "dp", None)
+    return dp is not None and dp.zero1
+
+
+def _optimizer_state(state):
+    """The optimizer's ``state_dict`` on the host; under zero1 every
+    rank's, by rank (a collective)."""
+    mine = _host(state.optimizer.state_dict())
+    if not _zero1(state):
+        return mine
+    out = [mine]
+    if dist.get_world_size() > 1:
+        out = [None] * dist.get_world_size()
+        dist.all_gather_object(out, mine)
+    return {"zero1_shards": out}
+
+
 def snapshot_to_host(state) -> tuple[int, dict]:
     """``(step, payload)``: the train state copied to the host, the only
     part of a save that must hold the step loop.  Under data parallel
-    every rank takes part in its dropout states' gather."""
+    every rank takes part in its dropout states' gather (and zero1's
+    optimizer shards')."""
     payload = {"step": int(state.step),
                "model": _host(state.model.state_dict()),
-               "optimizer": _host(state.optimizer.state_dict()),
+               "optimizer": _optimizer_state(state),
                "rng": {"dropout": _dropout_states(state.model)}}
     return payload["step"], payload
 
@@ -301,6 +336,7 @@ def save(state, directory: str | Path, topology: dict | None = None,
     parallel); a rank that does not write only takes its part in the
     dropout states' gather."""
     if not write:
+        _optimizer_state(state)
         _dropout_states(state.model)
         return None
     step, payload = snapshot_to_host(state)
@@ -481,7 +517,21 @@ def restore(state, directory: str | Path, step: int | None = None,
     step, payload = load_payload(base, step)
     check_layers_layout(state.model.state_dict(), payload["model"], base)
     state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    opt = payload["optimizer"]
+    if _zero1(state) != ("zero1_shards" in opt):
+        raise TopologyMismatchError(
+            f"checkpoint under {base} (step {step}): its optimizer state "
+            f"is {'zero1 shards' if 'zero1_shards' in opt else 'whole'}, "
+            f"the live arm's is not")
+    if _zero1(state):
+        shards = opt["zero1_shards"]
+        if len(shards) != dist.get_world_size():
+            raise TopologyMismatchError(
+                f"checkpoint under {base} (step {step}): zero1 shards of "
+                f"{len(shards)} ranks, live world "
+                f"{dist.get_world_size()}")
+        opt = shards[dist.get_rank()]
+    state.optimizer.load_state_dict(opt)
     state.step = int(payload["step"])
     dropout = (payload.get("rng") or {}).get("dropout")
     gen = getattr(state.model, "dropout_generator", None)
