@@ -151,12 +151,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    a mean difference within ``NVJPEG_MEAN_TOL``; (b) ``python -m
    tpu_hc_bench_torch 1 1 128 ib --model=resnet50 --use_fp16=true
    --fused_conv=true --data_dir=<fixture>`` with the reference's whole
-   flag line (all but ``--device=cpu``), 20 + 50 steps: images/s
+   flag line (all but ``--device=cpu``), 10 + 30 steps: images/s
    against phase 7's, the decode pool's counters, the input wait a
    step, 8 conv launches a step; (c) the same with
    ``--datasets_repeat_cached_sample``, (d) ``--forward_only`` (the
-   model's parameters and BN buffers bit-equal after the run), each 20
-   + 50 steps; (e) ``--eval`` on the validation shard; (f) three steps
+   model's parameters and BN buffers bit-equal after the run), each 10
+   + 30 steps; (e) ``--eval`` on the validation shard; (f) three steps
    each of adam, adamw and rmsprop at batch 32 against the plain
    optimizer on the same gradients; (g) gpt2 on a uint16 token corpus
    written here, 10 + 30 steps, against phase 10's first run, 12
@@ -355,6 +355,30 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    ``SLICE14_REMAT_GB``): sequences/s and rank 0's peak memory; then
    resnet50 zero1 against psum over every card (images/s, the
    optimizer's bytes a rank).
+23. **slice15**: elastic resume, multislice, tensor and expert
+   parallelism: (a) gpt2 16 x 1024 bf16 flash ``--fused_xent`` through
+   the TP layers in a one-rank model group (``parallel.tensor``: the
+   model cut one way, its collectives copies) against the plain model,
+   3 + 10 steps each from one seed: every loss bit-equal (else within
+   ``SLICE15_TP1_TOL`` at the last step), sequences/s of each, rows 3,
+   4a, 4b, 5 and 6 launched on both; (b) two CPU workers (``1 2 2 ib
+   --device=cpu``, gloo) write a resnet50 zero1 checkpoint at batch 2 in
+   1 + 1 steps; here its resume at world 1 without ``--resume=elastic``
+   raises ``TopologyMismatchError`` naming both sides, then
+   ``restore_elastic`` on the card gives the saved parameters'
+   fingerprint and the optimizer's real elements bit for bit, then the
+   launcher resumes it with ``--resume=elastic`` (bf16, fused conv): the
+   plan line ``[2, k]->[1, k']``, the saved fingerprint, row 7's 8
+   launches a step; (c)-(f) with two cards or more: gpt2 and llama_1b
+   under ``--model_parallel`` (tp 2 at world 2, dp 2 x tp 2 at world 4,
+   llama_1b at tp 2 and tp 4), gpt2_moe under ``--expert_parallel`` 2
+   and 4 (sequences/s, rank 0's peak, the final loss against the
+   world-1 run where the rows are the same), resnet50 ``dcn
+   --num_slices=2`` against ``ib`` on four cards (images/s, final
+   losses), and resnet50 zero1 saved at world 4, restored elastically
+   at 2 and saved, restored at 4 (this script's ``--elastic-worker``
+   processes): the parameters' fingerprint and every optimizer shard
+   bit-equal over the round trip.
 
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
@@ -366,7 +390,8 @@ and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
 ``slice11_launches``: its launches in phase 19's runs (a)-(d),
 ``slice12_launches``: its launches in phase 20's runs (a)-(d),
 ``slice13_launches``: its launches in phase 21's runs (a)-(d),
-``slice14_launches``: its launches in phase 22's runs (a) and (b), every
+``slice14_launches``: its launches in phase 22's runs (a) and (b),
+``slice15_launches``: its launches in phase 23's runs (a) and (b), every
 kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -383,7 +408,8 @@ alone, beside phase 7's fused run (with several cards, (f) runs);
 build, phase 8 at ViT's two shapes, then phase 18; ``--only slice11``
 the build and phase 19 alone; ``--only slice12`` the build, phase 4 and
 phase 20; ``--only slice13`` the build and phase 21; ``--only slice14``
-the build and phase 22 (with several cards, (c) runs).
+the build and phase 22 (with several cards, (c) runs); ``--only slice15``
+the build and phase 23 (with several cards, (c)-(f) run).
 """
 
 from __future__ import annotations
@@ -585,8 +611,8 @@ POOL_PATH_STEPS = 3                # max_pool forward + backward calls
 # phase 14 (realdata): the reference's real-data command on the committed
 # fixture of ImageNet-schema shards; (b)-(e) and (g) at these depths
 # (b), and phase 15's (c)-(d): cut from the lane's 50 + 100 for the
-# script's time limit
-REAL_BATCHES = {"b": (20, 50), "c": (20, 50), "d": (20, 50), "e": (5, 20),
+# script's time limit (to 20 + 50, then to 10 + 30 as phase 23 came)
+REAL_BATCHES = {"b": (10, 30), "c": (10, 30), "d": (10, 30), "e": (5, 20),
                 "g": (10, 30)}
 # the reference's flag line, less --device=cpu (here the caller's CPU)
 REFERENCE_LINE = [
@@ -654,6 +680,26 @@ SLICE14_SHARD_BATCH = 2
 # layer; above this many GB of them a run recomputes each layer
 SLICE14_REMAT_GB = 40.0
 SLICE14_MULTI = ((2, 2), (4, 4), (4, 2))   # (c): (cards, sp)
+# phase 23 (slice15): elastic resume, multislice, TP and EP
+SLICE15_STEPS = (3, 10)            # (warmup, timed) of every run
+SLICE15_GPT2_BATCH = 16            # (a), (c): gpt2 16 x 1024
+SLICE15_LLAMA_BATCH = 2            # (c): llama_1b 2 x 2048
+SLICE15_MOE_BATCH = 8              # (d): gpt2_moe 8 x 1024
+# (a): the TP layers at tp 1 order no product differently, so the losses
+# are held bit-equal; this is the bound if a product did
+SLICE15_TP1_TOL = 1e-3
+# (b): the CPU workers' zero1 checkpoint (resnet50, batch 2, 1 + 1 steps)
+SLICE15_CPU_WORKERS = 2
+SLICE15_RESUME_BATCH = 32          # (b): the card's resumed steps
+# (c)/(d): (model, batch, world, flag, degree); (e) resnet50 batch 128 a
+# card at 2 slices of 2; (f) resnet50 batch 32 zero1 4 -> 2 -> 4
+SLICE15_TP = (("gpt2", SLICE15_GPT2_BATCH, 2, "model_parallel", 2),
+              ("gpt2", SLICE15_GPT2_BATCH, 4, "model_parallel", 2),
+              ("llama_1b", SLICE15_LLAMA_BATCH, 2, "model_parallel", 2),
+              ("llama_1b", SLICE15_LLAMA_BATCH, 4, "model_parallel", 4),
+              ("gpt2_moe", SLICE15_MOE_BATCH, 2, "expert_parallel", 2),
+              ("gpt2_moe", SLICE15_MOE_BATCH, 4, "expert_parallel", 4))
+SLICE15_ELASTIC_BATCH = 32
 SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
                                    # (6 pages + a 4-token tail), outputs
 # (e) and (f) in virtual time: modeled seconds a step, so the arms see
@@ -700,7 +746,8 @@ ZOO_VIT_STEPS = (10, 30)           # (a), (b)
 ZOO_VIT_L_STEPS = (5, 15)          # (c)
 ZOO_STEPS = (2, 5)                 # (d), and (e)'s profiled steps
 ZOO_SEARCH_STEPS = (1, 2)          # (b)'s batch search, each batch
-ZOO_MAX_BATCH = 4096
+ZOO_MAX_BATCH = 1024               # 4096 fits too; the searches at 2048
+                                   # and 4096 cost ~34 s of the limit
 ZOO_VIT_LAYERS = {"vit_b16": 12, "vit_l16": 24}
 # (a) vit_b16's first forward on the runs' batch, bf16 flash against bf16
 # dense from one seed, dropout drawn alike (summation order and bf16
@@ -5171,6 +5218,464 @@ def phase_slice14(torch, dev, smi) -> dict:
     return total
 
 
+def _slice15_tp1_arm(torch, dev, cfg, tp_arm: bool) -> dict:
+    """One arm of phase 23 (a): gpt2 built from the seed, plain or cut
+    one way over the one-rank world group (``parallel.tensor``), 3 + 10
+    steps on the synthetic batch; every count zeroed just before and
+    read just after."""
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch.data.synthetic import (SyntheticTokens,
+                                                   tokens_to_device)
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.parallel import tensor
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, spec = create_model("gpt2", torch.bfloat16, "flash", device=dev,
+                               seed=cfg.seed, train=True)
+    tp = (tensor.shard_model_(model, dist.group.WORLD, "tp",
+                              dist.group.WORLD) if tp_arm else None)
+    state = step_mod.make_train_state(model, cfg, Fabric.ICI, None, tp)
+    batch = tokens_to_device(SyntheticTokens(
+        SLICE15_GPT2_BATCH, spec.input_shape[0], seed=cfg.seed,
+        vocab_size=spec.vocab_size, causal_lm=True).batch(), dev)
+    warm, timed = SLICE15_STEPS
+    losses = []
+    _zero_counts()
+    try:
+        for _ in range(warm):
+            state, m = step_mod.train_step(state, batch)
+            losses.append(m["loss"].detach().clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, m = step_mod.train_step(state, batch)
+            losses.append(m["loss"].detach().clone())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+    finally:
+        state.dp.grads.close()
+    rec = {"losses": [float(x) for x in losses],
+           "sequences_per_sec": SLICE15_GPT2_BATCH * timed / dt,
+           "mean_step_ms": 1e3 * dt / timed,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts, "split_params": len(tp.rules) if tp else 0}
+    del state, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def slice15_tp1(torch, dev, smi, add) -> float:
+    """Phase 23 (a): gpt2 16 x 1024 bf16 flash ``--fused_xent`` through
+    the TP layers at tp 1 against the plain model, from one seed; returns
+    the plain run's last loss (the world-1 reference of (c))."""
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.parallel import distributed
+
+    cfg = flags.BenchmarkConfig(
+        model="gpt2", batch_size=SLICE15_GPT2_BATCH, use_fp16=True,
+        attention_impl="flash", fused_xent=True).resolve()
+    steps = sum(SLICE15_STEPS)
+    expect = {**{FLASH_KERNELS[k][0]: 12 * steps for k in FLASH_KERNELS},
+              **{XENT_KERNELS[k][0]: steps for k in XENT_KERNELS}}
+    distributed.init_single("nccl")
+    try:
+        plain = _slice15_tp1_arm(torch, dev, cfg, False)
+        tp1 = _slice15_tp1_arm(torch, dev, cfg, True)
+    finally:
+        dist.destroy_process_group()
+    for arm in (plain, tp1):
+        add(arm["launches"])
+    last = abs(tp1["losses"][-1] - plain["losses"][-1]) / abs(
+        plain["losses"][-1])
+    rec = {"phase": "slice15", "part": "a_gpt2_tp1_vs_plain",
+           "batch": SLICE15_GPT2_BATCH, "steps": steps,
+           "losses": {"plain": plain["losses"], "tp1": tp1["losses"]},
+           "losses_bit_equal": tp1["losses"] == plain["losses"],
+           "last_loss_rel": last, "tol": SLICE15_TP1_TOL,
+           "sequences_per_sec": {"plain": plain["sequences_per_sec"],
+                                 "tp1": tp1["sequences_per_sec"]},
+           "rate_ratio": tp1["sequences_per_sec"]
+           / plain["sequences_per_sec"],
+           "mean_step_ms": {"plain": plain["mean_step_ms"],
+                            "tp1": tp1["mean_step_ms"]},
+           "peak_mem_gb": {"plain": plain["peak_mem_gb"],
+                           "tp1": tp1["peak_mem_gb"]},
+           "split_params": tp1["split_params"],
+           "launches": {"plain": plain["launches"],
+                        "tp1": tp1["launches"]},
+           "expected_launches": expect, "nvidia_smi": smi}
+    rec["ok"] = (all(arm["launches"][k] == expect.get(k, 0)
+                     for arm in (plain, tp1) for k in arm["launches"])
+                 and len(tp1["losses"]) == steps
+                 and all(math.isfinite(x) for x in tp1["losses"])
+                 and (rec["losses_bit_equal"] or last <= SLICE15_TP1_TOL)
+                 and tp1["split_params"] == 12 * 6)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 23 (a) failed: {rec}")
+    return plain["losses"][-1]
+
+
+def _tee_launch(argv: list[str], phase: str) -> tuple[int, dict, list]:
+    """``launcher.main(argv)`` with its lines kept (and passed to
+    stderr): ``(rc, result line, lines)``; raises unless it exits 0."""
+    from tpu_hc_bench_torch import launcher
+
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        print(m, file=sys.stderr, flush=True)
+
+    rc = launcher.main(argv, print_fn=tee)
+    if rc != 0 or not any(ln.startswith("{") for ln in lines):
+        raise AssertionError(f"{phase}: {argv} exited {rc}: {lines[-5:]}")
+    return rc, _result(lines), lines
+
+
+def slice15_elastic(torch, dev, smi, base: Path, add) -> None:
+    """Phase 23 (b): two CPU workers write a resnet50 zero1 checkpoint;
+    the card refuses it without ``--resume=elastic``, restores it
+    elastically bit for bit, and the launcher resumes it."""
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags, launcher
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.parallel import distributed
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    d = base / "b_zero1"
+    t0 = time.perf_counter()
+    _, saved, _ = _tee_launch(
+        ["1", str(SLICE15_CPU_WORKERS), "2", "ib", "--model=resnet50",
+         "--device=cpu", "--variable_update=zero1",
+         "--num_warmup_batches=1", "--num_batches=1", "--display_every=1",
+         f"--train_dir={d}"], "phase 23 (b) CPU workers")
+    cpu_s = time.perf_counter() - t0
+    saved_fp = saved["checkpoint"]["fingerprint"]
+    step, payload = ckpt.load_payload(d)
+    topo = ckpt.read_topology(d)
+    argv = ["1", "1", str(SLICE15_RESUME_BATCH), "ib", "--model=resnet50",
+            "--use_fp16=true", "--fused_conv=true", "--variable_update=zero1",
+            "--num_warmup_batches=1", "--num_batches=2", "--display_every=1",
+            f"--train_dir={d}"]
+    refused = None
+    try:
+        launcher.main(argv, print_fn=lambda m: None)
+    except ckpt.TopologyMismatchError as e:
+        refused = str(e)
+    cfg = flags.BenchmarkConfig(
+        model="resnet50", batch_size=SLICE15_RESUME_BATCH, use_fp16=True,
+        fused_conv=True, variable_update="zero1").resolve()
+    distributed.init_single("nccl")
+    try:
+        model, _ = create_model("resnet50", torch.bfloat16, device=dev,
+                                seed=5, train=True, fused_conv=True)
+        state = step_mod.make_train_state(model, cfg, Fabric.ICI)
+        ckpt.restore_elastic(state, d, topo, 1)
+        restored_fp = ckpt.fingerprint(model.state_dict())
+        shards = payload["optimizer"]["zero1_shards"]
+        mine = state.optimizer.state_dict()
+        opt_equal = all(
+            torch.equal(mine["state"][i]["momentum_buffer"].cpu(),
+                        torch.cat([s["state"][i]["momentum_buffer"]
+                                   for s in shards])[:p.numel()])
+            for i, p in enumerate(state.dp.grads.params))
+        state.dp.grads.close()
+        del state, model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    _, res, lines = _tee_launch(argv + ["--resume=elastic"],
+                                "phase 23 (b) resume")
+    counts = _read_counts()
+    add(counts)
+    steps = 1 + 2
+    plan = [ln for ln in lines if ln.startswith("elastic resume:")]
+    rec = {"phase": "slice15", "part": "b_elastic_cpu2_to_card1",
+           "cpu_workers_s": cpu_s, "saved_step": step,
+           "saved_topology": topo, "refused": refused, "plan": plan,
+           "saved_fingerprint": saved_fp, "restored_fingerprint":
+           restored_fp, "optimizer_real_elements_bit_equal": opt_equal,
+           "resume": res.get("resume"), "images_per_sec":
+           res["total_images_per_sec"], "final_loss": res["final_loss"],
+           "launches": counts,
+           "expected_launches": {"fused_bn_relu_conv":
+                                 FUSED_LAUNCHES_PER_STEP * steps},
+           "nvidia_smi": smi}
+    rec["ok"] = (refused is not None and "saved world=2" in refused
+                 and "live world=1" in refused
+                 and "--resume=elastic" in refused
+                 and restored_fp == saved_fp and opt_equal
+                 and len(plan) == 1 and "[2, k]->[1, k']" in plan[0]
+                 and f"state fingerprint: {saved_fp}" in lines
+                 and res["resume"]["elastic"] is True
+                 and all(counts[k] == rec["expected_launches"].get(k, 0)
+                         for k in counts)
+                 and math.isfinite(res["final_loss"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 23 (b) failed: {rec}")
+
+
+def _elastic_worker(src: str, dst: str, out: str) -> int:
+    """One rank of phase 23 (f) (``chip_smoke.py --elastic-worker SRC
+    DST OUT``, started by ``spawn_local``): restore the zero1 checkpoint
+    under ``SRC`` elastically at this world, keep the fingerprint and the
+    optimizer shards in ``OUT.rank<k>.pt``, save under ``DST`` (unless
+    it is ``-``)."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.parallel import distributed
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    worker = distributed.worker_from_env()
+    # the card; the CPU only in a rehearsal of the phase without one
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(worker.local_rank)
+    distributed.init_group(distributed.backend_for(True, dev), worker)
+    try:
+        cfg = flags.BenchmarkConfig(
+            model="resnet50", batch_size=SLICE15_ELASTIC_BATCH,
+            use_fp16=True, fused_conv=True, variable_update="zero1",
+            device=dev.type).resolve()
+        model, _ = create_model("resnet50", torch.bfloat16, device=dev,
+                                seed=7, train=True, fused_conv=True)
+        state = step_mod.make_train_state(model, cfg, Fabric.ICI)
+        saved = ckpt.read_topology(src)
+        action, plan = ckpt.check_topology(saved, ckpt.topology_record(
+            worker.world_size, cfg), src, elastic=True)
+        ckpt.restore_elastic(state, src, saved, worker.world_size,
+                             rank=worker.rank)
+        opt = state.optimizer.state_dict()
+        rec = {"fingerprint": ckpt.fingerprint(model.state_dict()),
+               "plan": [action, plan], "step": state.step,
+               "shards": {i: {k: v.cpu() for k, v in st.items()
+                              if isinstance(v, torch.Tensor)}
+                          for i, st in opt["state"].items()}}
+        if dst != "-":
+            ckpt.save(state, dst, topology=ckpt.topology_record(
+                worker.world_size, cfg), write=worker.rank == 0)
+            distributed.barrier()
+        torch.save(rec, f"{out}.rank{worker.rank}.pt")
+        state.dp.grads.close()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _spawn_elastic(world: int, src: Path, dst: str, out: Path) -> list:
+    """Phase 23 (f): ``world`` ``--elastic-worker`` processes, one a
+    card; each rank's record."""
+    import tempfile
+
+    from tpu_hc_bench_torch.parallel import distributed
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    workers = [distributed.Worker(r, r, world, f"file://{tmp}/store")
+               for r in range(world)]
+    rc = distributed.spawn_local(
+        [sys.executable, str(Path(__file__).resolve()), "--elastic-worker",
+         str(src), dst, str(out)], workers,
+        lambda m: print(m, file=sys.stderr, flush=True))
+    if rc != 0:
+        raise AssertionError(f"phase 23 (f): {world} elastic workers "
+                             f"exited {rc}")
+    import torch
+
+    return [torch.load(f"{out}.rank{r}.pt") for r in range(world)]
+
+
+def slice15_multi(torch, smi, cards: int, base: Path,
+                  gpt2_world1_loss: float) -> None:
+    """Phase 23 (c)-(f), with two cards or more."""
+    import shutil
+
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    if cards < 2:
+        emit({"phase": "slice15", "part": "cf_multi_card", "ran": False,
+              "cards": cards, "nvidia_smi": smi})
+        return
+    warm, timed = SLICE15_STEPS
+    steps = [f"--num_warmup_batches={warm}", f"--num_batches={timed}",
+             "--display_every=10"]
+    keys = ("total_workers", "global_batch", "total_images_per_sec",
+            "mean_step_ms", "final_loss", "model_parallel",
+            "expert_parallel", "num_slices", "peak_hbm_bytes",
+            "device_kind", "extra")
+    world1 = {"gpt2": gpt2_world1_loss}
+    for model, batch, world, flag, deg in SLICE15_TP:
+        if world > cards:
+            continue
+        lm = ["--use_fp16=true", "--attention_impl=flash",
+              *(["--fused_xent=true"] if model == "gpt2" else [])]
+        if model not in world1:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _, res1, _ = _tee_launch(["1", "1", str(batch), "ib",
+                                      f"--model={model}", *lm, *steps],
+                                     "phase 23 (c) world 1")
+            world1[model] = res1["final_loss"]
+            emit({"phase": "slice15", "part": f"world1_{model}",
+                  "sequences_per_sec": res1["total_images_per_sec"],
+                  "peak_gb": (res1["peak_hbm_bytes"] or 0) / 1e9,
+                  "nvidia_smi": smi,
+                  **{k: res1.get(k) for k in keys}})
+        argv = ["1", str(world), str(batch), "ib", f"--model={model}", *lm,
+                f"--{flag}={deg}", *steps]
+        t0 = time.perf_counter()
+        _, res, lines = _tee_launch(argv, "phase 23 (c)/(d)")
+        dp = world // deg
+        rel = (abs(res["final_loss"] - world1[model]) / abs(world1[model])
+               if dp == 1 else None)
+        rec = {"phase": "slice15",
+               "part": f"{'c' if flag == 'model_parallel' else 'd'}_"
+                       f"{model}_w{world}_{flag}{deg}",
+               "argv": argv, "seconds": time.perf_counter() - t0,
+               "cards": cards, "sequences_per_sec":
+               res["total_images_per_sec"],
+               "peak_gb": (res["peak_hbm_bytes"] or 0) / 1e9,
+               "world1_final_loss": world1[model],
+               "final_loss_rel_world1": rel,
+               "banner": [ln for ln in lines
+                          if " parallel: mesh data=" in ln],
+               "nvidia_smi": smi, **{k: res.get(k) for k in keys}}
+        rec["ok"] = (res["total_workers"] == world
+                     and res[flag] == deg
+                     and res["global_batch"] == batch * dp
+                     and math.isfinite(res["final_loss"])
+                     and (rel is None or rel <= 0.05))
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"phase 23 (c)/(d) failed: {rec}")
+    if cards < 4:
+        return
+    res = {}
+    resnet = ["--model=resnet50", "--use_fp16=true", "--fused_conv=true",
+              *steps]
+    for fabric, extra in (("ib", []), ("dcn", ["--num_slices=2"])):
+        _, res[fabric], lines = _tee_launch(
+            ["1", "4", str(TRAIN_BATCH), fabric, *resnet, *extra],
+            "phase 23 (e)")
+        if fabric == "dcn":
+            banner = [ln for ln in lines if ln.startswith("multislice:")]
+    rel = abs(res["dcn"]["final_loss"] - res["ib"]["final_loss"]) / abs(
+        res["ib"]["final_loss"])
+    rec = {"phase": "slice15", "part": "e_resnet50_dcn2_vs_ib",
+           "images_per_sec": {f: r["total_images_per_sec"]
+                              for f, r in res.items()},
+           "final_loss": {f: r["final_loss"] for f, r in res.items()},
+           "final_loss_rel": rel, "banner": banner,
+           "allreduce_per_step": {f: r["allreduce_per_step"]
+                                  for f, r in res.items()},
+           "nvidia_smi": smi}
+    rec["ok"] = (res["dcn"]["num_slices"] == 2 and rel <= 1e-2
+                 and banner == ["multislice: 2 slices x virtual slices on "
+                                "1 host(s) — data axis = dcn(2) x data(2)"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 23 (e) failed: {rec}")
+    d4 = base / "f_z4"
+    _tee_launch(["1", "4", str(SLICE15_ELASTIC_BATCH), "ib", *resnet,
+                 "--variable_update=zero1", f"--train_dir={d4}"],
+                "phase 23 (f) save")
+    _, payload = ckpt.load_payload(d4)
+    fp4 = ckpt.fingerprint(payload["model"])
+    shards4 = payload["optimizer"]["zero1_shards"]
+    r2 = _spawn_elastic(2, d4, str(base / "f_z2"), base / "f_r2")
+    r4 = _spawn_elastic(4, base / "f_z2", "-", base / "f_r4")
+    n_params = len(shards4[0]["state"])
+
+    def same_real(a, b) -> bool:
+        """Two stacks of one tensor's shards: equal up to the shorter,
+        zero padding past it."""
+        m = min(a.numel(), b.numel())
+        return (torch.equal(a[:m], b[:m]) and not a[m:].any()
+                and not b[m:].any())
+
+    real2 = all(same_real(
+        torch.cat([r["shards"][i]["momentum_buffer"] for r in r2]),
+        torch.cat([s["state"][i]["momentum_buffer"] for s in shards4]))
+        for i in range(n_params))
+    back4 = all(torch.equal(r4[k]["shards"][i]["momentum_buffer"],
+                            shards4[k]["state"][i]["momentum_buffer"])
+                for k in range(4) for i in range(n_params))
+    d2 = base / "f_launcher"
+    shutil.copytree(d4, d2)
+    _, res2, lines = _tee_launch(
+        ["1", "2", str(SLICE15_ELASTIC_BATCH), "ib", *resnet,
+         "--variable_update=zero1", "--resume=elastic", f"--train_dir={d2}"],
+        "phase 23 (f) launcher resume")
+    rec = {"phase": "slice15", "part": "f_zero1_elastic_4_2_4",
+           "fingerprints": {"saved4": fp4,
+                            "at2": sorted({r["fingerprint"] for r in r2}),
+                            "at4": sorted({r["fingerprint"] for r in r4})},
+           "plans": {"at2": r2[0]["plan"], "at4": r4[0]["plan"]},
+           "real_elements_at2_bit_equal": real2,
+           "shards_after_round_trip_bit_equal": back4,
+           "launcher_plan": [ln for ln in lines
+                             if ln.startswith("elastic resume:")],
+           "launcher_resume": res2.get("resume"),
+           "launcher_images_per_sec": res2["total_images_per_sec"],
+           "nvidia_smi": smi}
+    rec["ok"] = (rec["fingerprints"]["at2"] == [fp4]
+                 and rec["fingerprints"]["at4"] == [fp4] and real2 and back4
+                 and r2[0]["plan"][0] == r4[0]["plan"][0] == "reshard"
+                 and res2["resume"]["elastic"] is True)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 23 (f) failed: {rec}")
+
+
+def phase_slice15(torch, dev, smi) -> dict:
+    """Phase 23: elastic resume, multislice, TP and EP; returns every
+    kernel's launches summed over the main-path runs (a) and (b)."""
+    import shutil
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    base = Path(__file__).resolve().parent / "build" / "slice15"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        gpt2_loss = slice15_tp1(torch, dev, smi, add)
+        torch.cuda.empty_cache()
+        slice15_elastic(torch, dev, smi, base, add)
+        torch.cuda.empty_cache()
+        t_ab = time.perf_counter() - t0
+        slice15_multi(torch, smi, torch.cuda.device_count(), base,
+                      gpt2_loss)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit({"phase": "slice15", "part": "g_launches", "launches": total,
+          "seconds_ab": t_ab, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -5178,7 +5683,8 @@ def main(argv: list[str] | None = None) -> int:
                                 "the GPUs of this machine.")
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
                                       "serve2", "slice9", "zoo", "slice11",
-                                      "slice12", "slice13", "slice14"),
+                                      "slice12", "slice13", "slice14",
+                                      "slice15"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -5192,7 +5698,8 @@ def main(argv: list[str] | None = None) -> int:
                         "the build, then phase 19 alone; slice12: the "
                         "build, phase 4, then phase 20; slice13: the "
                         "build, then phase 21 alone; slice14: the build, "
-                        "then phase 22 alone")
+                        "then phase 22 alone; slice15: the build, then "
+                        "phase 23 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -5313,6 +5820,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice15":
+        phase_slice15(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice14":
         phase_slice14(torch, dev, smi)
         print(smi, flush=True)
@@ -5397,6 +5912,8 @@ def main(argv: list[str] | None = None) -> int:
     slice13_launches = phase_slice13(torch, dev, smi)
     torch.cuda.empty_cache()
     slice14_launches = phase_slice14(torch, dev, smi)
+    torch.cuda.empty_cache()
+    slice15_launches = phase_slice15(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -5449,7 +5966,8 @@ def main(argv: list[str] | None = None) -> int:
                       "slice11_launches": slice11_launches.get(name, 0),
                       "slice12_launches": slice12_launches.get(name, 0),
                       "slice13_launches": slice13_launches.get(name, 0),
-                      "slice14_launches": slice14_launches.get(name, 0)})
+                      "slice14_launches": slice14_launches.get(name, 0),
+                      "slice15_launches": slice15_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -5459,4 +5977,6 @@ def main(argv: list[str] | None = None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(_elastic_worker(*sys.argv[2:5]))
     sys.exit(main())

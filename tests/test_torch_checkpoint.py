@@ -231,6 +231,7 @@ def test_keep_checkpoints_keeps_the_newest_n(tmp_path):
     assert ckpt.complete_steps(tmp_path / "run") == [3, 4]
     assert ckpt.read_topology(tmp_path / "run") == {
         "schema": 1, "world": 1, "process_count": 1,
+        "mesh": {"data": 1, "model": 1},
         "variable_update": "psum", "layout": "host", "dtype": "float32"}
 
 
@@ -242,7 +243,8 @@ def test_topology_record_and_plan_follow_jax():
     jax_rec = topology.topology_record(
         topology.discover_layout(), topology.build_mesh(
             topology.discover_layout()), jax_flags.BenchmarkConfig())
-    assert set(rec) == set(jax_rec) - {"mesh", "pipeline_parallel"}
+    assert set(rec) == set(jax_rec) - {"pipeline_parallel"}
+    assert rec["mesh"] == {"data": 4, "model": 1}
     for k in ("schema", "variable_update", "layout", "dtype"):
         assert rec[k] == jax_rec[k], k
     live = dict(rec, world=1)
@@ -250,6 +252,8 @@ def test_topology_record_and_plan_follow_jax():
              (rec, dict(live, variable_update="replicated"), "noop"),
              (dict(rec, variable_update="zero1"), live, "refuse"),
              (rec, dict(rec, variable_update="zero1"), "refuse"),
+             (dict(rec, variable_update="zero1"),
+              dict(live, variable_update="zero1"), "reshard"),
              (dict(rec, layout="pp-native"), rec, "refuse"),
              (dict(rec, layout="sharded"), rec, "refuse")]
     for saved, now, action in cases:
@@ -259,9 +263,7 @@ def test_topology_record_and_plan_follow_jax():
         jax_now = dict(jax_rec, **{k: now[k] for k in
                                    ("world", "variable_update", "layout")})
         jax_action = topology.elastic_plan(jax_saved, jax_now)[0]
-        # JAX reshards a zero1 state between worlds; the port refuses it
-        assert jax_action == action or (jax_action, action) == (
-            "reshard", "refuse"), (saved, now)
+        assert jax_action == action, (saved, now)
     assert "dtype policy" in ckpt.elastic_plan(
         rec, dict(live, dtype="bfloat16"))[1]
 
@@ -330,7 +332,7 @@ def test_eval_on_an_empty_train_dir_raises(tmp_path):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--resume=elastic", "--train_dir=/x"], "not ported yet.*zero1"),
+    (["--resume=elastic"], "--resume=elastic needs --train_dir"),
     (["--resume=must"], "needs --train_dir"),
     (["--resume=sometimes"], "auto|never|must"),
     (["--keep_checkpoints=-1"], "keep_checkpoints"),

@@ -454,12 +454,13 @@ def test_lm_flags_pass_and_later_slices_raise():
         assert "degenerate seq axis" in cfg.translations["sequence_parallel"]
     for bad, match in ((["--attention_impl=paged"], "dense|flash"),
                        (["--wire_dtype=bf16"], "float32|uint8"),
-                       (["--model_parallel=2"], "not ported"),
+                       (["--num_microbatches=2"], "not ported"),
                        (["--seq_len=0"], "seq_len")):
         with pytest.raises(ValueError, match=match):
             flags.parse_benchmark_flags(bad)
     with pytest.raises(ValueError, match="not ported"):
-        flags.parse_benchmark_flags(["--expert_parallel=2"])
+        flags.parse_benchmark_flags(["--model_parallel=2",
+                                     "--sequence_parallel=2"])
     assert flags.parse_benchmark_flags(
         ["--sequence_parallel=2"]).attention_impl == "ring"
 

@@ -386,12 +386,12 @@ def test_jax_s_refusals_are_raised(i):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--resume=elastic", "--train_dir=/x"], "not ported"),
+    (["--resume=elastic"], "needs --train_dir"),
     (["--wire_dtype=bf16"], "float32|uint8"),
     (["--data_format=NCWH"], "NCHW|NHWC"),
     (["--horovod_device=tpu"], "cpu|gpu"),
     (["--datasets_repeat_cached_sample=true", "--eval=true"], "epoch"),
-    (["--model_parallel=2"], "not ported"),
+    (["--pipeline_parallel=2"], "not ported"),
     (["--optimizer=lbfgs"], "rmsprop"),
 ])
 def test_port_refusals(argv, match):

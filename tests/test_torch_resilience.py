@@ -477,20 +477,26 @@ PORTED = {
 
 
 def test_the_eleven_flags_parse_and_the_eight_refuse():
-    """Seven of the eight still refuse; ``--sequence_parallel`` is
-    ported since (``tests/test_torch_sp_train.py``)."""
+    """Four of the eight still refuse; ``--sequence_parallel`` is
+    ported since (``tests/test_torch_sp_train.py``), ``--num_slices``,
+    ``--model_parallel`` and ``--expert_parallel`` since
+    (``tests/test_torch_multislice.py``,
+    ``tests/test_torch_tensor_parallel.py``)."""
     cfg = flags.parse_benchmark_flags([f"--{k}={v}"
                                        for k, v in PORTED.items()])
     for k, v in PORTED.items():
         assert str(getattr(cfg, k)) == v, k
     assert set(PORTED).isdisjoint(flags.LATER_SLICE_TRAIN_FLAGS)
-    for name in ("config", "num_slices", "model_parallel",
-                 "expert_parallel", "pipeline_parallel", "num_microbatches",
+    for name in ("config", "pipeline_parallel", "num_microbatches",
                  "virtual_devices"):
         assert name in flags.LATER_SLICE_TRAIN_FLAGS
         with pytest.raises(ValueError, match=f"not ported yet: --{name}"):
             flags.parse_benchmark_flags([f"--{name}=2"])
-    assert "sequence_parallel" not in flags.LATER_SLICE_TRAIN_FLAGS
+    for name in ("sequence_parallel", "num_slices", "model_parallel",
+                 "expert_parallel"):
+        assert name not in flags.LATER_SLICE_TRAIN_FLAGS
+        assert getattr(flags.parse_benchmark_flags(
+            [f"--{name}=2", "--model=moe_tiny"]), name) == 2
     assert flags.parse_benchmark_flags(
         ["--sequence_parallel=2"]).sequence_parallel == 2
 

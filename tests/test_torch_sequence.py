@@ -348,7 +348,8 @@ def test_mesh_is_data_major_and_seq_minor(monkeypatch):
     assert mesh.seq_group == (4, 5) and mesh.data_group == (1, 3, 5, 7)
     assert made == [(0, 1), (2, 3), (4, 5), (6, 7), (0, 2, 4, 6),
                     (1, 3, 5, 7)]
-    with pytest.raises(ValueError, match="does not divide"):
+    with pytest.raises(ValueError, match="not divisible by the minor-axis "
+                                         "product 3"):
         distributed.build_mesh(3)
 
 

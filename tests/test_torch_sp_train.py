@@ -319,8 +319,15 @@ def test_sequence_parallel_is_ported_and_elastic_still_refuses():
     assert any("sequence_parallel=2" in ln for ln in cfg.summary_lines())
     with pytest.raises(ValueError, match="--sequence_parallel must be >= 1"):
         flags.parse_benchmark_flags(["--sequence_parallel=0"])
-    with pytest.raises(ValueError, match="elastic is not ported yet"):
-        flags.parse_benchmark_flags(["--resume=elastic", "--train_dir=/x"])
+    # elastic resume is ported since (tests/test_torch_elastic.py);
+    # the DPxSPxTP hybrid and pipeline parallelism are not
+    assert flags.parse_benchmark_flags(
+        ["--resume=elastic", "--train_dir=/x"]).resume == "elastic"
+    for argv in (["--sequence_parallel=2", "--model_parallel=2"],
+                 ["--pipeline_parallel=2"], ["--num_microbatches=4"],
+                 ["--config=x.json"], ["--virtual_devices=8"]):
+        with pytest.raises(ValueError, match="not ported yet"):
+            flags.parse_benchmark_flags(["--model=llama_tiny"] + argv)
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -433,12 +433,11 @@ def test_benchmark_flags_defaults_and_rejections():
                                        "TRUE", "--device=cpu"])
     assert cfg.use_fp16 and cfg.fused_conv and cfg.compute_dtype == \
         "bfloat16"
-    for bad, match in ((["--model_parallel=2"], "not ported"),
+    for bad, match in ((["--pipeline_parallel=2"], "not ported"),
                        (["--gradient_accumulation_steps=3"], "divisible"),
                        (["--variable_update=zero1", "--forward_only=true"],
                         "forward-only"),
-                       (["--resume=elastic", "--train_dir=/x"],
-                        "not ported"),
+                       (["--resume=elastic"], "needs --train_dir"),
                        (["--optimizer=lbfgs"], "momentum|sgd"),
                        (["--device=tpu"], "cuda|cpu")):
         with pytest.raises(ValueError, match=match):

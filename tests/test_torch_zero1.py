@@ -326,14 +326,27 @@ def test_checkpoint_refused_at_another_world_and_arm(zero1_runs):
     assert (saved["world"], saved["variable_update"]) == (WORLD, "zero1")
     distributed.init_single("gloo")
     try:
-        for vu in ("zero1", "psum"):
+        for vu, match in (("zero1", "relaunch with --resume=elastic"),
+                          ("psum", "zero1 optimizer-state tree")):
             cfg = _cfg(vu)
             state = _state(cfg, _init_state())
-            with pytest.raises(ckpt.TopologyMismatchError,
-                               match="zero1"):
+            with pytest.raises(ckpt.TopologyMismatchError, match=match):
                 ckpt.restore(state, out_dir / "ckpt",
                              expect_topology=ckpt.topology_record(1, cfg))
             state.dp.grads.close()
+        # --resume=elastic resplits the four ranks' shards for world 1
+        state = _state(_cfg("zero1"), _init_state())
+        ckpt.restore_elastic(state, out_dir / "ckpt", saved, 1)
+        _, payload = ckpt.load_payload(out_dir / "ckpt")
+        assert ckpt.fingerprint(state.model.state_dict()) == \
+            ckpt.fingerprint(payload["model"])
+        shards = payload["optimizer"]["zero1_shards"]
+        for i, p in enumerate(state.dp.grads.params):
+            got = state.optimizer.state_dict()["state"][i]
+            want = torch.cat([s["state"][i]["momentum_buffer"]
+                              for s in shards])[:p.numel()]
+            assert torch.equal(got["momentum_buffer"], want), i
+        state.dp.grads.close()
     finally:
         dist.destroy_process_group()
 

@@ -120,6 +120,14 @@ transposed to ``[3H, I]``, ``hidden_gates [H, 3H]`` and
 ``*.embedding`` tables unchanged, ``mlp_{i}`` to ``mlp.{i}`` and
 ``head``, their kernels transposed.
 
+``sharded_params_from_flax(name, params, size, index, mode)`` carries a
+transformer member's tree (``bert_*``, ``gpt2*`` and the MoE members,
+``llama_*``, ``vit_*``) into one rank's shard of the port's tensor- or
+expert-parallel model: the member's converter above, then
+``parallel.tensor``'s rules cut each split parameter for rank ``index``
+of ``size`` (what ``parallel.tensor.shard_model_`` does to a full
+model).
+
 Every ``*_from_flax`` consumes each leaf of the trees it is given or
 raises: a leaf with no rule, or a tree with leaves left over.
 """
@@ -517,3 +525,28 @@ def ncf_params_from_flax(params: dict) -> dict[str, torch.Tensor]:
         sd[port + ".bias"] = _t(params[name]["bias"])
     _check_consumed(sd, params)
     return sd
+
+
+def sharded_params_from_flax(name: str, params: dict, size: int,
+                             index: int, mode: str = "tp"
+                             ) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of rank ``index``'s shard (of ``size``) of the
+    port's tensor-parallel (``mode="tp"``) or expert-parallel (``"ep"``)
+    model ``name``, from its Flax tree."""
+    from tpu_hc_bench_torch.parallel import tensor
+
+    if name.startswith("bert"):
+        sd = bert_params_from_flax(params)
+    elif name.startswith("llama"):
+        sd = llama_params_from_flax(params)
+    elif name.startswith("vit"):
+        sd = vit_params_from_flax(params)
+    elif name.startswith(("gpt", "moe")):
+        sd = gpt_params_from_flax(params)
+    else:
+        raise ValueError(f"{name} has no tensor-parallel layout")
+    out = {}
+    for k, v in sd.items():
+        rule = tensor.tp_param_rule(k, v.dim(), mode)
+        out[k] = v if rule is None else tensor.cut(v, rule, size, index)
+    return out

@@ -321,8 +321,7 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 
 # training knobs of the JAX lane that this port does not carry yet
 LATER_SLICE_TRAIN_FLAGS = (
-    "config", "num_slices", "model_parallel", "expert_parallel",
-    "pipeline_parallel", "num_microbatches", "virtual_devices",
+    "config", "pipeline_parallel", "num_microbatches", "virtual_devices",
 )
 
 NONFINITE_POLICIES = ("abort", "skip", "rewind")
@@ -434,6 +433,16 @@ class BenchmarkConfig:
                                               # (sequence-sharded)
     sequence_parallel: int = 1                # sequence shards: ranks a
                                               # seq group (text models)
+    model_parallel: int = 1                   # tensor-parallel degree:
+                                              # ranks a model group
+                                              # (Megatron's split of the
+                                              # transformer members)
+    expert_parallel: int = 1                  # expert-parallel degree:
+                                              # the MoE experts split
+                                              # over a model group
+    num_slices: int = 0                       # fabric=dcn multislice:
+                                              # slices of the data axis
+                                              # (0: one per host)
     seq_len: int | None = None                # text models: override the
                                               # registry sequence length
     fused_xent: bool = False                  # text models: the CUDA
@@ -494,8 +503,10 @@ class BenchmarkConfig:
                                               # thread, one in flight
     resume: str = "auto"                      # auto (the latest complete
                                               # checkpoint, if any) | never
-                                              # | must (raise if none);
-                                              # elastic: not ported
+                                              # | must (raise if none)
+                                              # | elastic (a zero1 state
+                                              # resplit for the live
+                                              # world)
     keep_checkpoints: int = 0                 # keep the newest N (0: all)
 
     # --- resilience (JAX's round 8 surface) ---
@@ -609,8 +620,12 @@ class BenchmarkConfig:
             self.variable_update = "psum"
         if self.variable_update == "zero1":
             # ZeRO-1 shards the optimizer state over the data axis; every
-            # unsupported composition dies at flag time (the port has no
-            # TP, EP or PP: those flags are refused as not ported)
+            # unsupported composition dies at flag time (PP is refused as
+            # not ported)
+            if self.model_parallel > 1 or self.expert_parallel > 1:
+                raise ValueError(
+                    "--variable_update=zero1 composes with plain data "
+                    "parallelism only (TP/EP run on the GSPMD arm)")
             if (self.sequence_parallel > 1
                     or self.attention_impl in SEQ_SHARDED_IMPLS):
                 raise ValueError(
@@ -625,9 +640,25 @@ class BenchmarkConfig:
         if self.variable_update not in ("psum", "replicated", "zero1"):
             raise ValueError(f"--variable_update must be psum|horovod|"
                              f"replicated|zero1: {self.variable_update!r}")
+        for name in ("model_parallel", "expert_parallel"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"--{name} must be >= 1: "
+                                 f"{getattr(self, name)}")
+        if self.num_slices < 0:
+            raise ValueError(f"--num_slices must be >= 0 (0: one slice a "
+                             f"host): {self.num_slices}")
+        if self.model_parallel > 1 and self.expert_parallel > 1:
+            raise ValueError(
+                "--model_parallel and --expert_parallel are exclusive: both "
+                "shard over the mesh 'model' axis")
         if self.gradient_accumulation_steps < 1:
             raise ValueError(f"--gradient_accumulation_steps must be >= 1: "
                              f"{self.gradient_accumulation_steps}")
+        if self.gradient_accumulation_steps > 1 and (
+                self.model_parallel > 1 or self.expert_parallel > 1):
+            raise ValueError(
+                "--gradient_accumulation_steps is not supported on the "
+                "GSPMD TP/EP arm (supported: DP and DP x SP)")
         if self.gradient_accumulation_steps > 1 and (self.forward_only
                                                      or self.eval):
             raise ValueError(
@@ -660,6 +691,16 @@ class BenchmarkConfig:
         if self.num_classes < 1:
             raise ValueError(f"--num_classes must be >= 1: {self.num_classes}")
         self._resolve_sequence_parallel(t)
+        sharded = max(self.model_parallel, self.expert_parallel)
+        if (sharded > 1 and self.variable_update != "replicated"
+                and self.sequence_parallel == 1):
+            which = ("model_parallel" if self.model_parallel > 1
+                     else "expert_parallel")
+            t["variable_update"] = (
+                f"{self.variable_update}->replicated ({which}={sharded} "
+                f"runs on the GSPMD arm; the explicit fused-psum path and "
+                f"fusion_threshold do not apply)")
+            self.variable_update = "replicated"
         if self.attention_impl not in ATTENTION_IMPLS + SEQ_SHARDED_IMPLS:
             raise ValueError(f"--attention_impl must be dense|flash|ring|"
                              f"ulysses|ulysses_flash: "
@@ -689,12 +730,7 @@ class BenchmarkConfig:
         if self.resume not in RESUME_POLICIES:
             raise ValueError(f"--resume must be auto|never|must|elastic: "
                              f"{self.resume!r}")
-        if self.resume == "elastic":
-            raise ValueError(
-                "--resume=elastic is not ported yet: elastic resume and "
-                "zero1's optimizer-shard resplit across worlds come with "
-                "a later slice (auto|never|must)")
-        if self.resume == "must" and not self.train_dir:
+        if self.resume in ("must", "elastic") and not self.train_dir:
             raise ValueError(f"--resume={self.resume} needs --train_dir")
         if self.keep_checkpoints < 0:
             raise ValueError(
@@ -722,6 +758,13 @@ class BenchmarkConfig:
         if self.sequence_parallel < 1:
             raise ValueError(f"--sequence_parallel must be >= 1: "
                              f"{self.sequence_parallel}")
+        if self.expert_parallel > 1 and self.sequence_parallel > 1:
+            raise ValueError(
+                "--expert_parallel composes with data parallelism only")
+        if self.model_parallel > 1 and self.sequence_parallel > 1:
+            raise ValueError(
+                "--sequence_parallel x --model_parallel (the DPxSPxTP "
+                "hybrid) is not ported yet")
         if self.sequence_parallel > 1:
             if self.variable_update == "replicated":
                 note = (
@@ -745,8 +788,14 @@ class BenchmarkConfig:
         elif self.attention_impl in SEQ_SHARDED_IMPLS:
             # degenerate SP: the seq-sharded impls run on a size-1 seq
             # axis (world-1 collectives: copies), the SP machinery's cost
-            # on one card; plain data parallelism only (the port has no
-            # PP/EP/TP, whose flags are refused as not ported)
+            # on one card; plain data parallelism only (JAX's rule: the
+            # PP/EP/TP compositions key on sequence_parallel > 1)
+            if self.expert_parallel > 1 or self.model_parallel > 1:
+                raise ValueError(
+                    f"--attention_impl={self.attention_impl} with "
+                    "--sequence_parallel=1 (degenerate SP) composes with "
+                    "plain data parallelism only; set "
+                    "--sequence_parallel>1 for the SP hybrids")
             note = (f"sequence_parallel=1: degenerate seq axis (size 1) — "
                     f"{self.attention_impl} collectives are world-1 no-ops")
             t["sequence_parallel"] = note
@@ -815,9 +864,9 @@ class BenchmarkConfig:
 
     def _resolve_moe(self, t: dict) -> None:
         """JAX's MoE flag rules: ``--moe_impl=auto`` picks einsum below
-        seq 4096 and ragged from there (the port has no expert or model
-        parallelism, so JAX's EP/TP conditions hold), and the capacity
-        factor belongs to the einsum dispatch."""
+        seq 4096, under EP or TP, and ragged from there on a single
+        shard; the capacity factor belongs to the einsum dispatch, and
+        the ragged dispatch is refused under EP or TP."""
         if self.moe_impl == "auto":
             from tpu_hc_bench_torch.models import get_model_spec
 
@@ -829,10 +878,12 @@ class BenchmarkConfig:
                 raise ValueError(f"--moe_impl=auto only applies to MoE "
                                  f"members, not {self.model}")
             long_seq = (self.seq_len or 0) >= 4096
-            new = ("ragged" if long_seq and self.moe_capacity_factor == 1.25
+            new = ("ragged" if (long_seq and self.expert_parallel == 1
+                                and self.model_parallel == 1
+                                and self.moe_capacity_factor == 1.25)
                    else "einsum")
-            t["moe_impl"] = (f"auto->{new} (einsum short-seq, ragged at "
-                             f"seq>=4096)")
+            t["moe_impl"] = (f"auto->{new} (einsum short-seq/EP/TP, "
+                             f"ragged at seq>=4096 single-shard)")
             self.moe_impl = new
         if self.moe_impl not in ("einsum", "ragged"):
             raise ValueError(f"--moe_impl must be einsum|ragged|auto: "
@@ -843,6 +894,13 @@ class BenchmarkConfig:
                 "only: the ragged grouped-matmul path has no capacity "
                 "concept (zero token drops), so the flag would be silently "
                 "ignored")
+        if self.moe_impl == "ragged" and (
+                self.expert_parallel > 1 or self.model_parallel > 1):
+            raise ValueError(
+                "--expert_parallel/--model_parallel require "
+                "--moe_impl=einsum (ragged_dot grouped matmuls are "
+                "single-shard; the GShard einsum dispatch is the "
+                "GSPMD-shardable path)")
         if self.moe_capacity_factor <= 0:
             raise ValueError(f"--moe_capacity_factor must be > 0: "
                              f"{self.moe_capacity_factor}")
@@ -901,7 +959,10 @@ class BenchmarkConfig:
             f"attention_impl={self.attention_impl} "
             f"seq_len={self.seq_len or 'model default'} "
             f"fused_xent={self.fused_xent} "
-            f"sequence_parallel={self.sequence_parallel}",
+            f"sequence_parallel={self.sequence_parallel} "
+            f"model_parallel={self.model_parallel} "
+            f"expert_parallel={self.expert_parallel} "
+            f"num_slices={self.num_slices or 'one a host'}",
             f"variable_update={self.variable_update} "
             f"overlap_grad_comm={self.overlap_grad_comm} "
             f"fusion_threshold_bytes={self.fusion_threshold_bytes} "

@@ -52,6 +52,7 @@ from torch import nn
 from tpu_hc_bench_torch.models import layer_stack
 from tpu_hc_bench_torch.models.llama import lecun_normal_
 from tpu_hc_bench_torch.parallel.sequence import local_attention
+from tpu_hc_bench_torch.parallel.tensor import copy_to, reduce_from
 
 BERT_BASE_VOCAB = 30522
 BERT_MAX_LEN = 512
@@ -60,12 +61,17 @@ LN_EPS = 1e-6           # Flax LayerNorm's default
 
 
 class Dense(nn.Module):
+    """``tp_out``: the model group of a row-parallel projection, whose
+    partial products are summed over it before the (replicated) bias is
+    added once."""
+
     def __init__(self, fan_in: int, out: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(out, fan_in))
         self.bias = nn.Parameter(torch.empty(out))
+        self.tp_out = None
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
@@ -75,7 +81,7 @@ class Dense(nn.Module):
 
     def forward(self, x):
         y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
-        return y + self.bias.to(self.dtype)
+        return reduce_from(y, self.tp_out) + self.bias.to(self.dtype)
 
 
 class LayerNorm(nn.Module):
@@ -149,7 +155,10 @@ class MultiHeadAttention(nn.Module):
     hidden]``; ``out`` is ``DenseGeneral(hidden, axis=(-2, -1))`` (kernel
     ``[heads, d, hidden]``) as ``[hidden, hidden]``.  q, k and v are views
     of the one projection, which the flash kernels read through their
-    strides.
+    strides.  Under tensor parallelism (``tp_group``) a rank holds
+    ``heads`` of the model's heads (``parallel.tensor.shard_model_``):
+    the input enters through ``copy_to`` and ``out`` sums the heads'
+    partial products over the group.
     """
 
     def __init__(self, hidden: int, heads: int,
@@ -163,6 +172,7 @@ class MultiHeadAttention(nn.Module):
         self.heads, self.head_dim = heads, hidden // heads
         self.attention_impl, self.causal = attention_impl, causal
         self.seq_axis = seq_axis
+        self.tp_group = None
         self.qkv = Dense(hidden, 3 * hidden, dtype)
         self.out = Dense(hidden, hidden, dtype)
 
@@ -171,12 +181,13 @@ class MultiHeadAttention(nn.Module):
         self.out.init_weights(generator)
 
     def forward(self, x):
-        b, s, hidden = x.shape
-        qkv = self.qkv(x).view(b, s, 3, self.heads, self.head_dim)
+        b, s, _ = x.shape
+        qkv = self.qkv(copy_to(x, self.tp_group)).view(
+            b, s, 3, self.heads, self.head_dim)
         q, k, v = qkv.unbind(2)
         out = local_attention(q, k, v, impl=self.attention_impl,
                               seq_group=self.seq_axis, causal=self.causal)
-        return self.out(out.reshape(b, s, hidden))
+        return self.out(out.reshape(b, s, self.heads * self.head_dim))
 
 
 def global_position_ids(s: int, seq_axis, max_len: int,
@@ -202,12 +213,14 @@ class TransformerLayer(nn.Module):
     """Post-LN (original BERT): x = LN(x + dropout(attn(x))), then
     LN(x + dropout(dense(gelu(dense(x))))).  Flax names: ``attn`` is
     ``MultiHeadAttention_0``, ``ln1``/``ln2`` ``LayerNorm_0``/``_1``,
-    ``fc``/``proj`` ``Dense_0``/``_1``."""
+    ``fc``/``proj`` ``Dense_0``/``_1``; ``tp_group``: the model group of
+    a tensor-parallel FFN (``fc`` column-parallel, ``proj`` row-parallel)."""
 
     def __init__(self, hidden: int, heads: int, ffn: int,
                  dtype: torch.dtype = torch.float32,
                  attention_impl: str = "dense", seq_axis=None):
         super().__init__()
+        self.tp_group = None
         self.attn = MultiHeadAttention(hidden, heads, dtype, attention_impl,
                                        seq_axis=seq_axis)
         self.ln1 = LayerNorm(hidden, dtype)
@@ -229,7 +242,8 @@ class TransformerLayer(nn.Module):
                              "lives in the loss); pass mask=None")
         a = dropout(self.attn(x), DROPOUT, generator, self.training)
         x = self.ln1(x + a)
-        y = self.proj(F.gelu(self.fc(x), approximate="tanh"))
+        y = self.proj(F.gelu(self.fc(copy_to(x, self.tp_group)),
+                             approximate="tanh"))
         y = dropout(y, DROPOUT, generator, self.training)
         return self.ln2(x + y)
 

@@ -58,6 +58,7 @@ from tpu_hc_bench_torch.models.bert import (
     Dense, LayerNorm, MultiHeadAttention, dropout, global_position_ids,
     tied_logits)
 from tpu_hc_bench_torch.models.moe import MoEFFN
+from tpu_hc_bench_torch.parallel.tensor import copy_to
 
 GPT2_VOCAB = 50257
 GPT2_CTX = 1024
@@ -76,6 +77,7 @@ class DecoderLayer(nn.Module):
                  moe_impl: str = "einsum", moe_capacity_factor: float = 1.25,
                  moe_f_chunk: int = 0, seq_axis=None):
         super().__init__()
+        self.tp_group = None      # the model group of a TP dense MLP
         self.ln1 = LayerNorm(hidden, dtype)
         self.attn = MultiHeadAttention(hidden, heads, dtype, attention_impl,
                                        causal, seq_axis)
@@ -109,7 +111,9 @@ class DecoderLayer(nn.Module):
         if hasattr(self, "moe"):
             h, aux, dropped = self.moe(self.ln2(x))
         else:
-            h = self.proj(F.gelu(self.fc(self.ln2(x)), approximate="tanh"))
+            h = self.proj(F.gelu(self.fc(copy_to(self.ln2(x),
+                                                 self.tp_group)),
+                                 approximate="tanh"))
         out = x + dropout(h, RESID_DROPOUT, generator, self.training)
         return (out, aux, dropped) if with_stats else out
 

@@ -39,6 +39,7 @@ from torch import nn
 
 from tpu_hc_bench_torch.models import layer_stack
 from tpu_hc_bench_torch.parallel.sequence import local_attention
+from tpu_hc_bench_torch.parallel.tensor import copy_to, reduce_from
 
 # std of a standard normal truncated at +-2, which lecun_normal divides out
 _TRUNC_STD = 0.87962566103423978
@@ -63,15 +64,19 @@ class RMSNorm(nn.Module):
 
 class Linear(nn.Linear):
     """A bias-free ``nn.Linear`` whose product runs in ``dtype`` (Flax's
-    ``Dense(dtype=...)`` over float32 parameters)."""
+    ``Dense(dtype=...)`` over float32 parameters); ``tp_out``: the model
+    group a row-parallel product is summed over."""
 
     def __init__(self, fan_in: int, out: int,
                  dtype: torch.dtype = torch.float32):
         super().__init__(fan_in, out, bias=False)
         self.dtype = dtype
+        self.tp_out = None
 
     def forward(self, x):
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        return reduce_from(F.linear(x.to(self.dtype),
+                                    self.weight.to(self.dtype)),
+                           self.tp_out)
 
 
 def apply_rope(x, positions, theta: float = 10000.0):
@@ -119,6 +124,7 @@ class LlamaAttention(nn.Module):
         self.head_dim = hidden // heads
         self.attention_impl = attention_impl
         self.max_len, self.seq_axis = max_len, seq_axis
+        self.tp_group = None     # tensor parallel: heads / tp a rank
         d = self.head_dim
         self.wq = Linear(hidden, heads * d, dtype)
         self.wk = Linear(hidden, num_kv_heads * d, dtype)
@@ -130,6 +136,7 @@ class LlamaAttention(nn.Module):
         [b, s, kv_heads, d], q and k rotated at ``positions``."""
         b, s, _ = x.shape
         d = self.head_dim
+        x = copy_to(x, self.tp_group)
         q = self.wq(x).view(b, s, self.heads, d)
         k = self.wk(x).view(b, s, self.kv_heads, d)
         v = self.wv(x).view(b, s, self.kv_heads, d)
@@ -161,6 +168,7 @@ class LlamaBlock(nn.Module):
         self.attn = LlamaAttention(hidden, heads, num_kv_heads, dtype,
                                    attention_impl, max_len, seq_axis)
         self.mlp_norm = RMSNorm(hidden, dtype=dtype)
+        self.tp_group = None     # tensor parallel: ffn / tp columns a rank
         self.gate = Linear(hidden, ffn, dtype)
         self.up = Linear(hidden, ffn, dtype)
         self.down = Linear(ffn, hidden, dtype)
@@ -175,6 +183,7 @@ class LlamaBlock(nn.Module):
 
     def ffn(self, h):
         """SwiGLU on the normed stream."""
+        h = copy_to(h, self.tp_group)
         return self.down(F.silu(self.gate(h)) * self.up(h))
 
     def forward(self, x):

@@ -26,6 +26,20 @@ k = 0 assignment) comes back from ``MoEFFN.forward`` beside the output,
 in place of Flax's ``sow("losses", ...)``, with the fraction of (token,
 choice) pairs the einsum dispatch dropped; ``models.gpt.GPTLM`` sums both
 over its layers for the train step.
+
+Expert and tensor parallelism (``parallel.tensor.shard_model_``; the
+einsum dispatch only): a rank holds ``local_experts`` of the ``E``
+experts, from ``expert_offset``.  The router, the routing and the aux
+loss stay replicated over the model group (``tp_group``), whose ranks
+see the same tokens; each rank runs its experts' slice of ``dispatch``
+and ``combine``, and the combined output is summed over the group
+(``reduce_from``).  The routing's probabilities enter through
+``copy_to`` (each rank's gradient of the gates is its experts' part),
+the aux loss's through the replicated path.  With ``data_group`` (the
+arm's data axis) the aux loss and the dropped fraction are the global
+batch's, as JAX's GSPMD step takes them: the expert counts and the
+probability sums are summed over the data group, and the aux loss's
+gradient reaches each rank's tokens as that of the global mean.
 """
 
 from __future__ import annotations
@@ -33,8 +47,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
+
+from tpu_hc_bench_torch.parallel.tensor import copy_to, reduce_from
 
 # Switch-Transformer convention: the aux term weighted into the loss
 AUX_LOSS_COEF = 0.01
@@ -46,12 +63,36 @@ _TRUNC_STD = 0.87962566103423978
 host_reads = 0
 
 
-def topk_select(probs: torch.Tensor, top_k: int):
+def _global_aux(mask0: torch.Tensor, probs: torch.Tensor, token_axes,
+                group, size: int) -> torch.Tensor:
+    """The Switch aux of the global batch from this rank's tokens: the
+    expert counts and probability sums summed over ``group`` (``size``
+    ranks); the value is the global one on every rank, and its gradient
+    reaches this rank's probabilities as ``size`` times that of the
+    global mean (the data axis averages the gradients)."""
+    e = probs.shape[-1]
+    psum = probs.sum(token_axes)
+    tot = torch.cat([mask0.sum(token_axes).detach().float(),
+                     psum.detach().float(),
+                     psum.new_full((1,), float(math.prod(
+                         probs.shape[:-1])), dtype=torch.float32)])
+    dist.all_reduce(tot, group=group)
+    n = tot[2 * e]
+    f = tot[:e] / n
+    value = e * torch.sum(f * (tot[e:2 * e] / n))
+    carrier = e * torch.sum(f * psum) * size / n
+    return value + (carrier - carrier.detach())
+
+
+def topk_select(probs: torch.Tensor, top_k: int, aux_probs=None,
+                data_group=None, data_size: int = 1):
     """The one top-k selection both impls derive from (JAX
     ``topk_select``): ``(masks, gates, choices, aux)``: per-k one-hot
     masks ``[..., E]``, per-k gates ``[...]`` normalized to sum to 1 a
     token, per-k argmax indices ``[...]`` (the first maximum, as
-    ``jnp.argmax``), and the Switch aux over every leading axis."""
+    ``jnp.argmax``), and the Switch aux over every leading axis (taken
+    from ``aux_probs`` where given, the same values by another autograd
+    path; over the global batch with ``data_group``)."""
     e = probs.shape[-1]
     masks, gates, choices = [], [], []
     p = probs
@@ -63,18 +104,26 @@ def topk_select(probs: torch.Tensor, top_k: int):
         masks.append(mask)
         p = p * (1.0 - mask)
     token_axes = tuple(range(probs.dim() - 1))
-    aux = e * torch.sum(masks[0].mean(token_axes) * probs.mean(token_axes))
+    aux_p = probs if aux_probs is None else aux_probs
+    if data_group is None:
+        aux = e * torch.sum(masks[0].mean(token_axes)
+                            * aux_p.mean(token_axes))
+    else:
+        aux = _global_aux(masks[0], aux_p, token_axes, data_group,
+                          data_size)
     denom = torch.clamp_min(sum(gates), 1e-9)
     return masks, [g / denom for g in gates], choices, aux
 
 
-def top_k_routing(probs: torch.Tensor, top_k: int, capacity: int):
+def top_k_routing(probs: torch.Tensor, top_k: int, capacity: int,
+                  **aux_kw):
     """``(dispatch, combine, aux)`` of ``probs [B, S, E]`` (JAX
     ``top_k_routing``): per row, each expert takes at most ``capacity``
     tokens, in sequence order with the earlier choices first (GShard's
-    position-in-expert cumsum with a running offset)."""
+    position-in-expert cumsum with a running offset); ``aux_kw``:
+    ``topk_select``'s aux arguments."""
     b, s, e = probs.shape
-    masks, gates, _, aux = topk_select(probs, top_k)
+    masks, gates, _, aux = topk_select(probs, top_k, **aux_kw)
     dispatch = probs.new_zeros((b, s, e, capacity))
     combine = probs.new_zeros((b, s, e, capacity))
     offset = probs.new_zeros((b, 1, e))
@@ -115,6 +164,9 @@ class MoEFFN(nn.Module):
                                                        dtype, impl)
         self.ragged_chunk, self.ragged_f_chunk = ragged_chunk, ragged_f_chunk
         self.router = nn.Linear(hidden, num_experts, bias=False)
+        # expert/tensor parallelism (parallel.tensor.shard_model_)
+        self.tp_group, self.data_group, self.data_size = None, None, 1
+        self.local_experts, self.expert_offset = num_experts, 0
         self.wi = nn.Parameter(torch.empty(num_experts, hidden, ffn))
         self.wo = nn.Parameter(torch.empty(num_experts, ffn, hidden))
 
@@ -140,6 +192,9 @@ class MoEFFN(nn.Module):
         impl = impl or self.impl
         probs = self.route(x)
         if impl == "ragged":
+            if self.tp_group is not None:
+                raise ValueError("the ragged dispatch is single-shard: "
+                                 "expert parallelism runs einsum")
             y, aux = self._ragged(x, probs)
             dropped = probs.new_zeros(())
         elif impl == "einsum":
@@ -151,8 +206,23 @@ class MoEFFN(nn.Module):
     def _einsum(self, x, probs):
         b, s, _ = x.shape
         cap = capacity(self.capacity_factor, self.top_k, s, self.num_experts)
-        dispatch, combine, aux = top_k_routing(probs, self.top_k, cap)
-        dropped = 1.0 - dispatch.detach().sum() / (b * s * self.top_k)
+        g = self.tp_group
+        dispatch, combine, aux = top_k_routing(
+            copy_to(probs, g), self.top_k, cap, aux_probs=probs,
+            data_group=self.data_group, data_size=self.data_size)
+        if self.data_group is None:
+            dropped = 1.0 - dispatch.detach().sum() / (b * s * self.top_k)
+        else:                       # the global batch's pairs
+            placed = dispatch.detach().sum().reshape(1)
+            placed = torch.cat([placed, placed.new_full(
+                (1,), float(b * s * self.top_k))])
+            dist.all_reduce(placed, group=self.data_group)
+            dropped = 1.0 - placed[0] / placed[1]
+        if g is not None:
+            e0, el = self.expert_offset, self.local_experts
+            dispatch, combine = dispatch[:, :, e0:e0 + el], \
+                combine[:, :, e0:e0 + el]
+            x = copy_to(x, g)
         dt = self.dtype
         # dispatch is 0/1 exactly; combine loses bf16 rounding only
         dispatch, combine = dispatch.to(dt), combine.to(dt)
@@ -160,7 +230,8 @@ class MoEFFN(nn.Module):
         act = F.gelu(torch.einsum("ebch,ehf->ebcf", xin, self.wi.to(dt)),
                      approximate="tanh")
         out = torch.einsum("ebcf,efh->ebch", act, self.wo.to(dt))
-        return torch.einsum("bsec,ebch->bsh", combine, out), aux, dropped
+        return (reduce_from(torch.einsum("bsec,ebch->bsh", combine, out), g),
+                aux, dropped)
 
     def _ragged(self, x, probs):
         b, s, h = x.shape

@@ -66,6 +66,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from tpu_hc_bench_torch.ops import fused_conv as fc
+from tpu_hc_bench_torch.parallel import collectives
 
 __all__ = ["BasicBlock", "BatchNorm", "BottleneckBlock", "Conv",
            "FlaxInit", "FusedBNReluConv3x3", "FusedBottleneckBlock",
@@ -83,17 +84,19 @@ _DIMS = (0, 2, 3)       # a channel's values in NCHW
 sync_calls = 0
 
 
-def _allreduce_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the default group's ranks, in a new tensor; a
-    card's tensor takes the host round trip where the group is gloo."""
+def _allreduce_sum(t: torch.Tensor, axis=None) -> torch.Tensor:
+    """``t`` (1-D) summed over the data axis ``axis`` (``(group,
+    hierarchy)``; None: the default group), in a new tensor; a card's
+    tensor takes the host round trip where the group is gloo."""
     global sync_calls
     sync_calls += 1
+    group, hier = axis or (None, None)
     if t.is_cuda and dist.get_backend() == "gloo":
         host = t.cpu()
-        dist.all_reduce(host)
+        collectives.all_reduce_(host, group, hier)
         return host.to(t.device)
     out = t.clone()
-    dist.all_reduce(out)
+    collectives.all_reduce_(out, group, hier)
     return out
 
 
@@ -103,18 +106,20 @@ class _SyncSum(torch.autograd.Function):
     input through it)."""
 
     @staticmethod
-    def forward(ctx, t):
-        return _allreduce_sum(t)
+    def forward(ctx, t, axis):
+        ctx.axis = axis
+        return _allreduce_sum(t, axis)
 
     @staticmethod
     def backward(ctx, g):
-        return _allreduce_sum(g)
+        return _allreduce_sum(g.contiguous(), ctx.axis), None
 
 
-def sync_sum(t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks of the default process group, with
-    the backward of a global sum (one all-reduce each way)."""
-    return _SyncSum.apply(t)
+def sync_sum(t: torch.Tensor, axis=None) -> torch.Tensor:
+    """``t`` summed over the ranks of the data axis (``axis``: ``(group,
+    hierarchy)``, default the default process group), with the backward
+    of a global sum (one all-reduce each way)."""
+    return _SyncSum.apply(t, axis)
 
 
 def batch_moments(bn: "BatchNorm", s1: torch.Tensor, s2: torch.Tensor,
@@ -128,7 +133,7 @@ def batch_moments(bn: "BatchNorm", s1: torch.Tensor, s2: torch.Tensor,
     c = s1.shape[0]
     tot = torch.cat([s1, s2, s1.new_full((1,), float(n))])
     if bn.sync:
-        tot = sync_sum(tot)
+        tot = sync_sum(tot, bn.sync_axis)
     count = tot[2 * c]
     return tot[:c] / count, tot[c:2 * c] / count
 
@@ -222,6 +227,7 @@ class BatchNorm(nn.Module):
         self.momentum, self.eps = momentum, eps
         self.frozen = False            # running_stats_frozen sets it
         self.sync = False              # statistics over every rank
+        self.sync_axis = None          # (group, hierarchy) of the sum
 
     def init_weights(self, gen: torch.Generator | None = None) -> None:
         del gen

@@ -34,7 +34,15 @@ first step and carry no BatchNorm statistics.
   keeps that tree bf16 through the all-reduce) after the backward.
 - ``allreduce_mean_`` averages a list of tensors in place through the
   same buckets: the BatchNorm running statistics and the loss.
-- ``psum``, ``pmean``, ``all_gather``, ``reduce_scatter`` and
+- **Multislice** (``fabric=dcn --num_slices=S``): the data axis is
+  ``(dcn, data)``, and every sum over it (``all_reduce_`` with a
+  ``Hierarchy``: the gradient buckets, hooks included, the statistics,
+  the loss, sync-BN, the eval sums) takes three steps, JAX's
+  hierarchical all-reduce: a reduce-scatter inside the slice, an
+  all-reduce across the slices over the ranks holding the same shard,
+  and an all-gather inside the slice.  The buffer is zero-padded to a
+  multiple of the slice's ranks.
+- ``psum``, ``all_gather``, ``reduce_scatter`` and
   ``ppermute_ring``: the primitives of the OSU sweep.
 - ``ring_shift`` and ``all_to_all``: the differentiable collectives of
   sequence parallelism (``parallel.sequence``).  ``ring_shift`` sends
@@ -52,6 +60,11 @@ first step and carry no BatchNorm statistics.
   counterpart that reduce-scatters each bucket of gradients (from the
   hooks under overlap) into this rank's shards and all-gathers the
   updated parameter shards after the optimizer step.
+- **Elastic resume** (``--resume=elastic``): ``zero1_resplit_rows``
+  (JAX's: one tensor's ``[n_old, k]`` rows, the old padding stripped,
+  re-padded and restacked ``[n_new, k']``) and ``resplit_zero1_opt``
+  (every rank's optimizer ``state_dict`` of its shards, as a zero1
+  checkpoint holds them, resplit for another world), host code only.
 
 Which element rides in which bucket never changes its value, only the
 schedule.  A ``wait()`` on NCCL makes the current stream wait, not the
@@ -60,8 +73,11 @@ host.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Iterable, Sequence
+
+import numpy as np
 
 import torch
 import torch.distributed as dist
@@ -69,15 +85,63 @@ import torch.distributed as dist
 from tpu_hc_bench_torch.flags import DEFAULT_FUSION_THRESHOLD_BYTES
 
 
+@dataclasses.dataclass(frozen=True)
+class Hierarchy:
+    """The multislice data axis ``(dcn, data)`` of one rank: its slice's
+    group (``slice_size`` ranks) and the group of the ranks at its place
+    in every slice (``num_slices`` ranks)."""
+
+    slice_group: object
+    cross_group: object
+    slice_size: int
+    num_slices: int
+
+
+class _HierWork:
+    """The three steps of the hierarchical all-reduce of a flat buffer:
+    the reduce-scatter in the slice is launched here; ``wait`` finishes
+    it, sums the shard across the slices and gathers it back."""
+
+    def __init__(self, flat: torch.Tensor, h: Hierarchy):
+        m, n = h.slice_size, flat.numel()
+        k = -(-n // m)
+        self.flat, self.h, self.n = flat, h, n
+        self.buf = (flat if m * k == n
+                    else torch.cat([flat, flat.new_zeros(m * k - n)]))
+        self.shard = flat.new_empty(k)
+        self.work = dist.reduce_scatter_tensor(
+            self.shard, self.buf, group=h.slice_group, async_op=True)
+
+    def wait(self) -> bool:
+        self.work.wait()
+        dist.all_reduce(self.shard, group=self.h.cross_group)
+        # all_gather_single where this torch has it (it deprecates the
+        # older name)
+        getattr(dist, "all_gather_single", dist.all_gather_into_tensor)(
+            self.buf, self.shard, group=self.h.slice_group)
+        if self.buf is not self.flat:
+            self.flat.copy_(self.buf[:self.n])
+        return True
+
+
+def all_reduce_(flat: torch.Tensor, group=None,
+                hier: Hierarchy | None = None, async_op: bool = False):
+    """Sum the contiguous 1-D ``flat`` over ``group`` in place, or with
+    ``hier`` over ``(dcn, data)`` in its three steps; returns the work
+    handle under ``async_op``, else None."""
+    if hier is None:
+        return dist.all_reduce(flat, group=group, async_op=async_op)
+    work = _HierWork(flat, hier)
+    if async_op:
+        return work
+    work.wait()
+    return None
+
+
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum over the group, in place: MPI_Allreduce(SUM)."""
     dist.all_reduce(x, group=group)
     return x
-
-
-def pmean(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Mean over the group, in place: Horovod's gradient averaging."""
-    return psum(x, group).div_(dist.get_world_size(group))
 
 
 def all_gather(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -243,17 +307,20 @@ def unpack(flat: torch.Tensor, dst: Sequence[torch.Tensor]) -> None:
 
 def allreduce_mean_(tensors: Sequence[torch.Tensor], group=None,
                     threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES,
-                    fuse: bool = True) -> int:
-    """Average ``tensors`` over ``group`` in place through the fusion
-    buckets, packed in reverse order as JAX's ``fused_psum_tree`` packs
-    the BatchNorm statistics (``fuse=False``: one all-reduce a tensor);
-    returns the number of all-reduce calls."""
+                    fuse: bool = True, hier: Hierarchy | None = None) -> int:
+    """Average ``tensors`` over ``group`` (``hier``: hierarchically) in
+    place through the fusion buckets, packed in reverse order as JAX's
+    ``fused_psum_tree`` packs the BatchNorm statistics (``fuse=False``:
+    one all-reduce a tensor); returns the number of all-reduce calls."""
     if not tensors:
         return 0
     buckets = plan_buckets(tensors, threshold_bytes, fuse)
+    n = dist.get_world_size(group)
     for bucket in buckets:
         members = [tensors[i] for i in bucket]
-        unpack(pmean(pack(members), group), members)
+        flat = pack(members)
+        all_reduce_(flat, group, hier)
+        unpack(flat.div_(n), members)
     return len(buckets)
 
 
@@ -273,9 +340,10 @@ class GradReducer:
 
     def __init__(self, params: Iterable[torch.nn.Parameter], group=None,
                  threshold_bytes: int = DEFAULT_FUSION_THRESHOLD_BYTES,
-                 fuse: bool = True, overlap: bool = True):
+                 fuse: bool = True, overlap: bool = True,
+                 hier: Hierarchy | None = None):
         self.params = [p for p in params if p.requires_grad]
-        self.group = group
+        self.group, self.hier = group, hier
         self.world = dist.get_world_size(group)
         self.buckets = plan_buckets(self.params, threshold_bytes, fuse,
                                     overlap)
@@ -303,7 +371,9 @@ class GradReducer:
                                               self._fuse, self._overlap)
         for idx in self._tree_buckets:
             members = [tree[i] for i in idx]
-            unpack(pmean(pack(members), self.group), members)
+            flat = pack(members)
+            all_reduce_(flat, self.group, self.hier)
+            unpack(flat.div_(self.world), members)
         self.tree_calls = len(self._tree_buckets)
         return self.tree_calls
 
@@ -329,8 +399,8 @@ class GradReducer:
                      for p in members])
         if self._divisor != 1:
             flat.div_(self._divisor)
-        self._work[b] = (flat, dist.all_reduce(flat, group=self.group,
-                                               async_op=True))
+        self._work[b] = (flat, all_reduce_(flat, self.group, self.hier,
+                                           async_op=True))
         self._next = b + 1
 
     def finish(self) -> int:
@@ -533,3 +603,53 @@ class Zero1Reducer(GradReducer):
                            if g is not None]).sum()
         dist.all_reduce(gsq, group=self.group)
         return gsq
+
+
+# --- elastic resume: zero1's rows for another world -------------------------
+
+
+def zero1_resplit_rows(rows, size: int, num_shards: int) -> np.ndarray:
+    """One tensor's stacked shards ``[n_old, k_old]`` (``leaf_to_rows``'
+    layout of a ``size``-element tensor) laid out for ``num_shards``
+    ranks: the old padding stripped, re-padded to ``num_shards x
+    zero1_shard_len(size, num_shards)`` and restacked (JAX's
+    ``zero1_resplit_rows``): host numpy, bit for bit on the ``size``
+    real elements."""
+    k = zero1_shard_len(size, num_shards)
+    flat = np.asarray(rows).reshape(-1)[:size]
+    pad = num_shards * k - size
+    if pad:
+        flat = np.pad(flat, (0, pad))
+    return flat.reshape(num_shards, k)
+
+
+def resplit_zero1_opt(shards: Sequence[dict], sizes: Sequence[int],
+                      n_new: int) -> list[dict]:
+    """The optimizer ``state_dict``s of ``n_old = len(shards)`` zero1
+    ranks (each over its shards of the parameters, ``sizes`` their
+    element counts in ``state_dict`` order) resplit for ``n_new`` ranks
+    (JAX's ``resplit_zero1_opt``): each per-parameter tensor of the
+    old shard length is stacked ``[n_old, k]`` over the ranks and
+    resplit by ``zero1_resplit_rows``; the rest (Adam's step count,
+    equal on every rank, and the hyperparameters) is rank 0's.  At
+    ``n_new == n_old`` the state comes back unchanged."""
+    n_old = len(shards)
+    out = [{"state": {}, "param_groups": [dict(g) for g in
+                                          shards[0]["param_groups"]]}
+           for _ in range(n_new)]
+    for idx, first in shards[0]["state"].items():
+        k_old = zero1_shard_len(sizes[idx], n_old)
+        for key, v in first.items():
+            if (isinstance(v, torch.Tensor) and v.dim() == 1
+                    and v.numel() == k_old):
+                rows = torch.stack([s["state"][idx][key] for s in shards])
+                new = torch.from_numpy(np.ascontiguousarray(
+                    zero1_resplit_rows(rows.numpy(), sizes[idx], n_new)))
+                for r in range(n_new):
+                    out[r]["state"].setdefault(idx, {})[key] = \
+                        new[r].clone()
+            else:
+                for r in range(n_new):
+                    out[r]["state"].setdefault(idx, {})[key] = (
+                        v.clone() if isinstance(v, torch.Tensor) else v)
+    return out

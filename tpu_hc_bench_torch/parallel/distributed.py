@@ -24,20 +24,27 @@ The reference forms a cluster from a ``nodeips.txt`` hostfile and
 - **World 1** on the fast fabric is a one-rank group over an in-process
   ``HashStore`` (``init_single``), as the JAX package runs its psum over
   a one-device mesh.
-- **The mesh** (``build_mesh``): the parts of JAX's ``topology.build_mesh``
-  that sequence parallelism needs, as process groups.  The rank order is
-  data-major and seq-minor, rank = data index x sp + seq index, so a seq
-  group holds consecutive ranks (one host's cards); every rank creates
-  every seq group and every data group, in one order.  A group that
-  spans the whole world is the default group (no second communicator).
-  At ``sequence_parallel=1`` under a sequence-sharded impl each seq group
-  is the one-rank group of its rank (JAX keeps the axis bound at size 1,
-  ``force_seq_axis``).
+- **The mesh** (``build_mesh``): JAX's ``topology.build_mesh`` as process
+  groups, over the axes ``(dcn, data, seq|model)``.  Axis order is
+  collective frequency: the minor axis (``seq`` or ``model``) is
+  innermost, so its group holds consecutive ranks (one host's cards);
+  ``dcn`` (``--num_slices``, the multislice layout) is outermost, so a
+  slice is a block of consecutive ranks.  rank = (slice x data + data
+  index) x minor + minor index.  Every rank creates every group, in one
+  order (the minor groups, the data groups, then the slice and
+  cross-slice groups): ``dist.new_group`` is a collective call.  A group
+  that spans the whole world is the default group (no second
+  communicator).  ``force_seq_axis`` binds a one-rank seq group at
+  ``sequence_parallel=1`` (the sequence-sharded impls need the axis,
+  JAX's ``force_seq_axis``).  ``mesh_shape`` is the mesh's JAX shape,
+  ``{"data": ..., "model": 1}`` for plain data parallelism, which the
+  checkpoint's topology record keeps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import signal
 import subprocess
@@ -175,38 +182,117 @@ def barrier() -> None:
         dist.barrier()
 
 
+DCN_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS = "dcn", "data", "seq", "model"
+
+
+def mesh_shape(world: int, sequence_parallel: int = 1,
+               model_parallel: int = 1, num_slices: int = 1,
+               num_hosts: int = 1, force_seq_axis: bool = False) -> dict:
+    """The mesh's axes and sizes in JAX's order and with JAX's errors
+    (``topology.build_mesh``): ``{"data": n, "model": 1}`` for plain data
+    parallelism, a leading ``dcn`` axis under multislice, the minor axes
+    after ``data``."""
+    minors = [(SEQ_AXIS, sequence_parallel), (MODEL_AXIS, model_parallel)]
+    for name, deg in minors:
+        if deg < 1:
+            raise ValueError(f"{name} degree must be >= 1, got {deg}")
+    active = [(name, deg) for name, deg in minors
+              if deg > 1 or (name == SEQ_AXIS and force_seq_axis)]
+    prod = math.prod(deg for _, deg in active)
+    if world % prod:
+        raise ValueError(
+            f"{world} devices not divisible by the minor-axis product "
+            f"{prod} ({'x'.join(f'{nm}={d}' for nm, d in active)})")
+    if not active:
+        active = [(MODEL_AXIS, 1)]      # the 2-D DP mesh shape
+    if num_slices < 1:
+        raise ValueError(f"num_slices must be >= 1, got {num_slices}")
+    data = world // prod
+    if num_slices > 1:
+        if num_hosts > 1 and num_hosts % num_slices:
+            raise ValueError(
+                f"num_slices={num_slices} does not divide "
+                f"num_hosts={num_hosts}")
+        if data % num_slices:
+            raise ValueError(
+                f"data degree {data} not divisible by num_slices="
+                f"{num_slices}")
+        return {DCN_AXIS: num_slices, DATA_AXIS: data // num_slices,
+                **dict(active)}
+    return {DATA_AXIS: data, **dict(active)}
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place on the (data, seq) mesh and its two groups."""
+    """This rank's place on the mesh and its groups.  ``dp`` is the
+    data-parallel degree over both ``(dcn, data)``, ``data_index`` this
+    rank's place on it and ``data_group`` its ranks; ``sp`` and ``tp``
+    the seq and model degrees (one of them 1), with their groups (None
+    where the axis is not bound); ``hier`` the slice and cross-slice
+    groups under multislice (``collectives.Hierarchy``), else None."""
 
     dp: int
     sp: int
     data_index: int
     seq_index: int
     data_group: object
-    seq_group: object
+    seq_group: object = None
+    tp: int = 1
+    model_index: int = 0
+    model_group: object = None
+    num_slices: int = 1
+    hier: object = None
+    shape: dict = dataclasses.field(default_factory=dict)
 
 
-def build_mesh(sequence_parallel: int = 1) -> Mesh:
-    """The (data, seq) mesh over the default process group, which must
-    be up; a collective call: every rank makes it."""
-    world, r, sp = dist.get_world_size(), dist.get_rank(), sequence_parallel
-    if sp < 1 or world % sp:
-        raise ValueError(
-            f"--model_parallel/--expert_parallel/--pipeline_parallel/"
-            f"--sequence_parallel product {sp} does not divide {world} "
-            f"workers")
-    dp = world // sp
+def build_mesh(sequence_parallel: int = 1, model_parallel: int = 1,
+               num_slices: int = 1, num_hosts: int = 1,
+               force_seq_axis: bool = True) -> Mesh:
+    """The mesh over the default process group, which must be up; a
+    collective call: every rank makes it.  ``force_seq_axis``: bind the
+    seq axis (its one-rank groups at ``sequence_parallel=1``)."""
+    from tpu_hc_bench_torch.parallel.collectives import Hierarchy
+
+    world, r = dist.get_world_size(), dist.get_rank()
+    shape = mesh_shape(world, sequence_parallel, model_parallel,
+                       num_slices, num_hosts,
+                       force_seq_axis and model_parallel == 1)
+    minor = world // (shape[DATA_AXIS] * shape.get(DCN_AXIS, 1))
+    dp = world // minor
 
     def group(ranks: list[int]):
         return (dist.group.WORLD if len(ranks) == world
                 else dist.new_group(ranks))
 
-    seq_groups = [group(list(range(d * sp, (d + 1) * sp)))
-                  for d in range(dp)]
-    data_groups = [group(list(range(s, world, sp))) for s in range(sp)]
-    return Mesh(dp, sp, r // sp, r % sp, data_groups[r % sp],
-                seq_groups[r // sp])
+    minor_groups = ([group(list(range(d * minor, (d + 1) * minor)))
+                     for d in range(dp)]
+                    if SEQ_AXIS in shape or shape.get(MODEL_AXIS, 1) > 1
+                    else None)
+    data_groups = [group(list(range(m, world, minor)))
+                   for m in range(minor)]
+    hier = None
+    if num_slices > 1:
+        m_slice = dp // num_slices
+        slices = [[group([(s * m_slice + d) * minor + m
+                          for d in range(m_slice)])
+                   for m in range(minor)] for s in range(num_slices)]
+        cross = [[group([(s * m_slice + d) * minor + m
+                         for s in range(num_slices)])
+                  for m in range(minor)] for d in range(m_slice)]
+        d_all = r // minor
+        hier = Hierarchy(slices[d_all // m_slice][r % minor],
+                         cross[d_all % m_slice][r % minor], m_slice,
+                         num_slices)
+    mine = minor_groups[r // minor] if minor_groups else None
+    seq = SEQ_AXIS in shape
+    return Mesh(dp=dp, sp=minor if seq else 1,
+                data_index=r // minor, seq_index=r % minor if seq else 0,
+                data_group=data_groups[r % minor],
+                seq_group=mine if seq else None,
+                tp=1 if seq else minor,
+                model_index=0 if seq else r % minor,
+                model_group=None if seq else mine,
+                num_slices=num_slices, hier=hier, shape=shape)
 
 
 def _stop(procs: Sequence[subprocess.Popen]) -> None:

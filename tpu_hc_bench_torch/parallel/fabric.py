@@ -10,8 +10,12 @@ no-InfiniBand smoke test.  On the card:
 - ``ib`` / ``ici`` / ``dcn`` (``Fabric.is_fast``): gradients are reduced
   by NCCL collectives on the device (gloo when the run is on the CPU, by
   request), through the fusion buckets of ``parallel.collectives``.
-  ``dcn`` is accepted as the JAX package accepts it; the port has no
-  multislice hierarchy, so it runs the same flat all-reduce.
+  ``dcn`` is the multislice layout (JAX's round 3): ``--num_slices``
+  slices (default one a host) split the data axis into ``(dcn, data)``
+  and every sum over it is hierarchical (a reduce-scatter in the slice,
+  an all-reduce across slices, an all-gather in the slice;
+  ``collectives.all_reduce_``).  One slice is the flat all-reduce of
+  ``ib``.
 - ``sock`` / ``host``: gradients, BatchNorm statistics and the loss are
   copied into one host buffer, summed over a gloo group and copied back
   (``host_allreduce``).  Deliberately slow: the slow arm of the
@@ -31,7 +35,7 @@ from tpu_hc_bench_torch.parallel.collectives import pack, unpack
 
 class Fabric(enum.Enum):
     ICI = "ici"    # fast path: device collectives (reference: ib)
-    DCN = "dcn"    # accepted alias of the cross-slice case
+    DCN = "dcn"    # the multislice layout: (dcn, data), hierarchical
     HOST = "host"  # slow path: host-mediated reduce (reference: sock)
 
     @property

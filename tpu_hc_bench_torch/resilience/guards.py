@@ -43,6 +43,17 @@ def finite_flag(loss: torch.Tensor, grads=None) -> torch.Tensor:
     return ok
 
 
+def world_flag(ok: torch.Tensor) -> torch.Tensor:
+    """``ok`` and-ed over every rank of the default group (a MIN
+    all-reduce on the device): under tensor parallelism each rank sees
+    its own shards' gradients, and one rank's NaN must stop them all."""
+    import torch.distributed as dist
+
+    flag = ok.to(torch.float32).reshape(1)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN)
+    return flag[0] > 0.5
+
+
 def nonfinite_metric(ok: torch.Tensor) -> torch.Tensor:
     """The per-step guard metric: int32 1 when the step was bad, else 0."""
     return (~ok).to(torch.int32)

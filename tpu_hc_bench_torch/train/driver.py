@@ -83,6 +83,30 @@ the loss and the statistics are averaged over the whole world (both
 axes), as JAX's ``(data, seq)`` step.  The host fabric is refused under
 any sharded impl, the degenerate one included, as in JAX.
 
+Tensor and expert parallelism (``--model_parallel``, ``--expert_parallel``;
+JAX's GSPMD arm): the world is a (data, model) mesh, a model group of
+consecutive ranks; the model is built whole from the seed on every rank
+and cut (``parallel.tensor.shard_model_``); the ranks of a model group
+read their data group's rows and draw one dropout stream (seeded by the
+group's first rank, ``_dropout_rank``), and the global batch counts the
+data groups' rows (``world x batch / max(tp, ep)``).  A checkpoint holds
+the full tree (gathered on save, cut on restore), so it resumes under
+another tp or none.  JAX's refusals: a host fabric, ``--scan_layers``, a
+degree that does not divide the world, a model with no split parameter.
+
+Multislice (``dcn``; JAX's round 3): ``--num_slices`` (default one a
+host) splits the data axis into ``(dcn, data)``, every sum over it is
+hierarchical, and the banner reads ``multislice: N slices x ... — data
+axis = dcn(N) x data(M)``; ``--num_slices`` on another fabric and a
+model axis under multislice are refused, as in JAX.
+
+Elastic resume (``--resume=elastic``; JAX's ``_maybe_restore``): a
+checkpoint whose topology sidecar differs from the live world is placed
+by ``checkpoint.elastic_plan``; the plan is printed as ``elastic
+resume: <plan>``, a zero1 state saved at another world is resplit for
+this one (``restore_elastic``), and the result's ``resume`` says
+``elastic``.  Without the flag such a resume raises, naming both sides.
+
 Guards and observability (JAX's driver; ``_run_train``): the
 ``--inject_fault`` plan fires before each timed step; SIGTERM/SIGINT is a
 flag honored at a step boundary (the ranks agree at sync-window
@@ -138,8 +162,8 @@ from tpu_hc_bench_torch.data.synthetic import (
     tokens_to_device)
 from tpu_hc_bench_torch.flags import BenchmarkConfig
 from tpu_hc_bench_torch.models import create_model, get_model_spec
-from tpu_hc_bench_torch.parallel import distributed
-from tpu_hc_bench_torch.parallel.fabric import resolve_fabric
+from tpu_hc_bench_torch.parallel import distributed, tensor
+from tpu_hc_bench_torch.parallel.fabric import Fabric, resolve_fabric
 from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import hw
 from tpu_hc_bench_torch.utils.sync import drain
@@ -166,6 +190,9 @@ class BenchmarkResult:
     fused_xent: bool = False         # text models: the blocked xent kernels
     variable_update: str = "psum"    # psum | replicated | zero1
     sequence_parallel: int = 1       # seq shards a seq group
+    model_parallel: int = 1          # TP: ranks a model group
+    expert_parallel: int = 1         # EP: ranks a model group
+    num_slices: int = 1              # multislice: slices of the data axis
     overlap_grad_comm: str = "on"
     gradient_accumulation_steps: int = 1
     grad_buckets: int = 0            # the fast fabric's gradient buckets
@@ -273,9 +300,12 @@ def _maybe_restore(state, cfg: BenchmarkConfig, topo: dict | None,
                    rank: int, print_fn) -> dict | None:
     """--train_dir's resume (JAX ``_maybe_restore``): the latest complete
     checkpoint into ``state``, per ``--resume`` (auto: if there is one;
-    never: a fresh start; must: raise if there is none), every rank from
-    the same files; returns the resume record, None where nothing was
-    restored.  Step directories without a sentinel are never restored,
+    never: a fresh start; must: raise if there is none; elastic: as must,
+    and a zero1 state saved at another world is resplit for this one),
+    every rank from the same files, its topology sidecar checked against
+    the live one first (``elastic_plan``, whose line is printed); returns
+    the resume record, None where nothing was restored.  Step
+    directories without a sentinel are never restored,
     and never started over silently either: a warning names them."""
     if not cfg.train_dir or cfg.resume == "never":
         return None
@@ -293,25 +323,45 @@ def _maybe_restore(state, cfg: BenchmarkConfig, topo: dict | None,
                 f"{'...' if len(orphans) > 4 else ''}): crashed saves — "
                 f"verify and `touch <dir>/step_NNNNNNNN.complete` to "
                 f"adopt; starting fresh")
-        if cfg.resume == "must":
+        if cfg.resume in ("must", "elastic"):
             raise FileNotFoundError(
-                f"--resume=must: no complete checkpoint under "
+                f"--resume={cfg.resume}: no complete checkpoint under "
                 f"{cfg.train_dir}")
         return None
     saved = ckpt.read_topology(cfg.train_dir)
+    action, plan = "ok", ""
     if saved is not None:
-        _, plan = ckpt.check_topology(saved, topo, cfg.train_dir)
+        action, plan = ckpt.check_topology(saved, topo, cfg.train_dir,
+                                           elastic=cfg.resume == "elastic")
         if plan:
-            print_fn(f"resume: {plan}")
-    ckpt.restore(state, cfg.train_dir, rank=rank)
-    fp = ckpt.fingerprint(state.model.state_dict())
+            print_fn(f"elastic resume: {plan}")
+    elif cfg.resume == "elastic":
+        print_fn("elastic resume: checkpoint has no topology sidecar "
+                 "(pre-elastic save); assuming the saved topology "
+                 "matches the live one")
+    if action == "reshard":
+        ckpt.restore_elastic(state, cfg.train_dir, saved, topo["world"],
+                             rank=rank)
+    else:
+        ckpt.restore(state, cfg.train_dir, rank=rank)
+    fp = ckpt.model_fingerprint(state)
     print_fn(f"restored checkpoint step {state.step} from {cfg.train_dir}")
     print_fn(f"state fingerprint: {fp}")
     return {"restored_step": state.step,
             "saved_world": (saved or {}).get("world"),
             "live_world": topo["world"],
             "arm": (saved or {}).get("variable_update"),
-            "fingerprint": fp}
+            "elastic": action == "reshard", "fingerprint": fp}
+
+
+def _dropout_rank(mesh, rank: int) -> int:
+    """The rank whose dropout stream this rank draws (``create_model``'s
+    seed, a restored generator state): its own, but under a model axis
+    its model group's first rank's, so the ranks of a model group, whose
+    activations are replicated, draw the same masks."""
+    if mesh is None or mesh.tp == 1:
+        return rank
+    return mesh.data_index * mesh.tp
 
 
 def _require_checkpoint_for_eval(cfg: BenchmarkConfig, restored: bool,
@@ -467,8 +517,7 @@ class _Saver:
         self.land()
         return {"train_dir": self.cfg.train_dir, "saves": self.saves,
                 "final_step": state.step,
-                "fingerprint": self.ckpt.fingerprint(
-                    state.model.state_dict())}
+                "fingerprint": self.ckpt.model_fingerprint(state)}
 
 
 @dataclasses.dataclass
@@ -692,16 +741,25 @@ class _ServiceStats:
 
 
 def _image_input(cfg, spec, dev, rank: int, world: int, global_batch: int,
-                 split: str, local_workers: int, print_fn) -> _Input:
+                 split: str, local_workers: int, print_fn,
+                 model_axis: bool = False) -> _Input:
     """ImageNet TFRecords: this rank's shards, its rows of each global
     batch (decoded alone unless --full_batch_identity), through the
     feeder, from this process's decode pool or the host's input service;
-    or --datasets_repeat_cached_sample's 8 batches on the card."""
+    or --datasets_repeat_cached_sample's 8 batches on the card.  Under a
+    model axis ``rank`` and ``world`` are the data index and degree, and
+    each rank decodes in its own pool (the service's streams are one a
+    rank)."""
     from tpu_hc_bench_torch.data.imagenet import ImageNetDataset
 
     rows = (rank * cfg.batch_size, (rank + 1) * cfg.batch_size)
     sliced = world > 1 and not cfg.full_batch_identity
-    if _input_service_on(cfg, world, local_workers):
+    if model_axis and cfg.input_service == "on":
+        raise ValueError(
+            "--input_service=on serves one stream a rank; under a model "
+            "axis the ranks of a model group read the same rows: use "
+            "--input_service=off")
+    if not model_axis and _input_service_on(cfg, world, local_workers):
         return _service_input(cfg, spec, dev, rank, world, global_batch,
                               split, sliced, rows, print_fn)
     ds = ImageNetDataset(
@@ -771,7 +829,8 @@ def _token_input(cfg, spec, dev, rank: int, world: int, global_batch: int,
 
 def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
               total_workers: int, dev, kind: str, fabric: str,
-              grouped: bool, print_fn) -> BenchmarkResult:
+              grouped: bool, print_fn, num_slices: int = 1
+              ) -> BenchmarkResult:
     """tf_cnn_benchmarks --eval (JAX ``_run_eval``): at most 5 warmup
     batches, then ``num_batches`` timed forward passes with running
     statistics; top-1 over every timed example."""
@@ -820,6 +879,8 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
         attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent,
         variable_update=cfg.variable_update,
         sequence_parallel=cfg.sequence_parallel,
+        model_parallel=cfg.model_parallel,
+        expert_parallel=cfg.expert_parallel, num_slices=num_slices,
         overlap_grad_comm=cfg.overlap_grad_comm, eval_top_1=top1,
         data=_data_record(inp, wait_s, cfg.num_batches))
     print_fn("-" * 40)
@@ -852,22 +913,55 @@ def _data_record(inp: _Input, wait_s: float, steps: int) -> dict | None:
     return rec
 
 
-def _sequence_mesh(cfg: BenchmarkConfig, fab, grouped: bool):
-    """The (data, seq) mesh under sequence parallelism (JAX's
-    ``sp_active`` checks), else None."""
-    if not cfg.sp_active:
-        return None
-    if not fab.is_fast:
+def _mesh(cfg: BenchmarkConfig, fab, grouped: bool, world: int,
+          num_hosts: int):
+    """The mesh of process groups (JAX's ``run_benchmark`` checks and
+    ``build_mesh``): (data, seq) under sequence parallelism, (data,
+    model) under TP/EP, (dcn, data) under multislice; None for plain
+    data parallelism and one worker."""
+    tp, ep, sp = cfg.model_parallel, cfg.expert_parallel, \
+        cfg.sequence_parallel
+    if cfg.scan_layers and (tp > 1 or ep > 1):
+        raise ValueError(
+            "--scan_layers stacks the trunk params [L, ...] (one compiled "
+            "layer body), which the layer_i-based PP interface and the "
+            "per-tensor TP/EP sharding rules do not address yet; drop "
+            "--scan_layers or the model/pipe axes")
+    mp = max(tp, ep) * sp
+    if world % mp:
+        raise ValueError(
+            f"--model_parallel/--expert_parallel/--pipeline_parallel/"
+            f"--sequence_parallel product {mp} does not divide {world} "
+            f"workers")
+    if (mp > 1 or cfg.sp_active) and not fab.is_fast:
         raise ValueError(
             "--model_parallel/--expert_parallel/--pipeline_parallel/"
             "--sequence_parallel (incl. the degenerate seq axis of the "
             "seq-sharded attention impls) requires a device fabric "
             "(ici/dcn): the host path's shard_map binds no seq axis and "
             "would silently re-replicate the shards")
+    num_slices = 1
+    if fab is Fabric.DCN:
+        num_slices = cfg.num_slices or num_hosts
+        if num_slices > 1 and mp > 1:
+            raise ValueError(
+                "fabric=dcn multislice currently composes with data "
+                "parallelism only")
+    elif cfg.num_slices > 1:
+        raise ValueError("--num_slices requires fabric=dcn")
+    if num_slices > 1 and cfg.variable_update == "zero1":
+        raise ValueError(
+            "--variable_update=zero1 composes with single-slice data "
+            "parallelism only (the multislice (dcn, data) hierarchical "
+            "reduce has no reduce-scatter layout yet)")
+    if not (cfg.sp_active or mp > 1 or num_slices > 1):
+        return None
     if not grouped:
-        raise ValueError("sequence parallelism needs a process group "
-                         "(the launcher starts one on a fast fabric)")
-    return distributed.build_mesh(cfg.sequence_parallel)
+        raise ValueError("a mesh axis needs a process group (the "
+                         "launcher starts one on a fast fabric)")
+    return distributed.build_mesh(
+        sp, max(tp, ep), num_slices, num_hosts,
+        force_seq_axis=cfg.sp_active)
 
 
 def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
@@ -915,9 +1009,16 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         # asked cuDNN for reproducible runs)
         torch.backends.cudnn.benchmark = True
     dtype = torch.bfloat16 if cfg.use_fp16 else torch.float32
-    mesh = _sequence_mesh(cfg, fab, grouped)
-    # the seq axis divides the data-parallel degree: sequences, not shards
-    global_batch = cfg.batch_size * total_workers // cfg.sequence_parallel
+    num_hosts = max(1, total_workers // max(1, local_workers))
+    mesh = _mesh(cfg, fab, grouped, total_workers, num_hosts)
+    model_axis = mesh is not None and mesh.tp > 1
+    num_slices = mesh.num_slices if mesh is not None else 1
+    dropout_rank = _dropout_rank(mesh, rank)
+    # the minor axes divide the data-parallel degree: the global batch
+    # counts the data groups' rows (sequences, not shards)
+    global_batch = cfg.batch_size * total_workers // (
+        max(cfg.model_parallel, cfg.expert_parallel)
+        * cfg.sequence_parallel)
     split = _split(cfg, spec)
     _resolve_epochs(cfg, spec, split, global_batch, print_fn)
     # a text model's spec comes back rescaled to --seq_len
@@ -925,7 +1026,7 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         cfg.model, dtype, cfg.attention_impl, device=dev, seed=cfg.seed,
         fused_conv=cfg.fused_conv, train=True, num_classes=cfg.num_classes,
         space_to_depth=cfg.use_space_to_depth, seq_len=cfg.seq_len,
-        rank=rank, gradient_checkpointing=cfg.gradient_checkpointing,
+        rank=dropout_rank, gradient_checkpointing=cfg.gradient_checkpointing,
         scan_layers=cfg.scan_layers, moe_impl=cfg.moe_impl,
         moe_capacity_factor=cfg.moe_capacity_factor,
         moe_f_chunk=cfg.moe_f_chunk, rnn_impl=cfg.rnn_impl,
@@ -934,7 +1035,13 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         raise ValueError(
             f"sequence length {spec.input_shape[0]} not divisible by "
             f"sequence_parallel={cfg.sequence_parallel}")
-    state = step_mod.make_train_state(model, cfg, fab if grouped else None)
+    tp = None
+    if model_axis:
+        tp = tensor.shard_model_(
+            model, mesh.model_group,
+            "ep" if cfg.expert_parallel > 1 else "tp", mesh.data_group)
+    state = step_mod.make_train_state(model, cfg, fab if grouped else None,
+                                      mesh, tp)
     grads = state.dp.grads if state.dp else None
     kind = hw.device_name(dev)
     for line in cfg.summary_lines():
@@ -944,18 +1051,36 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         print_fn(f"data parallel: total_workers={total_workers} "
                  f"fabric={fab.value} backend={dist.get_backend()} "
                  f"grad_buckets={len(grads.buckets) if grads else 0}")
-    if mesh is not None:
+    if mesh is not None and cfg.sp_active:
         print_fn(f"sequence parallel: mesh data={mesh.dp} x seq={mesh.sp} "
                  f"attention_impl={cfg.attention_impl} (a rank holds "
                  f"{cfg.batch_size} x {spec.input_shape[0] // mesh.sp} "
                  f"tokens of a {global_batch}-sequence global batch)")
+    if model_axis:
+        print_fn(f"{'expert' if tp.mode == 'ep' else 'tensor'} parallel: "
+                 f"mesh data={mesh.dp} x model={mesh.tp} "
+                 f"({len(tp.rules)} of "
+                 f"{sum(1 for _ in model.parameters())} parameters split; "
+                 f"the ranks of a model group read the same "
+                 f"{cfg.batch_size} rows of a {global_batch}-row global "
+                 f"batch)")
+    if mesh is not None and mesh.num_slices > 1:
+        per_slice = (f"{num_hosts // mesh.num_slices} host(s)/slice"
+                     if mesh.num_slices <= num_hosts
+                     else f"virtual slices on {num_hosts} host(s)")
+        print_fn(f"multislice: {mesh.num_slices} slices x {per_slice} — "
+                 f"data axis = dcn({mesh.num_slices}) x "
+                 f"data({total_workers // mesh.num_slices})")
     topo = None
     if cfg.train_dir:
         from tpu_hc_bench_torch.utils import checkpoint as ckpt
 
-        topo = ckpt.topology_record(total_workers, cfg)
+        topo = ckpt.topology_record(
+            total_workers, cfg,
+            mesh=mesh.shape if mesh is not None
+            else distributed.mesh_shape(total_workers))
     try:
-        resume = _maybe_restore(state, cfg, topo, rank, print_fn)
+        resume = _maybe_restore(state, cfg, topo, dropout_rank, print_fn)
         if cfg.eval:
             _require_checkpoint_for_eval(cfg, resume is not None, print_fn)
     except BaseException:
@@ -966,6 +1091,9 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
     if resume is not None:
         obs.writer.event("resume", **resume)
     try:
+        data_rank, data_world = ((mesh.data_index, mesh.dp)
+                                 if mesh is not None
+                                 else (rank, total_workers))
         if split is None:
             inp = _synthetic_input(cfg, spec, dev, rank, global_batch,
                                    model, mesh)
@@ -973,8 +1101,9 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
             inp = _token_input(cfg, spec, dev, rank, total_workers,
                                global_batch, split, mesh)
         else:
-            inp = _image_input(cfg, spec, dev, rank, total_workers,
-                               global_batch, split, local_workers, print_fn)
+            inp = _image_input(cfg, spec, dev, data_rank, data_world,
+                               global_batch, split, local_workers, print_fn,
+                               model_axis)
     except BaseException:
         obs.close()
         if grads:
@@ -984,7 +1113,7 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         if cfg.eval:
             result = _run_eval(cfg, spec, state, inp, global_batch,
                                total_workers, dev, kind, fabric, grouped,
-                               print_fn)
+                               print_fn, num_slices)
             obs.writer.event("summary", **dataclasses.asdict(result))
         else:
             saver = (_Saver(cfg, topo, rank, total_workers, grouped,
@@ -993,7 +1122,8 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
             result = _run_train(cfg, spec, state, inp, global_batch,
                                 total_workers, dev, kind, fabric, grouped,
                                 print_fn, obs, rank, saver, plan,
-                                fabric_ceiling, budget)
+                                fabric_ceiling, budget, num_slices,
+                                dropout_rank)
         result.resume = resume
         return result
     finally:
@@ -1189,7 +1319,8 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
                grouped: bool, print_fn, obs: _Obs, rank: int = 0,
                saver: _Saver | None = None, plan=None,
                fabric_ceiling: dict | None = None,
-               budget=None) -> BenchmarkResult:
+               budget=None, num_slices: int = 1,
+               dropout_rank: int | None = None) -> BenchmarkResult:
     """The warmup and the timed steps of the train (or forward-only)
     step, with JAX's resilience runtime and observability around them:
     the fault plan, the preemption flag (an emergency save, then
@@ -1198,7 +1329,8 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
     and the straggler gather once a sync window, and the profiler
     window.  With a ``saver`` (--train_dir) a save every
     --save_model_steps timed steps (inside the timed window: it holds
-    the loop) and one of the final state after it."""
+    the loop) and one of the final state after it; a rewind restores
+    the dropout state of ``dropout_rank`` (``_dropout_rank``)."""
     from tpu_hc_bench_torch.obs import efficiency, fleet, goodput
     from tpu_hc_bench_torch.obs import memory, timeline
     from tpu_hc_bench_torch.resilience import guards, preempt, watchdog
@@ -1206,6 +1338,8 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
 
     step_fn = (step_mod.forward_step if cfg.forward_only
                else step_mod.train_step)
+    if dropout_rank is None:
+        dropout_rank = rank
     units = _example_units(spec)
     world = total_workers if grouped else 1
     probe = bool(cfg.metrics_dir or cfg.fabric_ceiling or budget is not None)
@@ -1305,7 +1439,7 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
             dog.pause()
         try:
             saver.land()
-            ckpt.restore(state, cfg.train_dir, rank=rank)
+            ckpt.restore(state, cfg.train_dir, rank=dropout_rank)
         finally:
             if dog is not None:
                 dog.resume()
@@ -1352,8 +1486,7 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
                 saved = False
         if saved:
             saver.save(state, completed, phase="emergency_save")
-            print_fn(f"state fingerprint: "
-                     f"{ckpt.fingerprint(state.model.state_dict())}")
+            print_fn(f"state fingerprint: {ckpt.model_fingerprint(state)}")
             obs.writer.event("emergency_ckpt", step=completed)
         if cfg.metrics_dir:
             obs.writer.event("memory", **obs.memory.sample(
@@ -1526,6 +1659,8 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         attention_impl=cfg.attention_impl, fused_xent=cfg.fused_xent,
         variable_update=cfg.variable_update,
         sequence_parallel=cfg.sequence_parallel,
+        model_parallel=cfg.model_parallel,
+        expert_parallel=cfg.expert_parallel, num_slices=num_slices,
         overlap_grad_comm=cfg.overlap_grad_comm,
         gradient_accumulation_steps=cfg.gradient_accumulation_steps,
         grad_buckets=len(grads.buckets) if grads else 0,

@@ -50,6 +50,27 @@ the fused buckets as under ``psum``.  Under ``--on_nonfinite`` the
 gradient's squared norm is this rank's shards' summed over the group,
 so every rank computes the same flag.
 
+**Multislice** (``fabric=dcn --num_slices=S``; JAX reduces over
+``(dcn, data)``): every sum over the data axis (the gradient buckets,
+the statistics, the loss, sync-BN, the eval sums) is the hierarchical
+all-reduce of ``collectives.all_reduce_`` over the mesh's ``hier``:
+reduce-scatter in the slice, all-reduce across slices, all-gather in
+the slice.
+
+**Tensor and expert parallelism** (``--model_parallel``,
+``--expert_parallel``; JAX's GSPMD arm, ``_build_gspmd_step(
+follow_inputs=True)``): the model is cut over its model group
+(``parallel.tensor``; ``TrainState.tp``), the ranks of a model group see
+the same rows, and the gradients, the loss and the statistics are
+averaged over the data group only (the ranks with the same model
+index), through the same buckets.  The text loss is the global batch's
+weighted mean, as the GSPMD step takes it over the whole batch: each
+rank's weighted sum over the weights summed over the data group, times
+the data degree (the data axis averages it); an MoE layer's aux loss is
+the global batch's likewise (``models.moe``).  Under ``--on_nonfinite``
+the finite flag is taken over the whole world (each rank sees only its
+shards' gradients), so one rank's NaN stops every rank.
+
 Sequence parallelism needs nothing of its own here: without TP the
 (data, seq) mesh is the whole world, so the gradients, the loss and the
 statistics are averaged over the default group as under ``psum``; the
@@ -145,23 +166,44 @@ from tpu_hc_bench_torch.models.resnet import running_stats_frozen
 from tpu_hc_bench_torch.ops.xent import softmax_xent
 from tpu_hc_bench_torch.parallel import collectives
 from tpu_hc_bench_torch.parallel.fabric import Fabric, host_allreduce
+from tpu_hc_bench_torch.parallel.tensor import TensorParallel
 from tpu_hc_bench_torch.resilience import guards
 
 
 @dataclasses.dataclass
 class DataParallel:
-    """A step's data-parallel arm over the default process group: the
-    fast fabric's gradient buckets (``grads``), or the host round trip
-    when ``grads`` is None; ``sync_bn``: BatchNorm statistics over the
-    global batch (``replicated``), whose running averages then need no
-    all-reduce; ``allreduce_calls`` counts the last step's all-reduce
-    calls, sync-BN's included."""
+    """A step's data-parallel arm over ``group`` (None: the default
+    process group; under TP/EP the data group): the fast fabric's
+    gradient buckets (``grads``), or the host round trip when ``grads``
+    is None; ``hier``: the multislice hierarchy of every sum over the
+    data axis; ``sync_bn``: BatchNorm statistics over the global batch
+    (``replicated``), whose running averages then need no all-reduce;
+    ``allreduce_calls`` counts the last step's all-reduce calls, sync-BN's
+    included."""
 
     fuse: bool
     threshold_bytes: int
     grads: collectives.GradReducer | None
     sync_bn: bool = False
     allreduce_calls: int = 0
+    group: object = None
+    hier: collectives.Hierarchy | None = None
+
+    @property
+    def world(self) -> int:
+        return dist.get_world_size(self.group)
+
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the data axis in place (JAX's ``psum``):
+        NCCL on the fast fabric, a gloo sum through host memory on the
+        host fabric."""
+        if self.grads is None:
+            host = t.cpu()
+            dist.all_reduce(host, group=self.group)
+            t.copy_(host)
+            return t
+        collectives.all_reduce_(t.view(-1), self.group, self.hier)
+        return t
 
     @property
     def zero1(self) -> bool:
@@ -179,15 +221,17 @@ class DataParallel:
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            host_allreduce([p.grad for p in params] + stats + [loss], None)
+            host_allreduce([p.grad for p in params] + stats + [loss],
+                           self.group)
             self.allreduce_calls = 1
             return
         n = (self.grads.tree_calls if grads_reduced
              else self.grads.finish())
         if stats:
             n += collectives.allreduce_mean_(
-                stats, threshold_bytes=self.threshold_bytes, fuse=self.fuse)
-        n += collectives.allreduce_mean_([loss])
+                stats, self.group, threshold_bytes=self.threshold_bytes,
+                fuse=self.fuse, hier=self.hier)
+        n += collectives.allreduce_mean_([loss], self.group, hier=self.hier)
         self.allreduce_calls = n
 
 
@@ -208,6 +252,7 @@ class TrainState:
     ctc: bool = False
     guard: str = "off"               # --on_nonfinite: off | flag | skip
     held: guards.HeldState | None = None   # skip: the pre-step copy
+    tp: TensorParallel | None = None       # TP/EP: the model's sharding
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -272,35 +317,50 @@ def check_arm(cfg: BenchmarkConfig, fabric: Fabric) -> None:
 
 
 def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
-                     fabric: Fabric | None = None) -> TrainState:
+                     fabric: Fabric | None = None, mesh=None,
+                     tp: TensorParallel | None = None) -> TrainState:
     """The state of a one-worker step (``fabric`` None: no reduction), or
     of the data-parallel arm of ``fabric`` over the default process
-    group, which must be up."""
+    group, which must be up; with ``mesh`` (``distributed.build_mesh``)
+    over its multislice hierarchy, and under a model axis over its data
+    group only (the seq ranks of sequence parallelism hold the same
+    parameters, and average over the whole world); ``tp`` the sharding
+    of a model cut by ``parallel.tensor.shard_model_``."""
     dp = None
+    group = mesh.data_group if mesh is not None and mesh.tp > 1 else None
+    hier = mesh.hier if mesh is not None else None
     zero1 = cfg.variable_update == "zero1"
     if zero1 and fabric is None:
         raise ValueError("--variable_update=zero1 shards the optimizer "
                          "state over a process group; there is none")
     if fabric is not None:
         check_arm(cfg, fabric)
-        fuse = cfg.variable_update in ("psum", "zero1")
+        # the TP/EP arm averages over the data group in fused buckets too
+        fuse = cfg.variable_update in ("psum", "zero1") or tp is not None
         overlap = cfg.overlap_grad_comm == "on"
         if zero1:
+            if hier is not None:
+                raise ValueError(
+                    "--variable_update=zero1 composes with single-slice "
+                    "data parallelism only (the multislice (dcn, data) "
+                    "hierarchical reduce has no reduce-scatter layout yet)")
             grads = collectives.Zero1Reducer(
-                model.parameters(),
+                model.parameters(), group,
                 threshold_bytes=cfg.fusion_threshold_bytes, overlap=overlap)
         elif fabric.is_fast:
             grads = collectives.GradReducer(
-                model.parameters(),
+                model.parameters(), group,
                 threshold_bytes=cfg.fusion_threshold_bytes, fuse=fuse,
-                overlap=overlap)
+                overlap=overlap, hier=hier)
         else:
             grads = None
         dp = DataParallel(fuse, cfg.fusion_threshold_bytes, grads,
-                          sync_bn=cfg.variable_update == "replicated")
+                          sync_bn=cfg.variable_update == "replicated",
+                          group=group, hier=hier)
         for m in model.modules():
             if isinstance(m, resnet.BatchNorm):
                 m.sync = dp.sync_bn
+                m.sync_axis = (group, hier)
     guard = guards.guard_mode(cfg)
     stepped = dp.grads.shards if zero1 else model.parameters()
     return TrainState(model.train(), make_optimizer(cfg, stepped),
@@ -308,7 +368,8 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
                       accum=cfg.gradient_accumulation_steps, dp=dp,
                       accum_dtype=cfg.accum_dtype,
                       ctc=get_model_spec(cfg.model).ctc, guard=guard,
-                      held=guards.HeldState() if guard == "skip" else None)
+                      held=guards.HeldState() if guard == "skip" else None,
+                      tp=tp)
 
 
 def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
@@ -325,19 +386,26 @@ def loss_fn(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def lm_loss_fn(logits: torch.Tensor, targets: torch.Tensor,
-               weights: torch.Tensor, fused_xent: bool = False
-               ) -> torch.Tensor:
+               weights: torch.Tensor, fused_xent: bool = False,
+               tp: TensorParallel | None = None) -> torch.Tensor:
     """The JAX text arm: the per-token cross-entropy on float32 logits
     (``optax.softmax_cross_entropy_with_integer_labels``, or with
     ``fused_xent`` the blocked kernels' ``softmax_xent``), then
-    ``(losses * weights).sum() / max(weights.sum(), 1)``."""
+    ``(losses * weights).sum() / max(weights.sum(), 1)``; under TP/EP
+    (``tp`` with a data group) the weights' sum is the global batch's and
+    the result is scaled by the data degree, so its mean over the data
+    axis is the global weighted mean."""
     flat, labels = logits.flatten(0, -2), targets.flatten()
     if fused_xent:
         losses = softmax_xent(flat, labels)
     else:
         losses = F.cross_entropy(flat.float(), labels, reduction="none")
     losses = losses.view(targets.shape)
-    return (losses * weights).sum() / weights.sum().clamp_min(1.0)
+    if tp is None or tp.data_group is None:
+        return (losses * weights).sum() / weights.sum().clamp_min(1.0)
+    total = weights.sum().detach().float().clone()
+    dist.all_reduce(total, group=tp.data_group)
+    return (losses * weights).sum() * tp.dp / total.clamp_min(1.0)
 
 
 def ctc_loss_fn(logits: torch.Tensor, labels: torch.Tensor,
@@ -376,7 +444,8 @@ def prep_inputs(images: torch.Tensor) -> torch.Tensor:
 
 
 def batch_loss(model: torch.nn.Module, batch, fused_xent: bool = False,
-               ctc: bool = False) -> torch.Tensor:
+               ctc: bool = False, tp: TensorParallel | None = None
+               ) -> torch.Tensor:
     """The forward and the loss arm: CTC where ``ctc`` (the spec's),
     else the one ``batch`` calls for; ``fused_xent`` applies to the text
     arm only, where an MoE model's aux term joins the loss."""
@@ -385,7 +454,7 @@ def batch_loss(model: torch.nn.Module, batch, fused_xent: bool = False,
         return ctc_loss_fn(model(feats), labels, paddings)
     if len(batch) == 3:
         tokens, targets, weights = batch
-        loss = lm_loss_fn(model(tokens), targets, weights, fused_xent)
+        loss = lm_loss_fn(model(tokens), targets, weights, fused_xent, tp)
         aux = getattr(model, "aux_loss", None)
         return loss if aux is None else loss + AUX_LOSS_COEF * aux
     images, labels = batch
@@ -451,7 +520,8 @@ def _accumulated_backward(state: TrainState, batch,
                 t.copy_(t0)
         if grads is not None and i == n - 1 and not bf16:
             grads.arm(divisor=n)
-        loss = batch_loss(model, micro, state.fused_xent, state.ctc)
+        loss = batch_loss(model, micro, state.fused_xent, state.ctc,
+                          state.tp)
         try:
             loss.backward()
         except BaseException:
@@ -508,7 +578,8 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     else:
         if grads is not None:
             grads.arm()
-        loss = batch_loss(state.model, batch, state.fused_xent, state.ctc)
+        loss = batch_loss(state.model, batch, state.fused_xent, state.ctc,
+                          state.tp)
         loss.backward()
         loss = loss.detach()
     if dp is not None:
@@ -524,6 +595,8 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         else:
             ok = guards.finite_flag(loss, bf16_grads[1] if bf16_grads else [
                 p.grad for p in state.model.parameters()])
+        if state.tp is not None:
+            ok = guards.world_flag(ok)
     if bf16_grads is not None:
         apply_bf16_grads(state.optimizer, *bf16_grads)
     else:
@@ -539,16 +612,8 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
 
 
 def _ranks_sum(dp: DataParallel | None, t: torch.Tensor) -> torch.Tensor:
-    """``t`` summed over the ranks (JAX's ``psum``): NCCL on the fast
-    fabric, a gloo sum through host memory on the host fabric."""
-    if dp is None:
-        return t
-    if dp.grads is None:
-        host = t.cpu()
-        dist.all_reduce(host)
-        return host.to(t.device)
-    dist.all_reduce(t)
-    return t
+    """``t`` summed over the data axis (JAX's ``psum``)."""
+    return t if dp is None else dp.sum_(t)
 
 
 def forward_step(state: TrainState, batch) -> tuple[TrainState, dict]:
@@ -558,9 +623,9 @@ def forward_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     as they were.  The loss is averaged over the ranks."""
     with torch.no_grad(), running_stats_frozen(state.model):
         loss = batch_loss(state.model, batch, state.fused_xent,
-                          state.ctc).float()
+                          state.ctc, state.tp).float()
     if state.dp is not None:
-        loss = _ranks_sum(state.dp, loss) / dist.get_world_size()
+        loss = _ranks_sum(state.dp, loss) / state.dp.world
     return state, {"loss": loss}
 
 
@@ -594,5 +659,5 @@ def eval_step(state: TrainState, batch) -> tuple[torch.Tensor,
         m = _ranks_sum(state.dp, torch.stack([
             loss_fn(logits, labels),
             (logits.argmax(-1) == labels).sum().float()]))
-    world = dist.get_world_size() if state.dp is not None else 1
+    world = state.dp.world if state.dp is not None else 1
     return m[0] / world, m[1]

@@ -30,24 +30,34 @@ writer.  ``AsyncCheckpointWriter`` (``--async_checkpoint``, world 1)
 snapshots to the host on the step loop's thread and writes on its own,
 one save in flight.
 
-The topology sidecar (``topology_record``: world, process count,
-variable-update arm, layout ``"host"``, dtype) is checked at restore:
-``check_topology`` raises one ``TopologyMismatchError`` naming both sides
-where the saved state cannot be placed on the live world.  A host-layout
-``psum``/``replicated`` state is world-neutral (every rank holds all of
-it), so those restore at any world, as in JAX.  A zero1 state restores
-at the world that saved it, each rank its own shards' state; at another
-world it is refused (JAX reshards it under ``--resume=elastic``, which
-is not ported), as is a move between zero1 and a replicated arm, and a
-pipeline or sharded checkpoint (their slices are not ported).  The
-stacked (``--scan_layers``) and unrolled layouts are not interchangeable
-(as in JAX): a restore across them is refused by the saved parameter
-names (``check_layers_layout``), before anything is loaded.
+The topology sidecar (``topology_record``: world, process count, the
+mesh ``{"data": ..., "model": ...}`` with ``dcn`` under multislice,
+variable-update arm, layout ``"host"``, dtype; JAX's
+``topology.topology_record``) is checked at restore by JAX's
+``elastic_plan``: ``ok`` (the same topology), ``noop`` (a host-layout
+``psum``/``replicated`` state at another world or mesh: every rank holds
+all of it, so it restores as it is, a TP checkpoint at another tp or
+under plain data parallelism too), ``reshard`` (a zero1 state at another
+world) or ``refuse`` (zero1 against a replicated arm, the pipeline and
+sharded layouts).  ``check_topology`` raises one
+``TopologyMismatchError`` naming both sides where the plan refuses, or
+where it reshards and the run did not ask for ``--resume=elastic``
+(``elastic=``).  ``restore_elastic`` reads a zero1 checkpoint saved by N
+ranks and resplits every rank's optimizer shards for the live world
+(``collectives.resplit_zero1_opt``; bit for bit on the real elements).
+The stacked (``--scan_layers``) and unrolled layouts are not
+interchangeable (as in JAX): a restore across them is refused by the
+saved parameter names (``check_layers_layout``), before anything is
+loaded.
 
 Under data parallel every rank takes part in gathering the dropout
 states (and zero1's optimizer shards), rank 0 alone copies the state to
 the host and writes it, and every rank restores the same state (under
-zero1 the same model, and its own optimizer shards).
+zero1 the same model, and its own optimizer shards).  Under tensor or
+expert parallelism (``state.tp``) every split parameter and its
+optimizer state are gathered over the model group first, so the file
+holds the full tree (JAX's host layout on one host); a restore cuts it
+for the live model group, whatever tp saved it.
 """
 
 from __future__ import annotations
@@ -67,16 +77,19 @@ import torch.distributed as dist
 
 __all__ = ["AsyncCheckpointWriter", "TopologyMismatchError", "check_topology",
            "check_layers_layout", "complete_steps", "describe_topology",
-           "elastic_plan",
-           "fingerprint", "gc_checkpoints", "latest_step", "read_topology",
-           "restore", "save", "snapshot_to_host", "topology_record",
-           "write_host_payload"]
+           "elastic_plan", "fingerprint", "gc_checkpoints", "latest_step",
+           "model_fingerprint", "read_topology", "restore",
+           "restore_elastic", "save", "snapshot_to_host",
+           "topology_record", "write_host_payload"]
 
 _STEP_RE = re.compile(r"step_(\d+)")
 STATE_FILE = "state.pt"
 # the arms whose saved state is the same tree (replicated parameters and
 # a parameter-shaped optimizer state): moving between them is free
 REPLICATED_ARMS = ("psum", "replicated")
+# what on-disk form a checkpoint took (JAX's names; the port writes
+# "host" only: the full tree, gathered on save)
+CKPT_LAYOUTS = ("host", "sharded", "pp-native")
 
 
 class TopologyMismatchError(ValueError):
@@ -140,63 +153,84 @@ def _commit_step_dir(base: Path, step: int, tmp: Path,
 
 
 def topology_record(world: int, cfg, process_count: int | None = None,
-                    layout: str = "host") -> dict:
+                    layout: str = "host", mesh: dict | None = None) -> dict:
     """What ``restore`` must know of the world that wrote a checkpoint
-    (JAX ``topology.topology_record``, less the mesh and the pipeline
-    degree, which the port does not have)."""
+    (JAX ``topology.topology_record``, less the pipeline degree, which
+    the port does not have): ``mesh`` the mesh's shape
+    (``distributed.mesh_shape``; default plain data parallelism)."""
+    if layout not in CKPT_LAYOUTS:
+        raise ValueError(f"layout_kind must be one of {CKPT_LAYOUTS}: "
+                         f"{layout!r}")
     return {"schema": 1, "world": int(world),
             "process_count": int(world if process_count is None
                                  else process_count),
+            "mesh": {str(k): int(v) for k, v in
+                     (mesh or {"data": int(world), "model": 1}).items()},
             "variable_update": cfg.variable_update, "layout": layout,
             "dtype": cfg.compute_dtype}
 
 
+def _mesh_str(rec: dict | None) -> str:
+    """A record's mesh as ``data:8xmodel:1`` (``?`` where absent)."""
+    mesh = "x".join(f"{k}:{v}"
+                    for k, v in ((rec or {}).get("mesh") or {}).items())
+    return mesh or "?"
+
+
 def describe_topology(rec: dict | None) -> str:
-    """One line of a topology record."""
+    """One line of a topology record (JAX's)."""
     if not rec:
         return "unknown (no topology sidecar)"
-    return (f"world={rec.get('world')} processes={rec.get('process_count')} "
-            f"arm={rec.get('variable_update')} layout={rec.get('layout')} "
-            f"dtype={rec.get('dtype')}")
+    return (f"world={rec.get('world')} mesh=[{_mesh_str(rec)}] "
+            f"arm={rec.get('variable_update')} "
+            f"pp={rec.get('pipeline_parallel', 1)} "
+            f"layout={rec.get('layout')} dtype={rec.get('dtype')}")
 
 
 def elastic_plan(saved: dict, live: dict) -> tuple[str, str]:
-    """``(action, line)``: ``ok`` (the same topology), ``noop`` (another
-    world or arm, but a host-layout replicated state restores as it is),
-    or ``refuse`` (a tree the port cannot place: another layout, or a
-    zero1 state, whose resplit is not ported)."""
-    if all(saved.get(k) == live.get(k)
-           for k in ("world", "variable_update", "layout")):
+    """``(action, line)``, JAX's ``topology.elastic_plan``: ``ok`` (the
+    same topology), ``noop`` (another world or mesh, but a host-layout
+    replicated state restores as it is), ``reshard`` (zero1 shards at
+    another world: ``--resume=elastic`` resplits them) or ``refuse``
+    (different trees: zero1 against a replicated arm, pp-native against
+    a data-parallel layout, sharded saves)."""
+    same = all(saved.get(k) == live.get(k)
+               for k in ("world", "mesh", "variable_update",
+                         "pipeline_parallel", "layout"))
+    if same:
         return "ok", ""
     s_arm, l_arm = saved.get("variable_update"), live.get("variable_update")
     s_lay, l_lay = saved.get("layout", "host"), live.get("layout", "host")
-    if s_lay != "host" or l_lay != "host":
-        return ("refuse",
-                f"layout {s_lay}->{l_lay}: the port restores host-layout "
-                f"checkpoints only (pipeline and sharded checkpoints are "
-                f"not ported)")
+    sw, lw = saved.get("world"), live.get("world")
     if (s_arm == "zero1") != (l_arm == "zero1"):
         return ("refuse",
                 f"arm {s_arm}->{l_arm}: the zero1 optimizer-state tree "
-                f"(per-rank shards) and the replicated one are different "
-                f"structures — resume on --variable_update={s_arm}, or "
-                f"restart fresh")
-    if s_arm == "zero1":
+                f"(stacked [N, k] shards) and the replicated one are "
+                f"different structures — resume on --variable_update="
+                f"{s_arm}, or restart fresh")
+    if ("pp-native" in (s_lay, l_lay)) and s_lay != l_lay:
         return ("refuse",
-                f"zero1 optimizer shards saved at world {saved.get('world')}"
-                f" restore at that world only: their resplit to world "
-                f"{live.get('world')} (--resume=elastic) is not ported")
-    if s_arm not in REPLICATED_ARMS or l_arm not in REPLICATED_ARMS:
+                f"layout {s_lay}->{l_lay}: pp-native stacked-trunk "
+                f"checkpoints and DP-layout ones are different trees — "
+                f"resume under the saved layout")
+    if "sharded" in (s_lay, l_lay):
         return ("refuse",
-                f"arm {s_arm}->{l_arm}: only the arms "
-                f"{'|'.join(REPLICATED_ARMS)}|zero1 are ported")
+                f"layout {s_lay}->{l_lay} with world {sw}->{lw}: "
+                f"multi-host model-sharded checkpoints resume on the "
+                f"saved topology only (per-shard Orbax I/O is not "
+                f"host-reassemblable here)")
     extra = ("" if saved.get("dtype") == live.get("dtype")
              else f"; note: dtype policy {saved.get('dtype')}->"
-                  f"{live.get('dtype')} (parameters restore bit for bit, "
-                  f"the compute dtype changes)")
-    return ("noop", f"replicated {s_arm} state placed on the live world "
-                    f"(world {saved.get('world')}->{live.get('world')}, "
-                    f"arm {s_arm}->{l_arm}){extra}")
+                  f"{live.get('dtype')} (params restore bitwise, compute "
+                  f"dtype changes)")
+    if s_arm == "zero1":
+        return ("reshard",
+                f"zero1 optimizer shards resplit [{sw}, k]->[{lw}, k'] "
+                f"over the data axis (world {sw}->{lw}){extra}")
+    return ("noop",
+            f"replicated {s_arm} state re-placed onto the live mesh "
+            f"(world {sw}->{lw}, mesh [{_mesh_str(saved)}]->"
+            f"[{_mesh_str(live)}]){extra}")
 
 
 _UNROLLED_KEY = re.compile(r"layers\.\d+\.")
@@ -223,20 +257,29 @@ def check_layers_layout(model_sd: dict, saved_sd: dict,
 
 
 def check_topology(saved: dict, live: dict, directory=None,
-                   step: int | None = None) -> tuple[str, str]:
-    """``elastic_plan``'s verdict; raises ``TopologyMismatchError``,
-    naming the saved and the live topology, where it refuses."""
+                   step: int | None = None,
+                   elastic: bool = False) -> tuple[str, str]:
+    """``elastic_plan``'s verdict (JAX's ``check_topology``); raises one
+    ``TopologyMismatchError``, naming the saved and the live topology,
+    where it refuses, or where it reshards without ``elastic``
+    (``--resume=elastic``)."""
     action, plan = elastic_plan(saved, live)
-    if action != "refuse":
+    if action in ("ok", "noop"):
         return action, plan
     where = ""
     if directory is not None:
         where = f" under {directory}" + (
             f" (step {step})" if step is not None else "")
-    raise TopologyMismatchError(
-        f"checkpoint topology mismatch{where}: saved "
-        f"{describe_topology(saved)} vs live {describe_topology(live)} "
-        f"— {plan}")
+    head = (f"checkpoint topology mismatch{where}: saved "
+            f"{describe_topology(saved)} vs live "
+            f"{describe_topology(live)}")
+    if action == "reshard" and not elastic:
+        raise TopologyMismatchError(
+            f"{head}; relaunch with --resume=elastic to reshape "
+            f"({plan})")
+    if action == "refuse":
+        raise TopologyMismatchError(f"{head} — {plan}")
+    return action, plan
 
 
 def read_topology(directory: str | Path,
@@ -288,10 +331,27 @@ def _zero1(state) -> bool:
     return dp is not None and dp.zero1
 
 
+def _model_state(state) -> dict:
+    """The model's full ``state_dict`` (under TP/EP gathered over the
+    model group: a collective)."""
+    from tpu_hc_bench_torch.parallel import tensor
+
+    return tensor.full_state_dict(state.model, getattr(state, "tp", None))
+
+
+def model_fingerprint(state) -> str:
+    """``fingerprint`` of the full model (a collective under TP/EP)."""
+    return fingerprint(_model_state(state))
+
+
 def _optimizer_state(state):
-    """The optimizer's ``state_dict`` on the host; under zero1 every
-    rank's, by rank (a collective)."""
-    mine = _host(state.optimizer.state_dict())
+    """The optimizer's ``state_dict`` on the host, every split
+    parameter's state gathered under TP/EP; under zero1 every rank's, by
+    rank (collectives)."""
+    from tpu_hc_bench_torch.parallel import tensor
+
+    mine = _host(tensor.full_optimizer_state(
+        state.optimizer, state.model, getattr(state, "tp", None)))
     if not _zero1(state):
         return mine
     out = [mine]
@@ -307,7 +367,7 @@ def snapshot_to_host(state) -> tuple[int, dict]:
     every rank takes part in its dropout states' gather (and zero1's
     optimizer shards')."""
     payload = {"step": int(state.step),
-               "model": _host(state.model.state_dict()),
+               "model": _host(_model_state(state)),
                "optimizer": _optimizer_state(state),
                "rng": {"dropout": _dropout_states(state.model)}}
     return payload["step"], payload
@@ -336,6 +396,7 @@ def save(state, directory: str | Path, topology: dict | None = None,
     parallel); a rank that does not write only takes its part in the
     dropout states' gather."""
     if not write:
+        _model_state(state)
         _optimizer_state(state)
         _dropout_states(state.model)
         return None
@@ -500,11 +561,16 @@ def load_payload(directory: str | Path, step: int | None = None
 
 
 def restore(state, directory: str | Path, step: int | None = None,
-            expect_topology: dict | None = None, rank: int = 0) -> dict:
-    """Load a checkpoint into ``state`` in place (its model, optimizer,
-    step and ``rank``'s dropout generator); returns the payload.
-    ``expect_topology``: the live record, checked against the sidecar
-    first (``check_topology``)."""
+            expect_topology: dict | None = None, rank: int = 0,
+            resplit: bool = False) -> dict:
+    """Load a checkpoint into ``state`` in place (its model, cut for the
+    live model group under TP/EP, optimizer, step and ``rank``'s dropout
+    generator); returns the payload.  ``expect_topology``: the live
+    record, checked against the sidecar first (``check_topology``).
+    ``resplit``: a zero1 state saved at another world is resplit for the
+    live one (``restore_elastic``)."""
+    from tpu_hc_bench_torch.parallel import collectives, tensor
+
     base = Path(directory)
     if step is None:
         step = latest_step(base)
@@ -515,8 +581,9 @@ def restore(state, directory: str | Path, step: int | None = None,
         if saved is not None:
             check_topology(saved, expect_topology, base, step)
     step, payload = load_payload(base, step)
+    tp = getattr(state, "tp", None)
     check_layers_layout(state.model.state_dict(), payload["model"], base)
-    state.model.load_state_dict(payload["model"])
+    state.model.load_state_dict(tensor.cut_state_dict(payload["model"], tp))
     opt = payload["optimizer"]
     if _zero1(state) != ("zero1_shards" in opt):
         raise TopologyMismatchError(
@@ -524,17 +591,40 @@ def restore(state, directory: str | Path, step: int | None = None,
             f"is {'zero1 shards' if 'zero1_shards' in opt else 'whole'}, "
             f"the live arm's is not")
     if _zero1(state):
-        shards = opt["zero1_shards"]
-        if len(shards) != dist.get_world_size():
+        shards, world = opt["zero1_shards"], dist.get_world_size()
+        if resplit and len(shards) != world:
+            shards = collectives.resplit_zero1_opt(
+                shards, [p.numel() for p in state.dp.grads.params], world)
+        if len(shards) != world:
             raise TopologyMismatchError(
                 f"checkpoint under {base} (step {step}): zero1 shards of "
-                f"{len(shards)} ranks, live world "
-                f"{dist.get_world_size()}")
+                f"{len(shards)} ranks, live world {world}; relaunch with "
+                f"--resume=elastic to reshape")
         opt = shards[dist.get_rank()]
-    state.optimizer.load_state_dict(opt)
+    state.optimizer.load_state_dict(
+        tensor.cut_optimizer_state(opt, state.model, tp))
     state.step = int(payload["step"])
     dropout = (payload.get("rng") or {}).get("dropout")
     gen = getattr(state.model, "dropout_generator", None)
     if gen is not None and dropout and rank < len(dropout):
         gen.set_state(dropout[rank])
     return payload
+
+
+def restore_elastic(state, directory: str | Path,
+                    saved_topology: dict | None, live_world: int,
+                    step: int | None = None, rank: int = 0) -> dict:
+    """Restore a host-layout checkpoint saved at another world onto the
+    live one (``--resume=elastic``; JAX's ``restore_elastic``).  A
+    replicated tree is world-neutral and restores as it is; a zero1
+    checkpoint holds every one of its N ranks' optimizer shards, which
+    are read whole and resplit for ``live_world`` ranks
+    (``collectives.resplit_zero1_opt``: the old padding stripped,
+    re-padded, restacked), each rank keeping its own."""
+    if (saved_topology or {}).get("variable_update") == "zero1" and \
+            dist.get_world_size() != int(live_world):
+        raise ValueError(f"restore_elastic: live world {live_world}, "
+                         f"process group of {dist.get_world_size()}")
+    return restore(state, directory, step, rank=rank,
+                   resplit=(saved_topology or {}).get("variable_update")
+                   == "zero1")
