@@ -379,6 +379,28 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    at 2 and saved, restored at 4 (this script's ``--elastic-worker``
    processes): the parameters' fingerprint and every optimizer shard
    bit-equal over the round trip.
+24. **slice16**: pipeline parallelism and the 3-D hybrids: (a) gpt2 16
+   x 1024 bf16 flash through ``parallel.pipeline``'s GPipe schedule at
+   one stage (``SLICE16_M`` microbatches, no hops) against the plain
+   step, dropout off in both, 3 + 10 steps from one seed: every loss
+   bit-equal or within ``SLICE16_ONE_STAGE_TOL``, sequences/s of each,
+   rows 3, 4a and 4b 12 x M launches a step on the pipeline, 12 on the
+   plain; (b) two CPU workers (``1 2 4 ib --device=cpu
+   --pipeline_parallel=2``) write a llama_tiny checkpoint, the card
+   resumes it at world 1 as plain data parallelism (the restored
+   fingerprint the saved one), and the card's save resumes on two CPU
+   workers at pp 2 likewise; (c)-(d) with two cards or more, (e)-(f)
+   with four, each run through the launcher's path in this script's
+   ``--launch-worker`` processes (every kernel's count zeroed before
+   and read after, in each): gpt2 at pp 2, pp 4 and dp 2 x pp 2; llama_1b
+   4 x 2048 at pp 2 and pp 4 against its world-1 runs, the one-batch
+   step and the same M microbatches by accumulation (final loss within
+   ``SLICE16_LLAMA_TOL`` of the latter); gpt2 at pp 2 x tp 2 and llama_1b 2 x 2048
+   ``ulysses_flash`` at sp 2 x tp 2 (sequences/s, each rank's peak and
+   launches, the banner lines); llama_1b saved at pp 2, restored at pp 4
+   and saved (``--pp-ckpt-worker`` processes, no step), restored at
+   world 1: the fingerprints of the parameters and of the optimizer
+   state equal throughout.
 
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
@@ -391,7 +413,8 @@ and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
 ``slice12_launches``: its launches in phase 20's runs (a)-(d),
 ``slice13_launches``: its launches in phase 21's runs (a)-(d),
 ``slice14_launches``: its launches in phase 22's runs (a) and (b),
-``slice15_launches``: its launches in phase 23's runs (a) and (b), every
+``slice15_launches``: its launches in phase 23's runs (a) and (b),
+``slice16_launches``: its launches in phase 24's run (a), every
 kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -409,7 +432,9 @@ build, phase 8 at ViT's two shapes, then phase 18; ``--only slice11``
 the build and phase 19 alone; ``--only slice12`` the build, phase 4 and
 phase 20; ``--only slice13`` the build and phase 21; ``--only slice14``
 the build and phase 22 (with several cards, (c) runs); ``--only slice15``
-the build and phase 23 (with several cards, (c)-(f) run).
+the build and phase 23 (with several cards, (c)-(f) run); ``--only
+slice16`` the build and phase 24 (with two cards or more, (c)-(d) run,
+with four (e)-(f)).
 """
 
 from __future__ import annotations
@@ -700,6 +725,23 @@ SLICE15_TP = (("gpt2", SLICE15_GPT2_BATCH, 2, "model_parallel", 2),
               ("gpt2_moe", SLICE15_MOE_BATCH, 2, "expert_parallel", 2),
               ("gpt2_moe", SLICE15_MOE_BATCH, 4, "expert_parallel", 4))
 SLICE15_ELASTIC_BATCH = 32
+# phase 24 (slice 16): pipeline parallelism and the 3-D hybrids
+SLICE16_STEPS = (3, 10)            # (warmup, timed) of every run
+SLICE16_GPT2_BATCH = 16            # (a), (c), (e): gpt2 16 x 1024
+SLICE16_M = 4                      # (a): microbatches of the one stage
+SLICE16_ONE_STAGE_TOL = 1e-3       # (a): microbatched products take other
+                                   # cuBLAS shapes than the whole batch's
+SLICE16_CPU_WORKERS = 2            # (b): llama_tiny at pp 2 on the CPU
+SLICE16_LLAMA_BATCH = 4            # (d): llama_1b 4 x 2048 (pp 4 needs
+                                   # M = 4 to divide the batch)
+SLICE16_LLAMA_TOL = 1e-3           # (d): final loss against world 1 at
+                                   # the same M microbatches (accumulation:
+                                   # M alone moves llama_1b's 13th loss by
+                                   # ~8e-3 from the one-batch step)
+SLICE16_SPTP_BATCH = 2             # (e): llama_1b 2 x 2048 at sp 2 x tp 2
+SLICE16_CKPT_STEPS = (1, 1)        # (f): the pp 2 run that saves
+SLICE16_LLAMA = "llama_1b"         # (d)-(f)
+SLICE16_LAYERS = {"gpt2": 12, "llama_1b": 16}
 SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
                                    # (6 pages + a 4-token tail), outputs
 # (e) and (f) in virtual time: modeled seconds a step, so the arms see
@@ -5481,9 +5523,9 @@ def _elastic_worker(src: str, dst: str, out: str) -> int:
     return 0
 
 
-def _spawn_elastic(world: int, src: Path, dst: str, out: Path) -> list:
-    """Phase 23 (f): ``world`` ``--elastic-worker`` processes, one a
-    card; each rank's record."""
+def _spawn_self(world: int, args: list[str], on_line, phase: str) -> None:
+    """``world`` processes of this script (``args`` after its path), one
+    a card, over a fresh file store; raises unless all exit 0."""
     import tempfile
 
     from tpu_hc_bench_torch.parallel import distributed
@@ -5492,14 +5534,20 @@ def _spawn_elastic(world: int, src: Path, dst: str, out: Path) -> list:
     workers = [distributed.Worker(r, r, world, f"file://{tmp}/store")
                for r in range(world)]
     rc = distributed.spawn_local(
-        [sys.executable, str(Path(__file__).resolve()), "--elastic-worker",
-         str(src), dst, str(out)], workers,
-        lambda m: print(m, file=sys.stderr, flush=True))
+        [sys.executable, str(Path(__file__).resolve()), *args], workers,
+        on_line)
     if rc != 0:
-        raise AssertionError(f"phase 23 (f): {world} elastic workers "
-                             f"exited {rc}")
+        raise AssertionError(f"{phase}: {world} workers exited {rc}")
+
+
+def _spawn_elastic(world: int, src: Path, dst: str, out: Path) -> list:
+    """Phase 23 (f): ``world`` ``--elastic-worker`` processes, one a
+    card; each rank's record."""
     import torch
 
+    _spawn_self(world, ["--elastic-worker", str(src), dst, str(out)],
+                lambda m: print(m, file=sys.stderr, flush=True),
+                "phase 23 (f) elastic")
     return [torch.load(f"{out}.rank{r}.pt") for r in range(world)]
 
 
@@ -5676,6 +5724,508 @@ def phase_slice15(torch, dev, smi) -> dict:
     return total
 
 
+def _slice16_one_stage_arm(torch, dev, cfg, staged: bool) -> dict:
+    """One arm of phase 24 (a): gpt2 from the seed, its plain step or the
+    GPipe schedule of ``parallel.pipeline`` in a one-rank pipe group (M
+    microbatches, no hops), dropout off in both (the arms would draw
+    their masks in other orders), 3 + 10 steps; every count zeroed just
+    before and read just after."""
+    from tpu_hc_bench_torch.data.synthetic import (SyntheticTokens,
+                                                   tokens_to_device)
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.parallel import pipeline
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model, spec = create_model("gpt2", torch.bfloat16, "flash", device=dev,
+                               seed=cfg.seed, train=True)
+    pipe = (pipeline.make_pipeline(None, model.num_layers, SLICE16_M)
+            if staged else None)
+    state = step_mod.make_train_state(model, cfg, Fabric.ICI, None, None,
+                                      pipe)
+    state.model.eval()
+    batch = tokens_to_device(SyntheticTokens(
+        SLICE16_GPT2_BATCH, spec.input_shape[0], seed=cfg.seed,
+        vocab_size=spec.vocab_size, causal_lm=True).batch(), dev)
+    warm, timed = SLICE16_STEPS
+    losses = []
+    _zero_counts()
+    try:
+        for _ in range(warm):
+            state, m = step_mod.train_step(state, batch)
+            losses.append(m["loss"].detach().clone())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            state, m = step_mod.train_step(state, batch)
+            losses.append(m["loss"].detach().clone())
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = _read_counts()
+    finally:
+        state.dp.grads.close()
+    rec = {"losses": [float(x) for x in losses],
+           "sequences_per_sec": SLICE16_GPT2_BATCH * timed / dt,
+           "mean_step_ms": 1e3 * dt / timed,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "launches": counts}
+    del state, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def slice16_one_stage(torch, dev, smi, add) -> float:
+    """Phase 24 (a): gpt2 16 x 1024 bf16 flash through the GPipe schedule
+    at one stage (M = 4) against the plain step, from one seed; returns
+    the plain run's rate."""
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.parallel import distributed
+
+    cfg = flags.BenchmarkConfig(model="gpt2", batch_size=SLICE16_GPT2_BATCH,
+                                use_fp16=True, attention_impl="flash"
+                                ).resolve()
+    steps = sum(SLICE16_STEPS)
+    distributed.init_single("nccl")
+    try:
+        plain = _slice16_one_stage_arm(torch, dev, cfg, False)
+        staged = _slice16_one_stage_arm(torch, dev, cfg, True)
+    finally:
+        dist.destroy_process_group()
+    for arm in (plain, staged):
+        add(arm["launches"])
+    expect = {"plain": {FLASH_KERNELS[k][0]: 12 * steps
+                        for k in FLASH_KERNELS},
+              "staged": {FLASH_KERNELS[k][0]: 12 * SLICE16_M * steps
+                         for k in FLASH_KERNELS}}
+    last = abs(staged["losses"][-1] - plain["losses"][-1]) / abs(
+        plain["losses"][-1])
+    worst = max(abs(a - b) / abs(b)
+                for a, b in zip(staged["losses"], plain["losses"]))
+    rec = {"phase": "slice16", "part": "a_gpt2_one_stage_vs_plain",
+           "batch": SLICE16_GPT2_BATCH, "microbatches": SLICE16_M,
+           "steps": steps, "dropout": "off in both arms",
+           "losses": {"plain": plain["losses"], "staged": staged["losses"]},
+           "losses_bit_equal": staged["losses"] == plain["losses"],
+           "last_loss_rel": last, "worst_loss_rel": worst,
+           "tol": SLICE16_ONE_STAGE_TOL,
+           "sequences_per_sec": {"plain": plain["sequences_per_sec"],
+                                 "staged": staged["sequences_per_sec"]},
+           "rate_ratio": staged["sequences_per_sec"]
+           / plain["sequences_per_sec"],
+           "mean_step_ms": {"plain": plain["mean_step_ms"],
+                            "staged": staged["mean_step_ms"]},
+           "peak_mem_gb": {"plain": plain["peak_mem_gb"],
+                           "staged": staged["peak_mem_gb"]},
+           "launches": {"plain": plain["launches"],
+                        "staged": staged["launches"]},
+           "expected_launches": expect, "nvidia_smi": smi}
+    rec["ok"] = (all(arm["launches"][k] == expect[name].get(k, 0)
+                     for name, arm in (("plain", plain),
+                                       ("staged", staged))
+                     for k in arm["launches"])
+                 and all(math.isfinite(x) for x in staged["losses"])
+                 and (rec["losses_bit_equal"]
+                      or worst <= SLICE16_ONE_STAGE_TOL))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 24 (a) failed: {rec}")
+    return plain["sequences_per_sec"]
+
+
+def slice16_interchange(torch, smi, base: Path) -> None:
+    """Phase 24 (b): two CPU workers write a llama_tiny checkpoint at pp
+    2; the card resumes it at world 1 as plain data parallelism, and its
+    own save resumes on two CPU workers at pp 2, each restore's
+    fingerprint the saved one."""
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    d = base / "b_pp2"
+    common = ["--model=llama_tiny", "--num_warmup_batches=1",
+              "--num_batches=2", "--display_every=1", f"--train_dir={d}"]
+    cpu = ["1", str(SLICE16_CPU_WORKERS), "4", "ib", "--device=cpu",
+           "--pipeline_parallel=2", *common]
+    t0 = time.perf_counter()
+    _, saved, _ = _tee_launch(cpu, "phase 24 (b) CPU workers")
+    cpu_s = time.perf_counter() - t0
+    topo = ckpt.read_topology(d)
+    _, card, card_lines = _tee_launch(["1", "1", "4", "ib", *common,
+                                       "--resume=must"],
+                                      "phase 24 (b) card")
+    _, back, back_lines = _tee_launch(cpu + ["--resume=must"],
+                                      "phase 24 (b) CPU workers resume")
+    rec = {"phase": "slice16", "part": "b_pp2_cpu_to_card_dp_and_back",
+           "cpu_workers_s": cpu_s, "saved_topology": topo,
+           "saved_fingerprint": saved["checkpoint"]["fingerprint"],
+           "card_restored_fingerprint": _fp_line(card_lines),
+           "card_saved_fingerprint": card["checkpoint"]["fingerprint"],
+           "cpu_restored_fingerprint": _fp_line(back_lines),
+           "card_resume": card.get("resume"),
+           "cpu_resume": back.get("resume"), "nvidia_smi": smi}
+    rec["ok"] = (topo["pipeline_parallel"] == 2
+                 and topo["mesh"] == {"data": 1, "pipe": 2}
+                 and rec["card_restored_fingerprint"]
+                 == rec["saved_fingerprint"]
+                 and rec["cpu_restored_fingerprint"]
+                 == rec["card_saved_fingerprint"]
+                 and card["resume"]["restored_step"] == 3
+                 and back["resume"]["restored_step"] == 6
+                 and card["pipeline_parallel"] == 1
+                 and back["pipeline_parallel"] == 2
+                 and math.isfinite(back["final_loss"]))
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 24 (b) failed: {rec}")
+
+
+def _launch_worker(out: str, argv: list[str]) -> int:
+    """One rank of phase 24 (c)-(e) (``chip_smoke.py --launch-worker OUT
+    ARGV...``, started by ``spawn_local``): ``launcher.main(argv)`` as a
+    spawned worker of the launcher runs it, with every kernel's count
+    zeroed just before and read just after, and the card's peak, kept
+    in ``OUT.rank<k>.pt``."""
+    import torch
+
+    from tpu_hc_bench_torch import launcher
+    from tpu_hc_bench_torch.parallel import distributed
+
+    worker = distributed.worker_from_env()
+    # the card; the CPU only in a rehearsal of the phase without one
+    card = torch.cuda.is_available()
+    if card:
+        torch.cuda.set_device(worker.local_rank)
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    rc = launcher.main(argv, print_fn=lambda m: print(m, flush=True))
+    torch.save({"rc": rc, "counts": _read_counts(),
+                "peak_gb": (torch.cuda.max_memory_allocated() / 1e9
+                            if card else 0.0)},
+               f"{out}.rank{worker.rank}.pt")
+    return rc
+
+
+def _spawn_launch(world: int, argv: list[str], out: Path, phase: str
+                  ) -> tuple[dict, list, list]:
+    """``world`` ``--launch-worker`` processes, one a card: rank 0's
+    result line and lines, and each rank's record."""
+    import torch
+
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        print(m, file=sys.stderr, flush=True)
+
+    _spawn_self(world, ["--launch-worker", str(out), *argv], tee, phase)
+    if not any(ln.startswith("{") for ln in lines):
+        raise AssertionError(f"{phase}: {argv}: no result: {lines[-5:]}")
+    return (_result(lines), lines,
+            [torch.load(f"{out}.rank{r}.pt") for r in range(world)])
+
+
+def _pp_ckpt_worker(src: str, dst: str, out: str, pp: str,
+                    model_name: str) -> int:
+    """One rank of phase 24 (f) (``chip_smoke.py --pp-ckpt-worker SRC DST
+    OUT PP MODEL``): the decoder's stage at ``PP`` stages on the card,
+    restored from ``SRC`` (the host layout), its gathered fingerprints
+    kept in ``OUT.rank<k>.pt``, saved under ``DST``; no step taken."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.parallel import distributed, pipeline
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    worker = distributed.worker_from_env()
+    # the card; the CPU only in a rehearsal of the phase without one
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(worker.local_rank)
+    distributed.init_group(distributed.backend_for(True, dev), worker)
+    pp = int(pp)
+    try:
+        cfg = flags.BenchmarkConfig(
+            model=model_name, batch_size=SLICE16_LLAMA_BATCH, use_fp16=True,
+            attention_impl="flash", pipeline_parallel=pp,
+            device=dev.type).resolve()
+        mesh = distributed.build_mesh(pipeline_parallel=pp,
+                                      force_seq_axis=False)
+        model, _ = create_model(model_name, torch.bfloat16, "flash",
+                                device=dev, seed=3, train=True,
+                                pipeline=(pp, mesh.pipe_index))
+        pipe = pipeline.make_pipeline(mesh, model.num_layers,
+                                      pipeline.default_microbatches(
+                                          cfg.batch_size, pp))
+        state = step_mod.make_train_state(model, cfg, Fabric.ICI, mesh,
+                                          None, pipe)
+        topo = ckpt.topology_record(worker.world_size, cfg, mesh=mesh.shape)
+        action, plan = ckpt.check_topology(ckpt.read_topology(src), topo,
+                                           src)
+        ckpt.restore(state, src, rank=worker.rank)
+        opt = pipeline.full_optimizer_state(state.optimizer, model, None,
+                                            pipe)
+        rec = {"plan": [action, plan], "step": state.step,
+               "layers": len(model.layers),
+               "fingerprint": ckpt.model_fingerprint(state),
+               "optimizer": ckpt.fingerprint(opt["state"])}
+        ckpt.save(state, dst, topology=topo, write=worker.rank == 0)
+        distributed.barrier()
+        torch.save(rec, f"{out}.rank{worker.rank}.pt")
+        state.dp.grads.close()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _slice16_rec(part: str, argv, res: dict, lines: list, ranks: list,
+                 expect: dict, smi: str, **extra) -> dict:
+    """A multi-card run's record: rate, each rank's peak and launches
+    against ``expect``, the banner lines."""
+    rec = {"phase": "slice16", "part": part, "argv": argv,
+           "sequences_per_sec": res["total_images_per_sec"],
+           "mean_step_ms": res["mean_step_ms"],
+           "final_loss": res["final_loss"],
+           "global_batch": res["global_batch"],
+           "total_workers": res["total_workers"],
+           "pipeline_parallel": res["pipeline_parallel"],
+           "num_microbatches": res["num_microbatches"],
+           "model_parallel": res["model_parallel"],
+           "sequence_parallel": res["sequence_parallel"],
+           "peak_gb_by_rank": [r["peak_gb"] for r in ranks],
+           "launches_by_rank": [r["counts"] for r in ranks],
+           "expected_launches_a_rank": expect,
+           "banner": [ln for ln in lines if ln.startswith(
+               ("pipeline:", "tensor parallel:", "sequence parallel:"))],
+           "nvidia_smi": smi, **extra}
+    rec["ok"] = (all(r["rc"] == 0 for r in ranks)
+                 and all(r["counts"][k] == expect.get(k, 0)
+                         for r in ranks for k in r["counts"])
+                 and math.isfinite(res["final_loss"]))
+    return rec
+
+
+def slice16_multi(torch, smi, cards: int, base: Path) -> None:
+    """Phase 24 (c)-(f), with two cards or more (each run through the
+    launcher's path in processes of its own, one a card)."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.parallel import distributed, pipeline
+    from tpu_hc_bench_torch.parallel.fabric import Fabric
+    from tpu_hc_bench_torch.train import step as step_mod
+    from tpu_hc_bench_torch.utils import checkpoint as ckpt
+
+    if cards < 2:
+        emit({"phase": "slice16", "part": "cf_multi_card", "ran": False,
+              "cards": cards, "nvidia_smi": smi})
+        return
+    warm, timed = SLICE16_STEPS
+    steps = sum(SLICE16_STEPS)
+    flags_ = [f"--num_warmup_batches={warm}", f"--num_batches={timed}",
+              "--display_every=10"]
+    gpt2 = ["--model=gpt2", "--use_fp16=true", "--attention_impl=flash"]
+    llama = [f"--model={SLICE16_LLAMA}", "--use_fp16=true",
+             "--attention_impl=flash"]
+    n_gpt2, n_llama = SLICE16_LAYERS["gpt2"], SLICE16_LAYERS[SLICE16_LLAMA]
+
+    def flash(n: int) -> dict:
+        return {FLASH_KERNELS[k][0]: n for k in FLASH_KERNELS}
+
+    def run(part, world, batch, extra, expect, **kw):
+        argv = ["1", str(world), str(batch), "ib", *extra, *flags_]
+        t0 = time.perf_counter()
+        res, lines, ranks = _spawn_launch(world, argv, base / part,
+                                          f"phase 24 {part}")
+        rec = _slice16_rec(part, argv, res, lines, ranks, expect, smi,
+                           seconds=time.perf_counter() - t0, **kw)
+        return rec, res
+
+    # (c) gpt2 16 x 1024 at pp 2, pp 4 and dp 2 x pp 2
+    for world, pp in ((2, 2), (4, 4), (4, 2)):
+        if world > cards:
+            continue
+        m = pipeline.default_microbatches(SLICE16_GPT2_BATCH, pp)
+        rec, res = run(f"c_gpt2_w{world}_pp{pp}", world, SLICE16_GPT2_BATCH,
+                       gpt2 + [f"--pipeline_parallel={pp}"],
+                       flash(n_gpt2 // pp * m * steps))
+        rec["ok"] = (rec["ok"] and res["pipeline_parallel"] == pp
+                     and res["num_microbatches"] == m
+                     and res["global_batch"] == SLICE16_GPT2_BATCH
+                     * world // pp
+                     and f"pipeline: {pp} stages x {m} microbatches "
+                         f"({n_gpt2 // pp} layers/stage)" in rec["banner"])
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"phase 24 (c) failed: {rec}")
+    # (d) llama_1b 4 x 2048 at pp 2 and pp 4 against world 1, same rows:
+    # the one-batch step and the M-microbatch one (accumulation)
+    m_llama = pipeline.default_microbatches(SLICE16_LLAMA_BATCH, 2)
+    world1 = {}
+    for arm, extra in (("plain", []), ("accum", [
+            f"--gradient_accumulation_steps={m_llama}"])):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        _, res1, _ = _tee_launch(["1", "1", str(SLICE16_LLAMA_BATCH), "ib",
+                                  *llama, *flags_, *extra],
+                                 f"phase 24 (d) world 1 {arm}")
+        counts1 = _read_counts()
+        n = n_llama * steps * (m_llama if arm == "accum" else 1)
+        rec1 = {"phase": "slice16", "part": f"d_llama_1b_world1_{arm}",
+                "sequences_per_sec": res1["total_images_per_sec"],
+                "mean_step_ms": res1["mean_step_ms"],
+                "final_loss": res1["final_loss"],
+                "gradient_accumulation_steps":
+                    res1["gradient_accumulation_steps"],
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "launches": counts1, "nvidia_smi": smi}
+        rec1["ok"] = all(counts1[k] == flash(n).get(k, 0) for k in counts1)
+        emit(rec1)
+        if not rec1["ok"]:
+            raise AssertionError(f"phase 24 (d) failed: {rec1}")
+        world1[arm] = res1
+    torch.cuda.empty_cache()
+    for pp in (2, 4):
+        if pp > cards:
+            continue
+        m = pipeline.default_microbatches(SLICE16_LLAMA_BATCH, pp)
+        if m != m_llama:
+            raise AssertionError(f"phase 24 (d): pp {pp} runs {m} "
+                                 f"microbatches, the reference {m_llama}")
+        rec, res = run(f"d_llama_1b_pp{pp}", pp, SLICE16_LLAMA_BATCH,
+                       llama + [f"--pipeline_parallel={pp}"],
+                       flash(n_llama // pp * m * steps),
+                       world1_final_loss={k: v["final_loss"]
+                                          for k, v in world1.items()},
+                       world1_sequences_per_sec=world1["plain"][
+                           "total_images_per_sec"])
+        rel = {k: abs(res["final_loss"] - v["final_loss"])
+               / abs(v["final_loss"]) for k, v in world1.items()}
+        rec["final_loss_rel_world1"] = rel
+        rec["ok"] = (rec["ok"] and rel["accum"] <= SLICE16_LLAMA_TOL
+                     and res["global_batch"] == SLICE16_LLAMA_BATCH)
+        emit(rec)
+        if not rec["ok"]:
+            raise AssertionError(f"phase 24 (d) failed: {rec}")
+    if cards < 4:
+        return
+    # (e) the hybrids on four cards
+    m = pipeline.default_microbatches(SLICE16_GPT2_BATCH, 2)
+    rec, res = run("e_gpt2_pp2_tp2", 4, SLICE16_GPT2_BATCH,
+                   gpt2 + ["--pipeline_parallel=2", "--model_parallel=2"],
+                   flash(n_gpt2 // 2 * m * steps))
+    rec["ok"] = (rec["ok"] and "tensor parallel: 2-way (hybrid with PP)"
+                 in rec["banner"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 24 (e) failed: {rec}")
+    rec, res = run("e_llama_1b_sp2_tp2", 4, SLICE16_SPTP_BATCH,
+                   [f"--model={SLICE16_LLAMA}", "--use_fp16=true",
+                    "--attention_impl=ulysses_flash",
+                    "--sequence_parallel=2", "--model_parallel=2"],
+                   flash(n_llama * steps))
+    rec["ok"] = (rec["ok"] and "tensor parallel: 2-way (hybrid with SP)"
+                 in rec["banner"])
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 24 (e) failed: {rec}")
+    # (f) llama_1b checkpoints pp 2 -> pp 4 -> world 1 (host layout)
+    d2, d4 = base / "f_pp2", base / "f_pp4"
+    res2, _, _ = _spawn_launch(
+        2, ["1", "2", str(SLICE16_LLAMA_BATCH), "ib", *llama,
+            "--pipeline_parallel=2",
+            f"--num_warmup_batches={SLICE16_CKPT_STEPS[0]}",
+            f"--num_batches={SLICE16_CKPT_STEPS[1]}", f"--train_dir={d2}"],
+        base / "f_save", "phase 24 (f) pp 2 save")
+    step2, payload = ckpt.load_payload(d2)
+    saved = (ckpt.fingerprint(payload["model"]),
+             ckpt.fingerprint(payload["optimizer"]["state"]))
+    del payload
+    _spawn_self(4, ["--pp-ckpt-worker", str(d2), str(d4),
+                    str(base / "f_r4"), "4", SLICE16_LLAMA],
+                lambda m: print(m, file=sys.stderr, flush=True),
+                "phase 24 (f) pp 4")
+    r4 = [torch.load(f"{base / 'f_r4'}.rank{r}.pt") for r in range(4)]
+    shutil.rmtree(d2, ignore_errors=True)
+    _, payload = ckpt.load_payload(d4)
+    saved4 = (ckpt.fingerprint(payload["model"]),
+              ckpt.fingerprint(payload["optimizer"]["state"]))
+    del payload
+    torch.cuda.empty_cache()
+    distributed.init_single("nccl")
+    try:
+        cfg = flags.BenchmarkConfig(model=SLICE16_LLAMA, use_fp16=True,
+                                    batch_size=SLICE16_LLAMA_BATCH).resolve()
+        model, _ = create_model(SLICE16_LLAMA, torch.bfloat16, "flash",
+                                device="cuda", seed=5, train=True)
+        state = step_mod.make_train_state(model, cfg, Fabric.ICI)
+        ckpt.restore(state, d4)
+        world1 = (ckpt.fingerprint(model.state_dict()),
+                  ckpt.fingerprint(state.optimizer.state_dict()["state"]))
+        state.dp.grads.close()
+        del state, model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    shutil.rmtree(d4, ignore_errors=True)
+    rec = {"phase": "slice16", "part": "f_llama_1b_pp2_pp4_world1",
+           "saved_step": step2, "fingerprints": {
+               "pp2_saved": saved, "pp4_restored": sorted(
+                   {(r["fingerprint"], r["optimizer"]) for r in r4}),
+               "pp4_saved": saved4, "world1_restored": world1},
+           "pp4_plans": r4[0]["plan"], "pp4_layers": [r["layers"]
+                                                      for r in r4],
+           "pp2_fingerprint_line": res2["checkpoint"]["fingerprint"],
+           "nvidia_smi": smi}
+    rec["ok"] = (rec["fingerprints"]["pp4_restored"] == [saved]
+                 and saved4 == saved and world1 == saved
+                 and res2["checkpoint"]["fingerprint"] == saved[0]
+                 and r4[0]["plan"][0] == "noop"
+                 and rec["pp4_layers"] == [n_llama // 4] * 4)
+    emit(rec)
+    if not rec["ok"]:
+        raise AssertionError(f"phase 24 (f) failed: {rec}")
+
+
+def phase_slice16(torch, dev, smi) -> dict:
+    """Phase 24: pipeline parallelism and the 3-D hybrids; returns every
+    kernel's launches summed over the main-path run (a)."""
+    import shutil
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    base = Path(__file__).resolve().parent / "build" / "slice16"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        slice16_one_stage(torch, dev, smi, add)
+        torch.cuda.empty_cache()
+        slice16_interchange(torch, smi, base)
+        torch.cuda.empty_cache()
+        t_ab = time.perf_counter() - t0
+        slice16_multi(torch, smi, torch.cuda.device_count(), base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit({"phase": "slice16", "part": "g_launches", "launches": total,
+          "seconds_ab": t_ab, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -5684,7 +6234,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
                                       "serve2", "slice9", "zoo", "slice11",
                                       "slice12", "slice13", "slice14",
-                                      "slice15"),
+                                      "slice15", "slice16"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -5699,7 +6249,8 @@ def main(argv: list[str] | None = None) -> int:
                         "build, phase 4, then phase 20; slice13: the "
                         "build, then phase 21 alone; slice14: the build, "
                         "then phase 22 alone; slice15: the build, then "
-                        "phase 23 alone")
+                        "phase 23 alone; slice16: the build, then phase "
+                        "24 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -5820,6 +6371,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice16":
+        phase_slice16(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice15":
         phase_slice15(torch, dev, smi)
         print(smi, flush=True)
@@ -5914,6 +6473,8 @@ def main(argv: list[str] | None = None) -> int:
     slice14_launches = phase_slice14(torch, dev, smi)
     torch.cuda.empty_cache()
     slice15_launches = phase_slice15(torch, dev, smi)
+    torch.cuda.empty_cache()
+    slice16_launches = phase_slice16(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -5967,7 +6528,8 @@ def main(argv: list[str] | None = None) -> int:
                       "slice12_launches": slice12_launches.get(name, 0),
                       "slice13_launches": slice13_launches.get(name, 0),
                       "slice14_launches": slice14_launches.get(name, 0),
-                      "slice15_launches": slice15_launches.get(name, 0)})
+                      "slice15_launches": slice15_launches.get(name, 0),
+                      "slice16_launches": slice16_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -5979,4 +6541,8 @@ def main(argv: list[str] | None = None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--elastic-worker"]:
         sys.exit(_elastic_worker(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--launch-worker"]:
+        sys.exit(_launch_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--pp-ckpt-worker"]:
+        sys.exit(_pp_ckpt_worker(*sys.argv[2:7]))
     sys.exit(main())

@@ -43,7 +43,7 @@ from tpu_hc_bench_torch.models import dropout_seed, resnet
 from tpu_hc_bench_torch.train import driver
 from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import checkpoint as ckpt
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 NARROW = dict(num_classes=10, num_filters=8)
 K = 2                                  # steps before the save
@@ -232,7 +232,8 @@ def test_keep_checkpoints_keeps_the_newest_n(tmp_path):
     assert ckpt.read_topology(tmp_path / "run") == {
         "schema": 1, "world": 1, "process_count": 1,
         "mesh": {"data": 1, "model": 1},
-        "variable_update": "psum", "layout": "host", "dtype": "float32"}
+        "variable_update": "psum", "pipeline_parallel": 1, "layout": "host",
+        "dtype": "float32"}
 
 
 def test_topology_record_and_plan_follow_jax():
@@ -243,9 +244,10 @@ def test_topology_record_and_plan_follow_jax():
     jax_rec = topology.topology_record(
         topology.discover_layout(), topology.build_mesh(
             topology.discover_layout()), jax_flags.BenchmarkConfig())
-    assert set(rec) == set(jax_rec) - {"pipeline_parallel"}
+    assert set(rec) == set(jax_rec)
     assert rec["mesh"] == {"data": 4, "model": 1}
-    for k in ("schema", "variable_update", "layout", "dtype"):
+    for k in ("schema", "variable_update", "pipeline_parallel", "layout",
+              "dtype"):
         assert rec[k] == jax_rec[k], k
     live = dict(rec, world=1)
     cases = [(rec, rec, "ok"), (rec, live, "noop"),

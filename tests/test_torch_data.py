@@ -42,7 +42,7 @@ from tpu_hc_bench.data import tokens as jax_tokens
 from tpu_hc_bench_torch import native
 from tpu_hc_bench_torch.data import imagenet, tfrecord, tokens
 from tpu_hc_bench_torch.data.feed import DeviceFeeder
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tpu_hc_bench_torch" / "data" / "testdata" / "imagenet_tiny"

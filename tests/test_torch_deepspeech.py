@@ -64,7 +64,7 @@ from tpu_hc_bench_torch.data.synthetic import SyntheticSpeech, speech_to_device
 from tpu_hc_bench_torch.models import create_model, deepspeech, get_model_spec
 from tpu_hc_bench_torch.train import driver
 from tpu_hc_bench_torch.train import step as step_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 IMPLS = ("hoisted", "bidi", "flax")

@@ -77,7 +77,7 @@ from tpu_hc_bench_torch.models import resnet
 from tpu_hc_bench_torch.parallel import collectives, distributed
 from tpu_hc_bench_torch.parallel.fabric import Fabric, resolve_fabric
 from tpu_hc_bench_torch.train import step as step_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 WORLD = 4
 PER_RANK = 2                           # the step's images a rank

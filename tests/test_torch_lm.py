@@ -54,7 +54,7 @@ from tpu_hc_bench_torch.models import bert, create_model, get_model_spec, gpt
 from tpu_hc_bench_torch.ops.flash_attention import flash_attention
 from tpu_hc_bench_torch.parallel.sequence import local_attention
 from tpu_hc_bench_torch.train import driver, step as step_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 NARROW = dict(vocab_size=1024, hidden=128, num_layers=2, heads=4, ffn=512,
@@ -454,13 +454,14 @@ def test_lm_flags_pass_and_later_slices_raise():
         assert "degenerate seq axis" in cfg.translations["sequence_parallel"]
     for bad, match in ((["--attention_impl=paged"], "dense|flash"),
                        (["--wire_dtype=bf16"], "float32|uint8"),
-                       (["--num_microbatches=2"], "not ported"),
+                       (["--virtual_devices=2"], "not ported"),
                        (["--seq_len=0"], "seq_len")):
         with pytest.raises(ValueError, match=match):
             flags.parse_benchmark_flags(bad)
     with pytest.raises(ValueError, match="not ported"):
-        flags.parse_benchmark_flags(["--model_parallel=2",
-                                     "--sequence_parallel=2"])
+        flags.parse_benchmark_flags(["--config=x.json"])
+    assert flags.parse_benchmark_flags(
+        ["--model_parallel=2", "--sequence_parallel=2"]).model_parallel == 2
     assert flags.parse_benchmark_flags(
         ["--sequence_parallel=2"]).attention_impl == "ring"
 

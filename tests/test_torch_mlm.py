@@ -67,7 +67,7 @@ from tpu_hc_bench_torch.ops.xent import (softmax_xent, softmax_xent_plain,
                                          softmax_xent_reference,
                                          xent_bwd_plain, xent_fwd_plain)
 from tpu_hc_bench_torch.train import step as step_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 TINY = dict(vocab_size=1024, hidden=128, num_layers=2, heads=4, ffn=512,

@@ -52,7 +52,7 @@ from tpu_hc_bench_torch.models import create_model, get_model_spec, gpt, moe
 from tpu_hc_bench_torch.train import step as step_mod
 
 from test_torch_lm import DTYPES, TOL, _close, _close_tree, _np_tree, _perturb
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 H, FFN, E, K = 64, 96, 4, 2
 MARGIN = 1e-5

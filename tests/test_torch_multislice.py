@@ -36,7 +36,7 @@ import torch.distributed as dist
 
 from tpu_hc_bench_torch import flags, launcher
 from tpu_hc_bench_torch.parallel import collectives, distributed
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 WORLD, SLICES = 4, 2
 SIZES = (1, 3, 7, 64, 129)             # flat buffers; none divides by 4

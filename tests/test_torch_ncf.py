@@ -48,7 +48,7 @@ from tpu_hc_bench_torch.data.synthetic import SyntheticIds, ids_to_device
 from tpu_hc_bench_torch.models import get_model_spec, ncf
 from tpu_hc_bench_torch.train import driver
 from tpu_hc_bench_torch.train import step as step_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 5e-2)}   # net, grads
 DTYPES = {"float32": (jnp.float32, torch.float32),

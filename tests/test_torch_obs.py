@@ -43,7 +43,7 @@ from tpu_hc_bench_torch.obs import fleet, kv, memory, metrics, requests
 from tpu_hc_bench_torch.obs import signals, sketch, timeline
 from tpu_hc_bench_torch.resilience import retry
 from tpu_hc_bench_torch.serve import slo
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 
 def _records(n: int, seed: int, *, causes: bool = True,

@@ -50,7 +50,7 @@ from tpu_hc_bench_torch.ops.fused_residual_ln import (
 from tpu_hc_bench_torch.ops.paged_attention import (
     BLOCKS_PER_SM, MIN_SPLIT_TOKENS, paged_decode_attention,
     paged_decode_attention_plain, paged_splits, split_ranges, split_slots)
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 ATTN_ATOL = 2e-5
 NORM_ATOL = 1e-5

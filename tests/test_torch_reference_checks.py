@@ -40,7 +40,7 @@ from tpu_hc_bench_torch.models import create_model, gpt
 from tpu_hc_bench_torch.train import step as step_mod
 
 from test_torch_deepspeech import CPU, _batch, _jax_state, _port
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 STEPS = 8
 TINY_LOSS_TOL = 1e-5          # relative, at every step

@@ -42,7 +42,7 @@ from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import checkpoint as ckpt
 
 from test_torch_lm import _close, _perturb
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 NARROW = dict(vocab_size=256, hidden=64, num_layers=2, heads=4, ffn=128,
               max_len=64)

@@ -59,7 +59,7 @@ from tpu_hc_bench_torch.resilience import guards, inject, preempt
 from tpu_hc_bench_torch.train import driver
 from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import checkpoint as ckpt
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 CONV_TOL = 1e-5
@@ -477,23 +477,24 @@ PORTED = {
 
 
 def test_the_eleven_flags_parse_and_the_eight_refuse():
-    """Four of the eight still refuse; ``--sequence_parallel`` is
+    """Two of the eight still refuse; ``--sequence_parallel`` is
     ported since (``tests/test_torch_sp_train.py``), ``--num_slices``,
     ``--model_parallel`` and ``--expert_parallel`` since
     (``tests/test_torch_multislice.py``,
-    ``tests/test_torch_tensor_parallel.py``)."""
+    ``tests/test_torch_tensor_parallel.py``), ``--pipeline_parallel`` and
+    ``--num_microbatches`` since (``tests/test_torch_pipeline.py``)."""
     cfg = flags.parse_benchmark_flags([f"--{k}={v}"
                                        for k, v in PORTED.items()])
     for k, v in PORTED.items():
         assert str(getattr(cfg, k)) == v, k
     assert set(PORTED).isdisjoint(flags.LATER_SLICE_TRAIN_FLAGS)
-    for name in ("config", "pipeline_parallel", "num_microbatches",
-                 "virtual_devices"):
+    for name in ("config", "virtual_devices"):
         assert name in flags.LATER_SLICE_TRAIN_FLAGS
         with pytest.raises(ValueError, match=f"not ported yet: --{name}"):
             flags.parse_benchmark_flags([f"--{name}=2"])
     for name in ("sequence_parallel", "num_slices", "model_parallel",
-                 "expert_parallel"):
+                 "expert_parallel", "pipeline_parallel",
+                 "num_microbatches"):
         assert name not in flags.LATER_SLICE_TRAIN_FLAGS
         assert getattr(flags.parse_benchmark_flags(
             [f"--{name}=2", "--model=moe_tiny"]), name) == 2

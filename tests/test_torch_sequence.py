@@ -41,7 +41,7 @@ import torch.distributed as dist
 
 from tpu_hc_bench_torch.parallel import collectives, distributed
 from tpu_hc_bench_torch.parallel import sequence as seq
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 B, S, H, D = 2, 32, 8, 8
 IMPLS = ("ring", "ulysses", "ulysses_flash")

@@ -40,7 +40,7 @@ from tpu_hc_bench_torch.models.llama import LlamaLM
 from tpu_hc_bench_torch.serve import arrivals, cli
 from tpu_hc_bench_torch.serve import decode as decode_mod
 from tpu_hc_bench_torch.serve import engine as engine_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 VCOSTS = {"prefill": 0.004, "decode": 0.003}

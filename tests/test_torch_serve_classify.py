@@ -46,7 +46,7 @@ from tpu_hc_bench_torch.models import create_model
 from tpu_hc_bench_torch.serve import arrivals, cli
 from tpu_hc_bench_torch.serve import engine as engine_mod
 from tpu_hc_bench_torch.serve import faults as faults_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 GEOMETRY = dict(num_classes=10, arrival_rate=50.0, num_requests=8,
                 max_in_flight=2, kv_pages=2, seed=0)

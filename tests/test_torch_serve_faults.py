@@ -49,7 +49,7 @@ from tpu_hc_bench_torch.resilience import watchdog
 from tpu_hc_bench_torch.serve import arrivals, slo
 from tpu_hc_bench_torch.serve import engine as engine_mod
 from tpu_hc_bench_torch.serve import faults as faults_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 VCOSTS = {"prefill": 0.004, "decode": 0.003, "page_copy": 0.001}

@@ -47,7 +47,7 @@ from tpu_hc_bench_torch.serve import decode as decode_mod
 from tpu_hc_bench_torch.serve import engine as engine_mod
 
 from test_torch_serve import _fixed_feed, _greedy, _TokenTap
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 GPT_MINI = dict(vocab_size=128, hidden=64, num_layers=2, heads=4, ffn=128,
                 max_len=32)

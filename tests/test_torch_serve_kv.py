@@ -25,7 +25,7 @@ from tpu_hc_bench_torch import flags
 from tpu_hc_bench_torch.serve import arrivals
 from tpu_hc_bench_torch.serve import engine as engine_mod
 from tpu_hc_bench_torch.serve import prefix_cache as pc
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 VCOSTS = {"prefill": 0.004, "decode": 0.003, "page_copy": 0.001}
 SIDES = {"jax": (jax_engine, jax_pc), "port": (engine_mod, pc)}

@@ -62,7 +62,7 @@ from tpu_hc_bench_torch.ops import _build
 from tpu_hc_bench_torch.serve import arrivals, cli, slo
 from tpu_hc_bench_torch.serve import engine as engine_mod
 from tpu_hc_bench_torch.serve import faults as faults_mod
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 GEOMETRY = dict(model="llama_tiny", arrival_rate=50.0, num_requests=24,
                 max_prompt_len=8, max_output_len=4, max_in_flight=2,

@@ -34,7 +34,7 @@ from tpu_hc_bench_torch.serve import decode as decode_mod
 from test_torch_serve import _mini_pair
 from test_torch_serve_gpt import (PROGRAM_ATOL, gpt_mini_pair, jax_feed,
                                   port_feed)
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 def _jax_leaves(family, params):
     """JAX's quantized leaves by the port's state_dict names, laid out

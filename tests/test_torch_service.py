@@ -52,7 +52,7 @@ from tpu_hc_bench_torch.data import imagenet, tokens
 from tpu_hc_bench_torch.data import service as svc
 from tpu_hc_bench_torch.parallel import distributed
 from tpu_hc_bench_torch.train import driver
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 FIXTURE = REPO / "tpu_hc_bench_torch" / "data" / "testdata" / "imagenet_tiny"

@@ -39,7 +39,7 @@ import torch.distributed as dist
 
 from tpu_hc_bench_torch import flags, launcher
 from tpu_hc_bench_torch.parallel import distributed
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 WORLD, SP = 4, 2
 PER_RANK = 2                   # sequences a rank (of its data group)
@@ -319,13 +319,21 @@ def test_sequence_parallel_is_ported_and_elastic_still_refuses():
     assert any("sequence_parallel=2" in ln for ln in cfg.summary_lines())
     with pytest.raises(ValueError, match="--sequence_parallel must be >= 1"):
         flags.parse_benchmark_flags(["--sequence_parallel=0"])
-    # elastic resume is ported since (tests/test_torch_elastic.py);
-    # the DPxSPxTP hybrid and pipeline parallelism are not
+    # elastic resume is ported since (tests/test_torch_elastic.py), the
+    # DPxSPxTP hybrid and pipeline parallelism since
+    # (tests/test_torch_hybrid.py, tests/test_torch_pipeline.py);
+    # --config and --virtual_devices are not
     assert flags.parse_benchmark_flags(
         ["--resume=elastic", "--train_dir=/x"]).resume == "elastic"
-    for argv in (["--sequence_parallel=2", "--model_parallel=2"],
-                 ["--pipeline_parallel=2"], ["--num_microbatches=4"],
-                 ["--config=x.json"], ["--virtual_devices=8"]):
+    cfg = flags.parse_benchmark_flags(["--model=llama_tiny",
+                                       "--sequence_parallel=2",
+                                       "--model_parallel=2"])
+    assert (cfg.sequence_parallel, cfg.model_parallel) == (2, 2)
+    cfg = flags.parse_benchmark_flags(["--model=llama_tiny",
+                                       "--pipeline_parallel=2",
+                                       "--num_microbatches=4"])
+    assert (cfg.pipeline_parallel, cfg.num_microbatches) == (2, 4)
+    for argv in (["--config=x.json"], ["--virtual_devices=8"]):
         with pytest.raises(ValueError, match="not ported yet"):
             flags.parse_benchmark_flags(["--model=llama_tiny"] + argv)
 

@@ -32,7 +32,6 @@ GSPMD arm, on the CPU (gloo; no card here).
 
 from __future__ import annotations
 
-import contextlib
 import sys
 import types
 from pathlib import Path
@@ -44,7 +43,7 @@ import torch.distributed as dist
 
 from tpu_hc_bench_torch import flags
 from tpu_hc_bench_torch.parallel import distributed, tensor
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 WORLD = 4
 ROWS = 4                       # the global batch
@@ -225,28 +224,8 @@ def _jax_moe_aux(model, params, name: str) -> float:
                      for t in jax.tree_util.tree_leaves(col["losses"])))
 
 
-@contextlib.contextmanager
-def _no_shared_compile_cache():
-    """JAX's compiles kept out of the conftest's persistent cache
-    directory: the JAX serving engine's tests count its entries as their
-    own compiles, and other test processes share it."""
-    import jax
-
-    old = jax.config.jax_enable_compilation_cache
-    jax.config.update("jax_enable_compilation_cache", False)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_compilation_cache", old)
-
-
 @pytest.fixture(scope="module")
 def tp_runs(tmp_path_factory):
-    with _no_shared_compile_cache():
-        return _tp_runs(tmp_path_factory)
-
-
-def _tp_runs(tmp_path_factory):
     from tpu_hc_bench_torch import convert
 
     out_dir = tmp_path_factory.mktemp("tp_runs")
@@ -496,7 +475,8 @@ def test_llama_tp_must_divide_the_kv_heads(monkeypatch):
 def test_gradients_average_over_the_data_group_under_a_model_axis_only():
     """The seq ranks of sequence parallelism hold the same parameters and
     average over the whole world; the ranks of a model group hold
-    different shards and average over their data group."""
+    different shards and average over their data group (the mesh's
+    gradient group, ``distributed.build_mesh``)."""
     from tpu_hc_bench_torch.models import create_model
     from tpu_hc_bench_torch.parallel.fabric import Fabric
     from tpu_hc_bench_torch.train import step as step_mod
@@ -508,7 +488,8 @@ def test_gradients_average_over_the_data_group_under_a_model_axis_only():
         data = dist.new_group([0])
         for tp_, want in ((1, None), (2, data)):
             mesh = distributed.Mesh(dp=1, sp=1, data_index=0, seq_index=0,
-                                    data_group=data, tp=tp_)
+                                    data_group=data, tp=tp_,
+                                    grad_group=want)
             model, _ = create_model("llama_tiny", device="cpu", seed=0)
             state = step_mod.make_train_state(model, cfg, Fabric.ICI, mesh)
             assert state.dp.group is want and state.dp.grads.group is want

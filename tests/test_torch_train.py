@@ -46,7 +46,7 @@ from tpu_hc_bench_torch.data.synthetic import SyntheticImages, to_device
 from tpu_hc_bench_torch.models import create_model, get_model_spec, resnet
 from tpu_hc_bench_torch.train import driver, step as step_mod
 from tpu_hc_bench_torch.utils import hw
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 ATOL = 1e-5
@@ -433,7 +433,7 @@ def test_benchmark_flags_defaults_and_rejections():
                                        "TRUE", "--device=cpu"])
     assert cfg.use_fp16 and cfg.fused_conv and cfg.compute_dtype == \
         "bfloat16"
-    for bad, match in ((["--pipeline_parallel=2"], "not ported"),
+    for bad, match in ((["--virtual_devices=8"], "not ported"),
                        (["--gradient_accumulation_steps=3"], "divisible"),
                        (["--variable_update=zero1", "--forward_only=true"],
                         "forward-only"),

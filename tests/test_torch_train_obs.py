@@ -64,7 +64,7 @@ from tpu_hc_bench_torch.obs.__main__ import main as obs_main
 from tpu_hc_bench_torch.train import driver
 from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import checkpoint as ckpt
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from conftest import ceiling_file  # noqa: E402

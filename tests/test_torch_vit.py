@@ -37,7 +37,7 @@ from tpu_hc_bench_torch.train import step as step_mod
 from tpu_hc_bench_torch.utils import checkpoint as ckpt
 
 from torch_zoo_common import check_forward, check_tree, images, two_steps
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["vit_b16", "vit_l16", "vit_tiny"])

@@ -50,7 +50,7 @@ import torch.distributed as dist
 
 from tpu_hc_bench_torch import flags, launcher
 from tpu_hc_bench_torch.parallel import collectives, distributed
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 WORLD = 4
 THRESHOLD = 4096                       # several buckets in the narrow net

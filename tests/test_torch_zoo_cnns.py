@@ -34,7 +34,7 @@ from tpu_hc_bench_torch.models import (TrivialModel, alexnet, googlenet,
 from torch_zoo_common import (NET_TOL, check_forward, check_tree, close,
                               flax_variables, images, load, nchw, nhwc,
                               two_steps)
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 MEMBERS = ("trivial", "lenet", "overfeat", "alexnet", "vgg11", "vgg16",
            "vgg19", "googlenet", "mobilenet")

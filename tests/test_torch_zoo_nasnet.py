@@ -27,7 +27,7 @@ from tpu_hc_bench_torch.models import nasnet
 
 from test_torch_zoo_nets import check_block
 from torch_zoo_common import check_forward, check_tree, images
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 
 @pytest.mark.parametrize("name", ["nasnet", "nasnetlarge"])

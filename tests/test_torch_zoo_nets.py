@@ -42,7 +42,7 @@ from tpu_hc_bench_torch.models import (densenet, get_model_spec, inception,
 from torch_zoo_common import (NET_TOL, check_forward, check_stats,
                               check_tree, close, flax_variables, images,
                               jax_apply, load, nchw, nhwc)
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 MEMBERS = ("densenet40_k12", "densenet100_k12", "inception3", "inception4")

@@ -41,7 +41,7 @@ from tpu_hc_bench_torch import convert
 from torch_zoo_common import (NET_TOL, STATS_TOL, check_forward, check_tree,
                               close, flax_variables, images, jax_apply, nchw,
                               nhwc, two_steps)
-from torch_threads import cpu_share  # noqa: F401
+from torch_threads import cpu_share, jax_private_cache  # noqa: F401
 
 NEW_RESNETS = ("resnet18", "resnet34", "resnet50_v2", "resnet101_v2",
                "resnet152_v2", "resnet20_cifar", "resnet32_cifar",

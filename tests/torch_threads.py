@@ -9,10 +9,18 @@ tests ``cores // N`` threads (at least one), in this process and in the
 processes they start (``OMP_NUM_THREADS``), while the module runs under
 N > 1 workers, and restores both afterwards; in one process it changes
 nothing.
+
+``jax_private_cache`` (autouse, module scope: a test module that runs
+JAX imports it too) keeps the module's JAX compiles out of the
+conftest's persistent compile-cache directory
+(``no_shared_compile_cache``): the JAX serving engine's tests count that
+directory's entries as their own compiles, and every xdist worker shares
+it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import pytest
@@ -44,3 +52,23 @@ def cpu_share():
             os.environ.pop("OMP_NUM_THREADS", None)
         else:
             os.environ["OMP_NUM_THREADS"] = env
+
+
+@contextlib.contextmanager
+def no_shared_compile_cache():
+    """JAX's compiles kept out of the conftest's persistent cache
+    directory for the duration."""
+    import jax
+
+    old = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", old)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def jax_private_cache():
+    with no_shared_compile_cache():
+        yield

@@ -550,3 +550,44 @@ def sharded_params_from_flax(name: str, params: dict, size: int,
         rule = tensor.tp_param_rule(k, v.dim(), mode)
         out[k] = v if rule is None else tensor.cut(v, rule, size, index)
     return out
+
+
+def pp_stage_params_from_flax(name: str, params: dict, stages: int,
+                              stage: int, size: int = 1, index: int = 0
+                              ) -> dict[str, torch.Tensor]:
+    """The ``state_dict`` of pipeline stage ``stage`` of ``stages`` of the
+    decoder ``name`` (``create_model(pipeline=(stages, stage))``), from
+    its Flax tree, unrolled (``layer_<i>``) or stacked for JAX's pipeline
+    (``parallel.pipeline.stack_layer_params``: ``trunk`` ``[L, ...]``):
+    the stage's layers ``cut_stage`` renamed ``layers.<i - lo>``, the
+    whole embedding and head, each tensor cut to model rank ``index`` of
+    ``size`` (DP x PP x TP)."""
+    from tpu_hc_bench_torch.parallel import pipeline, tensor
+
+    if "trunk" in params:
+        rest = {k: v for k, v in params.items() if k != "trunk"}
+        leaf = params["trunk"]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        params = {**rest, **{f"layer_{i}": _slice_tree(params["trunk"], i)
+                             for i in range(np.asarray(leaf).shape[0])}}
+    if name.startswith("llama"):
+        sd = llama_params_from_flax(params)
+    elif name.startswith(("gpt", "moe")):
+        sd = gpt_params_from_flax(params)
+    else:
+        raise ValueError(f"{name} has no pipeline layout")
+    num_layers = len(layer_trees(params))
+    lo, hi = pipeline.cut_stage(num_layers, stages, stage)
+    out = {}
+    for k, v in sd.items():
+        m = pipeline._LAYER.fullmatch(k)
+        if m is not None:
+            i = int(m.group(1))
+            if not lo <= i < hi:
+                continue
+            k = f"layers.{i - lo}.{m.group(2)}"
+        rule = tensor.tp_param_rule(k, v.dim())
+        out[k] = v if rule is None or size == 1 else tensor.cut(
+            v, rule, size, index)
+    return out

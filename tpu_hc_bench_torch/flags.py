@@ -320,9 +320,7 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 # --- training lane -------------------------------------------------------
 
 # training knobs of the JAX lane that this port does not carry yet
-LATER_SLICE_TRAIN_FLAGS = (
-    "config", "pipeline_parallel", "num_microbatches", "virtual_devices",
-)
+LATER_SLICE_TRAIN_FLAGS = ("config", "virtual_devices")
 
 NONFINITE_POLICIES = ("abort", "skip", "rewind")
 
@@ -440,6 +438,13 @@ class BenchmarkConfig:
     expert_parallel: int = 1                  # expert-parallel degree:
                                               # the MoE experts split
                                               # over a model group
+    pipeline_parallel: int = 1                # pipeline stages: ranks a
+                                              # pipe group (GPipe over
+                                              # point-to-point hops)
+    num_microbatches: int = 0                 # GPipe microbatches a step
+                                              # (0: 2 x stages where the
+                                              # batch divides, else
+                                              # stages)
     num_slices: int = 0                       # fabric=dcn multislice:
                                               # slices of the data axis
                                               # (0: one per host)
@@ -620,12 +625,16 @@ class BenchmarkConfig:
             self.variable_update = "psum"
         if self.variable_update == "zero1":
             # ZeRO-1 shards the optimizer state over the data axis; every
-            # unsupported composition dies at flag time (PP is refused as
-            # not ported)
+            # unsupported composition dies at flag time
             if self.model_parallel > 1 or self.expert_parallel > 1:
                 raise ValueError(
                     "--variable_update=zero1 composes with plain data "
                     "parallelism only (TP/EP run on the GSPMD arm)")
+            if self.pipeline_parallel > 1:
+                raise ValueError(
+                    "--variable_update=zero1 is not supported with "
+                    "--pipeline_parallel (the GPipe arm owns its own "
+                    "gradient path; no sharded-optimizer layout)")
             if (self.sequence_parallel > 1
                     or self.attention_impl in SEQ_SHARDED_IMPLS):
                 raise ValueError(
@@ -640,7 +649,8 @@ class BenchmarkConfig:
         if self.variable_update not in ("psum", "replicated", "zero1"):
             raise ValueError(f"--variable_update must be psum|horovod|"
                              f"replicated|zero1: {self.variable_update!r}")
-        for name in ("model_parallel", "expert_parallel"):
+        for name in ("model_parallel", "expert_parallel",
+                     "pipeline_parallel"):
             if getattr(self, name) < 1:
                 raise ValueError(f"--{name} must be >= 1: "
                                  f"{getattr(self, name)}")
@@ -654,6 +664,11 @@ class BenchmarkConfig:
         if self.gradient_accumulation_steps < 1:
             raise ValueError(f"--gradient_accumulation_steps must be >= 1: "
                              f"{self.gradient_accumulation_steps}")
+        if (self.gradient_accumulation_steps > 1
+                and self.pipeline_parallel > 1):
+            raise ValueError(
+                "--gradient_accumulation_steps: pipeline parallelism "
+                "already microbatches (--num_microbatches)")
         if self.gradient_accumulation_steps > 1 and (
                 self.model_parallel > 1 or self.expert_parallel > 1):
             raise ValueError(
@@ -691,9 +706,21 @@ class BenchmarkConfig:
         if self.num_classes < 1:
             raise ValueError(f"--num_classes must be >= 1: {self.num_classes}")
         self._resolve_sequence_parallel(t)
+        if self.pipeline_parallel > 1:
+            note = (
+                f"{self.variable_update}->n/a (pipeline_parallel="
+                f"{self.pipeline_parallel} runs the dedicated GPipe "
+                f"shard_map step with its own gradient psums)"
+            )
+            # appended: an earlier horovod->psum record stays
+            prior = t.get("variable_update")
+            t["variable_update"] = f"{prior}; {note}" if prior else note
         sharded = max(self.model_parallel, self.expert_parallel)
+        # not under the SP or PP hybrids: their own steps keep running
+        # and the model axis rides inside them
         if (sharded > 1 and self.variable_update != "replicated"
-                and self.sequence_parallel == 1):
+                and self.sequence_parallel == 1
+                and self.pipeline_parallel == 1):
             which = ("model_parallel" if self.model_parallel > 1
                      else "expert_parallel")
             t["variable_update"] = (
@@ -758,13 +785,16 @@ class BenchmarkConfig:
         if self.sequence_parallel < 1:
             raise ValueError(f"--sequence_parallel must be >= 1: "
                              f"{self.sequence_parallel}")
-        if self.expert_parallel > 1 and self.sequence_parallel > 1:
+        # the supported hybrids are DPxPPxTP and DPxSPxTP
+        if self.pipeline_parallel > 1 and self.sequence_parallel > 1:
+            raise ValueError(
+                "--pipeline_parallel x --sequence_parallel is not a "
+                "supported composition (supported: DPxPPxTP, DPxSPxTP)"
+            )
+        if self.expert_parallel > 1 and (self.pipeline_parallel > 1
+                                         or self.sequence_parallel > 1):
             raise ValueError(
                 "--expert_parallel composes with data parallelism only")
-        if self.model_parallel > 1 and self.sequence_parallel > 1:
-            raise ValueError(
-                "--sequence_parallel x --model_parallel (the DPxSPxTP "
-                "hybrid) is not ported yet")
         if self.sequence_parallel > 1:
             if self.variable_update == "replicated":
                 note = (
@@ -790,7 +820,8 @@ class BenchmarkConfig:
             # axis (world-1 collectives: copies), the SP machinery's cost
             # on one card; plain data parallelism only (JAX's rule: the
             # PP/EP/TP compositions key on sequence_parallel > 1)
-            if self.expert_parallel > 1 or self.model_parallel > 1:
+            if (self.pipeline_parallel > 1 or self.expert_parallel > 1
+                    or self.model_parallel > 1):
                 raise ValueError(
                     f"--attention_impl={self.attention_impl} with "
                     "--sequence_parallel=1 (degenerate SP) composes with "
@@ -820,6 +851,12 @@ class BenchmarkConfig:
                 "--on_nonfinite=skip/rewind guards the optimizer "
                 "update; forward-only/--eval runs have none (abort "
                 "still applies)")
+        if (self.on_nonfinite in ("skip", "rewind")
+                and self.pipeline_parallel > 1):
+            raise ValueError(
+                "--on_nonfinite=skip/rewind is not supported on the "
+                "GPipe arm yet (the PP step owns its own update "
+                "loop); supported: DP / TP / EP / SP / multislice")
         if self.on_nonfinite == "rewind" and not self.train_dir:
             raise ValueError(
                 "--on_nonfinite=rewind restores the last checkpoint — "
@@ -962,6 +999,8 @@ class BenchmarkConfig:
             f"sequence_parallel={self.sequence_parallel} "
             f"model_parallel={self.model_parallel} "
             f"expert_parallel={self.expert_parallel} "
+            f"pipeline_parallel={self.pipeline_parallel} "
+            f"num_microbatches={self.num_microbatches or 'auto'} "
             f"num_slices={self.num_slices or 'one a host'}",
             f"variable_update={self.variable_update} "
             f"overlap_grad_comm={self.overlap_grad_comm} "

@@ -226,7 +226,8 @@ def create_model(name: str, dtype=torch.float32,
                  rank: int = 0, gradient_checkpointing: bool = False,
                  scan_layers: bool = False, moe_impl: str = "einsum",
                  moe_capacity_factor: float = 1.25, moe_f_chunk: int = 0,
-                 rnn_impl: str = "hoisted", seq_axis=None):
+                 rnn_impl: str = "hoisted", seq_axis=None,
+                 pipeline: tuple[int, int] | None = None):
     """``(model, spec)``: the model built on ``device`` with its weights
     drawn from a ``torch.Generator`` seeded with ``seed`` (on the same
     device, so a full-width model never passes through host memory), in
@@ -242,7 +243,11 @@ def create_model(name: str, dtype=torch.float32,
     for the same seed; an RNN member runs ``rnn_impl``'s arm
     (``hoisted|bidi|flax``), every arm on the same weights.  A text
     model takes ``seq_axis``, the seq group its sequence is sharded over
-    (``models.bert``); the other members refuse it."""
+    (``models.bert``); the other members refuse it.  ``pipeline`` =
+    ``(stages, stage)`` builds only that pipeline stage's layers of a
+    decoder (``parallel.pipeline.cut_stage``; JAX's error where the
+    stages do not divide the layers), each drawn as the whole model
+    draws it."""
     spec = get_model_spec(name)
     if spec.ctc:
         if rnn_impl not in deepspeech.RNN_IMPLS:
@@ -314,6 +319,21 @@ def create_model(name: str, dtype=torch.float32,
     dev = resolve_device(device)
     with torch.device("meta"):
         model = spec.create(**kw)
+    if pipeline is not None:
+        from tpu_hc_bench_torch.parallel.pipeline import cut_stage
+
+        if not spec.causal_lm:
+            raise ValueError(
+                "--pipeline_parallel requires a decoder implementing the "
+                "PP interface (pp_embed/pp_layer_module/pp_head: the GPT "
+                f"and llama families), not {name}")
+        if model.num_layers % pipeline[0]:
+            raise ValueError(
+                f"{name}: {model.num_layers} layers not divisible by "
+                f"pipeline_parallel={pipeline[0]}")
+        with torch.device("meta"):
+            model = spec.create(**kw, layer_range=cut_stage(
+                model.num_layers, *pipeline))
     model = model.to_empty(device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

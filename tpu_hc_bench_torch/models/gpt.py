@@ -11,7 +11,12 @@ under ``layers`` (``models.layer_stack``).  ``seq_axis`` (the seq group;
 ``models.bert``) shards the sequence: learned positions at the shard's
 global offsets, sequence-sharded attention in every layer (the MoE
 members' too; each shard routes its own tokens, as JAX's).  The pipeline
-interface comes with a later slice.
+interface (``pp_embed``, ``pp_layers``, ``pp_head``; JAX's
+``pp_embed``/``pp_layer_module``/``pp_head``) is the forward cut in three,
+and ``forward`` is their composition; ``layer_range`` builds a pipeline
+stage: only layers ``[lo, hi)`` of the trunk (``layers.<i - lo>``), with
+the whole embedding, ``ln_f`` and tied head, every layer's weights drawn
+as the whole model draws them (``layer_stack.init_layers_``).
 
 What must match the Flax modules, and how (``Dense``, ``LayerNorm``,
 ``dropout`` and ``tied_logits`` live in ``models/bert.py``, which both
@@ -126,9 +131,10 @@ class GPTLM(nn.Module):
                  scan_layers: bool = False, num_experts: int = 0,
                  top_k: int = 2, moe_impl: str = "einsum",
                  moe_capacity_factor: float = 1.25, moe_f_chunk: int = 0,
-                 seq_axis=None):
+                 seq_axis=None, layer_range: tuple[int, int] | None = None):
         super().__init__()
         self.seq_axis = seq_axis
+        self.layer_range = layer_range or (0, num_layers)
         self.vocab_size, self.hidden = vocab_size, hidden
         self.num_layers, self.heads, self.max_len = num_layers, heads, max_len
         self.ffn, self.dtype = ffn, dtype
@@ -146,8 +152,9 @@ class GPTLM(nn.Module):
             self.layers = layer_stack.stack_parameters_(
                 self.make_layer(), num_layers)
         else:
+            lo, hi = self.layer_range
             self.layers = nn.ModuleList(self.make_layer()
-                                        for _ in range(num_layers))
+                                        for _ in range(hi - lo))
         self.ln_f = LayerNorm(hidden, dtype)
         self.dropout_generator: torch.Generator | None = None
         self.aux_loss: torch.Tensor | None = None
@@ -168,8 +175,9 @@ class GPTLM(nn.Module):
             layer_stack.init_stacked_(self.layers, self.make_layer,
                                       self.num_layers, generator)
         else:
-            for layer in self.layers:
-                layer.init_weights(generator)
+            layer_stack.init_layers_(self.layers, self.make_layer,
+                                     self.num_layers, self.layer_range,
+                                     generator)
         self.ln_f.init_weights()
 
     def _layer(self, i: int, x, gen, slices):
@@ -186,54 +194,75 @@ class GPTLM(nn.Module):
             return layer_stack.remat(fn, gen, x)
         return fn(x)
 
-    def forward(self, token_ids):
-        """``[b, s]`` ids -> ``[b, s, vocab]`` float32 logits."""
+    def pp_embed(self, token_ids):
+        """Token and learned-position embeddings, then the embedding
+        dropout: ``[b, s]`` ids -> ``[b, s, hidden]`` in ``dtype``."""
         b, s = token_ids.shape
         pos = global_position_ids(s, self.seq_axis, self.max_len,
                                   token_ids.device)
         x = (F.embedding(token_ids, self.wte.weight).to(self.dtype)
              + F.embedding(pos, self.wpe.weight).to(self.dtype)[None])
+        return dropout(x, EMBED_DROPOUT, self.dropout_generator,
+                       self.training)
+
+    def pp_layers(self, x):
+        """The layers this model holds, in order: ``(x, aux, dropped)``,
+        the MoE terms summed over them (None for a dense MLP)."""
         gen = self.dropout_generator
-        x = dropout(x, EMBED_DROPOUT, gen, self.training)
         aux = dropped = None
         slices = (layer_stack.layer_slices(self.layers) if self.scan_layers
                   else None)
-        for i in range(self.num_layers):
+        for i in range(len(self.layers) if not self.scan_layers
+                       else self.num_layers):
             x, a, d = self._layer(i, x, gen, slices)
             if a is not None:
                 aux = a if aux is None else aux + a
                 dropped = d if dropped is None else dropped + d
+        return x, aux, dropped
+
+    def pp_head(self, x):
+        """``ln_f`` and the tied head: float32 logits."""
+        return tied_logits(self.ln_f(x), self.wte.weight, self.dtype)
+
+    def forward(self, token_ids):
+        """``[b, s]`` ids -> ``[b, s, vocab]`` float32 logits."""
+        x, aux, dropped = self.pp_layers(self.pp_embed(token_ids))
         self.aux_loss = aux
         self.moe_dropped = (None if dropped is None
                             else dropped.detach() / self.num_layers)
-        return tied_logits(self.ln_f(x), self.wte.weight, self.dtype)
+        return self.pp_head(x)
 
 
 def gpt2(dtype: torch.dtype = torch.float32, attention_impl: str = "dense",
          max_len: int | None = None, remat: bool = False,
-         scan_layers: bool = False, seq_axis=None) -> GPTLM:
+         scan_layers: bool = False, seq_axis=None,
+         layer_range=None) -> GPTLM:
     """GPT-2 small (124M)."""
     return GPTLM(dtype=dtype, attention_impl=attention_impl,
                  max_len=max(GPT2_CTX, max_len or 0), remat=remat,
-                 scan_layers=scan_layers, seq_axis=seq_axis)
+                 scan_layers=scan_layers, seq_axis=seq_axis,
+                 layer_range=layer_range)
 
 
 def gpt2_medium(dtype: torch.dtype = torch.float32,
                 attention_impl: str = "dense",
                 max_len: int | None = None, remat: bool = False,
-                scan_layers: bool = False, seq_axis=None) -> GPTLM:
+                scan_layers: bool = False, seq_axis=None,
+                layer_range=None) -> GPTLM:
     """GPT-2 medium (~355M: 24L/1024H/16 heads)."""
     return GPTLM(hidden=1024, num_layers=24, heads=16, ffn=4096,
                  dtype=dtype, attention_impl=attention_impl,
                  max_len=max(GPT2_CTX, max_len or 0), remat=remat,
-                 scan_layers=scan_layers, seq_axis=seq_axis)
+                 scan_layers=scan_layers, seq_axis=seq_axis,
+                 layer_range=layer_range)
 
 
 def gpt2_moe(dtype: torch.dtype = torch.float32,
              attention_impl: str = "dense", max_len: int | None = None,
              remat: bool = False, moe_impl: str = "einsum",
              moe_capacity_factor: float = 1.25, scan_layers: bool = False,
-             moe_f_chunk: int = 0, seq_axis=None) -> GPTLM:
+             moe_f_chunk: int = 0, seq_axis=None,
+             layer_range=None) -> GPTLM:
     """GPT-2-small trunk with 8-expert top-2 MoE FFNs (~520M parameters,
     ~180M active a token)."""
     return GPTLM(dtype=dtype, attention_impl=attention_impl,
@@ -241,14 +270,15 @@ def gpt2_moe(dtype: torch.dtype = torch.float32,
                  num_experts=8, top_k=2, moe_impl=moe_impl,
                  moe_capacity_factor=moe_capacity_factor,
                  scan_layers=scan_layers, moe_f_chunk=moe_f_chunk,
-                 seq_axis=seq_axis)
+                 seq_axis=seq_axis, layer_range=layer_range)
 
 
 def moe_tiny(dtype: torch.dtype = torch.float32,
              attention_impl: str = "dense", max_len: int | None = None,
              remat: bool = False, moe_impl: str = "einsum",
              moe_capacity_factor: float = 1.25, scan_layers: bool = False,
-             moe_f_chunk: int = 0, seq_axis=None) -> GPTLM:
+             moe_f_chunk: int = 0, seq_axis=None,
+             layer_range=None) -> GPTLM:
     """4-layer/128-hidden 4-expert decoder for tests and CPU smoke runs."""
     return GPTLM(vocab_size=1024, hidden=128, num_layers=4, heads=4,
                  ffn=256, dtype=dtype, attention_impl=attention_impl,
@@ -256,4 +286,4 @@ def moe_tiny(dtype: torch.dtype = torch.float32,
                  num_experts=4, top_k=2, moe_impl=moe_impl,
                  moe_capacity_factor=moe_capacity_factor,
                  scan_layers=scan_layers, moe_f_chunk=moe_f_chunk,
-                 seq_axis=seq_axis)
+                 seq_axis=seq_axis, layer_range=layer_range)

@@ -82,6 +82,24 @@ def call_layer(body: nn.Module, params: dict[str, torch.Tensor], *args,
 
 
 @torch.no_grad()
+def init_layers_(layers: nn.ModuleList, make_layer: Callable[[], nn.Module],
+                 num_layers: int, layer_range: tuple[int, int],
+                 generator: torch.Generator) -> None:
+    """Layers ``[lo, hi)`` of a ``num_layers`` trunk, held in ``layers``
+    (a pipeline stage's; all of them by default), drawn as the whole
+    trunk draws them: a layer outside the range is drawn into a
+    throwaway ``make_layer()`` on the layers' device, one at a time."""
+    lo, hi = layer_range
+    dev = next(layers.parameters()).device if len(layers) else None
+    for i in range(num_layers):
+        if lo <= i < hi:
+            layers[i - lo].init_weights(generator)
+            continue
+        with torch.device(dev or generator.device):
+            make_layer().init_weights(generator)
+
+
+@torch.no_grad()
 def init_stacked_(body: nn.Module, make_layer: Callable[[], nn.Module],
                   num_layers: int, generator: torch.Generator) -> None:
     """Slice ``i`` of every stacked parameter drawn as the unrolled

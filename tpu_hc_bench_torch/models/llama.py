@@ -26,7 +26,9 @@ servable and a checkpoint does not move between the two layouts.  At
 float32 the serving lane's numbers are unchanged.  ``seq_axis`` (the seq
 group; ``models.bert``) shards the sequence: RoPE at the shard's global
 positions, the sequence-sharded attention with GQA's ``kv_repeat``
-(the un-repeated K/V on the wire).
+(the un-repeated K/V on the wire).  The pipeline interface
+(``pp_embed``, ``pp_layers``, ``pp_head``) and ``layer_range`` (a
+pipeline stage's layers ``[lo, hi)``) are ``models.gpt``'s.
 """
 
 from __future__ import annotations
@@ -197,9 +199,11 @@ class LlamaLM(nn.Module):
                  num_kv_heads: int = 8, ffn: int = 8192,
                  max_len: int = 2048, dtype: torch.dtype = torch.float32,
                  attention_impl: str = "dense", remat: bool = False,
-                 scan_layers: bool = False, seq_axis=None):
+                 scan_layers: bool = False, seq_axis=None,
+                 layer_range: tuple[int, int] | None = None):
         super().__init__()
         self.seq_axis = seq_axis
+        self.layer_range = layer_range or (0, num_layers)
         self.vocab_size, self.hidden = vocab_size, hidden
         self.num_layers, self.heads = num_layers, heads
         self.num_kv_heads, self.ffn = num_kv_heads, ffn
@@ -214,8 +218,9 @@ class LlamaLM(nn.Module):
             self.layers = layer_stack.stack_parameters_(self.make_layer(),
                                                         num_layers)
         else:
+            lo, hi = self.layer_range
             self.layers = nn.ModuleList(self.make_layer()
-                                        for _ in range(num_layers))
+                                        for _ in range(hi - lo))
         self.final_norm = RMSNorm(hidden, dtype=dtype)
         self.lm_head = nn.Parameter(torch.empty(hidden, vocab_size))
 
@@ -232,8 +237,9 @@ class LlamaLM(nn.Module):
             layer_stack.init_stacked_(self.layers, self.make_layer,
                                       self.num_layers, generator)
         else:
-            for blk in self.layers:
-                blk.init_weights(generator)
+            layer_stack.init_layers_(self.layers, self.make_layer,
+                                     self.num_layers, self.layer_range,
+                                     generator)
         self.final_norm.weight.fill_(1.0)
         nn.init.normal_(self.lm_head, 0.0, 0.02, generator=generator)
 
@@ -256,38 +262,52 @@ class LlamaLM(nn.Module):
             return layer_stack.remat(fn, None, x)
         return fn(x)
 
-    def forward(self, token_ids):
-        """Full-context causal forward: ``[b, s]`` ids -> ``[b, s, vocab]``
-        float32 logits."""
+    def pp_embed(self, token_ids):
+        """``[b, s]`` ids -> ``[b, s, hidden]`` in ``dtype``."""
         from tpu_hc_bench_torch.models.bert import global_position_ids
 
         # the global length against max_len (raises)
         global_position_ids(token_ids.shape[1], self.seq_axis, self.max_len)
-        x = F.embedding(token_ids, self.tok_embed.weight).to(self.dtype)
+        return F.embedding(token_ids, self.tok_embed.weight).to(self.dtype)
+
+    def pp_layers(self, x):
+        """The blocks this model holds, in order: ``(x, None, None)``
+        (no MoE terms)."""
         slices = (layer_stack.layer_slices(self.layers) if self.scan_layers
                   else None)
-        for i in range(self.num_layers):
+        for i in range(len(self.layers) if not self.scan_layers
+                       else self.num_layers):
             x = self._block(i, x, slices)
+        return x, None, None
+
+    def pp_head(self, x):
         return self.head(x)
+
+    def forward(self, token_ids):
+        """Full-context causal forward: ``[b, s]`` ids -> ``[b, s, vocab]``
+        float32 logits."""
+        return self.head(self.pp_layers(self.pp_embed(token_ids))[0])
 
 
 def llama_1b(dtype: torch.dtype = torch.float32,
              attention_impl: str = "dense", max_len: int | None = None,
              remat: bool = False, scan_layers: bool = False,
-             seq_axis=None) -> LlamaLM:
+             seq_axis=None, layer_range=None) -> LlamaLM:
     """Llama-3.2-1B-shaped decoder (16L/2048H, 32q/8kv heads, SwiGLU
     8192, 32k vocab; ~1.1B params)."""
     return LlamaLM(max_len=max(2048, max_len or 0), dtype=dtype,
                    attention_impl=attention_impl, remat=remat,
-                   scan_layers=scan_layers, seq_axis=seq_axis)
+                   scan_layers=scan_layers, seq_axis=seq_axis,
+                   layer_range=layer_range)
 
 
 def llama_tiny(dtype: torch.dtype = torch.float32,
                attention_impl: str = "dense", max_len: int | None = None,
                remat: bool = False, scan_layers: bool = False,
-               seq_axis=None) -> LlamaLM:
+               seq_axis=None, layer_range=None) -> LlamaLM:
     """4-layer/128-hidden 8q/2kv variant for tests and CPU smoke runs."""
     return LlamaLM(vocab_size=1024, hidden=128, num_layers=4, heads=8,
                    num_kv_heads=2, ffn=256, max_len=max(128, max_len or 0),
                    dtype=dtype, attention_impl=attention_impl, remat=remat,
-                   scan_layers=scan_layers, seq_axis=seq_axis)
+                   scan_layers=scan_layers, seq_axis=seq_axis,
+                   layer_range=layer_range)

@@ -25,16 +25,17 @@ The reference forms a cluster from a ``nodeips.txt`` hostfile and
   ``HashStore`` (``init_single``), as the JAX package runs its psum over
   a one-device mesh.
 - **The mesh** (``build_mesh``): JAX's ``topology.build_mesh`` as process
-  groups, over the axes ``(dcn, data, seq|model)``.  Axis order is
-  collective frequency: the minor axis (``seq`` or ``model``) is
-  innermost, so its group holds consecutive ranks (one host's cards);
+  groups, over the axes ``(dcn, data, pipe, seq, model)``.  Axis order
+  is collective frequency: ``model`` innermost, so a model group holds
+  consecutive ranks (one host's cards), then ``seq``, then ``pipe``;
   ``dcn`` (``--num_slices``, the multislice layout) is outermost, so a
   slice is a block of consecutive ranks.  rank = (slice x data + data
-  index) x minor + minor index.  Every rank creates every group, in one
-  order (the minor groups, the data groups, then the slice and
-  cross-slice groups): ``dist.new_group`` is a collective call.  A group
-  that spans the whole world is the default group (no second
-  communicator).  ``force_seq_axis`` binds a one-rank seq group at
+  index) x minor + minor index, the minor index itself ``(pipe x sp +
+  seq) x tp + model``.  The supported hybrids bind two minor axes:
+  ``(data, pipe, model)`` and ``(data, seq, model)``.  Every rank
+  creates every group, in one order (``dist.new_group`` is a collective
+  call).  A group that spans the whole world is the default group (no
+  second communicator).  ``force_seq_axis`` binds a one-rank seq group at
   ``sequence_parallel=1`` (the sequence-sharded impls need the axis,
   JAX's ``force_seq_axis``).  ``mesh_shape`` is the mesh's JAX shape,
   ``{"data": ..., "model": 1}`` for plain data parallelism, which the
@@ -183,16 +184,20 @@ def barrier() -> None:
 
 
 DCN_AXIS, DATA_AXIS, SEQ_AXIS, MODEL_AXIS = "dcn", "data", "seq", "model"
+PIPE_AXIS = "pipe"
 
 
 def mesh_shape(world: int, sequence_parallel: int = 1,
                model_parallel: int = 1, num_slices: int = 1,
-               num_hosts: int = 1, force_seq_axis: bool = False) -> dict:
+               num_hosts: int = 1, force_seq_axis: bool = False,
+               pipeline_parallel: int = 1) -> dict:
     """The mesh's axes and sizes in JAX's order and with JAX's errors
     (``topology.build_mesh``): ``{"data": n, "model": 1}`` for plain data
     parallelism, a leading ``dcn`` axis under multislice, the minor axes
-    after ``data``."""
-    minors = [(SEQ_AXIS, sequence_parallel), (MODEL_AXIS, model_parallel)]
+    after ``data`` in collective frequency, ``pipe``, ``seq``, then
+    ``model`` innermost."""
+    minors = [(PIPE_AXIS, pipeline_parallel), (SEQ_AXIS, sequence_parallel),
+              (MODEL_AXIS, model_parallel)]
     for name, deg in minors:
         if deg < 1:
             raise ValueError(f"{name} degree must be >= 1, got {deg}")
@@ -226,10 +231,16 @@ def mesh_shape(world: int, sequence_parallel: int = 1,
 class Mesh:
     """This rank's place on the mesh and its groups.  ``dp`` is the
     data-parallel degree over both ``(dcn, data)``, ``data_index`` this
-    rank's place on it and ``data_group`` its ranks; ``sp`` and ``tp``
-    the seq and model degrees (one of them 1), with their groups (None
-    where the axis is not bound); ``hier`` the slice and cross-slice
-    groups under multislice (``collectives.Hierarchy``), else None."""
+    rank's place on it and ``data_group`` its ranks (equal pipe, seq and
+    model indexes); ``pp``, ``sp`` and ``tp`` the pipe, seq and model
+    degrees, with their groups (None where the axis is not bound);
+    ``pipe_prev`` and ``pipe_next`` the global ranks of the neighbouring
+    stages (None at the ends: point-to-point ops take global ranks);
+    ``grad_group`` the ranks a gradient is averaged over, those with
+    this rank's pipe and model indexes (both data and seq vary; None
+    where that is the whole world, the default group); ``hier`` the
+    slice and cross-slice groups under multislice
+    (``collectives.Hierarchy``), else None."""
 
     dp: int
     sp: int
@@ -243,33 +254,63 @@ class Mesh:
     num_slices: int = 1
     hier: object = None
     shape: dict = dataclasses.field(default_factory=dict)
+    pp: int = 1
+    pipe_index: int = 0
+    pipe_group: object = None
+    pipe_prev: int | None = None
+    pipe_next: int | None = None
+    grad_group: object = None
 
 
 def build_mesh(sequence_parallel: int = 1, model_parallel: int = 1,
                num_slices: int = 1, num_hosts: int = 1,
-               force_seq_axis: bool = True) -> Mesh:
+               force_seq_axis: bool = True,
+               pipeline_parallel: int = 1) -> Mesh:
     """The mesh over the default process group, which must be up; a
     collective call: every rank makes it.  ``force_seq_axis``: bind the
-    seq axis (its one-rank groups at ``sequence_parallel=1``)."""
+    seq axis (its one-rank groups at ``sequence_parallel=1``) where no
+    model or pipe axis is bound.  rank = ((data x pp + pipe) x sp + seq)
+    x tp + model.  Every rank creates every group, in one order: the
+    model groups, the seq groups, the pipe groups, the data groups, the
+    gradient groups, then the slice and cross-slice groups."""
     from tpu_hc_bench_torch.parallel.collectives import Hierarchy
 
     world, r = dist.get_world_size(), dist.get_rank()
     shape = mesh_shape(world, sequence_parallel, model_parallel,
                        num_slices, num_hosts,
-                       force_seq_axis and model_parallel == 1)
-    minor = world // (shape[DATA_AXIS] * shape.get(DCN_AXIS, 1))
+                       force_seq_axis and model_parallel == 1
+                       and pipeline_parallel == 1, pipeline_parallel)
+    pp = shape.get(PIPE_AXIS, 1)
+    sp = shape.get(SEQ_AXIS, 1)
+    tp = shape.get(MODEL_AXIS, 1)
+    minor = pp * sp * tp
     dp = world // minor
+    coords = [(d, p, s, m) for d in range(dp) for p in range(pp)
+              for s in range(sp) for m in range(tp)]      # by rank
+    d0, p0, s0, m0 = coords[r]
 
     def group(ranks: list[int]):
         return (dist.group.WORLD if len(ranks) == world
                 else dist.new_group(ranks))
 
-    minor_groups = ([group(list(range(d * minor, (d + 1) * minor)))
-                     for d in range(dp)]
-                    if SEQ_AXIS in shape or shape.get(MODEL_AXIS, 1) > 1
-                    else None)
-    data_groups = [group(list(range(m, world, minor)))
-                   for m in range(minor)]
+    def groups(same) -> object:
+        """One group for each value of ``same(coords)`` (ranks in rank
+        order); returns this rank's."""
+        keys: dict = {}
+        for rank_, c in enumerate(coords):
+            keys.setdefault(same(c), []).append(rank_)
+        made = {k: group(v) for k, v in keys.items()}
+        return made[same(coords[r])]
+
+    model_group = groups(lambda c: c[:3]) if tp > 1 else None
+    seq_group = groups(lambda c: (c[0], c[1], c[3])) \
+        if SEQ_AXIS in shape else None
+    pipe_group = groups(lambda c: (c[0], c[2], c[3])) if pp > 1 else None
+    data_group = groups(lambda c: c[1:])
+    grad_group = None                  # no pipe or model axis: the world
+    if minor > sp:
+        grad_group = (data_group if sp == 1
+                      else groups(lambda c: (c[1], c[3])))
     hier = None
     if num_slices > 1:
         m_slice = dp // num_slices
@@ -283,16 +324,16 @@ def build_mesh(sequence_parallel: int = 1, model_parallel: int = 1,
         hier = Hierarchy(slices[d_all // m_slice][r % minor],
                          cross[d_all % m_slice][r % minor], m_slice,
                          num_slices)
-    mine = minor_groups[r // minor] if minor_groups else None
-    seq = SEQ_AXIS in shape
-    return Mesh(dp=dp, sp=minor if seq else 1,
-                data_index=r // minor, seq_index=r % minor if seq else 0,
-                data_group=data_groups[r % minor],
-                seq_group=mine if seq else None,
-                tp=1 if seq else minor,
-                model_index=0 if seq else r % minor,
-                model_group=None if seq else mine,
-                num_slices=num_slices, hier=hier, shape=shape)
+    at = {c: i for i, c in enumerate(coords)}
+    return Mesh(dp=dp, sp=sp, data_index=d0, seq_index=s0,
+                data_group=data_group, seq_group=seq_group, tp=tp,
+                model_index=m0, model_group=model_group,
+                num_slices=num_slices, hier=hier, shape=shape, pp=pp,
+                pipe_index=p0, pipe_group=pipe_group,
+                pipe_prev=at[(d0, p0 - 1, s0, m0)] if p0 > 0 else None,
+                pipe_next=at[(d0, p0 + 1, s0, m0)] if p0 < pp - 1 else None,
+                grad_group=None if grad_group is dist.group.WORLD
+                else grad_group)
 
 
 def _stop(procs: Sequence[subprocess.Popen]) -> None:

@@ -94,6 +94,27 @@ the full tree (gathered on save, cut on restore), so it resumes under
 another tp or none.  JAX's refusals: a host fabric, ``--scan_layers``, a
 degree that does not divide the world, a model with no split parameter.
 
+Pipeline parallelism (``--pipeline_parallel``, ``--num_microbatches``;
+JAX's PP arm): the world is a (data, pipe) mesh, or (data, pipe, model)
+under DP x PP x TP; a rank builds only its stage's layers
+(``create_model(pipeline=)``) with the whole embedding and head, trains
+through ``parallel.pipeline``'s GPipe schedule of M microbatches
+(default ``2 x pp`` where the batch divides, else ``pp``), reads its
+data group's rows (every stage of a pipe group the same rows) and draws
+its own dropout stream (the first rank of its model group's).  The
+banner reads ``pipeline: {pp} stages x {M} microbatches ({L/pp}
+layers/stage)``, under TP ``tensor parallel: {tp}-way (hybrid with
+PP)``.  On one host a checkpoint is DP's host layout (the stages
+gathered on save, cut on restore), so PP and DP resume each other's;
+on several, the pp-native layout (``checkpoint.save_pp``).  JAX's
+refusals: a model with no PP interface, layers or a per-worker batch
+the stages or microbatches do not divide, ``--scan_layers``.  DP x SP x
+TP (``--sequence_parallel`` with ``--model_parallel``): the (data, seq,
+model) mesh, the model cut over its model group, the sequence over its
+seq group (``heads / tp`` heads a rank; Ulysses needs ``heads / tp`` and
+``kv_heads / tp`` divisible by ``sp``, checked before the first step),
+the banner ``tensor parallel: {tp}-way (hybrid with SP)``.
+
 Multislice (``dcn``; JAX's round 3): ``--num_slices`` (default one a
 host) splits the data axis into ``(dcn, data)``, every sum over it is
 hierarchical, and the banner reads ``multislice: N slices x ... — data
@@ -191,6 +212,8 @@ class BenchmarkResult:
     variable_update: str = "psum"    # psum | replicated | zero1
     sequence_parallel: int = 1       # seq shards a seq group
     model_parallel: int = 1          # TP: ranks a model group
+    pipeline_parallel: int = 1       # PP: stages a pipe group
+    num_microbatches: int = 0        # PP: GPipe microbatches a step
     expert_parallel: int = 1         # EP: ranks a model group
     num_slices: int = 1              # multislice: slices of the data axis
     overlap_grad_comm: str = "on"
@@ -358,10 +381,9 @@ def _dropout_rank(mesh, rank: int) -> int:
     """The rank whose dropout stream this rank draws (``create_model``'s
     seed, a restored generator state): its own, but under a model axis
     its model group's first rank's, so the ranks of a model group, whose
-    activations are replicated, draw the same masks."""
-    if mesh is None or mesh.tp == 1:
-        return rank
-    return mesh.data_index * mesh.tp
+    activations are replicated, draw the same masks; distinct by data,
+    seq and pipe index."""
+    return rank if mesh is None else rank - mesh.model_index
 
 
 def _require_checkpoint_for_eval(cfg: BenchmarkConfig, restored: bool,
@@ -880,6 +902,8 @@ def _run_eval(cfg, spec, state, inp: _Input, global_batch: int,
         variable_update=cfg.variable_update,
         sequence_parallel=cfg.sequence_parallel,
         model_parallel=cfg.model_parallel,
+        pipeline_parallel=cfg.pipeline_parallel,
+        num_microbatches=cfg.num_microbatches,
         expert_parallel=cfg.expert_parallel, num_slices=num_slices,
         overlap_grad_comm=cfg.overlap_grad_comm, eval_top_1=top1,
         data=_data_record(inp, wait_s, cfg.num_batches))
@@ -917,17 +941,19 @@ def _mesh(cfg: BenchmarkConfig, fab, grouped: bool, world: int,
           num_hosts: int):
     """The mesh of process groups (JAX's ``run_benchmark`` checks and
     ``build_mesh``): (data, seq) under sequence parallelism, (data,
-    model) under TP/EP, (dcn, data) under multislice; None for plain
-    data parallelism and one worker."""
+    model) under TP/EP, (data, pipe) under PP, the hybrids (data, pipe,
+    model) and (data, seq, model), (dcn, data) under multislice; None
+    for plain data parallelism and one worker."""
     tp, ep, sp = cfg.model_parallel, cfg.expert_parallel, \
         cfg.sequence_parallel
-    if cfg.scan_layers and (tp > 1 or ep > 1):
+    pp = cfg.pipeline_parallel
+    if cfg.scan_layers and (pp > 1 or tp > 1 or ep > 1):
         raise ValueError(
             "--scan_layers stacks the trunk params [L, ...] (one compiled "
             "layer body), which the layer_i-based PP interface and the "
             "per-tensor TP/EP sharding rules do not address yet; drop "
             "--scan_layers or the model/pipe axes")
-    mp = max(tp, ep) * sp
+    mp = max(tp, ep) * pp * sp
     if world % mp:
         raise ValueError(
             f"--model_parallel/--expert_parallel/--pipeline_parallel/"
@@ -961,7 +987,7 @@ def _mesh(cfg: BenchmarkConfig, fab, grouped: bool, world: int,
                          "launcher starts one on a fast fabric)")
     return distributed.build_mesh(
         sp, max(tp, ep), num_slices, num_hosts,
-        force_seq_axis=cfg.sp_active)
+        force_seq_axis=cfg.sp_active, pipeline_parallel=pp)
 
 
 def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
@@ -1016,11 +1042,17 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
     dropout_rank = _dropout_rank(mesh, rank)
     # the minor axes divide the data-parallel degree: the global batch
     # counts the data groups' rows (sequences, not shards)
+    pp = cfg.pipeline_parallel
     global_batch = cfg.batch_size * total_workers // (
-        max(cfg.model_parallel, cfg.expert_parallel)
+        max(cfg.model_parallel, cfg.expert_parallel) * pp
         * cfg.sequence_parallel)
     split = _split(cfg, spec)
     _resolve_epochs(cfg, spec, split, global_batch, print_fn)
+    if pp > 1 and not spec.causal_lm:
+        raise ValueError(
+            "--pipeline_parallel requires a decoder implementing the "
+            "PP interface (pp_embed/pp_layer_module/pp_head: the GPT "
+            f"and llama families), not {cfg.model}")
     # a text model's spec comes back rescaled to --seq_len
     model, spec = create_model(
         cfg.model, dtype, cfg.attention_impl, device=dev, seed=cfg.seed,
@@ -1030,18 +1062,48 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         scan_layers=cfg.scan_layers, moe_impl=cfg.moe_impl,
         moe_capacity_factor=cfg.moe_capacity_factor,
         moe_f_chunk=cfg.moe_f_chunk, rnn_impl=cfg.rnn_impl,
-        seq_axis=mesh.seq_group if mesh else None)
+        seq_axis=mesh.seq_group if mesh else None,
+        pipeline=(pp, mesh.pipe_index) if pp > 1 else None)
     if mesh is not None and spec.input_shape[0] % cfg.sequence_parallel:
         raise ValueError(
             f"sequence length {spec.input_shape[0]} not divisible by "
             f"sequence_parallel={cfg.sequence_parallel}")
+    pipe = None
+    if pp > 1:
+        from tpu_hc_bench_torch.parallel import pipeline
+
+        cfg.num_microbatches = (cfg.num_microbatches
+                                or pipeline.default_microbatches(
+                                    cfg.batch_size, pp))
+        if cfg.batch_size % cfg.num_microbatches:
+            raise ValueError(
+                f"per-worker batch {cfg.batch_size} not divisible by "
+                f"num_microbatches={cfg.num_microbatches}")
+        pipe = pipeline.make_pipeline(mesh, model.num_layers,
+                                      cfg.num_microbatches)
+    hybrid = "PP" if pp > 1 else "SP" if cfg.sequence_parallel > 1 else None
+    if hybrid == "SP" and model_axis and cfg.attention_impl in (
+            "ulysses", "ulysses_flash"):
+        heads, kv = model.heads, getattr(model, "num_kv_heads", model.heads)
+        tp_ = cfg.model_parallel
+        if (heads // tp_) % cfg.sequence_parallel or (
+                kv // tp_) % cfg.sequence_parallel:
+            raise ValueError(
+                f"--attention_impl={cfg.attention_impl} under DPxSPxTP "
+                f"splits a rank's heads / model_parallel over the seq "
+                f"axis: heads={heads} (kv_heads={kv}) / model_parallel="
+                f"{tp_} not divisible by sequence_parallel="
+                f"{cfg.sequence_parallel}")
     tp = None
     if model_axis:
+        # the hybrids keep their own losses (local means, as JAX's manual
+        # data axis); plain TP/EP takes the global batch's
         tp = tensor.shard_model_(
             model, mesh.model_group,
-            "ep" if cfg.expert_parallel > 1 else "tp", mesh.data_group)
+            "ep" if cfg.expert_parallel > 1 else "tp",
+            None if hybrid else mesh.data_group)
     state = step_mod.make_train_state(model, cfg, fab if grouped else None,
-                                      mesh, tp)
+                                      mesh, tp, pipe)
     grads = state.dp.grads if state.dp else None
     kind = hw.device_name(dev)
     for line in cfg.summary_lines():
@@ -1056,7 +1118,13 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
                  f"attention_impl={cfg.attention_impl} (a rank holds "
                  f"{cfg.batch_size} x {spec.input_shape[0] // mesh.sp} "
                  f"tokens of a {global_batch}-sequence global batch)")
-    if model_axis:
+    if pipe is not None:
+        print_fn(f"pipeline: {pp} stages x {cfg.num_microbatches} "
+                 f"microbatches ({model.num_layers // pp} layers/stage)")
+    if hybrid and model_axis:
+        print_fn(f"tensor parallel: {cfg.model_parallel}-way (hybrid with "
+                 f"{hybrid})")
+    elif model_axis:
         print_fn(f"{'expert' if tp.mode == 'ep' else 'tensor'} parallel: "
                  f"mesh data={mesh.dp} x model={mesh.tp} "
                  f"({len(tp.rules)} of "
@@ -1075,8 +1143,16 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
     if cfg.train_dir:
         from tpu_hc_bench_torch.utils import checkpoint as ckpt
 
+        pp_native = pp > 1 and num_hosts > 1
+        if pp_native:
+            print_fn(
+                "--train_dir multi-process PP: PP-native layout "
+                "(stacked [L,...] trunk, a file a stage; not "
+                "interchangeable with DP-layout checkpoints); restore "
+                "requires a filesystem shared by all hosts")
         topo = ckpt.topology_record(
             total_workers, cfg,
+            layout="pp-native" if pp_native else "host",
             mesh=mesh.shape if mesh is not None
             else distributed.mesh_shape(total_workers))
     try:
@@ -1660,6 +1736,8 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         variable_update=cfg.variable_update,
         sequence_parallel=cfg.sequence_parallel,
         model_parallel=cfg.model_parallel,
+        pipeline_parallel=cfg.pipeline_parallel,
+        num_microbatches=cfg.num_microbatches,
         expert_parallel=cfg.expert_parallel, num_slices=num_slices,
         overlap_grad_comm=cfg.overlap_grad_comm,
         gradient_accumulation_steps=cfg.gradient_accumulation_steps,

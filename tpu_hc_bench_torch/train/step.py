@@ -71,13 +71,24 @@ the global batch's likewise (``models.moe``).  Under ``--on_nonfinite``
 the finite flag is taken over the whole world (each rank sees only its
 shards' gradients), so one rank's NaN stops every rank.
 
-Sequence parallelism needs nothing of its own here: without TP the
-(data, seq) mesh is the whole world, so the gradients, the loss and the
-statistics are averaged over the default group as under ``psum``; the
-loss is each rank's local weighted mean, averaged over the ranks (JAX's
-approximation, not the exact global weighted mean), and each rank's
-dropout generator is seeded by its global rank, distinct by both its
-data and its seq index.
+Sequence parallelism needs nothing of its own here: the gradients, the
+loss and the statistics are averaged over the (data, seq) ranks of this
+rank's model index (``mesh.grad_group``; without TP the whole world, the
+default group), as under ``psum``; the loss is each rank's local
+weighted mean, averaged over those ranks (JAX's approximation, not the
+exact global weighted mean), and each rank's dropout generator is
+seeded by the first rank of its model group, distinct by both its data
+and its seq index.  Under DP x SP x TP the model is cut over its model
+group as under TP, but the loss stays SP's local mean and the
+gradients keep their fused buckets (JAX reduces per tensor there: the
+sums are the same).
+
+**Pipeline parallelism** (``--pipeline_parallel``; ``TrainState.pipe``):
+``train_step``, ``forward_step`` and ``eval_step`` hand the step to
+``parallel.pipeline``'s GPipe schedule; its gradients are averaged over
+the data group after the schedule (the buckets launch once, after the
+last backward) and ``--fused_xent`` does not apply, as in JAX's PP
+step.
 
 ``--gradient_accumulation_steps=N`` splits a rank's batch into N
 microbatches: a forward and backward each, the gradients summed in
@@ -253,6 +264,7 @@ class TrainState:
     guard: str = "off"               # --on_nonfinite: off | flag | skip
     held: guards.HeldState | None = None   # skip: the pre-step copy
     tp: TensorParallel | None = None       # TP/EP: the model's sharding
+    pipe: object = None                    # PP: parallel.pipeline.Pipeline
 
 
 class OptaxRMSprop(torch.optim.Optimizer):
@@ -318,16 +330,19 @@ def check_arm(cfg: BenchmarkConfig, fabric: Fabric) -> None:
 
 def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
                      fabric: Fabric | None = None, mesh=None,
-                     tp: TensorParallel | None = None) -> TrainState:
+                     tp: TensorParallel | None = None,
+                     pipe=None) -> TrainState:
     """The state of a one-worker step (``fabric`` None: no reduction), or
     of the data-parallel arm of ``fabric`` over the default process
     group, which must be up; with ``mesh`` (``distributed.build_mesh``)
-    over its multislice hierarchy, and under a model axis over its data
-    group only (the seq ranks of sequence parallelism hold the same
-    parameters, and average over the whole world); ``tp`` the sharding
-    of a model cut by ``parallel.tensor.shard_model_``."""
+    over its multislice hierarchy, and under a model or pipe axis over
+    its gradient group only (``mesh.grad_group``: the seq ranks of
+    sequence parallelism hold the same parameters and average with the
+    data ranks); ``tp`` the sharding of a model cut by
+    ``parallel.tensor.shard_model_``; ``pipe`` a pipeline stage's
+    ``parallel.pipeline.Pipeline``."""
     dp = None
-    group = mesh.data_group if mesh is not None and mesh.tp > 1 else None
+    group = mesh.grad_group if mesh is not None else None
     hier = mesh.hier if mesh is not None else None
     zero1 = cfg.variable_update == "zero1"
     if zero1 and fabric is None:
@@ -337,7 +352,8 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
         check_arm(cfg, fabric)
         # the TP/EP arm averages over the data group in fused buckets too
         fuse = cfg.variable_update in ("psum", "zero1") or tp is not None
-        overlap = cfg.overlap_grad_comm == "on"
+        # the pipeline reduces once, after its last backward
+        overlap = cfg.overlap_grad_comm == "on" and pipe is None
         if zero1:
             if hier is not None:
                 raise ValueError(
@@ -369,7 +385,7 @@ def make_train_state(model: torch.nn.Module, cfg: BenchmarkConfig,
                       accum_dtype=cfg.accum_dtype,
                       ctc=get_model_spec(cfg.model).ctc, guard=guard,
                       held=guards.HeldState() if guard == "skip" else None,
-                      tp=tp)
+                      tp=tp, pipe=pipe)
 
 
 def optimizer_state_bytes(optimizer: torch.optim.Optimizer) -> int:
@@ -559,6 +575,10 @@ def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     tensor}``, averaged over the ranks (left on the device: reading it
     is a host sync, which the driver does at display steps only), plus
     ``"nonfinite"`` under a guard."""
+    if state.pipe is not None:
+        from tpu_hc_bench_torch.parallel import pipeline
+
+        return pipeline.train_step(state, batch)
     if state.guard == "skip":
         state.held.hold(state.model, state.optimizer)
     dp = state.dp
@@ -621,6 +641,10 @@ def forward_step(state: TrainState, batch) -> tuple[TrainState, dict]:
     dropout drawn) with no backward and no update; the parameters, the
     optimizer state, the step count and the running statistics are left
     as they were.  The loss is averaged over the ranks."""
+    if state.pipe is not None:
+        from tpu_hc_bench_torch.parallel import pipeline
+
+        return pipeline.forward_step(state, batch)
     with torch.no_grad(), running_stats_frozen(state.model):
         loss = batch_loss(state.model, batch, state.fused_xent,
                           state.ctc, state.tp).float()
@@ -647,6 +671,10 @@ def eval_step(state: TrainState, batch) -> tuple[torch.Tensor,
     statistics, no dropout).  Images: the mean cross-entropy averaged
     over the ranks; text: the weighted mean over every rank's tokens.
     The count is summed over the ranks."""
+    if state.pipe is not None:
+        from tpu_hc_bench_torch.parallel import pipeline
+
+        return pipeline.eval_step(state, batch)
     model = state.model
     with torch.no_grad():
         if len(batch) == 3:

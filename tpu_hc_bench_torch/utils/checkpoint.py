@@ -31,15 +31,16 @@ snapshots to the host on the step loop's thread and writes on its own,
 one save in flight.
 
 The topology sidecar (``topology_record``: world, process count, the
-mesh ``{"data": ..., "model": ...}`` with ``dcn`` under multislice,
-variable-update arm, layout ``"host"``, dtype; JAX's
+mesh ``{"data": ..., "model": ...}`` with ``dcn`` under multislice and
+``pipe`` under pipeline parallelism, variable-update arm, pipeline
+degree, layout ``"host"`` or ``"pp-native"``, dtype; JAX's
 ``topology.topology_record``) is checked at restore by JAX's
 ``elastic_plan``: ``ok`` (the same topology), ``noop`` (a host-layout
 ``psum``/``replicated`` state at another world or mesh: every rank holds
-all of it, so it restores as it is, a TP checkpoint at another tp or
-under plain data parallelism too), ``reshard`` (a zero1 state at another
-world) or ``refuse`` (zero1 against a replicated arm, the pipeline and
-sharded layouts).  ``check_topology`` raises one
+all of it, so it restores as it is, a TP or PP checkpoint at another
+degree or under plain data parallelism too), ``reshard`` (a zero1 state
+at another world) or ``refuse`` (zero1 against a replicated arm,
+pp-native against the host layout, sharded saves).  ``check_topology`` raises one
 ``TopologyMismatchError`` naming both sides where the plan refuses, or
 where it reshards and the run did not ask for ``--resume=elastic``
 (``elastic=``).  ``restore_elastic`` reads a zero1 checkpoint saved by N
@@ -57,7 +58,21 @@ zero1 the same model, and its own optimizer shards).  Under tensor or
 expert parallelism (``state.tp``) every split parameter and its
 optimizer state are gathered over the model group first, so the file
 holds the full tree (JAX's host layout on one host); a restore cuts it
-for the live model group, whatever tp saved it.
+for the live model group, whatever tp saved it.  Under pipeline
+parallelism (``state.pipe``) the stages' layers and their optimizer
+rows are gathered over the pipe group too (``parallel.pipeline``), so
+a PP checkpoint on one host is DP's host layout, and a restore cuts
+the live stage's layers from it: PP resumes under another pipe degree
+or plain data parallelism, and DP under PP (JAX's DP<->PP interchange).
+
+Several hosts under PP write the **pp-native** layout (``save_pp``,
+``restore_pp``; JAX's): ``pp_shared.pt`` (rank 0: the step, the
+replicated embedding and head with their optimizer state, the dropout
+states) and one ``pp_trunk_<lo>_<hi>.pt`` a stage, written by the
+stage's first data rank: its layers' parameters and optimizer state
+stacked ``[hi - lo, ...]`` (``trunk.<name>``, the stacked trunk as it is
+sharded).  It restores under any pipe degree; ``elastic_plan`` refuses
+it against the host layout.
 """
 
 from __future__ import annotations
@@ -79,7 +94,8 @@ __all__ = ["AsyncCheckpointWriter", "TopologyMismatchError", "check_topology",
            "check_layers_layout", "complete_steps", "describe_topology",
            "elastic_plan", "fingerprint", "gc_checkpoints", "latest_step",
            "model_fingerprint", "read_topology", "restore",
-           "restore_elastic", "save", "snapshot_to_host",
+           "restore_elastic", "restore_pp", "save", "save_pp",
+           "snapshot_to_host",
            "topology_record", "write_host_payload"]
 
 _STEP_RE = re.compile(r"step_(\d+)")
@@ -155,8 +171,7 @@ def _commit_step_dir(base: Path, step: int, tmp: Path,
 def topology_record(world: int, cfg, process_count: int | None = None,
                     layout: str = "host", mesh: dict | None = None) -> dict:
     """What ``restore`` must know of the world that wrote a checkpoint
-    (JAX ``topology.topology_record``, less the pipeline degree, which
-    the port does not have): ``mesh`` the mesh's shape
+    (JAX ``topology.topology_record``): ``mesh`` the mesh's shape
     (``distributed.mesh_shape``; default plain data parallelism)."""
     if layout not in CKPT_LAYOUTS:
         raise ValueError(f"layout_kind must be one of {CKPT_LAYOUTS}: "
@@ -166,8 +181,10 @@ def topology_record(world: int, cfg, process_count: int | None = None,
                                  else process_count),
             "mesh": {str(k): int(v) for k, v in
                      (mesh or {"data": int(world), "model": 1}).items()},
-            "variable_update": cfg.variable_update, "layout": layout,
-            "dtype": cfg.compute_dtype}
+            "variable_update": cfg.variable_update,
+            "pipeline_parallel": int(getattr(cfg, "pipeline_parallel", 1)
+                                     or 1),
+            "layout": layout, "dtype": cfg.compute_dtype}
 
 
 def _mesh_str(rec: dict | None) -> str:
@@ -333,10 +350,11 @@ def _zero1(state) -> bool:
 
 def _model_state(state) -> dict:
     """The model's full ``state_dict`` (under TP/EP gathered over the
-    model group: a collective)."""
-    from tpu_hc_bench_torch.parallel import tensor
+    model group, under PP over the pipe group: collectives)."""
+    from tpu_hc_bench_torch.parallel import pipeline
 
-    return tensor.full_state_dict(state.model, getattr(state, "tp", None))
+    return pipeline.full_state_dict(state.model, getattr(state, "tp", None),
+                                    getattr(state, "pipe", None))
 
 
 def model_fingerprint(state) -> str:
@@ -348,10 +366,11 @@ def _optimizer_state(state):
     """The optimizer's ``state_dict`` on the host, every split
     parameter's state gathered under TP/EP; under zero1 every rank's, by
     rank (collectives)."""
-    from tpu_hc_bench_torch.parallel import tensor
+    from tpu_hc_bench_torch.parallel import pipeline
 
-    mine = _host(tensor.full_optimizer_state(
-        state.optimizer, state.model, getattr(state, "tp", None)))
+    mine = _host(pipeline.full_optimizer_state(
+        state.optimizer, state.model, getattr(state, "tp", None),
+        getattr(state, "pipe", None)))
     if not _zero1(state):
         return mine
     out = [mine]
@@ -394,7 +413,10 @@ def save(state, directory: str | Path, topology: dict | None = None,
          write: bool = True) -> Path | None:
     """Save ``state`` at its step where ``write`` (rank 0 under data
     parallel); a rank that does not write only takes its part in the
-    dropout states' gather."""
+    dropout states' gather.  A ``pp-native`` ``topology`` takes
+    ``save_pp`` (every rank calls it)."""
+    if (topology or {}).get("layout") == "pp-native":
+        return save_pp(state, directory, topology)
     if not write:
         _model_state(state)
         _optimizer_state(state)
@@ -569,7 +591,7 @@ def restore(state, directory: str | Path, step: int | None = None,
     record, checked against the sidecar first (``check_topology``).
     ``resplit``: a zero1 state saved at another world is resplit for the
     live one (``restore_elastic``)."""
-    from tpu_hc_bench_torch.parallel import collectives, tensor
+    from tpu_hc_bench_torch.parallel import collectives, pipeline, tensor
 
     base = Path(directory)
     if step is None:
@@ -580,10 +602,14 @@ def restore(state, directory: str | Path, step: int | None = None,
         saved = read_topology(base, step)
         if saved is not None:
             check_topology(saved, expect_topology, base, step)
+    if (_step_dir(base, step) / PP_SHARED_FILE).exists():
+        return restore_pp(state, base, step, rank=rank)
     step, payload = load_payload(base, step)
     tp = getattr(state, "tp", None)
+    pipe = getattr(state, "pipe", None)
     check_layers_layout(state.model.state_dict(), payload["model"], base)
-    state.model.load_state_dict(tensor.cut_state_dict(payload["model"], tp))
+    state.model.load_state_dict(tensor.cut_state_dict(
+        pipeline.cut_state_dict(payload["model"], state.model, pipe), tp))
     opt = payload["optimizer"]
     if _zero1(state) != ("zero1_shards" in opt):
         raise TopologyMismatchError(
@@ -601,8 +627,9 @@ def restore(state, directory: str | Path, step: int | None = None,
                 f"{len(shards)} ranks, live world {world}; relaunch with "
                 f"--resume=elastic to reshape")
         opt = shards[dist.get_rank()]
-    state.optimizer.load_state_dict(
-        tensor.cut_optimizer_state(opt, state.model, tp))
+    state.optimizer.load_state_dict(tensor.cut_optimizer_state(
+        pipeline.cut_optimizer_state(opt, state.model, pipe), state.model,
+        tp))
     state.step = int(payload["step"])
     dropout = (payload.get("rng") or {}).get("dropout")
     gen = getattr(state.model, "dropout_generator", None)
@@ -628,3 +655,136 @@ def restore_elastic(state, directory: str | Path,
     return restore(state, directory, step, rank=rank,
                    resplit=(saved_topology or {}).get("variable_update")
                    == "zero1")
+
+
+# --- the pp-native layout (several hosts) ------------------------------------
+
+PP_SHARED_FILE = "pp_shared.pt"
+
+
+def _pp_trunk_file(lo: int, hi: int) -> str:
+    return f"pp_trunk_{lo:05d}_{hi:05d}.pt"
+
+
+def save_pp(state, directory: str | Path,
+            topology: dict | None = None) -> Path | None:
+    """The pp-native save (JAX's ``save_pp``): every rank calls it.  The
+    stages' first data ranks each write their layers' rows stacked (a
+    stage's layers gathered over its model group first), rank 0 the
+    shared file, then rank 0 commits the step; returns its directory on
+    rank 0, None elsewhere."""
+    from tpu_hc_bench_torch.parallel import pipeline, tensor
+
+    pipe, model = state.pipe, state.model
+    tp = getattr(state, "tp", None)
+    sd = _host(tensor.full_state_dict(model, tp))
+    names = [n for n, _ in model.named_parameters()]
+    opt = _host(tensor.full_optimizer_state(state.optimizer, model, tp))
+    per = pipeline.named_optimizer_state(opt, names)
+    rng = _dropout_states(model)
+    rank, step = dist.get_rank(), int(state.step)
+    base = Path(directory)
+    tmp = base / (_step_dir(base, step).name + ".tmp")
+    if rank == 0:
+        base.mkdir(parents=True, exist_ok=True)
+        shutil.rmtree(tmp, ignore_errors=True)
+        tmp.mkdir()
+    dist.barrier()
+    lo, hi = pipe.layers
+    n = hi - lo
+
+    def layer(d: dict) -> dict:
+        return {k: v for k, v in d.items() if k.startswith("layers.")}
+
+    if pipe.writes_rows:
+        params, opt_rows = pipeline.pp_state_from_train_state(
+            layer(sd), layer(per), n)
+        rows = {"params": params, "optimizer": opt_rows}
+        with open(tmp / _pp_trunk_file(lo, hi), "wb") as f:
+            torch.save(rows, f)
+            f.flush()
+            os.fsync(f.fileno())
+    if rank == 0:
+        shared = {"step": step, "num_layers": model.num_layers,
+                  "model": {k: v for k, v in sd.items()
+                            if not k.startswith("layers.")},
+                  "optimizer": {k: v for k, v in per.items()
+                                if not k.startswith("layers.")},
+                  "param_groups": [{k: v for k, v in g.items()
+                                    if k != "params"}
+                                   for g in opt["param_groups"]],
+                  "rng": {"dropout": rng}}
+        with open(tmp / PP_SHARED_FILE, "wb") as f:
+            torch.save(shared, f)
+            f.flush()
+            os.fsync(f.fileno())
+    dist.barrier()
+    path = _commit_step_dir(base, step, tmp, topology) if rank == 0 else None
+    dist.barrier()
+    return path
+
+
+def restore_pp(state, directory: str | Path, step: int | None = None,
+               rank: int = 0) -> dict:
+    """The pp-native restore (JAX's ``restore_pp``) under any pipe degree:
+    the live stage's layers from the trunk files that hold them (cut for
+    the live model group), the shared entries from rank 0's file, the
+    step and ``rank``'s dropout state; returns the shared payload."""
+    from tpu_hc_bench_torch.parallel import pipeline, tensor
+
+    base = Path(directory)
+    if step is None:
+        step = latest_step(base)
+        if step is None:
+            raise FileNotFoundError(f"no complete checkpoints under {base}")
+    path = _step_dir(base, step)
+    load = lambda p: torch.load(p, map_location="cpu",  # noqa: E731
+                                weights_only=True)
+    shared = load(path / PP_SHARED_FILE)
+    model, pipe = state.model, getattr(state, "pipe", None)
+    lo = pipe.layers[0] if pipe is not None else 0
+    hi = pipe.layers[1] if pipe is not None else model.num_layers
+    trunks = []
+    for f in sorted(path.glob("pp_trunk_*.pt")):
+        a, b = (int(x) for x in f.stem.split("_")[2:4])
+        if a < hi and b > lo:
+            trunks.append((a, b, load(f)))
+
+    def row(i: int, kind: str, name: str):
+        for a, b, t in trunks:
+            if a <= i < b:
+                v = t[kind][pipeline.TRUNK + name]
+                return ({k: x[i - a] for k, x in v.items()}
+                        if kind == "optimizer" else v[i - a])
+        raise FileNotFoundError(f"checkpoint under {path}: no trunk file "
+                                f"holds layer {i}")
+
+    def split(name: str):
+        m = pipeline._LAYER.fullmatch(name)
+        return None if m is None else (lo + int(m.group(1)), m.group(2))
+
+    sd = {}
+    for k in model.state_dict():
+        at = split(k)
+        sd[k] = (shared["model"][k] if at is None
+                 else row(at[0], "params", at[1]))
+    tp = getattr(state, "tp", None)
+    model.load_state_dict(tensor.cut_state_dict(sd, tp))
+    names = [n for n, _ in model.named_parameters()]
+    opt_state = {}
+    for i, n in enumerate(names):
+        at = split(n)
+        st = (shared["optimizer"].get(n) if at is None
+              else row(at[0], "optimizer", at[1]))
+        if st:
+            opt_state[i] = st
+    groups = [{**g, "params": list(range(len(names)))}
+              for g in shared["param_groups"]]
+    state.optimizer.load_state_dict(tensor.cut_optimizer_state(
+        {"state": opt_state, "param_groups": groups}, model, tp))
+    state.step = int(shared["step"])
+    dropout = (shared.get("rng") or {}).get("dropout")
+    gen = getattr(model, "dropout_generator", None)
+    if gen is not None and dropout and rank < len(dropout):
+        gen.set_state(dropout[rank])
+    return shared
