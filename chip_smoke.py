@@ -104,7 +104,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    a step and each xent kernel one just after), then gpt2 ``flash``
    unfused and ``dense``, then ``bert_base`` at batch 128 with
    ``--attention_impl=flash`` and ``--fused_xent=true|false``; peak
-   memory of each.
+   memory of each; ``LM_WARMUP`` + ``LM_BATCHES`` steps.
 11. **xent**: the cross-entropy forward and backward kernels against
    their plain versions at GPT-2's logits ``[16384, 50257]`` float32 (the
    main path), BERT-base's ``[16384, 30522]`` float32, llama_1b's
@@ -151,15 +151,15 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    a mean difference within ``NVJPEG_MEAN_TOL``; (b) ``python -m
    tpu_hc_bench_torch 1 1 128 ib --model=resnet50 --use_fp16=true
    --fused_conv=true --data_dir=<fixture>`` with the reference's whole
-   flag line (all but ``--device=cpu``), 10 + 30 steps: images/s
+   flag line (all but ``--device=cpu``), 5 + 15 steps: images/s
    against phase 7's, the decode pool's counters, the input wait a
    step, 8 conv launches a step; (c) the same with
    ``--datasets_repeat_cached_sample``, (d) ``--forward_only`` (the
-   model's parameters and BN buffers bit-equal after the run), each 10
-   + 30 steps; (e) ``--eval`` on the validation shard; (f) three steps
+   model's parameters and BN buffers bit-equal after the run), each 5
+   + 15 steps; (e) ``--eval`` on the validation shard; (f) three steps
    each of adam, adamw and rmsprop at batch 32 against the plain
    optimizer on the same gradients; (g) gpt2 on a uint16 token corpus
-   written here, 10 + 30 steps, against phase 10's first run, 12
+   written here, 5 + 15 steps, against phase 10's first run, 12
    launches of each flash kernel and one of each xent kernel a step.
 
 15. **slice7**: sync-BN, the decoder, the input service and
@@ -216,7 +216,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 17. **slice9**: the decoder lane's rest, every training run through
    ``launcher.main`` with every count zeroed just before and read just
    after, and its peak memory: (a) llama_1b at full width, bf16, flash,
-   batch 2 x 2048, 5 + 20 steps, ``--fused_xent`` false and true (16
+   batch 2 x 2048, 3 + 12 steps, ``--fused_xent`` false and true (16
    launches of each flash kernel a step, one of each xent kernel with
    the fused loss), the loss falling below the first step's, whose
    logits and loss are held to the dense arm's within
@@ -253,7 +253,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    128 to ``ZOO_MAX_BATCH`` under remat until one does not fit, each
    with its images/s; (c) vit_l16, flash, batch 64 (halved until it
    fits), 5 + 15 (24 launches of each a step); (d) every other image
-   member once at ``ZOO_BATCHES``, 2 + 5 steps, resnet18 and
+   member once at ``ZOO_BATCHES``, 1 + 3 steps, resnet18 and
    resnet50_v2 again with ``--use_space_to_depth``: images/s, ms a
    step, MFU, peak memory, a finite final loss, no kernel of the table
    launched, and the first bf16 loss within ``ZOO_BF16_LOSS_TOL`` of
@@ -265,7 +265,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    mode, every training run through ``launcher.main`` with every count
    zeroed just before and read just after, and its peak memory: (a)
    deepspeech2 at full width, bf16, batch 256, ``--rnn_impl=hoisted``,
-   2 + 5 steps: examples/s, ms a step, MFU, and over the same steps
+   1 + 3 steps: examples/s, ms a step, MFU, and over the same steps
    under ``torch.profiler`` (the device alone) kernels a step and the
    device's idle share; the first bf16 CTC loss against the float32
    forward of the same weights within ``SLICE11_BF16_LOSS_TOL``; (b)
@@ -401,6 +401,32 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    and saved (``--pp-ckpt-worker`` processes, no step), restored at
    world 1: the fingerprints of the parameters and of the optimizer
    state equal throughout.
+25. **slice17**: the autotuner and the obs CLI, everything written under
+   ``build/slice17`` (``TPU_HC_TUNE_REGISTRY`` points there): (a)
+   ``python -m tpu_hc_bench_torch.tune search --model gpt2
+   --max_candidates 3 --max_rungs 2 --rung_batches 4 --warmup 2
+   --promote``, each candidate a launcher subprocess on the card (the
+   seed's ``attention_impl=flash``: rows 3, 4a and 4b in each, counted
+   in their own processes, not here): the hardware key, the journal's
+   status and spent seconds, each measurement's rate and peak memory,
+   the pruner's skips with their classes and ``hbm_source``, ``best``
+   set and promoted; (b) gpt2 through ``parse_benchmark_flags`` with
+   ``--config=auto`` in this process, 2 + 4 steps: the row's fields
+   applied, ``config_source`` ``auto``, a typed ``--batch_size`` pinned,
+   the rate and MFU, rows 3/4a/4b 12 x M launches a step; (c)
+   ``run_search`` over ``serve_member_space("llama_1b")`` (its pruner
+   skips every candidate without a run, as JAX's: the memory anchor is
+   the training seed's batch 2), then the first two candidates measured
+   with an in-process serving runner (tokens/s on phase 4's trace) and
+   the better promoted as the ``llama_1b@serve`` row, then llama_1b
+   served at full width, f32, paged, with ``--config=auto``: the row's levers
+   applied, rows 1 and 2 at phase 4's counts, and gpt2 with no row
+   falling back to ``baseline`` with its note; (d) ``python -m
+   tpu_hc_bench_torch.obs`` (its ``main`` in this process) ``diff`` of
+   the seed candidate's run against
+   (b)'s (exit 0, the ``config`` drift named), ``watch`` on (b)'s
+   finished run (exit 0), ``regress`` of (b)'s BENCH-style record
+   against (a)'s (run to its end, the verdict printed).
 
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
@@ -414,7 +440,8 @@ and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
 ``slice13_launches``: its launches in phase 21's runs (a)-(d),
 ``slice14_launches``: its launches in phase 22's runs (a) and (b),
 ``slice15_launches``: its launches in phase 23's runs (a) and (b),
-``slice16_launches``: its launches in phase 24's run (a), every
+``slice16_launches``: its launches in phase 24's run (a),
+``slice17_launches``: its launches in phase 25's runs (b) and (c), every
 kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
@@ -434,7 +461,7 @@ phase 20; ``--only slice13`` the build and phase 21; ``--only slice14``
 the build and phase 22 (with several cards, (c) runs); ``--only slice15``
 the build and phase 23 (with several cards, (c)-(f) run); ``--only
 slice16`` the build and phase 24 (with two cards or more, (c)-(d) run,
-with four (e)-(f)).
+with four (e)-(f)); ``--only slice17`` the build and phase 25.
 """
 
 from __future__ import annotations
@@ -589,12 +616,12 @@ LM_PARITY_PAIRS = ((1, 0), (2, 1))
 LM_RUNS = (("gpt2", 16, "flash", True), ("gpt2", 16, "flash", False),
            ("gpt2", 16, "dense", False), ("bert_base", 128, "flash", True),
            ("bert_base", 128, "flash", False))
-LM_WARMUP = 10
-LM_BATCHES = 30
+LM_WARMUP = 5                      # cut from 10 + 30 as phase 25 came
+LM_BATCHES = 15
 # phase 13 (dp): the runs' warmup and timed steps, cut from the lanes'
 # 50 + 100 for the time limit
-DP_WARMUP = 20
-DP_BATCHES = 60
+DP_WARMUP = 10                     # (20 + 60 until phase 25 came)
+DP_BATCHES = 30
 DP_LM_BATCH = 16
 DP_LM_WARMUP = 3
 DP_LM_BATCHES = 10
@@ -636,9 +663,10 @@ POOL_PATH_STEPS = 3                # max_pool forward + backward calls
 # phase 14 (realdata): the reference's real-data command on the committed
 # fixture of ImageNet-schema shards; (b)-(e) and (g) at these depths
 # (b), and phase 15's (c)-(d): cut from the lane's 50 + 100 for the
-# script's time limit (to 20 + 50, then to 10 + 30 as phase 23 came)
-REAL_BATCHES = {"b": (10, 30), "c": (10, 30), "d": (10, 30), "e": (5, 20),
-                "g": (10, 30)}
+# script's time limit (to 20 + 50, then to 10 + 30 as phase 23 came, to
+# 5 + 15 as phase 25 came)
+REAL_BATCHES = {"b": (5, 15), "c": (5, 15), "d": (5, 15), "e": (3, 10),
+                "g": (5, 15)}
 # the reference's flag line, less --device=cpu (here the caller's CPU)
 REFERENCE_LINE = [
     "--data_name=imagenet", "--data_format=NCHW", "--optimizer=momentum",
@@ -742,6 +770,13 @@ SLICE16_SPTP_BATCH = 2             # (e): llama_1b 2 x 2048 at sp 2 x tp 2
 SLICE16_CKPT_STEPS = (1, 1)        # (f): the pp 2 run that saves
 SLICE16_LLAMA = "llama_1b"         # (d)-(f)
 SLICE16_LAYERS = {"gpt2": 12, "llama_1b": 16}
+SLICE17_STEPS = (2, 4)              # (b): warmup, timed (a)'s rung 0
+SLICE17_TIMEOUT_S = 300            # (a): a candidate's time limit
+SLICE17_SEARCH_LIMIT_S = 900       # (a): the search's
+SLICE17_SERVE = ["--model=llama_1b", "--decode_attention=paged",
+                 "--max_prompt_len=512", "--max_output_len=64",
+                 "--num_requests=16", "--arrival=poisson",
+                 "--arrival_rate=64", "--seed=0"]   # (c): phase 4's trace
 SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
                                    # (6 pages + a 4-token tail), outputs
 # (e) and (f) in virtual time: modeled seconds a step, so the arms see
@@ -759,7 +794,8 @@ SERVE2_SIGTERM = (32, 0.3)         # (f) subprocess: requests, SIGTERM at s
 # phase 17 (slice9): the decoder lane's rest; (warmup, timed) steps
 SLICE9_LLAMA_BATCH = 2             # llama_1b: batch 2 x seq 2048
 SLICE9_MOE_BATCH = 8               # gpt2_moe: batch 8 x seq 1024
-SLICE9_STEPS = (5, 20)             # short: the script's time limit
+SLICE9_STEPS = (3, 12)             # short: the script's time limit
+                                   # (5 + 20 until phase 25 came)
 # llama_1b's first forward, bf16 flash against bf16 dense from one seed
 # (summation order and bf16 rounding through 16 layers): the loss
 # relative, the logits relative to their largest magnitude
@@ -786,7 +822,8 @@ SLICE9_GREEDY_CHECKS = 4           # (f): requests held to the forward
 ZOO_VIT_BATCH = 64
 ZOO_VIT_STEPS = (10, 30)           # (a), (b)
 ZOO_VIT_L_STEPS = (5, 15)          # (c)
-ZOO_STEPS = (2, 5)                 # (d), and (e)'s profiled steps
+ZOO_STEPS = (1, 3)                 # (d), and (e)'s profiled steps (2 + 5
+                                   # until phase 25 came)
 ZOO_SEARCH_STEPS = (1, 2)          # (b)'s batch search, each batch
 ZOO_MAX_BATCH = 1024               # 4096 fits too; the searches at 2048
                                    # and 4096 cost ~34 s of the limit
@@ -822,7 +859,8 @@ ZOO_IDLE = ("nasnet", "lenet")     # (e): host-bound members profiled
 # classify mode, at the JAX package's tuned plain batches
 # (tpu_hc_bench/tune/space.py), a configuration here; (warmup, timed)
 SLICE11_DS2_BATCH = 256
-SLICE11_DS2_STEPS = (2, 5)         # (a), and its profiled steps
+SLICE11_DS2_STEPS = (1, 3)         # (a), and its profiled steps (2 + 5
+                                   # until phase 25 came)
 SLICE11_ARM_STEPS = (1, 3)         # (b)
 SLICE11_NCF_BATCH = 1048576
 SLICE11_NCF_STEPS = (2, 5)         # (c)
@@ -6226,6 +6264,346 @@ def phase_slice16(torch, dev, smi) -> dict:
     return total
 
 
+def _slice17_bench(run_dir: Path, res: dict) -> dict:
+    """A BENCH-style record (``obs.regress``'s input: metric, value,
+    unit, extra, manifest) of one training run's metrics directory."""
+    from tpu_hc_bench_torch.obs import metrics as obs_metrics
+
+    manifest, records = obs_metrics.read_run(str(run_dir))
+    summary = [r for r in records if r.get("kind") == "summary"][-1]
+    cfg = manifest.get("config") or {}
+    gp = summary.get("goodput")
+    return {"metric": f"{summary['model']}_synthetic_examples_per_sec"
+                      f"_per_chip",
+            "value": summary["images_per_sec_per_chip"],
+            "unit": "examples/sec/chip",
+            "extra": {"chips": summary["total_workers"],
+                      "global_batch": summary["global_batch"],
+                      "dtype": "bfloat16" if cfg.get("use_fp16")
+                      else "float32",
+                      "variable_update": summary["variable_update"],
+                      "mfu": summary.get("mfu"),
+                      "goodput": gp if gp == gp else None,
+                      "peak_hbm_bytes": summary.get("peak_hbm_bytes"),
+                      "config_source": cfg.get("config_source"),
+                      "source_run": str(run_dir), **res},
+            "manifest": obs_metrics.manifest_subset(manifest)}
+
+
+def slice17_search(torch, smi, base: Path, env: dict) -> dict:
+    """Phase 25 (a): ``tune search`` on gpt2 with the default subprocess
+    runner on the card, promoted into the phase's own registry."""
+    root = Path(__file__).resolve().parent
+    out = base / "tune"
+    cmd = [sys.executable, "-m", "tpu_hc_bench_torch.tune", "search",
+           "--model", "gpt2", "--max_candidates", "3", "--max_rungs", "2",
+           "--rung_batches", "4", "--warmup", "2", "--promote",
+           "--out", str(out), "--timeout_s", str(SLICE17_TIMEOUT_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=SLICE17_SEARCH_LIMIT_S)
+    wall = time.perf_counter() - t0
+    print(proc.stdout + proc.stderr, file=sys.stderr, flush=True)
+    journal = json.loads((out / "tune_state.json").read_text())
+    rows = json.loads(next((base / "tuned").glob("*.json")).read_text())
+    measured = []
+    for key, meas in sorted(journal["measurements"].items()):
+        for rung, r in sorted(meas.items()):
+            summary = {}
+            mdir = out / "runs" / f"{key.replace('/', '_')}-r{rung}"
+            for ln in (mdir / "metrics.jsonl").read_text().splitlines():
+                rec = json.loads(ln)
+                if rec.get("kind") == "summary":
+                    summary = rec
+            measured.append({
+                "key": key, "rung": int(rung), "error": r.get("error"),
+                "examples_per_sec": r.get("per_chip"),
+                "step_ms": r.get("step_ms"), "mfu_pct": r.get("mfu_pct"),
+                "goodput": r.get("goodput"),
+                "peak_hbm_bytes": r.get("peak_hbm_bytes"),
+                "hbm_bytes_limit": r.get("hbm_bytes_limit"),
+                "wall_s": r.get("wall_s"), "run_dir": str(mdir),
+                "attention_impl": summary.get("attention_impl"),
+                "device_kind": summary.get("device_kind")})
+    rec = {"phase": "slice17", "part": "a_tune_search_gpt2", "cmd": cmd,
+           "rc": proc.returncode, "wall_s": wall,
+           "hardware": journal["hardware"], "status": journal["status"],
+           "spent_s": journal["spent_s"], "space_size":
+               journal["space_size"], "truncated": journal["truncated"],
+           "lints": journal.get("lints"),
+           "skipped": [{k: sk.get(k) for k in ("key", "class",
+                                                "hbm_source")}
+                       for sk in journal["skipped"]],
+           "measured": measured, "rungs": journal["rungs"],
+           "best": {k: (journal["best"] or {}).get(k)
+                    for k in ("key", "overrides", "base", "score")},
+           "registry_hardware": rows.get("hardware"),
+           "registry_members": sorted(rows["members"]),
+           "nvidia_smi": smi}
+    emit(rec)
+    kind = torch.cuda.get_device_name(0).lower().replace(" ", "_")
+    if not (proc.returncode == 0 and journal["best"] is not None
+            and journal["status"] == "complete"
+            and journal["hardware"].startswith(kind.replace("/", "_"))
+            and journal["hardware"].endswith("-w1")
+            and rows["members"].get("gpt2", {}).get("overrides")
+            == journal["best"]["overrides"]
+            and len(measured) >= 3
+            and all(m["error"] is None and m["examples_per_sec"] > 0
+                    and m["peak_hbm_bytes"] and m["attention_impl"]
+                    == "flash" for m in measured)
+            and "promoted: gpt2" in proc.stdout):
+        raise AssertionError(f"phase 25 (a) failed: {rec}; "
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    return journal
+
+
+def slice17_train(torch, smi, base: Path, journal: dict, add) -> Path:
+    """Phase 25 (b): gpt2 through ``parse_benchmark_flags`` with
+    ``--config=auto`` against (a)'s row, run in this process."""
+    from tpu_hc_bench_torch import flags, launcher
+    from tpu_hc_bench_torch.parallel import distributed
+
+    row = journal["best"]
+    argv = ["--model=gpt2", "--use_fp16=true", "--config=auto",
+            f"--num_warmup_batches={SLICE17_STEPS[0]}",
+            f"--num_batches={SLICE17_STEPS[1]}"]
+    pinned = flags.parse_benchmark_flags(argv + ["--batch_size=16"])
+    run_dir = base / "b"
+    cfg = flags.parse_benchmark_flags(argv + [f"--metrics_dir={run_dir}"])
+    applied = {k: getattr(cfg, k)
+               for k in {**row["base"], **row["overrides"]}}
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        print(m, file=sys.stderr, flush=True)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    rc = launcher._in_group(
+        lambda: distributed.init_single("nccl"),
+        lambda: launcher._train(argv, cfg, "ici", tee, 1))
+    counts = _read_counts()
+    add(counts)
+    res = [json.loads(ln) for ln in lines if ln.startswith("{")][-1]
+    micro = cfg.gradient_accumulation_steps
+    per_kernel = 12 * micro * sum(SLICE17_STEPS)
+    expect = {FLASH_KERNELS[k][0]: per_kernel for k in FLASH_KERNELS}
+    rec = {"phase": "slice17", "part": "b_train_config_auto", "rc": rc,
+           "config_source": cfg.config_source,
+           "note": cfg.translations.get("config"),
+           "row": {**row["base"], **row["overrides"]}, "applied": applied,
+           "pinned": {"config_source": pinned.config_source,
+                      "batch_size": pinned.batch_size,
+                      "note": pinned.translations.get("config")},
+           "launches": counts, "expected_launches": expect,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "nvidia_smi": smi,
+           **{k: res.get(k) for k in (
+               "total_images_per_sec", "mean_step_ms", "p50_step_ms", "mfu",
+               "final_loss", "global_batch", "gradient_accumulation_steps",
+               "goodput", "peak_hbm_bytes", "device_kind")}}
+    emit(rec)
+    if not (rc == 0 and cfg.config_source == "auto"
+            and applied == rec["row"]
+            and pinned.config_source == "auto" and pinned.batch_size == 16
+            and "batch_size=16 (explicit flag wins)" in rec["pinned"]["note"]
+            and math.isfinite(res["final_loss"])
+            and res["total_images_per_sec"] > 0
+            and all(counts[k] == expect.get(k, 0) for k in counts)):
+        raise AssertionError(f"phase 25 (b) failed: {rec}")
+    return run_dir
+
+
+def slice17_serve(torch, dev, smi, base: Path, add) -> None:
+    """Phase 25 (c): a ``llama_1b@serve`` row from the first two
+    candidates of ``serve_member_space`` measured with an in-process
+    serving runner, then llama_1b served at full width, f32, paged, with
+    ``--config=auto``."""
+    from tpu_hc_bench_torch import flags
+    from tpu_hc_bench_torch.models import create_model
+    from tpu_hc_bench_torch.serve import cli
+    from tpu_hc_bench_torch.tune import registry, runner, search, space
+
+    model, _ = create_model("llama_1b", device=dev, seed=0)
+    layers = model.num_layers
+    quiet = lambda m: print(m, file=sys.stderr, flush=True)  # noqa: E731
+
+    def serve_runner(c, rung: int, batches: int) -> dict:
+        cfg = flags.parse_flags(SLICE17_SERVE + [
+            f"--{k}={v}" for k, v in c.all_overrides().items()])
+        engine, requests = cli.build_engine_and_requests(cfg, quiet,
+                                                         model=model)
+        t0 = time.perf_counter()
+        summary = engine.run(requests, writer=TokenTap())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        del engine
+        return {"per_chip": summary["tokens_per_s"], "wall_s": wall,
+                "completed": summary["completed"],
+                "p99_e2e_ms": summary["p99_e2e_ms"],
+                "decode_steps": summary["decode_steps"]}
+
+    # run_search prunes every serve candidate of llama_1b without a run:
+    # its memory model anchors on the training seed's batch 2 (JAX's
+    # prune does the same), so the row is written from the first two
+    # candidates measured here, through the registry's own promote
+    hw = registry.hardware_key()
+    pruned = search.run_search(
+        "llama_1b", str(base / "serve_tune"), hw,
+        settings=search.SearchSettings(budget_s=600.0, max_rungs=1,
+                                       max_candidates=2),
+        runner=serve_runner, space=space.serve_member_space("llama_1b"),
+        print_fn=quiet)
+    cands = space.serve_member_space("llama_1b")[:2]
+    measured = {c.key: serve_runner(c, 0, 0) for c in cands}
+    best = max(cands, key=lambda c: runner.score(measured[c.key]))
+    _, row = registry.promote({
+        "model": "llama_1b", "workload": "serve", "hardware": hw,
+        "status": "measured-without-search", "rungs": [],
+        "spent_s": sum(m["wall_s"] for m in measured.values()),
+        "best": {"key": best.key, "overrides": dict(best.overrides),
+                 "base": dict(best.base),
+                 "score": round(runner.score(measured[best.key]), 3),
+                 "record": measured[best.key]}})
+    argv = SLICE17_SERVE + ["--config=auto"]
+    cfg = flags.parse_flags(argv)
+    applied = {k: getattr(cfg, k) for k in row["overrides"]}
+    fallback = flags.parse_flags(["--model=gpt2", "--config=auto"])
+    engine, requests = cli.build_engine_and_requests(cfg, quiet,
+                                                     model=model)
+    _zero_counts()
+    summary = engine.run(requests, writer=TokenTap())
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    add(counts)
+    steps = summary["decode_steps"]
+    expect = {"paged_decode_attention": layers * steps,
+              "fused_residual_norm": (2 * layers - 1) * steps}
+    rec = {"phase": "slice17", "part": "c_serve_config_auto",
+           "hardware": hw, "search_space": pruned["space_size"],
+           "search_skipped": sorted({(sk["class"], sk.get("hbm_source"))
+                                     for sk in pruned["skipped"]}),
+           "search_skipped_n": len(pruned["skipped"]),
+           "search_measured": len(pruned["measurements"]),
+           "measured": {k: {f: m[f] for f in ("per_chip", "p99_e2e_ms",
+                                               "decode_steps", "wall_s")}
+                        for k, m in measured.items()},
+           "row": row["overrides"], "applied": applied,
+           "config_source": cfg.config_source,
+           "note": cfg.translations.get("config"),
+           "fallback": {"config_source": fallback.config_source,
+                        "note": fallback.translations.get("config")},
+           "launches": counts, "expected_launches": expect,
+           "nvidia_smi": smi,
+           **{k: summary[k] for k in (
+               "requests", "completed", "tokens", "tokens_per_s",
+               "decode_steps", "p50_ttft_ms", "p99_ttft_ms", "p50_e2e_ms",
+               "p99_e2e_ms", "max_in_flight", "kv_pages", "kv_page_size",
+               "decode_attention")}}
+    emit(rec)
+    del engine, model
+    torch.cuda.empty_cache()
+    if not (all(m["completed"] == 16 for m in measured.values())
+            and cfg.config_source == "auto"
+            and applied == row["overrides"]
+            and cfg.decode_attention == "paged"
+            and summary["max_in_flight"] == cfg.max_in_flight
+            and summary["completed"] == 16 and steps > 0
+            and fallback.config_source == "baseline"
+            and "python -m tpu_hc_bench_torch.tune search"
+            in rec["fallback"]["note"]
+            and all(counts[k] == expect.get(k, 0) for k in counts)):
+        raise AssertionError(f"phase 25 (c) failed: {rec}")
+
+
+def slice17_obs(smi, base: Path, journal: dict, run_b: Path) -> None:
+    """Phase 25 (d): ``obs diff``, ``watch`` and ``regress`` (the CLI's
+    ``main``) on (a)'s and (b)'s metrics directories."""
+    import io
+
+    from tpu_hc_bench_torch.obs.__main__ import main as obs_main
+
+    runs = base / "tune" / "runs"
+    seed_key = journal["rungs"][0]["measured"][0]
+    seed_dir = runs / f"{seed_key.replace('/', '_')}-r0"
+    hist_dir = base / "d"
+    hist_dir.mkdir(parents=True, exist_ok=True)
+    for key, meas in journal["measurements"].items():
+        for rung in meas:
+            mdir = runs / f"{key.replace('/', '_')}-r{rung}"
+            (hist_dir / f"BENCH_a_{mdir.name}.json").write_text(
+                json.dumps(_slice17_bench(mdir, {"tune_key": key})))
+    fresh = base / "BENCH_b.json"
+    fresh.write_text(json.dumps(_slice17_bench(run_b, {})))
+
+    def obs(*args: str) -> tuple[int, list[str]]:
+        # the CLI's entry in this process: a subprocess would spend its
+        # seconds importing torch
+        out = io.StringIO()
+        rc = obs_main(list(args), out=out)
+        return rc, out.getvalue().splitlines()
+
+    diff_rc, diff = obs("diff", str(seed_dir), str(run_b))
+    watch_rc, watch = obs("watch", str(run_b), "--timeout", "60")
+    regress_rc, regress = obs("regress", str(fresh), "--history",
+                              str(hist_dir))
+    rec = {"phase": "slice17", "part": "d_obs_cli",
+           "diff_rc": diff_rc, "diff": diff, "watch_rc": watch_rc,
+           "watch": watch, "regress_rc": regress_rc, "regress": regress,
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (diff_rc == 0 and "  config: config: 'manual' -> 'auto'" in diff
+            and any("ex/s/chip" in ln for ln in diff)
+            and watch_rc == 0 and any("DONE: total" in ln for ln in watch)
+            and regress_rc in (0, 1) and regress
+            and regress[-1].startswith("regress: ")):
+        raise AssertionError(f"phase 25 (d) failed: {rec}")
+
+
+def phase_slice17(torch, dev, smi) -> dict:
+    """Phase 25: the autotuner and ``--config=auto`` in both lanes, then
+    the obs CLI's ``diff``, ``watch`` and ``regress``; returns every
+    kernel's launches summed over (b) and (c)."""
+    import os
+    import shutil
+
+    from tpu_hc_bench_torch.tune import registry
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    base = Path(__file__).resolve().parent / "build" / "slice17"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    before = {k: os.environ.get(k) for k in (registry.REGISTRY_ENV,
+                                             registry.HW_ENV)}
+    os.environ[registry.REGISTRY_ENV] = str(base / "tuned")
+    os.environ.pop(registry.HW_ENV, None)
+    t0 = time.perf_counter()
+    try:
+        journal = slice17_search(torch, smi, base, dict(os.environ))
+        torch.cuda.empty_cache()
+        run_b = slice17_train(torch, smi, base, journal, add)
+        torch.cuda.empty_cache()
+        slice17_serve(torch, dev, smi, base, add)
+        slice17_obs(smi, base, journal, run_b)
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    emit({"phase": "slice17", "part": "e_launches", "launches": total,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -6234,7 +6612,7 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
                                       "serve2", "slice9", "zoo", "slice11",
                                       "slice12", "slice13", "slice14",
-                                      "slice15", "slice16"),
+                                      "slice15", "slice16", "slice17"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -6250,7 +6628,8 @@ def main(argv: list[str] | None = None) -> int:
                         "build, then phase 21 alone; slice14: the build, "
                         "then phase 22 alone; slice15: the build, then "
                         "phase 23 alone; slice16: the build, then phase "
-                        "24 alone")
+                        "24 alone; slice17: the build, then phase 25 "
+                        "alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -6371,6 +6750,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice17":
+        phase_slice17(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice16":
         phase_slice16(torch, dev, smi)
         print(smi, flush=True)
@@ -6475,6 +6862,8 @@ def main(argv: list[str] | None = None) -> int:
     slice15_launches = phase_slice15(torch, dev, smi)
     torch.cuda.empty_cache()
     slice16_launches = phase_slice16(torch, dev, smi)
+    torch.cuda.empty_cache()
+    slice17_launches = phase_slice17(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -6529,7 +6918,8 @@ def main(argv: list[str] | None = None) -> int:
                       "slice13_launches": slice13_launches.get(name, 0),
                       "slice14_launches": slice14_launches.get(name, 0),
                       "slice15_launches": slice15_launches.get(name, 0),
-                      "slice16_launches": slice16_launches.get(name, 0)})
+                      "slice16_launches": slice16_launches.get(name, 0),
+                      "slice17_launches": slice17_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -391,8 +391,9 @@ def test_jax_s_refusals_are_raised(i):
     (["--data_format=NCWH"], "NCHW|NHWC"),
     (["--horovod_device=tpu"], "cpu|gpu"),
     (["--datasets_repeat_cached_sample=true", "--eval=true"], "epoch"),
-    (["--config=x.json"], "not ported"),
+    (["--virtual_devices=8"], "not ported"),
     (["--optimizer=lbfgs"], "rmsprop"),
+    (["--config=x.json"], "manual|auto"),
 ])
 def test_port_refusals(argv, match):
     with pytest.raises(ValueError, match=match):

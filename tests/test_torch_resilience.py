@@ -477,8 +477,9 @@ PORTED = {
 
 
 def test_the_eleven_flags_parse_and_the_eight_refuse():
-    """Two of the eight still refuse; ``--sequence_parallel`` is
-    ported since (``tests/test_torch_sp_train.py``), ``--num_slices``,
+    """One of the eight still refuses; ``--config`` is ported since
+    (``tests/test_torch_tune.py``), ``--sequence_parallel`` since
+    (``tests/test_torch_sp_train.py``), ``--num_slices``,
     ``--model_parallel`` and ``--expert_parallel`` since
     (``tests/test_torch_multislice.py``,
     ``tests/test_torch_tensor_parallel.py``), ``--pipeline_parallel`` and
@@ -488,10 +489,12 @@ def test_the_eleven_flags_parse_and_the_eight_refuse():
     for k, v in PORTED.items():
         assert str(getattr(cfg, k)) == v, k
     assert set(PORTED).isdisjoint(flags.LATER_SLICE_TRAIN_FLAGS)
-    for name in ("config", "virtual_devices"):
-        assert name in flags.LATER_SLICE_TRAIN_FLAGS
-        with pytest.raises(ValueError, match=f"not ported yet: --{name}"):
-            flags.parse_benchmark_flags([f"--{name}=2"])
+    assert "virtual_devices" in flags.LATER_SLICE_TRAIN_FLAGS
+    with pytest.raises(ValueError, match="not ported yet: --virtual_devices"):
+        flags.parse_benchmark_flags(["--virtual_devices=2"])
+    assert "config" not in flags.LATER_SLICE_TRAIN_FLAGS
+    with pytest.raises(ValueError, match="manual|auto"):
+        flags.parse_benchmark_flags(["--config=2"])
     for name in ("sequence_parallel", "num_slices", "model_parallel",
                  "expert_parallel", "pipeline_parallel",
                  "num_microbatches"):

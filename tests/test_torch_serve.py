@@ -345,7 +345,9 @@ def test_flags_defaults_and_rejections():
     assert cfg.decode_block_pages == 2 and cfg.device == "cpu"
     with pytest.raises(ValueError, match="kv_reserve=lazy"):
         flags.parse_flags(["--prefix_cache=on"])
-    with pytest.raises(ValueError, match="not ported"):
+    # --config=auto keys the registry by the card: with none and no
+    # --device=cpu, it raises instead of keying the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         flags.parse_flags(["--config=auto"])
     with pytest.raises(ValueError, match="decode_block_pages"):
         flags.parse_flags(["--decode_block_pages=2"])

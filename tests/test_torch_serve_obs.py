@@ -469,7 +469,7 @@ def test_obs_flags_take_jax_defaults_and_refusals():
         assert str(mine.value) == str(ref.value), bad
     with pytest.raises(SystemExit):
         flags.parse_flags(["--flight_recorder=maybe"])
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         flags.parse_flags(["--config=auto"])
 
 

@@ -322,7 +322,7 @@ def test_sequence_parallel_is_ported_and_elastic_still_refuses():
     # elastic resume is ported since (tests/test_torch_elastic.py), the
     # DPxSPxTP hybrid and pipeline parallelism since
     # (tests/test_torch_hybrid.py, tests/test_torch_pipeline.py);
-    # --config and --virtual_devices are not
+    # --virtual_devices is not, and --config refuses only bad values
     assert flags.parse_benchmark_flags(
         ["--resume=elastic", "--train_dir=/x"]).resume == "elastic"
     cfg = flags.parse_benchmark_flags(["--model=llama_tiny",
@@ -333,9 +333,12 @@ def test_sequence_parallel_is_ported_and_elastic_still_refuses():
                                        "--pipeline_parallel=2",
                                        "--num_microbatches=4"])
     assert (cfg.pipeline_parallel, cfg.num_microbatches) == (2, 4)
-    for argv in (["--config=x.json"], ["--virtual_devices=8"]):
-        with pytest.raises(ValueError, match="not ported yet"):
-            flags.parse_benchmark_flags(["--model=llama_tiny"] + argv)
+    with pytest.raises(ValueError, match="not ported yet"):
+        flags.parse_benchmark_flags(["--model=llama_tiny",
+                                     "--virtual_devices=8"])
+    with pytest.raises(ValueError, match="manual|auto"):
+        flags.parse_benchmark_flags(["--model=llama_tiny",
+                                     "--config=x.json"])
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["--worker"]:

@@ -10,6 +10,13 @@ the part of each lane ported so far, plus ``--device=cuda|cpu``.  Flags
 of the JAX lane that are not ported yet parse and are rejected loudly,
 so no run silently ignores one; the other lane's flags are unknown.
 
+``--config=manual|auto`` works in both lanes as in JAX: ``auto`` makes
+``resolve()`` apply the member's tuned registry row
+(``tune.registry.resolve_auto``) before any other check, to every lever
+the operator did not type (``explicit_flags``, recorded by the
+parsers; the launcher's positional batch counts as typed), and the
+note lands in ``translations``.
+
 The training lane takes the reference's whole flag line
 (``run-tf-sing-ucx-openmpi.sh``'s tf_cnn_benchmarks command) and
 translates its literal values as the JAX package does, each translation
@@ -28,8 +35,34 @@ from __future__ import annotations
 import argparse
 import dataclasses
 
-# serving knobs of the JAX lane that this port does not carry yet
-LATER_SLICE_FLAGS = ("config",)
+# serving knobs of the JAX lane that this port does not carry yet: none
+# since --config came
+LATER_SLICE_FLAGS: tuple[str, ...] = ()
+
+# config fields that are not flags: where the resolved config came from
+# (--config), what the operator typed, and the translation notes
+DERIVED_FIELDS = ("config_source", "tuned_config", "explicit_flags",
+                  "translations")
+
+
+def _resolve_config(cfg, t: dict) -> None:
+    """``--config`` first in either lane's ``resolve()``, as JAX's: an
+    applied tuned row is then validated like a flag typed by hand."""
+    if cfg.config not in ("manual", "auto"):
+        raise ValueError(f"--config must be manual|auto: {cfg.config!r}")
+    if cfg.config == "auto":
+        # the one registry read at flag time (TPU_HC_TUNE_REGISTRY /
+        # TPU_HC_TUNE_HW override its directory and hardware key)
+        from tpu_hc_bench_torch.tune import registry as tune_registry
+
+        t["config"] = tune_registry.resolve_auto(cfg)
+
+
+def _typed(argv: list[str], fields: set) -> tuple:
+    """The flag names the operator typed (JAX's ``explicit_flags``)."""
+    return tuple(sorted(
+        {a[2:].split("=", 1)[0] for a in argv if a.startswith("--")}
+        & fields))
 
 
 def parse_serve_buckets(spec: str, max_in_flight: int) -> tuple[int, ...]:
@@ -133,9 +166,20 @@ class ServeConfig:
                                               # (default build/
                                               # torch_kernels); off =
                                               # rebuild, stamp unread
+    config: str = "manual"                    # manual | auto: the tuned
+                                              # <model>@serve registry row
+                                              # (tune.registry)
+    # derived, not flags: manual | auto | baseline (auto found no row),
+    # the applied row, the typed flags, the notes
+    config_source: str = "manual"
+    tuned_config: dict | None = None
+    explicit_flags: tuple | None = None
+    translations: dict = dataclasses.field(default_factory=dict)
 
     def resolve(self) -> "ServeConfig":
         """Validate (the JAX serving matrix, for the ported knobs)."""
+        t: dict[str, str] = {}
+        _resolve_config(self, t)
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda|cpu: {self.device!r}")
         if self.arrival not in ("poisson", "bursty", "diurnal"):
@@ -238,6 +282,7 @@ class ServeConfig:
             from tpu_hc_bench_torch.obs.memory import parse_hbm_budget
 
             parse_hbm_budget(self.hbm_budget)       # loud format check
+        self.translations = t
         return self
 
     def summary_lines(self) -> list[str]:
@@ -285,6 +330,8 @@ class ServeConfig:
                    if self.hbm_budget else "")
                 + (f" compile_cache={self.compile_cache}"
                    if self.compile_cache else ""))
+        for k, v in self.translations.items():
+            lines.append(f"translated: {k}: {v}")
         return lines
 
 
@@ -296,31 +343,30 @@ def build_parser() -> argparse.ArgumentParser:
                     "paged KV pool (PyTorch/CUDA port).")
     choices = {"flight_recorder": ["on", "off"]}
     for f in dataclasses.fields(ServeConfig):
+        if f.name in DERIVED_FIELDS:
+            continue
         default = getattr(d, f.name)
         p.add_argument(f"--{f.name}",
                        type=str if default is None else type(default),
                        default=default, choices=choices.get(f.name))
-    for name in LATER_SLICE_FLAGS:
-        p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     return p
 
 
 def parse_flags(argv: list[str]) -> ServeConfig:
     args = build_parser().parse_args(argv)
-    later = [n for n in LATER_SLICE_FLAGS if getattr(args, n) is not None]
-    if later:
-        raise ValueError(
-            "flag(s) of the JAX serving lane not ported yet: "
-            + ", ".join(f"--{n}" for n in later))
-    vals = {f.name: getattr(args, f.name)
-            for f in dataclasses.fields(ServeConfig)}
-    return ServeConfig(**vals).resolve()
+    names = {f.name for f in dataclasses.fields(ServeConfig)
+             if f.name not in DERIVED_FIELDS}
+    cfg = ServeConfig(**{n: getattr(args, n) for n in names})
+    # what the operator typed, before resolve(): --config=auto honours
+    # an explicit flag even at its default value
+    cfg.explicit_flags = _typed(argv, names)
+    return cfg.resolve()
 
 
 # --- training lane -------------------------------------------------------
 
 # training knobs of the JAX lane that this port does not carry yet
-LATER_SLICE_TRAIN_FLAGS = ("config", "virtual_devices")
+LATER_SLICE_TRAIN_FLAGS = ("virtual_devices",)
 
 NONFINITE_POLICIES = ("abort", "skip", "rewind")
 
@@ -558,6 +604,18 @@ class BenchmarkConfig:
     kmp_blocktime: int = 1
     kmp_affinity: str = "granularity=fine,noverbose,compact,1,0"
 
+    # --- autotuner ---
+    config: str = "manual"                    # manual: flags mean what
+                                              # they say; auto: resolve()
+                                              # applies this member's
+                                              # tuned registry row
+                                              # (tune.registry)
+    # derived, not flags: manual | auto | baseline (auto found no row),
+    # the applied row, the typed flags (the launcher's positional batch
+    # included), the notes
+    config_source: str = "manual"
+    tuned_config: dict | None = None
+    explicit_flags: tuple | None = None
     translations: dict = dataclasses.field(default_factory=dict)
 
     @property
@@ -576,6 +634,7 @@ class BenchmarkConfig:
         """Translate the reference's literal values and validate (the JAX
         training matrix, for the ported knobs)."""
         t: dict[str, str] = {}
+        _resolve_config(self, t)
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda|cpu: {self.device!r}")
         if self.data_format.upper() == "NCHW":
@@ -1047,7 +1106,7 @@ def build_benchmark_parser() -> argparse.ArgumentParser:
         description="Train on synthetic data to the tf_cnn_benchmarks "
                     "protocol (PyTorch/CUDA port).")
     for f in dataclasses.fields(BenchmarkConfig):
-        if f.name == "translations":
+        if f.name in DERIVED_FIELDS:
             continue
         v = getattr(d, f.name)
         kind = _OPTIONAL_TYPES.get(f.name, type(v))
@@ -1066,7 +1125,10 @@ def parse_benchmark_flags(argv: list[str]) -> BenchmarkConfig:
         raise ValueError(
             "flag(s) of the JAX training lane not ported yet: "
             + ", ".join(f"--{n}" for n in later))
-    vals = {f.name: getattr(args, f.name)
-            for f in dataclasses.fields(BenchmarkConfig)
-            if f.name != "translations"}
-    return BenchmarkConfig(**vals).resolve()
+    names = {f.name for f in dataclasses.fields(BenchmarkConfig)
+             if f.name not in DERIVED_FIELDS}
+    cfg = BenchmarkConfig(**{n: getattr(args, n) for n in names})
+    # what the operator typed, before resolve(): --config=auto honours
+    # an explicit flag even at its default value
+    cfg.explicit_flags = _typed(argv, names)
+    return cfg.resolve()

@@ -4,7 +4,8 @@ are the JAX package's (either package's readers render the other's run
 directories).
 
 - ``metrics``: ``MetricsWriter`` (``manifest.json`` + ``metrics.jsonl``),
-  ``read_run`` and ``summarize_run`` (training and serving runs);
+  ``read_run``, ``summarize_run`` and ``diff_runs`` (training and
+  serving runs);
 - ``goodput``: the phase ledger (``PhaseTracker``, ``build_ledger``);
 - ``efficiency``: MFU measured against analytic, the gradient
   all-reduce's bytes, the fabric ceiling and collective overlap;
@@ -19,8 +20,11 @@ directories).
 - ``fleet``: heartbeats (``metrics.<rank>.jsonl``), the step EWMA, the
   straggler gather and their readers;
 - ``memory``: ``--hbm_budget``, the analytic table, device-memory
-  samples, the phase-attributed ledger and forensics.
+  samples, the phase-attributed ledger and forensics;
+- ``watch``: the live panel over a run directory;
+- ``regress``: the noise-aware regression gate over BENCH records.
 
-``python -m tpu_hc_bench_torch.obs summarize|timeline|signals <dir>``
-renders a run directory.
+``python -m tpu_hc_bench_torch.obs summarize|diff|watch|timeline|signals
+<dir>`` renders run directories; ``regress FRESH --history ...`` gates a
+BENCH record.
 """

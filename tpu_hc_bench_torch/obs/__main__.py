@@ -1,5 +1,6 @@
-"""CLI: ``python -m tpu_hc_bench_torch.obs`` — summarize / timeline /
-signals over a training or serving run's ``--metrics_dir``.
+"""CLI: ``python -m tpu_hc_bench_torch.obs`` — summarize / diff / watch /
+timeline / signals / regress over a training or serving run's
+``--metrics_dir`` (and BENCH-style JSON records for ``regress``).
 
 Examples::
 
@@ -21,13 +22,26 @@ Examples::
     # re-evaluation of the stream (exit 1 when anything fired)
     python -m tpu_hc_bench_torch.obs signals /runs/llama_serve
 
+    # per-metric, per-phase and per-bucket deltas between two runs
+    # (resolved-flag drift first: a config change is not a regression)
+    python -m tpu_hc_bench_torch.obs diff /runs/before /runs/after
+
+    # live tail of a running (or finished) run; exits when it does
+    python -m tpu_hc_bench_torch.obs watch /runs/resnet50
+
+    # noise-aware regression gate: a fresh BENCH json vs the history's
+    # median/MAD per config fingerprint (exit 1 on a real regression)
+    python -m tpu_hc_bench_torch.obs regress BENCH_fresh.json \
+        --history 'BENCH_*.json'
+
 All subcommands are pure file operations (no GPU needed), and they read
 the JAX package's run directories as well as the port's.
 
 Exit codes: 0 clean; 1 degraded run dir (rendered what survived, each
-problem one WARNING line on stderr) or a signal fired (``signals``); 2
-unusable input (no metrics stream or trace at the path — one-line
-error).
+problem one WARNING line on stderr), a signal fired (``signals``),
+``watch --timeout`` expiry or a regression (``regress``); 2 unusable
+input (no metrics stream or trace at the path, or no parseable BENCH
+record — one-line error).
 """
 
 from __future__ import annotations
@@ -82,6 +96,25 @@ def _report_problems(problems: list[str]) -> int:
     return 1 if problems else 0
 
 
+def _diff(path_a: str, path_b: str, out) -> int:
+    kind_a, kind_b = _kind(path_a), _kind(path_b)
+    if kind_a != kind_b:
+        print(f"cannot diff a {kind_a} run against a {kind_b} run",
+              file=sys.stderr)
+        return 2
+    if kind_a == "metrics":
+        problems: list[str] = []
+        lines = metrics_mod.diff_runs(path_a, path_b, problems=problems)
+        print("\n".join(lines), file=out)
+        return _report_problems(problems)
+    a = trace_mod.summarize_trace_dir(path_a)
+    b = trace_mod.summarize_trace_dir(path_b)
+    lines = [f"trace diff: {path_a} -> {path_b}"]
+    lines.extend(trace_mod.diff_buckets(a.totals, b.totals))
+    print("\n".join(lines), file=out)
+    return 0
+
+
 def _timeline(run_dir: str, out_path: str | None, out) -> int:
     from tpu_hc_bench_torch.obs import timeline as timeline_mod
 
@@ -110,8 +143,9 @@ def _timeline(run_dir: str, out_path: str | None, out) -> int:
 def main(argv: list[str] | None = None, out=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m tpu_hc_bench_torch.obs",
-        description="summarize/timeline/signals over training- and "
-                    "serving-run artifacts (--metrics_dir, --trace_dir)")
+        description="summarize/diff/watch/timeline/signals/regress over "
+                    "training- and serving-run artifacts (--metrics_dir, "
+                    "--trace_dir, BENCH records)")
     sub = ap.add_subparsers(dest="cmd", required=True)
     s = sub.add_parser("summarize", help="render one run (metrics dir, "
                                          "its metrics.jsonl, or a trace)")
@@ -119,6 +153,20 @@ def main(argv: list[str] | None = None, out=None) -> int:
     s.add_argument("--fabric_ceiling", default=None, metavar="SWEEP_JSON",
                    help="an OSU sweep export (microbench.osu --json): "
                         "judge the gradient all-reduce against it")
+    d = sub.add_parser("diff",
+                       help="per-bucket/per-metric deltas between two runs")
+    d.add_argument("run_a")
+    d.add_argument("run_b")
+    w = sub.add_parser("watch",
+                       help="live tail: step rate, goodput, MFU, last "
+                            "resilience event; exits when the run does")
+    w.add_argument("path")
+    w.add_argument("--interval", type=float, default=1.0,
+                   help="poll/refresh period, seconds (default 1)")
+    w.add_argument("--timeout", type=float, default=None,
+                   help="give up (exit 1) after this many seconds")
+    w.add_argument("--no-follow", dest="follow", action="store_false",
+                   help="render one snapshot and exit")
     t = sub.add_parser("timeline",
                        help="merge every rank's flight-recorder spans "
                             "(spans.<k>.jsonl) into one clock-aligned "
@@ -139,24 +187,57 @@ def main(argv: list[str] | None = None, out=None) -> int:
     g.add_argument("--json", action="store_true",
                    help="emit the raw event list as JSON instead of "
                         "the rendered report")
+    r = sub.add_parser("regress",
+                       help="noise-aware regression gate: a fresh BENCH "
+                            "json vs the history's median/MAD per config "
+                            "fingerprint; exit 1 on regression")
+    r.add_argument("fresh", help="fresh BENCH json (bare record or the "
+                                 "harness {'parsed': ...} wrapper)")
+    r.add_argument("--history", nargs="+", default=None,
+                   metavar="FILE|DIR|GLOB",
+                   help="history sources (default: BENCH_*.json + "
+                        "artifacts/ in the cwd)")
+    r.add_argument("--mad_k", type=float, default=None,
+                   help="noise multiplier on the MAD-sigma (default 4)")
+    r.add_argument("--rel_floor", type=float, default=None,
+                   help="relative noise floor vs the median (default "
+                        "0.03: a quiet history never flags <3%% jitter)")
     args = ap.parse_args(argv)
     out = out or sys.stdout
     try:
         if args.cmd == "summarize":
             return _summarize(args.path, out, args.fabric_ceiling)
+        if args.cmd == "diff":
+            return _diff(args.run_a, args.run_b, out)
         if args.cmd == "timeline":
             return _timeline(args.run_dir, args.out, out)
-        from tpu_hc_bench_torch.obs import signals as signals_mod
+        if args.cmd == "signals":
+            from tpu_hc_bench_torch.obs import signals as signals_mod
 
-        rep = signals_mod.evaluate_run(args.path, window_s=args.window_s)
-        if args.json:
-            print(json.dumps({"recorded": rep["recorded"],
-                              "evaluated": rep["evaluated"],
-                              "fired": rep["fired"]}), file=out)
-        else:
-            print("\n".join(rep["lines"]), file=out)
-        return _report_problems(rep["problems"]) \
-            or (1 if rep["fired"] else 0)
+            rep = signals_mod.evaluate_run(args.path,
+                                           window_s=args.window_s)
+            if args.json:
+                print(json.dumps({"recorded": rep["recorded"],
+                                  "evaluated": rep["evaluated"],
+                                  "fired": rep["fired"]}), file=out)
+            else:
+                print("\n".join(rep["lines"]), file=out)
+            return _report_problems(rep["problems"]) \
+                or (1 if rep["fired"] else 0)
+        if args.cmd == "regress":
+            from tpu_hc_bench_torch.obs import regress as regress_mod
+
+            kwargs = {}
+            if args.mad_k is not None:
+                kwargs["mad_k"] = args.mad_k
+            if args.rel_floor is not None:
+                kwargs["rel_floor"] = args.rel_floor
+            return regress_mod.run_regress(args.fresh, args.history,
+                                           out=out, **kwargs)
+        from tpu_hc_bench_torch.obs import watch as watch_mod
+
+        return watch_mod.watch(args.path, out=out, interval=args.interval,
+                               timeout_s=args.timeout, follow=args.follow)
     except (FileNotFoundError, json.JSONDecodeError, ValueError,
             RuntimeError) as e:
         # a missing/garbage artifact gets ONE clear line and a distinct

@@ -285,6 +285,14 @@ def heartbeat_mem_peak(rec: dict) -> int | None:
     return int(v) if v else None
 
 
+def heartbeat_kv_peak(rec: dict) -> int | None:
+    """The serve-lane heartbeat's KV-pool high-water (``kv_peak_pages``);
+    ``None`` on train-lane heartbeats — readers render absent, never
+    KeyError."""
+    v = rec.get("kv_peak_pages")
+    return int(v) if v else None
+
+
 def latest_heartbeats(run_dir: str) -> dict[int, dict]:
     """Each host's NEWEST heartbeat record, by bounded tail read — the
     fleet supervisor's per-tick liveness source (``read_heartbeats``

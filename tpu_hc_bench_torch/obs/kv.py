@@ -329,6 +329,43 @@ def kv_lines(fold: dict) -> list[str]:
     return lines
 
 
+def kv_diff_lines(fold_a: dict | None, fold_b: dict | None) -> list[str]:
+    """``obs diff`` rows: utilization / honesty-gap / tail-cause
+    deltas in percentage points.  A side without the ledger (a stream
+    that predates it) reads as 0 and is labeled, never a KeyError."""
+    ka = (fold_a or {}).get("kv_pool")
+    kb = (fold_b or {}).get("kv_pool")
+    if not ka and not kb:
+        return []
+    lines = ["  kv pool (written/reserved page-seconds):"]
+    rows = [("kv_pool_util", "util"), ("kv req gap", "req_gap_frac"),
+            # sides without a prefix cache read 0
+            ("prefix hits", "prefix_hit_frac")]
+    for label, key in rows:
+        va = (ka or {}).get(key)
+        vb = (kb or {}).get(key)
+        va = float(va) if isinstance(va, (int, float)) else 0.0
+        vb = float(vb) if isinstance(vb, (int, float)) else 0.0
+        if va == 0.0 and vb == 0.0:
+            continue
+        lines.append(f"  {label:>14s} {va:11.1%} {vb:11.1%} "
+                     f"{100.0 * (vb - va):+7.1f}pp")
+    for name in WAIT_CAUSES:
+        va = float(((ka or {}).get("wait_causes") or {})
+                   .get("tail_frac", {}).get(name, 0.0))
+        vb = float(((kb or {}).get("wait_causes") or {})
+                   .get("tail_frac", {}).get(name, 0.0))
+        if va == 0.0 and vb == 0.0:
+            continue
+        lines.append(f"  {'tail ' + name:>14s} {va:11.1%} {vb:11.1%} "
+                     f"{100.0 * (vb - va):+7.1f}pp")
+    for side, k in (("a", ka), ("b", kb)):
+        if k is None:
+            lines.append(f"  note: run {side} predates the KV-pool "
+                         "ledger (round 22) — no kv_pool records")
+    return lines if len(lines) > 1 else []
+
+
 # ---------------------------------------------------------------------
 # timeline export: pool occupancy as a Chrome-trace counter track
 

@@ -16,8 +16,8 @@ A run with ``--metrics_dir`` leaves:
 
 The record formats are the JAX package's, so either package's
 ``summarize`` renders the other's run directory.  ``read_run`` /
-``summarize_run`` are pure file operations (no torch), so the CLI works
-on artifacts from any machine.
+``summarize_run`` / ``diff_runs`` are pure file operations (no torch),
+so the CLI works on artifacts from any machine.
 """
 
 from __future__ import annotations
@@ -52,6 +52,18 @@ def _git_sha() -> str:
     except (OSError, subprocess.TimeoutExpired):
         pass
     return "unknown"
+
+
+#: the run-identity fields a BENCH-style JSON record embeds (the port's
+#: versions where JAX's record names jax's and jaxlib's)
+MANIFEST_IDENTITY_KEYS = (
+    "git_sha", "torch_version", "cuda_version", "platform",
+    "device_kind", "process_count", "device_count", "created_unix")
+
+
+def manifest_subset(manifest: dict) -> dict:
+    """The BENCH-record identity slice of a full run manifest."""
+    return {k: manifest.get(k) for k in MANIFEST_IDENTITY_KEYS}
 
 
 def run_manifest(cfg: Any = None, device: Any = None, world: int = 1,
@@ -487,4 +499,147 @@ def summarize_run(path: str, fabric_ceiling: str | None = None,
             summary or {}, tb, ceiling))
     elif summary:
         lines.extend(eff_mod.collective_busbw_lines(summary, tb))
+    return lines
+
+
+def _pct(a: float, b: float) -> str:
+    if a:
+        return f"{(b - a) / a:+.1%}"
+    return "new" if b else "-"
+
+
+def diff_runs(path_a: str, path_b: str,
+              problems: list[str] | None = None) -> list[str]:
+    """Compare two metrics runs: headline metrics, per-bucket trace
+    deltas, and any resolved-flag differences."""
+    from tpu_hc_bench_torch.obs import trace as trace_mod
+
+    man_a, recs_a = read_run(path_a, problems=problems)
+    man_b, recs_b = read_run(path_b, problems=problems)
+    lines = [f"diff: {path_a} -> {path_b}"]
+
+    # resolved-flag drift: a perf delta with a config delta is not a
+    # regression, it is a different experiment — say so first.  For
+    # output-LOCATION flags only presence matters: two clean A/B runs
+    # necessarily write to different paths (noise on every diff), but
+    # set-vs-unset IS behavioral drift (checkpoint saves sync the
+    # device, profiling perturbs the window).  The port's manifest
+    # keeps the translation notes inside ``config``; JAX's beside it:
+    # they follow from the flags and are not compared.
+    path_flags = {"metrics_dir", "trace_dir", "train_dir",
+                  "fabric_ceiling"}
+    cfg_a, cfg_b = ({k: v for k, v in (m.get("config") or {}).items()
+                     if k != "translations"} for m in (man_a, man_b))
+
+    def _cmp(cfg, k):
+        v = cfg.get(k)
+        return (v is not None) if k in path_flags else v
+
+    changed = {k for k in set(cfg_a) | set(cfg_b)
+               if _cmp(cfg_a, k) != _cmp(cfg_b, k)}
+    for k in sorted(changed):
+        lines.append(f"  config: {k}: {cfg_a.get(k)!r} -> {cfg_b.get(k)!r}")
+    for k in ("torch_version", "cuda_version", "git_sha", "device_kind",
+              "process_count", "device_count"):
+        if man_a.get(k) != man_b.get(k):
+            lines.append(f"  env: {k}: {man_a.get(k)} -> {man_b.get(k)}")
+
+    sum_a = _last(recs_a, "summary") or {}
+    sum_b = _last(recs_b, "summary") or {}
+    metrics = (
+        ("total ex/s", "total_images_per_sec"),
+        ("ex/s/chip", "images_per_sec_per_chip"),
+        ("mean step ms", "mean_step_ms"),
+        ("p50 step ms", "p50_step_ms"),
+        ("mfu", "mfu"),
+        ("goodput", "goodput"),
+        ("final loss", "final_loss"),
+    )
+    rows = [(label, key) for label, key in metrics
+            if key in sum_a or key in sum_b]
+    if rows:
+        lines.append(f"  {'metric':>14s} {'a':>12s} {'b':>12s} "
+                     f"{'delta':>8s}")
+        for label, key in rows:
+            va, vb = sum_a.get(key, 0.0), sum_b.get(key, 0.0)
+            lines.append(f"  {label:>14s} {va:12.4g} {vb:12.4g} "
+                         f"{_pct(va, vb):>8s}")
+    # serving lane: p99/goodput/tokens-per-s deltas when both runs
+    # carry request-keyed records (step-free serving runs diff cleanly
+    # instead of rendering an empty training table)
+    from tpu_hc_bench_torch.serve import slo as slo_mod
+
+    lines.extend(slo_mod.serve_diff_lines(
+        slo_mod.fold_serve_records(recs_a),
+        slo_mod.fold_serve_records(recs_b)))
+    src_a = sum_a.get("mfu_source")
+    src_b = sum_b.get("mfu_source")
+    if (src_a or src_b) and src_a != src_b:
+        # measured-vs-analytic MFUs are different quantities; say so
+        # before anyone reads the delta row as a regression
+        lines.append(f"  note: MFU flops source differs: "
+                     f"{src_a or '?'} -> {src_b or '?'}")
+
+    # ledger phase deltas: where the non-productive wall moved — a
+    # built kernel library shows up as the compile row collapsing,
+    # async checkpointing as checkpoint(blocking) -> checkpoint_async
+    from tpu_hc_bench_torch.obs import goodput as goodput_mod
+
+    led_a = goodput_mod.build_ledger(recs_a)
+    led_b = goodput_mod.build_ledger(recs_b)
+    if led_a is not None and led_b is not None:
+        rows = [p for p in goodput_mod.PHASES
+                if (led_a.seconds.get(p, 0.0) > 0.0
+                    or led_b.seconds.get(p, 0.0) > 0.0)]
+        if rows:
+            lines.append("  ledger phases (wall s):")
+            for p in rows:
+                va = led_a.seconds.get(p, 0.0)
+                vb = led_b.seconds.get(p, 0.0)
+                lines.append(f"  {p:>14s} {va:12.2f} {vb:12.2f} "
+                             f"{_pct(va, vb):>8s}")
+        # input-plane delta: the fraction of wall blocked on the input
+        # pipeline — the input-service A/B's headline row
+        fa = (led_a.seconds.get("data_wait", 0.0) / led_a.wall_s
+              if led_a.wall_s > 0 else 0.0)
+        fb = (led_b.seconds.get("data_wait", 0.0) / led_b.wall_s
+              if led_b.wall_s > 0 else 0.0)
+        if fa > 0.0 or fb > 0.0:
+            lines.append(f"  {'data_wait frac':>14s} {fa:12.4f} "
+                         f"{fb:12.4f} {_pct(fa, fb):>8s}")
+
+    tb_a = _last(recs_a, "trace_buckets")
+    tb_b = _last(recs_b, "trace_buckets")
+    if tb_a and tb_b and tb_a.get("buckets") and tb_b.get("buckets"):
+        lines.append("  trace buckets (device us):")
+        lines.extend("  " + ln for ln in trace_mod.diff_buckets(
+            tb_a["buckets"], tb_b["buckets"], label_a="a", label_b="b"))
+    # memory deltas (obs.memory): runtime high-water + the report's
+    # byte classes — a batch/accum change shows up here as temp bytes
+    # moving while args stay flat, BEFORE anything OOMs
+    from tpu_hc_bench_torch.obs import memory as mem_mod
+
+    fold_a = mem_mod.fold_memory_records(recs_a)
+    fold_b = mem_mod.fold_memory_records(recs_b)
+    if fold_a and fold_b:
+        pa, pb = fold_a["peak_bytes"], fold_b["peak_bytes"]
+        lines.append(f"  {'peak HBM MiB':>14s} {pa / 2**20:12.1f} "
+                     f"{pb / 2**20:12.1f} {_pct(pa, pb):>8s}")
+        if (fold_a.get("peak_phase") != fold_b.get("peak_phase")
+                and (fold_a.get("peak_phase") or fold_b.get("peak_phase"))):
+            lines.append(f"  note: memory high-water phase differs: "
+                         f"{fold_a.get('peak_phase') or '?'} -> "
+                         f"{fold_b.get('peak_phase') or '?'}")
+    rep_a = _last(recs_a, "memory_report") or {}
+    rep_b = _last(recs_b, "memory_report") or {}
+    ma, mb = rep_a.get("measured") or {}, rep_b.get("measured") or {}
+    if ma and mb:
+        for label, key in (("aot args MiB", "argument_bytes"),
+                           ("aot temp MiB", "temp_bytes"),
+                           ("aot out MiB", "output_bytes")):
+            va, vb = ma.get(key, 0), mb.get(key, 0)
+            if va or vb:
+                lines.append(
+                    f"  {label:>14s} {va / 2**20:12.1f} "
+                    f"{vb / 2**20:12.1f} {_pct(va, vb):>8s}")
     return lines

@@ -185,6 +185,30 @@ def attribution_lines(fold: dict | None,
     ]
 
 
+def attribution_diff_lines(fold_a: dict | None,
+                           fold_b: dict | None) -> list[str]:
+    """``obs diff`` rows: per-component tail-fraction deltas in
+    percentage points.  A side without attribution (an older stream)
+    normalizes to zero components and is labeled, never a KeyError."""
+    if not fold_a and not fold_b:
+        return []
+    fa = (fold_a or {}).get("tail_frac", {})
+    fb = (fold_b or {}).get("tail_frac", {})
+    lines = ["  tail attribution (% of slowest-decile e2e):"]
+    for name in COMPONENT_NAMES:
+        va = float(fa.get(name, 0.0))
+        vb = float(fb.get(name, 0.0))
+        if va == 0.0 and vb == 0.0:
+            continue
+        lines.append(f"  {name:>14s} {va:11.1%} {vb:11.1%} "
+                     f"{100.0 * (vb - va):+7.1f}pp")
+    for side, fold in (("a", fold_a), ("b", fold_b)):
+        if fold is not None and not fold.get("has_components"):
+            lines.append(f"  note: run {side} predates request "
+                         "attribution (components read as 0)")
+    return lines if len(lines) > 1 else []
+
+
 # ---------------------------------------------------------------------
 # per-bucket utilization
 

@@ -20,10 +20,10 @@ Every signal name must be in ``KNOWN_SIGNALS``: a typo'd name fires
 fine and then silently vanishes from every fold (``spec_of`` raises on
 an unknown one).
 
-The offline evaluator replays the serving measures and the heartbeat
-skew (``STRAGGLER``); the training lane's ``DATA_STARVED`` measure
-reads the goodput ledger, which the port does not write yet, so it
-never fires here.
+The offline evaluator replays the serving measures, the heartbeat skew
+(``STRAGGLER``) and the training lane's ``DATA_STARVED`` measure: the
+share of the goodput ledger's wall (``obs.goodput``) spent in
+``data_wait``.
 """
 
 from __future__ import annotations
@@ -92,6 +92,18 @@ SPECS: dict[str, SignalSpec] = {s.name: s for s in (
         fire_windows=3, clear_windows=2),
 )}
 
+# the log-only actuation hint journaled next to a fired signal: the
+# policy stated as advice, so operators can audit it before anything
+# holds a lever
+_ADVICE = {
+    "SUSTAINED_OVERLOAD": "scale out serve replicas",
+    "KV_PRESSURE": "grow KV pool or enable --kv_preempt",
+    "STRAGGLER": "replace or restart the lagging rank",
+    "DATA_STARVED": "scale the input service / raise prefetch",
+    "GOODPUT_COLLAPSE": "inspect padding/idle waste (bucket ladder)",
+}
+
+
 def spec_of(name: str) -> SignalSpec:
     """Registry lookup; unknown names raise — the runtime twin of the
     signal-name-registry lint."""
@@ -100,6 +112,11 @@ def spec_of(name: str) -> SignalSpec:
     except KeyError:
         raise ValueError(f"unknown signal {name!r}; known: "
                          f"{', '.join(KNOWN_SIGNALS)}") from None
+
+
+def advice_for(name: str) -> str:
+    spec_of(name)
+    return _ADVICE[name]
 
 
 class SignalEngine:
@@ -209,6 +226,14 @@ def active_of(events: list[dict]) -> dict[str, float]:
     return active
 
 
+def fired_count(events: list[dict], name: str) -> int:
+    """How many times one signal fired in an event list; the name must
+    be registered."""
+    spec_of(name)
+    return sum(1 for ev in events
+               if ev.get("signal") == name and ev.get("state") == "fire")
+
+
 def fired_counts(events: list[dict]) -> dict[str, int]:
     out: dict[str, int] = {}
     for ev in events:
@@ -243,18 +268,32 @@ def signal_lines(events: list[dict]) -> list[str]:
     return lines
 
 
+def watch_lines(run_dir: str) -> list[str]:
+    """The live ``obs watch`` signals column: currently-active signals
+    off the append-only file; silent when the run never signalled."""
+    events = read_signals(run_dir)
+    if not events:
+        return []
+    act = active_of(events)
+    if not act:
+        return [f"  signals: clear ({len(events)} past transition(s))"]
+    return ["  signals: " + "  ".join(
+        f"{n}@t={t:.1f}s" for n, t in sorted(act.items()))]
+
+
 def evaluate_records(records: list[dict],
                      run_dir: str | None = None,
                      window_s: float | None = None) -> list[dict]:
     """Offline signal evaluation over one metrics stream — the same
     hysteresis engine the serve lane runs live, replayed over the
-    stream's request/serve records, plus the heartbeat skew the engine
-    cannot see.
+    stream's request/serve records, plus the training-lane measures
+    (heartbeat skew, goodput-ledger data_wait) the engine cannot see.
 
     Windows follow the burn-rate fold's convention: completion-time
     span / ``DEFAULT_BURN_WINDOWS`` unless ``window_s`` is given.
     """
     from tpu_hc_bench_torch.obs import fleet as fleet_mod
+    from tpu_hc_bench_torch.obs import goodput as goodput_mod
     from tpu_hc_bench_torch.obs import kv as kv_mod
     from tpu_hc_bench_torch.serve import slo as slo_mod
 
@@ -324,6 +363,16 @@ def evaluate_records(records: list[dict],
                                {"STRAGGLER": {
                                    "skew_steps": skew["skew_steps"],
                                    "skew_ms": skew["skew_ms"]}})
+    # run-scoped data starvation off the goodput ledger (one
+    # observation; the spec's fire_windows is 1 for exactly this)
+    ledger = goodput_mod.build_ledger(records)
+    if ledger is not None and ledger.wall_s:
+        frac = ledger.seconds.get("data_wait", 0.0) / ledger.wall_s
+        engine.observe(ledger.wall_s, {"DATA_STARVED": frac},
+                       {"DATA_STARVED": {
+                           "data_wait_s": round(
+                               ledger.seconds.get("data_wait", 0.0), 3),
+                           "wall_s": round(ledger.wall_s, 3)}})
     return engine.events
 
 

@@ -453,3 +453,21 @@ def format_summary(summary: TraceSummary, per_step: bool = True,
         lines.append("per-step (us): "
                      + " ".join(f"{s.dur_us:.0f}" for s in summary.steps))
     return lines
+
+
+def diff_buckets(a: dict[str, float], b: dict[str, float],
+                 label_a: str = "a", label_b: str = "b") -> list[str]:
+    """Bucket-level delta table: the "collective +40%, compute flat"
+    view of two runs' device time by bucket."""
+    lines = [f"{'bucket':>15s} {label_a:>12s} {label_b:>12s} {'delta':>8s}"]
+    for bucket in sorted(set(a) | set(b),
+                         key=lambda k: -(b.get(k, 0.0) + a.get(k, 0.0))):
+        va, vb = a.get(bucket, 0.0), b.get(bucket, 0.0)
+        if va:
+            delta = f"{(vb - va) / va:+7.1%}"
+        elif vb:
+            delta = "    new"
+        else:
+            delta = "      -"
+        lines.append(f"{bucket:>15s} {va:12.0f} {vb:12.0f} {delta:>8s}")
+    return lines

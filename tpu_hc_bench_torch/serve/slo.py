@@ -39,6 +39,25 @@ SKETCH_KIND = "latency_sketch"
 LATENCY_FIELDS = ("ttft_ms", "e2e_ms", "queue_ms")
 
 
+# (label, key) rows of the diff table
+DIFF_METRICS = (
+    ("p99 ttft ms", "p99_ttft_ms"),
+    ("p99 e2e ms", "p99_e2e_ms"),
+    ("p50 e2e ms", "p50_e2e_ms"),
+    # queue wait: the cheapest leading overload indicator
+    ("p99 queue ms", "p99_queue_ms"),
+    # the merged-sketch fleet-wide tail (absent on older streams; the
+    # row simply skips there)
+    ("p99 e2e merged", "p99_e2e_ms_merged"),
+    ("tokens/s", "tokens_per_s"),
+    ("serve goodput", "goodput"),
+    ("queue max", "queue_depth_max"),
+    # the worst decode bucket's temp bytes (JAX's AOT account; absent
+    # on the port's streams, where the row skips)
+    ("aot dec temp B", "aot_decode_temp_bytes"),
+)
+
+
 def request_sketches(request_records) -> dict:
     """One streaming sketch per latency field — O(buckets) memory over
     any stream length, and the same multiset of samples the engine's
@@ -320,6 +339,43 @@ def slo_lines(fold: dict) -> list[str]:
     # round 20: per-bucket occupancy heatmap (padding waste and ladder
     # sizing read directly off it)
     lines.extend(requests_mod.bucket_util_lines(fold.get("bucket_util")))
+    return lines
+
+
+def _pct(a: float, b: float) -> str:
+    if a:
+        return f"{(b - a) / a:+.1%}"
+    return "new" if b else "-"
+
+
+def serve_diff_lines(fold_a: dict | None, fold_b: dict | None) -> list[str]:
+    """The ``obs diff`` serving rows (empty unless both runs serve)."""
+    if not fold_a or not fold_b:
+        return []
+    lines = ["  serve metrics:"]
+    for label, key in DIFF_METRICS:
+        if key not in fold_a and key not in fold_b:
+            continue
+        va = float(fold_a.get(key) or 0.0)
+        vb = float(fold_b.get(key) or 0.0)
+        lines.append(f"  {label:>14s} {va:12.4g} {vb:12.4g} "
+                     f"{_pct(va, vb):>8s}")
+    if fold_a.get("batching") != fold_b.get("batching"):
+        lines.append(f"  note: batching arm differs: "
+                     f"{fold_a.get('batching')} -> "
+                     f"{fold_b.get('batching')}")
+    for key, label in (("decode_attention", "decode-attention arm"),
+                       ("quant", "quant arm")):
+        if fold_a.get(key) != fold_b.get(key):
+            lines.append(f"  note: {label} differs: "
+                         f"{fold_a.get(key)} -> {fold_b.get(key)}")
+    # component deltas over the slowest decile — a side without them
+    # normalizes to zero components, labeled, never a KeyError
+    lines.extend(requests_mod.attribution_diff_lines(
+        fold_a.get("attribution"), fold_b.get("attribution")))
+    # utilization / honesty-gap / tail-cause deltas — the same
+    # absent-not-error seam
+    lines.extend(kv_mod.kv_diff_lines(fold_a, fold_b))
     return lines
 
 
