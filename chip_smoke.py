@@ -259,7 +259,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    launched, and the first bf16 loss within ``ZOO_BF16_LOSS_TOL`` of
    the float32 forward of the same seeded model on the same batch; (e)
    nasnet's and lenet's device idle share and kernels a step over
-   ``ZOO_STEPS`` under ``torch.profiler``.
+   ``ZOO_STEPS`` under ``torch.profiler``; (d) and (e) with cuDNN
+   deterministic and its algorithm search off.
 
 19. **slice11**: the speech and recommendation members and the classify
    mode, every training run through ``launcher.main`` with every count
@@ -404,7 +405,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 25. **slice17**: the autotuner and the obs CLI, everything written under
    ``build/slice17`` (``TPU_HC_TUNE_REGISTRY`` points there): (a)
    ``python -m tpu_hc_bench_torch.tune search --model gpt2
-   --max_candidates 3 --max_rungs 2 --rung_batches 4 --warmup 2
+   --max_candidates 2 --max_rungs 2 --rung_batches 4 --warmup 2
    --promote``, each candidate a launcher subprocess on the card (the
    seed's ``attention_impl=flash``: rows 3, 4a and 4b in each, counted
    in their own processes, not here): the hardware key, the journal's
@@ -427,6 +428,35 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    (b)'s (exit 0, the ``config`` drift named), ``watch`` on (b)'s
    finished run (exit 0), ``regress`` of (b)'s BENCH-style record
    against (a)'s (run to its end, the verdict printed).
+26. **slice18**: the fleet orchestrator over the cards and the
+   launcher's host plumbing, everything under ``build/slice18`` (each
+   fleet job a ``--fleet-worker`` process of this script: the launcher
+   with every count zeroed just before and read just after, its record
+   appended to the job's ``fleet_worker.jsonl``; the churn lands on a
+   life's first committed checkpoint): (a) a pool of one card through
+   the real ``FleetController`` and ``LocalBackend``: ``gpt2-a`` (16 x
+   1024, bf16, flash, fused xent, 5 + 40 steps a life) preempted by the
+   priority arrival ``resnet50-hi`` (128, bf16, fused conv, 5 + 30)
+   after its first save (exit 75, requeued, ``--resume=elastic`` on the
+   freed card), then killed in its second life; every emergency save's
+   ``state fingerprint:`` equal to the next life's restore, both jobs
+   done, no orphan, each life's launches its steps times 12, 12, 12, 1,
+   1 (rows 3, 4a, 4b, 5, 6) or 8 (row 7); a control fleet with the
+   arrival and no kill, the churned ``fleet_goodput`` at least half of
+   its; each life's restart tax (launch to its first heartbeat, the
+   kernel library's load inside it); each job's rate in the fleet
+   against a plain launcher run of its flags; (c) ``fleet status``,
+   ``fleet report --control --artifact`` (the verdict carries the
+   card's kind), ``obs regress`` of the verdict (the committed CPU soak
+   keyed apart), the per-run log and the registry block of (a)'s plain
+   runs (``HOME`` is ``build/home`` for the whole script), and a corpus
+   from ``tpu_hc_bench_torch.data.tokens``' CLI (its ``main`` in this
+   process) that gpt2 trains on (rows 3-6 counted); (b) with two cards or more, a pool of
+   ``min(cards, 4)``: a kill and an elastic resume at a smaller world, a
+   priority arrival into a full pool (a shrink before any preempt), a
+   regrow; the card sets of jobs running at once disjoint and as each
+   process saw them; every job's own-world and half-world restores
+   bit-equal.  With one card (b) prints ``"ran": false``.
 
 Then the kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
@@ -441,8 +471,10 @@ and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
 ``slice14_launches``: its launches in phase 22's runs (a) and (b),
 ``slice15_launches``: its launches in phase 23's runs (a) and (b),
 ``slice16_launches``: its launches in phase 24's run (a),
-``slice17_launches``: its launches in phase 25's runs (b) and (c), every
-kernel's count set to 0 before each and read after it),
+``slice17_launches``: its launches in phase 25's runs (b) and (c),
+``slice18_launches``: its launches in phase 26's fleets (a), each life
+counted in its own process, and (c)'s corpus run, every kernel's count
+set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -461,7 +493,9 @@ phase 20; ``--only slice13`` the build and phase 21; ``--only slice14``
 the build and phase 22 (with several cards, (c) runs); ``--only slice15``
 the build and phase 23 (with several cards, (c)-(f) run); ``--only
 slice16`` the build and phase 24 (with two cards or more, (c)-(d) run,
-with four (e)-(f)); ``--only slice17`` the build and phase 25.
+with four (e)-(f)); ``--only slice17`` the build and phase 25;
+``--only slice18`` the build and phase 26 (with two cards or more, (b)
+runs).
 """
 
 from __future__ import annotations
@@ -536,8 +570,8 @@ TRAIN_STATS_TOL = 1e-3
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_GRAD_NOISE_FACTOR = 3.0
 TRAIN_BATCH = 128                  # bench.py's protocol: batch 128,
-TRAIN_WARMUP = 50                  # 50 warmup and 100 timed steps
-TRAIN_BATCHES = 100
+TRAIN_WARMUP = 10                  # bench.py's 50 warmup and 100 timed
+TRAIN_BATCHES = 40                 # steps, cut to 10 + 40 as phase 26 came
 PARITY_BATCH = 16
 FUSED_LAUNCHES_PER_STEP = 8        # resnet50: 3 blocks at 28x28x128,
                                    # 5 at 14x14x256
@@ -777,6 +811,29 @@ SLICE17_SERVE = ["--model=llama_1b", "--decode_attention=paged",
                  "--max_prompt_len=512", "--max_output_len=64",
                  "--num_requests=16", "--arrival=poisson",
                  "--arrival_rate=64", "--seed=0"]   # (c): phase 4's trace
+# phase 26 (slice18): the fleet over the cards.  Each job at full width,
+# cut in steps (warmup + timed a life); checkpoints every 10 timed steps,
+# the newest two kept; the churn fires on a life's first save, 30 steps
+# before its end (a SIGTERM after a life's loop is a plain kill, so the
+# first save must leave the life steps to stop at)
+SLICE18_GPT2 = {"name": "gpt2-a", "model": "gpt2", "batch_size": 16,
+                "world_pref": 1, "world_min": 1, "warmup": 5, "batches": 40,
+                "save_every": 10,
+                "flags": ["--use_fp16=true", "--attention_impl=flash",
+                          "--fused_xent=true", "--keep_checkpoints=2"]}
+SLICE18_RESNET = {"name": "resnet50-hi", "model": "resnet50",
+                  "batch_size": 128, "world_pref": 1, "world_min": 1,
+                  "priority": 1, "arrival_s": 9999.0, "warmup": 5,
+                  "batches": 30, "save_every": 10,
+                  "flags": ["--use_fp16=true", "--fused_conv=true",
+                            "--keep_checkpoints=2"]}
+SLICE18_BOUND = 0.5                # churned fleet_goodput >= this x control
+SLICE18_SETTLE_S = 30.0            # (b): a regrow waits this after a move
+SLICE18_DEADLINE_S = 420.0         # a fleet's own limit (a stuck one fails)
+SLICE18_MULTI_BATCHES = 200        # (b): gpt2-a's and resnet50-b's timed
+                                   # steps a life, past the arrivals
+SLICE18_CORPUS_TOKENS = 2_000_000  # (c): the corpus gpt2 trains on
+SLICE18_TEXT = (2, 4)              # (c): its warmup, timed steps
 SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
                                    # (6 pages + a 4-token tail), outputs
 # (e) and (f) in virtual time: modeled seconds a step, so the arms see
@@ -3894,8 +3951,19 @@ def phase_zoo(torch, dev, smi) -> dict:
             total[k] = total.get(k, 0) + n
 
     zoo_vit(torch, dev, smi, add)
-    zoo_members(torch, dev, smi, add)
-    zoo_idle(torch, dev, smi)
+    # (d) and (e) with cuDNN's algorithm search off (deterministic
+    # algorithms, as phase 21 runs): the search took 51.6 and 58.0 s of
+    # nasnet's and nasnetlarge's one warmup step, a third of the phase
+    det = torch.backends.cudnn.deterministic
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        zoo_members(torch, dev, smi, add)
+        zoo_idle(torch, dev, smi)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        torch.backends.cudnn.benchmark = bench
     return total
 
 
@@ -6296,7 +6364,7 @@ def slice17_search(torch, smi, base: Path, env: dict) -> dict:
     root = Path(__file__).resolve().parent
     out = base / "tune"
     cmd = [sys.executable, "-m", "tpu_hc_bench_torch.tune", "search",
-           "--model", "gpt2", "--max_candidates", "3", "--max_rungs", "2",
+           "--model", "gpt2", "--max_candidates", "2", "--max_rungs", "2",
            "--rung_batches", "4", "--warmup", "2", "--promote",
            "--out", str(out), "--timeout_s", str(SLICE17_TIMEOUT_S)]
     t0 = time.perf_counter()
@@ -6348,7 +6416,7 @@ def slice17_search(torch, smi, base: Path, env: dict) -> dict:
             and journal["hardware"].endswith("-w1")
             and rows["members"].get("gpt2", {}).get("overrides")
             == journal["best"]["overrides"]
-            and len(measured) >= 3
+            and len(measured) >= 2
             and all(m["error"] is None and m["examples_per_sec"] > 0
                     and m["peak_hbm_bytes"] and m["attention_impl"]
                     == "flash" for m in measured)
@@ -6604,6 +6672,562 @@ def phase_slice17(torch, dev, smi) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------
+# phase 26 (slice18): the fleet orchestrator on the card
+
+
+def _fleet_worker(argv: list[str]) -> int:
+    """One fleet job's life (``chip_smoke.py --fleet-worker ARGV``, the
+    head ``_fleet_classes``' backend puts on ``LocalBackend``'s command):
+    ``launcher.main(argv)`` with every kernel's count zeroed just before
+    and read just after, its lines teed to stdout (the job's log), and
+    one record appended to ``<run_dir>/fleet_worker.jsonl``: the cards it
+    was given, the steps it ran, the counts, the kernel library's load."""
+    import os
+    import re
+
+    t_start = time.time()
+    import torch
+
+    from tpu_hc_bench_torch import launcher
+    from tpu_hc_bench_torch.ops import _build
+
+    t_imports = time.time() - t_start
+    flag = {a.split("=", 1)[0]: a.split("=", 1)[1]
+            for a in argv if a.startswith("--") and "=" in a}
+    run_dir = Path(flag["--train_dir"]).parent
+    lines: list[str] = []
+    stamps: list[tuple] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        stamps.append((round(time.time() - t_start, 3), m[:72]))
+        print(m, flush=True)
+
+    _zero_counts()
+    rc = launcher.main(argv, print_fn=tee)
+    warmup, batches = int(flag["--num_warmup_batches"]), \
+        int(flag["--num_batches"])
+    stopped = next((int(m.group(1)) for m in (
+        re.match(r"preemption: stopping after timed step (\d+)", ln)
+        for ln in lines) if m), None)
+    rec = {"pid": os.getpid(), "rc": rc, "t_start_unix": t_start,
+           "t_end_unix": time.time(),
+           "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES"),
+           "cards_seen": torch.cuda.device_count(),
+           # a run ends after its timed steps, or after the step a
+           # SIGTERM stopped it at; else (a stop in warmup) unknown
+           "steps": (warmup + batches if rc == 0 else
+                     None if stopped is None else warmup + stopped),
+           "restored": next((int(ln.split()[3]) for ln in lines
+                             if ln.startswith("restored checkpoint step")),
+                            0),
+           "counts": _read_counts(), "library": _build.library_record(),
+           "t_imports_s": t_imports, "stamps": stamps[:40]}
+    with open(run_dir / "fleet_worker.jsonl", "a") as f:
+        f.write(json.dumps(rec) + "\n")
+    return rc
+
+
+def _fleet_classes():
+    """The phase's two subclasses of the port's fleet (built at call
+    time: the module imports no torch at import)."""
+    from tpu_hc_bench_torch.fleet import churn, supervisor
+
+    class CountingBackend(supervisor.LocalBackend):
+        """``LocalBackend`` with the command's head changed: this
+        script's ``--fleet-worker`` runs the launcher and counts."""
+
+        def command(self, spec, flags):
+            cmd = super().command(spec, flags)
+            return [sys.executable, str(Path(__file__).resolve()),
+                    "--fleet-worker", *cmd[3:]]
+
+    class ProgressFleet(supervisor.FleetController):
+        """The real controller, its churn landing on a job's progress: a
+        trigger ``(job, incarnation, op, target)`` fires at the first
+        tick after that life of ``job`` printed its first save (the
+        snapshot of an overlapped save, which a committed sentinel
+        trails by up to the rest of a short life); ``arrive`` lets
+        ``target`` into the queue then, ``kill`` preempts it.  A card's
+        startup varies by seconds and a job's steps last a few, so a
+        wall-clock schedule would miss."""
+
+        def __init__(self, *a, triggers=(), **kw):
+            super().__init__(*a, **kw)
+            self.triggers = list(triggers)
+
+        def tick(self):
+            for trig in list(self.triggers):
+                job, inc, op, target = trig
+                st = self.supervisor.jobs[job]
+                if st.status in (supervisor.DONE, supervisor.FAILED):
+                    # the life ended before it saved again: an arrival
+                    # still enters (else the fleet waits on it until its
+                    # deadline), a kill has nothing to stop; the
+                    # phase's checks see the missed story
+                    self.triggers.remove(trig)
+                    self._event("trigger_missed", job=job,
+                                incarnation=inc, op=op, target=target)
+                    if op == "arrive":
+                        self._arrivals[target] = self.rel()
+                    continue
+                if st.status != supervisor.RUNNING \
+                        or st.incarnations != inc + 1:
+                    continue
+                log = Path(st.run_dir) / f"job-{inc}.log"
+                if not any(ln.startswith(("checkpoint snapshot:",
+                                          "checkpoint saved:"))
+                           for ln in log.read_text().splitlines()):
+                    continue
+                self.triggers.remove(trig)
+                t = round(self.rel(), 3)
+                self._event("trigger", job=job, incarnation=inc, op=op,
+                            target=target)
+                if op == "arrive":
+                    self._arrivals[target] = t
+                else:
+                    self.churn.append(churn.ChurnEvent(t, op, target))
+                    self._churn_applied.append(False)
+            super().tick()
+
+    return CountingBackend, ProgressFleet
+
+
+def _fleet_run(base: Path, name: str, chips: int, specs: list[dict],
+               triggers: list) -> dict:
+    """One fleet through the real controller and a counting local
+    backend on ``chips`` cards: the run's result, journal, per-job
+    records and the wall."""
+    from tpu_hc_bench_torch.fleet import pool, report
+
+    CountingBackend, ProgressFleet = _fleet_classes()
+    out = base / name
+    ctl = ProgressFleet(
+        pool.DevicePool(chips), [pool.JobSpec.from_dict(s) for s in specs],
+        str(out), backend=CountingBackend(), triggers=triggers,
+        tick_s=0.5, settle_s=SLICE18_SETTLE_S, kill_grace_s=60.0,
+        dead_after_s=120.0, startup_grace_s=120.0,
+        deadline_s=SLICE18_DEADLINE_S,
+        print_fn=lambda m: print(m, file=sys.stderr, flush=True))
+    t0 = time.perf_counter()
+    result = ctl.run()
+    wall = time.perf_counter() - t0
+    state = json.loads((out / "fleet_state.json").read_text())
+    jobs = {}
+    for jname, st in ctl.supervisor.jobs.items():
+        path = Path(st.run_dir) / "fleet_worker.jsonl"
+        recs = ([json.loads(ln) for ln in path.read_text().splitlines()]
+                if path.exists() else [])
+        jobs[jname] = {"spec": st.spec, "run_dir": Path(st.run_dir),
+                       "incarnations": recs}
+    return {"out": out, "result": result, "wall_s": wall,
+            "events": report.read_events(str(out)),
+            "ledger": report.fleet_ledger(str(out)),
+            "started_unix": state["started_unix"], "jobs": jobs}
+
+
+def _fleet_fps(run_dir: Path, n: int) -> list[tuple]:
+    """Each emergency save's fingerprint beside the next incarnation's
+    restore: ``(k, saved, restored)``."""
+    pairs = []
+    for k in range(n - 1):
+        text = (run_dir / f"job-{k}.log").read_text()
+        if "emergency checkpoint saved" not in text:
+            continue
+        saved = [ln.split(": ", 1)[1] for ln in text.splitlines()
+                 if ln.startswith("state fingerprint:")][-1]
+        nxt = (run_dir / f"job-{k + 1}.log").read_text().splitlines()
+        pairs.append((k, saved, _fp_line(nxt)))
+    return pairs
+
+
+def _fleet_incarnations(run: dict, per_step: dict) -> list[dict]:
+    """Each life of each job, by the journal's launches: exit code, world
+    and cards as journaled, the cards its process saw, steps, launches
+    against the steps times the per-step counts, and the restart tax:
+    launch to the first heartbeat of that life, with the kernel
+    library's load inside it.  A life stopped before its process wrote
+    its record (a SIGTERM in its startup) has the journal's fields
+    only."""
+    from tpu_hc_bench_torch.obs import fleet as obs_fleet
+
+    exits: dict[str, list] = {}
+    for e in run["events"]:
+        if e["kind"] == "exit":
+            exits.setdefault(e["job"], []).append(e)
+    out = []
+    k_of: dict[str, int] = {}
+    for ev in (e for e in run["events"] if e["kind"] == "launch"):
+        name = ev["job"]
+        job = run["jobs"][name]
+        k = k_of[name] = k_of.get(name, -1) + 1
+        rec = next((r for r in job["incarnations"] if r["pid"] == ev["pid"]),
+                   None)
+        life = {"job": name, "incarnation": k,
+                "rc": exits[name][k]["code"], "world": ev["world"],
+                "resume": ev["resume"], "cards": ev["cards"]}
+        out.append(life)
+        if rec is None:
+            continue
+        beats = [r for rs in obs_fleet.read_heartbeats(
+            str(job["run_dir"] / "m")).values() for r in rs]
+        t_launch = run["started_unix"] + ev["t"]
+        first = min((b["t_unix"] for b in beats
+                     if b.get("incarnation") == k), default=None)
+        expect = {row: n * (rec["steps"] or 0)
+                  for row, n in per_step[job["spec"].model].items()}
+        life.update({
+            "cuda_visible_devices": rec["cuda_visible_devices"],
+            "cards_seen": rec["cards_seen"], "steps": rec["steps"],
+            "restored": rec["restored"],
+            "launches": {k2: v for k2, v in rec["counts"].items() if v},
+            "expected_launches": expect,
+            "launches_ok": rec["steps"] is not None and all(
+                rec["counts"][r] == expect.get(r, 0) for r in rec["counts"]),
+            "restart_tax_s": (None if first is None
+                              else round(first - t_launch, 3)),
+            "process_start_s": round(rec["t_start_unix"] - t_launch, 3),
+            "imports_s": round(rec["t_imports_s"], 3),
+            "kernel_load_s": (rec["library"] or {}).get("seconds"),
+            "kernels_built": (rec["library"] or {}).get("built"),
+            "stamps": rec["stamps"]})
+    return out
+
+
+def _fleet_disjoint(run: dict) -> bool:
+    """Jobs running at the same time held disjoint card sets (replayed
+    from the journal)."""
+    live: dict[str, set] = {}
+    for e in run["events"]:
+        if e["kind"] == "launch":
+            cards = set(e["cards"])
+            if len(cards) != e["world"] or any(cards & c
+                                               for c in live.values()):
+                return False
+            live[e["job"]] = cards
+        elif e["kind"] == "exit":
+            live.pop(e["job"], None)
+    return True
+
+
+def _plain_rate(torch, argv: list[str]) -> dict:
+    """A plain launcher run of a job's flags in this process (world 1):
+    its rate, exit code and lines."""
+    from tpu_hc_bench_torch import launcher
+
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        lines.append(m)
+        print(m, file=sys.stderr, flush=True)
+
+    torch.cuda.empty_cache()
+    rc = launcher.main(argv, print_fn=tee)
+    res = _result(lines)
+    return {"rc": rc, "per_chip": res["images_per_sec_per_chip"],
+            "mean_step_ms": res["mean_step_ms"], "lines": lines,
+            "final_loss": res["final_loss"]}
+
+
+def _job_argv(job: dict) -> list[str]:
+    """A fleet job's flags for the plain launcher at world 1 (without the
+    checkpoint plumbing)."""
+    return ["1", "1", str(job["batch_size"]), "ici",
+            f"--model={job['model']}",
+            f"--num_warmup_batches={job['warmup']}",
+            f"--num_batches={job['batches']}",
+            *(f for f in job["flags"]
+              if not f.startswith("--keep_checkpoints"))]
+
+
+def slice18_one_card(torch, smi, base: Path, add) -> dict:
+    """Phase 26 (a): a pool of one card, ``gpt2-a`` preempted by the
+    priority arrival ``resnet50-hi`` after its first save, then killed
+    in its second life; a control fleet with the arrival and no kill;
+    each job alone through the launcher."""
+    jobs = (SLICE18_GPT2, SLICE18_RESNET)
+    per_step = {"gpt2": _slice9_expect(12, 1, True),
+                "resnet50": {"fused_bn_relu_conv": FUSED_LAUNCHES_PER_STEP}}
+    arrive = ("gpt2-a", 0, "arrive", "resnet50-hi")
+    kill = ("gpt2-a", 1, "kill", "gpt2-a")
+    churned = _fleet_run(base, "churned", 1, list(jobs), [arrive, kill])
+    control = _fleet_run(base, "control", 1, list(jobs), [arrive])
+    alone = {j["name"]: _plain_rate(torch, _job_argv(j)) for j in jobs}
+    recs = {}
+    ok = True
+    for name, run in (("churned", churned), ("control", control)):
+        incs = _fleet_incarnations(run, per_step)
+        for inc in incs:
+            add(inc.get("launches", {}))
+        fps = _fleet_fps(run["jobs"]["gpt2-a"]["run_dir"],
+                         len(run["jobs"]["gpt2-a"]["incarnations"]))
+        gpt = [i for i in incs if i["job"] == "gpt2-a"]
+        res = [i for i in incs if i["job"] == "resnet50-hi"]
+        want_rc = [75, 75, 0] if name == "churned" else [75, 0]
+        rates = {e["job"]: e.get("per_chip") for e in run["events"]
+                 if e["kind"] == "exit" and e.get("code") == 0}
+        recs[name] = {
+            "wall_s": run["wall_s"], "status": run["result"]["status"],
+            "jobs": run["result"]["jobs"],
+            "orphans": run["result"]["orphans"],
+            "fleet_goodput": run["ledger"]["fleet_goodput"],
+            "utilization": run["ledger"]["utilization"],
+            "counts": run["ledger"]["counts"],
+            "fingerprints": fps, "incarnations": incs,
+            "rates_in_fleet": rates,
+            "events": [e["kind"] for e in run["events"]]}
+        ok = ok and (run["result"]["status"] == "done"
+                     and run["result"]["jobs"] == {"gpt2-a": "done",
+                                                   "resnet50-hi": "done"}
+                     and run["result"]["orphans"] == []
+                     and [i["rc"] for i in gpt] == want_rc
+                     and [i["resume"] for i in gpt][1:] == \
+                     ["elastic"] * (len(want_rc) - 1)
+                     and [i["rc"] for i in res] == [0]
+                     and all(i.get("launches_ok") for i in incs)
+                     and all(b["restored"] == a["restored"] + a["steps"]
+                             for a, b in zip(gpt, gpt[1:]))
+                     and len(fps) == len(want_rc) - 1
+                     and all(s == r and s for _, s, r in fps)
+                     and all(i["cuda_visible_devices"] == "0"
+                             and i["cards_seen"] == 1 for i in incs))
+    ratio = (recs["churned"]["fleet_goodput"]
+             / recs["control"]["fleet_goodput"])
+    rec = {"phase": "slice18", "part": "a_one_card", **recs,
+           "churned_over_control": ratio,
+           "alone": {k: {f: v[f] for f in ("rc", "per_chip",
+                                            "mean_step_ms")}
+                     for k, v in alone.items()},
+           "fleet_over_alone": {
+               k: (recs["churned"]["rates_in_fleet"].get(k) or 0)
+               / v["per_chip"] for k, v in alone.items()},
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (ok and ratio >= SLICE18_BOUND
+            and all(v["rc"] == 0 for v in alone.values())):
+        raise AssertionError(f"phase 26 (a) failed: {rec}")
+    return {"churned": churned["out"], "control": control["out"],
+            "alone": alone}
+
+
+def slice18_multi(torch, smi, cards: int, base: Path) -> None:
+    """Phase 26 (b): with two cards or more, a pool of ``min(cards, 4)``
+    and JAX's soak story on members that launch kernels: ``gpt2-a``
+    killed after its first save as ``hi-1`` arrives (its elastic resume
+    at a smaller world), ``hi-2`` arriving into a full pool (a shrink,
+    not a preempt), a regrow once the arrivals are done; the card sets
+    of jobs running at once disjoint and each as its process saw it;
+    every job's own-world and half-world restores bit-equal."""
+    import os
+    import shutil
+
+    if cards < 2:
+        emit({"phase": "slice18", "part": "b_multi", "ran": False,
+              "cards": cards, "nvidia_smi": smi})
+        return
+    chips = min(cards, 4)
+    half = max(1, chips // 2)
+    specs = [
+        {**SLICE18_GPT2, "world_pref": half, "world_min": 1,
+         "batches": SLICE18_MULTI_BATCHES},
+        {**SLICE18_RESNET, "name": "resnet50-b", "priority": 0,
+         "arrival_s": 0.0, "world_pref": half, "world_min": 1,
+         "batches": SLICE18_MULTI_BATCHES},
+        {**SLICE18_GPT2, "name": "hi-1", "priority": 1, "arrival_s": 9999.0},
+        {**SLICE18_GPT2, "name": "hi-2", "priority": 2, "arrival_s": 9999.0},
+    ]
+    triggers = [("gpt2-a", 0, "kill", "gpt2-a"),
+                ("gpt2-a", 0, "arrive", "hi-1"),
+                ("gpt2-a", 1, "arrive", "hi-2")]
+    run = _fleet_run(base, "multi", chips, specs, triggers)
+    incs = _fleet_incarnations(run, {
+        "gpt2": _slice9_expect(12, 1, True),
+        "resnet50": {"fused_bn_relu_conv": FUSED_LAUNCHES_PER_STEP}})
+    seen_ok = all(
+        i["cuda_visible_devices"] == ",".join(str(c) for c in i["cards"])
+        and i["cards_seen"] == i["world"] for i in incs if "steps" in i)
+    restores = {}
+    for name, job in run["jobs"].items():
+        ck = job["run_dir"] / "ck"
+        steps = sorted(int(p.name[5:13]) for p in ck.glob("step_*.complete"))
+        if not steps:
+            continue
+        topo = json.loads((ck / f"step_{steps[-1]:08d}.topology.json")
+                          .read_text())
+        own = int(topo["world"])
+        fps = {}
+        for tag, world, resume in (("own", own, "must"),
+                                   ("half", max(1, own // 2), "elastic")):
+            dst = base / f"restore_{name}_{tag}"
+            shutil.copytree(ck, dst)
+            spec = job["spec"]
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_hc_bench_torch", "1", "0",
+                 str(spec.batch_size), "ici", f"--model={spec.model}",
+                 *spec.flags, "--num_warmup_batches=1", "--num_batches=1",
+                 f"--resume={resume}", f"--train_dir={dst}"],
+                cwd=Path(__file__).resolve().parent, capture_output=True,
+                text=True, timeout=600,
+                env={**os.environ, "CUDA_VISIBLE_DEVICES":
+                     ",".join(str(c) for c in range(world))})
+            fps[tag] = (proc.returncode,
+                        _fp_line(proc.stdout.splitlines()))
+        restores[name] = {"world": own, **fps}
+    worlds = {}
+    for e in run["events"]:
+        if e["kind"] == "launch":
+            worlds.setdefault(e["job"], []).append(e["world"])
+    kinds = [e["kind"] for e in run["events"]]
+    rec = {"phase": "slice18", "part": "b_multi", "ran": True,
+           "cards": cards, "pool": chips, "wall_s": run["wall_s"],
+           "status": run["result"]["status"], "jobs": run["result"]["jobs"],
+           "orphans": run["result"]["orphans"], "worlds": worlds,
+           "fleet_goodput": run["ledger"]["fleet_goodput"],
+           "counts": run["ledger"]["counts"],
+           "shrinks": kinds.count("shrink"), "grows": kinds.count("grow"),
+           "disjoint": _fleet_disjoint(run), "cards_as_seen": seen_ok,
+           "restores": restores, "incarnations": incs,
+           "nvidia_smi": smi}
+    emit(rec)
+    if not (rec["disjoint"] and seen_ok and run["result"]["orphans"] == []
+            and run["result"]["status"] == "done"
+            and all(v == "done" for v in run["result"]["jobs"].values())
+            and all(r["own"][0] == r["half"][0] == 0 and r["own"][1]
+                    and r["own"][1] == r["half"][1]
+                    for r in restores.values())
+            and len(restores) == len(specs)):
+        raise AssertionError(f"phase 26 (b) failed: {rec}")
+
+
+def slice18_clis(torch, smi, base: Path, a: dict, add) -> None:
+    """Phase 26 (c): ``fleet status`` and ``fleet report --control
+    --artifact`` on (a)'s fleets, ``obs regress`` over the verdict; the
+    launcher's log and registry block from (a)'s plain runs; a corpus
+    written by ``python -m tpu_hc_bench_torch.data.tokens`` that gpt2
+    then trains on."""
+    import contextlib
+    import io
+    import os
+
+    from tpu_hc_bench_torch import envfile
+    from tpu_hc_bench_torch.data import tokens
+    from tpu_hc_bench_torch.fleet.__main__ import main as fleet_main
+    from tpu_hc_bench_torch.obs.__main__ import main as obs_main
+
+    def cli(main, *args) -> tuple[int, list[str]]:
+        out = io.StringIO()
+        rc = main(list(args), out=out)
+        return rc, out.getvalue().splitlines()
+
+    verdict = base / "verdict.json"
+    status_rc, status = cli(fleet_main, "status", str(a["churned"]))
+    report_rc, report = cli(fleet_main, "report", str(a["churned"]),
+                            "--control", str(a["control"]), "--artifact",
+                            str(verdict), "--no-timelines")
+    rec_v = json.loads(verdict.read_text())
+    replay = base / "verdict_replay.json"
+    cli(fleet_main, "report", str(a["churned"]), "--control",
+        str(a["control"]), "--artifact", str(replay), "--no-timelines")
+    cpu_soak = Path(__file__).resolve().parent / "artifacts" / \
+        "bench_fleet_soak_r19.json"
+    regress_rc, regress = cli(obs_main, "regress", str(verdict),
+                              "--history", str(replay), str(cpu_soak))
+    from tpu_hc_bench_torch.fleet import report as fleet_report
+
+    ctl_v = base / "verdict_control.json"
+    fleet_report.write_verdict(str(a["control"]), str(ctl_v))
+    against_rc, against = cli(obs_main, "regress", str(verdict),
+                              "--history", str(ctl_v))
+    home = Path(os.environ["HOME"])
+    logs = {name: [ln for ln in v["lines"]] for name, v in a["alone"].items()}
+    log_ok = {}
+    for name, job in (("gpt2-a", SLICE18_GPT2),
+                      ("resnet50-hi", SLICE18_RESNET)):
+        path = home / "logs" / (f"tpubench-1n-{job['batch_size']}b-"
+                                f"synthetic-ici-r1.log")
+        log_ok[name] = path.exists() and path.read_text() == \
+            "\n".join(logs[name]) + "\n"
+    registry = envfile.read()
+    corpus = base / "corpus"
+    # the CLI's main in this process: a subprocess would spend its
+    # seconds importing torch
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        corpus_rc = tokens.main([str(corpus), "--num_tokens",
+                                 str(SLICE18_CORPUS_TOKENS)])
+    _zero_counts()
+    text = _plain_rate(torch, ["1", "1", "16", "ici", "--model=gpt2",
+                               "--use_fp16=true", "--attention_impl=flash",
+                               "--fused_xent=true", f"--data_dir={corpus}",
+                               f"--num_warmup_batches={SLICE18_TEXT[0]}",
+                               f"--num_batches={SLICE18_TEXT[1]}"])
+    counts = _read_counts()
+    add(counts)
+    expect = _slice9_expect(12, sum(SLICE18_TEXT), True)
+    res = _result(text["lines"])
+    rec = {"phase": "slice18", "part": "c_clis",
+           "status_rc": status_rc, "status": status,
+           "report_rc": report_rc, "report": report,
+           "verdict": rec_v, "regress_rc": regress_rc, "regress": regress,
+           "regress_against_control_rc": against_rc,
+           "regress_against_control": against,
+           "log_written": log_ok,
+           "registry": registry, "corpus_rc": corpus_rc,
+           "corpus": out.getvalue().strip(), "text_rc": text["rc"],
+           "text_data": res.get("data"), "text_per_chip": text["per_chip"],
+           "text_final_loss": text["final_loss"],
+           "launches": counts, "expected_launches": expect,
+           "nvidia_smi": smi}
+    emit(rec)
+    kind = torch.cuda.get_device_name(0)
+    if not (status_rc == 0 and report_rc == 0
+            and any("gpt2-a" in ln and "done" in ln for ln in status)
+            and any(ln.startswith("churn vs control:") for ln in report)
+            and rec_v["manifest"]["device_kind"] == kind
+            and rec_v["extra"]["within_bound"] is True
+            and regress_rc == 0
+            and "against 1 matching record(s)" in regress[-1]
+            and against_rc in (0, 1) and against
+            and all(log_ok.values())
+            and registry.get("TPU_HC_BENCH_FABRIC") == "ici"
+            and corpus_rc == 0 and text["rc"] == 0
+            and math.isfinite(text["final_loss"]) and res.get("data")
+            and all(counts[k] == expect.get(k, 0) for k in counts)):
+        raise AssertionError(f"phase 26 (c) failed: {rec}")
+
+
+def phase_slice18(torch, dev, smi) -> dict:
+    """Phase 26: the fleet orchestrator over the cards, then the
+    launcher's host plumbing; returns every kernel's launches summed over
+    (a)'s two fleets and (c)'s corpus run."""
+    import shutil
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    base = Path(__file__).resolve().parent / "build" / "slice18"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    t0 = time.perf_counter()
+    try:
+        torch.cuda.empty_cache()
+        a = slice18_one_card(torch, smi, base, add)
+        t_a = time.perf_counter() - t0
+        slice18_clis(torch, smi, base, a, add)
+        t_ac = time.perf_counter() - t0
+        slice18_multi(torch, smi, torch.cuda.device_count(), base)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    emit({"phase": "slice18", "part": "d_launches", "launches": total,
+          "seconds_a": t_a, "seconds_ac": t_ac,
+          "seconds": time.perf_counter() - t0, "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -6612,7 +7236,8 @@ def main(argv: list[str] | None = None) -> int:
     p.add_argument("--only", choices=("dp", "realdata", "slice7",
                                       "serve2", "slice9", "zoo", "slice11",
                                       "slice12", "slice13", "slice14",
-                                      "slice15", "slice16", "slice17"),
+                                      "slice15", "slice16", "slice17",
+                                      "slice18"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -6629,7 +7254,7 @@ def main(argv: list[str] | None = None) -> int:
                         "then phase 22 alone; slice15: the build, then "
                         "phase 23 alone; slice16: the build, then phase "
                         "24 alone; slice17: the build, then phase 25 "
-                        "alone")
+                        "alone; slice18: the build, then phase 26 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -6647,9 +7272,24 @@ def main(argv: list[str] | None = None) -> int:
         print(f"chip_smoke: the tpu_hc_bench_torch package is missing "
               f"beside this script: {e}", file=sys.stderr)
         return 2
+    import os
+    import site
+
     from tpu_hc_bench_torch.models import create_model
     from tpu_hc_bench_torch.ops import _build
 
+    # every launcher run writes its per-run log and the env registry's
+    # launcher block under the checkout, never the machine's home; the
+    # processes started here keep the user site-packages they had, and
+    # their bytecode under build/pycache (with PYTHONDONTWRITEBYTECODE,
+    # as the card's machine sets it, each new process compiles torch's
+    # sources again: 16-18 s of imports against 11 s from the cache)
+    build = Path(__file__).resolve().parent / "build"
+    os.environ.setdefault("PYTHONUSERBASE", site.getuserbase())
+    os.environ["HOME"] = str(build / "home")
+    os.environ.pop("TPU_HC_BENCH_SETENV", None)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(build / "pycache")
     dev = torch.device("cuda")
     smi = nvidia_smi_line()
     _, build_s, log = _build.build()
@@ -6744,6 +7384,14 @@ def main(argv: list[str] | None = None) -> int:
         del model
         torch.cuda.empty_cache()
         phase_slice12_rest(torch, smi, total)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
+    if only == "slice18":
+        phase_slice18(torch, dev, smi)
         print(smi, flush=True)
         emit({"ok": True, "device": {"platform": "gpu",
                                      "kind": torch.cuda.get_device_name(0),
@@ -6864,6 +7512,8 @@ def main(argv: list[str] | None = None) -> int:
     slice16_launches = phase_slice16(torch, dev, smi)
     torch.cuda.empty_cache()
     slice17_launches = phase_slice17(torch, dev, smi)
+    torch.cuda.empty_cache()
+    slice18_launches = phase_slice18(torch, dev, smi)
 
     sources = {
         "paged_decode_attention": (
@@ -6919,7 +7569,8 @@ def main(argv: list[str] | None = None) -> int:
                       "slice14_launches": slice14_launches.get(name, 0),
                       "slice15_launches": slice15_launches.get(name, 0),
                       "slice16_launches": slice16_launches.get(name, 0),
-                      "slice17_launches": slice17_launches.get(name, 0)})
+                      "slice17_launches": slice17_launches.get(name, 0),
+                      "slice18_launches": slice18_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
@@ -6935,4 +7586,6 @@ if __name__ == "__main__":
         sys.exit(_launch_worker(sys.argv[2], sys.argv[3:]))
     if sys.argv[1:2] == ["--pp-ckpt-worker"]:
         sys.exit(_pp_ckpt_worker(*sys.argv[2:7]))
+    if sys.argv[1:2] == ["--fleet-worker"]:
+        sys.exit(_fleet_worker(sys.argv[2:]))
     sys.exit(main())

@@ -454,10 +454,14 @@ def test_lm_flags_pass_and_later_slices_raise():
         assert "degenerate seq axis" in cfg.translations["sequence_parallel"]
     for bad, match in ((["--attention_impl=paged"], "dense|flash"),
                        (["--wire_dtype=bf16"], "float32|uint8"),
-                       (["--virtual_devices=2"], "not ported"),
+                       (["--virtual_devices=2"], "CPU host's worker count"),
+                       (["--virtual_devices=0", "--device=cpu"], ">= 1"),
                        (["--seq_len=0"], "seq_len")):
         with pytest.raises(ValueError, match=match):
             flags.parse_benchmark_flags(bad)
+    # --virtual_devices is ported: a CPU host's gloo workers
+    assert flags.parse_benchmark_flags(
+        ["--virtual_devices=2", "--device=cpu"]).virtual_devices == 2
     with pytest.raises(ValueError, match="manual|auto"):
         flags.parse_benchmark_flags(["--config=x.json"])
     assert flags.parse_benchmark_flags(

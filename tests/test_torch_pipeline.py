@@ -661,8 +661,14 @@ def test_pp_flag_rules_follow_jax(kw):
 
 
 def test_later_flags_still_refuse():
-    with pytest.raises(ValueError, match="not ported yet"):
+    # --virtual_devices is ported since (tests/test_torch_fleet.py): the
+    # CPU only, N >= 1
+    with pytest.raises(ValueError, match="CPU host's worker count"):
         flags.parse_benchmark_flags(["--virtual_devices=8"])
+    with pytest.raises(ValueError, match=">= 1"):
+        flags.parse_benchmark_flags(["--virtual_devices=0", "--device=cpu"])
+    assert flags.parse_benchmark_flags(
+        ["--virtual_devices=8", "--device=cpu"]).virtual_devices == 8
     # --config is ported since (tests/test_torch_tune.py): only its
     # values are refused
     with pytest.raises(ValueError, match="manual|auto"):

@@ -391,7 +391,8 @@ def test_jax_s_refusals_are_raised(i):
     (["--data_format=NCWH"], "NCHW|NHWC"),
     (["--horovod_device=tpu"], "cpu|gpu"),
     (["--datasets_repeat_cached_sample=true", "--eval=true"], "epoch"),
-    (["--virtual_devices=8"], "not ported"),
+    (["--virtual_devices=8"], "CPU host's worker count"),
+    (["--virtual_devices=0", "--device=cpu"], "must be >= 1"),
     (["--optimizer=lbfgs"], "rmsprop"),
     (["--config=x.json"], "manual|auto"),
 ])

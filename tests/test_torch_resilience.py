@@ -414,7 +414,10 @@ def test_sigterm_exits_75_and_resume_ends_on_the_uninterrupted_run(
     assert second.returncode == 0, second.stderr[-2000:]
     assert f"restored checkpoint step 2 from {d}" in second.stdout
     assert saved[0] in second.stdout
-    resumed = json.loads(second.stdout.strip().splitlines()[-1])
+    # the result line, then the launcher's ``log: <path>`` (JAX's order)
+    out = second.stdout.strip().splitlines()
+    assert out[-1].startswith("log: ")
+    resumed = json.loads(out[-2])
     whole = _run(_cfg(tmp_path / "whole", num_batches=5))
     assert resumed["checkpoint"]["fingerprint"] == \
         whole.checkpoint["fingerprint"]
@@ -477,7 +480,8 @@ PORTED = {
 
 
 def test_the_eleven_flags_parse_and_the_eight_refuse():
-    """One of the eight still refuses; ``--config`` is ported since
+    """None of the eight refuses now: ``--virtual_devices`` is ported
+    since (``tests/test_torch_fleet.py``; the CPU only), ``--config`` since
     (``tests/test_torch_tune.py``), ``--sequence_parallel`` since
     (``tests/test_torch_sp_train.py``), ``--num_slices``,
     ``--model_parallel`` and ``--expert_parallel`` since
@@ -489,9 +493,16 @@ def test_the_eleven_flags_parse_and_the_eight_refuse():
     for k, v in PORTED.items():
         assert str(getattr(cfg, k)) == v, k
     assert set(PORTED).isdisjoint(flags.LATER_SLICE_TRAIN_FLAGS)
-    assert "virtual_devices" in flags.LATER_SLICE_TRAIN_FLAGS
-    with pytest.raises(ValueError, match="not ported yet: --virtual_devices"):
+    # --virtual_devices is ported since (tests/test_torch_fleet.py): a
+    # CPU host's worker count, refused on the card and below 1
+    assert "virtual_devices" not in flags.LATER_SLICE_TRAIN_FLAGS
+    with pytest.raises(ValueError, match="two NCCL ranks cannot share"):
         flags.parse_benchmark_flags(["--virtual_devices=2"])
+    with pytest.raises(ValueError, match="must be >= 1"):
+        flags.parse_benchmark_flags(["--virtual_devices=-1",
+                                     "--device=cpu"])
+    assert flags.parse_benchmark_flags(
+        ["--virtual_devices=2", "--device=cpu"]).virtual_devices == 2
     assert "config" not in flags.LATER_SLICE_TRAIN_FLAGS
     with pytest.raises(ValueError, match="manual|auto"):
         flags.parse_benchmark_flags(["--config=2"])

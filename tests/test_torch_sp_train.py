@@ -322,7 +322,8 @@ def test_sequence_parallel_is_ported_and_elastic_still_refuses():
     # elastic resume is ported since (tests/test_torch_elastic.py), the
     # DPxSPxTP hybrid and pipeline parallelism since
     # (tests/test_torch_hybrid.py, tests/test_torch_pipeline.py);
-    # --virtual_devices is not, and --config refuses only bad values
+    # --virtual_devices on the CPU (tests/test_torch_fleet.py); --config
+    # refuses only bad values
     assert flags.parse_benchmark_flags(
         ["--resume=elastic", "--train_dir=/x"]).resume == "elastic"
     cfg = flags.parse_benchmark_flags(["--model=llama_tiny",
@@ -333,9 +334,15 @@ def test_sequence_parallel_is_ported_and_elastic_still_refuses():
                                        "--pipeline_parallel=2",
                                        "--num_microbatches=4"])
     assert (cfg.pipeline_parallel, cfg.num_microbatches) == (2, 4)
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="CPU host's worker count"):
         flags.parse_benchmark_flags(["--model=llama_tiny",
                                      "--virtual_devices=8"])
+    with pytest.raises(ValueError, match=">= 1"):
+        flags.parse_benchmark_flags(["--model=llama_tiny", "--device=cpu",
+                                     "--virtual_devices=0"])
+    assert flags.parse_benchmark_flags(
+        ["--model=llama_tiny", "--device=cpu", "--sequence_parallel=2",
+         "--virtual_devices=8"]).virtual_devices == 8
     with pytest.raises(ValueError, match="manual|auto"):
         flags.parse_benchmark_flags(["--model=llama_tiny",
                                      "--config=x.json"])

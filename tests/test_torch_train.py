@@ -433,7 +433,10 @@ def test_benchmark_flags_defaults_and_rejections():
                                        "TRUE", "--device=cpu"])
     assert cfg.use_fp16 and cfg.fused_conv and cfg.compute_dtype == \
         "bfloat16"
-    for bad, match in ((["--virtual_devices=8"], "not ported"),
+    assert flags.parse_benchmark_flags(
+        ["--virtual_devices=8", "--device=cpu"]).virtual_devices == 8
+    for bad, match in ((["--virtual_devices=8"], "CPU host's worker count"),
+                       (["--virtual_devices=0", "--device=cpu"], ">= 1"),
                        (["--gradient_accumulation_steps=3"], "divisible"),
                        (["--variable_update=zero1", "--forward_only=true"],
                         "forward-only"),
@@ -455,6 +458,11 @@ def test_launcher_positionals_and_world(monkeypatch, tmp_path):
     assert launcher.world_size(1, 1, "cpu") == 1
     assert launcher.world_size(1, 0, "cpu") == 1
     assert launcher.world_size(2, 4, "cuda") == 8
+    # --virtual_devices=N: a CPU host of N cards, JAX's layout
+    assert launcher.world_size(1, 0, "cpu", 4) == 4
+    assert launcher.world_size(2, 2, "cpu", 4) == 4
+    with pytest.raises(ValueError, match="exceeds --virtual_devices=4"):
+        launcher.world_size(1, 5, "cpu", 4)
     # a world of two hosts needs a hostfile that lists both
     (tmp_path / "nodeips.txt").write_text("10.0.0.1\n")
     monkeypatch.setenv("TPU_HC_BENCH_HOSTFILE", str(tmp_path / "nodeips.txt"))

@@ -519,9 +519,14 @@ def test_config_manual_default_and_bad_values():
         with pytest.raises(ValueError) as ref:
             jax_flags.BenchmarkConfig(config="bogus").resolve()
         assert str(mine.value) == str(ref.value)
-    # --virtual_devices is still refused
-    with pytest.raises(ValueError, match="not ported yet"):
+    # --virtual_devices is ported (tests/test_torch_fleet.py): the CPU
+    # only, N >= 1
+    with pytest.raises(ValueError, match="CPU host's worker count"):
         flags.parse_benchmark_flags(["--virtual_devices=8"])
+    with pytest.raises(ValueError, match=">= 1"):
+        flags.parse_benchmark_flags(["--virtual_devices=0", "--device=cpu"])
+    assert flags.parse_benchmark_flags(
+        ["--virtual_devices=8", "--device=cpu"]).virtual_devices == 8
 
 
 # ------------------------------------------- exit classes, hardware key

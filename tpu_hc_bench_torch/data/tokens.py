@@ -23,6 +23,9 @@ lane's pre-tokenized corpus, copies of the JAX package's
   bucket, long ones chunked, with segment ids; the weights drop padding
   and the targets that would cross a document.  As in JAX they exist at
   the API level; no driver path serves them yet.
+- ``main``: ``python -m tpu_hc_bench_torch.data.tokens OUT_DIR``, JAX's
+  corpus writer (a seeded uniform stream, or ``--from_text`` bytes),
+  byte for byte.
 """
 
 from __future__ import annotations
@@ -287,3 +290,50 @@ class PackedTokenDataset:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def main(argv=None) -> int:
+    """Write a corpus in the wire format (JAX's CLI)::
+
+        python -m tpu_hc_bench_torch.data.tokens out_dir --num_tokens 1000000
+        python -m tpu_hc_bench_torch.data.tokens out_dir --from_text corpus.txt
+
+    ``--from_text`` tokenizes a UTF-8 file byte by byte (vocab 256): a
+    real corpus with no tokenizer; the random mode writes a uniform
+    stream for throughput work.  Train on it with ``python -m
+    tpu_hc_bench_torch 1 0 8 ici --model=gpt2 --data_dir=out_dir``.
+    """
+    import argparse
+
+    p = argparse.ArgumentParser(description=main.__doc__)
+    p.add_argument("out_dir")
+    p.add_argument("--split", default="train")
+    p.add_argument("--num_tokens", type=int, default=1_000_000)
+    p.add_argument("--vocab_size", type=int, default=50257)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--from_text", default=None,
+                   help="byte-level tokenize this UTF-8 file instead of "
+                        "generating random tokens")
+    args = p.parse_args(argv)
+    if args.from_text:
+        ignored = [f for f, d in (("--num_tokens", 1_000_000),
+                                  ("--vocab_size", 50257), ("--seed", 0))
+                   if getattr(args, f[2:]) != d]
+        if ignored:
+            p.error(f"{', '.join(ignored)} do(es) not apply with "
+                    f"--from_text (byte-level: vocab 256, whole file)")
+        toks = np.frombuffer(Path(args.from_text).read_bytes(), np.uint8)
+        vocab = 256
+    else:
+        rng = np.random.default_rng(args.seed)
+        toks = rng.integers(1, args.vocab_size, size=(args.num_tokens,))
+        vocab = args.vocab_size
+    path = write_token_file(Path(args.out_dir) / f"{args.split}.bin",
+                            toks, vocab)
+    print(f"{path}: {len(toks)} tokens, vocab {vocab}, "
+          f"{path.stat().st_size} bytes")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

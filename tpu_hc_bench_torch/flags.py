@@ -6,9 +6,9 @@
   (``python -m tpu_hc_bench_torch NUM_HOSTS WORKERS BATCH FABRIC``).
 
 Flag spellings and defaults are the JAX package's (``flags.py``), for
-the part of each lane ported so far, plus ``--device=cuda|cpu``.  Flags
-of the JAX lane that are not ported yet parse and are rejected loudly,
-so no run silently ignores one; the other lane's flags are unknown.
+each lane, plus ``--device=cuda|cpu``: every flag of the JAX lanes is
+ported (the last, ``--virtual_devices``, a CPU host's worker count, with
+slice 18); the other lane's flags are unknown.
 
 ``--config=manual|auto`` works in both lanes as in JAX: ``auto`` makes
 ``resolve()`` apply the member's tuned registry row
@@ -365,8 +365,9 @@ def parse_flags(argv: list[str]) -> ServeConfig:
 
 # --- training lane -------------------------------------------------------
 
-# training knobs of the JAX lane that this port does not carry yet
-LATER_SLICE_TRAIN_FLAGS = ("virtual_devices",)
+# training knobs of the JAX lane that this port does not carry yet: none
+# since slice 18 (--virtual_devices)
+LATER_SLICE_TRAIN_FLAGS: tuple[str, ...] = ()
 
 NONFINITE_POLICIES = ("abort", "skip", "rewind")
 
@@ -416,7 +417,7 @@ _OPTIONAL_TYPES = {"seq_len": int, "num_batches": int, "data_dir": str,
                    "step_timeout_s": str, "inject_fault": str,
                    "trace_dir": str, "profile_steps": str,
                    "metrics_dir": str, "fabric_ceiling": str,
-                   "hbm_budget": str}
+                   "hbm_budget": str, "virtual_devices": int}
 RESUME_POLICIES = ("auto", "never", "must", "elastic")
 
 
@@ -494,6 +495,11 @@ class BenchmarkConfig:
     num_slices: int = 0                       # fabric=dcn multislice:
                                               # slices of the data axis
                                               # (0: one per host)
+    virtual_devices: int | None = None        # --device=cpu: N gloo
+                                              # workers on this host (the
+                                              # card count a host has;
+                                              # WORKERS_PER_HOST 0 takes
+                                              # all N)
     seq_len: int | None = None                # text models: override the
                                               # registry sequence length
     fused_xent: bool = False                  # text models: the CUDA
@@ -637,6 +643,15 @@ class BenchmarkConfig:
         _resolve_config(self, t)
         if self.device not in ("cuda", "cpu"):
             raise ValueError(f"--device must be cuda|cpu: {self.device!r}")
+        if self.virtual_devices is not None:
+            if self.virtual_devices < 1:
+                raise ValueError(f"--virtual_devices must be >= 1: "
+                                 f"{self.virtual_devices}")
+            if self.device != "cpu":
+                raise ValueError(
+                    "--virtual_devices is a CPU host's worker count "
+                    "(--device=cpu): on the card the world comes from the "
+                    "visible cards, and two NCCL ranks cannot share one")
         if self.data_format.upper() == "NCHW":
             t["data_format"] = ("NCHW->channels_last (NCHW tensors in NHWC "
                                 "memory, the JAX lane's NHWC byte for byte)")
@@ -1112,19 +1127,11 @@ def build_benchmark_parser() -> argparse.ArgumentParser:
         kind = _OPTIONAL_TYPES.get(f.name, type(v))
         p.add_argument(f"--{f.name}", default=v,
                        type=_parse_bool if isinstance(v, bool) else kind)
-    for name in LATER_SLICE_TRAIN_FLAGS:
-        p.add_argument(f"--{name}", default=None, help=argparse.SUPPRESS)
     return p
 
 
 def parse_benchmark_flags(argv: list[str]) -> BenchmarkConfig:
     args = build_benchmark_parser().parse_args(argv)
-    later = [n for n in LATER_SLICE_TRAIN_FLAGS
-             if getattr(args, n) is not None]
-    if later:
-        raise ValueError(
-            "flag(s) of the JAX training lane not ported yet: "
-            + ", ".join(f"--{n}" for n in later))
     names = {f.name for f in dataclasses.fields(BenchmarkConfig)
              if f.name not in DERIVED_FIELDS}
     cfg = BenchmarkConfig(**{n: getattr(args, n) for n in names})

@@ -26,14 +26,22 @@ The world is NUM_HOSTS x WORKERS_PER_HOST workers, one process each:
   ranks cannot share a card.  Several hosts each run the command with
   the hostfile contract of ``parallel.distributed``.
 
-Rank 0 prints the protocol lines and the result as one JSON line (no
-log file is written).  Exit codes (``resilience``, JAX's contract): 0
+Rank 0 prints the protocol lines and the result as one JSON line.  The
+launcher of the first host (not a spawned worker) also keeps the JAX
+package's host plumbing: it registers the fabric's exports as the
+``launcher`` block of the env registry (``envfile``; an unwritable home
+does not end the run) and, in a ``finally`` (a preempted run too),
+writes every line it printed to ``~/logs/<driver.log_name>`` and prints
+``log: <path>``.  ``--virtual_devices=N`` (``--device=cpu``) is a CPU
+host of N cards: WORKERS_PER_HOST 0 starts N gloo workers.
+
+Exit codes (``resilience``, JAX's contract): 0
 clean success (nonzero throughput measured), 1 run completed but
 measured zero throughput, 70 the watchdog ended a hung run
 (``--step_timeout_s``), 75 a SIGTERM/SIGINT was honored with an
 emergency checkpoint (``--resume=auto`` continues); at world > 1 the
 first failing worker's code (1 for a signal), the other workers
-stopped.  A SIGTERM or SIGINT to this process at world > 1 is passed on
+stopped, or 75 once every worker has stopped at the agreed step.  A SIGTERM or SIGINT to this process at world > 1 is passed on
 to every worker, whose ranks agree on the step to stop at.
 """
 
@@ -43,6 +51,7 @@ import json
 import shutil
 import sys
 import tempfile
+from pathlib import Path
 from typing import Callable
 
 import torch
@@ -50,13 +59,15 @@ import torch.distributed as dist
 
 from tpu_hc_bench_torch import flags, resolve_device
 from tpu_hc_bench_torch.parallel import distributed
-from tpu_hc_bench_torch.parallel.fabric import FABRICS, resolve_fabric
+from tpu_hc_bench_torch.parallel.fabric import (
+    FABRICS, FabricConfig, resolve_fabric)
 from tpu_hc_bench_torch.resilience import (
     EXIT_OK, EXIT_PREEMPTED, EXIT_ZERO_THROUGHPUT)
 
 USAGE = ("usage: python -m tpu_hc_bench_torch NUM_HOSTS WORKERS_PER_HOST "
          f"BATCH_SIZE FABRIC({'|'.join(FABRICS)}) [--flags...]\n"
-         "       python -m tpu_hc_bench_torch serve [--flags...]")
+         "       python -m tpu_hc_bench_torch serve [--flags...]\n"
+         "       python -m tpu_hc_bench_torch fleet run|status|report ...")
 
 
 def parse_positionals(argv: list[str]) -> tuple[list[str], list[str]]:
@@ -70,20 +81,30 @@ def parse_positionals(argv: list[str]) -> tuple[list[str], list[str]]:
     return pos, rest
 
 
-def local_workers(workers_per_host: int, device: str) -> int:
+def local_workers(workers_per_host: int, device: str,
+                  virtual_devices: int | None = None) -> int:
     """Workers on one host: ``workers_per_host``, or 0 for one per card
-    (one on the CPU, or where no card is visible)."""
+    (one on the CPU, or where no card is visible).  ``virtual_devices``
+    N (a CPU host) is the host's card count, as JAX's layout over N
+    virtual devices: 0 takes all N, more than N raise."""
     if workers_per_host < 0:
         raise ValueError(f"WORKERS_PER_HOST must be >= 0: "
                          f"{workers_per_host}")
+    if virtual_devices:
+        if workers_per_host > virtual_devices:
+            raise ValueError(f"WORKERS_PER_HOST={workers_per_host} "
+                             f"exceeds --virtual_devices={virtual_devices}")
+        return workers_per_host or virtual_devices
     return max(workers_per_host or (
         torch.cuda.device_count() if device == "cuda" else 1), 1)
 
 
-def world_size(num_hosts: int, workers_per_host: int, device: str) -> int:
+def world_size(num_hosts: int, workers_per_host: int, device: str,
+               virtual_devices: int | None = None) -> int:
     if num_hosts < 1:
         raise ValueError(f"NUM_HOSTS must be >= 1: {num_hosts}")
-    return num_hosts * local_workers(workers_per_host, device)
+    return num_hosts * local_workers(workers_per_host, device,
+                                     virtual_devices)
 
 
 def _train(argv: list[str], cfg: flags.BenchmarkConfig, fabric: str,
@@ -116,20 +137,34 @@ def _in_group(join: Callable[[], None], run: Callable[[], int]) -> int:
         dist.destroy_process_group()
 
 
+def _register_env(fab, cfg: flags.BenchmarkConfig) -> None:
+    """The fabric's exports as the env registry's ``launcher`` block
+    (JAX's setenv role); a read-only home does not end the run."""
+    from tpu_hc_bench_torch import envfile
+
+    try:
+        envfile.register("launcher", FabricConfig(
+            fab, cfg.fusion_threshold_bytes).env_exports())
+    except OSError:
+        pass
+
+
 def main(argv: list[str] | None = None,
          print_fn: Callable[[str], None] | None = None) -> int:
     from tpu_hc_bench_torch.train import step as step_mod
 
     argv = list(sys.argv[1:] if argv is None else argv)
-    tee = print_fn or (lambda m: print(m, flush=True))
+    echo = print_fn or (lambda m: print(m, flush=True))
     pos, rest = parse_positionals(argv)
     fabric = pos[3].strip().lower()
     fab = resolve_fabric(fabric)
     cfg = flags.parse_benchmark_flags(["--batch_size", pos[2]] + rest)
     step_mod.check_arm(cfg, fab)
     dev = resolve_device(cfg.device)
-    local = local_workers(int(pos[1]), cfg.device)
-    world = world_size(int(pos[0]), int(pos[1]), cfg.device)
+    num_hosts = int(pos[0])
+    local = local_workers(int(pos[1]), cfg.device, cfg.virtual_devices)
+    world = world_size(num_hosts, int(pos[1]), cfg.device,
+                       cfg.virtual_devices)
     if dev.type == "cuda" and local > torch.cuda.device_count():
         raise ValueError(f"{local} workers on this host but "
                          f"{torch.cuda.device_count()} cards: one worker "
@@ -140,23 +175,53 @@ def main(argv: list[str] | None = None,
     if worker is not None:                      # a spawned worker
         if dev.type == "cuda":
             torch.cuda.set_device(worker.local_rank)
-        out = tee if worker.rank == 0 else (lambda _m: None)
+        out = echo if worker.rank == 0 else (lambda _m: None)
         return _in_group(
             lambda: distributed.init_group(backend, worker),
             lambda: _train(argv, cfg, fabric, out, local))
-    if world == 1:
-        if not fab.is_fast:
-            return _train(argv, cfg, fabric, tee, local)
-        return _in_group(lambda: distributed.init_single(backend),
-                         lambda: _train(argv, cfg, fabric, tee, local))
 
-    num_hosts = int(pos[0])
-    tmp = None
-    if num_hosts > 1:
+    host, store = 0, None
+    if world > 1 and num_hosts > 1:
         host, store = distributed.multi_host_store(num_hosts)
-    else:
+    lines: list[str] = []
+
+    def tee(m: str) -> None:
+        echo(m)
+        lines.append(m)
+
+    if host == 0:
+        _register_env(fab, cfg)
+    try:
+        if world == 1:
+            if not fab.is_fast:
+                return _train(argv, cfg, fabric, tee, local)
+            return _in_group(lambda: distributed.init_single(backend),
+                             lambda: _train(argv, cfg, fabric, tee, local))
+        return _spawn_host(argv, host, store, local, world, tee)
+    finally:
+        if host == 0:
+            # the log is part of the contract, a preempted run's too
+            from tpu_hc_bench_torch.train import driver
+
+            log = Path.home() / "logs" / driver.log_name(
+                num_hosts, cfg.batch_size,
+                "synthetic" if cfg.data_dir is None else "real", fab.value)
+            try:
+                log.parent.mkdir(parents=True, exist_ok=True)
+                log.write_text("\n".join(lines) + "\n")
+                print(f"log: {log}", flush=True)
+            except OSError:
+                pass
+
+
+def _spawn_host(argv: list[str], host: int, store: str | None, local: int,
+                world: int, tee: Callable[[str], None]) -> int:
+    """This host's ``local`` workers of a ``world``-worker run, each this
+    command in a process of its own; rank 0's lines go to ``tee``."""
+    tmp = None
+    if store is None:
         tmp = tempfile.mkdtemp(prefix="tpu_hc_bench_store_")
-        host, store = 0, f"file://{tmp}/store"
+        store = f"file://{tmp}/store"
     workers = [distributed.Worker(host * local + i, i, world, store)
                for i in range(local)]
     try:

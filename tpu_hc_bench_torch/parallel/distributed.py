@@ -58,6 +58,8 @@ from typing import Callable, Sequence
 import torch
 import torch.distributed as dist
 
+from tpu_hc_bench_torch.resilience import EXIT_PREEMPTED
+
 # JAX's coordinator port, kept for the hostfile contract
 DEFAULT_COORDINATOR_PORT = 9944
 DEFAULT_HOSTFILE = Path.home() / "nodeips.txt"
@@ -356,11 +358,12 @@ def spawn_local(cmd: Sequence[str], workers: Sequence[Worker],
     Global rank 0's standard output goes to ``on_line`` line by line;
     the other workers' output and every standard error pass through.
     A SIGTERM or SIGINT to this process is passed on to every worker
-    (each honors it at a step boundary the ranks agree on).  The first
-    worker to exit non-zero stops the others (a rank blocked
-    in a collective on a dead peer would otherwise wait for the group's
-    timeout); its exit code is returned (1 for a signal), else 0.  Each
-    worker gets an equal share of the host's cores in
+    (each honors it at a step boundary the ranks agree on and exits 75,
+    which stops no other worker: 75 is returned once all have exited).
+    The first worker to exit otherwise non-zero stops the others (a rank
+    blocked in a collective on a dead peer would otherwise wait for the
+    group's timeout); its exit code is returned (1 for a signal), else
+    0.  Each worker gets an equal share of the host's cores in
     ``OMP_NUM_THREADS`` unless it is set already."""
     base = dict(os.environ)
     root = str(Path(__file__).resolve().parents[2])
@@ -390,13 +393,20 @@ def spawn_local(cmd: Sequence[str], workers: Sequence[Worker],
         def watch() -> None:
             while True:
                 codes = [p.poll() for p in procs]
+                # a preempted worker (75) stopped at the step boundary
+                # its peers agreed on and stops nobody: they are still
+                # saving or printing, and a second SIGTERM would kill
+                # them there
                 bad = [(w.rank, c) for w, c in zip(workers, codes)
-                       if c not in (None, 0)]
+                       if c not in (None, 0, EXIT_PREEMPTED)]
                 if bad:
                     first_failure.append(bad[0])
                     _stop(procs)
                     return
                 if all(c is not None for c in codes):
+                    first_failure.extend(
+                        (w.rank, c) for w, c in zip(workers, codes)
+                        if c == EXIT_PREEMPTED)
                     return
                 time.sleep(0.05)
 
@@ -413,7 +423,8 @@ def spawn_local(cmd: Sequence[str], workers: Sequence[Worker],
         _stop(procs)
     if first_failure:
         rank_, code = first_failure[0]
-        print(f"worker rank {rank_} exited with code {code}; the other "
-              "workers were stopped", file=sys.stderr, flush=True)
+        if code != EXIT_PREEMPTED:
+            print(f"worker rank {rank_} exited with code {code}; the "
+                  "other workers were stopped", file=sys.stderr, flush=True)
         return code if code > 0 else 1
     return 0

@@ -24,6 +24,7 @@ no-InfiniBand smoke test.  On the card:
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 from typing import Sequence
 
@@ -64,6 +65,22 @@ def resolve_fabric(name: str) -> Fabric:
         raise ValueError(
             f"unknown fabric {name!r}; expected one of {sorted(_ALIASES)}"
         ) from None
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricConfig:
+    """The launch-time fabric settings a run registers (JAX's
+    ``FabricConfig``): the launcher writes ``env_exports`` into the env
+    registry's ``launcher`` block (``envfile``)."""
+
+    fabric: Fabric
+    fusion_threshold_bytes: int
+
+    def env_exports(self) -> dict[str, str]:
+        return {
+            "TPU_HC_BENCH_FABRIC": self.fabric.value,
+            "TPU_HC_BENCH_FUSION_THRESHOLD": str(self.fusion_threshold_bytes),
+        }
 
 
 def host_allreduce(tensors: Sequence[torch.Tensor], group) -> None:

@@ -304,6 +304,13 @@ class _StepClock:
         return [1e3 * (b - a) for a, b in pairs]
 
 
+def log_name(num_hosts: int, batch: int, data: str, fabric: str,
+             run: int = 1) -> str:
+    """The per-run log's name (JAX ``log_name``), after the reference's
+    ``tfmn-<n>n-<b>b-<data>-<fabric>-r<run>.log``."""
+    return f"tpubench-{num_hosts}n-{batch}b-{data}-{fabric}-r{run}.log"
+
+
 def _example_units(spec) -> str:
     """What the rate lines count (JAX ``_example_units``): "examples"
     for the text, CTC and integer-input members, else "images"."""
