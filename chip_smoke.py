@@ -151,12 +151,12 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    a mean difference within ``NVJPEG_MEAN_TOL``; (b) ``python -m
    tpu_hc_bench_torch 1 1 128 ib --model=resnet50 --use_fp16=true
    --fused_conv=true --data_dir=<fixture>`` with the reference's whole
-   flag line (all but ``--device=cpu``), 5 + 15 steps: images/s
+   flag line (all but ``--device=cpu``), 3 + 10 steps: images/s
    against phase 7's, the decode pool's counters, the input wait a
    step, 8 conv launches a step; (c) the same with
    ``--datasets_repeat_cached_sample``, (d) ``--forward_only`` (the
-   model's parameters and BN buffers bit-equal after the run), each 5
-   + 15 steps; (e) ``--eval`` on the validation shard; (f) three steps
+   model's parameters and BN buffers bit-equal after the run), each 3
+   + 10 steps; (e) ``--eval`` on the validation shard; (f) two steps
    each of adam, adamw and rmsprop at batch 32 against the plain
    optimizer on the same gradients; (g) gpt2 on a uint16 token corpus
    written here, 5 + 15 steps, against phase 10's first run, 12
@@ -175,8 +175,8 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    the same with ``--input_service=on`` at world 1: images/s against
    (c) and the ring's stall, wait and occupancy counters; (e) resnet50
    bf16 batch 128 ``--fused_conv=true --train_dir=<dir>
-   --save_model_steps=25``, 10 + 50 steps with synchronous saves, then
-   ``--resume=must`` for 10 + 50 more with async saves, then ``--eval``
+   --save_model_steps=25``, 5 + 25 steps with synchronous saves, then
+   ``--resume=must`` for 5 + 25 more with async saves, then ``--eval``
    on the fixture's validation shard from the same ``--train_dir``: the
    saved and restored fingerprints equal, each save's blocking ms,
    images/s against phase 7; (c)-(e) every count zeroed just before each
@@ -244,7 +244,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 18. **zoo**: the image zoo, every training run through
    ``launcher.main`` with every count zeroed just before and read just
    after, and its peak memory: (a) vit_b16 at full width, bf16, batch
-   64, 10 + 30 steps, ``--attention_impl=flash`` (12 launches of rows
+   64, 5 + 20 steps, ``--attention_impl=flash`` (12 launches of rows
    3, 4a, 4b a step) and ``dense`` (none), the first training-mode loss
    on the runs' batch, flash against dense from one seed, within
    ``ZOO_VIT_FIRST_LOSS_TOL``; (b) the same with
@@ -253,7 +253,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    128 to ``ZOO_MAX_BATCH`` under remat until one does not fit, each
    with its images/s; (c) vit_l16, flash, batch 64 (halved until it
    fits), 5 + 15 (24 launches of each a step); (d) every other image
-   member once at ``ZOO_BATCHES``, 1 + 3 steps, resnet18 and
+   member once at ``ZOO_BATCHES``, 1 + 2 steps, resnet18 and
    resnet50_v2 again with ``--use_space_to_depth``: images/s, ms a
    step, MFU, peak memory, a finite final loss, no kernel of the table
    launched, and the first bf16 loss within ``ZOO_BF16_LOSS_TOL`` of
@@ -266,7 +266,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    mode, every training run through ``launcher.main`` with every count
    zeroed just before and read just after, and its peak memory: (a)
    deepspeech2 at full width, bf16, batch 256, ``--rnn_impl=hoisted``,
-   1 + 3 steps: examples/s, ms a step, MFU, and over the same steps
+   1 + 2 steps: examples/s, ms a step, MFU, and over the same steps
    under ``torch.profiler`` (the device alone) kernels a step and the
    device's idle share; the first bf16 CTC loss against the float32
    forward of the same weights within ``SLICE11_BF16_LOSS_TOL``; (b)
@@ -360,7 +360,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    parallelism: (a) gpt2 16 x 1024 bf16 flash ``--fused_xent`` through
    the TP layers in a one-rank model group (``parallel.tensor``: the
    model cut one way, its collectives copies) against the plain model,
-   3 + 10 steps each from one seed: every loss bit-equal (else within
+   2 + 8 steps each from one seed: every loss bit-equal (else within
    ``SLICE15_TP1_TOL`` at the last step), sequences/s of each, rows 3,
    4a, 4b, 5 and 6 launched on both; (b) two CPU workers (``1 2 2 ib
    --device=cpu``, gloo) write a resnet50 zero1 checkpoint at batch 2 in
@@ -383,7 +383,7 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 24. **slice16**: pipeline parallelism and the 3-D hybrids: (a) gpt2 16
    x 1024 bf16 flash through ``parallel.pipeline``'s GPipe schedule at
    one stage (``SLICE16_M`` microbatches, no hops) against the plain
-   step, dropout off in both, 3 + 10 steps from one seed: every loss
+   step, dropout off in both, 2 + 8 steps from one seed: every loss
    bit-equal or within ``SLICE16_ONE_STAGE_TOL``, sequences/s of each,
    rows 3, 4a and 4b 12 x M launches a step on the pipeline, 12 on the
    plain; (b) two CPU workers (``1 2 4 ib --device=cpu
@@ -405,8 +405,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
 25. **slice17**: the autotuner and the obs CLI, everything written under
    ``build/slice17`` (``TPU_HC_TUNE_REGISTRY`` points there): (a)
    ``python -m tpu_hc_bench_torch.tune search --model gpt2
-   --max_candidates 2 --max_rungs 2 --rung_batches 4 --warmup 2
-   --promote``, each candidate a launcher subprocess on the card (the
+   --max_candidates 2 --max_rungs 1 --rung_batches 4 --warmup 2
+   --promote`` (lints on: the journal's ``"lints"`` is ``baseline``),
+   each candidate a launcher subprocess on the card (the
    seed's ``attention_impl=flash``: rows 3, 4a and 4b in each, counted
    in their own processes, not here): the hardware key, the journal's
    status and spent seconds, each measurement's rate and peak memory,
@@ -417,9 +418,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    the rate and MFU, rows 3/4a/4b 12 x M launches a step; (c)
    ``run_search`` over ``serve_member_space("llama_1b")`` (its pruner
    skips every candidate without a run, as JAX's: the memory anchor is
-   the training seed's batch 2), then the first two candidates measured
+   the training seed's batch 2), then the first candidate measured
    with an in-process serving runner (tokens/s on phase 4's trace) and
-   the better promoted as the ``llama_1b@serve`` row, then llama_1b
+   promoted as the ``llama_1b@serve`` row, then llama_1b
    served at full width, f32, paged, with ``--config=auto``: the row's levers
    applied, rows 1 and 2 at phase 4's counts, and gpt2 with no row
    falling back to ``baseline`` with its note; (d) ``python -m
@@ -435,8 +436,9 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    appended to the job's ``fleet_worker.jsonl``; the churn lands on a
    life's first committed checkpoint): (a) a pool of one card through
    the real ``FleetController`` and ``LocalBackend``: ``gpt2-a`` (16 x
-   1024, bf16, flash, fused xent, 5 + 40 steps a life) preempted by the
-   priority arrival ``resnet50-hi`` (128, bf16, fused conv, 5 + 30)
+   1024, bf16, flash, fused xent, 5 + 30 steps a life) preempted by the
+   priority arrival ``resnet50-hi`` (128, bf16, fused conv, 5 + 20;
+   every life on cuDNN's heuristics, without its search)
    after its first save (exit 75, requeued, ``--resume=elastic`` on the
    freed card), then killed in its second life; every emergency save's
    ``state fingerprint:`` equal to the next life's restore, both jobs
@@ -457,8 +459,31 @@ Phases, each printing one JSON line; any failure raises (non-zero exit):
    regrow; the card sets of jobs running at once disjoint and as each
    process saw them; every job's own-world and half-world restores
    bit-equal.  With one card (b) prints ``"ran": false``.
+27. **slice19**: ``analysis/`` on the card: (a) ``python -m
+   tpu_hc_bench_torch.analysis --all --no-collectives`` over the port's
+   tree in a subprocess (CPU work: the zoo on the meta device), started
+   beside phase 26 in the whole script and beside (b) alone: exit 0,
+   every finding accepted by the port's baseline; (b) the op census
+   (``analysis.census``) of one training step of gpt2 (16 x 1024, bf16,
+   flash, fused xent) and of resnet50 (128, bf16, fused conv), and of
+   one prefill (128 tokens) plus one decode step (8 rows, paged) of
+   gpt2's serving engine, each after one warmup step, every kernel's
+   count zeroed just before the step and read just after: each row's
+   launches (gpt2 12, 12, 12, 1, 1 on rows 3, 4a, 4b, 5, 6; resnet50 8
+   on row 7; served gpt2 12 and 23 on rows 1 and 2; every other row 0)
+   equal to the ops' counters, the serving step's two host reads (its
+   first token and the rows' tokens), the dispatcher's ops and host syncs with
+   their module paths, ``torch.cuda.set_sync_debug_mode("warn")``'s
+   warnings in the same step, the collectives at world 1 (none); (c)
+   with two cards or more, the census of a world-2 ``trivial`` and
+   ``resnet50`` step in two processes over NCCL, a card each: zero1's
+   reduce-scatter/all-gather pair and no ``collective-shape`` finding,
+   psum's finding; (d) phase 25 (a)'s journal (alone: a search of its
+   own on gpt2's two cheapest candidates) carries ``"lints":
+   "baseline"`` and no lint skip.
 
-Then the kernel table line (each kernel's design beside its numbers,
+Then a ``{"phase": "timing"}`` line of each phase's seconds, then the
+kernel table line (each kernel's design beside its numbers,
 ``dp_launches``: its launches in phase 13's main-path runs (a) and (c),
 ``realdata_launches``: its launches in phase 14's runs (b)-(e) and (g),
 ``slice7_launches``: its launches in phase 15's runs (c)-(e), and
@@ -473,8 +498,9 @@ and (f), ``zoo_launches``: its launches in phase 18's runs (a)-(d),
 ``slice16_launches``: its launches in phase 24's run (a),
 ``slice17_launches``: its launches in phase 25's runs (b) and (c),
 ``slice18_launches``: its launches in phase 26's fleets (a), each life
-counted in its own process, and (c)'s corpus run, every kernel's count
-set to 0 before each and read after it),
+counted in its own process, and (c)'s corpus run,
+``slice19_launches``: its launches in phase 27's three census steps (b),
+every kernel's count set to 0 before each and read after it),
 the ``nvidia-smi`` line, and as the last
 line ``{"ok": true, "device": {...}}``.  Without a GPU, or without the
 package beside it, the script exits non-zero and prints no result.
@@ -495,7 +521,8 @@ the build and phase 23 (with several cards, (c)-(f) run); ``--only
 slice16`` the build and phase 24 (with two cards or more, (c)-(d) run,
 with four (e)-(f)); ``--only slice17`` the build and phase 25;
 ``--only slice18`` the build and phase 26 (with two cards or more, (b)
-runs).
+runs); ``--only slice19`` the build and phase 27 (with two cards or
+more, (c) runs; (d) runs a search of its own).
 """
 
 from __future__ import annotations
@@ -570,8 +597,9 @@ TRAIN_STATS_TOL = 1e-3
 TRAIN_GRAD_TOL = 1e-3
 TRAIN_GRAD_NOISE_FACTOR = 3.0
 TRAIN_BATCH = 128                  # bench.py's protocol: batch 128,
-TRAIN_WARMUP = 10                  # bench.py's 50 warmup and 100 timed
-TRAIN_BATCHES = 40                 # steps, cut to 10 + 40 as phase 26 came
+TRAIN_WARMUP = 5                   # bench.py's 50 warmup and 100 timed
+TRAIN_BATCHES = 30                 # steps, cut to 10 + 40 as phase 26
+                                   # came, to 5 + 30 as phase 27 came
 PARITY_BATCH = 16
 FUSED_LAUNCHES_PER_STEP = 8        # resnet50: 3 blocks at 28x28x128,
                                    # 5 at 14x14x256
@@ -650,12 +678,12 @@ LM_PARITY_PAIRS = ((1, 0), (2, 1))
 LM_RUNS = (("gpt2", 16, "flash", True), ("gpt2", 16, "flash", False),
            ("gpt2", 16, "dense", False), ("bert_base", 128, "flash", True),
            ("bert_base", 128, "flash", False))
-LM_WARMUP = 5                      # cut from 10 + 30 as phase 25 came
-LM_BATCHES = 15
+LM_WARMUP = 3                      # cut from 10 + 30 as phase 25 came,
+LM_BATCHES = 10                    # from 5 + 15 as phase 27 came
 # phase 13 (dp): the runs' warmup and timed steps, cut from the lanes'
 # 50 + 100 for the time limit
-DP_WARMUP = 10                     # (20 + 60 until phase 25 came)
-DP_BATCHES = 30
+DP_WARMUP = 5                      # (20 + 60 until phase 25 came, 10 +
+DP_BATCHES = 20                    # 30 until phase 27)
 DP_LM_BATCH = 16
 DP_LM_WARMUP = 3
 DP_LM_BATCHES = 10
@@ -698,8 +726,8 @@ POOL_PATH_STEPS = 3                # max_pool forward + backward calls
 # fixture of ImageNet-schema shards; (b)-(e) and (g) at these depths
 # (b), and phase 15's (c)-(d): cut from the lane's 50 + 100 for the
 # script's time limit (to 20 + 50, then to 10 + 30 as phase 23 came, to
-# 5 + 15 as phase 25 came)
-REAL_BATCHES = {"b": (5, 15), "c": (5, 15), "d": (5, 15), "e": (3, 10),
+# 5 + 15 as phase 25 came, to 3 + 10 as phase 27 came)
+REAL_BATCHES = {"b": (3, 10), "c": (3, 10), "d": (3, 10), "e": (3, 10),
                 "g": (5, 15)}
 # the reference's flag line, less --device=cpu (here the caller's CPU)
 REFERENCE_LINE = [
@@ -721,7 +749,7 @@ NVJPEG_MEAN_TOL = 12.0
 # libjpeg at scales 1-8 in the CPU tests); nvJPEG as above
 DECODER_MEAN_TOL = {"libjpeg": 0.0, "pil": 0.0, "nvjpeg": NVJPEG_MEAN_TOL}
 OPT_BATCH = 32
-OPT_STEPS = 3
+OPT_STEPS = 2                      # (3 until phase 27)
 # each optimizer against the plain one (optax's formulas written out) on
 # the same gradients, relative to the parameters' scale: the CPU tests'
 # tolerances (tests/test_torch_realdata.py OPT_TOL)
@@ -730,7 +758,8 @@ TOKEN_CORPUS = 1 << 21                    # gpt2 tokens in train.bin
 
 # phase 15 (slice7): (c) and (d) at phase 14 (b)'s depth; (e) the
 # checkpoint legs (save, then resume), (f) across cards
-SLICE7_BATCHES = {"e": (10, 50), "f": (20, 60)}
+SLICE7_BATCHES = {"e": (5, 25), "f": (20, 60)}   # (e) 10 + 50 until
+                                                 # phase 27
 SLICE7_SAVE_STEPS = 25
 # phase 16 (serve2): phase 4's trace; gpt2 fits it (512 + 64 <= 1024)
 SERVE2_TRACE = ("--max_prompt_len=512", "--max_output_len=64",
@@ -749,9 +778,10 @@ SLICE13_VIT = (32, 8, 5)            # (b) vit_b16: batch, steps, poisoned
 SLICE13_SMALL_BATCH = 32            # (b)'s abort, (c), (d), (e)
 SLICE13_REWIND = 8                  # (c): timed steps
 SLICE13_SIGTERM = (6, 3)            # (d): timed steps, the SIGTERM's step
-SLICE13_HANG = (8.0, 120)           # (e): --step_timeout_s, hang seconds
+SLICE13_HANG = (4.0, 120)           # (e): --step_timeout_s, hang seconds
+                                    # (8 s until phase 27)
 # phase 22 (slice14): sequence parallelism and zero1; (warmup, timed)
-SLICE14_STEPS = (3, 10)
+SLICE14_STEPS = (2, 8)             # (3 + 10 until phase 27)
 # (a): model, batch, layers, extra flags; each at its registry length
 SLICE14_LM = (("gpt2", 16, 12, ("--fused_xent=true",)),
               ("llama_1b", 2, 16, ()))
@@ -768,7 +798,8 @@ SLICE14_SHARD_BATCH = 2
 SLICE14_REMAT_GB = 40.0
 SLICE14_MULTI = ((2, 2), (4, 4), (4, 2))   # (c): (cards, sp)
 # phase 23 (slice15): elastic resume, multislice, TP and EP
-SLICE15_STEPS = (3, 10)            # (warmup, timed) of every run
+SLICE15_STEPS = (2, 8)             # (warmup, timed) of every run (3 +
+                                   # 10 until phase 27)
 SLICE15_GPT2_BATCH = 16            # (a), (c): gpt2 16 x 1024
 SLICE15_LLAMA_BATCH = 2            # (c): llama_1b 2 x 2048
 SLICE15_MOE_BATCH = 8              # (d): gpt2_moe 8 x 1024
@@ -788,7 +819,8 @@ SLICE15_TP = (("gpt2", SLICE15_GPT2_BATCH, 2, "model_parallel", 2),
               ("gpt2_moe", SLICE15_MOE_BATCH, 4, "expert_parallel", 4))
 SLICE15_ELASTIC_BATCH = 32
 # phase 24 (slice 16): pipeline parallelism and the 3-D hybrids
-SLICE16_STEPS = (3, 10)            # (warmup, timed) of every run
+SLICE16_STEPS = (2, 8)             # (warmup, timed) of every run (3 +
+                                   # 10 until phase 27)
 SLICE16_GPT2_BATCH = 16            # (a), (c), (e): gpt2 16 x 1024
 SLICE16_M = 4                      # (a): microbatches of the one stage
 SLICE16_ONE_STAGE_TOL = 1e-3       # (a): microbatched products take other
@@ -812,28 +844,45 @@ SLICE17_SERVE = ["--model=llama_1b", "--decode_attention=paged",
                  "--num_requests=16", "--arrival=poisson",
                  "--arrival_rate=64", "--seed=0"]   # (c): phase 4's trace
 # phase 26 (slice18): the fleet over the cards.  Each job at full width,
-# cut in steps (warmup + timed a life); checkpoints every 10 timed steps,
-# the newest two kept; the churn fires on a life's first save, 30 steps
-# before its end (a SIGTERM after a life's loop is a plain kill, so the
-# first save must leave the life steps to stop at)
+# cut in steps (warmup + timed a life: gpt2 5 + 40 and resnet50 5 + 30
+# until phase 27); checkpoints every 10 timed steps, the newest two kept;
+# the churn fires on a life's first save, 20 steps before gpt2's end (a
+# SIGTERM after a life's loop is a plain kill, so the first save must
+# leave the life steps to stop at)
 SLICE18_GPT2 = {"name": "gpt2-a", "model": "gpt2", "batch_size": 16,
-                "world_pref": 1, "world_min": 1, "warmup": 5, "batches": 40,
+                "world_pref": 1, "world_min": 1, "warmup": 5, "batches": 30,
                 "save_every": 10,
                 "flags": ["--use_fp16=true", "--attention_impl=flash",
                           "--fused_xent=true", "--keep_checkpoints=2"]}
 SLICE18_RESNET = {"name": "resnet50-hi", "model": "resnet50",
                   "batch_size": 128, "world_pref": 1, "world_min": 1,
                   "priority": 1, "arrival_s": 9999.0, "warmup": 5,
-                  "batches": 30, "save_every": 10,
+                  "batches": 20, "save_every": 10,
                   "flags": ["--use_fp16=true", "--fused_conv=true",
                             "--keep_checkpoints=2"]}
 SLICE18_BOUND = 0.5                # churned fleet_goodput >= this x control
+SLICE18_ALONE_BATCHES = 15         # (a): each job alone, timed steps after
+                                   # its warmup (a life's until phase 27)
 SLICE18_SETTLE_S = 30.0            # (b): a regrow waits this after a move
 SLICE18_DEADLINE_S = 420.0         # a fleet's own limit (a stuck one fails)
 SLICE18_MULTI_BATCHES = 200        # (b): gpt2-a's and resnet50-b's timed
                                    # steps a life, past the arrivals
 SLICE18_CORPUS_TOKENS = 2_000_000  # (c): the corpus gpt2 trains on
 SLICE18_TEXT = (2, 4)              # (c): its warmup, timed steps
+# phase 27 (slice19): analysis/ on the card.  The census takes one step
+# of each member at the main path's widths, after one warmup step
+SLICE19_GPT2 = dict(batch=16, use_fp16=True, attention_impl="flash",
+                    fused_xent=True)        # phase 10's gpt2 run
+SLICE19_RESNET = dict(batch=TRAIN_BATCH, use_fp16=True,
+                      fused_conv=True)      # phase 7's resnet50 run
+# one prefill (a 128-token prompt) and one decode step of 8 rows of
+# gpt2's serving engine, paged decode at phase 16's page size
+SLICE19_SERVE = dict(batch=8, prompt_len=128, decode_attention="paged",
+                     kv_page_size=16, max_output_len=64)
+SLICE19_GATE_LIMIT_S = 600         # (a): the --all gate's subprocess
+SLICE19_SEARCH = ("--max_candidates", "2", "--max_rungs", "1",
+                  "--rung_batches", "4", "--warmup", "2")  # (d) alone
+SLICE19_WORLD = (("trivial", 2), ("resnet50", 32))  # (c): member, batch
 SERVE2_SHARED = (16, 100, 32)      # (e): requests of one 100-token prompt
                                    # (6 pages + a 4-token tail), outputs
 # (e) and (f) in virtual time: modeled seconds a step, so the arms see
@@ -861,7 +910,8 @@ SLICE9_FIRST_LOGITS_TOL = 5e-2
 # (b) remat recomputes the same products: its final loss against (a)'s
 SLICE9_REMAT_LOSS_TOL = 1e-3
 SLICE9_SEARCH_STEPS = (2, 3)       # (b)'s batch search, each batch
-SLICE9_MAX_BATCH = 64
+SLICE9_MAX_BATCH = 16              # 64 until phase 27 (batch 32 took
+                                   # 8.2 s, 64 5.1 s to its OOM)
 SLICE9_ACCUM = 8                   # (d): microbatch 1 of 1024 tokens
 SLICE9_ACCUM_STEPS = (3, 10)
 # (d) bf16 accumulation against f32 after 13 steps: each microbatch's
@@ -877,13 +927,14 @@ SLICE9_GREEDY_CHECKS = 4           # (f): requests held to the forward
 
 # phase 18 (zoo): the image zoo; (warmup, timed) steps
 ZOO_VIT_BATCH = 64
-ZOO_VIT_STEPS = (10, 30)           # (a), (b)
+ZOO_VIT_STEPS = (5, 20)            # (a), (b) (10 + 30 until phase 27)
 ZOO_VIT_L_STEPS = (5, 15)          # (c)
-ZOO_STEPS = (1, 3)                 # (d), and (e)'s profiled steps (2 + 5
-                                   # until phase 25 came)
+ZOO_STEPS = (1, 2)                 # (d), and (e)'s profiled steps (2 + 5
+                                   # until phase 25 came, 1 + 3 until 27)
 ZOO_SEARCH_STEPS = (1, 2)          # (b)'s batch search, each batch
-ZOO_MAX_BATCH = 1024               # 4096 fits too; the searches at 2048
-                                   # and 4096 cost ~34 s of the limit
+ZOO_MAX_BATCH = 512                # 4096 fits too; the searches at 2048
+                                   # and 4096 cost ~34 s of the limit,
+                                   # 1024 ~6 s (cut for phase 27)
 ZOO_VIT_LAYERS = {"vit_b16": 12, "vit_l16": 24}
 # (a) vit_b16's first forward on the runs' batch, bf16 flash against bf16
 # dense from one seed, dropout drawn alike (summation order and bf16
@@ -916,9 +967,9 @@ ZOO_IDLE = ("nasnet", "lenet")     # (e): host-bound members profiled
 # classify mode, at the JAX package's tuned plain batches
 # (tpu_hc_bench/tune/space.py), a configuration here; (warmup, timed)
 SLICE11_DS2_BATCH = 256
-SLICE11_DS2_STEPS = (1, 3)         # (a), and its profiled steps (2 + 5
-                                   # until phase 25 came)
-SLICE11_ARM_STEPS = (1, 3)         # (b)
+SLICE11_DS2_STEPS = (1, 2)         # (a), and its profiled steps (2 + 5
+                                   # until phase 25 came, 1 + 3 until 27)
+SLICE11_ARM_STEPS = (1, 2)         # (b) (1 + 3 until phase 27)
 SLICE11_NCF_BATCH = 1048576
 SLICE11_NCF_STEPS = (2, 5)         # (c)
 SLICE11_NCF_EVAL = (1, 2)          # (c)'s --eval batches
@@ -2227,38 +2278,19 @@ def phase_pool(torch, dev, timer, smi) -> tuple[dict, int]:
     return row, path_launches
 
 
-def _counters():
-    """Every kernel wrapper's launch counter (the module-level objects
-    that hold them)."""
-    from tpu_hc_bench_torch.ops import pool_bwd
-    from tpu_hc_bench_torch.ops.flash_attention import flash_attention
-    from tpu_hc_bench_torch.ops.fused_conv import fused_bn_relu_conv
-    from tpu_hc_bench_torch.ops.fused_residual_ln import fused_residual_norm
-    from tpu_hc_bench_torch.ops.paged_attention import paged_decode_attention
-    from tpu_hc_bench_torch.ops.xent import softmax_xent
-
-    return {"paged_decode_attention": paged_decode_attention,
-            "fused_residual_norm": fused_residual_norm,
-            "fused_bn_relu_conv": fused_bn_relu_conv,
-            "max_pool_bwd": pool_bwd.max_pool}, \
-        flash_attention, softmax_xent
-
-
 def _zero_counts() -> None:
     """Every kernel's launch count to 0, the nine rows of the table."""
-    single, flash, xent = _counters()
-    for fn in single.values():
-        fn.launches = 0
-    for counts in (flash.launches, xent.launches):
-        counts.update(dict.fromkeys(counts, 0))
+    from tpu_hc_bench_torch.analysis import census
+
+    census.zero_launches()
 
 
 def _read_counts() -> dict:
-    """Every kernel's launch count, by the table's row names."""
-    single, flash, xent = _counters()
-    return {**{name: fn.launches for name, fn in single.items()},
-            **{FLASH_KERNELS[k][0]: n for k, n in flash.launches.items()},
-            **{XENT_KERNELS[k][0]: n for k, n in xent.launches.items()}}
+    """Every kernel's launch count, by the table's row names (the
+    wrappers' counters, as ``analysis.census`` reads them)."""
+    from tpu_hc_bench_torch.analysis import census
+
+    return census.kernel_launches()
 
 
 def _launch(argv: list[str]) -> tuple[int, dict]:
@@ -6364,7 +6396,7 @@ def slice17_search(torch, smi, base: Path, env: dict) -> dict:
     root = Path(__file__).resolve().parent
     out = base / "tune"
     cmd = [sys.executable, "-m", "tpu_hc_bench_torch.tune", "search",
-           "--model", "gpt2", "--max_candidates", "2", "--max_rungs", "2",
+           "--model", "gpt2", "--max_candidates", "2", "--max_rungs", "1",
            "--rung_batches", "4", "--warmup", "2", "--promote",
            "--out", str(out), "--timeout_s", str(SLICE17_TIMEOUT_S)]
     t0 = time.perf_counter()
@@ -6486,8 +6518,8 @@ def slice17_train(torch, smi, base: Path, journal: dict, add) -> Path:
 
 
 def slice17_serve(torch, dev, smi, base: Path, add) -> None:
-    """Phase 25 (c): a ``llama_1b@serve`` row from the first two
-    candidates of ``serve_member_space`` measured with an in-process
+    """Phase 25 (c): a ``llama_1b@serve`` row from the first candidate
+    of ``serve_member_space`` measured with an in-process
     serving runner, then llama_1b served at full width, f32, paged, with
     ``--config=auto``."""
     from tpu_hc_bench_torch import flags
@@ -6516,8 +6548,8 @@ def slice17_serve(torch, dev, smi, base: Path, add) -> None:
 
     # run_search prunes every serve candidate of llama_1b without a run:
     # its memory model anchors on the training seed's batch 2 (JAX's
-    # prune does the same), so the row is written from the first two
-    # candidates measured here, through the registry's own promote
+    # prune does the same), so the row is written from the first
+    # candidate measured here, through the registry's own promote
     hw = registry.hardware_key()
     pruned = search.run_search(
         "llama_1b", str(base / "serve_tune"), hw,
@@ -6525,7 +6557,7 @@ def slice17_serve(torch, dev, smi, base: Path, add) -> None:
                                        max_candidates=2),
         runner=serve_runner, space=space.serve_member_space("llama_1b"),
         print_fn=quiet)
-    cands = space.serve_member_space("llama_1b")[:2]
+    cands = space.serve_member_space("llama_1b")[:1]   # two until phase 27
     measured = {c.key: serve_runner(c, 0, 0) for c in cands}
     best = max(cands, key=lambda c: runner.score(measured[c.key]))
     _, row = registry.promote({
@@ -6631,10 +6663,11 @@ def slice17_obs(smi, base: Path, journal: dict, run_b: Path) -> None:
         raise AssertionError(f"phase 25 (d) failed: {rec}")
 
 
-def phase_slice17(torch, dev, smi) -> dict:
+def phase_slice17(torch, dev, smi, journals: dict | None = None) -> dict:
     """Phase 25: the autotuner and ``--config=auto`` in both lanes, then
     the obs CLI's ``diff``, ``watch`` and ``regress``; returns every
-    kernel's launches summed over (b) and (c)."""
+    kernel's launches summed over (b) and (c), and leaves (a)'s search
+    journal in ``journals["slice17"]``."""
     import os
     import shutil
 
@@ -6656,6 +6689,8 @@ def phase_slice17(torch, dev, smi) -> dict:
     t0 = time.perf_counter()
     try:
         journal = slice17_search(torch, smi, base, dict(os.environ))
+        if journals is not None:
+            journals["slice17"] = journal
         torch.cuda.empty_cache()
         run_b = slice17_train(torch, smi, base, journal, add)
         torch.cuda.empty_cache()
@@ -6704,6 +6739,11 @@ def _fleet_worker(argv: list[str]) -> int:
         stamps.append((round(time.time() - t_start, 3), m[:72]))
         print(m, flush=True)
 
+    # cuDNN's heuristics, not its search: each life is a new process,
+    # and resnet50's search cost every one of its lives ~17-25 s of its
+    # restart tax (until phase 27)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
     _zero_counts()
     rc = launcher.main(argv, print_fn=tee)
     warmup, batches = int(flag["--num_warmup_batches"]), \
@@ -6953,7 +6993,8 @@ def slice18_one_card(torch, smi, base: Path, add) -> dict:
     kill = ("gpt2-a", 1, "kill", "gpt2-a")
     churned = _fleet_run(base, "churned", 1, list(jobs), [arrive, kill])
     control = _fleet_run(base, "control", 1, list(jobs), [arrive])
-    alone = {j["name"]: _plain_rate(torch, _job_argv(j)) for j in jobs}
+    alone = {j["name"]: _plain_rate(torch, _job_argv(
+        {**j, "batches": SLICE18_ALONE_BATCHES})) for j in jobs}
     recs = {}
     ok = True
     for name, run in (("churned", churned), ("control", control)):
@@ -7228,6 +7269,246 @@ def phase_slice18(torch, dev, smi) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------
+# phase 27 (slice19): analysis/ on the card
+
+def _slice19_expect() -> dict:
+    """The kernel table's launches a step: gpt2 (12 layers; rows 3, 4a,
+    4b, 5, 6) and resnet50 (row 7), every other row 0."""
+    from tpu_hc_bench_torch.analysis import census
+
+    zero = dict.fromkeys(census.KERNEL_ROWS, 0)
+    return {"gpt2": {**zero, **_slice9_expect(LM_LAYERS, 1, True)},
+            "resnet50": {**zero,
+                         "fused_bn_relu_conv": FUSED_LAUNCHES_PER_STEP},
+            # the decode step: row 1 a layer, row 2 between the norms
+            # (serve2_run's count); the prefill runs neither
+            "gpt2_serve": {**zero, "paged_decode_attention": LM_LAYERS,
+                           "fused_residual_norm": 2 * LM_LAYERS - 1}}
+
+
+# the serving engine's own host reads in a prefill and a decode step:
+# the first token's ``int(next_tok[0])`` and the rows' ``.cpu()``
+SLICE19_SERVE_SYNCS = {"_local_scalar_dense": 1, "_to_copy": 1}
+
+
+def slice19_census(torch, smi, add) -> dict:
+    """Phase 27 (b): the op census of one training step of gpt2 and of
+    resnet50, and of one prefill plus one decode step of gpt2's serving
+    engine, on the card: each row's launches against the ops' counters
+    and the table, the dispatcher's host syncs beside the card's
+    ``set_sync_debug_mode`` warnings, the collectives at world 1."""
+    from tpu_hc_bench_torch.analysis import census
+
+    expect = _slice19_expect()
+    out = {}
+    for name, kw in (("gpt2", SLICE19_GPT2), ("resnet50", SLICE19_RESNET),
+                     ("gpt2_serve", SLICE19_SERVE)):
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        if name == "gpt2_serve":
+            c = census.census_serve_step("gpt2", device="cuda", warmup=1,
+                                         card_syncs=True, **kw)
+        else:
+            c = census.census_train_step(name, device="cuda", warmup=1,
+                                         card_syncs=True, **kw)
+        counters = _read_counts()           # the wrappers' own, after
+        add(counters)
+        summary = c.summary()
+        attributed = census.op_attribution(c)
+        rec = {"phase": "slice19", "part": f"b_census_{name}",
+               "config": kw, "ops": summary["ops"],
+               "launches": c.launches, "counters": counters,
+               "expected": expect[name],
+               "host_syncs": summary["host_syncs"],
+               "sync_sites": sorted({f"{op}@{where}"
+                                     for op, where in c.syncs}),
+               "card_sync_warnings": c.card_syncs,
+               "card_sync_sites": summary["card_sync_sites"],
+               "collectives": summary["collectives"],
+               "attributed_modules": len(attributed),
+               "attributed_products": sum(len(v) for v in
+                                          attributed.values()),
+               "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+        emit(rec)
+        if not (c.launches == counters == expect[name]
+                and summary["collectives"] == {}
+                and c.card_syncs is not None and summary["ops"] > 0
+                and (name != "gpt2_serve"
+                     or summary["host_syncs"] == SLICE19_SERVE_SYNCS)):
+            raise AssertionError(f"phase 27 (b) failed: {rec}")
+        out[name] = rec
+    return out
+
+
+def slice19_world(torch, smi, cards: int) -> None:
+    """Phase 27 (c), with two cards or more: the census of a world-2
+    ``--variable_update=zero1`` step in two processes over NCCL, a card
+    each, fed to the zero1 shape check; and the psum arm, which it
+    flags."""
+    from tpu_hc_bench_torch.analysis import census, lints
+
+    if cards < 2:
+        emit({"phase": "slice19", "part": "c_world2_skipped",
+              "cards": cards, "nvidia_smi": smi})
+        return
+    for name, batch in SLICE19_WORLD:
+        for arm in ("zero1", "psum"):
+            t0 = time.perf_counter()
+            summary = census.census_world(name, 2, device="cuda",
+                                          batch=batch, variable_update=arm,
+                                          fusion_threshold_bytes=(
+                                              256 if name == "trivial"
+                                              else 25 << 20))
+            found = lints.zero1_shape_findings(
+                name, summary["collectives"],
+                location=f"census:{name}:{arm}:world2")
+            rec = {"phase": "slice19", "part": f"c_world2_{name}_{arm}",
+                   "collectives": summary["collectives"],
+                   "host_syncs": summary["host_syncs"],
+                   "findings": [f.message for f in found],
+                   "seconds": time.perf_counter() - t0, "nvidia_smi": smi}
+            emit(rec)
+            counts = summary["collectives"]
+            if arm == "zero1" and (found or counts.get("reduce-scatter", 0)
+                                   < 1 or counts.get("all-gather", 0) < 1):
+                raise AssertionError(f"phase 27 (c) failed: {rec}")
+            if arm == "psum" and not found:
+                raise AssertionError(f"phase 27 (c) failed: {rec}")
+
+
+def slice19_tune(smi, env: dict, journal: dict | None) -> None:
+    """Phase 27 (d): ``tune search`` with the lint class on: ``journal``,
+    phase 25 (a)'s, where it ran in this process (its search is gpt2's
+    two cheapest candidates, lints on by default), else a search of its
+    own."""
+    import shutil
+
+    source = "phase 25 (a)"
+    if journal is None:
+        base = Path(__file__).resolve().parent / "build" / "slice19"
+        shutil.rmtree(base, ignore_errors=True)
+        out = base / "tune"
+        cmd = [sys.executable, "-m", "tpu_hc_bench_torch.tune", "search",
+               "--model", "gpt2", *SLICE19_SEARCH, "--out", str(out),
+               "--timeout_s", str(SLICE17_TIMEOUT_S)]
+        proc = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                              env=env, capture_output=True, text=True,
+                              timeout=SLICE17_SEARCH_LIMIT_S)
+        print(proc.stdout + proc.stderr, file=sys.stderr, flush=True)
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 27 (d): the search exited "
+                                 f"{proc.returncode}")
+        journal = json.loads((out / "tune_state.json").read_text())
+        shutil.rmtree(base, ignore_errors=True)
+        source = "its own search"
+    lint_skips = [s for s in journal["skipped"] if s.get("class") == "lint"]
+    rec = {"phase": "slice19", "part": "d_tune_lints", "source": source,
+           "lints": journal.get("lints"), "lint_skips": lint_skips,
+           "skipped": len(journal["skipped"]),
+           "measured": sum(len(v) for v in
+                           journal["measurements"].values()),
+           "status": journal["status"], "nvidia_smi": smi}
+    emit(rec)
+    if not (journal.get("lints") == "baseline" and not lint_skips
+            and journal["status"] == "complete"):
+        raise AssertionError(f"phase 27 (d) failed: {rec}")
+
+
+class Slice19Gate:
+    """Phase 27 (a): ``python -m tpu_hc_bench_torch.analysis --all
+    --no-collectives --json`` in a subprocess of its own (CPU work only:
+    the zoo is built on the meta device), its report and output under
+    ``build/slice19_gate``.  The whole script starts it beside phase 26,
+    whose fleet mostly waits on its jobs' processes; ``stop`` ends it
+    wherever it is."""
+
+    def __init__(self):
+        import shutil
+
+        root = Path(__file__).resolve().parent
+        self.dir = root / "build" / "slice19_gate"
+        shutil.rmtree(self.dir, ignore_errors=True)
+        self.dir.mkdir(parents=True)
+        self.report = self.dir / "analysis.json"
+        self.t0 = time.perf_counter()
+        with open(self.dir / "out.txt", "w") as out, \
+                open(self.dir / "err.txt", "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "tpu_hc_bench_torch.analysis",
+                 "--all", "--no-collectives", "--json", str(self.report)],
+                cwd=root, stdout=out, stderr=err, text=True)
+
+    def result(self, smi) -> dict:
+        """Wait for the gate; its record (emitted), or an error."""
+        try:
+            rc = self.proc.wait(timeout=SLICE19_GATE_LIMIT_S)
+        finally:
+            self.stop()
+        wall = time.perf_counter() - self.t0
+        out = (self.dir / "out.txt").read_text()
+        err = (self.dir / "err.txt").read_text()
+        payload = (json.loads(self.report.read_text())
+                   if self.report.is_file() else {})
+        import shutil
+
+        shutil.rmtree(self.dir, ignore_errors=True)
+        findings = payload.get("findings", [])
+        rec = {"phase": "slice19", "part": "a_gate_all", "rc": rc,
+               "findings": len(findings),
+               "accepted": [f"{f['lint']} {f['location']}" for f in findings
+                            if f["severity"] in ("error", "warning")],
+               "suppressed": payload.get("suppressed", {}),
+               "gate_wall_s": payload.get("wall_s"), "last_line":
+                   err.strip().splitlines()[-1] if err.strip() else "",
+               "seconds_since_start": wall, "nvidia_smi": smi}
+        emit(rec)
+        if rc != 0 or "analysis clean" not in rec["last_line"]:
+            raise AssertionError(f"phase 27 (a) failed: {rec}; "
+                                 f"{out[-2000:]}{err[-3000:]}")
+        return rec
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def phase_slice19(torch, dev, smi, gate: Slice19Gate | None = None,
+                  journal: dict | None = None) -> dict:
+    """Phase 27: ``analysis/`` on the card.  (a) the lint gate over the
+    port's tree (``--all --no-collectives``) in a subprocess (``gate``,
+    started by the caller, else here) running beside (b) the op census
+    of one gpt2 and one resnet50 training step and one gpt2 serving
+    step, (c) the world-2 zero1 census
+    across two cards, (d) the tuner's lint class; returns every
+    kernel's launches in (b)'s census steps; ``journal``: phase 25
+    (a)'s, for (d)."""
+    import os
+
+    total: dict = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    gate = gate or Slice19Gate()
+    try:
+        census_recs = slice19_census(torch, smi, add)
+        t_b = time.perf_counter() - t0
+        gate.result(smi)
+    finally:
+        gate.stop()
+    slice19_world(torch, smi, torch.cuda.device_count())
+    slice19_tune(smi, dict(os.environ), journal)
+    emit({"phase": "slice19", "part": "e_launches", "launches": total,
+          "per_step": {k: v["launches"] for k, v in census_recs.items()},
+          "seconds_b": t_b, "seconds": time.perf_counter() - t0,
+          "nvidia_smi": smi})
+    return total
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -7237,7 +7518,7 @@ def main(argv: list[str] | None = None) -> int:
                                       "serve2", "slice9", "zoo", "slice11",
                                       "slice12", "slice13", "slice14",
                                       "slice15", "slice16", "slice17",
-                                      "slice18"),
+                                      "slice18", "slice19"),
                    default=None,
                    help="dp: the build, then phase 13 alone (beside a "
                         "one-worker sock run at its step counts); "
@@ -7254,7 +7535,8 @@ def main(argv: list[str] | None = None) -> int:
                         "then phase 22 alone; slice15: the build, then "
                         "phase 23 alone; slice16: the build, then phase "
                         "24 alone; slice17: the build, then phase 25 "
-                        "alone; slice18: the build, then phase 26 alone")
+                        "alone; slice18: the build, then phase 26 alone; "
+                        "slice19: the build, then phase 27 alone")
     only = p.parse_args(argv).only
     try:
         import torch
@@ -7390,6 +7672,14 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    if only == "slice19":
+        phase_slice19(torch, dev, smi)
+        print(smi, flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return 0
+
     if only == "slice18":
         phase_slice18(torch, dev, smi)
         print(smi, flush=True)
@@ -7446,11 +7736,17 @@ def main(argv: list[str] | None = None) -> int:
                                      "count": torch.cuda.device_count()}})
         return 0
 
+    marks = [("build", time.perf_counter())]
+
+    def mark(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     timer = Timer(torch, dev)
     main_rows = phase_kernels(torch, dev, timer, smi)
     main_rows["fused_bn_relu_conv"] = phase_conv(torch, dev, timer, smi)
     del timer
     torch.cuda.empty_cache()
+    mark("1-3,5 kernels, conv")
 
     t0 = time.perf_counter()
     model, _ = create_model("llama_1b", device=dev, seed=0)
@@ -7461,14 +7757,17 @@ def main(argv: list[str] | None = None) -> int:
     phase_parity(torch, dev, model)
     torch.cuda.empty_cache()
     launches, phase4 = phase_serve(torch, model)
+    mark("4 parity, serve")
     serve2_launches = phase_serve2(torch, dev, smi, model, phase4)
     del model, phase4
     torch.cuda.empty_cache()
+    mark("16 serve2")
 
     phase_train_parity(torch, dev, smi)
     torch.cuda.empty_cache()
     launches["fused_bn_relu_conv"], sock_rate = phase_train(torch, smi)
     torch.cuda.empty_cache()
+    mark("6-7 train")
 
     timer = Timer(torch, dev)
     main_rows.update(phase_flash(torch, dev, timer, smi))
@@ -7479,6 +7778,7 @@ def main(argv: list[str] | None = None) -> int:
     lm_launches, lm_rate = phase_lm_train(torch, smi)
     launches.update(lm_launches)
     torch.cuda.empty_cache()
+    mark("8-10 flash, lm train")
 
     timer = Timer(torch, dev)
     main_rows.update(phase_xent(torch, dev, timer, smi))
@@ -7486,34 +7786,62 @@ def main(argv: list[str] | None = None) -> int:
         torch, dev, timer, smi)
     del timer
     torch.cuda.empty_cache()
+    mark("11-12 xent, pool")
     dp_launches = phase_dp(torch, dev, smi, sock_rate,
                            f"phase 7, {TRAIN_WARMUP} + {TRAIN_BATCHES} steps")
+    mark("13 dp")
     realdata_launches = phase_realdata(torch, dev, smi, sock_rate, lm_rate)
+    mark("14 realdata")
     slice7_launches = phase_slice7(torch, dev, smi, sock_rate)
     torch.cuda.empty_cache()
+    mark("15 slice7")
     slice9_launches = phase_slice9(torch, dev, smi)
     torch.cuda.empty_cache()
+    mark("17 slice9")
     zoo_launches = phase_zoo(torch, dev, smi)
     torch.cuda.empty_cache()
+    mark("18 zoo")
     slice11_launches = phase_slice11(torch, dev, smi)
     torch.cuda.empty_cache()
+    mark("19 slice11")
     model, _ = create_model("llama_1b", device=dev, seed=0)
     slice12_launches = slice12_serve(torch, smi, model)
     del model
     torch.cuda.empty_cache()
     slice12_launches = phase_slice12_rest(torch, smi, slice12_launches)
     torch.cuda.empty_cache()
+    mark("20 slice12")
     slice13_launches = phase_slice13(torch, dev, smi)
     torch.cuda.empty_cache()
+    mark("21 slice13")
     slice14_launches = phase_slice14(torch, dev, smi)
     torch.cuda.empty_cache()
+    mark("22 slice14")
     slice15_launches = phase_slice15(torch, dev, smi)
     torch.cuda.empty_cache()
+    mark("23 slice15")
     slice16_launches = phase_slice16(torch, dev, smi)
     torch.cuda.empty_cache()
-    slice17_launches = phase_slice17(torch, dev, smi)
+    mark("24 slice16")
+    journals: dict = {}
+    slice17_launches = phase_slice17(torch, dev, smi, journals)
     torch.cuda.empty_cache()
-    slice18_launches = phase_slice18(torch, dev, smi)
+    mark("25 slice17")
+    gate = Slice19Gate()            # phase 27 (a), beside phase 26
+    try:
+        slice18_launches = phase_slice18(torch, dev, smi)
+        torch.cuda.empty_cache()
+        mark("26 slice18")
+        slice19_launches = phase_slice19(torch, dev, smi, gate,
+                                         journals.get("slice17"))
+    finally:
+        gate.stop()
+    mark("27 slice19")
+    emit({"phase": "timing", "build_s": round(marks[0][1] - T0, 1),
+          "seconds": {name: round(t - prev, 1) for (_, prev), (name, t)
+                      in zip(marks, marks[1:])},
+          "total_s": round(time.perf_counter() - T0, 1),
+          "nvidia_smi": smi})
 
     sources = {
         "paged_decode_attention": (
@@ -7570,7 +7898,8 @@ def main(argv: list[str] | None = None) -> int:
                       "slice15_launches": slice15_launches.get(name, 0),
                       "slice16_launches": slice16_launches.get(name, 0),
                       "slice17_launches": slice17_launches.get(name, 0),
-                      "slice18_launches": slice18_launches.get(name, 0)})
+                      "slice18_launches": slice18_launches.get(name, 0),
+                      "slice19_launches": slice19_launches.get(name, 0)})
     emit({"kernels": table})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

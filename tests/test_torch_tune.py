@@ -9,7 +9,8 @@ Pure host work on the same inputs through both packages:
   and reasons for every seed member (flag-time ``resolve()`` of the
   port's two config classes against JAX's one);
 - ``run_search`` over JAX's deterministic stub surface: equal journals
-  (the port's adds only ``"lints": "not ported"``) through a completed
+  (the port's adds only ``"lints"``, the lint class it ran: ``"off"``
+  with no ``lint_fn``) through a completed
   search, a kill and its resume, budget exhaustion and its resume, the
   ``max_candidates`` truncation, all-failed, the deepest-rung rule and
   the model/hardware guards;
@@ -81,9 +82,10 @@ def _quiet(_msg: str) -> None:
 
 
 def _ours(journal: dict) -> dict:
-    """The port's journal less its one extra key."""
+    """The port's journal less its one extra key (no ``lint_fn``, so the
+    lint class is off)."""
     out = dict(journal)
-    assert out.pop("lints") == "not ported"
+    assert out.pop("lints") == "off"
     return out
 
 

@@ -247,7 +247,8 @@ def create_model(name: str, dtype=torch.float32,
     ``(stages, stage)`` builds only that pipeline stage's layers of a
     decoder (``parallel.pipeline.cut_stage``; JAX's error where the
     stages do not divide the layers), each drawn as the whole model
-    draws it."""
+    draws it.  ``device="meta"`` returns the model's shapes and dtypes
+    with no weights drawn."""
     spec = get_model_spec(name)
     if spec.ctc:
         if rnn_impl not in deepspeech.RNN_IMPLS:
@@ -316,7 +317,8 @@ def create_model(name: str, dtype=torch.float32,
         kw["space_to_depth"] = space_to_depth
     if spec.fused_conv:
         kw["fused_conv"] = fused_conv
-    dev = resolve_device(device)
+    meta = torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     with torch.device("meta"):
         model = spec.create(**kw)
     if pipeline is not None:
@@ -334,6 +336,12 @@ def create_model(name: str, dtype=torch.float32,
         with torch.device("meta"):
             model = spec.create(**kw, layer_range=cut_stage(
                 model.num_layers, *pipeline))
+    if meta:
+        # shapes and dtypes only: no memory, no weights drawn (the
+        # analysis passes' abstract model, JAX's ``eval_shape``)
+        if not spec.is_text:
+            model = model.to(memory_format=torch.channels_last)
+        return model.train(train), spec
     model = model.to_empty(device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)

@@ -424,10 +424,13 @@ class _Obs:
 
 
 def _make_obs(cfg: BenchmarkConfig, dev, rank: int, world: int,
-              fabric: str, topo: dict | None, print_fn) -> _Obs:
-    """The metrics stream and manifest (rank 0), the flight recorder
-    (every rank persists ``spans.<rank>.jsonl`` under --metrics_dir),
-    the heartbeats, and the phase tracker, which enters ``init``."""
+              fabric: str, topo: dict | None, print_fn,
+              mesh_shape: dict | None = None) -> _Obs:
+    """The metrics stream and manifest (rank 0; ``mesh_shape``, JAX's
+    manifest key, is what ``obs summarize`` prints as the mesh), the
+    flight recorder (every rank persists ``spans.<rank>.jsonl`` under
+    --metrics_dir), the heartbeats, and the phase tracker, which enters
+    ``init``."""
     from tpu_hc_bench_torch.obs import fleet, goodput, memory, metrics
     from tpu_hc_bench_torch.obs import timeline
 
@@ -437,7 +440,7 @@ def _make_obs(cfg: BenchmarkConfig, dev, rank: int, world: int,
             cfg=cfg, device=dev, world=world,
             extra={"workload": "train", "fabric": fabric,
                    "process_count": world, "device_count": world,
-                   "topology": topo})
+                   "topology": topo, "mesh_shape": mesh_shape})
         print_fn(f"metrics: {cfg.metrics_dir}/{metrics.METRICS_NAME} "
                  f"(+ {metrics.MANIFEST_NAME})")
     writer = metrics.MetricsWriter(cfg.metrics_dir, manifest,
@@ -515,7 +518,8 @@ class _Saver:
                 def write():
                     if self.plan is not None:
                         self.plan.maybe_io_error("ckpt")
-                    return self.ckpt.save(state, cfg.train_dir, self.topo,
+                    return self.ckpt.save(state, cfg.train_dir,
+                                          topology=self.topo,
                                           write=self.rank == 0)
 
                 path = retry_io(write, what="checkpoint save",
@@ -767,6 +771,11 @@ class _ServiceStats:
         if self.svc is not None:
             rec["service"] = self.svc.stats()
         return rec
+
+    def window_stats(self) -> dict:
+        """This rank's ring now and its wait since the last call (the
+        heartbeat's ``input`` field, JAX's)."""
+        return self.client.window_stats()
 
 
 def _image_input(cfg, spec, dev, rank: int, world: int, global_batch: int,
@@ -1170,7 +1179,9 @@ def run_benchmark(cfg: BenchmarkConfig, *, fabric: str = "sock",
         if grads:
             grads.close()
         raise
-    obs = _make_obs(cfg, dev, rank, total_workers, fabric, topo, print_fn)
+    obs = _make_obs(cfg, dev, rank, total_workers, fabric, topo, print_fn,
+                    mesh.shape if mesh is not None
+                    else distributed.mesh_shape(total_workers))
     if resume is not None:
         obs.writer.event("resume", **resume)
     try:
@@ -1671,10 +1682,15 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
                     obs.writer.event("memory",
                                      **obs.memory.sample("step", step=i))
                     timeline.flush()
+                    # input-service backpressure rides the heartbeat, as
+                    # in JAX: the ring's occupancy and this window's wait
+                    hb_input = ({"input": inp.dataset.window_stats()}
+                                if isinstance(inp.dataset, _ServiceStats)
+                                else {})
                     obs.fleet.heartbeat(
                         step=done, step_ewma_ms=ewma_ms,
                         mem_peak_bytes=obs.memory.peak_bytes or None,
-                        phase=timeline.current_phase())
+                        phase=timeline.current_phase(), **hb_input)
                     if world > 1:
                         skew = fleet.straggler_gather(done, ewma_ms)
                         if skew is not None:
@@ -1763,6 +1779,11 @@ def _run_train(cfg, spec, state, inp: _Input, global_batch: int,
         obs.writer.event("trace_buckets", **trace_rec)
     if inp.dataset is not None and hasattr(inp.dataset, "stats"):
         obs.writer.event("data", **inp.dataset.stats())
+    if isinstance(inp.dataset, _ServiceStats) and inp.dataset.svc:
+        # the host's service account (JAX's record): ring occupancy
+        # percentiles, producer stalls, consumer waits, which the `obs
+        # summarize` input line reads
+        obs.writer.event("input_service", **inp.dataset.svc.stats())
     obs.writer.event("memory", **obs.memory.sample("step",
                                                    step=cfg.num_batches))
     mem_rep = memory.memory_report(mem_an, analytic_mem)

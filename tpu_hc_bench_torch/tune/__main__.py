@@ -24,8 +24,10 @@ Examples::
 
 The hardware key comes from the card (``registry.hardware_key``); with
 no card, ``--hardware`` or ``TPU_HC_TUNE_HW`` names it, else the
-command raises.  The JAX package's analysis-lint prune pass has no
-counterpart here: ``--no-lints`` is accepted and is the only behaviour.
+command raises.  A search prunes each member whose ``analysis`` lints
+find what the port's baseline does not accept
+(``prune.baseline_lint_classes``, on the meta device) unless
+``--no-lints``.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import sys
 
 
 def _cmd_search(args) -> int:
+    from tpu_hc_bench_torch.tune import prune as prune_mod
     from tpu_hc_bench_torch.tune import registry as registry_mod
     from tpu_hc_bench_torch.tune import search as search_mod
 
@@ -57,6 +60,8 @@ def _cmd_search(args) -> int:
         mode=args.mode,
         max_candidates=args.max_candidates,
     )
+    lint_fn = (None if args.no_lints
+               else prune_mod.baseline_lint_classes)
     rc = 0
     for model in models:
         out_dir = args.out or f"artifacts/tune/{model}-{hardware}"
@@ -65,7 +70,7 @@ def _cmd_search(args) -> int:
             # members would trip the journal's model guard
             out_dir = os.path.join(args.out, model)
         journal = search_mod.run_search(
-            model, out_dir, hardware, settings=settings)
+            model, out_dir, hardware, settings=settings, lint_fn=lint_fn)
         if journal.get("best") is None:
             rc = 1
             continue
@@ -193,8 +198,7 @@ def main(argv: list[str] | None = None) -> int:
     s.add_argument("--promote", action="store_true",
                    help="promote the best config on completion")
     s.add_argument("--no-lints", action="store_true",
-                   help="skip the per-member analysis-lint prune pass "
-                        "(the port has none: always skipped)")
+                   help="skip the per-member analysis-lint prune pass")
     s.set_defaults(fn=_cmd_search)
 
     s = sub.add_parser("show", help="render the registry rows, or a "

@@ -8,10 +8,12 @@ journal with its class tag so the ledger shows what the pruner bought:
   (the zero1 composition matrix, accum under TP/EP, the dtype lever
   without accumulation...).  The pruner gets the flag surface's rules
   for free.
-- ``lint`` — per-member findings a caller's ``lint_fn`` reports.  The
-  JAX package fills it from its ``analysis`` lints over the step's
-  jaxpr; the port has no analysis package, so no caller passes one by
-  default and the class only appears when a caller supplies its own.
+- ``lint`` — per-member ``analysis`` findings (host syncs in the
+  forward's op census, recompile hazards, sharding inconsistencies) not
+  accepted by the port's checked-in baseline
+  (``baseline_lint_classes``).  Evaluated once per member and cached —
+  a member whose step is statically broken skips its whole candidate
+  class.
 - ``hbm-oom`` — a small device-memory model: a candidate whose
   *microbatch* (batch / accum — the activation-memory unit the card
   actually holds) exceeds the model's anchor is a known-OOM skip.
@@ -36,12 +38,14 @@ journal with its class tag so the ledger shows what the pruner bought:
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 from tpu_hc_bench_torch.tune.space import Candidate, SEED_CONFIGS, seed_candidate
 
 __all__ = ["Skip", "PruneResult", "HbmModel", "static_prune",
-           "hbm_model_for", "measured_rows_from_journal"]
+           "baseline_lint_classes", "hbm_model_for",
+           "measured_rows_from_journal"]
 
 FLAG_INVALID = "flag-invalid"
 LINT = "lint"
@@ -250,6 +254,23 @@ def hbm_model_for(model: str,
     return seeded
 
 
+@functools.lru_cache(maxsize=None)
+def baseline_lint_classes(model: str) -> tuple[str, ...]:
+    """Member-level lint regressions (findings the port's checked-in
+    baseline does not accept) — evaluated once per member, cached.  The
+    model passes build the member on the meta device, with no card and
+    no memory (JAX's traces the jaxpr on the CPU); the stubbed tests
+    inject their own ``lint_fn``."""
+    from tpu_hc_bench_torch.analysis import compare_to_baseline
+    from tpu_hc_bench_torch.analysis.lints import lint_model
+
+    try:
+        regressions = compare_to_baseline(lint_model(model))
+    except Exception as e:        # a model that fails to trace is a skip
+        return (f"lint pass failed to trace {model}: {e}",)
+    return tuple(f.render() for f in regressions)
+
+
 def static_prune(
     candidates: list[Candidate],
     hbm: HbmModel | None = None,
@@ -263,8 +284,8 @@ def static_prune(
     best-known-config seed (no-op for members outside the seed table).
     Every hbm-oom skip journals its anchor's provenance
     (``hbm_source=measured|seeded``).  ``lint_fn`` maps a member name
-    to lint-regression reasons (default: none — the port has no lint
-    pass of its own; callers and tests may inject one).
+    to lint-regression reasons (default: none — the CLI passes
+    ``baseline_lint_classes``; tests inject stubs).
     """
     survivors: list[Candidate] = []
     skipped: list[Skip] = []

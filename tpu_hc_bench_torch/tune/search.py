@@ -179,9 +179,12 @@ def run_search(
             "mode": settings.mode,
             "space_size": len(candidates),
             "skipped": [s.journal_record() for s in result.skipped],
-            # the JAX package's analysis-lint class has no counterpart
-            # in the port: a search without a caller's lint_fn says so
-            "lints": "not ported" if lint_fn is None else "lint_fn",
+            # the lint prune class this search ran: "baseline" (the
+            # CLI's prune.baseline_lint_classes), "lint_fn" (a caller's
+            # own), "off" (--no-lints); its skips are in "skipped"
+            "lints": ("off" if lint_fn is None else "baseline"
+                      if lint_fn is prune_mod.baseline_lint_classes
+                      else "lint_fn"),
             "truncated": truncated,
             "candidates": {c.key: {"overrides": dict(c.overrides),
                                    "base": dict(c.base)}

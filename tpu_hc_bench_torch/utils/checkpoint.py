@@ -416,14 +416,14 @@ def save(state, directory: str | Path, topology: dict | None = None,
     dropout states' gather.  A ``pp-native`` ``topology`` takes
     ``save_pp`` (every rank calls it)."""
     if (topology or {}).get("layout") == "pp-native":
-        return save_pp(state, directory, topology)
+        return save_pp(state, directory, topology=topology)
     if not write:
         _model_state(state)
         _optimizer_state(state)
         _dropout_states(state.model)
         return None
     step, payload = snapshot_to_host(state)
-    return write_host_payload(payload, directory, step, topology)
+    return write_host_payload(payload, directory, step, topology=topology)
 
 
 class AsyncCheckpointWriter:
@@ -463,7 +463,8 @@ class AsyncCheckpointWriter:
                topology: dict | None) -> None:
         t0 = time.monotonic()
         try:
-            path = write_host_payload(payload, self._dir, step, topology)
+            path = write_host_payload(payload, self._dir, step,
+                                      topology=topology)
             if gc_keep:
                 # on this thread, after its own commit: no writer to wait
                 gc_checkpoints(self._dir, gc_keep, print_fn=self._print)
